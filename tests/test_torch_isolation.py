@@ -1,0 +1,136 @@
+"""The port stands alone: no JAX, no JAX package, no card or compiler at
+import, and entry points that refuse to drop to the CPU quietly."""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from multimodal_vae_comparison_tpu_torch.device import resolve_device
+from multimodal_vae_comparison_tpu_torch.models import get_mixing
+from multimodal_vae_comparison_tpu_torch.models.base import ModalitySpec
+from multimodal_vae_comparison_tpu_torch.ops.kernels import _build
+from multimodal_vae_comparison_tpu_torch.serving.engine import (
+    InferenceEngine, ModelHandle)
+
+REPO = Path(__file__).resolve().parents[1]
+
+_IMPORT_ALL = r"""
+import importlib, pkgutil, subprocess, sys
+
+def refuse(*args, **kwargs):
+    raise AssertionError("a subprocess was started at import time")
+
+subprocess.Popen = refuse
+import multimodal_vae_comparison_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+bad = sorted(n for n in sys.modules
+             if n.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "triton",
+                                    "multimodal_vae_comparison_tpu"))
+print(len(names), bad)
+sys.exit(1 if bad or len(names) < 15 else 0)
+"""
+
+
+def test_port_imports_no_jax_no_jax_package_and_no_triton():
+    """Every module of the port, and chip_smoke.py, imported in a fresh
+    process with no nvcc reachable: none pulls in jax, flax, triton or the
+    JAX package, and none starts a process (an nvcc build) at import."""
+    env = dict(os.environ, PATH=os.path.dirname(sys.executable),
+               CUDA_HOME=str(REPO / "no-cuda-here"))
+    env.pop("CUDA_PATH", None)
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def _specs():
+    return (ModalitySpec("mod_1", "CNN2", "CNN", (32, 32, 3)),
+            ModalitySpec("mod_2", "TxtTransformer", "TxtTransformer", (12, 27),
+                         mod_type="text", has_masks=True))
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    model = get_mixing("poe")(_specs(), 8, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+    with pytest.raises(RuntimeError):
+        InferenceEngine(ModelHandle(model))
+    with pytest.raises(RuntimeError):
+        get_mixing("poe")(_specs(), 8)
+    assert resolve_device("cpu") == torch.device("cpu")
+    eng = InferenceEngine(ModelHandle(model), device="cpu")
+    assert eng.device.type == "cpu" and model.device.type == "cpu"
+
+
+def test_seeded_models_share_weights_and_other_seeds_do_not():
+    a = get_mixing("poe")(_specs(), 8, seed=1, device="cpu")
+    b = get_mixing("poe")(_specs(), 8, seed=1, device="cpu")
+    c = get_mixing("poe")(_specs(), 8, seed=2, device="cpu")
+    for (name, x), y, z in zip(a.state_dict().items(), b.state_dict().values(),
+                               c.state_dict().values()):
+        assert torch.equal(x, y), name
+    assert not torch.equal(a.enc_mod_1.Conv_0.weight, c.enc_mod_1.Conv_0.weight)
+
+
+def test_chip_smoke_fails_without_cuda(monkeypatch, capsys):
+    sys.path.insert(0, str(REPO))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(REPO))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert chip_smoke.main() == 1
+    assert '"ok"' not in capsys.readouterr().out
+
+
+def test_build_keys_libraries_by_source_hash(tmp_path, monkeypatch):
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    src = tmp_path / "k.cu"
+    src.write_text("// one\n")
+    first = _build.library_path("k")
+    assert _build.library_path("k") == first
+    src.write_text("// two\n")
+    assert _build.library_path("k") != first
+    assert first.parent == _build.BUILD_DIR
+
+
+def test_build_raises_without_nvcc(tmp_path, monkeypatch):
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    (tmp_path / "k.cu").write_text("// k\n")
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.build(["k"])
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.library("k")
+
+
+def test_build_raises_with_the_compiler_output(tmp_path, monkeypatch):
+    """A failed nvcc run raises with its output; nothing is loaded."""
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    (tmp_path / "k.cu").write_text("// k\n")
+    fake = tmp_path / "nvcc"
+    fake.write_text("#!/bin/sh\necho 'error: no such arch' >&2\nexit 2\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build.shutil, "which", lambda name: str(fake))
+    with pytest.raises(RuntimeError, match="no such arch"):
+        _build.build(["k"])
+    assert not _build.library_path("k").exists()
+
+
+def test_sources_are_listed_and_present():
+    for name in _build.SOURCES:
+        text = (_build.CSRC / f"{name}.cu").read_text()
+        assert 'extern "C"' in text and "error_string" in text
+        assert "multimodal_vae_comparison_tpu/ops/pallas/" in text  # what it replaces
+    assert set(_build.SOURCES) == {p.stem for p in _build.CSRC.glob("*.cu")}
