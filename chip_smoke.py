@@ -3,15 +3,25 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``multimodal_vae_comparison_tpu_torch/
-csrc/``, holds each against its plain PyTorch version at the serving
-path's shapes, serves the full-width CdSprites+ PoE model (random weights
-from a seed) through ``InferenceEngine`` and its HTTP server, checks that
-the served path launched every kernel and never took a plain version, and
-times the kernels and the engine.  It prints the card's name and power
-limit, one ``{"kernels": [...]}`` JSON line, and as its last line
-``{"ok": true, "device": {...}}``.  Any failed phase raises, so the script
-exits non-zero before the last line; without CUDA it exits 1 at once.
-Imports nothing of JAX.
+csrc/``, holds each against its plain PyTorch version (forward, and the
+backward of its autograd Function) at the main paths' shapes, then drives
+two main paths at full width with random weights from a seed:
+
+* serving: the CdSprites+ PoE model through ``InferenceEngine`` and its
+  HTTP server;
+* training: the flagship POE and the MOE of ``configs/config_cdspritesplus.yml``
+  through ``build_model`` -> ``make_optimizer`` -> ``make_train_step``,
+  after holding their loss, metrics and every gradient on the card against
+  the CPU's plain path.
+
+Each path runs with the kernel counts set to 0 just before it and read just
+after, and must have launched every kernel it goes through and taken no
+plain version.  Then it times the kernels, the engine and the train step,
+and profiles the train step (``torch.profiler``).
+It prints the card's name and power limit, one ``{"kernels": [...]}`` JSON
+line, and as its last line ``{"ok": true, "device": {...}}``.  Any failed
+phase raises, so the script exits non-zero before the last line; without
+CUDA it exits 1 at once.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -37,11 +47,20 @@ PEAK_FP32_FLOP_PER_S = 67e12
 
 ATTN_RTOL, ATTN_ATOL = 2e-4, 2e-5   # as the reference's Pallas attention test
 POE_RTOL, POE_ATOL = 1e-5, 1e-6     # elementwise fp32, one reduction over E
+KL_RTOL, KL_ATOL = 1e-5, 1e-6       # elementwise fp32, one reduction over D
+# training on the card vs the CPU, per parameter: max abs error of the
+# gradient <= GRAD_REL * max |grad of the leaf| + GRAD_ATOL (fp32 sums in
+# another order, TF32 off); loss and metrics within TRAIN_RTOL
+GRAD_REL, GRAD_ATOL, TRAIN_RTOL = 1e-4, 1e-5, 1e-5
+TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR = 24, 30, 1e-3
+STEP_BATCHES = (24, 256)
 # whole model, kernels + cuBLAS/cuDNN in fp32 (TF32 off) vs the CPU's plain
 # path: sums are taken in another order through ~12 layers
 SLICE_RTOL, SLICE_ATOL = 1e-4, 1e-4
 
 PRESENTS = (("mod_1",), ("mod_2",), ("mod_1", "mod_2"))
+KERNEL_OF = {"masked_attention": "attention", "poe_fused": "poe",
+             "kl_normal_std_fused": "kl"}
 BUCKETS = (1, 8, 32, 128)
 SERVE_SIZES = (1, 5, 32, 128, 300)
 SEQ_LEN, VOCAB, N_LATENTS = 45, 27, 16
@@ -69,6 +88,35 @@ def flagship_specs():
                      decoder="TxtTransformer", feature_dims=(SEQ_LEN, VOCAB),
                      mod_type="text", recon_loss="category_ce", has_masks=True),
     )
+
+
+def training_models():
+    """(label, mixing, obj): the flagship of ``__graft_entry__._flagship``
+    and the MOE of ``configs/config_cdspritesplus.yml`` (``mixing: moe``,
+    ``obj: elbo``, 16 latents, the same two nets), both on
+    ``flagship_specs()``."""
+    return (("POE flagship", "poe", "elbo"), ("MOE cdspritesplus", "moe", "elbo"))
+
+
+def torch_batch(raw, device):
+    return {name: {"data": torch.from_numpy(mod["data"]).to(device),
+                   "masks": None if mod.get("masks") is None
+                   else torch.from_numpy(mod["masks"]).to(device)}
+            for name, mod in raw.items()}
+
+
+def numpy_eps(rng: np.random.Generator, mixing: str, n: int):
+    """Standard-normal draws in the objective's form: one (1, n, D) per
+    subset (POE, 3 subsets), one per modality (MOE)."""
+    draws = [rng.standard_normal((1, n, N_LATENTS)).astype(np.float32)
+             for _ in range(3 if mixing == "poe" else 2)]
+    return draws if mixing == "poe" else dict(zip(("mod_1", "mod_2"), draws))
+
+
+def eps_to(eps, device):
+    if isinstance(eps, dict):
+        return {k: torch.from_numpy(v).to(device) for k, v in eps.items()}
+    return [torch.from_numpy(v).to(device) for v in eps]
 
 
 def make_inputs(rng: np.random.Generator, n: int):
@@ -125,6 +173,19 @@ def bound_ms(nbytes: float, flops: float):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def busy_ms(intervals):
+    """Length of the union of (start, end) intervals, in ms."""
+    total, end = 0.0, None
+    for s, e in sorted(intervals):
+        if end is None or s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total / 1e3
+
+
 def attention_inputs(g: torch.Generator, b, h, tq, tk, dh, masked: bool):
     dev = "cuda"
     q = torch.randn(b, h, tq, dh, generator=g, device=dev)
@@ -170,6 +231,144 @@ def phase_parity():
         print(f"parity poe {shape}: max_abs_err={err:.3e} "
               f"(rtol {POE_RTOL}, atol {POE_ATOL})")
         check(ok, f"poe kernel disagrees with its plain version at {shape}")
+
+
+def phase_kl_parity():
+    from multimodal_vae_comparison_tpu_torch.ops.kernels import kl_kernel
+    g = torch.Generator(device="cuda").manual_seed(5)
+    for shape in ((24, 16), (256, 16), (4096, 24), (7, 5), (2, 3, 16)):
+        mu = torch.randn(shape, generator=g, device="cuda")
+        scale = torch.rand(shape, generator=g, device="cuda") * 1.7 + 0.3
+        got = kl_kernel.kl_normal_std_fused(mu, scale)
+        want = kl_kernel.kl_reference(mu, scale)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        print(f"parity kl {shape}: max_abs_err={err:.3e} (rtol {KL_RTOL}, atol {KL_ATOL})")
+        check(got.shape == shape[:-1], f"kl output shape {tuple(got.shape)} at {shape}")
+        check(torch.allclose(got, want, rtol=KL_RTOL, atol=KL_ATOL),
+              f"kl kernel disagrees with its plain version at {shape}")
+
+
+def _grad_parity(label, fn, plain, inputs, upstream, rtol, atol):
+    """Gradients of ``fn`` (kernel forward + the Function's backward) vs
+    autograd through ``plain``, same CUDA inputs and upstream gradient."""
+    got_in = [x.detach().clone().requires_grad_() for x in inputs]
+    want_in = [x.detach().clone().requires_grad_() for x in inputs]
+    got = torch.autograd.grad(fn(*got_in), got_in, upstream)
+    want = torch.autograd.grad(plain(*want_in), want_in, upstream)
+    torch.cuda.synchronize()
+    err = max((a - b).abs().max().item() for a, b in zip(got, want))
+    print(f"parity backward {label}: max_abs_err={err:.3e} (rtol {rtol}, atol {atol})")
+    for a, b in zip(got, want):
+        check(bool(torch.isfinite(a).all()), f"non-finite gradient in {label}")
+        check(torch.allclose(a, b, rtol=rtol, atol=atol),
+              f"backward of {label} disagrees with autograd through its plain version")
+
+
+def phase_backward_parity():
+    from multimodal_vae_comparison_tpu_torch.ops.kernels import (
+        attention, kl_kernel, poe_kernel)
+    g = torch.Generator(device="cuda").manual_seed(6)
+    b = TRAIN_BATCH
+    # encoder self-attention at bs 24; decoder cross-attention over the
+    # lattice-batched (S*K*B) and MOE (M*K*B) rows
+    for shape, masked in (((b, 2, SEQ_LEN, SEQ_LEN, 32), True),
+                          ((3 * b, 2, SEQ_LEN, 1, 8), False),
+                          ((2 * b, 2, SEQ_LEN, 1, 8), False)):
+        q, k, v, mask = attention_inputs(g, *shape, masked)
+        d_out = torch.randn(q.shape, generator=g, device="cuda")
+        _grad_parity(f"attention {shape} mask={masked}",
+                     lambda q_, k_, v_: attention.masked_attention(q_, k_, v_, mask),
+                     lambda q_, k_, v_: attention.attention_reference(q_, k_, v_, mask),
+                     (q, k, v), d_out, ATTN_RTOL, ATTN_ATOL)
+    for shape in [(e, b, N_LATENTS) for e in (1, 2, 3)] + [(2, 4096, 24)]:
+        mus = torch.randn(shape, generator=g, device="cuda")
+        scales = torch.rand(shape, generator=g, device="cuda") * 1.7 + 0.3
+        ups = tuple(torch.randn(shape[1:], generator=g, device="cuda") for _ in range(2))
+        _grad_parity(f"poe {shape}", lambda m, s: poe_kernel.poe_fused(m, s, 1.0),
+                     lambda m, s: poe_kernel.poe_reference(m, s, 1.0),
+                     (mus, scales), ups, POE_RTOL, POE_ATOL)
+    for shape in ((24, 16), (256, 16), (4096, 24), (7, 5), (2, 3, 16)):
+        mu = torch.randn(shape, generator=g, device="cuda")
+        scale = torch.rand(shape, generator=g, device="cuda") * 1.7 + 0.3
+        up = torch.randn(shape[:-1], generator=g, device="cuda")
+        _grad_parity(f"kl {shape}", kl_kernel.kl_normal_std_fused, kl_kernel.kl_reference,
+                     (mu, scale), up, KL_RTOL, KL_ATOL)
+
+
+def phase_training_parity():
+    """Each training model's objective and gradients on the card (kernels)
+    vs the CPU (plain versions): same seeded weights, batch and eps."""
+    from multimodal_vae_comparison_tpu_torch.training.trainer import build_model
+    rng = np.random.default_rng(11)
+    raw = make_inputs(rng, TRAIN_BATCH)
+    for label, mixing, obj in training_models():
+        eps = numpy_eps(rng, mixing, TRAIN_BATCH)
+        out = {}
+        for dev in ("cuda", "cpu"):
+            model = build_model(flagship_specs(), mixing, N_LATENTS, obj=obj, seed=0,
+                                device=dev)
+            loss, metrics = model.objective(torch_batch(raw, dev), eps=eps_to(eps, dev))
+            loss.backward()
+            out[dev] = (loss.item(), {k: v.item() for k, v in metrics.items()},
+                        {n: (torch.zeros_like(p) if p.grad is None else p.grad).cpu()
+                         for n, p in model.named_parameters()})
+        (gl, gm, gg), (cl, cm, cg) = out["cuda"], out["cpu"]
+        print(f"train parity {label}: loss cuda {gl:.6f} cpu {cl:.6f}; metrics "
+              + ", ".join(f"{k} {gm[k]:.6f}/{cm[k]:.6f}" for k in sorted(gm)))
+        check(np.isfinite(gl) and abs(gl - cl) <= TRAIN_RTOL * abs(cl),
+              f"{label}: loss {gl} on the card vs {cl} on the CPU")
+        check(sorted(gm) == sorted(cm), f"{label}: metric keys differ")
+        for k in gm:
+            check(abs(gm[k] - cm[k]) <= TRAIN_RTOL * abs(cm[k]) + 1e-4,
+                  f"{label}: metric {k} {gm[k]} on the card vs {cm[k]} on the CPU")
+        worst, worst_name = 0.0, None
+        for n in cg:
+            limit = GRAD_REL * cg[n].abs().max().item() + GRAD_ATOL
+            ratio = (gg[n] - cg[n]).abs().max().item() / limit
+            if ratio > worst:
+                worst, worst_name = ratio, n
+        print(f"train parity {label}: {len(cg)} gradient leaves, worst error "
+              f"{worst:.3f} of its limit at {worst_name} (limit {GRAD_REL} x max|g| "
+              f"+ {GRAD_ATOL})")
+        check(worst <= 1.0, f"{label}: gradient of {worst_name} differs between "
+              "the card and the CPU")
+
+
+def phase_train():
+    """The training main path: 30 steps per model on one fixed batch, then
+    one step with grad_accum=2; returns {label: launches per step}."""
+    from multimodal_vae_comparison_tpu_torch.ops.kernels import telemetry
+    from multimodal_vae_comparison_tpu_torch.training.optim import make_optimizer
+    from multimodal_vae_comparison_tpu_torch.training.trainer import (
+        build_model, make_train_step)
+    batch = torch_batch(make_inputs(np.random.default_rng(12), TRAIN_BATCH), "cuda")
+    per_step = {}
+    for label, mixing, obj in training_models():
+        model = build_model(flagship_specs(), mixing, N_LATENTS, obj=obj, seed=0,
+                            device="cuda")
+        opt = make_optimizer("adam", TRAIN_LR, model.parameters())
+        step = make_train_step(model, opt)
+        gen = torch.Generator(device="cuda").manual_seed(13)
+        before = telemetry.launches()
+        losses = [step(batch, generator=gen)["loss"] for _ in range(TRAIN_STEPS)]
+        losses = torch.stack(losses).cpu().numpy()
+        after = telemetry.launches()
+        per_step[label] = {k: (after[k] - before.get(k, 0)) / TRAIN_STEPS for k in after
+                           if after[k] != before.get(k, 0)}
+        metrics = make_train_step(model, opt, grad_accum=2)(batch, generator=gen)
+        print(f"train {label}: loss {losses[0]:.3f} -> {losses[-1]:.3f} over "
+              f"{TRAIN_STEPS} steps (adam, lr {TRAIN_LR}, batch {TRAIN_BATCH}); "
+              f"grad_accum=2 step loss {metrics['loss'].item():.3f}; launches per "
+              f"step {per_step[label]}")
+        check(bool(np.isfinite(losses).all()), f"{label}: non-finite loss")
+        check(losses[-5:].mean() < losses[0], f"{label}: the loss did not fall")
+        check(all(bool(torch.isfinite(v).all()) for v in metrics.values()),
+              f"{label}: non-finite grad_accum=2 metrics")
+        want = {"attention", "poe"} if mixing == "poe" else {"attention", "kl"}
+        check(set(per_step[label]) == want,
+              f"{label}: launched {sorted(per_step[label])}, expected {sorted(want)}")
+    return per_step
 
 
 def phase_slice_parity(model_gpu, model_cpu):
@@ -277,7 +476,122 @@ def phase_http(engine, handle):
         thread.join(timeout=30)
 
 
-def phase_times(engine, launches, card):
+def phase_train_times(card):
+    """The KL kernel, the attention backward at the encoder training shape,
+    and the train step of each model at each batch size."""
+    import types
+    from multimodal_vae_comparison_tpu_torch.ops.kernels import attention, kl_kernel
+    from multimodal_vae_comparison_tpu_torch.training.optim import make_optimizer
+    from multimodal_vae_comparison_tpu_torch.training.trainer import (
+        build_model, make_train_step)
+    g = torch.Generator(device="cuda").manual_seed(14)
+    rows, d = [], N_LATENTS
+    mu = torch.randn(TRAIN_BATCH, d, generator=g, device="cuda")
+    scale = torch.rand(TRAIN_BATCH, d, generator=g, device="cuda") + 0.3
+    kern = graph_ms(lambda: kl_kernel.kl_normal_std_fused(mu, scale))
+    plain = graph_ms(lambda: kl_kernel.kl_reference(mu, scale))
+    kern_eager = eager_ms(lambda: kl_kernel.kl_normal_std_fused(mu, scale))
+    n = TRAIN_BATCH * d
+    bound, by = bound_ms(4 * (2 * n + TRAIN_BATCH), 8 * n)
+    err = (kl_kernel.kl_normal_std_fused(mu, scale)
+           - kl_kernel.kl_reference(mu, scale)).abs().max().item()
+    rows.append({"name": "kl_normal_std_fused", "at": f"({TRAIN_BATCH}, {d})",
+                 "route": "cuda",
+                 "source": "multimodal_vae_comparison_tpu_torch/csrc/kl.cu",
+                 "replaces": "multimodal_vae_comparison_tpu/ops/pallas/kl_kernel.py:30",
+                 "max_abs_err": err, "ms": kern, "plain_ms": plain, "bound_ms": bound,
+                 "bound_by": by, "library_ms": None, "eager_ms": kern_eager})
+    print(f"time kl_normal_std_fused [({TRAIN_BATCH}, {d})]: kernel {kern:.5f} ms (eager "
+          f"{kern_eager:.5f}), plain {plain:.5f} ms, library ms: none, bound "
+          f"{bound:.7f} ms ({by}) on {card}")
+    # the attention Function's backward (recompute + five products), device
+    # time back to back, at the encoder's training shape
+    q, k, v, mask = attention_inputs(g, TRAIN_BATCH, 2, SEQ_LEN, SEQ_LEN, 32, True)
+    d_out = torch.randn(q.shape, generator=g, device="cuda")
+    ctx = types.SimpleNamespace(saved_tensors=(q, k, v, mask))
+    bwd = attention._MaskedAttention.backward
+    bwd_ms = graph_ms(lambda: bwd(ctx, d_out))
+    bwd_eager = eager_ms(lambda: bwd(ctx, d_out))
+    print(f"time attention backward [({TRAIN_BATCH}, 2, {SEQ_LEN}, {SEQ_LEN}, 32) masked]: "
+          f"{bwd_ms:.5f} ms (eager {bwd_eager:.5f}) on {card}")
+    for label, mixing, obj in training_models():
+        model = build_model(flagship_specs(), mixing, N_LATENTS, obj=obj, seed=0,
+                            device="cuda")
+        step = make_train_step(model, make_optimizer("adam", TRAIN_LR, model.parameters()))
+        gen = torch.Generator(device="cuda").manual_seed(15)
+        for n in STEP_BATCHES:
+            batch = torch_batch(make_inputs(np.random.default_rng(16), n), "cuda")
+            for _ in range(3):
+                step(batch, generator=gen)
+            torch.cuda.synchronize()
+            lat = []
+            for _ in range(20):
+                t0 = time.perf_counter()
+                step(batch, generator=gen)
+                torch.cuda.synchronize()
+                lat.append((time.perf_counter() - t0) * 1e3)
+            p50 = statistics.median(lat)
+            print(f"time train step {label} batch {n}: p50 {p50:.3f} ms, min "
+                  f"{min(lat):.3f} ms over 20, {n / p50 * 1e3:.1f} samples/s on {card}")
+    return rows, {"attention_bwd_ms": bwd_ms, "attention_bwd_eager_ms": bwd_eager}
+
+
+def phase_train_profile(card, steps: int = 10):
+    """Where a train step's time goes: ``steps`` steps per model and batch
+    size under ``torch.profiler``; one JSON line each with host wall ms,
+    device kernel ms, the device's busy share (union of kernel intervals
+    over the wall time), launches per step, the port's kernels' device ms
+    and the kernels that take the most device time."""
+    import collections
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from multimodal_vae_comparison_tpu_torch.training.optim import make_optimizer
+    from multimodal_vae_comparison_tpu_torch.training.trainer import (
+        build_model, make_train_step)
+    symbols = {"masked_attention": "masked_attention_fwd", "poe_fused": "poe_fwd",
+               "kl_normal_std_fused": "kl_std_fwd"}
+    for label, mixing, obj in training_models():
+        model = build_model(flagship_specs(), mixing, N_LATENTS, obj=obj, seed=0,
+                            device="cuda")
+        step = make_train_step(model, make_optimizer("adam", TRAIN_LR, model.parameters()))
+        gen = torch.Generator(device="cuda").manual_seed(17)
+        for n in STEP_BATCHES:
+            batch = torch_batch(make_inputs(np.random.default_rng(18), n), "cuda")
+            for _ in range(3):
+                step(batch, generator=gen)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(steps):
+                    step(batch, generator=gen)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            # device events less the ranges that annotate them: the
+            # optimizer's "Optimizer.step#..." span lies on the device
+            # timeline too
+            kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+                       and not getattr(e, "is_user_annotation", False)
+                       and not e.name.startswith("Optimizer.")]
+            check(bool(kernels), "the profiler recorded no CUDA kernel")
+            per_name = collections.Counter()
+            for e in kernels:
+                per_name[e.name] += e.time_range.elapsed_us()
+            busy = busy_ms([(e.time_range.start, e.time_range.end) for e in kernels])
+            print("profile train step " + json.dumps({
+                "model": label, "batch": n, "steps": steps,
+                "wall_ms_per_step": wall_ms / steps,
+                "kernel_ms_per_step": sum(per_name.values()) / 1e3 / steps,
+                "device_busy_share": busy / wall_ms,
+                "kernels_per_step": len(kernels) / steps,
+                "port_kernels_ms_per_step": {
+                    k: sum(us for name, us in per_name.items() if sym in name) / 1e3 / steps
+                    for k, sym in symbols.items()},
+                "top_kernels_ms_per_step": {
+                    name[:80]: us / 1e3 / steps for name, us in per_name.most_common(5)},
+                "card": card}))
+
+
+def phase_times(engine, card):
     import torch.nn.functional as F
     from multimodal_vae_comparison_tpu_torch.ops.kernels import attention, poe_kernel
     g = torch.Generator(device="cuda").manual_seed(3)
@@ -302,7 +616,7 @@ def phase_times(engine, launches, card):
                      "route": "cuda",
                      "source": "multimodal_vae_comparison_tpu_torch/csrc/attention.cu",
                      "replaces": "multimodal_vae_comparison_tpu/ops/pallas/attention.py:77",
-                     "launches": launches.get("attention", 0), "max_abs_err": err,
+                     "max_abs_err": err,
                      "ms": kern, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
                      "library_ms": lib, "eager_ms": kern_eager})
     for e in (2, 1):
@@ -319,7 +633,7 @@ def phase_times(engine, launches, card):
                      "route": "cuda",
                      "source": "multimodal_vae_comparison_tpu_torch/csrc/poe.cu",
                      "replaces": "multimodal_vae_comparison_tpu/ops/pallas/poe_kernel.py:48",
-                     "launches": launches.get("poe", 0), "max_abs_err": err,
+                     "max_abs_err": err,
                      "ms": kern, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
                      "library_ms": None, "eager_ms": kern_eager})
     for r in rows:
@@ -372,8 +686,10 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
 
-    # 3. kernel parity
+    # 3. kernel parity: forwards, then the Functions' backwards
     phase_parity()
+    phase_kl_parity()
+    phase_backward_parity()
 
     # 4. serving slice at full width
     model_gpu = get_mixing("poe")(flagship_specs(), N_LATENTS, seed=0, device="cuda")
@@ -387,29 +703,56 @@ def main() -> int:
     handle = ModelHandle(model_gpu)
     engine = InferenceEngine(handle, buckets=BUCKETS, device="cuda")
 
-    telemetry.reset()          # counts of the main path only, from here
+    telemetry.reset()          # counts of the serving path only, from here
     phase_serve(engine)
     phase_http(engine, handle)
     torch.cuda.synchronize()
-    launches, paths = telemetry.launches(), telemetry.summary()
-    print(f"main path launches: {launches}; dispatch: {paths}")
+    serve_launches, paths = telemetry.launches(), telemetry.summary()
+    print(f"serving path launches: {serve_launches}; dispatch: {paths}")
     # per request chunk: attention 2 (both), 1 (image only), 2 (text only);
     # poe 1 each
     chunks = sum(-(-n // BUCKETS[-1]) for n in SERVE_SIZES) + 1  # +1: seed repeat
     want_attn = chunks * (2 + 1 + 2) + 6 * 2
     want_poe = chunks * 3 + 6
-    check(launches.get("attention") == want_attn,
-          f"attention launches {launches.get('attention')} != {want_attn}")
-    check(launches.get("poe") == want_poe, f"poe launches {launches.get('poe')} != {want_poe}")
+    check(serve_launches.get("attention") == want_attn,
+          f"attention launches {serve_launches.get('attention')} != {want_attn}")
+    check(serve_launches.get("poe") == want_poe,
+          f"poe launches {serve_launches.get('poe')} != {want_poe}")
     check(not any(k.endswith(":plain") for k in paths),
-          f"a plain version ran on the main path: {paths}")
+          f"a plain version ran on the serving path: {paths}")
 
-    # 6. times
-    rows = phase_times(engine, launches, card)
+    # 5. training slice at full width: card vs CPU
+    phase_training_parity()
+
+    # 6. the training path: POE and MOE, 30 steps each + one accumulated step
+    telemetry.reset()          # counts of the training path only, from here
+    per_step = phase_train()
+    torch.cuda.synchronize()
+    train_launches, paths = telemetry.launches(), telemetry.summary()
+    print(f"training path launches: {train_launches}; dispatch: {paths}")
+    check(not any(k.endswith(":plain") for k in paths),
+          f"a plain version ran on the training path: {paths}")
+    check(all(train_launches.get(k, 0) > 0 for k in ("attention", "poe", "kl")),
+          f"a kernel of the training path never launched: {train_launches}")
+
+    # 7. times
+    rows = phase_times(engine, card)
+    kl_rows, extra = phase_train_times(card)
+    rows += kl_rows
+    phase_train_profile(card)
     print(card)
     # one entry per kernel, at its heaviest main-path shape (the first row
-    # of each); the other shapes are on the "time" lines above
+    # of each); the other shapes are on the "time" lines above.  launches:
+    # the training path's run (this slice's main path), with the serving
+    # path's beside it
     primary = list({r["name"]: r for r in reversed(rows)}.values())[::-1]
+    for r in primary:
+        kernel = KERNEL_OF[r["name"]]
+        r["launches"] = train_launches.get(kernel, 0)
+        r["launches_serving_path"] = serve_launches.get(kernel, 0)
+        r["launches_per_train_step"] = {label: n.get(kernel, 0)
+                                        for label, n in per_step.items()}
+    primary[0].update(extra)   # masked_attention: its backward's time
     print(json.dumps({"kernels": primary}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -1,10 +1,11 @@
 """Model zoo registry: mixing strategies by the config's ``mixing`` string.
 
-Only ``poe`` is ported so far.
+Only ``poe`` and ``moe`` are ported so far.
 """
-from multimodal_vae_comparison_tpu_torch.models.mmvae import POE
+from multimodal_vae_comparison_tpu_torch.models.mmvae import MOE, POE
 
 MIXING_REGISTRY = {
+    "moe": MOE,
     "poe": POE,
 }
 

@@ -1,23 +1,31 @@
 """Multimodal VAE base (counterpart of ``models/base.py``).
 
-The static modality spec and the shared encode/decode machinery that the
-serving slice runs.  Submodules carry flax's names (``enc_mod_1``,
-``dec_mod_2``, ``pz_logvar``) so that ``bridge.load_flax_params`` maps the
-reference's parameters one to one.
+The static modality spec, ``build_specs``, and the shared machinery of
+every mixing strategy: encode/decode, the priors and posteriors, the KL
+terms and the reconstruction log-likelihood.  Submodules carry flax's names
+(``enc_mod_1``, ``dec_mod_2``, ``pz_logvar``) so that
+``bridge.load_flax_params`` maps the reference's parameters one to one.
+The mixture prior (``prior_components > 1``) and the aux endpoint head are
+not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 from torch import nn
 
 from multimodal_vae_comparison_tpu_torch.device import resolve_device
+from multimodal_vae_comparison_tpu_torch.models import objectives
 from multimodal_vae_comparison_tpu_torch.models.decoders import get_decoder
-from multimodal_vae_comparison_tpu_torch.models.distributions import Normal
+from multimodal_vae_comparison_tpu_torch.models.distributions import (
+    Normal, get_dist, kl_divergence)
 from multimodal_vae_comparison_tpu_torch.models.encoders import get_encoder
 from multimodal_vae_comparison_tpu_torch.models.output import VAEOutput
+from multimodal_vae_comparison_tpu_torch.ops.kernels.kl_kernel import (
+    kl_normal_std_fused)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,9 +48,38 @@ class ModalitySpec:
     cond_always: bool = False
 
 
+def build_specs(cfg) -> Tuple[ModalitySpec, ...]:
+    """ModalitySpec tuple from a config object with ``.mods`` (one entry per
+    ``modality_n`` block), resolving ``llik_scaling: auto`` to
+    min(data dim) / this modality's data dim."""
+    dims = [math.prod(int(d) for d in m.feature_dims) for m in cfg.mods]
+    min_dim = min(dims)
+    # cond_on names a modality block ("mod_2") or a mod_type ("language")
+    by_type = {m.mod_type: m.name for m in cfg.mods}
+    names = {m.name for m in cfg.mods}
+    specs = []
+    for m, d in zip(cfg.mods, dims):
+        scaling = float(min_dim) / d if m.llik_scaling == "auto" else float(m.llik_scaling)
+        cond = getattr(m, "cond_on", None)
+        if cond is not None:
+            cond = cond if cond in names else by_type.get(cond)
+            if cond is None or cond == m.name:
+                raise ValueError(f"cond_on of {m.name} must name another modality "
+                                 f"(by mod_type or mod_n), got {m.cond_on}")
+        specs.append(ModalitySpec(
+            name=m.name, encoder=m.encoder, decoder=m.decoder,
+            feature_dims=tuple(m.feature_dims), mod_type=m.mod_type,
+            recon_loss=m.recon_loss, prior=m.prior, llik_scaling=scaling,
+            private_latents=m.private_latents,
+            has_masks=m.mod_type in ("text", "language", "actions", "sequence"),
+            cond_on=cond, cond_always=bool(getattr(m, "cond_always", False))))
+    return tuple(specs)
+
+
 class MMVAE(nn.Module):
     """Base multimodal VAE.  Subclasses implement ``forward``, which takes
-    the tuple ``present`` of modality names with data available.
+    the tuple ``present`` of modality names with data available, and
+    ``objective``, the training loss over one batch.
 
     Parameters are drawn on the CPU from ``seed`` (PyTorch's default
     initializers under a forked RNG) and then moved to ``device``, so two
@@ -52,12 +89,20 @@ class MMVAE(nn.Module):
 
     def __init__(self, specs: Tuple[ModalitySpec, ...], n_latents: int,
                  K: int = 1, seed: int = 0,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 obj: str = "elbo", beta: float = 1.0,
+                 prior_components: int = 1):
         super().__init__()
+        if prior_components != 1:
+            raise NotImplementedError(
+                "the mixture-of-Gaussians prior (prior_components > 1) is not "
+                "ported yet (ROADMAP Queue A item 2)")
         device = resolve_device(device)
         self.specs = tuple(specs)
         self.n_latents = n_latents
         self.K = K
+        self.obj = obj
+        self.beta = beta
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
             for spec in self.specs:
@@ -98,6 +143,45 @@ class MMVAE(nn.Module):
     def pz_params(self):
         scale = torch.softmax(self.pz_logvar, dim=1) * self.pz_logvar.shape[-1]
         return torch.zeros_like(self.pz_logvar), scale
+
+    def pz(self) -> Normal:
+        """The learned-scale Gaussian prior, (1, D)."""
+        return Normal(*self.pz_params())
+
+    def kld_to_prior(self, dist) -> torch.Tensor:
+        """(B,) KL(dist || learned prior), closed form (the mixture prior's
+        Monte-Carlo estimate over drawn samples is not ported)."""
+        return kl_divergence(dist, self.pz()).sum(-1)
+
+    def posterior(self, spec: ModalitySpec, mu, scale):
+        return get_dist(spec.prior)(mu, scale)
+
+    def prior_for(self, spec: ModalitySpec, dim: Optional[int] = None):
+        dim = dim or self.n_latents
+        return get_dist(spec.prior)(torch.zeros(1, dim, device=self.device),
+                                    torch.ones(1, dim, device=self.device))
+
+    def kld_std(self, spec: ModalitySpec, dist) -> torch.Tensor:
+        """Sum-over-latents KL(dist || unit prior of spec's family): the KL
+        kernel (``ops/kernels/kl_kernel.py``) for the Gaussian family."""
+        if isinstance(dist, Normal) and spec.prior in ("normal", "gaussian"):
+            return kl_normal_std_fused(dist.loc.contiguous(), dist.scale.contiguous())
+        return kl_divergence(dist, self.prior_for(spec, dim=dist.loc.shape[-1])).sum(-1)
+
+    def recon_lpx(self, spec: ModalitySpec, dist, batch) -> torch.Tensor:
+        """Scaled per-(K, B) reconstruction log-likelihood of one modality."""
+        target = batch[spec.name]["data"]
+        mask = batch[spec.name].get("masks")
+        lpx = objectives.recon_log_prob(spec.recon_loss, dist, target, mask,
+                                        batch_ndims=dist.mean.dim() - target.dim() + 1)
+        return lpx * spec.llik_scaling
+
+    def sample_posterior(self, spec: ModalitySpec, params, eps=None,
+                         generator: Optional[torch.Generator] = None):
+        """(q(z|x), (K, B, D) reparameterized draw): ``eps`` injected, or
+        drawn from ``generator``."""
+        qz = self.posterior(spec, *params)
+        return qz, qz.rsample((self.K,), generator=generator, eps=eps)
 
     # -- shared machinery ------------------------------------------------------
 
@@ -172,4 +256,8 @@ class MMVAE(nn.Module):
 
     def forward(self, batch, present: Tuple[str, ...], eps=None,
                 generator=None) -> VAEOutput:
+        raise NotImplementedError
+
+    def objective(self, batch, eps=None, generator=None):
+        """(loss, metrics) over one batch."""
         raise NotImplementedError

@@ -1,0 +1,134 @@
+"""Objectives (counterpart of ``models/objectives.py``).
+
+The reconstruction-loss table and the ELBO / IWAE / DReG estimators as
+functions over tensors.  ``recon_log_prob(ltype, dist, target, mask)``
+returns per-batch-element log-likelihoods (higher is better).  DReG's
+gradient re-weighting is :func:`scale_grad`, an identity whose backward
+multiplies the incoming gradient by fixed importance weights (the
+reference's ``jax.custom_vjp``).
+
+Not ported yet: ``lprob``, ``optimal_sigma`` and ``feature_loss`` (their
+models come in later slices); ``recon_log_prob`` raises ``KeyError`` for
+them, naming the losses it has.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from multimodal_vae_comparison_tpu_torch.constants import ETA
+from multimodal_vae_comparison_tpu_torch.models.distributions import log_mean_exp
+
+
+def _flatten_features(x: torch.Tensor, batch_ndims: int) -> torch.Tensor:
+    return x.reshape(x.shape[:batch_ndims] + (-1,))
+
+
+def _apply_mask(loss_elem: torch.Tensor, mask: Optional[torch.Tensor],
+                batch_ndims: int) -> torch.Tensor:
+    """Zero padded positions.  mask has shape (B, T); loss (..., B, T, feat...)."""
+    if mask is None:
+        return loss_elem
+    m = mask.to(loss_elem.dtype)
+    # broadcast the mask over leading K axes and trailing feature axes
+    while m.dim() < loss_elem.dim():
+        m = m[None] if m.dim() < batch_ndims + 1 else m[..., None]
+    return loss_elem * m
+
+
+def _sum_features(ll: torch.Tensor, mask, batch_ndims: int) -> torch.Tensor:
+    ll = _apply_mask(ll, mask, batch_ndims)
+    return _flatten_features(ll, batch_ndims).sum(-1, dtype=torch.float32)
+
+
+# -- reconstruction losses (log-likelihood contributions; higher = better) --
+
+def bce(dist, target, mask=None, batch_ndims=1):
+    """Bernoulli log-likelihood of targets under ``dist.mean``.
+
+    With the decoder's clipped logits (``dist.loc_logits``) the stable
+    softplus form ``-(t softplus(-x) + (1-t) softplus(x))`` runs; without,
+    the probability form over ``clip(p, eta, 1-eta)``."""
+    x = getattr(dist, "loc_logits", None)
+    if x is not None:
+        t = target.to(x.dtype)
+        ll = -(t * F.softplus(-x) + (1.0 - t) * F.softplus(x))
+    else:
+        p = torch.clamp(dist.mean, ETA, 1.0 - ETA)
+        t = target.to(p.dtype)
+        ll = t * torch.log(p) + (1.0 - t) * torch.log1p(-p)
+    return _sum_features(ll, mask, batch_ndims)
+
+
+def l1(dist, target, mask=None, batch_ndims=1):
+    ll = -(dist.mean - target.to(dist.mean.dtype)).abs()
+    return _sum_features(ll, mask, batch_ndims)
+
+
+def mse(dist, target, mask=None, batch_ndims=1):
+    ll = -(dist.mean - target.to(dist.mean.dtype)).square()
+    return _sum_features(ll, mask, batch_ndims)
+
+
+def category_ce(dist, target, mask=None, batch_ndims=1):
+    """Categorical cross-entropy over the trailing (alphabet) axis, with
+    ``dist.mean`` taken as unnormalized scores."""
+    logp = torch.log_softmax(dist.mean, dim=-1)
+    ll = (target.to(logp.dtype) * logp).sum(-1, dtype=torch.float32)
+    return _sum_features(ll, mask, batch_ndims)
+
+
+RECON_LOSSES = {
+    "bce": bce,
+    "l1": l1,
+    "mse": mse,
+    "category_ce": category_ce,
+}
+
+
+def recon_log_prob(ltype: str, dist, target, mask=None, batch_ndims=1):
+    if ltype not in RECON_LOSSES:
+        raise KeyError(f"recon loss '{ltype}' is not ported; available: "
+                       f"{sorted(RECON_LOSSES)}")
+    return RECON_LOSSES[ltype](dist, target, mask, batch_ndims)
+
+
+# -- DReG gradient re-weighting --------------------------------------------
+
+class _ScaleGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(w)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (w,) = ctx.saved_tensors
+        return g * w, None
+
+
+def scale_grad(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Identity on ``x`` whose gradient is multiplied elementwise by ``w``
+    (``w`` gets none)."""
+    return _ScaleGrad.apply(x, w.detach())
+
+
+# -- estimators --------------------------------------------------------------
+
+def elbo(lpx_z: torch.Tensor, kld: torch.Tensor, beta: float = 1.0) -> torch.Tensor:
+    """Negative ELBO, summed over the batch."""
+    return -(lpx_z.sum() - beta * kld.sum())
+
+
+def iwae(lw: torch.Tensor) -> torch.Tensor:
+    """Negative IWAE bound from importance log-weights of shape (K, B)."""
+    return -log_mean_exp(lw, dim=0).sum()
+
+
+def dreg(lw: torch.Tensor) -> torch.Tensor:
+    """DReG loss given (K, B) log-weights whose z-dependence went through
+    :func:`scale_grad`; the weights are a softmax over K with no gradient."""
+    grad_wt = torch.softmax(lw, dim=0).detach()
+    return -(grad_wt * lw).mean(0).sum()

@@ -2,12 +2,16 @@
 
 Counterpart of ``ops/pallas/attention.py`` (``masked_flash_attention``).
 The kernel is ``csrc/attention.cu``; :func:`attention_reference` is the same
-function in plain PyTorch.  :func:`masked_attention` launches the kernel for
-CUDA tensors and takes the plain version only for CPU tensors.  Masking is
+function in plain PyTorch.  :func:`masked_attention` is a
+``torch.autograd.Function`` whose forward launches the kernel for CUDA
+tensors and takes the plain version only for CPU tensors.  Masking is
 additive with ``NEG_INF`` per key, as in the TPU kernel, so a row whose keys
-are all masked gets the uniform average of V.  Serving needs no gradient,
-so a CUDA input that requires one raises; the training slice adds a
-backward as a ``torch.autograd.Function`` (``_flash_bwd`` in the reference).
+are all masked gets the uniform average of V.
+
+The backward mirrors the reference's ``_flash_bwd``, which recomputes the
+attention densely rather than running a kernel: P is recomputed from q, k
+and the same additive bias, and dq, dk, dv follow in explicit torch ops.
+The mask gets no gradient.
 """
 from __future__ import annotations
 
@@ -16,6 +20,7 @@ import math
 from typing import Optional
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from multimodal_vae_comparison_tpu_torch.ops.kernels import _build, telemetry
 
@@ -33,9 +38,7 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Plain PyTorch masked attention, (B, H, Tq, Dh) -> (B, H, Tq, Dh)."""
     logits = torch.einsum("bhqd,bhkd->bhqk", q, k) / math.sqrt(q.shape[-1])
     if key_mask is not None:
-        bias = torch.zeros(key_mask.shape, dtype=logits.dtype,
-                           device=logits.device).masked_fill(~key_mask, NEG_INF)
-        logits = logits + bias[:, None, None, :]
+        logits = logits + _bias(key_mask, logits.dtype)
     return torch.einsum("bhqk,bhkd->bhqd", torch.softmax(logits, dim=-1), v)
 
 
@@ -62,10 +65,6 @@ def _launch(q, k, v, key_mask):
                                  or key_mask.shape != (b, tk)):
         raise ValueError(f"key_mask must be bool (B, Tk) = {(b, tk)}, got "
                          f"{key_mask.dtype} {tuple(key_mask.shape)}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "the CUDA attention kernel has no backward yet; it comes with "
-            "the training slice (an autograd Function mirroring _flash_bwd)")
     fn = _build.function(KERNEL, "masked_attention_forward", _ARGTYPES)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -77,19 +76,49 @@ def _launch(q, k, v, key_mask):
     return out
 
 
+def _bias(key_mask: torch.Tensor, dtype) -> torch.Tensor:
+    """(B, Tk) bool -> (B, 1, 1, Tk) additive bias: 0 to attend, NEG_INF not."""
+    bias = torch.zeros(key_mask.shape, dtype=dtype, device=key_mask.device)
+    return bias.masked_fill(~key_mask, NEG_INF)[:, None, None, :]
+
+
+class _MaskedAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, key_mask):
+        ctx.save_for_backward(q, k, v, key_mask)
+        if q.is_cuda:
+            telemetry.record(KERNEL, "cuda")
+            return _launch(q, k, v, key_mask)
+        telemetry.record(KERNEL, "plain")
+        return attention_reference(q, k, v, key_mask)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, d_out):
+        q, k, v, key_mask = ctx.saved_tensors
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+        s = torch.matmul(q, k.transpose(-1, -2)) * sm_scale
+        if key_mask is not None:
+            s = s + _bias(key_mask, s.dtype)
+        p = torch.softmax(s, dim=-1)                            # (B, H, Tq, Tk)
+        dv = torch.matmul(p.transpose(-1, -2), d_out)
+        dp = torch.matmul(d_out, v.transpose(-1, -2))
+        ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+        dq = torch.matmul(ds, k) * sm_scale
+        dk = torch.matmul(ds.transpose(-1, -2), q) * sm_scale
+        return dq, dk, dv, None
+
+
 def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      key_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """softmax(q k^T / sqrt(Dh) + key-padding bias) v.
+    """softmax(q k^T / sqrt(Dh) + key-padding bias) v, differentiable in
+    q, k and v.
 
     :param q: (B, H, Tq, Dh) float32
     :param k, v: (B, H, Tk, Dh) float32
     :param key_mask: optional (B, Tk) bool, True = attend
     :return: (B, H, Tq, Dh) float32
     """
-    if q.is_cuda:
-        telemetry.record(KERNEL, "cuda")
-        return _launch(q, k, v, key_mask)
-    if q.device.type != "cpu":
+    if q.device.type not in ("cuda", "cpu"):
         raise ValueError(f"masked_attention runs on CUDA or the CPU, not {q.device}")
-    telemetry.record(KERNEL, "plain")
-    return attention_reference(q, k, v, key_mask)
+    return _MaskedAttention.apply(q, k, v, key_mask)

@@ -2,16 +2,17 @@
 
 Counterpart of ``ops/pallas/poe_kernel.py`` (``poe_fused``).  The kernel is
 ``csrc/poe.cu``; :func:`poe_reference` is the same function in plain
-PyTorch.  :func:`poe_fused` launches the kernel for CUDA tensors and takes
-the plain version only for CPU tensors.  Serving needs no gradient, so a
-CUDA input that requires one raises; the training slice adds the
-closed-form backward of ``_poe_bwd`` as a ``torch.autograd.Function``.
+PyTorch.  :func:`poe_fused` is a ``torch.autograd.Function`` whose forward
+launches the kernel for CUDA tensors and takes the plain version only for
+CPU tensors; its backward is the closed form of the reference's
+``_poe_bwd``, in torch ops.  ``prior_precision`` gets no gradient.
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from multimodal_vae_comparison_tpu_torch.constants import EPS
 from multimodal_vae_comparison_tpu_torch.ops.kernels import _build, telemetry
@@ -41,10 +42,6 @@ def _launch(mus: torch.Tensor, scales: torch.Tensor, prior_precision: float):
         raise ValueError("mus and scales lie on different devices")
     if not (mus.is_contiguous() and scales.is_contiguous()):
         raise ValueError("poe kernel takes contiguous tensors")
-    if torch.is_grad_enabled() and (mus.requires_grad or scales.requires_grad):
-        raise NotImplementedError(
-            "the CUDA poe kernel has no backward yet; it comes with the "
-            "training slice (an autograd Function mirroring _poe_bwd)")
     fn = _build.function(KERNEL, "poe_forward", _ARGTYPES)
     experts = mus.shape[0]
     mu = torch.empty(mus.shape[1:], dtype=torch.float32, device=mus.device)
@@ -57,18 +54,45 @@ def _launch(mus: torch.Tensor, scales: torch.Tensor, prior_precision: float):
     return mu, scale
 
 
+class _PoE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mus, scales, prior_precision):
+        if mus.is_cuda:
+            telemetry.record(KERNEL, "cuda")
+            mu, scale = _launch(mus, scales, prior_precision)
+        else:
+            telemetry.record(KERNEL, "plain")
+            mu, scale = poe_reference(mus, scales, prior_precision)
+        ctx.save_for_backward(mus, scales, mu, scale)
+        return mu, scale
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_mu, g_scale):
+        mus, scales, mu, scale = ctx.saved_tensors
+        var = scales.square() + EPS
+        prec = 1.0 / var                         # (E, ..., D)
+        inv_denom = scale.square()               # 1 / (sum_e prec_e + p0)
+        # d mu / d mu_e = prec_e * inv_denom
+        d_mus = g_mu[None] * prec * inv_denom[None]
+        # d mu / d prec_e = (mu_e - mu) * inv_denom;
+        # d scale / d prec_e = -0.5 * inv_denom^(3/2)
+        g_prec = (g_mu * inv_denom)[None] * (mus - mu[None]) \
+            + (g_scale * (-0.5) * inv_denom * scale)[None]
+        # d prec_e / d scale_e = -2 scale_e / var_e^2
+        d_scales = g_prec * (-2.0 * scales / var.square())
+        return d_mus, d_scales, None
+
+
 def poe_fused(mus: torch.Tensor, scales: torch.Tensor,
               prior_precision: float = 1.0):
-    """PoE fusion: CUDA kernel for CUDA tensors, plain version for CPU ones.
+    """PoE fusion: CUDA kernel for CUDA tensors, plain version for CPU ones;
+    gradients to ``mus`` and ``scales`` by the closed form.
 
     :param mus: (E, ..., D) expert means
     :param scales: (E, ..., D) expert stddevs
     :return: (mu, scale) of the product Gaussian, shape (..., D)
     """
-    if mus.is_cuda:
-        telemetry.record(KERNEL, "cuda")
-        return _launch(mus, scales, prior_precision)
-    if mus.device.type != "cpu":
+    if mus.device.type not in ("cuda", "cpu"):
         raise ValueError(f"poe_fused runs on CUDA or the CPU, not {mus.device}")
-    telemetry.record(KERNEL, "plain")
-    return poe_reference(mus, scales, prior_precision)
+    return _PoE.apply(mus, scales, float(prior_precision))

@@ -2,8 +2,9 @@
 
 * pads each request chunk up to the next bucket size by repeating its last
   row, and chunks requests larger than the largest bucket;
-* runs ``POE.forward`` under ``torch.inference_mode()`` on the engine's
-  device (CUDA unless the caller passes ``device="cpu"``);
+* runs the model's ``forward`` (POE or MOE) under
+  ``torch.inference_mode()`` on the engine's device (CUDA unless the
+  caller passes ``device="cpu"``);
 * returns host numpy (images NHWC), trimmed to the true request size.
 
 The first call per (present-set, bucket) runs under a lock, as the

@@ -27,23 +27,10 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from chip_smoke import BUCKETS, N_LATENTS, flagship_specs, make_inputs
+from chip_smoke import BUCKETS, N_LATENTS, busy_ms, flagship_specs, make_inputs
 
 # the port's kernels by the name of their __global__ function in csrc/
 PORT_KERNELS = {"masked_attention": "masked_attention_fwd", "poe_fused": "poe_fwd"}
-
-
-def busy_ms(intervals):
-    """Length of the union of (start, end) intervals, in ms."""
-    total, end = 0.0, None
-    for s, e in sorted(intervals):
-        if end is None or s > end:
-            total += e - s
-            end = e
-        elif e > end:
-            total += e - end
-            end = e
-    return total / 1e3
 
 
 def main() -> int:
