@@ -5,14 +5,18 @@
 Builds the port's CUDA kernels from ``multimodal_vae_comparison_tpu_torch/
 csrc/``, holds each against its plain PyTorch version (forward, and the
 backward of its autograd Function) at the main paths' shapes, then drives
-two main paths at full width with random weights from a seed:
+three main paths at full width with random weights from a seed:
 
 * serving: the CdSprites+ PoE model through ``InferenceEngine`` and its
   HTTP server;
 * training: the flagship POE and the MOE of ``configs/config_cdspritesplus.yml``
   through ``build_model`` -> ``make_optimizer`` -> ``make_train_step``,
   after holding their loss, metrics and every gradient on the card against
-  the CPU's plain path.
+  the CPU's plain path;
+* video training: the VideoGPTSparse MOE of ``bench.py`` (DReG, K = 5, 32
+  latents, (8, 64, 64, 3) clips at bs 8, remat) through the same entry
+  points, every sparse-attention call through the block-sparse kernels,
+  forward and backward; and the sampling op through its own entry point.
 
 Each path runs with the kernel counts set to 0 just before it and read just
 after, and must have launched every kernel it goes through and taken no
@@ -27,6 +31,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -48,6 +53,12 @@ PEAK_FP32_FLOP_PER_S = 67e12
 ATTN_RTOL, ATTN_ATOL = 2e-4, 2e-5   # as the reference's Pallas attention test
 POE_RTOL, POE_ATOL = 1e-5, 1e-6     # elementwise fp32, one reduction over E
 KL_RTOL, KL_ATOL = 1e-5, 1e-6       # elementwise fp32, one reduction over D
+# as the reference's Pallas sparse attention tests: forward, then backward
+SPARSE_RTOL, SPARSE_ATOL = 2e-4, 2e-5
+SPARSE_BWD_RTOL, SPARSE_BWD_ATOL = 2e-3, 2e-4
+# same generator and libm as the plain version; only the fused multiply-add
+# of z = mu + scale * eps and the order of one product differ
+SAMPLE_RTOL, SAMPLE_ATOL = 1e-5, 1e-6
 # training on the card vs the CPU, per parameter: max abs error of the
 # gradient <= GRAD_REL * max |grad of the leaf| + GRAD_ATOL (fp32 sums in
 # another order, TF32 off); loss and metrics within TRAIN_RTOL
@@ -58,9 +69,30 @@ STEP_BATCHES = (24, 256)
 # path: sums are taken in another order through ~12 layers
 SLICE_RTOL, SLICE_ATOL = 1e-4, 1e-4
 
+# the video model: VideoGPTSparse + FNN under MOE/DReG, as bench.py builds it
+VIDEO_CLIP, VIDEO_LATENTS, VIDEO_K, VIDEO_BATCH = (8, 64, 64, 3), 32, 5, 8
+VIDEO_STEPS, VIDEO_LR = 20, 1e-3
+SPARSE_BLOCK, SPARSE_STRIDE, VIDEO_TOKENS, VIDEO_HEADS, VIDEO_DH = 128, 4, 2048, 2, 32
+# (B, H, T, Dh) of the sparse attention in the encoder (B rows) and in the
+# decoder (M * K * B latent rows in one pass)
+SPARSE_ENC = (VIDEO_BATCH, VIDEO_HEADS, VIDEO_TOKENS, VIDEO_DH)
+SPARSE_DEC = (2 * VIDEO_K * VIDEO_BATCH, VIDEO_HEADS, VIDEO_TOKENS, VIDEO_DH)
+# card (fp32) vs the CPU's plain path in float64 on the video model, per
+# leaf as a fraction of its max |g|.  The reference is float64 because fp32
+# on the CPU is itself 5.7e-2 off it at the decoder's first layer, whose
+# gradient is the small remainder of the GroupNorm projections over groups
+# of 16,384 elements; the card was 2.3e-3 off.  DReG: log-weights of ~-7e4
+# (a bce sum over a whole clip) have an fp32 ulp of 8e-3, so the softmax
+# over K that weights every gradient moves by about a percent
+VIDEO_GRAD_REL = {"elbo": 1e-2, "dreg": 5e-2}
+VIDEO_LOSS_RTOL = 1e-5
+
 PRESENTS = (("mod_1",), ("mod_2",), ("mod_1", "mod_2"))
 KERNEL_OF = {"masked_attention": "attention", "poe_fused": "poe",
-             "kl_normal_std_fused": "kl"}
+             "kl_normal_std_fused": "kl", "sample_normal_fused": "sample",
+             "strided_block_sparse_attention": "sparse_attention",
+             "strided_block_sparse_attention_dq": "sparse_attention_dq",
+             "strided_block_sparse_attention_dkv": "sparse_attention_dkv"}
 BUCKETS = (1, 8, 32, 128)
 SERVE_SIZES = (1, 5, 32, 128, 300)
 SEQ_LEN, VOCAB, N_LATENTS = 45, 27, 16
@@ -296,6 +328,25 @@ def phase_backward_parity():
                      (mu, scale), up, KL_RTOL, KL_ATOL)
 
 
+def _objective_grads(model, batch, eps):
+    loss, metrics = model.objective(batch, eps=eps)
+    loss.backward()
+    return (loss.item(), {k: v.item() for k, v in metrics.items()},
+            {n: (torch.zeros_like(p) if p.grad is None else p.grad).cpu()
+             for n, p in model.named_parameters()})
+
+
+def _worst_leaf(got, want, rel, atol=1e-5):
+    """(worst error as a share of its limit rel * max|g| + atol, leaf name)."""
+    worst, worst_name = 0.0, None
+    for n in want:
+        ratio = (got[n] - want[n]).abs().max().item() \
+            / (rel * want[n].abs().max().item() + atol)
+        if ratio > worst:
+            worst, worst_name = ratio, n
+    return worst, worst_name
+
+
 def phase_training_parity():
     """Each training model's objective and gradients on the card (kernels)
     vs the CPU (plain versions): same seeded weights, batch and eps."""
@@ -308,11 +359,7 @@ def phase_training_parity():
         for dev in ("cuda", "cpu"):
             model = build_model(flagship_specs(), mixing, N_LATENTS, obj=obj, seed=0,
                                 device=dev)
-            loss, metrics = model.objective(torch_batch(raw, dev), eps=eps_to(eps, dev))
-            loss.backward()
-            out[dev] = (loss.item(), {k: v.item() for k, v in metrics.items()},
-                        {n: (torch.zeros_like(p) if p.grad is None else p.grad).cpu()
-                         for n, p in model.named_parameters()})
+            out[dev] = _objective_grads(model, torch_batch(raw, dev), eps_to(eps, dev))
         (gl, gm, gg), (cl, cm, cg) = out["cuda"], out["cpu"]
         print(f"train parity {label}: loss cuda {gl:.6f} cpu {cl:.6f}; metrics "
               + ", ".join(f"{k} {gm[k]:.6f}/{cm[k]:.6f}" for k in sorted(gm)))
@@ -322,12 +369,7 @@ def phase_training_parity():
         for k in gm:
             check(abs(gm[k] - cm[k]) <= TRAIN_RTOL * abs(cm[k]) + 1e-4,
                   f"{label}: metric {k} {gm[k]} on the card vs {cm[k]} on the CPU")
-        worst, worst_name = 0.0, None
-        for n in cg:
-            limit = GRAD_REL * cg[n].abs().max().item() + GRAD_ATOL
-            ratio = (gg[n] - cg[n]).abs().max().item() / limit
-            if ratio > worst:
-                worst, worst_name = ratio, n
+        worst, worst_name = _worst_leaf(gg, cg, GRAD_REL, GRAD_ATOL)
         print(f"train parity {label}: {len(cg)} gradient leaves, worst error "
               f"{worst:.3f} of its limit at {worst_name} (limit {GRAD_REL} x max|g| "
               f"+ {GRAD_ATOL})")
@@ -512,8 +554,13 @@ def phase_train_times(card):
     bwd = attention._MaskedAttention.backward
     bwd_ms = graph_ms(lambda: bwd(ctx, d_out))
     bwd_eager = eager_ms(lambda: bwd(ctx, d_out))
+    # five batched products (s, dv, dp, dq, dk); q, k, v, d_out and the mask
+    # read, dq, dk, dv written
+    cells = TRAIN_BATCH * 2 * SEQ_LEN * SEQ_LEN
+    bwd_bound, bwd_by = bound_ms(4 * 7 * q.numel() + mask.numel(), 5 * 2 * cells * 32)
     print(f"time attention backward [({TRAIN_BATCH}, 2, {SEQ_LEN}, {SEQ_LEN}, 32) masked]: "
-          f"{bwd_ms:.5f} ms (eager {bwd_eager:.5f}) on {card}")
+          f"{bwd_ms:.5f} ms (eager {bwd_eager:.5f}), bound {bwd_bound:.6f} ms ({bwd_by}) "
+          f"on {card}")
     for label, mixing, obj in training_models():
         model = build_model(flagship_specs(), mixing, N_LATENTS, obj=obj, seed=0,
                             device="cuda")
@@ -533,23 +580,58 @@ def phase_train_times(card):
             p50 = statistics.median(lat)
             print(f"time train step {label} batch {n}: p50 {p50:.3f} ms, min "
                   f"{min(lat):.3f} ms over 20, {n / p50 * 1e3:.1f} samples/s on {card}")
-    return rows, {"attention_bwd_ms": bwd_ms, "attention_bwd_eager_ms": bwd_eager}
+    return rows, {"attention_bwd_ms": bwd_ms, "attention_bwd_eager_ms": bwd_eager,
+                  "attention_bwd_bound_ms": bwd_bound, "attention_bwd_bound_by": bwd_by}
 
 
-def phase_train_profile(card, steps: int = 10):
-    """Where a train step's time goes: ``steps`` steps per model and batch
-    size under ``torch.profiler``; one JSON line each with host wall ms,
-    device kernel ms, the device's busy share (union of kernel intervals
-    over the wall time), launches per step, the port's kernels' device ms
-    and the kernels that take the most device time."""
+PROFILE_SYMBOLS = {"masked_attention": "masked_attention_fwd", "poe_fused": "poe_fwd",
+                   "kl_normal_std_fused": "kl_std_fwd", "sparse_fwd": "sparse_fwd",
+                   "sparse_dq": "sparse_dq", "sparse_dkv": "sparse_dkv"}
+
+
+def profile_steps(label, step, batch, gen, n, steps, card):
+    """``steps`` warm train steps under ``torch.profiler``; one JSON line with
+    host wall ms, device kernel ms, the device's busy share (union of kernel
+    intervals over the wall time), launches per step, the port's kernels'
+    device ms and the kernels that take the most device time."""
     import collections
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step(batch, generator=gen)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # device events less the ranges that annotate them: the optimizer's
+    # "Optimizer.step#..." span lies on the device timeline too
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and not e.name.startswith("Optimizer.")]
+    check(bool(kernels), "the profiler recorded no CUDA kernel")
+    per_name = collections.Counter()
+    for e in kernels:
+        per_name[e.name] += e.time_range.elapsed_us()
+    busy = busy_ms([(e.time_range.start, e.time_range.end) for e in kernels])
+    port_ms = {k: sum(us for name, us in per_name.items() if sym in name) / 1e3 / steps
+               for k, sym in PROFILE_SYMBOLS.items()}
+    print("profile train step " + json.dumps({
+        "model": label, "batch": n, "steps": steps,
+        "wall_ms_per_step": wall_ms / steps,
+        "kernel_ms_per_step": sum(per_name.values()) / 1e3 / steps,
+        "device_busy_share": busy / wall_ms,
+        "kernels_per_step": len(kernels) / steps,
+        "port_kernels_ms_per_step": {k: ms for k, ms in port_ms.items() if ms},
+        "top_kernels_ms_per_step": {
+            name[:80]: us / 1e3 / steps for name, us in per_name.most_common(5)},
+        "card": card}))
+
+
+def phase_train_profile(card, steps: int = 10):
+    """Where a train step's time goes, per model and batch size."""
     from multimodal_vae_comparison_tpu_torch.training.optim import make_optimizer
     from multimodal_vae_comparison_tpu_torch.training.trainer import (
         build_model, make_train_step)
-    symbols = {"masked_attention": "masked_attention_fwd", "poe_fused": "poe_fwd",
-               "kl_normal_std_fused": "kl_std_fwd"}
     for label, mixing, obj in training_models():
         model = build_model(flagship_specs(), mixing, N_LATENTS, obj=obj, seed=0,
                             device="cuda")
@@ -560,35 +642,7 @@ def phase_train_profile(card, steps: int = 10):
             for _ in range(3):
                 step(batch, generator=gen)
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                for _ in range(steps):
-                    step(batch, generator=gen)
-                torch.cuda.synchronize()
-                wall_ms = (time.perf_counter() - t0) * 1e3
-            # device events less the ranges that annotate them: the
-            # optimizer's "Optimizer.step#..." span lies on the device
-            # timeline too
-            kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-                       and not getattr(e, "is_user_annotation", False)
-                       and not e.name.startswith("Optimizer.")]
-            check(bool(kernels), "the profiler recorded no CUDA kernel")
-            per_name = collections.Counter()
-            for e in kernels:
-                per_name[e.name] += e.time_range.elapsed_us()
-            busy = busy_ms([(e.time_range.start, e.time_range.end) for e in kernels])
-            print("profile train step " + json.dumps({
-                "model": label, "batch": n, "steps": steps,
-                "wall_ms_per_step": wall_ms / steps,
-                "kernel_ms_per_step": sum(per_name.values()) / 1e3 / steps,
-                "device_busy_share": busy / wall_ms,
-                "kernels_per_step": len(kernels) / steps,
-                "port_kernels_ms_per_step": {
-                    k: sum(us for name, us in per_name.items() if sym in name) / 1e3 / steps
-                    for k, sym in symbols.items()},
-                "top_kernels_ms_per_step": {
-                    name[:80]: us / 1e3 / steps for name, us in per_name.most_common(5)},
-                "card": card}))
+            profile_steps(label, step, batch, gen, n, steps, card)
 
 
 def phase_times(engine, card):
@@ -655,6 +709,371 @@ def phase_times(engine, card):
     return rows
 
 
+def video_specs():
+    """The specs of ``bench.py``'s ``videogpt_sparseattn_T2048_moe_dreg_k5_bs8``."""
+    from multimodal_vae_comparison_tpu_torch.models.base import ModalitySpec
+    return (
+        ModalitySpec(name="mod_1", encoder="VideoGPTSparse", decoder="VideoGPTSparse",
+                     feature_dims=VIDEO_CLIP, mod_type="frames", recon_loss="bce"),
+        ModalitySpec(name="mod_2", encoder="FNN", decoder="FNN", feature_dims=(9,),
+                     mod_type="actions", recon_loss="bce"),
+    )
+
+
+def video_inputs(rng: np.random.Generator, n: int, k: int):
+    """(batch, eps) as numpy: uniform clips and action vectors, and one
+    (k, n, D) standard-normal draw per modality."""
+    raw = {"mod_1": {"data": rng.random((n,) + VIDEO_CLIP, dtype=np.float32)},
+           "mod_2": {"data": rng.random((n, 9), dtype=np.float32)}}
+    eps = {name: rng.standard_normal((k, n, VIDEO_LATENTS)).astype(np.float32)
+           for name in raw}
+    return raw, eps
+
+
+def sparse_work(t: int, block: int, stride: int):
+    """(live block pairs, visible (query, key) pairs) per head: what the
+    pattern needs, the diagonal blocks counted as their lower triangle.
+    Query block i sees itself and the i // stride earlier blocks j with
+    j = i (mod stride)."""
+    nq = t // block
+    pairs = sum(1 + i // stride for i in range(nq))
+    return pairs, (pairs - nq) * block * block + nq * block * (block + 1) // 2
+
+
+def phase_sparse_parity():
+    """Forward (out, lse) and backward (dq, dk, dv vs autograd through the
+    plain version) at the encoder's and decoder's shapes and a few odd ones,
+    through the public entry; the launcher only gives the lse, which the
+    entry keeps to itself."""
+    from multimodal_vae_comparison_tpu_torch.ops.kernels import sparse_attention as sp
+    g = torch.Generator(device="cuda").manual_seed(20)
+    worst = 0.0
+    for shape, block, stride in ((SPARSE_ENC, SPARSE_BLOCK, SPARSE_STRIDE),
+                                 (SPARSE_DEC, SPARSE_BLOCK, SPARSE_STRIDE),
+                                 ((2, 2, 64, 8, ), 8, 2), ((2, 1, 96, 8), 8, 3),
+                                 ((1, 2, 128, 64), 16, 4), ((3, 1, 256, 32), 128, 1),
+                                 ((2, 3, 40, 12), 8, 3), ((2, 2, 128, 32), 128, 4)):
+        q, k, v, d_out = (torch.randn(shape, generator=g, device="cuda") for _ in range(4))
+        out = sp.strided_block_sparse_attention(q, k, v, block, stride)
+        _, lse = sp._launch_forward(q, k, v, block, stride)
+        want = sp.sparse_attention_reference(q, k, v, block, stride)
+        visible = sp.visibility(shape[2], block, stride, "cuda")
+        logits = (q @ k.transpose(-1, -2)) / shape[3] ** 0.5
+        want_lse = torch.logsumexp(logits.masked_fill_(~visible, float("-inf")), dim=-1)
+        del logits
+        torch.cuda.synchronize()
+        err = max((out - want).abs().max().item(), (lse - want_lse).abs().max().item())
+        worst = max(worst, err)
+        print(f"parity sparse attention {shape} block {block} stride {stride}: forward "
+              f"max_abs_err={err:.3e} (rtol {SPARSE_RTOL}, atol {SPARSE_ATOL})")
+        check(torch.allclose(out, want, rtol=SPARSE_RTOL, atol=SPARSE_ATOL)
+              and torch.allclose(lse, want_lse, rtol=SPARSE_RTOL, atol=SPARSE_ATOL),
+              f"sparse forward disagrees with its plain version at {shape}")
+        del out, lse, want, want_lse
+        _grad_parity(f"sparse attention {shape} block {block} stride {stride}",
+                     lambda q_, k_, v_: sp.strided_block_sparse_attention(
+                         q_, k_, v_, block, stride),
+                     lambda q_, k_, v_: sp.sparse_attention_reference(
+                         q_, k_, v_, block, stride),
+                     (q, k, v), d_out, SPARSE_BWD_RTOL, SPARSE_BWD_ATOL)
+    return worst
+
+
+def phase_sample_parity():
+    """z (the public entry's) and eps (the launcher's: the entry keeps it
+    for its backward) against the plain version element by element; moments
+    of eps; seeds; the backward."""
+    from multimodal_vae_comparison_tpu_torch.ops.kernels import sample_kernel as sk
+    g = torch.Generator(device="cuda").manual_seed(21)
+    worst = 0.0
+    for shape, seed in (((VIDEO_K, VIDEO_BATCH, VIDEO_LATENTS), 0), ((1024, 1024), 7),
+                        ((7, 5), 2 ** 40 + 3), ((3,), 2 ** 64 - 1)):
+        mu = torch.randn(shape, generator=g, device="cuda")
+        scale = torch.rand(shape, generator=g, device="cuda") * 1.7 + 0.3
+        z = sk.sample_normal_fused(mu, scale, seed)
+        _, eps = sk._launch(mu, scale, seed)
+        want_z, want_eps = sk.sample_reference(mu, scale, seed)
+        torch.cuda.synchronize()
+        err = max((z - want_z).abs().max().item(), (eps - want_eps).abs().max().item())
+        worst = max(worst, err)
+        print(f"parity sample {shape} seed {seed}: max_abs_err={err:.3e} "
+              f"(rtol {SAMPLE_RTOL}, atol {SAMPLE_ATOL})")
+        check(bool(torch.isfinite(z).all()), f"non-finite sample at {shape}")
+        check(torch.allclose(eps, want_eps, rtol=SAMPLE_RTOL, atol=SAMPLE_ATOL)
+              and torch.allclose(z, want_z, rtol=SAMPLE_RTOL, atol=SAMPLE_ATOL),
+              f"sample kernel disagrees with its plain version at {shape}")
+    n = 1 << 22
+    mu = torch.zeros(n, device="cuda", requires_grad=True)
+    scale = torch.ones(n, device="cuda", requires_grad=True)
+    z = sk.sample_normal_fused(mu, scale, 11)
+    mean, std = z.mean().item(), z.std().item()
+    print(f"sample moments over {n} draws: mean {mean:.5f}, std {std:.5f} (within 0.01)")
+    check(abs(mean) < 0.01 and abs(std - 1.0) < 0.01, "sample moments are off")
+    up = torch.randn(n, generator=g, device="cuda")
+    z.backward(up)
+    check(torch.equal(mu.grad, up) and torch.allclose(scale.grad, up * z.detach()),
+          "sample backward is not (g, g * eps)")
+    check(torch.equal(sk.sample_normal_fused(mu.detach(), scale.detach(), 11), z.detach()),
+          "one seed gave two draws")
+    check(not torch.equal(sk.sample_normal_fused(mu.detach(), scale.detach(), 12),
+                          z.detach()), "two seeds gave one draw")
+    return worst
+
+
+def phase_video_parity():
+    """The video model at full width (2048 tokens, block 128, stride 4, 64
+    channels), K 2 and bs 2: card (kernels, fp32) vs CPU (plain versions,
+    float64), same seeded weights, batch and eps, under ELBO and DReG; then
+    on the card at K 5 and bs 8, remat on vs off."""
+    from multimodal_vae_comparison_tpu_torch.training.trainer import build_model
+    rng = np.random.default_rng(22)
+    raw, eps = video_inputs(rng, 2, 2)
+    for obj in ("elbo", "dreg"):
+        out = {}
+        for dev in ("cuda", "cpu"):
+            model = build_model(video_specs(), "moe", VIDEO_LATENTS, obj=obj, K=2, seed=0,
+                                device=dev)
+            batch, draws = torch_batch(raw, dev), eps_to(eps, dev)
+            if dev == "cpu":
+                model = model.double()
+                batch = {n: {"data": m["data"].double(), "masks": None}
+                         for n, m in batch.items()}
+                draws = {n: e.double() for n, e in draws.items()}
+            out[dev] = _objective_grads(model, batch, draws)
+        (gl, gm, gg), (cl, cm, cg) = out["cuda"], out["cpu"]
+        cg = {n: g.float() for n, g in cg.items()}
+        worst, name = _worst_leaf(gg, cg, VIDEO_GRAD_REL[obj])
+        print(f"video parity {obj}: loss cuda {gl:.4f} cpu {cl:.4f}; {len(cg)} gradient "
+              f"leaves, worst error {worst:.3f} of its limit at {name} (limit "
+              f"{VIDEO_GRAD_REL[obj]} x max|g| + 1e-05)")
+        check(np.isfinite(gl) and abs(gl - cl) <= VIDEO_LOSS_RTOL * abs(cl),
+              f"video {obj}: loss {gl} on the card vs {cl} on the CPU")
+        for k in cm:
+            check(abs(gm[k] - cm[k]) <= VIDEO_LOSS_RTOL * abs(cm[k]) + 1e-3,
+                  f"video {obj}: metric {k} {gm[k]} on the card vs {cm[k]} on the CPU")
+        check(worst <= 1.0, f"video {obj}: gradient of {name} differs between the card "
+              "and the CPU")
+    raw, eps = video_inputs(rng, VIDEO_BATCH, VIDEO_K)
+    batch, eps = torch_batch(raw, "cuda"), eps_to(eps, "cuda")
+    out = {}
+    for remat in (True, False):
+        model = build_model(video_specs(), "moe", VIDEO_LATENTS, obj="dreg", K=VIDEO_K,
+                            seed=0, device="cuda", remat=remat)
+        torch.cuda.reset_peak_memory_stats()
+        out[remat] = _objective_grads(model, batch, eps)
+        print(f"video remat={remat}: loss {out[remat][0]:.4f}, peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB (bs {VIDEO_BATCH}, "
+              f"K {VIDEO_K})")
+        del model
+    worst, name = _worst_leaf(out[True][2], out[False][2], VIDEO_GRAD_REL["dreg"])
+    print(f"video remat on vs off: worst gradient error {worst:.3f} of its limit at {name}")
+    check(abs(out[True][0] - out[False][0]) <= VIDEO_LOSS_RTOL * abs(out[False][0]),
+          "remat changed the loss")
+    check(worst <= 1.0, f"remat changed the gradient of {name}")
+
+
+def phase_video_train():
+    """The video main path: VIDEO_STEPS adam steps of the bench.py model on
+    one fixed batch; returns launches per step."""
+    from multimodal_vae_comparison_tpu_torch.ops.kernels import telemetry
+    from multimodal_vae_comparison_tpu_torch.training.optim import make_optimizer
+    from multimodal_vae_comparison_tpu_torch.training.trainer import (
+        build_model, make_train_step)
+    raw, _ = video_inputs(np.random.default_rng(23), VIDEO_BATCH, VIDEO_K)
+    batch = torch_batch(raw, "cuda")
+    model = build_model(video_specs(), "moe", VIDEO_LATENTS, obj="dreg", K=VIDEO_K, seed=0,
+                        device="cuda", remat=True)
+    n_params = sum(p.numel() for p in model.parameters())
+    step = make_train_step(model, make_optimizer("adam", VIDEO_LR, model.parameters()))
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    before = telemetry.launches()
+    losses = torch.stack([step(batch, generator=gen)["loss"]
+                          for _ in range(VIDEO_STEPS)]).cpu().numpy()
+    after = telemetry.launches()
+    per_step = {k: (after[k] - before.get(k, 0)) / VIDEO_STEPS for k in after
+                if after[k] != before.get(k, 0)}
+    print(f"train VideoGPTSparse MOE dreg K={VIDEO_K} ({n_params} parameters): loss "
+          f"{losses[0]:.3f} -> {losses[-1]:.3f} over {VIDEO_STEPS} steps (adam, lr "
+          f"{VIDEO_LR}, batch {VIDEO_BATCH}, remat); launches per step {per_step}")
+    check(bool(np.isfinite(losses).all()), "video model: non-finite loss")
+    check(losses[-5:].mean() < losses[0], "video model: the loss did not fall")
+    # per step: the encoder's 4 blocks and the decoder's 4 in DReG's second
+    # pass run twice under remat (forward, and again in the backward), the
+    # decoder's 4 in the gradient-free first pass once; one dq and one dk/dv
+    # launch per block that ran with gradients on
+    want = {"sparse_attention": 20.0, "sparse_attention_dq": 8.0, "sparse_attention_dkv": 8.0}
+    check(per_step == want, f"video model launched {per_step} per step, expected {want}")
+    return per_step
+
+
+def phase_sample_path():
+    """The sampling op through its own entry point, as a VAE would draw its
+    K samples: z = mu + scale * eps at (K, B, D), a new seed per step."""
+    from multimodal_vae_comparison_tpu_torch.ops.kernels.sample_kernel import (
+        sample_normal_fused)
+    g = torch.Generator(device="cuda").manual_seed(25)
+    shape = (VIDEO_K, VIDEO_BATCH, VIDEO_LATENTS)
+    mu = torch.randn(shape, generator=g, device="cuda", requires_grad=True)
+    scale = (torch.rand(shape, generator=g, device="cuda") + 0.3).requires_grad_()
+    draws = []
+    for seed in range(VIDEO_STEPS):
+        z = sample_normal_fused(mu, scale, seed)
+        z.square().sum().backward()
+        draws.append(z.detach())
+    check(all(bool(torch.isfinite(z).all()) and z.shape == shape for z in draws),
+          "sample path: bad draw")
+    check(bool(torch.isfinite(mu.grad).all() and torch.isfinite(scale.grad).all()),
+          "sample path: non-finite gradient")
+    check(not torch.equal(draws[0], draws[1]), "sample path: two seeds gave one draw")
+    print(f"sample path: {VIDEO_STEPS} draws of {shape} with gradients ok")
+
+
+def phase_video_times(card):
+    """The sparse kernels at the decoder's and encoder's shapes, the sample
+    kernel, and the video model's train step and peak memory.  Forward and
+    sample times are the public entry's; the backward is timed whole (the
+    Function's backward: delta, dk/dv, dq) and each of its two kernels
+    through its launcher, since the entry launches them together."""
+    import types
+    import torch.nn.functional as F
+    from multimodal_vae_comparison_tpu_torch.ops.kernels import sample_kernel as sk
+    from multimodal_vae_comparison_tpu_torch.ops.kernels import sparse_attention as sp
+    from multimodal_vae_comparison_tpu_torch.training.optim import make_optimizer
+    from multimodal_vae_comparison_tpu_torch.training.trainer import (
+        build_model, make_train_step)
+    g = torch.Generator(device="cuda").manual_seed(26)
+    src = "multimodal_vae_comparison_tpu_torch/csrc/sparse_attention.cu"
+    ref = "multimodal_vae_comparison_tpu/ops/pallas/sparse_attention.py"
+    block, stride = SPARSE_BLOCK, SPARSE_STRIDE
+    rows = []
+    for label, shape in (("decoder", SPARSE_DEC), ("encoder", SPARSE_ENC)):
+        b, h, t, dh = shape
+        q, k, v, d_out = (torch.randn(shape, generator=g, device="cuda") for _ in range(4))
+        out, lse = sp._launch_forward(q, k, v, block, stride)
+        delta = (d_out * out).sum(-1)
+        visible = sp.visibility(t, block, stride, "cuda")   # SDPA's dense mask
+        args = (q, k, v, d_out, lse, delta, block, stride)
+        ctx = types.SimpleNamespace(saved_tensors=(q, k, v, out, lse), block=block,
+                                    block_stride=stride)
+
+        def entry():
+            return sp.strided_block_sparse_attention(q, k, v, block, stride)
+
+        def entry_bwd():
+            return sp._StridedBlockSparse.backward(ctx, d_out)
+
+        def plain_bwd():
+            leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+            return torch.autograd.grad(
+                sp.sparse_attention_reference(*leaves, block, stride), leaves, d_out)
+
+        few = dict(reps=5, replays=4)
+        fwd = graph_ms(entry, **few)
+        bwd = graph_ms(entry_bwd, **few)
+        dq = graph_ms(lambda: sp._launch_dq(*args), **few)
+        dkv = graph_ms(lambda: sp._launch_dkv(*args), **few)
+        fwd_eager = eager_ms(entry, iters=20)
+        bwd_eager = eager_ms(entry_bwd, iters=20)
+        dq_eager = eager_ms(lambda: sp._launch_dq(*args), iters=20)
+        dkv_eager = eager_ms(lambda: sp._launch_dkv(*args), iters=20)
+        plain = eager_ms(lambda: sp.sparse_attention_reference(q, k, v, block, stride),
+                         iters=5)
+        # the plain backward is autograd through the plain version: its
+        # forward is timed with it, and it gives dq, dk and dv at once
+        plain_b = eager_ms(plain_bwd, iters=5)
+        lib = eager_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=visible),
+                       iters=10)
+        want = sp.sparse_attention_reference(q, k, v, block, stride)
+        err_fwd = (entry() - want).abs().max().item()
+        del want
+        want_g = plain_bwd()
+        got_dq, got_dk, got_dv = entry_bwd()[:3]
+        err_dq = (got_dq - want_g[0]).abs().max().item()
+        err_dkv = max((got_dk - want_g[1]).abs().max().item(),
+                      (got_dv - want_g[2]).abs().max().item())
+        del want_g, got_dq, got_dk, got_dv
+        pairs, cells = sparse_work(t, block, stride)
+        n, n_rows = b * h * t * dh, b * h * t
+        for name, line, ms, eager, err, plain_ms, lib_ms, nbytes, flop_per_cell in (
+                ("strided_block_sparse_attention", 165, fwd, fwd_eager, err_fwd, plain, lib,
+                 4 * (4 * n + n_rows), 4 * dh),
+                ("strided_block_sparse_attention_dq", 262, dq, dq_eager, err_dq, plain_b, None,
+                 4 * (5 * n + 2 * n_rows), 6 * dh),
+                ("strided_block_sparse_attention_dkv", 283, dkv, dkv_eager, err_dkv, plain_b,
+                 None, 4 * (6 * n + 2 * n_rows), 8 * dh)):
+            bound, by = bound_ms(nbytes, b * h * cells * flop_per_cell)
+            rows.append({"name": name, "at": f"{label} {shape} block {block} stride {stride}",
+                         "route": "cuda", "source": src, "replaces": f"{ref}:{line}",
+                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
+                         "eager_ms": eager, "live_block_pairs_per_head": pairs})
+        # the whole backward as the Function runs it, beside its two kernels
+        for r in rows[-2:]:
+            r.update(backward_ms=bwd, backward_eager_ms=bwd_eager)
+        print(f"time sparse attention backward [{label} {shape}]: {bwd:.5f} ms (eager "
+              f"{bwd_eager:.5f}): delta, dk/dv and dq as the Function launches them, "
+              f"on {card}")
+        del q, k, v, d_out, out, lse, delta, args, ctx
+        torch.cuda.empty_cache()
+    for shape in ((VIDEO_K, VIDEO_BATCH, VIDEO_LATENTS), (1 << 20,)):
+        mu = torch.randn(shape, generator=g, device="cuda")
+        scale = torch.rand(shape, generator=g, device="cuda") + 0.3
+        kern = graph_ms(lambda: sk.sample_normal_fused(mu, scale, 3))
+        plain = graph_ms(lambda: sk.sample_reference(mu, scale, 3), reps=10)
+        kern_eager = eager_ms(lambda: sk.sample_normal_fused(mu, scale, 3))
+        # the library's draw of N(mu, scale): another generator and no eps
+        # kept, so it is timed for the record and compared by nothing.
+        # torch.normal checks std >= 0 on the host, so it cannot be captured
+        # in a graph and its time stands beside eager_ms; its two device
+        # ops without the check (a draw, then mu + scale * eps) are captured
+        lib = eager_ms(lambda: torch.normal(mu, scale))
+        lib_graph = graph_ms(lambda: torch.addcmul(mu, scale, torch.randn_like(mu)))
+        n = mu.numel()
+        # per element: ten Philox rounds of four multiplies, four xors and
+        # two adds, then Box-Muller and the affine
+        bound, by = bound_ms(16 * n, 110 * n)
+        want_z, want_eps = sk.sample_reference(mu, scale, 3)
+        err = max((sk.sample_normal_fused(mu, scale, 3) - want_z).abs().max().item(),
+                  (sk._launch(mu, scale, 3)[1] - want_eps).abs().max().item())
+        rows.append({"name": "sample_normal_fused", "at": f"{shape}", "route": "cuda",
+                     "source": "multimodal_vae_comparison_tpu_torch/csrc/sample.cu",
+                     "replaces": "multimodal_vae_comparison_tpu/ops/pallas/sample_kernel.py:63",
+                     "max_abs_err": err, "ms": kern, "plain_ms": plain, "bound_ms": bound,
+                     "bound_by": by, "library_ms": lib, "eager_ms": kern_eager,
+                     "library_is": "torch.normal(mu, scale), eager (not capturable)",
+                     "library_two_ops_ms": lib_graph})
+        print(f"time torch.normal [{shape}]: eager {lib:.5f} ms; randn_like + addcmul back "
+              f"to back {lib_graph:.5f} ms on {card}")
+    for r in rows:
+        print(f"time {r['name']} [{r['at']}]: kernel {r['ms']:.5f} ms (eager "
+              f"{r['eager_ms']:.5f}), plain {r['plain_ms']:.5f} ms, library "
+              f"{'n/a' if r['library_ms'] is None else format(r['library_ms'], '.5f')} ms, "
+              f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}) on {card}")
+    model = build_model(video_specs(), "moe", VIDEO_LATENTS, obj="dreg", K=VIDEO_K, seed=0,
+                        device="cuda", remat=True)
+    step = make_train_step(model, make_optimizer("adam", VIDEO_LR, model.parameters()))
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    raw, _ = video_inputs(np.random.default_rng(28), VIDEO_BATCH, VIDEO_K)
+    batch = torch_batch(raw, "cuda")
+    for _ in range(2):
+        step(batch, generator=gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lat = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        step(batch, generator=gen)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    p50 = statistics.median(lat)
+    print(f"time train step VideoGPTSparse MOE dreg K={VIDEO_K} batch {VIDEO_BATCH} remat: "
+          f"p50 {p50:.3f} ms, min {min(lat):.3f} ms over 10, "
+          f"{VIDEO_BATCH / p50 * 1e3:.2f} samples/s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB on {card}")
+    profile_steps("VideoGPTSparse MOE dreg", step, batch, gen, VIDEO_BATCH, 3, card)
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -681,15 +1100,29 @@ def main() -> int:
     t0 = time.perf_counter()
     built = _build.build()
     print(f"build: {sorted(built)} in {time.perf_counter() - t0:.2f} s")
+    check(all(_build.library_path(name).exists() for name in _build.SOURCES),
+          f"not every source of {_build.SOURCES} has its library")
     for name, (_, log) in sorted(built.items()):
+        entry = name
         for line in log.splitlines():
+            found = re.search(r"Compiling entry function '\w*?cu_[0-9a-f]{8}\d+"
+                              r"([A-Za-z_]+?)(?:ILi(\d+)E)?E", line)
+            if found:
+                entry = found.group(1) + (f"<{found.group(2)}>" if found.group(2) else "")
             if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+                print(f"  ptxas {name} {entry}: {line.strip()}")
+
+    tile = 4 * SPARSE_BLOCK * VIDEO_DH   # the kernels size their shared memory at launch
+    print(f"  sparse_attention dynamic shared memory at block {SPARSE_BLOCK}, Dh "
+          f"{VIDEO_DH}: {2 * tile} B (sparse_fwd, sparse_dq), "
+          f"{2 * tile + 8 * SPARSE_BLOCK} B (sparse_dkv)")
 
     # 3. kernel parity: forwards, then the Functions' backwards
     phase_parity()
     phase_kl_parity()
     phase_backward_parity()
+    phase_sparse_parity()
+    phase_sample_parity()
 
     # 4. serving slice at full width
     model_gpu = get_mixing("poe")(flagship_specs(), N_LATENTS, seed=0, device="cuda")
@@ -724,7 +1157,7 @@ def main() -> int:
     # 5. training slice at full width: card vs CPU
     phase_training_parity()
 
-    # 6. the training path: POE and MOE, 30 steps each + one accumulated step
+    # 6. the POE/MOE training path: 30 steps each + one accumulated step
     telemetry.reset()          # counts of the training path only, from here
     per_step = phase_train()
     torch.cuda.synchronize()
@@ -735,10 +1168,30 @@ def main() -> int:
     check(all(train_launches.get(k, 0) > 0 for k in ("attention", "poe", "kl")),
           f"a kernel of the training path never launched: {train_launches}")
 
-    # 7. times
+    # 7. the video slice at full width: card vs CPU, remat on vs off
+    phase_video_parity()
+
+    # 8. the video training path and the sampling op's own path
+    telemetry.reset()          # counts of these two paths only, from here
+    video_per_step = phase_video_train()
+    phase_sample_path()
+    torch.cuda.synchronize()
+    video_launches, paths = telemetry.launches(), telemetry.summary()
+    print(f"video and sample path launches: {video_launches}; dispatch: {paths}")
+    check(not any(k.endswith(":plain") for k in paths),
+          f"a plain version ran on the video or sample path: {paths}")
+    video_kernels = ("sparse_attention", "sparse_attention_dq", "sparse_attention_dkv",
+                     "sample")
+    check(all(video_launches.get(k, 0) > 0 for k in video_kernels),
+          f"a kernel of the video or sample path never launched: {video_launches}")
+    check(paths.get("sparse_attention_bwd:cuda", 0) == 8 * VIDEO_STEPS,
+          f"sparse_attention_bwd ran {paths.get('sparse_attention_bwd:cuda')} times")
+
+    # 9. times
     rows = phase_times(engine, card)
     kl_rows, extra = phase_train_times(card)
     rows += kl_rows
+    rows += phase_video_times(card)
     phase_train_profile(card)
     print(card)
     # one entry per kernel, at its heaviest main-path shape (the first row
@@ -746,9 +1199,13 @@ def main() -> int:
     # the training path's run (this slice's main path), with the serving
     # path's beside it
     primary = list({r["name"]: r for r in reversed(rows)}.values())[::-1]
+    per_step["VideoGPTSparse MOE dreg"] = video_per_step
     for r in primary:
         kernel = KERNEL_OF[r["name"]]
-        r["launches"] = train_launches.get(kernel, 0)
+        # each kernel's count on the path that runs it: the POE/MOE training
+        # path, or the video training and sampling paths
+        r["launches"] = (video_launches if kernel in video_kernels
+                         else train_launches).get(kernel, 0)
         r["launches_serving_path"] = serve_launches.get(kernel, 0)
         r["launches_per_train_step"] = {label: n.get(kernel, 0)
                                         for label, n in per_step.items()}

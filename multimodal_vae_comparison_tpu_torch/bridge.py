@@ -6,10 +6,11 @@ the module ``a.b.c``; how it is laid out there depends on that module:
 
 * ``nn.Linear``: Dense ``(in, out)`` -> ``(out, in)``; DenseGeneral
   ``(in, H, Dh)`` -> ``(H*Dh, in)`` and its bias ``(H, Dh)`` -> ``(H*Dh,)``;
-* ``nn.Conv2d``: HWIO -> OIHW;
-* ``nn.ConvTranspose2d``: ``kernel[::-1, ::-1]`` laid out ``(in, out, kh, kw)``
-  (flax's transposed conv does not flip the kernel; PyTorch's does);
-* ``nn.LayerNorm``: ``scale`` -> ``weight``;
+* ``nn.Conv2d``, ``nn.Conv3d``: HWIO -> OIHW, DHWIO -> OIDHW;
+* ``nn.ConvTranspose2d``, ``nn.ConvTranspose3d``: the kernel reversed on
+  every spatial axis and laid out ``(in, out, *spatial)`` (flax's transposed
+  conv does not flip the kernel; PyTorch's does);
+* ``nn.LayerNorm``, ``nn.GroupNorm``: ``scale`` -> ``weight``;
 * a leaf of any other module (``pz_logvar``) is copied as it is.
 
 Every flax leaf is consumed exactly once and every parameter of the module
@@ -37,7 +38,10 @@ def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...
     return out
 
 
-_LAYERS = (nn.Linear, nn.Conv2d, nn.ConvTranspose2d, nn.LayerNorm)
+_CONVS = (nn.Conv2d, nn.Conv3d)
+_CONV_TRANSPOSES = (nn.ConvTranspose2d, nn.ConvTranspose3d)
+_NORMS = (nn.LayerNorm, nn.GroupNorm)
+_LAYERS = (nn.Linear,) + _CONVS + _CONV_TRANSPOSES + _NORMS
 
 
 def _convert(module: nn.Module, leaf: str, arr: np.ndarray) -> Tuple[str, np.ndarray]:
@@ -47,17 +51,18 @@ def _convert(module: nn.Module, leaf: str, arr: np.ndarray) -> Tuple[str, np.nda
             return "weight", arr.reshape(arr.shape[0], -1).T
         if leaf == "bias":
             return "bias", arr.reshape(-1)
-    elif isinstance(module, nn.ConvTranspose2d):
-        if leaf == "kernel":
-            return "weight", arr[::-1, ::-1].transpose(2, 3, 0, 1)
+    elif isinstance(module, _CONV_TRANSPOSES):
+        if leaf == "kernel":   # (*spatial, in, out), not flipped
+            spatial = tuple(range(arr.ndim - 2))
+            return "weight", np.flip(arr, spatial).transpose(-2, -1, *spatial)
         if leaf == "bias":
             return "bias", arr
-    elif isinstance(module, nn.Conv2d):
-        if leaf == "kernel":
-            return "weight", arr.transpose(3, 2, 0, 1)
+    elif isinstance(module, _CONVS):
+        if leaf == "kernel":   # (*spatial, in, out)
+            return "weight", arr.transpose(-1, -2, *range(arr.ndim - 2))
         if leaf == "bias":
             return "bias", arr
-    elif isinstance(module, nn.LayerNorm):
+    elif isinstance(module, _NORMS):
         if leaf == "scale":
             return "weight", arr
         if leaf == "bias":

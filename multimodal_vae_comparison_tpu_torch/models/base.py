@@ -16,6 +16,7 @@ from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from multimodal_vae_comparison_tpu_torch.device import resolve_device
 from multimodal_vae_comparison_tpu_torch.models import objectives
@@ -85,13 +86,18 @@ class MMVAE(nn.Module):
     initializers under a forked RNG) and then moved to ``device``, so two
     instances built with one seed hold the same weights on any device.
     ``device`` defaults to CUDA and raises when there is none.
+
+    With ``remat`` every encoder and decoder call is checkpointed while
+    gradients are on: its activations are dropped after the forward and
+    recomputed in the backward pass, trading operations for memory on the
+    large video trunks.
     """
 
     def __init__(self, specs: Tuple[ModalitySpec, ...], n_latents: int,
                  K: int = 1, seed: int = 0,
                  device: Optional[Union[str, torch.device]] = None,
                  obj: str = "elbo", beta: float = 1.0,
-                 prior_components: int = 1):
+                 prior_components: int = 1, remat: bool = False):
         super().__init__()
         if prior_components != 1:
             raise NotImplementedError(
@@ -103,6 +109,7 @@ class MMVAE(nn.Module):
         self.K = K
         self.obj = obj
         self.beta = beta
+        self.remat = remat
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
             for spec in self.specs:
@@ -185,6 +192,14 @@ class MMVAE(nn.Module):
 
     # -- shared machinery ------------------------------------------------------
 
+    def _run_net(self, net: nn.Module, *args, **kwargs):
+        """Call an encoder or decoder, checkpointed under ``remat``.  The
+        nets draw no random numbers, so no generator state is kept."""
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(net, *args, use_reentrant=False,
+                              preserve_rng_state=False, **kwargs)
+        return net(*args, **kwargs)
+
     def encode(self, batch: Dict[str, Dict[str, Any]],
                present: Tuple[str, ...]):
         """Encode present modalities; split shared/private if factorized."""
@@ -194,7 +209,8 @@ class MMVAE(nn.Module):
                 out[spec.name] = {"shared": None, "private": None}
                 continue
             mod = batch[spec.name]
-            mu, scale = self.encoders[spec.name](mod["data"], mod.get("masks"))
+            mu, scale = self._run_net(self.encoders[spec.name], mod["data"],
+                                      mod.get("masks"))
             if spec.private_latents is None:
                 out[spec.name] = {"shared": (mu, scale), "private": None}
             else:
@@ -243,9 +259,10 @@ class MMVAE(nn.Module):
             cdata = cdata.repeat_interleave(K, dim=0)
             if cmask is not None:
                 cmask = cmask.repeat_interleave(K, dim=0)
-            out = self.decoders[name](z_flat, mask_rep, cond=cdata, cond_mask=cmask)
+            out = self._run_net(self.decoders[name], z_flat, mask_rep, cond=cdata,
+                                cond_mask=cmask)
         else:
-            out = self.decoders[name](z_flat, mask_rep)
+            out = self._run_net(self.decoders[name], z_flat, mask_rep)
         # image decoders return (mean, scale, logits)
         mean, scale = out[0], out[1]
         logits = out[2] if len(out) > 2 else None

@@ -1,8 +1,9 @@
-"""Decoders on the serving slice's path (counterpart of ``models/decoders.py``).
+"""Decoders of the ported models (counterpart of ``models/decoders.py``).
 
 Decoders take ``(z, mask)`` with z of shape (B, total_latents) and return
-``(mean, scale)`` (image decoders also the clipped logits), with ``scale``
-the fixed likelihood scale ``DEC_SCALE``.  Images come out NHWC.
+``(mean, scale)`` (decoders that end in ``squash_dist`` also the clipped
+logits), with ``scale`` the fixed likelihood scale ``DEC_SCALE``.  Images
+come out NHWC and videos (B, T, H, W, C).
 """
 from __future__ import annotations
 
@@ -16,7 +17,9 @@ from torch import nn
 
 from multimodal_vae_comparison_tpu_torch.constants import DEC_SCALE, ETA
 from multimodal_vae_comparison_tpu_torch.models.nets import (
-    LN_EPS, ConvTranspose2dTorch, MultiHeadAttention, gelu, positional_encoding)
+    LN_EPS, AttentionResidualBlock, ConvTranspose2dTorch, GroupNorm,
+    MultiHeadAttention, SamePadConvTranspose3d, SparseAttentionResidualBlock,
+    gelu, positional_encoding, resample_strides)
 
 # logit(1 - ETA): clipping logits to +-this bound == clipping sigmoid(x) to
 # [ETA, 1-ETA] (see VaeDecoder.squash_dist)
@@ -129,20 +132,86 @@ class Dec_TxtTransformer(VaeDecoder):
         zin = self.Dense_0(z) if self.d_model != z.shape[-1] else z
         out = _time_query_decode(self, zin, self.seq_len, self.d_model,
                                  self.num_layers)
-        out = self.finallayer(out).float()
+        out = self.finallayer(out)
         if mask is not None:
             out = out * mask.to(out.dtype)[..., None]
         return out, self.scale_like(out)
 
 
+class Dec_FNN(VaeDecoder):
+    """Generic MLP decoder."""
+
+    def __init__(self, latent_dim, data_dim, latent_private=None,
+                 hidden_dim: int = 128):
+        super().__init__(latent_dim, data_dim, latent_private)
+        self.Dense_0 = nn.Linear(self.out_dim, hidden_dim)
+        self.Dense_1 = nn.Linear(hidden_dim, math.prod(self.data_dim))
+
+    def forward(self, z: torch.Tensor, mask=None):
+        return self.squash_dist(self.Dense_1(F.relu(self.Dense_0(z))), z.shape[0])
+
+
+class Dec_VideoGPT(VaeDecoder):
+    """VideoGPT-style video decoder: a linear seed of (T, H/u, W/u, hidden),
+    attention-residual blocks (axial, or strided block-sparse with
+    ``attn_type="sparse"``), norm, transposed same-pad convs up to
+    (B, T, H, W, 3).  Returns probabilities (a sigmoid), not logits."""
+
+    attn_type = "axial"
+
+    def __init__(self, latent_dim, data_dim, latent_private=None,
+                 n_res_layers: int = 4, upsample: Sequence[int] = (1, 4, 4),
+                 hidden: int = 64):
+        super().__init__(latent_dim, data_dim, latent_private)
+        self.n_res_layers, self.hidden = n_res_layers, hidden
+        self.frames = int(self.data_dim[0])
+        self.base = int(self.data_dim[1]) // int(upsample[1])
+        self.upsample_lin = nn.Linear(
+            self.out_dim, hidden * self.frames * self.base * self.base)
+        block_cls = (SparseAttentionResidualBlock if self.attn_type == "sparse"
+                     else AttentionResidualBlock)
+        self.block_name = block_cls.__name__
+        for i in range(n_res_layers):
+            self.add_module(f"{self.block_name}_{i}", block_cls(hidden))
+        self.GroupNorm_0 = GroupNorm(hidden)
+        all_strides = resample_strides(upsample)
+        self.n_up = len(all_strides)
+        for i, strides in enumerate(all_strides):
+            self.add_module(f"SamePadConvTranspose3d_{i}", SamePadConvTranspose3d(
+                hidden, 3 if i == self.n_up - 1 else hidden, kernel=4, strides=strides))
+
+    def forward(self, z: torch.Tensor, mask=None):
+        h = self.upsample_lin(z).reshape(z.shape[0], self.frames, self.base,
+                                         self.base, self.hidden)
+        for i in range(self.n_res_layers):
+            h = getattr(self, f"{self.block_name}_{i}")(h)
+        h = F.relu(self.GroupNorm_0(h))
+        for i in range(self.n_up):
+            h = getattr(self, f"SamePadConvTranspose3d_{i}")(h)
+            if i < self.n_up - 1:
+                h = F.relu(h)
+        mean = torch.sigmoid(h)
+        return mean, self.scale_like(mean)
+
+
+class Dec_VideoGPTSparse(Dec_VideoGPT):
+    """Dec_VideoGPT with strided block-sparse attention over the flattened
+    spacetime tokens."""
+
+    attn_type = "sparse"
+
+
 DECODERS = {
     "CNN": Dec_CNN,
+    "FNN": Dec_FNN,
     "TxtTransformer": Dec_TxtTransformer,
+    "VideoGPT": Dec_VideoGPT,
+    "VideoGPTSparse": Dec_VideoGPTSparse,
 }
 
 
 def get_decoder(name: str):
-    """Decoder factory by config name; only the slice's decoders so far."""
+    """Decoder factory by config name; only the ported decoders so far."""
     if name not in DECODERS:
         raise KeyError(f"Did not find decoder {name}; available: {sorted(DECODERS)}")
     return DECODERS[name]

@@ -1,8 +1,9 @@
-"""Encoders on the serving slice's path (counterpart of ``models/encoders.py``).
+"""Encoders of the ported models (counterpart of ``models/encoders.py``).
 
 Encoders take ``(data, mask)`` and return ``(mu, scale)`` of shape
-(B, out_dim), with ``scale = softmax(raw) + ETA`` computed in fp32.  Images
-are NHWC, as in the reference.  PyTorch needs every layer's input width at
+(B, out_dim), with ``scale = softmax(raw) + ETA``, in the dtype of the
+module's parameters (fp32 unless the caller converts the model).  Images
+are NHWC and videos (B, T, H, W, C), as in the reference.  PyTorch needs every layer's input width at
 construction, so each encoder derives it from ``data_dim``.
 """
 from __future__ import annotations
@@ -16,7 +17,9 @@ from torch import nn
 
 from multimodal_vae_comparison_tpu_torch.constants import ETA
 from multimodal_vae_comparison_tpu_torch.models.nets import (
-    TransformerEncoder, positional_encoding)
+    AttentionResidualBlock, GroupNorm, SamePadConv3d,
+    SparseAttentionResidualBlock, TransformerEncoder, positional_encoding,
+    resample_strides)
 
 
 class VaeEncoder(nn.Module):
@@ -41,8 +44,8 @@ class VaeEncoder(nn.Module):
         """mu/scale head with the reference's softmax+eta scale activation."""
         mu = self.mu_layer(h)
         raw = self.logvar_layer(h)
-        scale = torch.softmax(raw.float(), dim=-1) + ETA
-        return mu.float(), scale
+        scale = torch.softmax(raw, dim=-1) + ETA
+        return mu, scale
 
 
 class Enc_CNN2(VaeEncoder):
@@ -97,14 +100,77 @@ class Enc_TxtTransformer(VaeEncoder):
         return self.head(h)
 
 
+class Enc_FNN(VaeEncoder):
+    """Generic MLP encoder for flattened data."""
+
+    def __init__(self, latent_dim, data_dim, latent_private=None,
+                 hidden_dim: int = 128):
+        super().__init__(latent_dim, data_dim, latent_private)
+        self.Dense_0 = nn.Linear(math.prod(self.data_dim), hidden_dim)
+        self._add_head(hidden_dim)
+
+    def forward(self, data: torch.Tensor, mask=None):
+        return self.head(F.relu(self.Dense_0(data.reshape(data.shape[0], -1))))
+
+
+class Enc_VideoGPT(VaeEncoder):
+    """VideoGPT-style 3D conv + attention encoder for (B, T, H, W, C) video:
+    strided same-pad convs, attention-residual blocks (axial attention, or
+    strided block-sparse attention over the flattened spacetime tokens with
+    ``attn_type="sparse"``), norm, mean pool over the volume."""
+
+    attn_type = "axial"
+
+    def __init__(self, latent_dim, data_dim, latent_private=None,
+                 n_res_layers: int = 4, downsample: Sequence[int] = (1, 4, 4),
+                 hidden: int = 64):
+        super().__init__(latent_dim, data_dim, latent_private)
+        self.n_res_layers = n_res_layers
+        channels = int(self.data_dim[-1])
+        self.n_down = 0
+        for strides in resample_strides(downsample):
+            self.add_module(f"SamePadConv3d_{self.n_down}",
+                            SamePadConv3d(channels, hidden, kernel=4, strides=strides))
+            channels = hidden
+            self.n_down += 1
+        block_cls = (SparseAttentionResidualBlock if self.attn_type == "sparse"
+                     else AttentionResidualBlock)
+        self.block_name = block_cls.__name__
+        for i in range(n_res_layers):
+            self.add_module(f"{self.block_name}_{i}", block_cls(hidden))
+        self.GroupNorm_0 = GroupNorm(hidden)
+        self._add_head(hidden)
+
+    def forward(self, data: torch.Tensor, mask=None):
+        h = data
+        for i in range(self.n_down):
+            h = getattr(self, f"SamePadConv3d_{i}")(h)
+            if i < self.n_down - 1:
+                h = F.relu(h)
+        for i in range(self.n_res_layers):
+            h = getattr(self, f"{self.block_name}_{i}")(h)
+        h = F.relu(self.GroupNorm_0(h))
+        return self.head(h.mean(dim=(1, 2, 3)))
+
+
+class Enc_VideoGPTSparse(Enc_VideoGPT):
+    """Enc_VideoGPT with strided block-sparse attention over the flattened
+    spacetime tokens."""
+
+    attn_type = "sparse"
+
+
 ENCODERS = {
     "CNN2": Enc_CNN2,
+    "FNN": Enc_FNN,
     "TxtTransformer": Enc_TxtTransformer,
+    "VideoGPT": Enc_VideoGPT,
+    "VideoGPTSparse": Enc_VideoGPTSparse,
 }
 
 
 def get_encoder(name: str):
-    """Encoder factory by config name; only the slice's encoders so far."""
+    """Encoder factory by config name; only the ported encoders so far."""
     if name not in ENCODERS:
         raise KeyError(f"Did not find encoder {name}; available: {sorted(ENCODERS)}")
     return ENCODERS[name]

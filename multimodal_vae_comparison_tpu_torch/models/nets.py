@@ -1,25 +1,32 @@
 """Shared network building blocks (counterpart of ``models/nets.py``).
 
-Only the blocks on the serving slice's path.  Submodules carry the names
+The blocks of the ported models: the transformer pieces of the CdSprites+
+text nets and the 3D conv and attention blocks of the VideoGPT family.
+Submodules carry the names
 that flax gives their counterparts (``Dense_0``, ``LayerNorm_1``,
 ``MultiHeadAttention_0``, ...), so that ``bridge.load_flax_params`` maps a
 flax parameter path onto a module path one to one.
 
-Numerics that differ from PyTorch's defaults and follow flax: LayerNorm eps
-is 1e-6 and GELU is the tanh approximation.  Public functions keep the
-reference's layouts: NHWC images and (B, H, T, Dh) attention.
+Numerics that differ from PyTorch's defaults and follow flax: LayerNorm and
+GroupNorm eps is 1e-6, GELU is the tanh approximation, and ``SAME`` padding
+of an even kernel is asymmetric.  Public functions keep the reference's
+layouts: NHWC images, (B, T, H, W, C) video volumes and (B, H, T, Dh)
+attention; modules permute to channels-first views around PyTorch's convs.
 """
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from multimodal_vae_comparison_tpu_torch.ops.kernels.attention import masked_attention
+from multimodal_vae_comparison_tpu_torch.ops.kernels.sparse_attention import (
+    strided_block_sparse_attention)
 
-LN_EPS = 1e-6  # flax.linen.LayerNorm default
+LN_EPS = 1e-6  # flax.linen.LayerNorm and GroupNorm default
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -121,3 +128,180 @@ class ConvTranspose2dTorch(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.ConvTranspose_0(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+
+# -- VideoGPT-style 3D blocks -------------------------------------------------
+
+class GroupNorm(nn.GroupNorm):
+    """The reference's ``group_norm`` on channels-last input: gcd(8, C)
+    groups and flax's eps."""
+
+    def __init__(self, channels: int):
+        super().__init__(math.gcd(8, channels), channels, eps=LN_EPS)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.movedim(-1, 1)).movedim(1, -1)
+
+
+def _same_pads(size: int, kernel: int, stride: int) -> Tuple[int, int]:
+    """flax/XLA ``SAME`` padding of one axis: the output is ceil(size/stride)
+    long and the odd element of padding goes after."""
+    total = max((-(-size // stride) - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+class SamePadConv3d(nn.Module):
+    """``nn.Conv(kernel^3, strides, padding="SAME")`` on (B, T, H, W, C)."""
+
+    def __init__(self, in_features: int, features: int, kernel: int = 4,
+                 strides: Sequence[int] = (1, 1, 1)):
+        super().__init__()
+        self.kernel, self.strides = kernel, tuple(strides)
+        self.Conv_0 = nn.Conv3d(in_features, features, kernel, stride=self.strides)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        pads = [_same_pads(n, self.kernel, s)
+                for n, s in zip(x.shape[1:4], self.strides)]
+        h = F.pad(x.permute(0, 4, 1, 2, 3), pads[2] + pads[1] + pads[0])
+        return self.Conv_0(h).permute(0, 2, 3, 4, 1)
+
+
+def resample_strides(factors: Sequence[int]):
+    """The (t, h, w) strides of the VideoGPT down- or up-sampling stack: one
+    conv per halving of the most-resampled axis, each axis strided 2 until
+    its own factor is used up."""
+    remaining = [int(math.log2(f)) for f in factors]
+    out = []
+    for _ in range(max(remaining)):
+        out.append(tuple(2 if r > 0 else 1 for r in remaining))
+        remaining = [r - 1 for r in remaining]
+    return out
+
+
+def _transpose_crops(kernel: int, stride: int) -> Tuple[int, int]:
+    """What to cut from each end of a full transposed conv (PyTorch's with no
+    padding) to get flax/XLA's ``SAME`` one, whose output is size * stride."""
+    pad_len = kernel + stride - 2
+    pad_a = kernel - 1 if stride > kernel - 1 else -(-pad_len // 2)
+    return kernel - 1 - pad_a, kernel - 1 - (pad_len - pad_a)
+
+
+class SamePadConvTranspose3d(nn.Module):
+    """``nn.ConvTranspose(kernel^3, strides, padding="SAME")`` on
+    (B, T, H, W, C): PyTorch's transposed conv on the flipped kernel (the
+    bridge flips it), with the padding both ends share given to PyTorch and
+    the rest cut off after (kernel 4, stride 1: one more slice at the end)."""
+
+    def __init__(self, in_features: int, features: int, kernel: int = 4,
+                 strides: Sequence[int] = (1, 1, 1)):
+        super().__init__()
+        crops = [_transpose_crops(kernel, s) for s in strides]
+        padding = tuple(min(c) for c in crops)
+        self.extra = tuple((lo - p, hi - p) for (lo, hi), p in zip(crops, padding))
+        self.ConvTranspose_0 = nn.ConvTranspose3d(in_features, features, kernel,
+                                                  stride=tuple(strides), padding=padding)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.ConvTranspose_0(x.permute(0, 4, 1, 2, 3))
+        for axis, (lo, hi) in enumerate(self.extra, start=2):
+            if lo or hi:
+                h = h.narrow(axis, lo, h.shape[axis] - lo - hi)
+        return h.permute(0, 2, 3, 4, 1)
+
+
+class AxialAttention(nn.Module):
+    """Axial self-attention over a (B, T, H, W, C) volume: attention along
+    one of T, H, W at a time, the three summed."""
+
+    def __init__(self, channels: int, num_heads: int):
+        super().__init__()
+        for name in "thw":
+            self.add_module(f"axial_{name}", MultiHeadAttention(channels, num_heads))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = 0.0
+        for axis, name in ((1, "t"), (2, "h"), (3, "w")):
+            xp = x.movedim(axis, 3)                          # (..., L, C)
+            flat = xp.reshape(-1, xp.shape[-2], xp.shape[-1])
+            att = getattr(self, f"axial_{name}")(flat, flat)
+            out = out + att.reshape(xp.shape).movedim(3, axis)
+        return out
+
+
+class StridedSparseSelfAttention(nn.Module):
+    """Causal strided block-sparse self-attention over (B, T, C): q/k/v/out
+    projections around ``strided_block_sparse_attention``.  T is padded with
+    zeros to a block multiple (padded keys come after every real query, so
+    they are causally invisible) and cut back after."""
+
+    def __init__(self, d_model: int, num_heads: int, block: int = 128,
+                 block_stride: int = 4):
+        super().__init__()
+        if d_model % num_heads:
+            raise ValueError(f"d_model {d_model} is not a multiple of "
+                             f"num_heads {num_heads}")
+        self.num_heads, self.block, self.block_stride = num_heads, block, block_stride
+        self.query = nn.Linear(d_model, d_model)
+        self.key = nn.Linear(d_model, d_model)
+        self.value = nn.Linear(d_model, d_model)
+        self.out = nn.Linear(d_model, d_model)
+
+    def _heads(self, x: torch.Tensor, pad: int) -> torch.Tensor:
+        b, t, c = x.shape
+        x = x.view(b, t, self.num_heads, c // self.num_heads).transpose(1, 2)
+        return (F.pad(x, (0, 0, 0, pad)) if pad else x).contiguous()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, t, c = x.shape
+        pad = (-t) % self.block
+        q, k, v = (self._heads(proj(x), pad)
+                   for proj in (self.query, self.key, self.value))
+        out = strided_block_sparse_attention(q, k, v, block=self.block,
+                                             block_stride=self.block_stride)
+        return self.out(out[:, :, :t].transpose(1, 2).reshape(b, t, c))
+
+
+class _AttentionResidual(nn.Module):
+    """norm-relu-conv3, norm-relu-conv1, norm-relu, attention, residual: the
+    trunk the two VideoGPT attention-residual blocks share."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.GroupNorm_0 = GroupNorm(channels)
+        self.SamePadConv3d_0 = SamePadConv3d(channels, channels // 2, kernel=3)
+        self.GroupNorm_1 = GroupNorm(channels // 2)
+        self.SamePadConv3d_1 = SamePadConv3d(channels // 2, channels, kernel=1)
+        self.GroupNorm_2 = GroupNorm(channels)
+
+    def trunk(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.SamePadConv3d_0(F.relu(self.GroupNorm_0(x)))
+        h = self.SamePadConv3d_1(F.relu(self.GroupNorm_1(h)))
+        return F.relu(self.GroupNorm_2(h))
+
+
+class AttentionResidualBlock(_AttentionResidual):
+    """VideoGPT attention-residual block with axial attention."""
+
+    def __init__(self, channels: int):
+        super().__init__(channels)
+        self.AxialAttention_0 = AxialAttention(channels, num_heads=2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x + self.AxialAttention_0(self.trunk(x))
+
+
+class SparseAttentionResidualBlock(_AttentionResidual):
+    """VideoGPT attention-residual block with ``attn_type='sparse'``: the
+    (B, T, H, W, C) volume flattens to one spacetime token sequence, T
+    slowest, and runs the strided block-sparse attention."""
+
+    def __init__(self, channels: int, block: int = 128, block_stride: int = 4):
+        super().__init__(channels)
+        self.StridedSparseSelfAttention_0 = StridedSparseSelfAttention(
+            channels, num_heads=2, block=block, block_stride=block_stride)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.trunk(x)
+        b, t, hh, ww, c = h.shape
+        att = self.StridedSparseSelfAttention_0(h.reshape(b, t * hh * ww, c))
+        return x + att.reshape(b, t, hh, ww, c)

@@ -40,7 +40,7 @@ def _apply_mask(loss_elem: torch.Tensor, mask: Optional[torch.Tensor],
 
 def _sum_features(ll: torch.Tensor, mask, batch_ndims: int) -> torch.Tensor:
     ll = _apply_mask(ll, mask, batch_ndims)
-    return _flatten_features(ll, batch_ndims).sum(-1, dtype=torch.float32)
+    return _flatten_features(ll, batch_ndims).sum(-1)
 
 
 # -- reconstruction losses (log-likelihood contributions; higher = better) --
@@ -76,7 +76,7 @@ def category_ce(dist, target, mask=None, batch_ndims=1):
     """Categorical cross-entropy over the trailing (alphabet) axis, with
     ``dist.mean`` taken as unnormalized scores."""
     logp = torch.log_softmax(dist.mean, dim=-1)
-    ll = (target.to(logp.dtype) * logp).sum(-1, dtype=torch.float32)
+    ll = (target.to(logp.dtype) * logp).sum(-1)
     return _sum_features(ll, mask, batch_ndims)
 
 

@@ -17,6 +17,8 @@ from multimodal_vae_comparison_tpu_torch.models.base import ModalitySpec
 from multimodal_vae_comparison_tpu_torch.ops.kernels import attention as tattn
 from multimodal_vae_comparison_tpu_torch.ops.kernels import kl_kernel as tkl
 from multimodal_vae_comparison_tpu_torch.ops.kernels import poe_kernel as tpoe
+from multimodal_vae_comparison_tpu_torch.ops.kernels import sample_kernel as tsample
+from multimodal_vae_comparison_tpu_torch.ops.kernels import sparse_attention as tsparse
 from multimodal_vae_comparison_tpu_torch.ops.kernels import telemetry
 from multimodal_vae_comparison_tpu_torch.training.optim import make_optimizer
 from multimodal_vae_comparison_tpu_torch.training.trainer import build_model, make_train_step
@@ -29,6 +31,11 @@ POE_TOL = dict(rtol=1e-5, atol=1e-6)    # elementwise fp32, one sum over E
 # version: the two orders differ where mu_e - mu cancels (seen: 2.1e-6)
 POE_BWD_TOL = dict(rtol=1e-5, atol=1e-5)
 KL_TOL = dict(rtol=1e-5, atol=1e-6)     # elementwise fp32, one sum over D
+SPARSE_TOL = dict(rtol=2e-4, atol=2e-5)      # as tests/test_pallas.py, forward
+SPARSE_BWD_TOL = dict(rtol=2e-3, atol=2e-4)  # as tests/test_pallas.py, backward
+# same generator, same libm: only the fused multiply-add of z = mu + scale * eps
+# and the order of one product differ from the plain version
+SAMPLE_TOL = dict(rtol=1e-5, atol=1e-6)
 # whole model on the card (kernels, cuBLAS and cuDNN in fp32) against the
 # CPU's plain path: sums in another order through a dozen layers
 SLICE_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -232,3 +239,211 @@ def test_poe_forward_on_the_card_matches_the_cpu(cuda):
         outs[dev] = {n: m.decoder_dist.mean.cpu() for n, m in out.mods.items()}
     for name in outs["cpu"]:
         torch.testing.assert_close(outs["cuda"][name], outs["cpu"][name], **SLICE_TOL)
+
+
+SPARSE_SHAPES = [
+    # b, h, t, dh, block, stride
+    (1, 2, 2048, 32, 128, 4),   # VideoGPTSparse, one clip
+    (3, 2, 256, 32, 128, 4),
+    (2, 2, 64, 8, 8, 2),
+    (2, 1, 96, 8, 8, 3),
+    (1, 2, 64, 16, 16, 1),      # every earlier block live
+    (2, 1, 128, 64, 16, 4),     # widest head
+    (1, 1, 16, 4, 4, 2),
+    (1, 3, 40, 12, 8, 3),       # Dh padded from 12 to 16
+    (2, 2, 128, 32, 128, 4),    # T = one block
+]
+
+
+def _sparse_inputs(seed, b, h, t, dh, dev):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(size=(b, h, t, dh)).astype(np.float32)).to(dev)
+            for _ in range(4)]
+
+
+@pytest.mark.parametrize("b,h,t,dh,block,stride", SPARSE_SHAPES)
+def test_sparse_attention_kernels_match_plain(cuda, b, h, t, dh, block, stride):
+    """Forward (out and lse), then dq, dk, dv against autograd through the
+    plain version, same inputs and upstream gradient."""
+    q, k, v, d_out = _sparse_inputs(14, b, h, t, dh, cuda)
+    telemetry.reset()
+    out, lse = tsparse._launch_forward(q, k, v, block, stride)
+    assert telemetry.launches() == {"sparse_attention": 1}
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, tsparse.sparse_attention_reference(q, k, v, block, stride),
+                               **SPARSE_TOL)
+    visible = tsparse.visibility(t, block, stride, cuda)
+    logits = (q @ k.transpose(-1, -2)) / dh ** 0.5
+    want_lse = torch.logsumexp(logits.masked_fill(~visible, float("-inf")), dim=-1)
+    torch.testing.assert_close(lse, want_lse, **SPARSE_TOL)
+
+    telemetry.reset()
+    got = _grads(lambda *x: tsparse.strided_block_sparse_attention(*x, block, stride),
+                 (q, k, v), d_out)
+    assert telemetry.launches() == {"sparse_attention": 1, "sparse_attention_dq": 1,
+                                    "sparse_attention_dkv": 1}
+    assert telemetry.summary() == {"sparse_attention:cuda": 1, "sparse_attention_bwd:cuda": 1}
+    want = _grads(lambda *x: tsparse.sparse_attention_reference(*x, block, stride),
+                  (q, k, v), d_out)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g, w, **SPARSE_BWD_TOL)
+
+
+def test_sparse_attention_kernel_is_deterministic_and_refuses_bad_input(cuda):
+    q, k, v, d_out = _sparse_inputs(15, 2, 2, 512, 32, cuda)
+    first = _grads(lambda *x: tsparse.strided_block_sparse_attention(*x, 128, 4), (q, k, v), d_out)
+    again = _grads(lambda *x: tsparse.strided_block_sparse_attention(*x, 128, 4), (q, k, v), d_out)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+    with pytest.raises(TypeError):
+        tsparse.strided_block_sparse_attention(q.double(), k.double(), v.double())
+    with pytest.raises(ValueError):
+        x = q.transpose(0, 1)
+        tsparse.strided_block_sparse_attention(x, x, x)
+    with pytest.raises(ValueError):
+        wide = torch.zeros(1, 1, 128, 65, device=cuda)
+        tsparse.strided_block_sparse_attention(wide, wide, wide)
+    with pytest.raises(ValueError):
+        tsparse.strided_block_sparse_attention(q, k, v, block=256)
+
+
+@pytest.mark.parametrize("shape,seed", [((5, 8, 32), 0), ((1024, 1024), 7), ((7, 5), 2**40 + 3),
+                                        ((3,), 2**64 - 1)])
+def test_sample_kernel_matches_plain(cuda, shape, seed):
+    rng = np.random.default_rng(16)
+    mu = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(cuda)
+    scale = torch.from_numpy(rng.uniform(0.3, 2.0, shape).astype(np.float32)).to(cuda)
+    telemetry.reset()
+    z, eps = tsample._launch(mu, scale, seed)
+    assert telemetry.launches() == {"sample": 1}
+    want_z, want_eps = tsample.sample_reference(mu, scale, seed)
+    assert torch.isfinite(z).all()
+    torch.testing.assert_close(eps, want_eps, **SAMPLE_TOL)
+    torch.testing.assert_close(z, want_z, **SAMPLE_TOL)
+    # the same seed on the CPU's plain version gives the same draw
+    torch.testing.assert_close(eps.cpu(), tsample.sample_reference(mu.cpu(), scale.cpu(), seed)[1],
+                               **SAMPLE_TOL)
+
+
+def test_sample_normal_fused_on_the_card(cuda):
+    mu = torch.full((1024, 1024), 2.0, device=cuda, requires_grad=True)
+    scale = torch.full((1024, 1024), 0.5, device=cuda, requires_grad=True)
+    z = tsample.sample_normal_fused(mu, scale, 7)
+    eps = (z.detach() - 2.0) / 0.5
+    assert abs(eps.mean().item()) < 0.01 and abs(eps.std().item() - 1.0) < 0.01
+    upstream = torch.randn(z.shape, device=cuda)
+    z.backward(upstream)
+    torch.testing.assert_close(mu.grad, upstream)
+    torch.testing.assert_close(scale.grad, upstream * eps, rtol=1e-4, atol=1e-5)
+    assert torch.equal(tsample.sample_normal_fused(mu.detach(), scale.detach(), 7), z.detach())
+    assert not torch.equal(tsample.sample_normal_fused(mu.detach(), scale.detach(), 8), z.detach())
+    with pytest.raises(TypeError):
+        tsample.sample_normal_fused(mu.detach().double(), scale.detach().double(), 7)
+    with pytest.raises(ValueError):
+        tsample.sample_normal_fused(mu.detach().t(), scale.detach().t(), 7)
+
+
+def test_sparse_self_attention_module_pads_on_the_card(cuda):
+    """T = 21 padded to 24 inside (block 8): the module on the card against
+    the same weights on the CPU, output and input gradient."""
+    from multimodal_vae_comparison_tpu_torch.models.nets import StridedSparseSelfAttention
+    torch.manual_seed(0)
+    cpu = StridedSparseSelfAttention(16, 2, block=8, block_stride=2)
+    card = StridedSparseSelfAttention(16, 2, block=8, block_stride=2).to(cuda)
+    card.load_state_dict(cpu.state_dict())
+    x = torch.from_numpy(np.random.default_rng(19).normal(size=(2, 21, 16)).astype(np.float32))
+    outs = []
+    for module, inp in ((card, x.to(cuda)), (cpu, x)):
+        inp = inp.requires_grad_()
+        telemetry.reset()
+        out = module(inp)
+        out.square().sum().backward()
+        outs.append((out.detach().cpu(), inp.grad.cpu()))
+    assert telemetry.summary() == {"sparse_attention:plain": 1, "sparse_attention_bwd:plain": 1}
+    assert outs[0][0].shape == (2, 21, 16)
+    torch.testing.assert_close(outs[0][0], outs[1][0], **SPARSE_TOL)
+    torch.testing.assert_close(outs[0][1], outs[1][1], **SPARSE_BWD_TOL)
+
+
+def _video_specs(clip):
+    return (ModalitySpec("mod_1", "VideoGPTSparse", "VideoGPTSparse", clip, mod_type="frames"),
+            ModalitySpec("mod_2", "FNN", "FNN", (9,), mod_type="actions"))
+
+
+# per leaf, as a fraction of its max |g|, against the CPU in float64 (fp32
+# on the CPU is itself a poor referee for the GroupNorm remainders of the
+# decoder's first layer); the limits chip_smoke.py holds the full-width clip
+# to, where DReG's log-weights of ~-7e4 have an fp32 ulp of 8e-3
+VIDEO_GRAD_REL = {"elbo": 1e-2, "dreg": 5e-2}
+
+
+@pytest.mark.parametrize("obj,remat", [("elbo", False), ("dreg", False), ("dreg", True)])
+def test_video_model_on_the_card_matches_the_cpu(cuda, obj, remat):
+    """VideoGPTSparse MOE at the model's widths (64 channels, block 128,
+    stride 4) on a (12, 32, 32, 3) clip, 768 tokens = 6 blocks of which the
+    last two see a strided earlier one, K 2 and bs 2: launch counts, and loss
+    and gradients on the card (kernels) against the CPU's plain path in
+    float64, same weights, batch and eps.  The (8, 64, 64, 3) clip of 2048
+    tokens is held the same way by chip_smoke.py."""
+    clip = (12, 32, 32, 3)
+    rng = np.random.default_rng(17)
+    video = rng.random((2,) + clip).astype(np.float32)
+    actions = rng.random((2, 9)).astype(np.float32)
+    draws = {n: rng.standard_normal((2, 2, 32)).astype(np.float32) for n in ("mod_1", "mod_2")}
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = build_model(_video_specs(clip), "moe", 32, obj=obj, K=2, device=dev,
+                            remat=remat and dev == "cuda")
+        dtype = torch.float32 if dev == "cuda" else torch.float64
+        model = model.to(dtype)
+        batch = {"mod_1": {"data": torch.from_numpy(video).to(dev, dtype), "masks": None},
+                 "mod_2": {"data": torch.from_numpy(actions).to(dev, dtype), "masks": None}}
+        eps = {n: torch.from_numpy(d).to(dev, dtype) for n, d in draws.items()}
+        telemetry.reset()
+        loss, _ = model.objective(batch, eps=eps)
+        loss.backward()
+        if dev == "cuda":
+            launches = {k: n for k, n in telemetry.launches().items() if k != "kl"}
+            assert launches == {
+                "sparse_attention": 8 if obj == "elbo" else 20 if remat else 12,
+                "sparse_attention_dq": 8, "sparse_attention_dkv": 8}
+            assert not any(k.endswith(":plain") for k in telemetry.summary())
+        out[dev] = (loss.item(), {n: (torch.zeros_like(p) if p.grad is None
+                                      else p.grad).float().cpu()
+                                  for n, p in model.named_parameters()})
+    assert out["cuda"][0] == pytest.approx(out["cpu"][0], rel=1e-5)
+    for name, g in out["cpu"][1].items():
+        err = (out["cuda"][1][name] - g).abs().max().item()
+        assert err <= VIDEO_GRAD_REL[obj] * g.abs().max().item() + 1e-5, f"{name}: {err}"
+
+
+def test_axial_videogpt_on_the_card_matches_the_cpu(cuda):
+    """Enc/Dec_VideoGPT (axial attention through the masked attention kernel
+    at B*H*W, B*T*W and B*T*H rows) under MOE/ELBO on a (4, 32, 32, 3) clip:
+    loss and gradients on the card against the CPU in float64."""
+    clip = (4, 32, 32, 3)
+    specs = (ModalitySpec("mod_1", "VideoGPT", "VideoGPT", clip, mod_type="frames"),
+             ModalitySpec("mod_2", "FNN", "FNN", (9,), mod_type="actions"))
+    rng = np.random.default_rng(18)
+    video = rng.random((2,) + clip).astype(np.float32)
+    actions = rng.random((2, 9)).astype(np.float32)
+    draws = {n: rng.standard_normal((1, 2, 16)).astype(np.float32) for n in ("mod_1", "mod_2")}
+    out = {}
+    for dev, dtype in (("cuda", torch.float32), ("cpu", torch.float64)):
+        model = build_model(specs, "moe", 16, device=dev).to(dtype)
+        batch = {"mod_1": {"data": torch.from_numpy(video).to(dev, dtype), "masks": None},
+                 "mod_2": {"data": torch.from_numpy(actions).to(dev, dtype), "masks": None}}
+        telemetry.reset()
+        loss, _ = model.objective(
+            batch, eps={n: torch.from_numpy(d).to(dev, dtype) for n, d in draws.items()})
+        loss.backward()
+        if dev == "cuda":
+            # three axes per block, four blocks per net, encoder and decoder
+            assert telemetry.launches() == {"attention": 24, "kl": 2}
+        out[dev] = (loss.item(), {n: p.grad.float().cpu() for n, p in model.named_parameters()
+                                  if p.grad is not None})
+    assert out["cuda"][0] == pytest.approx(out["cpu"][0], rel=1e-5)
+    for name, g in out["cpu"][1].items():
+        err = (out["cuda"][1][name] - g).abs().max().item()
+        assert err <= VIDEO_GRAD_REL["elbo"] * g.abs().max().item() + 1e-5, f"{name}: {err}"

@@ -25,10 +25,11 @@ def refuse(*args, **kwargs):
 
 subprocess.Popen = refuse
 REQUIRED = {"multimodal_vae_comparison_tpu_torch." + m for m in (
-    "bridge", "models.base", "models.distributions", "models.mmvae",
-    "models.objectives", "ops.kernels.attention", "ops.kernels.kl_kernel",
-    "ops.kernels.poe_kernel", "serving.engine", "serving.server",
-    "training.optim", "training.trainer")}
+    "bridge", "models.base", "models.decoders", "models.distributions",
+    "models.encoders", "models.mmvae", "models.nets", "models.objectives",
+    "ops.kernels.attention", "ops.kernels.kl_kernel", "ops.kernels.poe_kernel",
+    "ops.kernels.sample_kernel", "ops.kernels.sparse_attention",
+    "serving.engine", "serving.server", "training.optim", "training.trainer")}
 import multimodal_vae_comparison_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
@@ -44,7 +45,7 @@ sys.exit(1 if bad or missing else 0)
 
 
 def test_port_imports_no_jax_no_jax_package_and_no_triton():
-    """Every module of the port (the training slice's among them), and
+    """Every module of the port (the training and video slices' among them), and
     chip_smoke.py, imported in a fresh process with no nvcc reachable: none
     pulls in jax, flax, optax, triton or the JAX package, and none starts a
     process (an nvcc build) at import."""
