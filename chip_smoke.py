@@ -49,6 +49,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # tensor cores; bound_ms is the larger of bytes / rate and flop / rate
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOP_PER_S = 67e12
+# dense TF32 rate of the tensor cores: the second bound of a kernel that
+# runs its fp32 products there as three TF32 products each
+PEAK_TF32_FLOP_PER_S = 495e12
 
 ATTN_RTOL, ATTN_ATOL = 2e-4, 2e-5   # as the reference's Pallas attention test
 POE_RTOL, POE_ATOL = 1e-5, 1e-6     # elementwise fp32, one reduction over E
@@ -234,18 +237,38 @@ def attention_inputs(g: torch.Generator, b, h, tq, tk, dh, masked: bool):
 
 def phase_parity():
     from multimodal_vae_comparison_tpu_torch.ops.kernels import attention, poe_kernel
+    from multimodal_vae_comparison_tpu_torch.ops.kernels import telemetry
     g = torch.Generator(device="cuda").manual_seed(0)
-    for shape, masked in (((128, 2, 45, 45, 32), True),
-                          ((128, 2, 45, 1, 8), False),
-                          ((4, 2, 130, 130, 16), True)):
+    # (B, H, Tq, Tk, Dh), masked (with one fully masked row), the kernel the
+    # launcher picks.  The model's two shapes, then the key counts around a
+    # warp's 32 lanes and a lane's 1, 2, 4 and 8 keys, head widths off the
+    # 16-byte grid, few heads (split by query rows), and two heads that the
+    # resident path cannot hold (Tk > 256; K and V over the shared memory)
+    for shape, masked, variant in (((128, 2, 45, 45, 32), True, "resident"),
+                                   ((128, 2, 45, 1, 8), False, "resident"),
+                                   ((4, 2, 130, 130, 16), True, "resident"),
+                                   ((3, 2, 9, 1, 8), True, "resident"),
+                                   ((3, 2, 9, 31, 6), True, "resident"),
+                                   ((3, 2, 9, 32, 6), False, "resident"),
+                                   ((3, 2, 9, 33, 6), True, "resident"),
+                                   ((2, 2, 45, 45, 5), False, "resident"),
+                                   ((2, 3, 50, 200, 32), True, "resident"),
+                                   ((2, 2, 9, 33, 128), False, "resident"),
+                                   ((1, 2, 1000, 45, 32), True, "resident"),
+                                   ((2, 2, 20, 1000, 16), True, "chunked"),
+                                   ((2, 2, 20, 256, 128), True, "chunked")):
         q, k, v, mask = attention_inputs(g, *shape, masked)
+        telemetry.reset()
         got = attention.masked_attention(q, k, v, mask)
+        took = telemetry.variants()
         want = attention.attention_reference(q, k, v, mask)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
         ok = torch.allclose(got, want, rtol=ATTN_RTOL, atol=ATTN_ATOL)
-        print(f"parity attention {shape} mask={masked}: max_abs_err={err:.3e} "
+        print(f"parity attention {shape} mask={masked} [{variant}]: max_abs_err={err:.3e} "
               f"(rtol {ATTN_RTOL}, atol {ATTN_ATOL})")
+        check(took == {f"attention:{variant}": 1},
+              f"attention at {shape} launched {took}, expected the {variant} kernel")
         check(ok, f"attention kernel disagrees with its plain version at {shape}")
         if masked:
             uniform = v[0].mean(dim=1, keepdim=True).expand_as(got[0])
@@ -584,7 +607,7 @@ def phase_train_times(card):
                   "attention_bwd_bound_ms": bwd_bound, "attention_bwd_bound_by": bwd_by}
 
 
-PROFILE_SYMBOLS = {"masked_attention": "masked_attention_fwd", "poe_fused": "poe_fwd",
+PROFILE_SYMBOLS = {"masked_attention": "masked_attention_", "poe_fused": "poe_fwd",
                    "kl_normal_std_fused": "kl_std_fwd", "sparse_fwd": "sparse_fwd",
                    "sparse_dq": "sparse_dq", "sparse_dkv": "sparse_dkv"}
 
@@ -646,10 +669,21 @@ def phase_train_profile(card, steps: int = 10):
 
 
 def phase_times(engine, card):
+    import ctypes
+    import math
     import torch.nn.functional as F
-    from multimodal_vae_comparison_tpu_torch.ops.kernels import attention, poe_kernel
+    from multimodal_vae_comparison_tpu_torch.ops.kernels import _build, attention, poe_kernel
     g = torch.Generator(device="cuda").manual_seed(3)
     rows = []
+    # two yardsticks that csrc/attention.cu exports and the port never calls:
+    # an empty kernel with the attention launch's grid, block and shared
+    # memory, and the chunked kernel at a shape the launcher gives the
+    # resident one
+    empty = _build.function("attention", "empty_launch",
+                            [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    chunked = _build.function("attention", "masked_attention_forward_chunked",
+                              [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                              + [ctypes.c_float, ctypes.c_void_p])
     # attention at bucket 128: encoder self-attention (masked), decoder
     # cross-attention (Tk = 1, no mask)
     for label, shape, masked in (("encoder", (128, 2, 45, 45, 32), True),
@@ -661,6 +695,28 @@ def phase_times(engine, card):
         plain = graph_ms(lambda: attention.attention_reference(q, k, v, mask))
         lib = graph_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=sdpa_mask))
         kern_eager = eager_ms(lambda: attention.masked_attention(q, k, v, mask))
+        stream = torch.cuda.current_stream
+
+        def launch_empty():
+            _build.check("attention", empty(b, h, tq, tk, dh, stream().cuda_stream))
+
+        scratch = torch.empty_like(q)
+
+        def launch_chunked():
+            _build.check("attention", chunked(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                None if mask is None else mask.data_ptr(), scratch.data_ptr(),
+                b, h, tq, tk, dh, 1.0 / math.sqrt(dh), stream().cuda_stream))
+
+        floor = graph_ms(launch_empty)
+        chunked_ms = graph_ms(launch_chunked)
+        check(torch.allclose(scratch, attention.attention_reference(q, k, v, mask),
+                             rtol=ATTN_RTOL, atol=ATTN_ATOL),
+              f"the chunked attention kernel disagrees with the plain version at {shape}")
+        kern_again = graph_ms(lambda: attention.masked_attention(q, k, v, mask))
+        print(f"time masked_attention [{label} {shape}]: resident kernel {kern:.5f} and "
+              f"{kern_again:.5f} ms, chunked kernel {chunked_ms:.5f} ms, SDPA {lib:.5f} ms, an "
+              f"empty kernel launched the same way {floor:.5f} ms on {card}")
         nbytes = 4 * (2 * b * h * tq * dh + 2 * b * h * tk * dh) + (b * tk if masked else 0)
         flops = 4 * b * h * tq * tk * dh + 4 * b * h * tq * tk
         bound, by = bound_ms(nbytes, flops)
@@ -672,7 +728,8 @@ def phase_times(engine, card):
                      "replaces": "multimodal_vae_comparison_tpu/ops/pallas/attention.py:77",
                      "max_abs_err": err,
                      "ms": kern, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
-                     "library_ms": lib, "eager_ms": kern_eager})
+                     "library_ms": lib, "eager_ms": kern_eager,
+                     "empty_launch_ms": floor, "chunked_kernel_ms": chunked_ms})
     for e in (2, 1):
         mus = torch.randn(e, 128, N_LATENTS, generator=g, device="cuda")
         scales = torch.rand(e, 128, N_LATENTS, generator=g, device="cuda") + 0.3
@@ -746,15 +803,29 @@ def phase_sparse_parity():
     through the public entry; the launcher only gives the lse, which the
     entry keeps to itself."""
     from multimodal_vae_comparison_tpu_torch.ops.kernels import sparse_attention as sp
+    from multimodal_vae_comparison_tpu_torch.ops.kernels import telemetry
     g = torch.Generator(device="cuda").manual_seed(20)
     worst = 0.0
-    for shape, block, stride in ((SPARSE_ENC, SPARSE_BLOCK, SPARSE_STRIDE),
-                                 (SPARSE_DEC, SPARSE_BLOCK, SPARSE_STRIDE),
-                                 ((2, 2, 64, 8, ), 8, 2), ((2, 1, 96, 8), 8, 3),
-                                 ((1, 2, 128, 64), 16, 4), ((3, 1, 256, 32), 128, 1),
-                                 ((2, 3, 40, 12), 8, 3), ((2, 2, 128, 32), 128, 4)):
+    # (B, H, T, Dh), block, stride, the forward kernel the launcher picks:
+    # the model's two shapes; block 16, 64 and 128 at stride 1 and 4 and Dh
+    # 8, 32 and 64 on the tensor cores, with T = one block, a block that is
+    # not a multiple of 32 and a Dh that is padded; and the shapes that fall
+    # to the FMA kernel (block 8, Dh off the 16-byte grid)
+    for shape, block, stride, variant in (
+            (SPARSE_ENC, SPARSE_BLOCK, SPARSE_STRIDE, "mma"),
+            (SPARSE_DEC, SPARSE_BLOCK, SPARSE_STRIDE, "mma"),
+            ((1, 2, 128, 64), 16, 4, "mma"), ((3, 1, 256, 32), 128, 1, "mma"),
+            ((2, 2, 128, 32), 128, 4, "mma"), ((2, 2, 256, 8), 64, 1, "mma"),
+            ((2, 1, 512, 16), 64, 4, "mma"), ((1, 2, 1024, 64), 128, 4, "mma"),
+            ((2, 2, 320, 32), 80, 2, "mma"), ((1, 2, 160, 12), 16, 3, "mma"),
+            ((2, 2, 64, 8, ), 8, 2, "fma"), ((2, 1, 96, 8), 8, 3, "fma"),
+            ((2, 3, 40, 12), 8, 3, "fma"), ((2, 2, 96, 6), 16, 2, "fma")):
         q, k, v, d_out = (torch.randn(shape, generator=g, device="cuda") for _ in range(4))
+        telemetry.reset()
         out = sp.strided_block_sparse_attention(q, k, v, block, stride)
+        took = telemetry.variants()
+        check(took == {f"sparse_attention:{variant}": 1},
+              f"sparse forward at {shape} launched {took}, expected the {variant} kernel")
         _, lse = sp._launch_forward(q, k, v, block, stride)
         want = sp.sparse_attention_reference(q, k, v, block, stride)
         visible = sp.visibility(shape[2], block, stride, "cuda")
@@ -764,12 +835,18 @@ def phase_sparse_parity():
         torch.cuda.synchronize()
         err = max((out - want).abs().max().item(), (lse - want_lse).abs().max().item())
         worst = max(worst, err)
-        print(f"parity sparse attention {shape} block {block} stride {stride}: forward "
-              f"max_abs_err={err:.3e} (rtol {SPARSE_RTOL}, atol {SPARSE_ATOL})")
+        # the largest error as a share of what the tolerance allows it
+        share = ((out - want).abs() / (SPARSE_ATOL + SPARSE_RTOL * want.abs())).max().item()
+        print(f"parity sparse attention {shape} block {block} stride {stride} [{variant}]: "
+              f"forward max_abs_err={err:.3e}, {share:.3f} of its limit (rtol {SPARSE_RTOL}, "
+              f"atol {SPARSE_ATOL})")
         check(torch.allclose(out, want, rtol=SPARSE_RTOL, atol=SPARSE_ATOL)
               and torch.allclose(lse, want_lse, rtol=SPARSE_RTOL, atol=SPARSE_ATOL),
               f"sparse forward disagrees with its plain version at {shape}")
-        del out, lse, want, want_lse
+        again, lse_again = sp._launch_forward(q, k, v, block, stride)
+        check(torch.equal(again, out) and torch.equal(lse_again, lse),
+              f"two runs of the sparse forward differ at {shape}")
+        del out, lse, want, want_lse, again, lse_again
         _grad_parity(f"sparse attention {shape} block {block} stride {stride}",
                      lambda q_, k_, v_: sp.strided_block_sparse_attention(
                          q_, k_, v_, block, stride),
@@ -934,8 +1011,10 @@ def phase_video_times(card):
     sample times are the public entry's; the backward is timed whole (the
     Function's backward: delta, dk/dv, dq) and each of its two kernels
     through its launcher, since the entry launches them together."""
+    import ctypes
     import types
     import torch.nn.functional as F
+    from multimodal_vae_comparison_tpu_torch.ops.kernels import _build
     from multimodal_vae_comparison_tpu_torch.ops.kernels import sample_kernel as sk
     from multimodal_vae_comparison_tpu_torch.ops.kernels import sparse_attention as sp
     from multimodal_vae_comparison_tpu_torch.training.optim import make_optimizer
@@ -946,6 +1025,10 @@ def phase_video_times(card):
     ref = "multimodal_vae_comparison_tpu/ops/pallas/sparse_attention.py"
     block, stride = SPARSE_BLOCK, SPARSE_STRIDE
     rows = []
+    # the fp32 FMA forward at the shapes the launcher gives the tensor-core
+    # kernel: exported as a yardstick, never called by the port at these
+    fma_forward = _build.function("sparse_attention", "sparse_attention_forward_fma",
+                                  sp._FWD_ARGTYPES[:-1])
     for label, shape in (("decoder", SPARSE_DEC), ("encoder", SPARSE_ENC)):
         b, h, t, dh = shape
         q, k, v, d_out = (torch.randn(shape, generator=g, device="cuda") for _ in range(4))
@@ -967,8 +1050,20 @@ def phase_video_times(card):
             return torch.autograd.grad(
                 sp.sparse_attention_reference(*leaves, block, stride), leaves, d_out)
 
+        fma_out, fma_lse = torch.empty_like(out), torch.empty_like(lse)
+
+        def fma():
+            _build.check("sparse_attention", fma_forward(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), fma_out.data_ptr(),
+                fma_lse.data_ptr(), *sp._shape_args(q, block, stride)))
+
         few = dict(reps=5, replays=4)
         fwd = graph_ms(entry, **few)
+        fwd_fma = graph_ms(fma, **few)
+        fwd_again = graph_ms(entry, **few)
+        check(torch.allclose(fma_out, out, rtol=SPARSE_RTOL, atol=SPARSE_ATOL)
+              and torch.allclose(fma_lse, lse, rtol=SPARSE_RTOL, atol=SPARSE_ATOL),
+              f"the two sparse forward kernels disagree at {shape}")
         bwd = graph_ms(entry_bwd, **few)
         dq = graph_ms(lambda: sp._launch_dq(*args), **few)
         dkv = graph_ms(lambda: sp._launch_dkv(*args), **few)
@@ -994,6 +1089,12 @@ def phase_video_times(card):
         del want_g, got_dq, got_dk, got_dv
         pairs, cells = sparse_work(t, block, stride)
         n, n_rows = b * h * t * dh, b * h * t
+        # the forward's second bound, for the unit it runs on: three TF32
+        # MMAs per fp32 product at the tensor cores' dense TF32 rate
+        tensor_bound = 3 * b * h * cells * 4 * dh / PEAK_TF32_FLOP_PER_S * 1e3
+        print(f"time sparse forward [{label} {shape}]: tensor-core kernel {fwd:.5f} and "
+              f"{fwd_again:.5f} ms, fp32 FMA kernel {fwd_fma:.5f} ms, bound of 3 TF32 MMAs "
+              f"per product at 495 TFLOP/s {tensor_bound:.6f} ms on {card}")
         for name, line, ms, eager, err, plain_ms, lib_ms, nbytes, flop_per_cell in (
                 ("strided_block_sparse_attention", 165, fwd, fwd_eager, err_fwd, plain, lib,
                  4 * (4 * n + n_rows), 4 * dh),
@@ -1007,13 +1108,14 @@ def phase_video_times(card):
                          "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                          "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
                          "eager_ms": eager, "live_block_pairs_per_head": pairs})
+        rows[-3].update(fma_kernel_ms=fwd_fma, tensor_bound_ms=tensor_bound)
         # the whole backward as the Function runs it, beside its two kernels
         for r in rows[-2:]:
             r.update(backward_ms=bwd, backward_eager_ms=bwd_eager)
         print(f"time sparse attention backward [{label} {shape}]: {bwd:.5f} ms (eager "
               f"{bwd_eager:.5f}): delta, dk/dv and dq as the Function launches them, "
               f"on {card}")
-        del q, k, v, d_out, out, lse, delta, args, ctx
+        del q, k, v, d_out, out, lse, delta, args, ctx, fma_out, fma_lse
         torch.cuda.empty_cache()
     for shape in ((VIDEO_K, VIDEO_BATCH, VIDEO_LATENTS), (1 << 20,)):
         mu = torch.randn(shape, generator=g, device="cuda")
@@ -1106,16 +1208,18 @@ def main() -> int:
         entry = name
         for line in log.splitlines():
             found = re.search(r"Compiling entry function '\w*?cu_[0-9a-f]{8}\d+"
-                              r"([A-Za-z_]+?)(?:ILi(\d+)E)?E", line)
+                              r"([A-Za-z_]+?)(?:I((?:Li\d+E)+))?E", line)
             if found:
-                entry = found.group(1) + (f"<{found.group(2)}>" if found.group(2) else "")
+                params = ", ".join(re.findall(r"\d+", found.group(2) or ""))
+                entry = found.group(1) + (f"<{params}>" if params else "")
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name} {entry}: {line.strip()}")
 
     tile = 4 * SPARSE_BLOCK * VIDEO_DH   # the kernels size their shared memory at launch
     print(f"  sparse_attention dynamic shared memory at block {SPARSE_BLOCK}, Dh "
-          f"{VIDEO_DH}: {2 * tile} B (sparse_fwd, sparse_dq), "
-          f"{2 * tile + 8 * SPARSE_BLOCK} B (sparse_dkv)")
+          f"{VIDEO_DH}: {4 * 4 * SPARSE_BLOCK * (VIDEO_DH + 4)} B (sparse_fwd_mma: two stages "
+          f"of a K and a V tile, rows padded by 4 floats), {2 * tile} B (sparse_fwd, "
+          f"sparse_dq), {2 * tile + 8 * SPARSE_BLOCK} B (sparse_dkv)")
 
     # 3. kernel parity: forwards, then the Functions' backwards
     phase_parity()

@@ -1,5 +1,5 @@
-// Strided block-sparse causal self-attention for Hopper (sm_90a), fp32:
-// forward (with the row log-sum-exp), dq, and dk/dv.
+// Strided block-sparse causal self-attention for Hopper (sm_90a), fp32 in
+// and out: forward (with the row log-sum-exp), dq, and dk/dv.
 //
 // Replaces the Pallas TPU kernels of
 // multimodal_vae_comparison_tpu/ops/pallas/sparse_attention.py:
@@ -14,26 +14,56 @@
 //
 // What bounds it on the card: at T = 2048, block 128, stride 4, Dh 32 a
 // head has 40 live block pairs of 256 and each pair costs 4 * 128 * 128 * Dh
-// FLOP against 32 KiB of K and V, about 128 FLOP per byte: the forward is
-// bound by fp32 operations, and so are the backward kernels (6 and 8
-// * 128 * 128 * Dh FLOP per pair).  No tensor cores: the products are fp32.
+// FLOP against 32 KiB of K and V, about 128 FLOP per byte: all three kernels
+// are bound by operations (the backward kernels do 6 and 8 * 128 * 128 * Dh
+// FLOP per pair).  In fp32 FMAs that bound is the card's 67 TFLOP/s.
 //
-// Design (the TPU grid is not carried over: it walks (bh, query block, live
-// slot) in order with the running state in scratch between steps).  Here
-// one thread block owns one (batch*head, query block) -- for dk/dv one
-// (batch*head, key block) -- and loops over its live blocks itself.  The
-// live set needs no table: key block j is live for query block i iff
-// j <= i and (i - j) % stride == 0, walked in increasing j, diagonal last.
-// One thread owns one row: its q (or k, v) row, the running max and sum and
-// its Dh accumulators stay in registers; the other side's tiles are staged
-// through shared memory (two tiles of block x Dh) and read as float4
-// broadcasts, every thread of a warp on the same address.  The diagonal
-// mask is added as -1e30 like the TPU kernel does, so control flow stays
-// uniform.  dk/dv accumulate in registers and are written once: no atomics,
-// so the result is deterministic.  Dh is padded to DHP in {4,8,16,32,64}
-// (zeros) so that the inner loops unroll; block <= 128 rows per tile.
+// The TPU grid is not carried over: it walks (bh, query block, live slot)
+// in order with the running state in scratch between steps.  Here a thread
+// block owns its query rows (for dk/dv its key rows) and loops over its live
+// blocks itself.  The live set needs no table: key block j is live for
+// query block i iff j <= i and (i - j) % stride == 0, walked in increasing
+// j, diagonal last.
+//
+// Forward, sparse_fwd_mma (block a multiple of 16, Dh a multiple of 4 and
+// >= 8, 16-byte aligned inputs).  The two products run on the tensor cores
+// at fp32-grade accuracy: mma.sync m16n8k8 TF32 with the 3xTF32 split,
+// x = hi + lo, a b ~ lo_a hi_b + hi_a lo_b + hi_a hi_b, fp32 accumulate (a
+// single TF32 pass keeps three digits and misses the tolerance the model
+// trains at).  A thread block is 4 warps; a warp owns two row tiles of 16
+// query rows (one for Dh 64 and block 16), so that every K and V fragment it
+// reads and splits feeds six MMAs.  Its Q fragments (scaled by log2(e) /
+// sqrt(Dh), split once) stay in registers.  K and V tiles go through a
+// two-stage ring in shared memory filled by cp.async, the next live tile
+// loading under the current one's math; rows are padded by 4 floats, which
+// makes both the K^T and the V fragment reads conflict-free.  Keys are taken
+// 32 at a time: S = Q K^T, the online softmax in base 2 (one ex2 per score)
+// with row max over the quad by shuffles and the row sum reduced once at the
+// end, then O = alpha O + P V with P straight from the accumulators: the A
+// operand's columns are taken as the keys 2t, 2t + 1 that thread t already
+// holds, and V's rows are read in the same order, so no shuffle is needed.
+// The tensor core truncates toward zero each time it accumulates, and such
+// one-sided errors add up along a row instead of averaging out (the video
+// model's gradients felt 12 chained MMAs per score and 48 per 32 keys of
+// output).  So the hi hi terms run in chains of Dh / 8 (scores) and 4 (a
+// chunk's P V) MMAs from zero, the cross terms in accumulators of their own,
+// and the pieces are added in fp32 with rounding.  On the diagonal tile a
+// warp stops at its own last row and masks the one partly visible chunk with
+// -1e30.  Heavy query blocks are scheduled first.  No atomics: reruns are
+// bit-identical.
+//
+// Forward for the other shapes (sparse_fwd), dq and dk/dv: one thread owns
+// one row; its q (or k, v) row, the running max and sum and its Dh
+// accumulators stay in registers; the other side's tiles are staged through
+// shared memory (two tiles of block x Dh) and read as float4 broadcasts,
+// every thread of a warp on the same address.  The diagonal mask is added as
+// -1e30 like the TPU kernel does, so control flow stays uniform.  dk/dv
+// accumulate in registers and are written once: no atomics, so the result is
+// deterministic.  Dh is padded to DHP in {4,8,16,32,64} (zeros) so that the
+// inner loops unroll; block <= 128 rows per tile.
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
@@ -150,6 +180,307 @@ sparse_fwd(const float* __restrict__ q, const float* __restrict__ k,
   for (int d = 0; d < DHP; ++d)
     if (d < dh) orow[d] = acc[d] * inv;
   lse[row] = m + logf(denom);
+}
+
+// ---- forward on the tensor cores ------------------------------------------
+
+constexpr int MMA_WARPS = 4;     // warps per thread block, 16 * MT query rows each
+constexpr int MMA_KEYS = 32;     // keys per online-softmax step: 4 n-tiles of 8
+constexpr int MMA_PAD = 4;       // floats added to a shared-memory row
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// 2^x in one instruction; 0 for -inf and for the -1e30 of a masked pair
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// x = hi + lo: hi is x rounded to TF32 (10 mantissa bits), lo the exact
+// remainder, of which the tensor core reads the leading 10 bits
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// c (16 x 8) += a (16 x 8, row) b (8 x 8, col).  Thread (g = lane / 4,
+// t = lane % 4) holds a[0..3] = A[g][t], A[g+8][t], A[g][t+4], A[g+8][t+4];
+// b0, b1 = B[t][g], B[t+4][g]; c[0..3] = C[g][2t], C[g][2t+1], C[g+8][2t],
+// C[g+8][2t+1].
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// big[m][n] + small[m][n] += a[m] b[n] for M x N independent accumulator
+// pairs at fp32-grade accuracy: big takes the hi hi term, small the two
+// cross terms.  b[n] = (b0[n], b1[n]) is split here, once for all M row
+// tiles, and each term runs over all accumulators before the next, so that
+// consecutive MMAs do not wait for each other.  The tensor core truncates
+// where it accumulates, each time toward zero, and along a row of the
+// attention matrix those errors do not average out; so the chains on big
+// are kept short (the caller starts from zero every few MMAs and adds the
+// pieces up in fp32 with rounding), and small, 2^-11 of the size, may run on.
+template <int M, int N>
+__device__ __forceinline__ void mma_3xtf32(float (&big)[M][N][4], float (&small)[M][N][4],
+                                           const uint32_t (&a_hi)[M][4],
+                                           const uint32_t (&a_lo)[M][4],
+                                           const float (&b0)[N], const float (&b1)[N]) {
+  uint32_t b0_hi[N], b0_lo[N], b1_hi[N], b1_lo[N];
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    split_tf32(b0[n], b0_hi[n], b0_lo[n]);
+    split_tf32(b1[n], b1_hi[n], b1_lo[n]);
+  }
+#pragma unroll
+  for (int m = 0; m < M; ++m)
+#pragma unroll
+    for (int n = 0; n < N; ++n) mma_tf32(small[m][n], a_lo[m], b0_hi[n], b1_hi[n]);
+#pragma unroll
+  for (int m = 0; m < M; ++m)
+#pragma unroll
+    for (int n = 0; n < N; ++n) mma_tf32(small[m][n], a_hi[m], b0_lo[n], b1_lo[n]);
+#pragma unroll
+  for (int m = 0; m < M; ++m)
+#pragma unroll
+    for (int n = 0; n < N; ++n) mma_tf32(big[m][n], a_hi[m], b0_hi[n], b1_hi[n]);
+}
+
+// rows x dh floats at g -> rows x (DHP + MMA_PAD) at s by 16-byte async
+// copies; the units past dh are zeros
+template <int DHP>
+__device__ __forceinline__ void stage_tile_async(float* s, const float* __restrict__ g,
+                                                 int rows, int dh) {
+  constexpr int UNITS = DHP / 4;
+  for (int idx = threadIdx.x; idx < rows * UNITS; idx += blockDim.x) {
+    const int r = idx / UNITS, c = 4 * (idx % UNITS);
+    float* dst = s + r * (DHP + MMA_PAD) + c;
+    if (c < dh) cp_async16(dst, g + (size_t)r * dh + c);
+    else *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+// A warp owns MT row tiles of 16 query rows, a thread block 4 warps.
+// grid (batch*heads, (T / block) * ceil(block / (64 * MT))), 32 * min(4,
+// ceil(block / (16 * MT))) threads; dynamic shared memory 4 * block *
+// (DHP + 4) floats (two stages of a K and a V tile).  block % 16 == 0,
+// dh % 4 == 0, 8 <= dh <= DHP.
+template <int DHP, int MT>
+__global__ void __launch_bounds__(MMA_WARPS * 32)
+sparse_fwd_mma(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, float* __restrict__ o,
+               float* __restrict__ lse, int t, int dh, int block, int stride,
+               float sm_scale) {
+  constexpr int KS = DHP / 8;            // k-steps of q k^T = n-tiles of p v
+  constexpr int LD = DHP + MMA_PAD;
+  constexpr int NT = MMA_KEYS / 8;       // n-tiles of q k^T = k-steps of p v
+  constexpr int WARP_ROWS = 16 * MT, BLOCK_ROWS = MMA_WARPS * WARP_ROWS;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int tile = block * LD;           // floats of one staged tile
+
+  const int nsub = (block + BLOCK_ROWS - 1) / BLOCK_ROWS;
+  const int y = gridDim.y - 1 - blockIdx.y;   // late (heavy) query blocks first
+  const int i = y / nsub, sub = y - i * nsub;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tg = lane & 3;
+  const int r0 = sub * BLOCK_ROWS + warp * WARP_ROWS;  // the warp's first row in the block
+  const bool active = r0 < block;
+  const size_t head = (size_t)blockIdx.x * t * dh;
+  const size_t row0 = (size_t)blockIdx.x * t + (size_t)i * block + r0;
+
+  const int first = i % stride, n_tiles = i / stride + 1;
+  stage_tile_async<DHP>(smem, k + head + (size_t)first * block * dh, block, dh);
+  stage_tile_async<DHP>(smem + tile, v + head + (size_t)first * block * dh, block, dh);
+  cp_async_commit();
+
+  // q fragments, scaled so that the scores are base-2 logits, split once;
+  // a row tile past the block's end (block % 32 == 16) holds zeros
+  uint32_t q_hi[KS][MT][4], q_lo[KS][MT][4];
+  float acc[MT][KS][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = ks * 8 + tg + (e >> 1) * 4;
+        const int row = mt * 16 + g + (e & 1) * 8;
+        const float x = (r0 + row < block && col < dh)
+            ? q[(row0 + row) * dh + col] * (sm_scale * LOG2E) : 0.f;
+        split_tf32(x, q_hi[ks][mt][e], q_lo[ks][mt][e]);
+        acc[mt][ks][e] = 0.f;
+      }
+  float m[MT][2], l[MT][2];   // rows g and g + 8 of each row tile
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    m[mt][0] = m[mt][1] = NEG_INF;
+    l[mt][0] = l[mt][1] = 0.f;
+  }
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int j = first + kt * stride;
+    if (kt + 1 < n_tiles) {   // the next live tile loads under this one's math
+      float* next = smem + ((kt + 1) & 1) * 2 * tile;
+      stage_tile_async<DHP>(next, k + head + (size_t)(j + stride) * block * dh, block, dh);
+      stage_tile_async<DHP>(next + tile, v + head + (size_t)(j + stride) * block * dh,
+                            block, dh);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (active) {
+      const float* ks_tile = smem + (kt & 1) * 2 * tile;
+      const float* vs_tile = ks_tile + tile;
+      const bool diag = j == i;
+      // on the diagonal no key after this warp's last row is visible
+      const int key_end = diag ? min(block, r0 + WARP_ROWS) : block;
+      for (int key0 = 0; key0 < key_end; key0 += MMA_KEYS) {
+        // n-tiles past key_end (the diagonal's masked keys, or the end of a
+        // block that is not a multiple of 32) read the last valid one again
+        // and are set to -inf below
+        const int nt_valid = min(NT, (key_end - key0) >> 3);
+        const float* kp[NT];
+        float s[MT][NT][4], s_small[MT][NT][4];
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          kp[nt] = ks_tile + (key0 + min(nt, nt_valid - 1) * 8 + g) * LD + tg;
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[mt][nt][e] = s_small[mt][nt][e] = 0.f;
+        }
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+          float b0[NT], b1[NT];
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            b0[nt] = kp[nt][ks * 8];
+            b1[nt] = kp[nt][ks * 8 + 4];
+          }
+          mma_3xtf32<MT, NT>(s, s_small, q_hi[ks], q_lo[ks], b0, b1);
+        }
+        const bool masked = diag && key0 + MMA_KEYS - 1 > r0;   // some key > some row
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int key = key0 + nt * 8 + 2 * tg + (e & 1);
+              const int row = r0 + mt * 16 + g + (e >> 1) * 8;
+              s[mt][nt][e] += s_small[mt][nt][e];
+              if (nt >= nt_valid) s[mt][nt][e] = -INFINITY;
+              else if (masked && key > row) s[mt][nt][e] = NEG_INF;
+            }
+        float alpha[MT][2];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {   // rows g and g + 8
+            float mx = -INFINITY;
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt)
+              mx = fmaxf(mx, fmaxf(s[mt][nt][2 * h], s[mt][nt][2 * h + 1]));
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+            const float m_new = fmaxf(m[mt][h], mx);
+            alpha[mt][h] = ex2(m[mt][h] - m_new);
+            m[mt][h] = m_new;
+            l[mt][h] *= alpha[mt][h];
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+              for (int e = 2 * h; e < 2 * h + 2; ++e) {
+                s[mt][nt][e] = ex2(s[mt][nt][e] - m_new);
+                l[mt][h] += s[mt][nt][e];   // this thread's share; the quad sums at the end
+              }
+          }
+        // o = alpha o + p v, the chunk's p v summed from zero.  The A
+        // operand's columns t, t + 4 are taken as the keys 2t, 2t + 1 this
+        // thread holds, and V's rows are read in that order.  p is 0 past
+        // nt_valid, where V's last valid rows are read again.
+        float pv[MT][KS][4], pv_small[MT][KS][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) pv[mt][ks][e] = pv_small[mt][ks][e] = 0.f;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          uint32_t p_hi[MT][4], p_lo[MT][4];
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            split_tf32(s[mt][nt][0], p_hi[mt][0], p_lo[mt][0]);
+            split_tf32(s[mt][nt][2], p_hi[mt][1], p_lo[mt][1]);
+            split_tf32(s[mt][nt][1], p_hi[mt][2], p_lo[mt][2]);
+            split_tf32(s[mt][nt][3], p_hi[mt][3], p_lo[mt][3]);
+          }
+          const float* vp = vs_tile + (key0 + min(nt, nt_valid - 1) * 8 + 2 * tg) * LD + g;
+          float b0[KS], b1[KS];
+#pragma unroll
+          for (int ks = 0; ks < KS; ++ks) {
+            b0[ks] = vp[ks * 8];
+            b1[ks] = vp[LD + ks * 8];
+          }
+          mma_3xtf32<MT, KS>(pv, pv_small, p_hi, p_lo, b0, b1);
+        }
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              acc[mt][ks][e] = fmaf(acc[mt][ks][e], alpha[mt][e >> 1],
+                                    pv[mt][ks][e] + pv_small[mt][ks][e]);
+      }
+    }
+    __syncthreads();   // the stage is free for the tile after the next
+  }
+
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float sum = l[mt][h];
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      const int r = mt * 16 + g + 8 * h;
+      if (r0 + r < block) {
+        const float denom = fmaxf(sum, 1e-30f);
+        const float inv = 1.f / denom;
+        const size_t row = row0 + r;
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+          const int col = ks * 8 + 2 * tg;
+          if (col < dh)
+            *reinterpret_cast<float2*>(o + row * dh + col) =
+                make_float2(acc[mt][ks][2 * h] * inv, acc[mt][ks][2 * h + 1] * inv);
+        }
+        if (tg == 0) lse[row] = (m[mt][h] + log2f(denom)) * LN2;
+      }
+    }
 }
 
 // grid (batch*heads, T / block), `block` threads
@@ -272,6 +603,30 @@ cudaError_t launch_fwd(const float* q, const float* k, const float* v, float* o,
   return cudaGetLastError();
 }
 
+// whether the tensor-core forward takes the shape: else sparse_fwd does
+bool mma_takes(const void* q, const void* k, const void* v, const void* o, int t,
+               int dh, int block) {
+  const uintptr_t bits = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o;
+  return block % 16 == 0 && dh >= 8 && dh % 4 == 0 && bits % 16 == 0
+         && (long long)(t / block) * ((block + 63) / 64) <= 65535;
+}
+
+template <int DHP, int MT>
+cudaError_t launch_fwd_mma(const float* q, const float* k, const float* v, float* o,
+                           float* lse, int bh, int t, int dh, int block, int stride,
+                           float sm_scale, cudaStream_t stream) {
+  const size_t smem = 4 * (size_t)block * (DHP + MMA_PAD) * sizeof(float);
+  cudaError_t err = allow_smem(sparse_fwd_mma<DHP, MT>, smem);
+  if (err != cudaSuccess) return err;
+  const int warp_rows = 16 * MT, block_rows = MMA_WARPS * warp_rows;
+  const int nsub = (block + block_rows - 1) / block_rows;
+  const int row_tiles = (block + warp_rows - 1) / warp_rows;
+  const int warps = row_tiles < MMA_WARPS ? row_tiles : MMA_WARPS;
+  sparse_fwd_mma<DHP, MT><<<dim3(bh, (t / block) * nsub), 32 * warps, smem, stream>>>(
+      q, k, v, o, lse, t, dh, block, stride, sm_scale);
+  return cudaGetLastError();
+}
+
 template <int DHP>
 cudaError_t launch_dq(const float* q, const float* k, const float* v,
                       const float* d_out, const float* lse, const float* delta,
@@ -307,19 +662,46 @@ cudaError_t launch_dkv(const float* q, const float* k, const float* v,
 
 extern "C" {
 
-// All tensors contiguous fp32 on the device: q, k, v, o, d_out, dq, dk, dv
-// (bh, t, dh); lse, delta (bh, t).  1 <= dh <= 64, 1 <= block <= 128,
-// t % block == 0, t / block <= 65535, stride >= 1.  Each launches on
-// `stream` and returns the cudaError_t of the launch.
-int sparse_attention_forward(const void* q, const void* k, const void* v, void* o,
-                             void* lse, int bh, int t, int dh, int block,
-                             int stride, float sm_scale, void* stream) {
+// The fp32 FMA forward whatever the shape (same arguments as
+// sparse_attention_forward): what the forward falls to, and a yardstick for
+// the tensor-core kernel at the shapes that one takes.
+int sparse_attention_forward_fma(const void* q, const void* k, const void* v, void* o,
+                                 void* lse, int bh, int t, int dh, int block,
+                                 int stride, float sm_scale, void* stream) {
 #define LAUNCH(DHP)                                                          \
   launch_fwd<DHP>((const float*)q, (const float*)k, (const float*)v, (float*)o, \
                   (float*)lse, bh, t, dh, block, stride, sm_scale,           \
                   (cudaStream_t)stream)
   return (int)FOR_HEAD_DIM(dh, LAUNCH);
 #undef LAUNCH
+}
+
+// All tensors contiguous fp32 on the device: q, k, v, o, d_out, dq, dk, dv
+// (bh, t, dh); lse, delta (bh, t).  1 <= dh <= 64, 1 <= block <= 128,
+// t % block == 0, t / block <= 65535, stride >= 1.  Each launches on
+// `stream` and returns the cudaError_t of the launch.  The forward picks its
+// kernel by shape and writes which to *variant: 0 sparse_fwd_mma (tensor
+// cores), 1 sparse_fwd (fp32 FMAs).
+int sparse_attention_forward(const void* q, const void* k, const void* v, void* o,
+                             void* lse, int bh, int t, int dh, int block,
+                             int stride, float sm_scale, void* stream, int* variant) {
+  if (mma_takes(q, k, v, o, t, dh, block)) {
+    *variant = 0;
+    // two row tiles a warp halve the splits and shared-memory reads per MMA;
+    // one where the registers (Dh 64) or the rows (block 16) do not allow two
+#define LAUNCH(DHP, MT)                                                      \
+  launch_fwd_mma<DHP, MT>((const float*)q, (const float*)k, (const float*)v, \
+                          (float*)o, (float*)lse, bh, t, dh, block, stride,  \
+                          sm_scale, (cudaStream_t)stream)
+    if (dh > 32) return (int)LAUNCH(64, 1);
+    if (block < 32)
+      return (int)(dh <= 8 ? LAUNCH(8, 1) : dh <= 16 ? LAUNCH(16, 1) : LAUNCH(32, 1));
+    return (int)(dh <= 8 ? LAUNCH(8, 2) : dh <= 16 ? LAUNCH(16, 2) : LAUNCH(32, 2));
+#undef LAUNCH
+  }
+  *variant = 1;
+  return sparse_attention_forward_fma(q, k, v, o, lse, bh, t, dh, block, stride,
+                                      sm_scale, stream);
 }
 
 int sparse_attention_dq(const void* q, const void* k, const void* v,

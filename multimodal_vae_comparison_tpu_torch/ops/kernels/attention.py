@@ -1,8 +1,11 @@
 """Masked attention forward: CUDA kernel and its plain version.
 
 Counterpart of ``ops/pallas/attention.py`` (``masked_flash_attention``).
-The kernel is ``csrc/attention.cu``; :func:`attention_reference` is the same
-function in plain PyTorch.  :func:`masked_attention` is a
+The kernels are in ``csrc/attention.cu``, whose launcher picks by shape: a
+head whose K and V fit shared memory is computed whole by one thread block
+(``"resident"``), a larger one in chunks of keys with an online softmax
+(``"chunked"``).  :func:`attention_reference` is the same function in plain
+PyTorch.  :func:`masked_attention` is a
 ``torch.autograd.Function`` whose forward launches the kernel for CUDA
 tensors and takes the plain version only for CPU tensors.  Masking is
 additive with ``NEG_INF`` per key, as in the TPU kernel, so a row whose keys
@@ -27,10 +30,12 @@ from multimodal_vae_comparison_tpu_torch.ops.kernels import _build, telemetry
 KERNEL = "attention"
 NEG_INF = -1e30
 MAX_HEAD_DIM = 128   # csrc/attention.cu MAX_DH
-_ROWS = 8            # csrc/attention.cu ROWS: query rows per block
-# masked_attention_forward(q, k, v, key_mask, out, B, H, Tq, Tk, Dh, scale, stream)
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float,
-                                                          ctypes.c_void_p]
+_ROWS = 8            # csrc/attention.cu CHUNK_ROWS: query rows per block, chunked path
+VARIANTS = ("resident", "chunked")   # csrc/attention.cu Variant
+# masked_attention_forward(q, k, v, key_mask, out, B, H, Tq, Tk, Dh, scale, stream,
+#                          &variant)
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+    ctypes.c_float, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -68,11 +73,13 @@ def _launch(q, k, v, key_mask):
     fn = _build.function(KERNEL, "masked_attention_forward", _ARGTYPES)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    variant = ctypes.c_int(-1)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
              None if key_mask is None else key_mask.data_ptr(), out.data_ptr(),
-             b, h, tq, tk, dh, 1.0 / math.sqrt(dh), stream)
+             b, h, tq, tk, dh, 1.0 / math.sqrt(dh), stream, ctypes.byref(variant))
     _build.check(KERNEL, err)
     telemetry.count_launch(KERNEL)
+    telemetry.count_variant(KERNEL, VARIANTS[variant.value])
     return out
 
 

@@ -5,7 +5,10 @@ Counterpart of ``ops/pallas/sparse_attention.py``
 attends its own block, causally masked inside, and every
 ``block_stride``-th earlier block in full.  The kernels are in
 ``csrc/sparse_attention.cu``: the forward (which also writes the row
-log-sum-exp), dq, and dk/dv.  :func:`sparse_attention_reference` is the same
+log-sum-exp), dq, and dk/dv.  The forward's launcher picks by shape between
+the tensor-core kernel (``"mma"``: 3xTF32 products at fp32-grade accuracy,
+for a block that is a multiple of 16 and Dh a multiple of 4 from 8 up) and
+the fp32 FMA kernel (``"fma"``) that takes every other shape.  :func:`sparse_attention_reference` is the same
 function in plain PyTorch, over a dense additive bias.
 
 :func:`strided_block_sparse_attention` is a ``torch.autograd.Function``.  On
@@ -35,9 +38,11 @@ KERNEL_DKV = "sparse_attention_dkv"
 NEG_INF = -1e30
 MAX_HEAD_DIM = 64   # csrc/sparse_attention.cu: widest padded head (registers)
 MAX_BLOCK = 128     # csrc/sparse_attention.cu MAX_BLOCK: rows (threads) per tile
+VARIANTS = ("mma", "fma")   # csrc/sparse_attention.cu sparse_attention_forward
 _SHAPE = [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
-# sparse_attention_forward(q, k, v, o, lse, bh, t, dh, block, stride, scale, stream)
-_FWD_ARGTYPES = [ctypes.c_void_p] * 5 + _SHAPE
+# sparse_attention_forward(q, k, v, o, lse, bh, t, dh, block, stride, scale, stream,
+#                          &variant)
+_FWD_ARGTYPES = [ctypes.c_void_p] * 5 + _SHAPE + [ctypes.POINTER(ctypes.c_int)]
 # sparse_attention_dq(q, k, v, d_out, lse, delta, dq, ...)
 _DQ_ARGTYPES = [ctypes.c_void_p] * 7 + _SHAPE
 # sparse_attention_dkv(q, k, v, d_out, lse, delta, dk, dv, ...)
@@ -134,10 +139,13 @@ def _launch_forward(q, k, v, block: int, block_stride: int):
     fn = _build.function(SOURCE, "sparse_attention_forward", _FWD_ARGTYPES)
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    variant = ctypes.c_int(-1)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             lse.data_ptr(), *_shape_args(q, block, block_stride))
+             lse.data_ptr(), *_shape_args(q, block, block_stride),
+             ctypes.byref(variant))
     _build.check(SOURCE, err)
     telemetry.count_launch(KERNEL)
+    telemetry.count_variant(KERNEL, VARIANTS[variant.value])
     return out, lse
 
 

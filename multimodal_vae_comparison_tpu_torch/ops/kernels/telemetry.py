@@ -5,7 +5,9 @@ which path it took (``"cuda"`` for a launch, ``"plain"`` for the plain
 PyTorch version on a CPU tensor) through :func:`record`, and adds one to
 its launch count, and only there, right where it launches its kernel.  A
 run that resets the counts, drives a path and reads them afterwards shows
-which kernels that path really went through.
+which kernels that path really went through.  Where a C launcher picks one
+of several kernels by shape, the wrapper also counts which one it launched
+(:func:`count_variant`), apart from the two counts above.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ from collections import Counter
 _lock = threading.Lock()
 _counts: Counter = Counter()
 _launches: Counter = Counter()
+_variants: Counter = Counter()
 
 
 def record(kernel: str, path: str) -> None:
@@ -34,6 +37,18 @@ def count_launch(kernel: str) -> None:
         _launches[kernel] += 1
 
 
+def count_variant(kernel: str, variant: str) -> None:
+    """Add one launch of the ``variant`` the C launcher of ``kernel`` picked."""
+    with _lock:
+        _variants[f"{kernel}:{variant}"] += 1
+
+
+def variants() -> dict:
+    """{kernel:variant -> launches since the last reset}."""
+    with _lock:
+        return dict(_variants)
+
+
 def launches() -> dict:
     """{kernel -> launches since the last reset}."""
     with _lock:
@@ -50,3 +65,4 @@ def reset() -> None:
     with _lock:
         _counts.clear()
         _launches.clear()
+        _variants.clear()

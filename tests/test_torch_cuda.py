@@ -62,18 +62,29 @@ def _qkv(seed, b, h, tq, tk, dh, masked, dev):
     return q, k, v, mask
 
 
-@pytest.mark.parametrize("b,h,tq,tk,dh,masked", [
-    (128, 2, 45, 45, 32, True),    # encoder self-attention, bucket 128
-    (128, 2, 45, 1, 8, False),     # decoder cross-attention
-    (4, 2, 130, 130, 16, True),    # several key chunks
-    (3, 1, 1, 7, 4, True),         # one query row
-    (2, 2, 9, 33, 128, False),     # widest head
+@pytest.mark.parametrize("b,h,tq,tk,dh,masked,variant", [
+    (128, 2, 45, 45, 32, True, "resident"),    # encoder self-attention, bucket 128
+    (128, 2, 45, 1, 8, False, "resident"),     # decoder cross-attention
+    (4, 2, 130, 130, 16, True, "resident"),    # few heads: split by query rows
+    (3, 1, 1, 7, 4, True, "resident"),         # one query row
+    (2, 2, 9, 33, 128, False, "resident"),     # widest head
+    (3, 2, 9, 1, 8, True, "resident"),         # one key, masked in one row
+    (3, 2, 9, 31, 6, True, "resident"),        # one key per lane, Dh % 4 != 0
+    (3, 2, 9, 32, 6, False, "resident"),
+    (3, 2, 9, 33, 6, True, "resident"),        # two keys per lane
+    (2, 2, 45, 45, 5, True, "resident"),
+    (2, 3, 50, 200, 32, True, "resident"),     # eight keys per lane
+    (1, 2, 1000, 45, 32, False, "resident"),   # many query rows, two heads
+    (2, 2, 20, 1000, 16, True, "chunked"),     # Tk over the resident path's 256
+    (2, 2, 20, 256, 128, True, "chunked"),     # K and V over its shared memory
+    (1, 1, 300, 300, 64, False, "chunked"),
 ])
-def test_attention_kernel_matches_plain(cuda, b, h, tq, tk, dh, masked):
+def test_attention_kernel_matches_plain(cuda, b, h, tq, tk, dh, masked, variant):
     q, k, v, mask = _qkv(7, b, h, tq, tk, dh, masked, cuda)
     telemetry.reset()
     got = tattn.masked_attention(q, k, v, mask)
     assert telemetry.launches() == {"attention": 1}
+    assert telemetry.variants() == {f"attention:{variant}": 1}
     torch.cuda.synchronize()
     torch.testing.assert_close(got, tattn.attention_reference(q, k, v, mask), **ATTN_TOL)
     if masked:
@@ -242,16 +253,23 @@ def test_poe_forward_on_the_card_matches_the_cpu(cuda):
 
 
 SPARSE_SHAPES = [
-    # b, h, t, dh, block, stride
-    (1, 2, 2048, 32, 128, 4),   # VideoGPTSparse, one clip
-    (3, 2, 256, 32, 128, 4),
-    (2, 2, 64, 8, 8, 2),
-    (2, 1, 96, 8, 8, 3),
-    (1, 2, 64, 16, 16, 1),      # every earlier block live
-    (2, 1, 128, 64, 16, 4),     # widest head
-    (1, 1, 16, 4, 4, 2),
-    (1, 3, 40, 12, 8, 3),       # Dh padded from 12 to 16
-    (2, 2, 128, 32, 128, 4),    # T = one block
+    # b, h, t, dh, block, stride, the forward kernel the launcher picks
+    (1, 2, 2048, 32, 128, 4, "mma"),   # VideoGPTSparse, one clip
+    (3, 2, 256, 32, 128, 4, "mma"),
+    (2, 2, 64, 8, 8, 2, "fma"),        # block not a multiple of 16
+    (2, 1, 96, 8, 8, 3, "fma"),
+    (1, 2, 64, 16, 16, 1, "mma"),      # every earlier block live
+    (2, 1, 128, 64, 16, 4, "mma"),     # widest head
+    (1, 1, 16, 4, 4, 2, "fma"),
+    (1, 3, 40, 12, 8, 3, "fma"),       # Dh padded from 12 to 16
+    (2, 2, 128, 32, 128, 4, "mma"),    # T = one block
+    (2, 2, 256, 8, 64, 1, "mma"),      # narrowest head of the tensor-core kernel
+    (2, 1, 512, 16, 64, 4, "mma"),
+    (1, 2, 1024, 64, 128, 4, "mma"),
+    (2, 2, 320, 32, 80, 2, "mma"),     # block not a multiple of 32: a half-empty warp
+    (1, 2, 160, 12, 16, 3, "mma"),     # Dh padded from 12 to 16, one row tile
+    (2, 2, 96, 6, 16, 2, "fma"),       # Dh off the 16-byte grid
+    (1, 2, 64, 4, 16, 2, "fma"),       # Dh under 8
 ]
 
 
@@ -261,14 +279,15 @@ def _sparse_inputs(seed, b, h, t, dh, dev):
             for _ in range(4)]
 
 
-@pytest.mark.parametrize("b,h,t,dh,block,stride", SPARSE_SHAPES)
-def test_sparse_attention_kernels_match_plain(cuda, b, h, t, dh, block, stride):
+@pytest.mark.parametrize("b,h,t,dh,block,stride,variant", SPARSE_SHAPES)
+def test_sparse_attention_kernels_match_plain(cuda, b, h, t, dh, block, stride, variant):
     """Forward (out and lse), then dq, dk, dv against autograd through the
     plain version, same inputs and upstream gradient."""
     q, k, v, d_out = _sparse_inputs(14, b, h, t, dh, cuda)
     telemetry.reset()
     out, lse = tsparse._launch_forward(q, k, v, block, stride)
     assert telemetry.launches() == {"sparse_attention": 1}
+    assert telemetry.variants() == {f"sparse_attention:{variant}": 1}
     torch.cuda.synchronize()
     torch.testing.assert_close(out, tsparse.sparse_attention_reference(q, k, v, block, stride),
                                **SPARSE_TOL)
@@ -296,6 +315,13 @@ def test_sparse_attention_kernel_is_deterministic_and_refuses_bad_input(cuda):
     again = _grads(lambda *x: tsparse.strided_block_sparse_attention(*x, 128, 4), (q, k, v), d_out)
     for a, b in zip(first, again):
         assert torch.equal(a, b)
+    # the forward alone, on the tensor cores and in fp32 FMAs (block 8)
+    for block, variant in ((128, "mma"), (64, "mma"), (8, "fma")):
+        telemetry.reset()
+        runs = [tsparse._launch_forward(q, k, v, block, 4) for _ in range(3)]
+        assert telemetry.variants() == {f"sparse_attention:{variant}": 3}
+        for out, lse in runs[1:]:
+            assert torch.equal(out, runs[0][0]) and torch.equal(lse, runs[0][1])
     with pytest.raises(TypeError):
         tsparse.strided_block_sparse_attention(q.double(), k.double(), v.double())
     with pytest.raises(ValueError):
@@ -306,6 +332,30 @@ def test_sparse_attention_kernel_is_deterministic_and_refuses_bad_input(cuda):
         tsparse.strided_block_sparse_attention(wide, wide, wide)
     with pytest.raises(ValueError):
         tsparse.strided_block_sparse_attention(q, k, v, block=256)
+
+
+def test_unaligned_inputs_take_the_kernels_that_need_no_alignment(cuda):
+    """Contiguous tensors whose storage starts 4 bytes off a 16-byte line:
+    the attention kernel stages by elements, the sparse forward falls to the
+    FMA kernel; both still match the plain versions."""
+    def off_by_one(x):
+        flat = torch.empty(x.numel() + 1, device=x.device)
+        flat[1:] = x.reshape(-1)
+        return flat[1:].view(x.shape)
+
+    q, k, v, mask = _qkv(20, 4, 2, 45, 45, 32, True, cuda)
+    q, k, v = (off_by_one(x) for x in (q, k, v))
+    assert q.data_ptr() % 16 == 4 and q.is_contiguous()
+    telemetry.reset()
+    got = tattn.masked_attention(q, k, v, mask)
+    assert telemetry.variants() == {"attention:resident": 1}
+    torch.testing.assert_close(got, tattn.attention_reference(q, k, v, mask), **ATTN_TOL)
+    q, k, v, _ = (off_by_one(x) for x in _sparse_inputs(21, 1, 2, 256, 32, cuda))
+    telemetry.reset()
+    out = tsparse.strided_block_sparse_attention(q, k, v, 64, 2)
+    assert telemetry.variants() == {"sparse_attention:fma": 1}
+    torch.testing.assert_close(out, tsparse.sparse_attention_reference(q, k, v, 64, 2),
+                               **SPARSE_TOL)
 
 
 @pytest.mark.parametrize("shape,seed", [((5, 8, 32), 0), ((1024, 1024), 7), ((7, 5), 2**40 + 3),

@@ -24,11 +24,13 @@ from multimodal_vae_comparison_tpu_torch.ops import fusion as tfusion
 from multimodal_vae_comparison_tpu_torch.ops.kernels import attention as tattn
 from multimodal_vae_comparison_tpu_torch.ops.kernels import kl_kernel as tkl
 from multimodal_vae_comparison_tpu_torch.ops.kernels import poe_kernel as tpoe
+from multimodal_vae_comparison_tpu_torch.ops.kernels import sparse_attention as tsparse
 from multimodal_vae_comparison_tpu_torch.ops.kernels import telemetry
 
 ATTN_TOL = dict(rtol=2e-4, atol=2e-5)   # as tests/test_pallas.py
 POE_TOL = dict(rtol=1e-5, atol=1e-6)    # elementwise fp32, one sum over E
 KL_TOL = dict(rtol=1e-5, atol=1e-6)     # elementwise fp32, one sum over D
+SPARSE_TOL = dict(rtol=2e-4, atol=2e-5)  # as tests/test_pallas.py, forward
 
 
 @pytest.fixture(autouse=True)
@@ -132,6 +134,37 @@ def test_attention_fully_masked_row_is_uniform(tk, block):
     np.testing.assert_allclose(got[0], uniform, **ATTN_TOL)
 
 
+@pytest.mark.parametrize("b,h,tq,tk,dh,block,mask_kind", [
+    (2, 2, 5, 1, 8, 128, None),                 # one key: every row is v[0]
+    (2, 2, 5, 1, 8, 128, "fully-masked-row"),   # ... even where it is masked
+    (2, 2, 9, 33, 6, 8, "padded"),              # one key past a warp, Dh % 4 != 0
+    (2, 2, 9, 33, 6, 128, None),
+    (2, 1, 7, 200, 32, 128, "fully-masked-row"),  # seven keys per lane
+    (1, 2, 3, 200, 5, 128, "padded"),
+])
+def test_attention_edge_shapes_match_pallas_interpret(b, h, tq, tk, dh, block, mask_kind):
+    """The key counts and head widths at which the CUDA launcher changes its
+    plan (Tk 1, one past 32, several keys per lane; Dh off the 16-byte
+    grid), through the wrapper on the CPU against the Pallas kernel."""
+    q, k, v, rng = _qkv(14, b, h, tq, tk, dh)
+    mask = None
+    if mask_kind is not None:
+        mask = rng.random((b, tk)) > 0.4
+        mask[:, 0] = True
+        if mask_kind == "fully-masked-row":
+            mask[0] = False
+    jmask = None if mask is None else jnp.asarray(mask)
+    want = jattn.masked_flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                        jmask, kv_block=block)
+    got = tattn.masked_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                 torch.from_numpy(v),
+                                 None if mask is None else torch.from_numpy(mask)).numpy()
+    np.testing.assert_allclose(got, np.asarray(want), **ATTN_TOL)
+    if mask_kind == "fully-masked-row":
+        uniform = np.broadcast_to(v[0].mean(axis=1, keepdims=True), got[0].shape)
+        np.testing.assert_allclose(got[0], uniform, **ATTN_TOL)
+
+
 def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     telemetry.reset()
     q, k, v, _ = _qkv(5, 1, 2, 3, 4, 8)
@@ -140,9 +173,12 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     tpoe.poe_fused(torch.from_numpy(mus), torch.from_numpy(scales))
     tkl.kl_normal_std_fused(torch.from_numpy(mus[0]), torch.from_numpy(scales[0]))
     assert telemetry.summary() == {"attention:plain": 1, "poe:plain": 1, "kl:plain": 1}
-    assert telemetry.launches() == {}
+    assert telemetry.launches() == {} and telemetry.variants() == {}
+    telemetry.count_variant("attention", "resident")
+    assert telemetry.variants() == {"attention:resident": 1}
     telemetry.reset()
     assert telemetry.summary() == {} and telemetry.launches() == {}
+    assert telemetry.variants() == {}
 
 
 def test_wrappers_refuse_devices_other_than_cuda_and_cpu():
@@ -252,3 +288,89 @@ def test_functions_pass_gradcheck_in_float64():
         assert torch.autograd.gradcheck(lambda m, s: tpoe.poe_fused(m, s, prior),
                                         (mus, scales))
     assert torch.autograd.gradcheck(tkl.kl_normal_std_fused, (mus[0], scales[0]))
+
+
+# -- the arithmetic of the tensor-core sparse forward -------------------------
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """fp32 cut to TF32's 10 mantissa bits by masking the low 13."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _matmul_tf32(a, b):
+    return _tf32(a) @ _tf32(b)
+
+
+def _matmul_3xtf32(a, b):
+    """x = hi + lo; lo_a hi_b + hi_a lo_b + hi_a hi_b, summed in fp32."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
+
+
+def _sparse_forward_with(matmul, q, k, v, block, stride):
+    """The sparse forward as csrc/sparse_attention.cu sparse_fwd_mma computes
+    it, with both products through ``matmul``: base-2 logits from a
+    pre-scaled q, -1e30 on the masked pairs, p = 2^(s - max), out = p v / l,
+    lse = (max + log2 l) ln 2."""
+    t, dh = q.shape[2], q.shape[3]
+    s = matmul(q * (1.4426950408889634 / dh ** 0.5), k.transpose(-1, -2))
+    s = s.masked_fill(~tsparse.visibility(t, block, stride), tsparse.NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp2(s - m)
+    l = p.sum(-1, keepdim=True)
+    return matmul(p, v) / l, ((m + torch.log2(l)) * 0.6931471805599453).squeeze(-1)
+
+
+def _plain_sparse(q, k, v, block, stride):
+    out = tsparse.sparse_attention_reference(q, k, v, block, stride)
+    logits = (q @ k.transpose(-1, -2)) / q.shape[-1] ** 0.5
+    visible = tsparse.visibility(q.shape[2], block, stride)
+    return out, torch.logsumexp(logits.masked_fill(~visible, float("-inf")), dim=-1)
+
+
+SPARSE_EMULATION_SHAPES = [(2, 2, 128, 32, 16, 4), (1, 2, 256, 32, 64, 1),
+                           (1, 1, 96, 8, 16, 2), (1, 2, 128, 64, 32, 4)]
+
+
+@pytest.mark.parametrize("b,h,t,dh,block,stride", SPARSE_EMULATION_SHAPES)
+@pytest.mark.parametrize("matmul", [torch.matmul, _matmul_3xtf32])
+def test_sparse_forward_arithmetic_meets_the_tolerance(b, h, t, dh, block, stride, matmul):
+    """The kernel's order of operations in fp32, and with each product as
+    three TF32 products of the hi/lo split, stays within the forward
+    tolerance of the plain version: what the tensor-core kernel is built on."""
+    rng = np.random.default_rng(15)
+    q, k, v = (torch.from_numpy(rng.normal(size=(b, h, t, dh)).astype(np.float32))
+               for _ in range(3))
+    want, want_lse = _plain_sparse(q, k, v, block, stride)
+    got, got_lse = _sparse_forward_with(matmul, q, k, v, block, stride)
+    torch.testing.assert_close(got, want, **SPARSE_TOL)
+    torch.testing.assert_close(got_lse, want_lse, **SPARSE_TOL)
+
+
+@pytest.mark.parametrize("b,h,t,dh,block,stride", SPARSE_EMULATION_SHAPES)
+def test_sparse_forward_in_one_tf32_pass_misses_the_tolerance(b, h, t, dh, block, stride):
+    """One TF32 product keeps three digits: the same forward with a single
+    pass per product falls outside the tolerance, which is why the kernel
+    pays for the split."""
+    rng = np.random.default_rng(15)
+    q, k, v = (torch.from_numpy(rng.normal(size=(b, h, t, dh)).astype(np.float32))
+               for _ in range(3))
+    want, _ = _plain_sparse(q, k, v, block, stride)
+    got, _ = _sparse_forward_with(_matmul_tf32, q, k, v, block, stride)
+    assert torch.isfinite(got).all()
+    assert not torch.allclose(got, want, **SPARSE_TOL)
+    err_1x = (got - want).abs().max().item()
+    err_3x = (_sparse_forward_with(_matmul_3xtf32, q, k, v, block, stride)[0]
+              - want).abs().max().item()
+    assert err_1x > 50 * err_3x
+
+
+def test_tf32_rounding_keeps_ten_mantissa_bits():
+    x = torch.tensor([1.0 + 2.0 ** -10, 1.0 + 2.0 ** -11, -3.0 - 2.0 ** -12, 0.0])
+    assert _tf32(x).tolist() == [1.0 + 2.0 ** -10, 1.0, -3.0, 0.0]
+    y = torch.from_numpy(np.random.default_rng(16).normal(size=1000).astype(np.float32))
+    hi = _tf32(y)
+    assert ((y - hi).abs() <= y.abs() * 2.0 ** -10).all()
+    assert torch.equal(hi + (y - hi), y)   # the split is exact before lo is rounded
