@@ -313,7 +313,11 @@ def _grad_parity(label, fn, plain, inputs, upstream, rtol, atol):
     want = torch.autograd.grad(plain(*want_in), want_in, upstream)
     torch.cuda.synchronize()
     err = max((a - b).abs().max().item() for a, b in zip(got, want))
-    print(f"parity backward {label}: max_abs_err={err:.3e} (rtol {rtol}, atol {atol})")
+    # the largest error as a share of what the tolerance allows it
+    share = max(((a - b).abs() / (atol + rtol * b.abs())).max().item()
+                for a, b in zip(got, want))
+    print(f"parity backward {label}: max_abs_err={err:.3e}, {share:.3f} of its limit "
+          f"(rtol {rtol}, atol {atol})")
     for a, b in zip(got, want):
         check(bool(torch.isfinite(a).all()), f"non-finite gradient in {label}")
         check(torch.allclose(a, b, rtol=rtol, atol=atol),
@@ -545,6 +549,7 @@ def phase_train_times(card):
     """The KL kernel, the attention backward at the encoder training shape,
     and the train step of each model at each batch size."""
     import types
+    import torch.nn.functional as F
     from multimodal_vae_comparison_tpu_torch.ops.kernels import attention, kl_kernel
     from multimodal_vae_comparison_tpu_torch.training.optim import make_optimizer
     from multimodal_vae_comparison_tpu_torch.training.trainer import (
@@ -581,9 +586,15 @@ def phase_train_times(card):
     # read, dq, dk, dv written
     cells = TRAIN_BATCH * 2 * SEQ_LEN * SEQ_LEN
     bwd_bound, bwd_by = bound_ms(4 * 7 * q.numel() + mask.numel(), 5 * 2 * cells * 32)
+    # the library's backward on the same inputs and key-padding mask (its
+    # one fully masked row comes out NaN there, the uniform average here)
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    sdpa_out = F.scaled_dot_product_attention(*leaves, attn_mask=mask[:, None, None, :])
+    bwd_lib = eager_ms(lambda: torch.autograd.grad(sdpa_out, leaves, d_out, retain_graph=True))
+    del leaves, sdpa_out
     print(f"time attention backward [({TRAIN_BATCH}, 2, {SEQ_LEN}, {SEQ_LEN}, 32) masked]: "
-          f"{bwd_ms:.5f} ms (eager {bwd_eager:.5f}), bound {bwd_bound:.6f} ms ({bwd_by}) "
-          f"on {card}")
+          f"{bwd_ms:.5f} ms (eager {bwd_eager:.5f}), SDPA's backward {bwd_lib:.5f} ms (eager), "
+          f"bound {bwd_bound:.6f} ms ({bwd_by}) on {card}")
     for label, mixing, obj in training_models():
         model = build_model(flagship_specs(), mixing, N_LATENTS, obj=obj, seed=0,
                             device="cuda")
@@ -604,7 +615,10 @@ def phase_train_times(card):
             print(f"time train step {label} batch {n}: p50 {p50:.3f} ms, min "
                   f"{min(lat):.3f} ms over 20, {n / p50 * 1e3:.1f} samples/s on {card}")
     return rows, {"attention_bwd_ms": bwd_ms, "attention_bwd_eager_ms": bwd_eager,
-                  "attention_bwd_bound_ms": bwd_bound, "attention_bwd_bound_by": bwd_by}
+                  "attention_bwd_bound_ms": bwd_bound, "attention_bwd_bound_by": bwd_by,
+                  "attention_bwd_library_ms": bwd_lib,
+                  "attention_bwd_library_is": "torch.autograd.grad of "
+                  "F.scaled_dot_product_attention(q, k, v, attn_mask=key padding), eager"}
 
 
 PROFILE_SYMBOLS = {"masked_attention": "masked_attention_", "poe_fused": "poe_fwd",
@@ -800,13 +814,14 @@ def sparse_work(t: int, block: int, stride: int):
 def phase_sparse_parity():
     """Forward (out, lse) and backward (dq, dk, dv vs autograd through the
     plain version) at the encoder's and decoder's shapes and a few odd ones,
-    through the public entry; the launcher only gives the lse, which the
-    entry keeps to itself."""
+    through the public entry, each of the three launchers taking the row's
+    kernel; the forward's launcher gives the lse, which the entry keeps to
+    itself, and reruns of each launcher are bit-identical."""
     from multimodal_vae_comparison_tpu_torch.ops.kernels import sparse_attention as sp
     from multimodal_vae_comparison_tpu_torch.ops.kernels import telemetry
     g = torch.Generator(device="cuda").manual_seed(20)
     worst = 0.0
-    # (B, H, T, Dh), block, stride, the forward kernel the launcher picks:
+    # (B, H, T, Dh), block, stride, the kernel the three launchers pick:
     # the model's two shapes; block 16, 64 and 128 at stride 1 and 4 and Dh
     # 8, 32 and 64 on the tensor cores, with T = one block, a block that is
     # not a multiple of 32 and a Dh that is padded; and the shapes that fall
@@ -846,13 +861,27 @@ def phase_sparse_parity():
         again, lse_again = sp._launch_forward(q, k, v, block, stride)
         check(torch.equal(again, out) and torch.equal(lse_again, lse),
               f"two runs of the sparse forward differ at {shape}")
-        del out, lse, want, want_lse, again, lse_again
-        _grad_parity(f"sparse attention {shape} block {block} stride {stride}",
+        args = (q, k, v, d_out, lse, (d_out * out).sum(-1), block, stride)
+        telemetry.reset()
+        runs = [(sp._launch_dq(*args),) + sp._launch_dkv(*args) for _ in range(2)]
+        took = telemetry.variants()
+        check(took == {f"sparse_attention_dq:{variant}": 2,
+                       f"sparse_attention_dkv:{variant}": 2},
+              f"sparse backward at {shape} launched {took}, expected the {variant} kernels")
+        check(all(torch.equal(a, b) for a, b in zip(*runs)),
+              f"two runs of the sparse backward differ at {shape}")
+        del out, lse, want, want_lse, again, lse_again, args, runs
+        telemetry.reset()
+        _grad_parity(f"sparse attention {shape} block {block} stride {stride} [{variant}]",
                      lambda q_, k_, v_: sp.strided_block_sparse_attention(
                          q_, k_, v_, block, stride),
                      lambda q_, k_, v_: sp.sparse_attention_reference(
                          q_, k_, v_, block, stride),
                      (q, k, v), d_out, SPARSE_BWD_RTOL, SPARSE_BWD_ATOL)
+        took = telemetry.variants()
+        check(took == {f"sparse_attention:{variant}": 1, f"sparse_attention_dq:{variant}": 1,
+                       f"sparse_attention_dkv:{variant}": 1},
+              f"sparse attention with its backward at {shape} launched {took}")
     return worst
 
 
@@ -1010,7 +1039,11 @@ def phase_video_times(card):
     kernel, and the video model's train step and peak memory.  Forward and
     sample times are the public entry's; the backward is timed whole (the
     Function's backward: delta, dk/dv, dq) and each of its two kernels
-    through its launcher, since the entry launches them together."""
+    through its launcher, since the entry launches them together.  Each
+    tensor-core kernel is timed in turns with the fp32 FMA kernel of the
+    same function (new, FMA, new), which the port never calls at these
+    shapes; the library time of the backward is SDPA's backward, which
+    gives dq, dk and dv at once."""
     import ctypes
     import types
     import torch.nn.functional as F
@@ -1029,6 +1062,12 @@ def phase_video_times(card):
     # kernel: exported as a yardstick, never called by the port at these
     fma_forward = _build.function("sparse_attention", "sparse_attention_forward_fma",
                                   sp._FWD_ARGTYPES[:-1])
+    fma_dq = _build.function("sparse_attention", "sparse_attention_dq_fma",
+                             sp._DQ_ARGTYPES[:-1])
+    fma_dkv = _build.function("sparse_attention", "sparse_attention_dkv_fma",
+                              sp._DKV_ARGTYPES[:-1])
+    sdpa_bwd_is = ("torch.autograd.grad of F.scaled_dot_product_attention(q, k, v, "
+                   "attn_mask=visible), retain_graph: dq, dk and dv at once, eager")
     for label, shape in (("decoder", SPARSE_DEC), ("encoder", SPARSE_ENC)):
         b, h, t, dh = shape
         q, k, v, d_out = (torch.randn(shape, generator=g, device="cuda") for _ in range(4))
@@ -1051,11 +1090,22 @@ def phase_video_times(card):
                 sp.sparse_attention_reference(*leaves, block, stride), leaves, d_out)
 
         fma_out, fma_lse = torch.empty_like(out), torch.empty_like(lse)
+        fma_grads = [torch.empty_like(q) for _ in range(3)]   # dq, dk, dv
+        bwd_ptrs = [x.data_ptr() for x in (q, k, v, d_out, lse, delta)]
 
         def fma():
             _build.check("sparse_attention", fma_forward(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), fma_out.data_ptr(),
                 fma_lse.data_ptr(), *sp._shape_args(q, block, stride)))
+
+        def dq_fma():
+            _build.check("sparse_attention", fma_dq(
+                *bwd_ptrs, fma_grads[0].data_ptr(), *sp._shape_args(q, block, stride)))
+
+        def dkv_fma():
+            _build.check("sparse_attention", fma_dkv(
+                *bwd_ptrs, fma_grads[1].data_ptr(), fma_grads[2].data_ptr(),
+                *sp._shape_args(q, block, stride)))
 
         few = dict(reps=5, replays=4)
         fwd = graph_ms(entry, **few)
@@ -1066,7 +1116,17 @@ def phase_video_times(card):
               f"the two sparse forward kernels disagree at {shape}")
         bwd = graph_ms(entry_bwd, **few)
         dq = graph_ms(lambda: sp._launch_dq(*args), **few)
+        dq_fma_ms = graph_ms(dq_fma, **few)
+        dq_again = graph_ms(lambda: sp._launch_dq(*args), **few)
         dkv = graph_ms(lambda: sp._launch_dkv(*args), **few)
+        dkv_fma_ms = graph_ms(dkv_fma, **few)
+        dkv_again = graph_ms(lambda: sp._launch_dkv(*args), **few)
+        mma_grads = (sp._launch_dq(*args),) + sp._launch_dkv(*args)
+        err_routes = max((a - b).abs().max().item() for a, b in zip(mma_grads, fma_grads))
+        check(all(torch.allclose(a, b, rtol=SPARSE_BWD_RTOL, atol=SPARSE_BWD_ATOL)
+                  for a, b in zip(mma_grads, fma_grads)),
+              f"the two routes of the sparse backward disagree at {shape}")
+        del mma_grads
         fwd_eager = eager_ms(entry, iters=20)
         bwd_eager = eager_ms(entry_bwd, iters=20)
         dq_eager = eager_ms(lambda: sp._launch_dq(*args), iters=20)
@@ -1078,6 +1138,11 @@ def phase_video_times(card):
         plain_b = eager_ms(plain_bwd, iters=5)
         lib = eager_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=visible),
                        iters=10)
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        sdpa_out = F.scaled_dot_product_attention(*leaves, attn_mask=visible)
+        lib_bwd = eager_ms(lambda: torch.autograd.grad(sdpa_out, leaves, d_out,
+                                                       retain_graph=True), iters=10)
+        del leaves, sdpa_out
         want = sp.sparse_attention_reference(q, k, v, block, stride)
         err_fwd = (entry() - want).abs().max().item()
         del want
@@ -1089,33 +1154,37 @@ def phase_video_times(card):
         del want_g, got_dq, got_dk, got_dv
         pairs, cells = sparse_work(t, block, stride)
         n, n_rows = b * h * t * dh, b * h * t
-        # the forward's second bound, for the unit it runs on: three TF32
-        # MMAs per fp32 product at the tensor cores' dense TF32 rate
-        tensor_bound = 3 * b * h * cells * 4 * dh / PEAK_TF32_FLOP_PER_S * 1e3
-        print(f"time sparse forward [{label} {shape}]: tensor-core kernel {fwd:.5f} and "
-              f"{fwd_again:.5f} ms, fp32 FMA kernel {fwd_fma:.5f} ms, bound of 3 TF32 MMAs "
-              f"per product at 495 TFLOP/s {tensor_bound:.6f} ms on {card}")
-        for name, line, ms, eager, err, plain_ms, lib_ms, nbytes, flop_per_cell in (
-                ("strided_block_sparse_attention", 165, fwd, fwd_eager, err_fwd, plain, lib,
-                 4 * (4 * n + n_rows), 4 * dh),
-                ("strided_block_sparse_attention_dq", 262, dq, dq_eager, err_dq, plain_b, None,
-                 4 * (5 * n + 2 * n_rows), 6 * dh),
-                ("strided_block_sparse_attention_dkv", 283, dkv, dkv_eager, err_dkv, plain_b,
-                 None, 4 * (6 * n + 2 * n_rows), 8 * dh)):
+        for name, line, ms, again, fma_ms, eager, err, plain_ms, lib_ms, nbytes, \
+                flop_per_cell in (
+                ("strided_block_sparse_attention", 165, fwd, fwd_again, fwd_fma, fwd_eager,
+                 err_fwd, plain, lib, 4 * (4 * n + n_rows), 4 * dh),
+                ("strided_block_sparse_attention_dq", 262, dq, dq_again, dq_fma_ms, dq_eager,
+                 err_dq, plain_b, lib_bwd, 4 * (5 * n + 2 * n_rows), 6 * dh),
+                ("strided_block_sparse_attention_dkv", 283, dkv, dkv_again, dkv_fma_ms,
+                 dkv_eager, err_dkv, plain_b, lib_bwd, 4 * (6 * n + 2 * n_rows), 8 * dh)):
             bound, by = bound_ms(nbytes, b * h * cells * flop_per_cell)
+            # the second bound, for the unit the kernel runs on: three TF32
+            # MMAs per fp32 product at the tensor cores' dense TF32 rate
+            tensor_bound = 3 * b * h * cells * flop_per_cell / PEAK_TF32_FLOP_PER_S * 1e3
+            print(f"time {name} [{label} {shape}]: tensor-core kernel {ms:.5f} and "
+                  f"{again:.5f} ms, fp32 FMA kernel {fma_ms:.5f} ms, bound of 3 TF32 MMAs "
+                  f"per product at 495 TFLOP/s {tensor_bound:.6f} ms on {card}")
             rows.append({"name": name, "at": f"{label} {shape} block {block} stride {stride}",
                          "route": "cuda", "source": src, "replaces": f"{ref}:{line}",
                          "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                          "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
-                         "eager_ms": eager, "live_block_pairs_per_head": pairs})
-        rows[-3].update(fma_kernel_ms=fwd_fma, tensor_bound_ms=tensor_bound)
+                         "eager_ms": eager, "live_block_pairs_per_head": pairs,
+                         "fma_kernel_ms": fma_ms, "tensor_bound_ms": tensor_bound})
+        rows[-3]["library_is"] = "F.scaled_dot_product_attention(q, k, v, attn_mask=visible)"
         # the whole backward as the Function runs it, beside its two kernels
         for r in rows[-2:]:
-            r.update(backward_ms=bwd, backward_eager_ms=bwd_eager)
+            r.update(backward_ms=bwd, backward_eager_ms=bwd_eager, library_is=sdpa_bwd_is,
+                     max_abs_err_between_routes=err_routes)
         print(f"time sparse attention backward [{label} {shape}]: {bwd:.5f} ms (eager "
-              f"{bwd_eager:.5f}): delta, dk/dv and dq as the Function launches them, "
-              f"on {card}")
-        del q, k, v, d_out, out, lse, delta, args, ctx, fma_out, fma_lse
+              f"{bwd_eager:.5f}): delta, dk/dv and dq as the Function launches them; SDPA's "
+              f"backward {lib_bwd:.5f} ms (eager); tensor-core vs FMA kernels "
+              f"max_abs_err={err_routes:.3e} on {card}")
+        del q, k, v, d_out, out, lse, delta, args, ctx, fma_out, fma_lse, fma_grads
         torch.cuda.empty_cache()
     for shape in ((VIDEO_K, VIDEO_BATCH, VIDEO_LATENTS), (1 << 20,)):
         mu = torch.randn(shape, generator=g, device="cuda")
@@ -1216,10 +1285,12 @@ def main() -> int:
                 print(f"  ptxas {name} {entry}: {line.strip()}")
 
     tile = 4 * SPARSE_BLOCK * VIDEO_DH   # the kernels size their shared memory at launch
+    padded = 4 * SPARSE_BLOCK * (VIDEO_DH + 4)
     print(f"  sparse_attention dynamic shared memory at block {SPARSE_BLOCK}, Dh "
-          f"{VIDEO_DH}: {4 * 4 * SPARSE_BLOCK * (VIDEO_DH + 4)} B (sparse_fwd_mma: two stages "
-          f"of a K and a V tile, rows padded by 4 floats), {2 * tile} B (sparse_fwd, "
-          f"sparse_dq), {2 * tile + 8 * SPARSE_BLOCK} B (sparse_dkv)")
+          f"{VIDEO_DH}: {4 * padded} B (sparse_fwd_mma, sparse_dq_mma: two stages of a K and "
+          f"a V tile, rows padded by 4 floats), {2 * (2 * padded + 8 * SPARSE_BLOCK)} B "
+          f"(sparse_dkv_mma: two stages of a q and a d_out tile, lse and delta), {2 * tile} B "
+          f"(sparse_fwd, sparse_dq), {2 * tile + 8 * SPARSE_BLOCK} B (sparse_dkv)")
 
     # 3. kernel parity: forwards, then the Functions' backwards
     phase_parity()

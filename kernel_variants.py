@@ -1,4 +1,4 @@
-"""Design choices of the two redesigned kernels, measured against each other.
+"""Design choices of the redesigned kernels, measured against each other.
 
     python3 kernel_variants.py [variant ...]
 
@@ -7,9 +7,12 @@ port's package into ``build/archive/variant_<name>/``, edits one constant or
 line of a CUDA source there, builds it, and in a process of its own prints:
 
 * the error of the sparse forward against its plain version and its time at
-  the video model's decoder and encoder shapes, and the masked attention's
-  time at the text encoder's and decoder's shapes (device ms per call,
-  launches back to back in a CUDA graph, as ``chip_smoke.py`` times them);
+  the video model's decoder and encoder shapes, the same for the sparse
+  backward's dq and dk/dv kernels (error of the Function's gradients against
+  autograd through the plain version; registers at Dh 32 from ptxas), and the
+  masked attention's time at the text encoder's and decoder's shapes (device
+  ms per call, launches back to back in a CUDA graph, as ``chip_smoke.py``
+  times them);
 * the video model's card-vs-float64 gradient check of ``chip_smoke.py``
   (``phase_video_parity``): the worst leaf as a share of its limit.
 
@@ -25,7 +28,12 @@ line of a CUDA source there, builds it, and in a process of its own prints:
   hi hi term, so that 3 * Dh / 8 tensor-core accumulations chain per score;
 * ``rows_3``: the resident attention kernel with 3 query rows a warp;
 * ``split_heads``: it splits a head's query rows over blocks up to four
-  blocks an SM, not only where the heads do not fill the card.
+  blocks an SM, not only where the heads do not fill the card;
+* ``bwd_three_blocks``: the sparse dq and dk/dv kernels compiled for three
+  thread blocks an SM (at most 168 registers a thread), not two;
+* ``bwd_rows_in_smem``: their resident operands at Dh 32 (q and d_out, k
+  and v) read from rows staged in shared memory, as for Dh 64, not held in
+  registers.
 
 Needs one NVIDIA GPU and ``nvcc``; imports nothing of JAX.
 """
@@ -56,6 +64,11 @@ VARIANTS = {
     "rows_3": [(ATTENTION, "constexpr int ROWS = 4; ", "constexpr int ROWS = 3; ")],
     "split_heads": [(ATTENTION, "bh >= SM_COUNT ? 1 : (2 * SM_COUNT + bh - 1) / bh;",
                      "(4 * SM_COUNT + bh - 1) / bh;")],
+    "bwd_three_blocks": [(SPARSE, f"__launch_bounds__(MMA_WARPS * 32)\n{name}(",
+                          f"__launch_bounds__(MMA_WARPS * 32, 3)\n{name}(")
+                         for name in ("sparse_dq_mma", "sparse_dkv_mma")],
+    "bwd_rows_in_smem": [(SPARSE, "rows_in_smem(int dhp) { return dhp > 32; }",
+                          "rows_in_smem(int dhp) { return dhp > 16; }")],
 }
 
 
@@ -91,6 +104,13 @@ def measure(name: str, root: str) -> None:
     card = cs.card_line()
     built = _build.build(("attention", "sparse_attention"))
     print(f"variant {name}: built in {max((t for t, _ in built.values()), default=0.0):.2f} s on {card}")
+    kernel = None
+    for line in built["sparse_attention"][1].splitlines():
+        if "Compiling entry function" in line:
+            kernel = next((k for k in ("sparse_dq_mmaILi32", "sparse_dkv_mmaILi32") if k in line),
+                          None)
+        elif kernel and ("registers" in line or "spill" in line):
+            print(f"variant {name}: ptxas {kernel[:-5]}<32>: {line.strip()}")
     g = torch.Generator(device="cuda").manual_seed(30)
     block, stride = cs.SPARSE_BLOCK, cs.SPARSE_STRIDE
     for label, shape in (("decoder", cs.SPARSE_DEC), ("encoder", cs.SPARSE_ENC)):
@@ -104,6 +124,24 @@ def measure(name: str, root: str) -> None:
                           reps=5, replays=4) for _ in range(2)]
         print(f"variant {name}: sparse forward {label} {shape}: {ms[0]:.5f} and {ms[1]:.5f} "
               f"ms, max_abs_err {err:.3e}, within tolerance: {ok}")
+        d_out = torch.randn(shape, generator=g, device="cuda")
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        want = torch.autograd.grad(sp.sparse_attention_reference(*leaves, block, stride),
+                                   leaves, d_out)
+        got = torch.autograd.grad(sp.strided_block_sparse_attention(*leaves, block, stride),
+                                  leaves, d_out)
+        err = max((a - b).abs().max().item() for a, b in zip(got, want))
+        ok = all(torch.allclose(a, b, rtol=cs.SPARSE_BWD_RTOL, atol=cs.SPARSE_BWD_ATOL)
+                 for a, b in zip(got, want))
+        del leaves, want, got
+        out, lse = sp._launch_forward(q, k, v, block, stride)
+        args = (q, k, v, d_out, lse, (d_out * out).sum(-1), block, stride)
+        dq = [cs.graph_ms(lambda: sp._launch_dq(*args), reps=5, replays=4) for _ in range(2)]
+        dkv = [cs.graph_ms(lambda: sp._launch_dkv(*args), reps=5, replays=4) for _ in range(2)]
+        print(f"variant {name}: sparse dq {label} {shape}: {dq[0]:.5f} and {dq[1]:.5f} ms; "
+              f"dk/dv {dkv[0]:.5f} and {dkv[1]:.5f} ms; gradients max_abs_err {err:.3e}, "
+              f"within tolerance: {ok}")
+        del out, lse, args
     for label, shape, masked in (("encoder", (128, 2, 45, 45, 32), True),
                                  ("decoder", (128, 2, 45, 1, 8), False)):
         q, k, v, mask = cs.attention_inputs(g, *shape, masked)

@@ -16,7 +16,8 @@
 // head has 40 live block pairs of 256 and each pair costs 4 * 128 * 128 * Dh
 // FLOP against 32 KiB of K and V, about 128 FLOP per byte: all three kernels
 // are bound by operations (the backward kernels do 6 and 8 * 128 * 128 * Dh
-// FLOP per pair).  In fp32 FMAs that bound is the card's 67 TFLOP/s.
+// FLOP per pair).  In fp32 FMAs that bound is the card's 67 TFLOP/s; on
+// the tensor cores, three TF32 products per fp32 product at 495 TFLOP/s.
 //
 // The TPU grid is not carried over: it walks (bh, query block, live slot)
 // in order with the running state in scratch between steps.  Here a thread
@@ -52,8 +53,21 @@
 // -1e30.  Heavy query blocks are scheduled first.  No atomics: reruns are
 // bit-identical.
 //
-// Forward for the other shapes (sparse_fwd), dq and dk/dv: one thread owns
-// one row; its q (or k, v) row, the running max and sum and its Dh
+// dq and dk/dv, sparse_dq_mma and sparse_dkv_mma (the same shapes), run all
+// five products of the backward the same way: 3xTF32, hi hi chains of Dh / 8
+// MMAs for a score or dP and 4 for a chunk's share of dQ, dK or dV, summed in
+// fp32 into accumulators that persist across chunks.  dq is the forward's
+// skeleton with q and d_out fragments resident and P = 2^(S - lse log2 e)
+// (lse is known, so no running max); dk/dv is key-block-major and transposed
+// (S^T = K Q^T, dP^T = V dO^T), so that each operand keeps a fragment pattern
+// of the forward, with k and v resident and the q and d_out tiles, lse and
+// delta of each query block that sees the key block in the cp.async ring.
+// One row tile a warp: two operands and two accumulators fill the registers.
+// Heavy blocks first (late query blocks for dq, early key blocks for dk/dv);
+// dk and dv are written once by the block that owns their rows, no atomics.
+//
+// Forward, dq and dk/dv for the other shapes (sparse_fwd, sparse_dq,
+// sparse_dkv): one thread owns one row; its q (or k, v) row, the running max and sum and its Dh
 // accumulators stay in registers; the other side's tiles are staged through
 // shared memory (two tiles of block x Dh) and read as float4 broadcasts,
 // every thread of a warp on the same address.  The diagonal mask is added as
@@ -584,6 +598,430 @@ sparse_dkv(const float* __restrict__ q, const float* __restrict__ k,
     }
 }
 
+// ---- backward on the tensor cores ------------------------------------------
+
+// Where a backward kernel keeps the operands whose rows a warp owns: in
+// registers, split once, up to Dh 32; for Dh 64, where two split operands
+// beside two accumulators overflow the 255 registers (ptxas spilled 256 and
+// 424 bytes even with the operands unsplit), in shared memory, staged once.
+__host__ __device__ constexpr bool rows_in_smem(int dhp) { return dhp > 32; }
+
+// The A operand of the products whose rows a warp owns for the whole kernel
+// (q and d_out in dq, k and v in dk/dv): MT row tiles of 16 rows over KS
+// k-steps of 8 columns, in mma_tf32's A layout, times mul.  In registers it
+// is split into TF32 hi/lo once; IN_SMEM it is read from the warp's rows
+// staged in shared memory (rows padded by 4 floats: conflict-free) and split
+// at each use.
+template <int KS, int MT, bool IN_SMEM>
+struct RowFrags {
+  static constexpr int LD = KS * 8 + MMA_PAD;
+  uint32_t w[IN_SMEM ? 1 : KS][MT][4][2];
+  const float* staged;
+  float mul;
+
+  // rows r0 .. r0 + 16 MT of the rows x dh matrix at g (zeros past `rows`
+  // and dh); IN_SMEM, the same rows staged at s instead
+  __device__ __forceinline__ void load(const float* __restrict__ g, const float* s, int r0,
+                                       int rows, int dh, float scale) {
+    staged = s;
+    mul = scale;
+    if constexpr (!IN_SMEM) {
+      const int lane = threadIdx.x & 31, gq = lane >> 2, tg = lane & 3;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = ks * 8 + tg + (e >> 1) * 4;
+            const int row = r0 + mt * 16 + gq + (e & 1) * 8;
+            const float x = (row < rows && col < dh) ? g[(size_t)row * dh + col] * mul : 0.f;
+            split_tf32(x, w[ks][mt][e][0], w[ks][mt][e][1]);
+          }
+    }
+  }
+
+  __device__ __forceinline__ void get(int ks, uint32_t (&hi)[MT][4],
+                                      uint32_t (&lo)[MT][4]) const {
+    const int lane = threadIdx.x & 31, gq = lane >> 2, tg = lane & 3;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if constexpr (IN_SMEM) {
+          const float x = staged[(mt * 16 + gq + (e & 1) * 8) * LD + ks * 8 + tg
+                                 + (e >> 1) * 4];
+          split_tf32(x * mul, hi[mt][e], lo[mt][e]);
+        } else {
+          hi[mt][e] = w[ks][mt][e][0];
+          lo[mt][e] = w[ks][mt][e][1];
+        }
+      }
+  }
+};
+
+// c = a b^T over 32 rows of a staged tile from row0: the tile's rows are the
+// product's columns (the keys of q k^T and d_out v^T in dq, the queries of
+// k q^T and v d_out^T in dk/dv), read as the forward reads K.  The hi hi
+// terms chain KS MMAs from zero, the cross terms apart, summed at the end.
+// n-tiles past nt_valid read the last valid one again; the caller drops them.
+template <int DHP, int MT, bool IN_SMEM>
+__device__ __forceinline__ void tile_scores(float (&c)[MT][MMA_KEYS / 8][4],
+                                            const RowFrags<DHP / 8, MT, IN_SMEM>& a,
+                                            const float* tile, int row0, int nt_valid) {
+  constexpr int KS = DHP / 8, NT = MMA_KEYS / 8, LD = DHP + MMA_PAD;
+  const int lane = threadIdx.x & 31, g = lane >> 2, tg = lane & 3;
+  float small[MT][NT][4];
+  const float* p[NT];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    p[nt] = tile + (row0 + min(nt, nt_valid - 1) * 8 + g) * LD + tg;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c[mt][nt][e] = small[mt][nt][e] = 0.f;
+  }
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    float b0[NT], b1[NT];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      b0[nt] = p[nt][ks * 8];
+      b1[nt] = p[nt][ks * 8 + 4];
+    }
+    uint32_t hi[MT][4], lo[MT][4];
+    a.get(ks, hi, lo);
+    mma_3xtf32<MT, NT>(c, small, hi, lo, b0, b1);
+  }
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c[mt][nt][e] += small[mt][nt][e];
+}
+
+// acc += a b over 32 rows of a staged tile from row0 (keys in dq, queries in
+// dk/dv): a, in tile_scores' accumulator layout, is the A operand with its
+// columns t, t + 4 taken as the rows 2t, 2t + 1 that thread t holds, and
+// the tile's rows are read in that order (as the forward reads V), so no
+// shuffle.  Each 16 x 8 piece of the chunk's product chains 4 hi hi MMAs
+// from zero and is added to acc in fp32; at most 4 output n-tiles a pass
+// (Dh 64 takes two) keep the partial sums within the registers.  a is 0
+// past nt_valid, where the last valid rows are read again.
+template <int DHP, int MT>
+__device__ __forceinline__ void tile_accumulate(float (&acc)[MT][DHP / 8][4],
+                                                const float (&a)[MT][MMA_KEYS / 8][4],
+                                                const float* tile, int row0, int nt_valid) {
+  constexpr int KS = DHP / 8, NT = MMA_KEYS / 8, LD = DHP + MMA_PAD;
+  constexpr int KG = KS < 4 ? KS : 4;
+  const int lane = threadIdx.x & 31, g = lane >> 2, tg = lane & 3;
+#pragma unroll
+  for (int k0 = 0; k0 < KS; k0 += KG) {
+    float part[MT][KG][4], small[MT][KG][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int kg = 0; kg < KG; ++kg)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[mt][kg][e] = small[mt][kg][e] = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      uint32_t a_hi[MT][4], a_lo[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        split_tf32(a[mt][nt][0], a_hi[mt][0], a_lo[mt][0]);
+        split_tf32(a[mt][nt][2], a_hi[mt][1], a_lo[mt][1]);
+        split_tf32(a[mt][nt][1], a_hi[mt][2], a_lo[mt][2]);
+        split_tf32(a[mt][nt][3], a_hi[mt][3], a_lo[mt][3]);
+      }
+      const float* bp = tile + (row0 + min(nt, nt_valid - 1) * 8 + 2 * tg) * LD + g;
+      float b0[KG], b1[KG];
+#pragma unroll
+      for (int kg = 0; kg < KG; ++kg) {
+        b0[kg] = bp[(k0 + kg) * 8];
+        b1[kg] = bp[LD + (k0 + kg) * 8];
+      }
+      mma_3xtf32<MT, KG>(part, small, a_hi, a_lo, b0, b1);
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int kg = 0; kg < KG; ++kg)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][k0 + kg][e] += part[mt][kg][e] + small[mt][kg][e];
+  }
+}
+
+// rows x dh of a warp's accumulator (row tiles of 16 from r0, its C layout)
+// times mul, to the rows x dh matrix at g
+template <int DHP, int MT>
+__device__ __forceinline__ void store_rows(float* __restrict__ g,
+                                           const float (&acc)[MT][DHP / 8][4], int r0,
+                                           int rows, int dh, float mul) {
+  const int lane = threadIdx.x & 31, gq = lane >> 2, tg = lane & 3;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r0 + mt * 16 + gq + 8 * h;
+      if (row >= rows) continue;
+#pragma unroll
+      for (int ks = 0; ks < DHP / 8; ++ks) {
+        const int col = ks * 8 + 2 * tg;
+        if (col < dh)
+          *reinterpret_cast<float2*>(g + (size_t)row * dh + col) =
+              make_float2(acc[mt][ks][2 * h] * mul, acc[mt][ks][2 * h + 1] * mul);
+      }
+    }
+}
+
+// dq on the tensor cores, query-block-major: the forward's skeleton.  A warp
+// owns MT row tiles of 16 query rows, their q (scaled so that scores are
+// base-2 logits) and d_out fragments, lse * log2(e) and delta in registers;
+// K and V tiles go through the two-stage cp.async ring.  Per 32 keys: S =
+// Q K^T, P = 2^(S - lse2) (lse is known: no running max), dP = dO V^T, dS =
+// P (dP - delta), dQ += dS K with dS straight from the accumulators.  Grid
+// and threads as sparse_fwd_mma, heavy query blocks first; dynamic shared
+// memory that of sparse_fwd_mma, and for Dh 64 the block's q and d_out rows
+// after it (2 * 64 MT * (DHP + 4) floats).
+template <int DHP, int MT>
+__global__ void __launch_bounds__(MMA_WARPS * 32)
+sparse_dq_mma(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, const float* __restrict__ d_out,
+              const float* __restrict__ lse, const float* __restrict__ delta,
+              float* __restrict__ dq, int t, int dh, int block, int stride,
+              float sm_scale) {
+  constexpr int KS = DHP / 8, NT = MMA_KEYS / 8, LD = DHP + MMA_PAD;
+  constexpr int WARP_ROWS = 16 * MT, BLOCK_ROWS = MMA_WARPS * WARP_ROWS;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int tile = block * LD;
+
+  const int nsub = (block + BLOCK_ROWS - 1) / BLOCK_ROWS;
+  const int y = gridDim.y - 1 - blockIdx.y;   // late (heavy) query blocks first
+  const int i = y / nsub, sub = y - i * nsub;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tg = lane & 3;
+  const int r0 = sub * BLOCK_ROWS + warp * WARP_ROWS;
+  const bool active = r0 < block;
+  const size_t head = (size_t)blockIdx.x * t * dh;
+  const size_t rows = (size_t)blockIdx.x * t + (size_t)i * block;   // the block's first row
+
+  constexpr bool IN_SMEM = rows_in_smem(DHP);
+  float* own = smem + 4 * tile;   // IN_SMEM: this block's q rows, then its d_out rows
+  const int own_first = sub * BLOCK_ROWS, own_rows = min(BLOCK_ROWS, block - own_first);
+  if (IN_SMEM) {
+    stage_tile_async<DHP>(own, q + (rows + own_first) * dh, own_rows, dh);
+    stage_tile_async<DHP>(own + BLOCK_ROWS * LD, d_out + (rows + own_first) * dh,
+                          own_rows, dh);
+  }
+  const int first = i % stride, n_tiles = i / stride + 1;
+  stage_tile_async<DHP>(smem, k + head + (size_t)first * block * dh, block, dh);
+  stage_tile_async<DHP>(smem + tile, v + head + (size_t)first * block * dh, block, dh);
+  cp_async_commit();
+
+  RowFrags<KS, MT, IN_SMEM> qf, dof;
+  const float* mine = own + warp * WARP_ROWS * LD;
+  qf.load(q + rows * dh, mine, r0, block, dh, sm_scale * LOG2E);
+  dof.load(d_out + rows * dh, mine + BLOCK_ROWS * LD, r0, block, dh, 1.f);
+  float lse2[MT][2], dlt[MT][2], acc[MT][KS][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + mt * 16 + g + 8 * h;
+      lse2[mt][h] = r < block ? lse[rows + r] * LOG2E : 0.f;
+      dlt[mt][h] = r < block ? delta[rows + r] : 0.f;
+    }
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][ks][e] = 0.f;
+  }
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int j = first + kt * stride;
+    if (kt + 1 < n_tiles) {   // the next live tile loads under this one's math
+      float* next = smem + ((kt + 1) & 1) * 2 * tile;
+      stage_tile_async<DHP>(next, k + head + (size_t)(j + stride) * block * dh, block, dh);
+      stage_tile_async<DHP>(next + tile, v + head + (size_t)(j + stride) * block * dh,
+                            block, dh);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (active) {
+      const float* ks_tile = smem + (kt & 1) * 2 * tile;
+      const float* vs_tile = ks_tile + tile;
+      const bool diag = j == i;
+      // on the diagonal no key after this warp's last row is visible
+      const int key_end = diag ? min(block, r0 + WARP_ROWS) : block;
+      for (int key0 = 0; key0 < key_end; key0 += MMA_KEYS) {
+        const int nt_valid = min(NT, (key_end - key0) >> 3);
+        const bool masked = diag && key0 + MMA_KEYS - 1 > r0;   // some key > some row
+        float s[MT][NT][4], dp[MT][NT][4];
+        tile_scores<DHP, MT>(s, qf, ks_tile, key0, nt_valid);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int key = key0 + nt * 8 + 2 * tg + (e & 1);
+              const int row = r0 + mt * 16 + g + (e >> 1) * 8;
+              const bool hidden = nt >= nt_valid || (masked && key > row);
+              s[mt][nt][e] = hidden ? 0.f : ex2(s[mt][nt][e] - lse2[mt][e >> 1]);
+            }
+        tile_scores<DHP, MT>(dp, dof, vs_tile, key0, nt_valid);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              s[mt][nt][e] *= dp[mt][nt][e] - dlt[mt][e >> 1];   // dS
+        tile_accumulate<DHP, MT>(acc, s, ks_tile, key0, nt_valid);
+      }
+    }
+    __syncthreads();   // the stage is free for the tile after the next
+  }
+  if (active) store_rows<DHP, MT>(dq + rows * dh, acc, r0, block, dh, sm_scale);
+}
+
+// dk/dv on the tensor cores, key-block-major and transposed, so that every
+// operand keeps the forward's fragment patterns and no tile is transposed in
+// shared memory.  A warp owns MT row tiles of 16 key rows, their k (scaled
+// so that scores are base-2 logits) and v fragments in registers, and walks
+// the query blocks i = j, j + stride, ... that see key block j; each one's q
+// and d_out tiles, lse and delta go through the two-stage cp.async ring.
+// Per 32 queries: S^T = K Q^T, P^T = 2^(S^T - lse2[query]), dV += P^T dO,
+// dP^T = V dO^T, dS^T = P^T (dP^T - delta[query]), dK += dS^T Q; dk is
+// scaled by sm_scale once at the end.  On the diagonal tile a warp starts
+// at the query of its first key row and masks that one chunk.  dk and dv
+// are written once, by the block that owns their rows: no atomics.  Grid
+// (batch*heads, (T / block) * ceil(block / (64 * MT))), heavy (early) key
+// blocks first; dynamic shared memory two stages of 2 * block * (DHP + 4)
+// + 2 * block floats, and for Dh 64 the block's k and v rows after them (2 *
+// 64 MT * (DHP + 4) floats).
+template <int DHP, int MT>
+__global__ void __launch_bounds__(MMA_WARPS * 32)
+sparse_dkv_mma(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, const float* __restrict__ d_out,
+               const float* __restrict__ lse, const float* __restrict__ delta,
+               float* __restrict__ dk, float* __restrict__ dv, int t, int dh,
+               int block, int stride, float sm_scale) {
+  constexpr int KS = DHP / 8, NT = MMA_KEYS / 8, LD = DHP + MMA_PAD;
+  constexpr int WARP_ROWS = 16 * MT, BLOCK_ROWS = MMA_WARPS * WARP_ROWS;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int tile = block * LD, stage = 2 * tile + 2 * block;
+
+  const int nsub = (block + BLOCK_ROWS - 1) / BLOCK_ROWS;
+  const int j = blockIdx.y / nsub, sub = blockIdx.y - j * nsub;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tg = lane & 3;
+  const int r0 = sub * BLOCK_ROWS + warp * WARP_ROWS;   // the warp's first key row
+  const bool active = r0 < block;
+  const size_t head_row = (size_t)blockIdx.x * t;
+  const size_t keys = head_row + (size_t)j * block;
+  const int n_tiles = (t / block - 1 - j) / stride + 1;
+
+  auto stage_query_block = [&](float* s, int i) {
+    const size_t rows = head_row + (size_t)i * block;
+    stage_tile_async<DHP>(s, q + rows * dh, block, dh);
+    stage_tile_async<DHP>(s + tile, d_out + rows * dh, block, dh);
+    for (int u = threadIdx.x; u < block / 4; u += blockDim.x) {
+      cp_async16(s + 2 * tile + 4 * u, lse + rows + 4 * u);
+      cp_async16(s + 2 * tile + block + 4 * u, delta + rows + 4 * u);
+    }
+    cp_async_commit();
+  };
+  constexpr bool IN_SMEM = rows_in_smem(DHP);
+  float* own = smem + 2 * stage;   // IN_SMEM: this block's k rows, then its v rows
+  const int own_first = sub * BLOCK_ROWS, own_rows = min(BLOCK_ROWS, block - own_first);
+  if (IN_SMEM) {   // committed with the first query block
+    stage_tile_async<DHP>(own, k + (keys + own_first) * dh, own_rows, dh);
+    stage_tile_async<DHP>(own + BLOCK_ROWS * LD, v + (keys + own_first) * dh, own_rows, dh);
+  }
+  stage_query_block(smem, j);
+
+  RowFrags<KS, MT, IN_SMEM> kf, vf;
+  const float* mine = own + warp * WARP_ROWS * LD;
+  kf.load(k + keys * dh, mine, r0, block, dh, sm_scale * LOG2E);
+  vf.load(v + keys * dh, mine + BLOCK_ROWS * LD, r0, block, dh, 1.f);
+  float dk_acc[MT][KS][4], dv_acc[MT][KS][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dk_acc[mt][ks][e] = dv_acc[mt][ks][e] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    if (it + 1 < n_tiles) {   // the next query block loads under this one's math
+      stage_query_block(smem + ((it + 1) & 1) * stage, j + (it + 1) * stride);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (active) {
+      const float* qs_tile = smem + (it & 1) * stage;
+      const float* dos_tile = qs_tile + tile;
+      const float* lse_s = qs_tile + 2 * tile;
+      const float* delta_s = lse_s + block;
+      const bool diag = it == 0;   // i == j
+      // on the diagonal no query before this warp's first key row sees it
+      for (int q0 = diag ? r0 : 0; q0 < block; q0 += MMA_KEYS) {
+        const int nt_valid = min(NT, (block - q0) >> 3);
+        const bool masked = diag && q0 < r0 + WARP_ROWS - 1;   // some query < some key
+        float lse2[NT][2], dlt[NT][2];
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const int c = q0 + min(nt, nt_valid - 1) * 8 + 2 * tg;
+          const float2 l = *reinterpret_cast<const float2*>(lse_s + c);
+          const float2 d = *reinterpret_cast<const float2*>(delta_s + c);
+          lse2[nt][0] = l.x * LOG2E;
+          lse2[nt][1] = l.y * LOG2E;
+          dlt[nt][0] = d.x;
+          dlt[nt][1] = d.y;
+        }
+        float s[MT][NT][4], dp[MT][NT][4];
+        tile_scores<DHP, MT>(s, kf, qs_tile, q0, nt_valid);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int query = q0 + nt * 8 + 2 * tg + (e & 1);
+              const int key = r0 + mt * 16 + g + (e >> 1) * 8;
+              const bool hidden = nt >= nt_valid || (masked && query < key);
+              s[mt][nt][e] = hidden ? 0.f : ex2(s[mt][nt][e] - lse2[nt][e & 1]);
+            }
+        tile_accumulate<DHP, MT>(dv_acc, s, dos_tile, q0, nt_valid);
+        tile_scores<DHP, MT>(dp, vf, dos_tile, q0, nt_valid);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              s[mt][nt][e] *= dp[mt][nt][e] - dlt[nt][e & 1];   // dS^T
+        tile_accumulate<DHP, MT>(dk_acc, s, qs_tile, q0, nt_valid);
+      }
+    }
+    __syncthreads();   // the stage is free for the query block after the next
+  }
+  if (active) {
+    store_rows<DHP, MT>(dk + keys * dh, dk_acc, r0, block, dh, sm_scale);
+    store_rows<DHP, MT>(dv + keys * dh, dv_acc, r0, block, dh, 1.f);
+  }
+}
+
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   if (bytes <= STATIC_SMEM_LIMIT) return cudaSuccess;
@@ -603,12 +1041,28 @@ cudaError_t launch_fwd(const float* q, const float* k, const float* v, float* o,
   return cudaGetLastError();
 }
 
-// whether the tensor-core forward takes the shape: else sparse_fwd does
-bool mma_takes(const void* q, const void* k, const void* v, const void* o, int t,
-               int dh, int block) {
-  const uintptr_t bits = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o;
+template <typename... P>
+uintptr_t address_bits(P... p) {
+  return ((uintptr_t)p | ...);
+}
+
+// whether the tensor-core kernels take the shape (`bits`: the addresses of
+// every tensor they read or write, or-ed): else the FMA kernels do.  The
+// grid bound is that of one row tile a warp, the tallest grid
+bool mma_takes(uintptr_t bits, int t, int dh, int block) {
   return block % 16 == 0 && dh >= 8 && dh % 4 == 0 && bits % 16 == 0
          && (long long)(t / block) * ((block + 63) / 64) <= 65535;
+}
+
+// grid and threads of a tensor-core kernel whose warps own MT row tiles of
+// 16 rows of a block, 4 warps to a thread block
+template <int MT>
+void mma_launch_shape(int bh, int t, int block, dim3& grid, int& threads) {
+  const int warp_rows = 16 * MT, block_rows = MMA_WARPS * warp_rows;
+  const int nsub = (block + block_rows - 1) / block_rows;
+  const int row_tiles = (block + warp_rows - 1) / warp_rows;
+  grid = dim3(bh, (t / block) * nsub);
+  threads = 32 * (row_tiles < MMA_WARPS ? row_tiles : MMA_WARPS);
 }
 
 template <int DHP, int MT>
@@ -618,12 +1072,46 @@ cudaError_t launch_fwd_mma(const float* q, const float* k, const float* v, float
   const size_t smem = 4 * (size_t)block * (DHP + MMA_PAD) * sizeof(float);
   cudaError_t err = allow_smem(sparse_fwd_mma<DHP, MT>, smem);
   if (err != cudaSuccess) return err;
-  const int warp_rows = 16 * MT, block_rows = MMA_WARPS * warp_rows;
-  const int nsub = (block + block_rows - 1) / block_rows;
-  const int row_tiles = (block + warp_rows - 1) / warp_rows;
-  const int warps = row_tiles < MMA_WARPS ? row_tiles : MMA_WARPS;
-  sparse_fwd_mma<DHP, MT><<<dim3(bh, (t / block) * nsub), 32 * warps, smem, stream>>>(
+  dim3 grid;
+  int threads;
+  mma_launch_shape<MT>(bh, t, block, grid, threads);
+  sparse_fwd_mma<DHP, MT><<<grid, threads, smem, stream>>>(
       q, k, v, o, lse, t, dh, block, stride, sm_scale);
+  return cudaGetLastError();
+}
+
+template <int DHP, int MT>
+cudaError_t launch_dq_mma(const float* q, const float* k, const float* v,
+                          const float* d_out, const float* lse, const float* delta,
+                          float* dq, int bh, int t, int dh, int block, int stride,
+                          float sm_scale, cudaStream_t stream) {
+  const size_t smem = (4 * (size_t)block + (rows_in_smem(DHP) ? 2 * 64 * MT : 0))
+                      * (DHP + MMA_PAD) * sizeof(float);
+  cudaError_t err = allow_smem(sparse_dq_mma<DHP, MT>, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid;
+  int threads;
+  mma_launch_shape<MT>(bh, t, block, grid, threads);
+  sparse_dq_mma<DHP, MT><<<grid, threads, smem, stream>>>(
+      q, k, v, d_out, lse, delta, dq, t, dh, block, stride, sm_scale);
+  return cudaGetLastError();
+}
+
+template <int DHP, int MT>
+cudaError_t launch_dkv_mma(const float* q, const float* k, const float* v,
+                           const float* d_out, const float* lse, const float* delta,
+                           float* dk, float* dv, int bh, int t, int dh, int block,
+                           int stride, float sm_scale, cudaStream_t stream) {
+  const size_t smem = (2 * (2 * (size_t)block * (DHP + MMA_PAD) + 2 * (size_t)block)
+                       + (rows_in_smem(DHP) ? 2 * 64 * MT * (DHP + MMA_PAD) : 0))
+                      * sizeof(float);
+  cudaError_t err = allow_smem(sparse_dkv_mma<DHP, MT>, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid;
+  int threads;
+  mma_launch_shape<MT>(bh, t, block, grid, threads);
+  sparse_dkv_mma<DHP, MT><<<grid, threads, smem, stream>>>(
+      q, k, v, d_out, lse, delta, dk, dv, t, dh, block, stride, sm_scale);
   return cudaGetLastError();
 }
 
@@ -658,6 +1146,13 @@ cudaError_t launch_dkv(const float* q, const float* k, const float* v,
   ((dh) <= 4 ? LAUNCH(4) : (dh) <= 8 ? LAUNCH(8) : (dh) <= 16 ? LAUNCH(16) \
    : (dh) <= 32 ? LAUNCH(32) : LAUNCH(64))
 
+// the backward's tensor-core kernels: one row tile a warp, since a warp holds
+// two operands' fragments (q and d_out, or k and v) and two accumulators for
+// Dh 64; dh >= 8 there
+#define FOR_MMA_HEAD_DIM(dh, LAUNCH) \
+  ((dh) <= 8 ? LAUNCH(8, 1) : (dh) <= 16 ? LAUNCH(16, 1) \
+   : (dh) <= 32 ? LAUNCH(32, 1) : LAUNCH(64, 1))
+
 }  // namespace
 
 extern "C" {
@@ -676,16 +1171,46 @@ int sparse_attention_forward_fma(const void* q, const void* k, const void* v, vo
 #undef LAUNCH
 }
 
+// The fp32 FMA dq and dk/dv whatever the shape (the arguments of
+// sparse_attention_dq / _dkv less `variant`): what those fall to, and
+// yardsticks for the tensor-core kernels at the shapes those take.
+int sparse_attention_dq_fma(const void* q, const void* k, const void* v,
+                            const void* d_out, const void* lse, const void* delta,
+                            void* dq, int bh, int t, int dh, int block, int stride,
+                            float sm_scale, void* stream) {
+#define LAUNCH(DHP)                                                          \
+  launch_dq<DHP>((const float*)q, (const float*)k, (const float*)v,          \
+                 (const float*)d_out, (const float*)lse, (const float*)delta, \
+                 (float*)dq, bh, t, dh, block, stride, sm_scale,             \
+                 (cudaStream_t)stream)
+  return (int)FOR_HEAD_DIM(dh, LAUNCH);
+#undef LAUNCH
+}
+
+int sparse_attention_dkv_fma(const void* q, const void* k, const void* v,
+                             const void* d_out, const void* lse, const void* delta,
+                             void* dk, void* dv, int bh, int t, int dh, int block,
+                             int stride, float sm_scale, void* stream) {
+#define LAUNCH(DHP)                                                          \
+  launch_dkv<DHP>((const float*)q, (const float*)k, (const float*)v,         \
+                  (const float*)d_out, (const float*)lse, (const float*)delta, \
+                  (float*)dk, (float*)dv, bh, t, dh, block, stride, sm_scale, \
+                  (cudaStream_t)stream)
+  return (int)FOR_HEAD_DIM(dh, LAUNCH);
+#undef LAUNCH
+}
+
 // All tensors contiguous fp32 on the device: q, k, v, o, d_out, dq, dk, dv
 // (bh, t, dh); lse, delta (bh, t).  1 <= dh <= 64, 1 <= block <= 128,
 // t % block == 0, t / block <= 65535, stride >= 1.  Each launches on
-// `stream` and returns the cudaError_t of the launch.  The forward picks its
-// kernel by shape and writes which to *variant: 0 sparse_fwd_mma (tensor
-// cores), 1 sparse_fwd (fp32 FMAs).
+// `stream` and returns the cudaError_t of the launch.  Each picks its kernel
+// by shape and writes which to *variant: 0 the tensor-core kernel
+// (sparse_fwd_mma, sparse_dq_mma, sparse_dkv_mma), 1 the fp32 FMA kernel
+// (sparse_fwd, sparse_dq, sparse_dkv).
 int sparse_attention_forward(const void* q, const void* k, const void* v, void* o,
                              void* lse, int bh, int t, int dh, int block,
                              int stride, float sm_scale, void* stream, int* variant) {
-  if (mma_takes(q, k, v, o, t, dh, block)) {
+  if (mma_takes(address_bits(q, k, v, o), t, dh, block)) {
     *variant = 0;
     // two row tiles a warp halve the splits and shared-memory reads per MMA;
     // one where the registers (Dh 64) or the rows (block 16) do not allow two
@@ -707,27 +1232,39 @@ int sparse_attention_forward(const void* q, const void* k, const void* v, void* 
 int sparse_attention_dq(const void* q, const void* k, const void* v,
                         const void* d_out, const void* lse, const void* delta,
                         void* dq, int bh, int t, int dh, int block, int stride,
-                        float sm_scale, void* stream) {
-#define LAUNCH(DHP)                                                          \
-  launch_dq<DHP>((const float*)q, (const float*)k, (const float*)v,          \
-                 (const float*)d_out, (const float*)lse, (const float*)delta, \
-                 (float*)dq, bh, t, dh, block, stride, sm_scale,             \
-                 (cudaStream_t)stream)
-  return (int)FOR_HEAD_DIM(dh, LAUNCH);
+                        float sm_scale, void* stream, int* variant) {
+  if (mma_takes(address_bits(q, k, v, d_out, lse, delta, dq), t, dh, block)) {
+    *variant = 0;
+#define LAUNCH(DHP, MT)                                                        \
+  launch_dq_mma<DHP, MT>((const float*)q, (const float*)k, (const float*)v,    \
+                         (const float*)d_out, (const float*)lse,               \
+                         (const float*)delta, (float*)dq, bh, t, dh, block,    \
+                         stride, sm_scale, (cudaStream_t)stream)
+    return (int)FOR_MMA_HEAD_DIM(dh, LAUNCH);
 #undef LAUNCH
+  }
+  *variant = 1;
+  return sparse_attention_dq_fma(q, k, v, d_out, lse, delta, dq, bh, t, dh, block,
+                                 stride, sm_scale, stream);
 }
 
 int sparse_attention_dkv(const void* q, const void* k, const void* v,
                          const void* d_out, const void* lse, const void* delta,
                          void* dk, void* dv, int bh, int t, int dh, int block,
-                         int stride, float sm_scale, void* stream) {
-#define LAUNCH(DHP)                                                          \
-  launch_dkv<DHP>((const float*)q, (const float*)k, (const float*)v,         \
-                  (const float*)d_out, (const float*)lse, (const float*)delta, \
-                  (float*)dk, (float*)dv, bh, t, dh, block, stride, sm_scale, \
-                  (cudaStream_t)stream)
-  return (int)FOR_HEAD_DIM(dh, LAUNCH);
+                         int stride, float sm_scale, void* stream, int* variant) {
+  if (mma_takes(address_bits(q, k, v, d_out, lse, delta, dk, dv), t, dh, block)) {
+    *variant = 0;
+#define LAUNCH(DHP, MT)                                                         \
+  launch_dkv_mma<DHP, MT>((const float*)q, (const float*)k, (const float*)v,    \
+                          (const float*)d_out, (const float*)lse,               \
+                          (const float*)delta, (float*)dk, (float*)dv, bh, t,   \
+                          dh, block, stride, sm_scale, (cudaStream_t)stream)
+    return (int)FOR_MMA_HEAD_DIM(dh, LAUNCH);
 #undef LAUNCH
+  }
+  *variant = 1;
+  return sparse_attention_dkv_fma(q, k, v, d_out, lse, delta, dk, dv, bh, t, dh, block,
+                                  stride, sm_scale, stream);
 }
 
 const char* error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

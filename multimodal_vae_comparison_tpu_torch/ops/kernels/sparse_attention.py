@@ -5,11 +5,12 @@ Counterpart of ``ops/pallas/sparse_attention.py``
 attends its own block, causally masked inside, and every
 ``block_stride``-th earlier block in full.  The kernels are in
 ``csrc/sparse_attention.cu``: the forward (which also writes the row
-log-sum-exp), dq, and dk/dv.  The forward's launcher picks by shape between
-the tensor-core kernel (``"mma"``: 3xTF32 products at fp32-grade accuracy,
-for a block that is a multiple of 16 and Dh a multiple of 4 from 8 up) and
-the fp32 FMA kernel (``"fma"``) that takes every other shape.  :func:`sparse_attention_reference` is the same
-function in plain PyTorch, over a dense additive bias.
+log-sum-exp), dq, and dk/dv.  Each of the three launchers picks by shape
+between a tensor-core kernel (``"mma"``: 3xTF32 products at fp32-grade
+accuracy, for a block that is a multiple of 16, Dh a multiple of 4 from 8 up
+and 16-byte aligned tensors) and an fp32 FMA kernel (``"fma"``) that takes
+every other shape.  :func:`sparse_attention_reference` is the same function
+in plain PyTorch, over a dense additive bias.
 
 :func:`strided_block_sparse_attention` is a ``torch.autograd.Function``.  On
 CUDA tensors the forward launches the forward kernel and the backward
@@ -38,15 +39,15 @@ KERNEL_DKV = "sparse_attention_dkv"
 NEG_INF = -1e30
 MAX_HEAD_DIM = 64   # csrc/sparse_attention.cu: widest padded head (registers)
 MAX_BLOCK = 128     # csrc/sparse_attention.cu MAX_BLOCK: rows (threads) per tile
-VARIANTS = ("mma", "fma")   # csrc/sparse_attention.cu sparse_attention_forward
+VARIANTS = ("mma", "fma")   # csrc/sparse_attention.cu: *variant of each launcher
 _SHAPE = [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
 # sparse_attention_forward(q, k, v, o, lse, bh, t, dh, block, stride, scale, stream,
 #                          &variant)
 _FWD_ARGTYPES = [ctypes.c_void_p] * 5 + _SHAPE + [ctypes.POINTER(ctypes.c_int)]
-# sparse_attention_dq(q, k, v, d_out, lse, delta, dq, ...)
-_DQ_ARGTYPES = [ctypes.c_void_p] * 7 + _SHAPE
-# sparse_attention_dkv(q, k, v, d_out, lse, delta, dk, dv, ...)
-_DKV_ARGTYPES = [ctypes.c_void_p] * 8 + _SHAPE
+# sparse_attention_dq(q, k, v, d_out, lse, delta, dq, ..., &variant)
+_DQ_ARGTYPES = [ctypes.c_void_p] * 7 + _SHAPE + [ctypes.POINTER(ctypes.c_int)]
+# sparse_attention_dkv(q, k, v, d_out, lse, delta, dk, dv, ..., &variant)
+_DKV_ARGTYPES = [ctypes.c_void_p] * 8 + _SHAPE + [ctypes.POINTER(ctypes.c_int)]
 
 
 def _live_blocks(n_blocks: int, block_stride: int) -> List[List[int]]:
@@ -164,11 +165,13 @@ def _launch_dq(q, k, v, d_out, lse, delta, block: int, block_stride: int):
     _check_rows(q, d_out, lse, delta)
     fn = _build.function(SOURCE, "sparse_attention_dq", _DQ_ARGTYPES)
     dq = torch.empty_like(q)
+    variant = ctypes.c_int(-1)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), d_out.data_ptr(),
              lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-             *_shape_args(q, block, block_stride))
+             *_shape_args(q, block, block_stride), ctypes.byref(variant))
     _build.check(SOURCE, err)
     telemetry.count_launch(KERNEL_DQ)
+    telemetry.count_variant(KERNEL_DQ, VARIANTS[variant.value])
     return dq
 
 
@@ -177,11 +180,13 @@ def _launch_dkv(q, k, v, d_out, lse, delta, block: int, block_stride: int):
     _check_rows(q, d_out, lse, delta)
     fn = _build.function(SOURCE, "sparse_attention_dkv", _DKV_ARGTYPES)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    variant = ctypes.c_int(-1)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), d_out.data_ptr(),
              lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-             *_shape_args(q, block, block_stride))
+             *_shape_args(q, block, block_stride), ctypes.byref(variant))
     _build.check(SOURCE, err)
     telemetry.count_launch(KERNEL_DKV)
+    telemetry.count_variant(KERNEL_DKV, VARIANTS[variant.value])
     return dk, dv
 
 

@@ -253,7 +253,7 @@ def test_poe_forward_on_the_card_matches_the_cpu(cuda):
 
 
 SPARSE_SHAPES = [
-    # b, h, t, dh, block, stride, the forward kernel the launcher picks
+    # b, h, t, dh, block, stride, the kernels the three launchers pick
     (1, 2, 2048, 32, 128, 4, "mma"),   # VideoGPTSparse, one clip
     (3, 2, 256, 32, 128, 4, "mma"),
     (2, 2, 64, 8, 8, 2, "fma"),        # block not a multiple of 16
@@ -282,7 +282,8 @@ def _sparse_inputs(seed, b, h, t, dh, dev):
 @pytest.mark.parametrize("b,h,t,dh,block,stride,variant", SPARSE_SHAPES)
 def test_sparse_attention_kernels_match_plain(cuda, b, h, t, dh, block, stride, variant):
     """Forward (out and lse), then dq, dk, dv against autograd through the
-    plain version, same inputs and upstream gradient."""
+    plain version, same inputs and upstream gradient; each launcher takes
+    the row's kernel."""
     q, k, v, d_out = _sparse_inputs(14, b, h, t, dh, cuda)
     telemetry.reset()
     out, lse = tsparse._launch_forward(q, k, v, block, stride)
@@ -302,6 +303,9 @@ def test_sparse_attention_kernels_match_plain(cuda, b, h, t, dh, block, stride, 
     assert telemetry.launches() == {"sparse_attention": 1, "sparse_attention_dq": 1,
                                     "sparse_attention_dkv": 1}
     assert telemetry.summary() == {"sparse_attention:cuda": 1, "sparse_attention_bwd:cuda": 1}
+    assert telemetry.variants() == {f"sparse_attention:{variant}": 1,
+                                    f"sparse_attention_dq:{variant}": 1,
+                                    f"sparse_attention_dkv:{variant}": 1}
     want = _grads(lambda *x: tsparse.sparse_attention_reference(*x, block, stride),
                   (q, k, v), d_out)
     for g, w in zip(got, want):
@@ -315,13 +319,22 @@ def test_sparse_attention_kernel_is_deterministic_and_refuses_bad_input(cuda):
     again = _grads(lambda *x: tsparse.strided_block_sparse_attention(*x, 128, 4), (q, k, v), d_out)
     for a, b in zip(first, again):
         assert torch.equal(a, b)
-    # the forward alone, on the tensor cores and in fp32 FMAs (block 8)
+    # each kernel alone, on the tensor cores and in fp32 FMAs (block 8)
     for block, variant in ((128, "mma"), (64, "mma"), (8, "fma")):
         telemetry.reset()
         runs = [tsparse._launch_forward(q, k, v, block, 4) for _ in range(3)]
-        assert telemetry.variants() == {f"sparse_attention:{variant}": 3}
         for out, lse in runs[1:]:
             assert torch.equal(out, runs[0][0]) and torch.equal(lse, runs[0][1])
+        out, lse = runs[0]
+        args = (q, k, v, d_out, lse, (d_out * out).sum(-1), block, 4)
+        dq = [tsparse._launch_dq(*args) for _ in range(3)]
+        dkv = [tsparse._launch_dkv(*args) for _ in range(3)]
+        assert telemetry.variants() == {f"sparse_attention:{variant}": 3,
+                                        f"sparse_attention_dq:{variant}": 3,
+                                        f"sparse_attention_dkv:{variant}": 3}
+        for run in range(1, 3):
+            assert torch.equal(dq[run], dq[0])
+            assert torch.equal(dkv[run][0], dkv[0][0]) and torch.equal(dkv[run][1], dkv[0][1])
     with pytest.raises(TypeError):
         tsparse.strided_block_sparse_attention(q.double(), k.double(), v.double())
     with pytest.raises(ValueError):
@@ -336,8 +349,8 @@ def test_sparse_attention_kernel_is_deterministic_and_refuses_bad_input(cuda):
 
 def test_unaligned_inputs_take_the_kernels_that_need_no_alignment(cuda):
     """Contiguous tensors whose storage starts 4 bytes off a 16-byte line:
-    the attention kernel stages by elements, the sparse forward falls to the
-    FMA kernel; both still match the plain versions."""
+    the attention kernel stages by elements, the sparse forward, dq and dk/dv
+    fall to the FMA kernels; all still match the plain versions."""
     def off_by_one(x):
         flat = torch.empty(x.numel() + 1, device=x.device)
         flat[1:] = x.reshape(-1)
@@ -350,12 +363,23 @@ def test_unaligned_inputs_take_the_kernels_that_need_no_alignment(cuda):
     got = tattn.masked_attention(q, k, v, mask)
     assert telemetry.variants() == {"attention:resident": 1}
     torch.testing.assert_close(got, tattn.attention_reference(q, k, v, mask), **ATTN_TOL)
-    q, k, v, _ = (off_by_one(x) for x in _sparse_inputs(21, 1, 2, 256, 32, cuda))
+    q, k, v, d_out = _sparse_inputs(21, 1, 2, 256, 32, cuda)
+    q, k, v = (off_by_one(x) for x in (q, k, v))
     telemetry.reset()
     out = tsparse.strided_block_sparse_attention(q, k, v, 64, 2)
     assert telemetry.variants() == {"sparse_attention:fma": 1}
     torch.testing.assert_close(out, tsparse.sparse_attention_reference(q, k, v, 64, 2),
                                **SPARSE_TOL)
+    # the backward's launchers on the same unaligned q, k, v (autograd's
+    # leaves would be fresh, aligned copies)
+    _, lse = tsparse._launch_forward(q, k, v, 64, 2)
+    args = (q, k, v, d_out, lse, (d_out * out).sum(-1), 64, 2)
+    telemetry.reset()
+    got = (tsparse._launch_dq(*args),) + tsparse._launch_dkv(*args)
+    assert telemetry.variants() == {"sparse_attention_dq:fma": 1, "sparse_attention_dkv:fma": 1}
+    want = _grads(lambda *x: tsparse.sparse_attention_reference(*x, 64, 2), (q, k, v), d_out)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **SPARSE_BWD_TOL)
 
 
 @pytest.mark.parametrize("shape,seed", [((5, 8, 32), 0), ((1024, 1024), 7), ((7, 5), 2**40 + 3),

@@ -31,6 +31,7 @@ ATTN_TOL = dict(rtol=2e-4, atol=2e-5)   # as tests/test_pallas.py
 POE_TOL = dict(rtol=1e-5, atol=1e-6)    # elementwise fp32, one sum over E
 KL_TOL = dict(rtol=1e-5, atol=1e-6)     # elementwise fp32, one sum over D
 SPARSE_TOL = dict(rtol=2e-4, atol=2e-5)  # as tests/test_pallas.py, forward
+SPARSE_BWD_TOL = dict(rtol=2e-3, atol=2e-4)  # as tests/test_pallas.py, backward
 
 
 @pytest.fixture(autouse=True)
@@ -374,3 +375,75 @@ def test_tf32_rounding_keeps_ten_mantissa_bits():
     hi = _tf32(y)
     assert ((y - hi).abs() <= y.abs() * 2.0 ** -10).all()
     assert torch.equal(hi + (y - hi), y)   # the split is exact before lo is rounded
+
+
+# -- the arithmetic of the tensor-core sparse backward --------------------------
+
+
+def _sparse_backward_with(matmul, q, k, v, d_out, block, stride, forward_matmul=None):
+    """dq, dk, dv as csrc/sparse_attention.cu sparse_dq_mma and sparse_dkv_mma
+    compute them, each of the five products (and the forward's two, which
+    give lse and delta) through ``matmul``: base-2 logits from a pre-scaled q
+    (dq) or k (dk/dv, transposed), P = 2^(s - lse log2 e) with the hidden
+    pairs 0, dS = P (dP - delta), dq and dk scaled by 1/sqrt(Dh) at the
+    end."""
+    t, dh = q.shape[2], q.shape[3]
+    scale, log2e = 1.0 / dh ** 0.5, 1.4426950408889634
+    out, lse = _sparse_forward_with(forward_matmul or matmul, q, k, v, block, stride)
+    delta = (d_out * out).sum(-1)
+    visible = tsparse.visibility(t, block, stride)
+    lse2 = lse * log2e
+    # dq: query rows, keys as columns
+    p = torch.exp2(matmul(q * (scale * log2e), k.transpose(-1, -2)) - lse2[..., None])
+    p = p.masked_fill(~visible, 0.0)
+    ds = p * (matmul(d_out, v.transpose(-1, -2)) - delta[..., None])
+    dq = matmul(ds, k) * scale
+    # dk/dv: key rows, queries as columns
+    pt = torch.exp2(matmul(k * (scale * log2e), q.transpose(-1, -2)) - lse2[..., None, :])
+    pt = pt.masked_fill(~visible.T, 0.0)
+    dv = matmul(pt, d_out)
+    dst = pt * (matmul(v, d_out.transpose(-1, -2)) - delta[..., None, :])
+    dk = matmul(dst, q) * scale
+    return dq, dk, dv
+
+
+def _plain_sparse_grads(q, k, v, d_out, block, stride):
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = tsparse.sparse_attention_reference(*leaves, block, stride)
+    return torch.autograd.grad(out, leaves, d_out)
+
+
+def _sparse_bwd_inputs(b, h, t, dh):
+    rng = np.random.default_rng(17)
+    return [torch.from_numpy(rng.normal(size=(b, h, t, dh)).astype(np.float32))
+            for _ in range(4)]
+
+
+@pytest.mark.parametrize("b,h,t,dh,block,stride", SPARSE_EMULATION_SHAPES)
+@pytest.mark.parametrize("matmul", [torch.matmul, _matmul_3xtf32])
+def test_sparse_backward_arithmetic_meets_the_tolerance(b, h, t, dh, block, stride, matmul):
+    """The backward kernels' order of operations in fp32, and with every
+    product as three TF32 products of the hi/lo split, stays within the
+    backward tolerance of autograd through the plain version."""
+    q, k, v, d_out = _sparse_bwd_inputs(b, h, t, dh)
+    want = _plain_sparse_grads(q, k, v, d_out, block, stride)
+    got = _sparse_backward_with(matmul, q, k, v, d_out, block, stride)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **SPARSE_BWD_TOL)
+
+
+@pytest.mark.parametrize("b,h,t,dh,block,stride", SPARSE_EMULATION_SHAPES)
+def test_sparse_backward_in_one_tf32_pass_is_50x_worse(b, h, t, dh, block, stride):
+    """One TF32 pass per backward product (lse and delta from the 3xTF32
+    forward, as the kernels get them) has at least 50 times the error of
+    the 3xTF32 split on the same inputs."""
+    q, k, v, d_out = _sparse_bwd_inputs(b, h, t, dh)
+    want = _plain_sparse_grads(q, k, v, d_out, block, stride)
+
+    def worst(matmul):
+        got = _sparse_backward_with(matmul, q, k, v, d_out, block, stride,
+                                    forward_matmul=_matmul_3xtf32)
+        assert all(torch.isfinite(g).all() for g in got)
+        return max((g - w).abs().max().item() for g, w in zip(got, want))
+
+    assert worst(_matmul_tf32) > 50 * worst(_matmul_3xtf32)
