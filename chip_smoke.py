@@ -16,7 +16,13 @@ three main paths at full width with random weights from a seed:
 * video training: the VideoGPTSparse MOE of ``bench.py`` (DReG, K = 5, 32
   latents, (8, 64, 64, 3) clips at bs 8, remat) through the same entry
   points, every sparse-attention call through the block-sparse kernels,
-  forward and backward; and the sampling op through its own entry point.
+  forward and backward; and the sampling op through its own entry point;
+* train from config: CdSprites+ level 1 made at 10,000 samples,
+  ``configs/round5/cdl1_r5_poe.yml`` trained for 2 resident epochs through
+  ``main`` (the first under ``torch.profiler``) and 1 per-batch epoch,
+  ``configs/config_cdspritesplus.yml`` (MOE) for 1 epoch; the run directory
+  restored through ``MultimodalVAEInfer`` and served by
+  ``serving/server.py --model`` in a process of its own.
 
 Each path runs with the kernel counts set to 0 just before it and read just
 after, and must have launched every kernel it goes through and taken no
@@ -35,6 +41,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.error
@@ -99,6 +106,19 @@ KERNEL_OF = {"masked_attention": "attention", "poe_fused": "poe",
 BUCKETS = (1, 8, 32, 128)
 SERVE_SIZES = (1, 5, 32, 128, 300)
 SEQ_LEN, VOCAB, N_LATENTS = 45, 27, 16
+
+# train from config: the two CdSprites+ configs the port trains, on level 1
+# at generate_level's own default count (9,999 train rows, 999 test rows)
+FROM_CONFIG = (("POE cdl1_r5_poe", "configs/round5/cdl1_r5_poe.yml", 2),
+               ("MOE cdspritesplus", "configs/config_cdspritesplus.yml", 1))
+DATA_COUNT = 10000
+# objective calls that launch each kernel once per the count given: the
+# POE objective runs attention in the text encoder and the text decoder and
+# PoE once per subset; the MOE objective the same attention and KL once per
+# modality.  A train step and a validation batch both make one call
+PER_OBJECTIVE = {"poe": {"attention": 2, "poe": 3}, "moe": {"attention": 2, "kl": 2}}
+# restored model vs the trainer's, eval mode, same eps
+RESTORE_RTOL, RESTORE_ATOL = 1e-5, 1e-5
 
 
 def check(cond: bool, msg: str) -> None:
@@ -550,6 +570,7 @@ def phase_train_times(card):
     and the train step of each model at each batch size."""
     import types
     import torch.nn.functional as F
+    from torch.distributions import Normal, kl_divergence
     from multimodal_vae_comparison_tpu_torch.ops.kernels import attention, kl_kernel
     from multimodal_vae_comparison_tpu_torch.training.optim import make_optimizer
     from multimodal_vae_comparison_tpu_torch.training.trainer import (
@@ -560,19 +581,35 @@ def phase_train_times(card):
     scale = torch.rand(TRAIN_BATCH, d, generator=g, device="cuda") + 0.3
     kern = graph_ms(lambda: kl_kernel.kl_normal_std_fused(mu, scale))
     plain = graph_ms(lambda: kl_kernel.kl_reference(mu, scale))
+    # the library's KL: torch.distributions without its argument checks,
+    # which read the device on the host and cannot be graph-captured
+    unit = Normal(torch.zeros((), device="cuda"), torch.ones((), device="cuda"),
+                  validate_args=False)
+
+    def library():
+        return kl_divergence(Normal(mu, scale, validate_args=False), unit).sum(-1)
+
+    lib = graph_ms(library)
+    lib_eager = eager_ms(lambda: kl_divergence(Normal(mu, scale), Normal(0.0, 1.0)).sum(-1))
     kern_eager = eager_ms(lambda: kl_kernel.kl_normal_std_fused(mu, scale))
     n = TRAIN_BATCH * d
     bound, by = bound_ms(4 * (2 * n + TRAIN_BATCH), 8 * n)
     err = (kl_kernel.kl_normal_std_fused(mu, scale)
            - kl_kernel.kl_reference(mu, scale)).abs().max().item()
+    lib_err = (library() - kl_kernel.kl_reference(mu, scale)).abs().max().item()
+    check(lib_err <= 1e-3, f"the library's KL differs from the plain version by {lib_err}")
     rows.append({"name": "kl_normal_std_fused", "at": f"({TRAIN_BATCH}, {d})",
                  "route": "cuda",
                  "source": "multimodal_vae_comparison_tpu_torch/csrc/kl.cu",
                  "replaces": "multimodal_vae_comparison_tpu/ops/pallas/kl_kernel.py:30",
                  "max_abs_err": err, "ms": kern, "plain_ms": plain, "bound_ms": bound,
-                 "bound_by": by, "library_ms": None, "eager_ms": kern_eager})
+                 "bound_by": by, "library_ms": lib, "eager_ms": kern_eager,
+                 "library_is": "torch.distributions.kl.kl_divergence(Normal(mu, scale), "
+                 "Normal(0, 1)).sum(-1), validate_args=False, graphed",
+                 "library_eager_ms": lib_eager})
     print(f"time kl_normal_std_fused [({TRAIN_BATCH}, {d})]: kernel {kern:.5f} ms (eager "
-          f"{kern_eager:.5f}), plain {plain:.5f} ms, library ms: none, bound "
+          f"{kern_eager:.5f}), plain {plain:.5f} ms, library {lib:.5f} ms (kl_divergence of "
+          f"torch.distributions Normals; eager with argument checks {lib_eager:.5f}), bound "
           f"{bound:.7f} ms ({by}) on {card}")
     # the attention Function's backward (recompute + five products), device
     # time back to back, at the encoder's training shape
@@ -760,7 +797,9 @@ def phase_times(engine, card):
                      "replaces": "multimodal_vae_comparison_tpu/ops/pallas/poe_kernel.py:48",
                      "max_abs_err": err,
                      "ms": kern, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
-                     "library_ms": None, "eager_ms": kern_eager})
+                     "library_ms": None, "eager_ms": kern_eager,
+                     "library_is": "none: no single PyTorch call takes a product of "
+                     "Gaussian experts"})
     for r in rows:
         print(f"time {r['name']} [{r['at']}]: kernel {r['ms']:.5f} ms (eager "
               f"{r['eager_ms']:.5f}), plain {r['plain_ms']:.5f} ms, library "
@@ -1245,6 +1284,279 @@ def phase_video_times(card):
     return rows
 
 
+def make_cdsprites(root: str):
+    """CdSprites+ level 1 at DATA_COUNT through the port's generator:
+    (level dir, file suffix, route).  It writes .h5 where h5py imports and
+    the same arrays as .pkl where it does not."""
+    from multimodal_vae_comparison_tpu_torch.data_proc.cdsprites import generate_level
+    try:
+        import h5py  # noqa: F401
+        fmt = "h5"
+    except ImportError:
+        fmt = "pkl"
+    level_dir = generate_level(1, DATA_COUNT, root, seed=0, fmt=fmt)
+    return level_dir, f".{fmt}", f"data_proc.cdsprites.generate_level(fmt={fmt!r})"
+
+
+def from_config(path: str, level_dir: str, suffix: str, results_root: str, **over):
+    """The Config of a shipped YAML with its data paths on the made files and
+    its run directory under ``results_root``."""
+    import yaml
+    from multimodal_vae_comparison_tpu_torch.config import Config
+    with open(os.path.join(HERE, path)) as f:
+        params = yaml.safe_load(f)
+    for key, block in params.items():
+        if key.startswith("modality_"):
+            block["path"] = os.path.join(level_dir, f"traindata{suffix}")
+            block["test_datapath"] = os.path.join(level_dir, f"testdata{suffix}")
+    params.update(over)
+    return Config(params, results_root=results_root)
+
+
+def expected_launches(mixing: str, objective_calls: int) -> dict:
+    return {k: n * objective_calls for k, n in PER_OBJECTIVE[mixing].items()}
+
+
+def kernel_busy_share(prof, wall_ms: float):
+    """(device busy share, kernels) of a ``torch.profiler`` window: the union
+    of the CUDA activity intervals over the host wall time, read from the
+    raw kineto events (building the profiler's event list for a whole epoch
+    takes longer than the epoch)."""
+    from torch.autograd import DeviceType
+    intervals = [(e.start_ns() / 1e3, e.end_ns() / 1e3)
+                 for e in prof.profiler.kineto_results.events()
+                 if e.device_type() == DeviceType.CUDA
+                 and not getattr(e, "is_user_annotation", lambda: False)()
+                 and not e.name().startswith("Optimizer.")]
+    check(bool(intervals), "the profiler recorded no CUDA activity")
+    return busy_ms(intervals) / wall_ms, len(intervals)
+
+
+def _csv_rows(path: str):
+    with open(path) as f:
+        lines = f.read().strip().splitlines()
+    keys = lines[0].split(",")
+    return [dict(zip(keys, line.split(","))) for line in lines[1:]]
+
+
+def serve_model_dir(run_dir: str, batch, log_path: str) -> dict:
+    """``serving/server.py --model run_dir`` in its own process on a free
+    port: /health until it answers, one /generate with both modalities of
+    two val rows, then SIGINT; returns its timings."""
+    import signal
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    started = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "multimodal_vae_comparison_tpu_torch.serving.server",
+             "--model", run_dir, "--port", str(port)],
+            cwd=HERE, stdout=log, stderr=subprocess.STDOUT, stdin=subprocess.DEVNULL)
+        try:
+            while True:
+                if proc.poll() is not None:
+                    with open(log_path) as f:
+                        raise RuntimeError(f"the --model server exited {proc.returncode}:\n"
+                                           + f.read()[-4000:])
+                try:
+                    health = json.load(urllib.request.urlopen(
+                        f"http://127.0.0.1:{port}/health", timeout=5))
+                    break
+                except (urllib.error.URLError, OSError):
+                    check(time.perf_counter() - started < 300, "the --model server never answered")
+                    time.sleep(0.5)
+            up_s = time.perf_counter() - started
+            check(health["status"] == "ok" and health["model"] == "POE",
+                  f"/health of the --model server said {health}")
+            req = {"inputs": {name: {k: v[:2].tolist() for k, v in mod.items() if v is not None}
+                              for name, mod in batch.items()}, "seed": 3}
+            t0 = time.perf_counter()
+            resp = urllib.request.urlopen(urllib.request.Request(
+                f"http://127.0.0.1:{port}/generate", data=json.dumps(req).encode(),
+                headers={"Content-Type": "application/json"}), timeout=120)
+            out = json.load(resp)
+            generate_ms = (time.perf_counter() - t0) * 1e3
+            check(resp.status == 200, f"/generate of the --model server gave {resp.status}")
+            check(np.asarray(out["mod_1"]).shape == (2, 64, 64, 3)
+                  and np.asarray(out["mod_2"]).shape == (2, SEQ_LEN, VOCAB)
+                  and all(np.isfinite(np.asarray(v)).all() for v in out.values()),
+                  "bad /generate response of the --model server")
+        finally:
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGINT)
+                try:
+                    proc.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait(timeout=30)
+    return {"server_up_s": up_s, "server_generate_ms": generate_ms}
+
+
+def phase_train_from_config(card: str, root: str):
+    """The config -> data -> Trainer -> checkpoint -> --model server path.
+
+    CdSprites+ level 1 is made at DATA_COUNT; ``cdl1_r5_poe.yml`` trains for
+    2 epochs through ``main(config)`` on the resident path, its first epoch
+    under ``torch.profiler`` as the CLI's ``--profile`` runs it (a Trainer,
+    ``fit(epochs=1)``, then ``main(config, trainer)``); then one epoch through
+    the per-batch ``run_epoch``, and ``config_cdspritesplus.yml`` (MOE) for 1
+    epoch.  Each run is counted from zero and must launch exactly its
+    objective calls (train steps + validation batches) times the kernels'
+    counts per call.  The run directory is restored through
+    ``MultimodalVAEInfer`` and served by ``serving/server.py --model``.
+    Returns (launches of the whole phase, its numbers)."""
+    from multimodal_vae_comparison_tpu_torch.data import native
+    from multimodal_vae_comparison_tpu_torch.eval.infer import MultimodalVAEInfer
+    from multimodal_vae_comparison_tpu_torch.main import main as train_main
+    from multimodal_vae_comparison_tpu_torch.ops.kernels import telemetry
+    from multimodal_vae_comparison_tpu_torch.training.trainer import Trainer
+    from torch.profiler import ProfilerActivity, profile
+
+    numbers, total = {"card": card}, {}
+    t0 = time.perf_counter()
+    level_dir, suffix, route = make_cdsprites(os.path.join(root, "data"))
+    numbers["data_s"] = time.perf_counter() - t0
+    print(f"train from config: data route {route}, {level_dir} in {numbers['data_s']:.2f} s; "
+          f"native host kernels available: {native.available()}")
+
+    def counted(label, mixing, calls, run):
+        telemetry.reset()
+        out = run()
+        torch.cuda.synchronize()
+        got, paths = telemetry.launches(), telemetry.summary()
+        want = expected_launches(mixing, calls)
+        print(f"train from config {label}: launches {got}, expected {want} "
+              f"({calls} objective calls); dispatch {paths}")
+        check(got == want, f"{label}: launched {got}, expected {want}")
+        check(not any(k.endswith(":plain") for k in paths),
+              f"{label}: a plain version ran: {paths}")
+        for k, n in got.items():
+            total[k] = total.get(k, 0) + n
+        return out
+
+    for (label, path, epochs), mixing in zip(FROM_CONFIG, ("poe", "moe")):
+        config = from_config(path, level_dir, suffix, os.path.join(root, "results"),
+                             epochs=epochs, iterseeds=1)
+        trainer = Trainer(config, enable_viz=False)
+        trainer.init_state()
+        dm, bs = trainer.datamodule, config.batch_size
+        steps, val_batches = dm.n_train // bs, dm.n_val // bs
+        check(config.mixing == mixing and trainer.use_scan() and trainer.device.type == "cuda",
+              f"{label}: mixing {config.mixing}, resident {trainer.use_scan()}")
+        t0 = time.perf_counter()
+        trainer.stage_epoch_data()
+        trainer.stage_val_data()
+        torch.cuda.synchronize()
+        stage_s = time.perf_counter() - t0
+        staged_bytes = sum(t.numel() * t.element_size()
+                           for staged in (trainer.stage_epoch_data(), trainer.stage_val_data())
+                           for mod in staged.values() for t in mod.values() if t is not None)
+        untrained = trainer.validate_scan(epochs - 1)["val_loss"]
+        torch.cuda.reset_peak_memory_stats()
+        calls = epochs * (steps + val_batches) + val_batches   # fit, then test()
+        if mixing == "poe":
+            def run():
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    t1 = time.perf_counter()
+                    trainer.fit(epochs=1)
+                    torch.cuda.synchronize()
+                    wall_ms = (time.perf_counter() - t1) * 1e3
+                train_main(config, trainer=trainer, enable_viz=False)
+                return prof, wall_ms
+            prof, wall_ms = counted(label, mixing, calls, run)
+            share, n_events = kernel_busy_share(prof, wall_ms)
+            del prof
+        else:
+            counted(label, mixing, calls, lambda: train_main(config, trainer=trainer,
+                                                             enable_viz=False))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        rows = _csv_rows(os.path.join(config.mPath, "metrics.csv"))
+        trained = float(rows[-1]["val_loss"])
+        print(f"train from config {label}: {trainer.n_params()} parameters, {dm.n_train} train "
+              f"/ {dm.n_val} val rows, {steps} steps of {bs} an epoch; staged "
+              f"{staged_bytes / 1e9:.3f} GB in {stage_s:.3f} s; val_loss untrained "
+              f"{untrained:.2f} -> {trained:.2f}; epochs "
+              + "; ".join(f"{r['step']}: {float(r['epoch_time_s']):.3f} s, "
+                          f"{float(r['samples_per_s']):.1f} samples/s" for r in rows)
+              + f"; peak memory {peak:.3f} GiB on {card}")
+        check(len(rows) == epochs, f"{label}: metrics.csv has {len(rows)} rows for {epochs} "
+              "epochs")
+        check(np.isfinite(trained) and trained < untrained,
+              f"{label}: val_loss {trained} after training, {untrained} before")
+        for tag in ("last", "best"):
+            check(os.path.isfile(os.path.join(config.mPath, "model", tag, "state.pt")),
+                  f"{label}: no model/{tag} checkpoint")
+        key = mixing
+        numbers.update({f"{key}_staged_bytes": staged_bytes, f"{key}_stage_s": stage_s,
+                        f"{key}_val_loss_untrained": untrained, f"{key}_val_loss": trained,
+                        f"{key}_peak_memory_gib": peak, f"{key}_steps_per_epoch": steps,
+                        f"{key}_epochs": [{k: float(v) for k, v in r.items()} for r in rows]})
+        if mixing == "moe":
+            break
+        numbers.update(poe_profiled_epoch_wall_ms=wall_ms, poe_profiled_busy_share=share,
+                       poe_profiled_device_events=n_events)
+        print(f"train from config {label}: resident epoch 0 under torch.profiler: wall "
+              f"{wall_ms:.1f} ms, device busy share {share:.4f} ({n_events} CUDA activities)")
+        # restore model/last on the card: the same weights, the same forward
+        infer = MultimodalVAEInfer(config.mPath)
+        for (n, a), b in zip(infer.model.state_dict().items(),
+                             trainer.model.state_dict().values()):
+            check(torch.equal(a, b), f"restored {n} differs from the trainer's")
+        batch = next(dm.batches("val"))
+        eps = torch.from_numpy(np.random.default_rng(30).standard_normal(
+            (1, bs, N_LATENTS)).astype(np.float32)).to(trainer.device)
+        present = ("mod_1", "mod_2")
+        got = infer.forward(batch, present, eps=eps)
+        trainer.model.eval()
+        with torch.inference_mode():
+            want = trainer.model.forward(torch_batch(batch, trainer.device), present, eps=eps)
+        err = max((got.mods[n].decoder_dist.mean - want.mods[n].decoder_dist.mean)
+                  .abs().max().item() for n in present)
+        print(f"train from config {label}: MultimodalVAEInfer({config.mPath}) forward vs the "
+              f"trainer's model: max_abs_err={err:.3e} (rtol {RESTORE_RTOL}, atol "
+              f"{RESTORE_ATOL})")
+        for n in present:
+            check(torch.allclose(got.mods[n].decoder_dist.mean, want.mods[n].decoder_dist.mean,
+                                 rtol=RESTORE_RTOL, atol=RESTORE_ATOL),
+                  f"the restored model's forward differs at {n}")
+        del infer
+        t0 = time.perf_counter()
+        trainer.validate_scan(epochs)
+        val_scan_s = time.perf_counter() - t0
+        # one epoch through the per-batch path: host shuffle, prefetch
+        timed = {}
+
+        def per_batch():
+            t1 = time.perf_counter()
+            timed["train"] = trainer.run_epoch(epochs)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            timed["val"] = trainer.validate(epochs)
+            timed["train_s"], timed["val_s"] = t2 - t1, time.perf_counter() - t2
+
+        counted(f"{label} per-batch epoch", mixing, steps + val_batches, per_batch)
+        resident = rows[-1]
+        numbers.update(
+            poe_resident_val_s=val_scan_s, poe_per_batch_train_s=timed["train_s"],
+            poe_per_batch_val_s=timed["val_s"],
+            poe_per_batch_epoch_s=timed["train_s"] + timed["val_s"],
+            poe_per_batch_samples_per_s=steps * bs / (timed["train_s"] + timed["val_s"]),
+            poe_per_batch_train_loss=timed["train"]["train_loss"])
+        print(f"train from config {label}: resident epoch {float(resident['epoch_time_s']):.3f} "
+              f"s ({float(resident['samples_per_s']):.1f} samples/s, validation on the staged "
+              f"split {val_scan_s:.3f} s); per-batch epoch {timed['train_s']:.3f} s + "
+              f"validation {timed['val_s']:.3f} s ({numbers['poe_per_batch_samples_per_s']:.1f} "
+              f"samples/s) on {card}")
+        check(np.isfinite(timed["train"]["train_loss"]), "per-batch epoch: non-finite loss")
+        numbers.update(serve_model_dir(config.mPath, batch, os.path.join(root, "server.log")))
+        print(f"train from config {label}: serving/server.py --model answered /health after "
+              f"{numbers['server_up_s']:.2f} s, /generate (2 rows, both modalities) 200 in "
+              f"{numbers['server_generate_ms']:.1f} ms")
+    return total, numbers
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1362,7 +1674,15 @@ def main() -> int:
     check(paths.get("sparse_attention_bwd:cuda", 0) == 8 * VIDEO_STEPS,
           f"sparse_attention_bwd ran {paths.get('sparse_attention_bwd:cuda')} times")
 
-    # 9. times
+    # 9. this slice's main path: CdSprites+ from the configs through the
+    # data layer, Trainer, checkpoints and the --model server
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        config_launches, config_numbers = phase_train_from_config(card, tmp)
+    config_numbers["phase_s"] = time.perf_counter() - t0
+    print("train from config " + json.dumps(config_numbers))
+
+    # 10. times
     rows = phase_times(engine, card)
     kl_rows, extra = phase_train_times(card)
     rows += kl_rows
@@ -1371,20 +1691,25 @@ def main() -> int:
     print(card)
     # one entry per kernel, at its heaviest main-path shape (the first row
     # of each); the other shapes are on the "time" lines above.  launches:
-    # the training path's run (this slice's main path), with the serving
-    # path's beside it
+    # each kernel's count on the path that runs it, the train-from-config
+    # path (this slice's main path) or the video training and sampling
+    # paths, with the fixed-batch training and serving paths' beside it
     primary = list({r["name"]: r for r in reversed(rows)}.values())[::-1]
     per_step["VideoGPTSparse MOE dreg"] = video_per_step
     for r in primary:
         kernel = KERNEL_OF[r["name"]]
-        # each kernel's count on the path that runs it: the POE/MOE training
-        # path, or the video training and sampling paths
         r["launches"] = (video_launches if kernel in video_kernels
-                         else train_launches).get(kernel, 0)
+                         else config_launches).get(kernel, 0)
+        r["launches_fixed_batch_training_path"] = train_launches.get(kernel, 0)
         r["launches_serving_path"] = serve_launches.get(kernel, 0)
         r["launches_per_train_step"] = {label: n.get(kernel, 0)
                                         for label, n in per_step.items()}
     primary[0].update(extra)   # masked_attention: its backward's time
+    # the launch floor beside the kernels that run at the cost of one launch:
+    # an empty kernel launched as the attention kernel is, in this run
+    for r in primary:
+        if r["name"] in ("poe_fused", "kl_normal_std_fused", "sample_normal_fused"):
+            r["empty_launch_ms"] = primary[0]["empty_launch_ms"]
     print(json.dumps({"kernels": primary}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

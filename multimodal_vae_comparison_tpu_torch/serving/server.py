@@ -4,12 +4,17 @@
 Stdlib-only: POST /generate with a JSON body
 ``{"inputs": {"mod_1": {"data": [...]}}, "seed": 0}`` returns JSON
 reconstructions for every modality; GET /health returns model metadata.
-Restoring a trained run directory (the reference's ``--model`` CLI) waits
-for the port of the checkpoint and config layer; :func:`serve` takes an
-engine built in Python.
+
+    python -m multimodal_vae_comparison_tpu_torch.serving.server \
+        --model results/<exp>/version_0 --port 8500
+
+serves a run directory the port's Trainer wrote (its ``model/last``
+checkpoint, through ``eval/infer.py``) on the card; ``--device cpu`` serves
+it on the CPU.  :func:`serve` takes an engine built in Python.
 """
 from __future__ import annotations
 
+import argparse
 import json
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
@@ -75,3 +80,21 @@ def serve(engine, infer, port: int = 8500, host: str = "127.0.0.1"):
         server.serve_forever()
     finally:
         server.server_close()
+
+
+def main(argv=None) -> None:
+    from multimodal_vae_comparison_tpu_torch.eval.infer import MultimodalVAEInfer
+    from multimodal_vae_comparison_tpu_torch.serving.engine import InferenceEngine
+    parser = argparse.ArgumentParser(description="serve a trained run directory")
+    parser.add_argument("--model", required=True, help="run dir (results/<exp>/version_N)")
+    parser.add_argument("--port", type=int, default=8500)
+    parser.add_argument("--device", type=str, default=None,
+                        help="torch device (default: cuda)")
+    args = parser.parse_args(argv)
+    infer = MultimodalVAEInfer(args.model, device=args.device)
+    print(f"restored {infer.ckpt_path}")
+    serve(InferenceEngine(infer, device=infer.device), infer, args.port)
+
+
+if __name__ == "__main__":
+    main()

@@ -25,10 +25,11 @@ def refuse(*args, **kwargs):
 
 subprocess.Popen = refuse
 REQUIRED = {"multimodal_vae_comparison_tpu_torch." + m for m in (
-    "bridge", "models.base", "models.decoders", "models.distributions",
-    "models.encoders", "models.mmvae", "models.nets", "models.objectives",
-    "ops.kernels.attention", "ops.kernels.kl_kernel", "ops.kernels.poe_kernel",
-    "ops.kernels.sample_kernel", "ops.kernels.sparse_attention",
+    "bridge", "config", "data.datamodule", "data.datasets", "data.native", "data.text",
+    "data_proc.cdsprites", "eval.infer", "main", "models.base", "models.decoders",
+    "models.distributions", "models.encoders", "models.mmvae", "models.nets",
+    "models.objectives", "ops.kernels.attention", "ops.kernels.kl_kernel",
+    "ops.kernels.poe_kernel", "ops.kernels.sample_kernel", "ops.kernels.sparse_attention",
     "serving.engine", "serving.server", "training.optim", "training.trainer")}
 import multimodal_vae_comparison_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
@@ -45,7 +46,8 @@ sys.exit(1 if bad or missing else 0)
 
 
 def test_port_imports_no_jax_no_jax_package_and_no_triton():
-    """Every module of the port (the training and video slices' among them), and
+    """Every module of the port (the training, video and config/data/Trainer
+    slices' among them), and
     chip_smoke.py, imported in a fresh process with no nvcc reachable: none
     pulls in jax, flax, optax, triton or the JAX package, and none starts a
     process (an nvcc build) at import."""
@@ -53,6 +55,37 @@ def test_port_imports_no_jax_no_jax_package_and_no_triton():
                CUDA_HOME=str(REPO / "no-cuda-here"))
     env.pop("CUDA_PATH", None)
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+_IMPORT_DATA = r"""
+import os, subprocess, sys
+from pathlib import Path
+
+def refuse(*args, **kwargs):
+    raise AssertionError("a build was started at import time")
+
+subprocess.Popen = subprocess.run = refuse
+os.environ["CXX"] = "/no/such/compiler"
+before = set(Path("build/torch_kernels").glob("libmmvae_io_*")) \
+    if Path("build/torch_kernels").is_dir() else set()
+from multimodal_vae_comparison_tpu_torch.data import native
+from multimodal_vae_comparison_tpu_torch.data_proc import cdsprites
+from multimodal_vae_comparison_tpu_torch.data import datamodule, datasets
+after = set(Path("build/torch_kernels").glob("libmmvae_io_*")) \
+    if Path("build/torch_kernels").is_dir() else set()
+loaded = sorted(n for n in ("cv2", "h5py", "yaml", "tensorboardX") if n in sys.modules)
+print(native._lib, after - before, loaded)
+sys.exit(0 if native._lib is None and after == before and not loaded else 1)
+"""
+
+
+def test_importing_the_data_layer_starts_no_build_and_loads_no_optional_module():
+    """``data.native`` compiles ``native/mmvae_io.cpp`` at first use and the
+    generator imports cv2 and h5py where it draws and writes: importing
+    them starts no process, loads no library and no optional module."""
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_DATA], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
