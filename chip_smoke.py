@@ -27,7 +27,10 @@ three main paths at full width with random weights from a seed:
 Each path runs with the kernel counts set to 0 just before it and read just
 after, and must have launched every kernel it goes through and taken no
 plain version.  Then it times the kernels, the engine and the train step,
-and profiles the train step (``torch.profiler``).
+and times the POE and MOE train steps on the PoE and KL kernels' route
+(one launch for the whole subset lattice, one for every modality's KL, and
+one for each backward) in turns with the route before it
+(``kernel_variants.old_route``), each profiled (``torch.profiler``).
 It prints the card's name and power limit, one ``{"kernels": [...]}`` JSON
 line, and as its last line ``{"ok": true, "device": {...}}``.  Any failed
 phase raises, so the script exits non-zero before the last line; without
@@ -62,6 +65,9 @@ PEAK_TF32_FLOP_PER_S = 495e12
 
 ATTN_RTOL, ATTN_ATOL = 2e-4, 2e-5   # as the reference's Pallas attention test
 POE_RTOL, POE_ATOL = 1e-5, 1e-6     # elementwise fp32, one reduction over E
+# the closed-form PoE backward against autograd's chain through the plain
+# version: the two orders differ where mu_e - mu cancels
+POE_BWD_RTOL, POE_BWD_ATOL = 1e-5, 1e-5
 KL_RTOL, KL_ATOL = 1e-5, 1e-6       # elementwise fp32, one reduction over D
 # as the reference's Pallas sparse attention tests: forward, then backward
 SPARSE_RTOL, SPARSE_ATOL = 2e-4, 2e-5
@@ -98,8 +104,9 @@ VIDEO_GRAD_REL = {"elbo": 1e-2, "dreg": 5e-2}
 VIDEO_LOSS_RTOL = 1e-5
 
 PRESENTS = (("mod_1",), ("mod_2",), ("mod_1", "mod_2"))
-KERNEL_OF = {"masked_attention": "attention", "poe_fused": "poe",
-             "kl_normal_std_fused": "kl", "sample_normal_fused": "sample",
+KERNEL_OF = {"masked_attention": "attention", "poe_lattice": "poe",
+             "poe_lattice_backward": "poe_bwd", "kl_normal_std_multi": "kl",
+             "kl_normal_std_multi_backward": "kl_bwd", "sample_normal_fused": "sample",
              "strided_block_sparse_attention": "sparse_attention",
              "strided_block_sparse_attention_dq": "sparse_attention_dq",
              "strided_block_sparse_attention_dkv": "sparse_attention_dkv"}
@@ -114,9 +121,28 @@ FROM_CONFIG = (("POE cdl1_r5_poe", "configs/round5/cdl1_r5_poe.yml", 2),
 DATA_COUNT = 10000
 # objective calls that launch each kernel once per the count given: the
 # POE objective runs attention in the text encoder and the text decoder and
-# PoE once per subset; the MOE objective the same attention and KL once per
-# modality.  A train step and a validation batch both make one call
-PER_OBJECTIVE = {"poe": {"attention": 2, "poe": 3}, "moe": {"attention": 2, "kl": 2}}
+# PoE once for the whole subset lattice; the MOE objective the same
+# attention and KL once for all modalities.  A train step and a validation
+# batch both make one call; a train step also runs one backward of each
+PER_OBJECTIVE = {"poe": {"attention": 2, "poe": 1}, "moe": {"attention": 2, "kl": 1}}
+PER_BACKWARD = {"poe": {"poe_bwd": 1}, "moe": {"kl_bwd": 1}}
+# launches a train step on each route of the PoE and KL kernels: the
+# lattice route, and the route before it that kernel_variants.old_route
+# keeps (a PoE launch per subset, a KL launch per modality, each backward
+# in torch ops)
+ROUTE_PER_STEP = {mixing: {"new": {**PER_OBJECTIVE[mixing], **PER_BACKWARD[mixing]}}
+                  for mixing in PER_OBJECTIVE}
+ROUTE_PER_STEP["poe"]["old"] = {"attention": 2, "poe": 3}
+ROUTE_PER_STEP["moe"]["old"] = {"attention": 2, "kl": 2}
+# poe_lattice's and kl_normal_std_multi's parity shapes: (experts, lattice
+# or None for all subsets, rows of N_LATENTS, p0): serving's one subset of
+# both experts, the flagship lattice at bs 24 and 256, PolyMNIST's five
+# experts (31 subsets), and lattices without the prior expert
+LATTICE_SHAPES = ((2, ((0, 1),), 128, 1.0), (2, None, TRAIN_BATCH, 1.0), (2, None, 256, 1.0),
+                  (5, None, TRAIN_BATCH, 1.0), (5, None, 256, 0.0), (3, None, TRAIN_BATCH, 0.0))
+# (posteriors, rows, upstream gradient broadcast from a sum's backward)
+KL_MULTI_SHAPES = ((1, TRAIN_BATCH, False), (2, TRAIN_BATCH, False), (2, TRAIN_BATCH, True),
+                   (2, 256, False), (5, 256, True))
 # restored model vs the trainer's, eval mode, same eps
 RESTORE_RTOL, RESTORE_ATOL = 1e-5, 1e-5
 
@@ -375,6 +401,78 @@ def phase_backward_parity():
                      (mu, scale), up, KL_RTOL, KL_ATOL)
 
 
+def lattice_inputs(g: torch.Generator, m: int, rows: int):
+    """M expert (or posterior) means and stddevs of (rows, N_LATENTS)."""
+    mus = [torch.randn(rows, N_LATENTS, generator=g, device="cuda") for _ in range(m)]
+    scales = [torch.rand(rows, N_LATENTS, generator=g, device="cuda") * 1.7 + 0.3
+              for _ in range(m)]
+    return mus, scales
+
+
+def phase_lattice_parity():
+    """poe_lattice and kl_normal_std_multi at the shapes of LATTICE_SHAPES
+    and KL_MULTI_SHAPES: one forward and one backward launch per call; the
+    forwards and the backward kernels against the plain versions (the
+    closed forms summed in the same order), and the gradients against
+    autograd through the plain forwards."""
+    from multimodal_vae_comparison_tpu_torch.ops.fusion import subset_lattice
+    from multimodal_vae_comparison_tpu_torch.ops.kernels import kl_kernel, poe_kernel
+    from multimodal_vae_comparison_tpu_torch.ops.kernels import telemetry
+    g = torch.Generator(device="cuda").manual_seed(7)
+    for m, lattice, rows, prior in LATTICE_SHAPES:
+        lattice = lattice or subset_lattice(m)
+        mus, scales = lattice_inputs(g, m, rows)
+        ups = [torch.randn((len(lattice), rows, N_LATENTS), generator=g, device="cuda")
+               for _ in range(2)]
+        leaves = [x.clone().requires_grad_() for x in mus + scales]
+        telemetry.reset()
+        mu, scale = poe_kernel.poe_lattice(leaves[:m], leaves[m:], lattice, prior)
+        grads = torch.autograd.grad((mu, scale), leaves, ups)
+        took = telemetry.launches()
+        mu, scale = mu.detach(), scale.detach()
+        want = poe_kernel.poe_lattice_reference(mus, scales, lattice, prior)
+        want_grads = sum(poe_kernel.poe_lattice_backward_reference(
+            mus, scales, mu, scale, *ups, lattice), [])
+        torch.cuda.synchronize()
+        label = f"poe_lattice M={m} S={len(lattice)} ({rows}, {N_LATENTS}) p0={prior}"
+        err = max((a - b).abs().max().item() for a, b in zip((mu, scale), want))
+        err_bwd = max((a - b).abs().max().item() for a, b in zip(grads, want_grads))
+        print(f"parity {label}: forward max_abs_err={err:.3e}, backward kernel vs the plain "
+              f"closed form max_abs_err={err_bwd:.3e} (rtol {POE_RTOL}, atol {POE_ATOL}); "
+              f"launches {took}")
+        check(took == {"poe": 1, "poe_bwd": 1}, f"{label} launched {took}")
+        check(all(torch.allclose(a, b, rtol=POE_RTOL, atol=POE_ATOL)
+                  for a, b in zip((mu, scale), want)),
+              f"{label}: the forward kernel disagrees with its plain version")
+        check(all(torch.allclose(a, b, rtol=POE_RTOL, atol=POE_ATOL)
+                  for a, b in zip(grads, want_grads)),
+              f"{label}: the backward kernel disagrees with its plain version")
+        _grad_parity(label, lambda *x: poe_kernel.poe_lattice(x[:m], x[m:], lattice, prior),
+                     lambda *x: poe_kernel.poe_lattice_reference(x[:m], x[m:], lattice, prior),
+                     mus + scales, ups, POE_BWD_RTOL, POE_BWD_ATOL)
+    for m, rows, broadcast in KL_MULTI_SHAPES:
+        mus, scales = lattice_inputs(g, m, rows)
+        up = (torch.full((), 0.7, device="cuda").expand(m, rows) if broadcast
+              else torch.randn((m, rows), generator=g, device="cuda"))
+        label = f"kl_normal_std_multi M={m} ({rows}, {N_LATENTS}) broadcast={broadcast}"
+        telemetry.reset()
+        got = kl_kernel.kl_normal_std_multi(mus, scales)
+        took = telemetry.launches()
+        want = kl_kernel.kl_multi_reference(mus, scales)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        print(f"parity {label}: forward max_abs_err={err:.3e} (rtol {KL_RTOL}, atol {KL_ATOL})")
+        check(took == {"kl": 1} and got.shape == (m, rows), f"{label}: launched {took}")
+        check(torch.allclose(got, want, rtol=KL_RTOL, atol=KL_ATOL),
+              f"{label}: the forward kernel disagrees with its plain version")
+        telemetry.reset()
+        _grad_parity(label, lambda *x: kl_kernel.kl_normal_std_multi(x[:m], x[m:]),
+                     lambda *x: kl_kernel.kl_multi_reference(x[:m], x[m:]),
+                     mus + scales, up, KL_RTOL, KL_ATOL)
+        took = telemetry.launches()
+        check(took == {"kl": 1, "kl_bwd": 1}, f"{label} with its backward launched {took}")
+
+
 def _objective_grads(model, batch, eps):
     loss, metrics = model.objective(batch, eps=eps)
     loss.backward()
@@ -454,9 +552,9 @@ def phase_train():
         check(losses[-5:].mean() < losses[0], f"{label}: the loss did not fall")
         check(all(bool(torch.isfinite(v).all()) for v in metrics.values()),
               f"{label}: non-finite grad_accum=2 metrics")
-        want = {"attention", "poe"} if mixing == "poe" else {"attention", "kl"}
-        check(set(per_step[label]) == want,
-              f"{label}: launched {sorted(per_step[label])}, expected {sorted(want)}")
+        want = ROUTE_PER_STEP[mixing]["new"]
+        check(per_step[label] == want,
+              f"{label}: launched {per_step[label]} a step, expected {want}")
     return per_step
 
 
@@ -565,54 +663,195 @@ def phase_http(engine, handle):
         thread.join(timeout=30)
 
 
-def phase_train_times(card):
-    """The KL kernel, the attention backward at the encoder training shape,
-    and the train step of each model at each batch size."""
+def phase_kernel_route_times(card):
+    """poe_lattice and kl_normal_std_multi, forward and backward kernels, at
+    the main path's shapes (the flagship lattice, M 2 and S 3, and the MOE's
+    2 posteriors, bs 24): device ms graphed and eager, the plain versions,
+    the library call where one exists, the bound, and the same work on the
+    route before these kernels (kernel_variants.old_route: a launch per
+    subset or modality with two stacks, each backward in torch ops)."""
     import types
-    import torch.nn.functional as F
     from torch.distributions import Normal, kl_divergence
-    from multimodal_vae_comparison_tpu_torch.ops.kernels import attention, kl_kernel
-    from multimodal_vae_comparison_tpu_torch.training.optim import make_optimizer
-    from multimodal_vae_comparison_tpu_torch.training.trainer import (
-        build_model, make_train_step)
+    import kernel_variants
+    from multimodal_vae_comparison_tpu_torch.ops.fusion import subset_lattice
+    from multimodal_vae_comparison_tpu_torch.ops.kernels import kl_kernel, poe_kernel
     g = torch.Generator(device="cuda").manual_seed(14)
-    rows, d = [], N_LATENTS
-    mu = torch.randn(TRAIN_BATCH, d, generator=g, device="cuda")
-    scale = torch.rand(TRAIN_BATCH, d, generator=g, device="cuda") + 0.3
-    kern = graph_ms(lambda: kl_kernel.kl_normal_std_fused(mu, scale))
-    plain = graph_ms(lambda: kl_kernel.kl_reference(mu, scale))
-    # the library's KL: torch.distributions without its argument checks,
-    # which read the device on the host and cannot be graph-captured
+    rows, b, d = [], TRAIN_BATCH, N_LATENTS
+    n = b * d
+    poe_src = "multimodal_vae_comparison_tpu_torch/csrc/poe.cu"
+    kl_src = "multimodal_vae_comparison_tpu_torch/csrc/kl.cu"
+    ref = "multimodal_vae_comparison_tpu/ops/pallas"
+    # -- PoE over the flagship lattice
+    m, lattice = 2, subset_lattice(2)
+    s = len(lattice)
+    masks = poe_kernel.lattice_masks(lattice, m)
+    mus, scales = lattice_inputs(g, m, b)
+    ups = [torch.randn((s, b, d), generator=g, device="cuda") for _ in range(2)]
+    old_poe = kernel_variants._per_subset_poe()
+    stacked = [(torch.stack([mus[e] for e in sub]), torch.stack([scales[e] for e in sub]))
+               for sub in lattice]
+
+    def fwd():
+        return poe_kernel.poe_lattice(mus, scales, lattice, 1.0)
+
+    def old_fwd():
+        return [poe_kernel.poe_fused(torch.stack([mus[e] for e in sub]),
+                                     torch.stack([scales[e] for e in sub]), 1.0)
+                for sub in lattice]
+
+    mu, scale = fwd()
+    old_out = [old_poe.apply(*st, 1.0) for st in stacked]
+    old_ctx = [types.SimpleNamespace(saved_tensors=(*st, *o)) for st, o in zip(stacked, old_out)]
+
+    def bwd():
+        return poe_kernel._launch_backward(mus, scales, masks, mu, scale, *ups)
+
+    def plain_bwd():
+        return poe_kernel.poe_lattice_backward_reference(mus, scales, mu, scale, *ups, lattice)
+
+    def old_bwd():
+        # each subset's torch-op backward, then autograd's sum per expert
+        d_mus = [torch.zeros_like(x) for x in mus]
+        d_scales = [torch.zeros_like(x) for x in scales]
+        for k, (sub, ctx) in enumerate(zip(lattice, old_ctx)):
+            dm, ds, _ = old_poe.backward(ctx, ups[0][k], ups[1][k])
+            for j, e in enumerate(sub):
+                d_mus[e] = d_mus[e] + dm[j]
+                d_scales[e] = d_scales[e] + ds[j]
+        return d_mus, d_scales
+
+    serve = [torch.randn(2, 128, d, generator=g, device="cuda"),
+             torch.rand(2, 128, d, generator=g, device="cuda") + 0.3]
+    m5, s5 = lattice_inputs(g, 5, b)
+    lattice5 = subset_lattice(5)
+    times = {
+        "fwd": graph_ms(fwd), "fwd_eager": eager_ms(fwd),
+        "fwd_plain": graph_ms(lambda: poe_kernel.poe_lattice_reference(mus, scales, lattice, 1.0)),
+        "fwd_old": graph_ms(old_fwd), "fwd_old_eager": eager_ms(old_fwd),
+        "fwd_serving": graph_ms(lambda: poe_kernel.poe_fused(*serve, 1.0)),
+        "fwd_m5": graph_ms(lambda: poe_kernel.poe_lattice(m5, s5, lattice5, 1.0)),
+        "bwd": graph_ms(bwd), "bwd_eager": eager_ms(bwd), "bwd_plain": graph_ms(plain_bwd),
+        "bwd_old": graph_ms(old_bwd), "bwd_old_eager": eager_ms(old_bwd)}
+    times["fwd_again"], times["bwd_again"] = graph_ms(fwd), graph_ms(bwd)
+    want = poe_kernel.poe_lattice_reference(mus, scales, lattice, 1.0)
+    err_fwd = max((a - w).abs().max().item() for a, w in zip((mu, scale), want))
+    err_bwd = max((a - w).abs().max().item()
+                  for a, w in zip(sum(map(list, bwd()), []), sum(plain_bwd(), [])))
+    sizes = sum(len(sub) for sub in lattice)
+    # forward: per element a precision and a weighted mean per expert (4
+    # operations), per subset two sums, the prior, a division, a reciprocal
+    # and a square root; backward: per expert 6 operations, per subset 5,
+    # per (subset, expert) pair 7
+    fwd_bound = bound_ms(4 * (2 * m * n + 2 * s * n), n * (4 * m + 2 * sizes + 4 * s))
+    bwd_bound = bound_ms(4 * (2 * m * n + 4 * s * n + 2 * m * n), n * (6 * m + 5 * s + 7 * sizes))
+    at = f"flagship lattice M={m} S={s} ({b}, {d})"
+    common = {"route": "cuda", "source": poe_src, "library_ms": None,
+              "library_is": "none: no single PyTorch call takes a product of Gaussian experts"}
+    rows.append({"name": "poe_lattice", "at": at, **common,
+                 "replaces": f"{ref}/poe_kernel.py:48", "max_abs_err": err_fwd,
+                 "ms": times["fwd"], "ms_again": times["fwd_again"],
+                 "plain_ms": times["fwd_plain"], "bound_ms": fwd_bound[0],
+                 "bound_by": fwd_bound[1], "eager_ms": times["fwd_eager"],
+                 "old_route_ms": times["fwd_old"], "old_route_eager_ms": times["fwd_old_eager"],
+                 "serving_one_subset_ms": times["fwd_serving"],
+                 "m5_lattice_31_subsets_ms": times["fwd_m5"]})
+    rows.append({"name": "poe_lattice_backward", "at": at, **common,
+                 "replaces": f"{ref}/poe_kernel.py:124 (_poe_bwd, the VJP of :48)",
+                 "max_abs_err": err_bwd, "ms": times["bwd"], "ms_again": times["bwd_again"],
+                 "plain_ms": times["bwd_plain"], "bound_ms": bwd_bound[0],
+                 "bound_by": bwd_bound[1], "eager_ms": times["bwd_eager"],
+                 "old_route_ms": times["bwd_old"], "old_route_eager_ms": times["bwd_old_eager"]})
+    print(f"time poe_lattice [{at}]: forward kernel {times['fwd']:.5f} and "
+          f"{times['fwd_again']:.5f} ms (eager {times['fwd_eager']:.5f}), old route (a launch "
+          f"and two stacks per subset) {times['fwd_old']:.5f} ms (eager "
+          f"{times['fwd_old_eager']:.5f}); serving's one subset (2, 128, {d}) "
+          f"{times['fwd_serving']:.5f} ms; M=5, 31 subsets {times['fwd_m5']:.5f} ms; backward "
+          f"kernel {times['bwd']:.5f} and {times['bwd_again']:.5f} ms (eager "
+          f"{times['bwd_eager']:.5f}), old route (torch ops per subset, summed) "
+          f"{times['bwd_old']:.5f} ms (eager {times['bwd_old_eager']:.5f}); bounds "
+          f"{fwd_bound[0]:.7f} and {bwd_bound[0]:.7f} ms on {card}")
+    # -- KL of the MOE's two posteriors
+    mus, scales = lattice_inputs(g, 2, b)
+    up = torch.randn((2, b), generator=g, device="cuda")
     unit = Normal(torch.zeros((), device="cuda"), torch.ones((), device="cuda"),
                   validate_args=False)
+    mu_st, scale_st = torch.stack(mus), torch.stack(scales)
 
+    # the library's KL: torch.distributions without its argument checks
+    # (they read the device on the host and cannot be graph-captured), on
+    # the posteriors stacked beforehand
     def library():
-        return kl_divergence(Normal(mu, scale, validate_args=False), unit).sum(-1)
+        return kl_divergence(Normal(mu_st, scale_st, validate_args=False), unit).sum(-1)
 
-    lib = graph_ms(library)
-    lib_eager = eager_ms(lambda: kl_divergence(Normal(mu, scale), Normal(0.0, 1.0)).sum(-1))
-    kern_eager = eager_ms(lambda: kl_kernel.kl_normal_std_fused(mu, scale))
-    n = TRAIN_BATCH * d
-    bound, by = bound_ms(4 * (2 * n + TRAIN_BATCH), 8 * n)
-    err = (kl_kernel.kl_normal_std_fused(mu, scale)
-           - kl_kernel.kl_reference(mu, scale)).abs().max().item()
-    lib_err = (library() - kl_kernel.kl_reference(mu, scale)).abs().max().item()
+    def kl_fwd():
+        return kl_kernel.kl_normal_std_multi(mus, scales)
+
+    def kl_old_fwd():
+        return torch.stack([kl_kernel.kl_normal_std_fused(a, c) for a, c in zip(mus, scales)])
+
+    def kl_bwd():
+        return kl_kernel._launch_backward(mus, scales, up)
+
+    def kl_plain_bwd():
+        return ([up[k][:, None] * a for k, a in enumerate(mus)],
+                [up[k][:, None] * (c - 1.0 / c) for k, c in enumerate(scales)])
+
+    kt = {"fwd": graph_ms(kl_fwd), "fwd_eager": eager_ms(kl_fwd),
+          "fwd_plain": graph_ms(lambda: kl_kernel.kl_multi_reference(mus, scales)),
+          "fwd_old": graph_ms(kl_old_fwd), "fwd_old_eager": eager_ms(kl_old_fwd),
+          "fwd_library": graph_ms(library),
+          "fwd_library_eager": eager_ms(lambda: kl_divergence(
+              Normal(mu_st, scale_st), Normal(0.0, 1.0)).sum(-1)),
+          "bwd": graph_ms(kl_bwd), "bwd_eager": eager_ms(kl_bwd),
+          "bwd_plain": graph_ms(kl_plain_bwd)}
+    kt["fwd_again"], kt["bwd_again"] = graph_ms(kl_fwd), graph_ms(kl_bwd)
+    want = kl_kernel.kl_multi_reference(mus, scales)
+    err_fwd = (kl_fwd() - want).abs().max().item()
+    lib_err = (library() - want).abs().max().item()
     check(lib_err <= 1e-3, f"the library's KL differs from the plain version by {lib_err}")
-    rows.append({"name": "kl_normal_std_fused", "at": f"({TRAIN_BATCH}, {d})",
-                 "route": "cuda",
-                 "source": "multimodal_vae_comparison_tpu_torch/csrc/kl.cu",
-                 "replaces": "multimodal_vae_comparison_tpu/ops/pallas/kl_kernel.py:30",
-                 "max_abs_err": err, "ms": kern, "plain_ms": plain, "bound_ms": bound,
-                 "bound_by": by, "library_ms": lib, "eager_ms": kern_eager,
+    err_bwd = max((a - w).abs().max().item()
+                  for a, w in zip(sum(map(list, kl_bwd()), []), sum(kl_plain_bwd(), [])))
+    kl_fwd_bound = bound_ms(4 * (2 * 2 * n + 2 * b), 2 * 8 * n)
+    kl_bwd_bound = bound_ms(4 * (2 * 2 * n + 2 * b + 2 * 2 * n), 2 * 4 * n)
+    at = f"M=2 ({b}, {d})"
+    common = {"route": "cuda", "source": kl_src, "at": at}
+    rows.append({"name": "kl_normal_std_multi", **common,
+                 "replaces": f"{ref}/kl_kernel.py:30", "max_abs_err": err_fwd,
+                 "ms": kt["fwd"], "ms_again": kt["fwd_again"], "plain_ms": kt["fwd_plain"],
+                 "bound_ms": kl_fwd_bound[0], "bound_by": kl_fwd_bound[1],
+                 "library_ms": kt["fwd_library"], "eager_ms": kt["fwd_eager"],
                  "library_is": "torch.distributions.kl.kl_divergence(Normal(mu, scale), "
-                 "Normal(0, 1)).sum(-1), validate_args=False, graphed",
-                 "library_eager_ms": lib_eager})
-    print(f"time kl_normal_std_fused [({TRAIN_BATCH}, {d})]: kernel {kern:.5f} ms (eager "
-          f"{kern_eager:.5f}), plain {plain:.5f} ms, library {lib:.5f} ms (kl_divergence of "
-          f"torch.distributions Normals; eager with argument checks {lib_eager:.5f}), bound "
-          f"{bound:.7f} ms ({by}) on {card}")
-    # the attention Function's backward (recompute + five products), device
-    # time back to back, at the encoder's training shape
+                 "Normal(0, 1)).sum(-1) on the posteriors stacked beforehand, "
+                 "validate_args=False, graphed",
+                 "library_eager_ms": kt["fwd_library_eager"],
+                 "old_route_ms": kt["fwd_old"], "old_route_eager_ms": kt["fwd_old_eager"]})
+    rows.append({"name": "kl_normal_std_multi_backward", **common,
+                 "replaces": f"{ref}/kl_kernel.py:72 (_kl_bwd, the VJP of :30)",
+                 "max_abs_err": err_bwd, "ms": kt["bwd"], "ms_again": kt["bwd_again"],
+                 "plain_ms": kt["bwd_plain"], "bound_ms": kl_bwd_bound[0],
+                 "bound_by": kl_bwd_bound[1], "library_ms": None,
+                 "library_is": "none: no single PyTorch call gives (g mu, g (scale - 1/scale))",
+                 "eager_ms": kt["bwd_eager"],
+                 "old_route_ms": kt["bwd_plain"],
+                 "old_route_is": "the same torch ops as the plain version, one set per modality"})
+    print(f"time kl_normal_std_multi [{at}]: forward kernel {kt['fwd']:.5f} and "
+          f"{kt['fwd_again']:.5f} ms (eager {kt['fwd_eager']:.5f}), old route (a launch per "
+          f"modality and a stack) {kt['fwd_old']:.5f} ms (eager {kt['fwd_old_eager']:.5f}), "
+          f"library {kt['fwd_library']:.5f} ms (eager with argument checks "
+          f"{kt['fwd_library_eager']:.5f}); backward kernel {kt['bwd']:.5f} and "
+          f"{kt['bwd_again']:.5f} ms (eager {kt['bwd_eager']:.5f}), torch ops "
+          f"{kt['bwd_plain']:.5f} ms; bounds {kl_fwd_bound[0]:.7f} and {kl_bwd_bound[0]:.7f} ms "
+          f"on {card}")
+    return rows
+
+
+def phase_attention_backward_times(card):
+    """The attention Function's backward at the encoder's training shape."""
+    import types
+    import torch.nn.functional as F
+    from multimodal_vae_comparison_tpu_torch.ops.kernels import attention
+    g = torch.Generator(device="cuda").manual_seed(19)
+    # recompute + five products, device time back to back
     q, k, v, mask = attention_inputs(g, TRAIN_BATCH, 2, SEQ_LEN, SEQ_LEN, 32, True)
     d_out = torch.randn(q.shape, generator=g, device="cuda")
     ctx = types.SimpleNamespace(saved_tensors=(q, k, v, mask))
@@ -632,35 +871,18 @@ def phase_train_times(card):
     print(f"time attention backward [({TRAIN_BATCH}, 2, {SEQ_LEN}, {SEQ_LEN}, 32) masked]: "
           f"{bwd_ms:.5f} ms (eager {bwd_eager:.5f}), SDPA's backward {bwd_lib:.5f} ms (eager), "
           f"bound {bwd_bound:.6f} ms ({bwd_by}) on {card}")
-    for label, mixing, obj in training_models():
-        model = build_model(flagship_specs(), mixing, N_LATENTS, obj=obj, seed=0,
-                            device="cuda")
-        step = make_train_step(model, make_optimizer("adam", TRAIN_LR, model.parameters()))
-        gen = torch.Generator(device="cuda").manual_seed(15)
-        for n in STEP_BATCHES:
-            batch = torch_batch(make_inputs(np.random.default_rng(16), n), "cuda")
-            for _ in range(3):
-                step(batch, generator=gen)
-            torch.cuda.synchronize()
-            lat = []
-            for _ in range(20):
-                t0 = time.perf_counter()
-                step(batch, generator=gen)
-                torch.cuda.synchronize()
-                lat.append((time.perf_counter() - t0) * 1e3)
-            p50 = statistics.median(lat)
-            print(f"time train step {label} batch {n}: p50 {p50:.3f} ms, min "
-                  f"{min(lat):.3f} ms over 20, {n / p50 * 1e3:.1f} samples/s on {card}")
-    return rows, {"attention_bwd_ms": bwd_ms, "attention_bwd_eager_ms": bwd_eager,
-                  "attention_bwd_bound_ms": bwd_bound, "attention_bwd_bound_by": bwd_by,
-                  "attention_bwd_library_ms": bwd_lib,
-                  "attention_bwd_library_is": "torch.autograd.grad of "
-                  "F.scaled_dot_product_attention(q, k, v, attn_mask=key padding), eager"}
+    return {"attention_bwd_ms": bwd_ms, "attention_bwd_eager_ms": bwd_eager,
+            "attention_bwd_bound_ms": bwd_bound, "attention_bwd_bound_by": bwd_by,
+            "attention_bwd_library_ms": bwd_lib,
+            "attention_bwd_library_is": "torch.autograd.grad of "
+            "F.scaled_dot_product_attention(q, k, v, attn_mask=key padding), eager"}
 
-
-PROFILE_SYMBOLS = {"masked_attention": "masked_attention_", "poe_fused": "poe_fwd",
-                   "kl_normal_std_fused": "kl_std_fwd", "sparse_fwd": "sparse_fwd",
-                   "sparse_dq": "sparse_dq", "sparse_dkv": "sparse_dkv"}
+PROFILE_SYMBOLS = {"masked_attention": "masked_attention_", "poe_lattice": "poe_lattice_fwd",
+                   "poe_lattice_backward": "poe_lattice_bwd",
+                   "kl_normal_std_multi": "kl_std_multi_fwd",
+                   "kl_normal_std_multi_backward": "kl_std_multi_bwd",
+                   "sparse_fwd": "sparse_fwd", "sparse_dq": "sparse_dq",
+                   "sparse_dkv": "sparse_dkv"}
 
 
 def profile_steps(label, step, batch, gen, n, steps, card):
@@ -689,7 +911,7 @@ def profile_steps(label, step, batch, gen, n, steps, card):
     busy = busy_ms([(e.time_range.start, e.time_range.end) for e in kernels])
     port_ms = {k: sum(us for name, us in per_name.items() if sym in name) / 1e3 / steps
                for k, sym in PROFILE_SYMBOLS.items()}
-    print("profile train step " + json.dumps({
+    numbers = {
         "model": label, "batch": n, "steps": steps,
         "wall_ms_per_step": wall_ms / steps,
         "kernel_ms_per_step": sum(per_name.values()) / 1e3 / steps,
@@ -698,32 +920,87 @@ def profile_steps(label, step, batch, gen, n, steps, card):
         "port_kernels_ms_per_step": {k: ms for k, ms in port_ms.items() if ms},
         "top_kernels_ms_per_step": {
             name[:80]: us / 1e3 / steps for name, us in per_name.most_common(5)},
-        "card": card}))
+        "card": card}
+    print("profile train step " + json.dumps(numbers))
+    return numbers
 
 
-def phase_train_profile(card, steps: int = 10):
-    """Where a train step's time goes, per model and batch size."""
+def phase_route_times(card, blocks: int = 6, steps: int = 10, profiled: int = 10):
+    """The POE and MOE train steps at each batch size on the PoE and KL
+    kernels' route and on the route before it (kernel_variants.old_route):
+    ``blocks`` blocks of ``steps`` steps on each route, in ABBA turns (new,
+    old, old, new, ...) so that a drift of the host's speed cancels; the p50
+    host ms over all of a route's steps and each block's p50; the port's
+    launches a step checked exactly on both routes; then each route profiled
+    over ``profiled`` steps for its kernels and device ms a step."""
+    import kernel_variants
+    from multimodal_vae_comparison_tpu_torch.ops.kernels import telemetry
     from multimodal_vae_comparison_tpu_torch.training.optim import make_optimizer
     from multimodal_vae_comparison_tpu_torch.training.trainer import (
         build_model, make_train_step)
+    order = [r for _ in range(blocks // 2) for r in ("new", "old", "old", "new")]
+    results = []
     for label, mixing, obj in training_models():
         model = build_model(flagship_specs(), mixing, N_LATENTS, obj=obj, seed=0,
                             device="cuda")
         step = make_train_step(model, make_optimizer("adam", TRAIN_LR, model.parameters()))
-        gen = torch.Generator(device="cuda").manual_seed(17)
+        gen = torch.Generator(device="cuda").manual_seed(15)
         for n in STEP_BATCHES:
-            batch = torch_batch(make_inputs(np.random.default_rng(18), n), "cuda")
+            batch = torch_batch(make_inputs(np.random.default_rng(16), n), "cuda")
             for _ in range(3):
                 step(batch, generator=gen)
-            torch.cuda.synchronize()
-            profile_steps(label, step, batch, gen, n, steps, card)
+            lat = {"new": [], "old": []}
+            block_p50 = {"new": [], "old": []}
+            for route in order:
+                restore = kernel_variants.old_route(model) if route == "old" else None
+                step(batch, generator=gen)       # the route's first step, untimed
+                torch.cuda.synchronize()
+                telemetry.reset()
+                block = []
+                for _ in range(steps):
+                    t0 = time.perf_counter()
+                    step(batch, generator=gen)
+                    torch.cuda.synchronize()
+                    block.append((time.perf_counter() - t0) * 1e3)
+                launches = telemetry.launches()
+                if restore:
+                    restore()
+                want = {k: v * steps for k, v in ROUTE_PER_STEP[mixing][route].items()}
+                check(launches == want, f"{label} bs {n}, {route} route: launched "
+                      f"{launches} in {steps} steps, expected {want}")
+                lat[route] += block
+                block_p50[route].append(statistics.median(block))
+            prof = {}
+            for route in ("new", "old"):
+                restore = kernel_variants.old_route(model) if route == "old" else None
+                prof[route] = profile_steps(f"{label} [{route} route]", step, batch, gen, n,
+                                            profiled, card)
+                if restore:
+                    restore()
+            p50 = {r: statistics.median(lat[r]) for r in lat}
+            row = {"model": label, "batch": n, "card": card, "steps_per_route": len(lat["new"]),
+                   **{f"{r}_p50_ms": p50[r] for r in p50},
+                   **{f"{r}_block_p50_ms": block_p50[r] for r in block_p50},
+                   **{f"{r}_kernels_per_step": prof[r]["kernels_per_step"] for r in prof},
+                   **{f"{r}_kernel_ms_per_step": prof[r]["kernel_ms_per_step"] for r in prof},
+                   **{f"{r}_port_launches_per_step": ROUTE_PER_STEP[mixing][r] for r in prof}}
+            results.append(row)
+            print(f"time train step {label} batch {n}: p50 new route {p50['new']:.3f} ms, old "
+                  f"route {p50['old']:.3f} ms ({len(lat['new'])} steps each in ABBA blocks of "
+                  f"{steps}; block p50s new {[round(x, 3) for x in block_p50['new']]}, old "
+                  f"{[round(x, 3) for x in block_p50['old']]}); kernels a step "
+                  f"{prof['new']['kernels_per_step']:.1f} vs {prof['old']['kernels_per_step']:.1f}"
+                  f", device kernel ms a step {prof['new']['kernel_ms_per_step']:.4f} vs "
+                  f"{prof['old']['kernel_ms_per_step']:.4f} on {card}")
+    print("route times " + json.dumps(results))
+    return results
 
 
 def phase_times(engine, card):
     import ctypes
     import math
     import torch.nn.functional as F
-    from multimodal_vae_comparison_tpu_torch.ops.kernels import _build, attention, poe_kernel
+    from multimodal_vae_comparison_tpu_torch.ops.kernels import _build, attention
     g = torch.Generator(device="cuda").manual_seed(3)
     rows = []
     # two yardsticks that csrc/attention.cu exports and the port never calls:
@@ -781,25 +1058,6 @@ def phase_times(engine, card):
                      "ms": kern, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
                      "library_ms": lib, "eager_ms": kern_eager,
                      "empty_launch_ms": floor, "chunked_kernel_ms": chunked_ms})
-    for e in (2, 1):
-        mus = torch.randn(e, 128, N_LATENTS, generator=g, device="cuda")
-        scales = torch.rand(e, 128, N_LATENTS, generator=g, device="cuda") + 0.3
-        kern = graph_ms(lambda: poe_kernel.poe_fused(mus, scales, 1.0))
-        plain = graph_ms(lambda: poe_kernel.poe_reference(mus, scales, 1.0))
-        kern_eager = eager_ms(lambda: poe_kernel.poe_fused(mus, scales, 1.0))
-        n = 128 * N_LATENTS
-        bound, by = bound_ms(4 * (2 * e * n + 2 * n), 5 * e * n + 3 * n)
-        err = max((a - b).abs().max().item() for a, b in zip(
-            poe_kernel.poe_fused(mus, scales, 1.0), poe_kernel.poe_reference(mus, scales, 1.0)))
-        rows.append({"name": "poe_fused", "at": f"E={e} (128, {N_LATENTS})",
-                     "route": "cuda",
-                     "source": "multimodal_vae_comparison_tpu_torch/csrc/poe.cu",
-                     "replaces": "multimodal_vae_comparison_tpu/ops/pallas/poe_kernel.py:48",
-                     "max_abs_err": err,
-                     "ms": kern, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
-                     "library_ms": None, "eager_ms": kern_eager,
-                     "library_is": "none: no single PyTorch call takes a product of "
-                     "Gaussian experts"})
     for r in rows:
         print(f"time {r['name']} [{r['at']}]: kernel {r['ms']:.5f} ms (eager "
               f"{r['eager_ms']:.5f}), plain {r['plain_ms']:.5f} ms, library "
@@ -1313,8 +1571,12 @@ def from_config(path: str, level_dir: str, suffix: str, results_root: str, **ove
     return Config(params, results_root=results_root)
 
 
-def expected_launches(mixing: str, objective_calls: int) -> dict:
-    return {k: n * objective_calls for k, n in PER_OBJECTIVE[mixing].items()}
+def expected_launches(mixing: str, objective_calls: int, train_steps: int) -> dict:
+    """Launches of ``objective_calls`` objective calls of which
+    ``train_steps`` (a train step's) also ran their backward."""
+    want = {k: n * objective_calls for k, n in PER_OBJECTIVE[mixing].items()}
+    want.update({k: n * train_steps for k, n in PER_BACKWARD[mixing].items()})
+    return want
 
 
 def kernel_busy_share(prof, wall_ms: float):
@@ -1421,14 +1683,14 @@ def phase_train_from_config(card: str, root: str):
     print(f"train from config: data route {route}, {level_dir} in {numbers['data_s']:.2f} s; "
           f"native host kernels available: {native.available()}")
 
-    def counted(label, mixing, calls, run):
+    def counted(label, mixing, calls, train_steps, run):
         telemetry.reset()
         out = run()
         torch.cuda.synchronize()
         got, paths = telemetry.launches(), telemetry.summary()
-        want = expected_launches(mixing, calls)
+        want = expected_launches(mixing, calls, train_steps)
         print(f"train from config {label}: launches {got}, expected {want} "
-              f"({calls} objective calls); dispatch {paths}")
+              f"({calls} objective calls, {train_steps} of them train steps); dispatch {paths}")
         check(got == want, f"{label}: launched {got}, expected {want}")
         check(not any(k.endswith(":plain") for k in paths),
               f"{label}: a plain version ran: {paths}")
@@ -1465,12 +1727,12 @@ def phase_train_from_config(card: str, root: str):
                     wall_ms = (time.perf_counter() - t1) * 1e3
                 train_main(config, trainer=trainer, enable_viz=False)
                 return prof, wall_ms
-            prof, wall_ms = counted(label, mixing, calls, run)
+            prof, wall_ms = counted(label, mixing, calls, epochs * steps, run)
             share, n_events = kernel_busy_share(prof, wall_ms)
             del prof
         else:
-            counted(label, mixing, calls, lambda: train_main(config, trainer=trainer,
-                                                             enable_viz=False))
+            counted(label, mixing, calls, epochs * steps,
+                    lambda: train_main(config, trainer=trainer, enable_viz=False))
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         rows = _csv_rows(os.path.join(config.mPath, "metrics.csv"))
         trained = float(rows[-1]["val_loss"])
@@ -1536,7 +1798,7 @@ def phase_train_from_config(card: str, root: str):
             timed["val"] = trainer.validate(epochs)
             timed["train_s"], timed["val_s"] = t2 - t1, time.perf_counter() - t2
 
-        counted(f"{label} per-batch epoch", mixing, steps + val_batches, per_batch)
+        counted(f"{label} per-batch epoch", mixing, steps + val_batches, steps, per_batch)
         resident = rows[-1]
         numbers.update(
             poe_resident_val_s=val_scan_s, poe_per_batch_train_s=timed["train_s"],
@@ -1608,6 +1870,7 @@ def main() -> int:
     phase_parity()
     phase_kl_parity()
     phase_backward_parity()
+    phase_lattice_parity()
     phase_sparse_parity()
     phase_sample_parity()
 
@@ -1652,7 +1915,8 @@ def main() -> int:
     print(f"training path launches: {train_launches}; dispatch: {paths}")
     check(not any(k.endswith(":plain") for k in paths),
           f"a plain version ran on the training path: {paths}")
-    check(all(train_launches.get(k, 0) > 0 for k in ("attention", "poe", "kl")),
+    check(all(train_launches.get(k, 0) > 0
+              for k in ("attention", "poe", "poe_bwd", "kl", "kl_bwd")),
           f"a kernel of the training path never launched: {train_launches}")
 
     # 7. the video slice at full width: card vs CPU, remat on vs off
@@ -1684,10 +1948,10 @@ def main() -> int:
 
     # 10. times
     rows = phase_times(engine, card)
-    kl_rows, extra = phase_train_times(card)
-    rows += kl_rows
+    rows += phase_kernel_route_times(card)
+    extra = phase_attention_backward_times(card)
     rows += phase_video_times(card)
-    phase_train_profile(card)
+    phase_route_times(card)
     print(card)
     # one entry per kernel, at its heaviest main-path shape (the first row
     # of each); the other shapes are on the "time" lines above.  launches:
@@ -1708,7 +1972,8 @@ def main() -> int:
     # the launch floor beside the kernels that run at the cost of one launch:
     # an empty kernel launched as the attention kernel is, in this run
     for r in primary:
-        if r["name"] in ("poe_fused", "kl_normal_std_fused", "sample_normal_fused"):
+        if r["name"] in ("poe_lattice", "poe_lattice_backward", "kl_normal_std_multi",
+                         "kl_normal_std_multi_backward", "sample_normal_fused"):
             r["empty_launch_ms"] = primary[0]["empty_launch_ms"]
     print(json.dumps({"kernels": primary}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

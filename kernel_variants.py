@@ -35,6 +35,26 @@ line of a CUDA source there, builds it, and in a process of its own prints:
   and v) read from rows staged in shared memory, as for Dh 64, not held in
   registers.
 
+The ``poe_`` variants edit ``csrc/poe.cu`` and are measured apart: the
+lattice forward and backward kernels' device ms (graphed, as above) at
+serving's one subset (2 experts of (128, 16)), the flagship lattice (2
+experts, 3 subsets, (24, 16)) and PolyMNIST's (5 experts, 31 subsets), and
+their largest error against the plain versions:
+
+* ``poe_shipped``: the source as it stands;
+* ``poe_loads_in_order``: the forward loads each expert right before its
+  reciprocal, not all experts first;
+* ``poe_ieee_div``: the forward's per-subset division and square root
+  IEEE-rounded (``/`` and ``sqrtf(1 / x)``), not ``__fdividef`` and
+  ``rsqrtf``.
+
+It also keeps the route the PoE and KL kernels took before they covered
+the whole lattice and every modality in one launch, as a yardstick that
+``chip_smoke.py`` times the train step against and the port never calls:
+:func:`old_route` makes a POE or MOE model fuse each subset with one PoE
+launch on its stacked experts and take the KL of each modality with one
+launch, each backward in torch ops.
+
 Needs one NVIDIA GPU and ``nvcc``; imports nothing of JAX.
 """
 from __future__ import annotations
@@ -48,6 +68,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PACKAGE = "multimodal_vae_comparison_tpu_torch"
 SPARSE = f"{PACKAGE}/csrc/sparse_attention.cu"
 ATTENTION = f"{PACKAGE}/csrc/attention.cu"
+POE = f"{PACKAGE}/csrc/poe.cu"
 
 # name -> [(source, text to find exactly once or more, its replacement)]
 VARIANTS = {
@@ -69,6 +90,22 @@ VARIANTS = {
                          for name in ("sparse_dq_mma", "sparse_dkv_mma")],
     "bwd_rows_in_smem": [(SPARSE, "rows_in_smem(int dhp) { return dhp > 32; }",
                           "rows_in_smem(int dhp) { return dhp > 16; }")],
+    "poe_shipped": [],
+    "poe_loads_in_order": [(POE, """    load_experts(ex, experts, i, mu, scale);
+#pragma unroll
+    for (int e = 0; e < MAX_EXPERTS; ++e) {
+      prec[e] = weighted[e] = 0.f;
+      if (e < experts) {
+""", """#pragma unroll
+    for (int e = 0; e < MAX_EXPERTS; ++e) {
+      prec[e] = weighted[e] = 0.f;
+      if (e < experts) {
+        scale[e] = ex.scale[e][i];
+        mu[e] = ex.mu[e][i];
+""")],
+    "poe_ieee_div": [(POE, """      mu_out[k * n + i] = __fdividef(acc_mu, denom);
+      scale_out[k * n + i] = rsqrtf(denom);""", """      mu_out[k * n + i] = acc_mu / denom;
+      scale_out[k * n + i] = sqrtf(1.f / denom);""")],
 }
 
 
@@ -157,9 +194,135 @@ def measure(name: str, root: str) -> None:
         print(f"variant {name}: {e}")
 
 
+def _per_subset_poe():
+    """The PoE Function of the old route: the kernel on one subset's stacked
+    (E, ..., D) experts, the closed form of ``_poe_bwd`` in torch ops."""
+    import torch
+    from torch.autograd.function import once_differentiable
+    from multimodal_vae_comparison_tpu_torch.constants import EPS
+    from multimodal_vae_comparison_tpu_torch.ops.kernels import poe_kernel
+
+    class PerSubsetPoE(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, mus, scales, prior_precision):
+            mu, scale = poe_kernel._launch_forward(
+                mus.unbind(0), scales.unbind(0), poe_kernel.lattice_masks(
+                    [tuple(range(mus.shape[0]))], mus.shape[0]), prior_precision)
+            mu, scale = mu[0], scale[0]
+            ctx.save_for_backward(mus, scales, mu, scale)
+            return mu, scale
+
+        @staticmethod
+        @once_differentiable
+        def backward(ctx, g_mu, g_scale):
+            mus, scales, mu, scale = ctx.saved_tensors
+            var = scales.square() + EPS
+            inv_denom = scale.square()
+            d_mus = g_mu[None] * (1.0 / var) * inv_denom[None]
+            g_prec = (g_mu * inv_denom)[None] * (mus - mu[None]) \
+                + (g_scale * (-0.5) * inv_denom * scale)[None]
+            return d_mus, g_prec * (-2.0 * scales / var.square()), None
+
+    return PerSubsetPoE
+
+
+def _per_modality_kl():
+    """The KL Function of the old route: the kernel on one posterior, the
+    closed form of ``_kl_bwd`` in torch ops."""
+    import torch
+    from torch.autograd.function import once_differentiable
+    from multimodal_vae_comparison_tpu_torch.ops.kernels import kl_kernel
+
+    class PerModalityKL(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, mu, scale):
+            ctx.save_for_backward(mu, scale)
+            return kl_kernel._launch_forward([mu], [scale], mu.shape[:-1])
+
+        @staticmethod
+        @once_differentiable
+        def backward(ctx, g):
+            mu, scale = ctx.saved_tensors
+            g = g[..., None]
+            return g * mu, g * (scale - 1.0 / scale)
+
+    return PerModalityKL
+
+
+def old_route(model):
+    """Make ``model`` (POE or MOE, on the card) take the old route until the
+    returned function is called: per subset two ``torch.stack``s and one PoE
+    launch (``POE.lattice_joints``), per modality one KL launch and then a
+    stack (``MMVAE.kld_std_all``), each backward in torch ops."""
+    import types
+    import torch
+    from multimodal_vae_comparison_tpu_torch.models.distributions import Normal
+    poe, kl = _per_subset_poe(), _per_modality_kl()
+
+    def lattice_joints(self, qz_params, lattice):
+        joints = []
+        for subset in lattice:
+            present = [self.mod_names[i] for i in subset]
+            mus = torch.stack([qz_params[n]["shared"][0] for n in present])
+            scales = torch.stack([qz_params[n]["shared"][1] for n in present])
+            joints.append(Normal(*poe.apply(mus, scales, 1.0)))
+        return joints
+
+    def kld_std_all(self, dists):
+        return torch.stack([kl.apply(dists[s.name].loc.contiguous(),
+                                     dists[s.name].scale.contiguous()) for s in self.specs])
+
+    model.lattice_joints = types.MethodType(lattice_joints, model)
+    model.kld_std_all = types.MethodType(kld_std_all, model)
+
+    def restore():
+        del model.lattice_joints, model.kld_std_all
+    return restore
+
+
+def measure_poe(name: str, root: str) -> None:
+    """The ``poe_`` variants, in their own process as :func:`measure`."""
+    sys.path.insert(0, root)
+    import torch
+    import chip_smoke as cs
+    from multimodal_vae_comparison_tpu_torch.ops.fusion import subset_lattice
+    from multimodal_vae_comparison_tpu_torch.ops.kernels import _build, poe_kernel
+    if not os.path.abspath(_build.CSRC).startswith(os.path.abspath(root)):
+        raise RuntimeError(f"the package was imported from {_build.CSRC}, not from {root}")
+    card = cs.card_line()
+    built = _build.build(("poe",))
+    regs = [line.split("Used")[1].split(",")[0].strip() for line in built["poe"][1].splitlines()
+            if "registers" in line and "Used" in line]
+    print(f"variant {name}: built, ptxas {regs} (backward, forward) on {card}")
+    g = torch.Generator(device="cuda").manual_seed(31)
+    for m, lattice, rows in ((2, [(0, 1)], 128), (2, subset_lattice(2), cs.TRAIN_BATCH),
+                             (5, subset_lattice(5), cs.TRAIN_BATCH)):
+        mus, scales = cs.lattice_inputs(g, m, rows)
+        masks = poe_kernel.lattice_masks(lattice, m)
+        ups = [torch.randn((len(lattice), rows, cs.N_LATENTS), generator=g, device="cuda")
+               for _ in range(2)]
+        mu, scale = poe_kernel._launch_forward(mus, scales, masks, 1.0)
+        grads = poe_kernel._launch_backward(mus, scales, masks, mu, scale, *ups)
+        want = poe_kernel.poe_lattice_reference(mus, scales, lattice, 1.0)
+        want_grads = poe_kernel.poe_lattice_backward_reference(mus, scales, mu, scale, *ups,
+                                                               lattice)
+        err = max((a - b).abs().max().item() for a, b in zip((mu, scale), want))
+        err_bwd = max((a - b).abs().max().item()
+                      for a, b in zip(sum(map(list, grads), []), sum(want_grads, [])))
+        fwd = [cs.graph_ms(lambda: poe_kernel._launch_forward(mus, scales, masks, 1.0))
+               for _ in range(2)]
+        bwd = [cs.graph_ms(lambda: poe_kernel._launch_backward(mus, scales, masks, mu, scale,
+                                                               *ups)) for _ in range(2)]
+        print(f"variant {name}: poe_lattice M={m} S={len(lattice)} ({rows}, {cs.N_LATENTS}): "
+              f"forward {fwd[0]:.5f} and {fwd[1]:.5f} ms, max_abs_err {err:.3e}; backward "
+              f"{bwd[0]:.5f} and {bwd[1]:.5f} ms, max_abs_err {err_bwd:.3e}")
+
+
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--measure":
-        measure(sys.argv[2], os.path.join(HERE, "build", "archive", f"variant_{sys.argv[2]}"))
+        name = sys.argv[2]
+        (measure_poe if name.startswith("poe_") else measure)(
+            name, os.path.join(HERE, "build", "archive", f"variant_{name}"))
         return 0
     names = sys.argv[1:] or list(VARIANTS)
     unknown = [n for n in names if n not in VARIANTS]

@@ -26,7 +26,7 @@ from multimodal_vae_comparison_tpu_torch.models.distributions import (
 from multimodal_vae_comparison_tpu_torch.models.encoders import get_encoder
 from multimodal_vae_comparison_tpu_torch.models.output import VAEOutput
 from multimodal_vae_comparison_tpu_torch.ops.kernels.kl_kernel import (
-    kl_normal_std_fused)
+    kl_normal_std_fused, kl_normal_std_multi)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -174,6 +174,22 @@ class MMVAE(nn.Module):
         if isinstance(dist, Normal) and spec.prior in ("normal", "gaussian"):
             return kl_normal_std_fused(dist.loc.contiguous(), dist.scale.contiguous())
         return kl_divergence(dist, self.prior_for(spec, dim=dist.loc.shape[-1])).sum(-1)
+
+    def kld_std_all(self, dists: Dict[str, Any]) -> torch.Tensor:
+        """(M, ...) :meth:`kld_std` of every modality's posterior, in spec
+        order: the Gaussian ones under a Gaussian prior through one launch
+        of the KL kernel, any other family through :meth:`kld_std`."""
+        gauss = [s.name for s in self.specs
+                 if isinstance(dists[s.name], Normal) and s.prior in ("normal", "gaussian")]
+        rows = {}
+        if gauss:
+            fused = kl_normal_std_multi([dists[n].loc.contiguous() for n in gauss],
+                                        [dists[n].scale.contiguous() for n in gauss])
+            if len(gauss) == len(self.specs):
+                return fused
+            rows = dict(zip(gauss, fused.unbind(0)))
+        return torch.stack([rows[s.name] if s.name in rows else self.kld_std(s, dists[s.name])
+                            for s in self.specs])
 
     def recon_lpx(self, spec: ModalitySpec, dist, batch) -> torch.Tensor:
         """Scaled per-(K, B) reconstruction log-likelihood of one modality."""

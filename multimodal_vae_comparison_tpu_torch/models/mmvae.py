@@ -10,7 +10,7 @@ come from ``generator`` in the same order (``self.specs`` order for MOE).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -21,7 +21,7 @@ from multimodal_vae_comparison_tpu_torch.models.distributions import (
 from multimodal_vae_comparison_tpu_torch.models.output import (
     ModalityOutput, VAEOutput)
 from multimodal_vae_comparison_tpu_torch.ops.fusion import (
-    product_of_experts, subset_lattice)
+    poe_lattice, product_of_experts, subset_lattice)
 
 
 def _kmean(lpx: torch.Tensor) -> torch.Tensor:
@@ -107,10 +107,10 @@ class MOE(MMVAE):
         weighted = self.obj == "elbo_iw"
         qzs, zs = self._sample_all(batch, eps, generator)
         lpx_by_tgt = self._lpx_by_target(batch, zs)
-        lpx_terms, klds, rec_per_mod = [], [], {}
+        lpx_terms, rec_per_mod = [], {}
+        kld = self.kld_std_all(qzs)                              # (M, B)
         for i, spec in enumerate(self.specs):
             qz = qzs[spec.name]
-            klds.append(self.kld_std(spec, qz))
             lpx_own = lpx_by_tgt[spec.name][i]
             # metric: K-averaged, llik_scaling divided out, batch-summed
             rec_per_mod[spec.name] = -_kmean(lpx_own).sum() / spec.llik_scaling
@@ -126,7 +126,6 @@ class MOE(MMVAE):
                     lpx_cross = torch.exp(lq_self - lq_other) * lpx_cross
                 lpx_terms.append(lpx_cross)
         lpx = torch.stack([_kmean(t) for t in lpx_terms])
-        kld = torch.stack(klds)
         loss = objectives.elbo(lpx, kld, self.beta) / len(self.specs)
         metrics = {"kld": kld.mean(-1).sum(),
                    **{f"reconstruction_loss_{k}": v for k, v in rec_per_mod.items()}}
@@ -197,6 +196,15 @@ class POE(MMVAE):
         scales = torch.stack([qz_params[n]["shared"][1] for n in present])
         return product_of_experts(mus, scales, include_prior=True)
 
+    def lattice_joints(self, qz_params, lattice) -> List[Normal]:
+        """The joint posterior of every subset of ``lattice`` (tuples of
+        modality indices): PoE of its experts + the analytic prior expert,
+        all subsets in one launch of the PoE kernel."""
+        shared = [qz_params[n]["shared"] for n in self.mod_names]
+        mu, scale = poe_lattice([p[0].contiguous() for p in shared],
+                                [p[1].contiguous() for p in shared], lattice, 1.0)
+        return [Normal(m, s) for m, s in zip(mu.unbind(0), scale.unbind(0))]
+
     def forward(self, batch, present: Tuple[str, ...],
                 eps: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> VAEOutput:
@@ -234,12 +242,10 @@ class POE(MMVAE):
             raise ValueError(f"eps holds {len(eps)} draws; the lattice has {S} subsets")
         presents = [tuple(self.specs[i].name for i in subset) for subset in lattice]
         qz_params = self.encode(batch, self.mod_names)
-        joints, z_subs = [], []
-        for s, present in enumerate(presents):
-            joint = Normal(*self.mix(qz_params, present))
-            joints.append(joint)
-            z_subs.append(joint.rsample((self.K,), generator=generator,
-                                        eps=None if eps is None else eps[s]))
+        joints = self.lattice_joints(qz_params, lattice)
+        z_subs = [joint.rsample((self.K,), generator=generator,
+                                eps=None if eps is None else eps[s])
+                  for s, joint in enumerate(joints)]
         z_all = torch.cat(z_subs, dim=0)                         # (S*K, B, D)
         lpx_sub = {}                                             # name -> (S, B)
         for spec in self.specs:

@@ -1,6 +1,8 @@
 """Posterior fusion primitives (counterpart of ``ops/fusion.py``).
 
-Only what the serving slice needs: the PoE fusion and the subset lattice.
+The PoE fusion of one set of experts (:func:`product_of_experts`) and of
+every subset of a lattice in one launch (:func:`poe_lattice`, from
+``ops/kernels/poe_kernel.py``), and the subset lattice.
 """
 from __future__ import annotations
 
@@ -10,7 +12,7 @@ from typing import List, Sequence, Tuple
 import torch
 
 from multimodal_vae_comparison_tpu_torch.ops.kernels.poe_kernel import (
-    poe_fused, poe_reference)
+    poe_fused, poe_lattice, poe_reference)
 
 
 def poe_precision_fusion(mus: torch.Tensor, scales: torch.Tensor,

@@ -29,8 +29,8 @@ from torch.profiler import ProfilerActivity, profile
 
 from chip_smoke import BUCKETS, N_LATENTS, busy_ms, flagship_specs, make_inputs
 
-# the port's kernels by the name of their __global__ function in csrc/
-PORT_KERNELS = {"masked_attention": "masked_attention_fwd", "poe_fused": "poe_fwd"}
+# the port's kernels by a part of the name of their __global__ functions in csrc/
+PORT_KERNELS = {"masked_attention": "masked_attention_", "poe_fused": "poe_lattice_fwd"}
 
 
 def main() -> int:

@@ -14,6 +14,7 @@ import torch
 
 from multimodal_vae_comparison_tpu_torch.models import get_mixing
 from multimodal_vae_comparison_tpu_torch.models.base import ModalitySpec
+from multimodal_vae_comparison_tpu_torch.ops.fusion import subset_lattice
 from multimodal_vae_comparison_tpu_torch.ops.kernels import attention as tattn
 from multimodal_vae_comparison_tpu_torch.ops.kernels import kl_kernel as tkl
 from multimodal_vae_comparison_tpu_torch.ops.kernels import poe_kernel as tpoe
@@ -183,14 +184,118 @@ def test_kl_backward_matches_plain(cuda, shape):
         torch.testing.assert_close(g, w, **KL_TOL)
 
 
+def _experts_on(cuda, seed, m, shape):
+    rng = np.random.default_rng(seed)
+    mus = [torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(cuda)
+           for _ in range(m)]
+    scales = [torch.from_numpy(rng.uniform(0.3, 2.0, shape).astype(np.float32)).to(cuda)
+              for _ in range(m)]
+    return mus, scales
+
+
+# (experts, lattice, rows, p0): serving's one subset of both experts, the
+# flagship's lattice at bs 24 and 256, PolyMNIST's 5 experts (31 subsets),
+# and the lattice without the prior
+POE_LATTICE_CASES = [(2, ((0, 1),), 128, 1.0), (2, None, 24, 1.0), (2, None, 256, 1.0),
+                     (5, None, 24, 1.0), (5, None, 256, 0.0), (3, None, 24, 0.0)]
+
+
+@pytest.mark.parametrize("m,lattice,rows,prior", POE_LATTICE_CASES)
+def test_poe_lattice_kernels_match_plain(cuda, m, lattice, rows, prior):
+    """Forward and backward kernels, one launch each, against the plain
+    versions within POE_TOL (the forward's division and square root are
+    within 2 ulp; the backward rounds the plain closed form's operations one
+    by one), the gradients also against autograd through the plain forward
+    within POE_BWD_TOL."""
+    lattice = lattice or subset_lattice(m)
+    mus, scales = _experts_on(cuda, 14 + m, m, (rows, 16))
+    ups = [torch.randn((len(lattice), rows, 16), device=cuda) for _ in range(2)]
+    leaves = [x.clone().requires_grad_() for x in mus + scales]
+    telemetry.reset()
+    mu, scale = tpoe.poe_lattice(leaves[:m], leaves[m:], lattice, prior)
+    got = torch.autograd.grad((mu, scale), leaves, ups)
+    assert telemetry.launches() == {"poe": 1, "poe_bwd": 1}
+    want_mu, want_scale = tpoe.poe_lattice_reference(mus, scales, lattice, prior)
+    torch.testing.assert_close(mu, want_mu, **POE_TOL)
+    torch.testing.assert_close(scale, want_scale, **POE_TOL)
+    d_mus, d_scales = tpoe.poe_lattice_backward_reference(mus, scales, mu.detach(),
+                                                          scale.detach(), *ups, lattice)
+    for g, w in zip(got, d_mus + d_scales):
+        torch.testing.assert_close(g, w, **POE_TOL)
+    want = _grads(lambda *x: tpoe.poe_lattice_reference(x[:m], x[m:], lattice, prior),
+                  mus + scales, ups)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **POE_BWD_TOL)
+
+
+def test_poe_lattice_and_its_backward_replay_in_a_cuda_graph(cuda):
+    """The flagship lattice's forward and backward captured in one CUDA
+    graph: the lattice and the expert pointers are kernel parameters, so a
+    replay on new inputs copied into the captured tensors gives the plain
+    versions' results, and the capture counted one launch of each."""
+    m, lattice = 2, subset_lattice(2)
+    static = [x.clone() for x in sum(_experts_on(cuda, 30, m, (24, 16)), [])]
+    ups = [torch.randn((len(lattice), 24, 16), device=cuda) for _ in range(2)]
+
+    def run():
+        leaves = [x.detach().requires_grad_() for x in static]
+        mu, scale = tpoe.poe_lattice(leaves[:m], leaves[m:], lattice, 1.0)
+        return (mu, scale) + torch.autograd.grad((mu, scale), leaves, ups)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    telemetry.reset()
+    with torch.cuda.graph(graph):
+        out = run()
+    assert telemetry.launches() == {"poe": 1, "poe_bwd": 1}
+    for seed in (31, 32):
+        for dst, src in zip(static, sum(_experts_on(cuda, seed, m, (24, 16)), [])):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        mus, scales = static[:m], static[m:]
+        want = tpoe.poe_lattice_reference(mus, scales, lattice, 1.0)
+        want += tuple(sum(tpoe.poe_lattice_backward_reference(
+            mus, scales, *want, *ups, lattice), []))
+        for g, w in zip(out, want):
+            torch.testing.assert_close(g, w, **POE_TOL)
+
+
+@pytest.mark.parametrize("m,rows,broadcast", [(1, 24, False), (2, 24, False), (2, 24, True),
+                                              (2, 256, False), (5, 256, True)])
+def test_kl_multi_kernels_match_plain(cuda, m, rows, broadcast):
+    """Forward and backward kernels, one launch each, against the plain
+    versions; ``broadcast``: the upstream gradient is the stride-0 view a
+    sum's backward hands over, read in place."""
+    mus, scales = _experts_on(cuda, 40 + m, m, (rows, 16))
+    up = (torch.full((), 0.7, device=cuda).expand(m, rows) if broadcast
+          else torch.randn((m, rows), device=cuda))
+    leaves = [x.clone().requires_grad_() for x in mus + scales]
+    telemetry.reset()
+    got = tkl.kl_normal_std_multi(leaves[:m], leaves[m:])
+    got_grads = torch.autograd.grad(got, leaves, up)
+    assert telemetry.launches() == {"kl": 1, "kl_bwd": 1}
+    assert got.shape == (m, rows)
+    torch.testing.assert_close(got, tkl.kl_multi_reference(mus, scales), **KL_TOL)
+    want = _grads(lambda *x: tkl.kl_multi_reference(x[:m], x[m:]), mus + scales, up)
+    for g, w in zip(got_grads, want):
+        torch.testing.assert_close(g, w, **KL_TOL)
+
+
 def _flagship_specs():
     return (ModalitySpec("mod_1", "CNN2", "CNN", (64, 64, 3)),
             ModalitySpec("mod_2", "TxtTransformer", "TxtTransformer", (45, 27),
                          mod_type="text", recon_loss="category_ce", has_masks=True))
 
 
-@pytest.mark.parametrize("mixing,kernels", [("poe", {"attention": 2, "poe": 3}),
-                                            ("moe", {"attention": 2, "kl": 2})])
+@pytest.mark.parametrize("mixing,kernels", [
+    ("poe", {"attention": 2, "poe": 1, "poe_bwd": 1}),
+    ("moe", {"attention": 2, "kl": 1, "kl_bwd": 1})])
 def test_full_width_train_step_on_the_card(cuda, mixing, kernels):
     """One adam step of each training model at full width and bs 24: it
     launches exactly its kernels, and its loss and gradients match the
@@ -478,7 +583,8 @@ def test_video_model_on_the_card_matches_the_cpu(cuda, obj, remat):
         loss, _ = model.objective(batch, eps=eps)
         loss.backward()
         if dev == "cuda":
-            launches = {k: n for k, n in telemetry.launches().items() if k != "kl"}
+            launches = {k: n for k, n in telemetry.launches().items()
+                        if k not in ("kl", "kl_bwd")}
             assert launches == {
                 "sparse_attention": 8 if obj == "elbo" else 20 if remat else 12,
                 "sparse_attention_dq": 8, "sparse_attention_dkv": 8}
@@ -514,7 +620,7 @@ def test_axial_videogpt_on_the_card_matches_the_cpu(cuda):
         loss.backward()
         if dev == "cuda":
             # three axes per block, four blocks per net, encoder and decoder
-            assert telemetry.launches() == {"attention": 24, "kl": 2}
+            assert telemetry.launches() == {"attention": 24, "kl": 1, "kl_bwd": 1}
         out[dev] = (loss.item(), {n: p.grad.float().cpu() for n, p in model.named_parameters()
                                   if p.grad is not None})
     assert out["cuda"][0] == pytest.approx(out["cpu"][0], rel=1e-5)

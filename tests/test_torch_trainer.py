@@ -325,9 +325,11 @@ def test_cli_trains_one_epoch_into_its_run_directory(cli_run):
     assert yaml.safe_load((run / "config.yml").read_text())["epochs"] == 1
     trace = json.loads((root / "prof" / "trace.json").read_text())
     assert trace["traceEvents"]
-    # the plain versions ran, 2 attention and 3 PoE calls per objective
-    # (5 train steps, 1 val batch, 1 test batch)
-    assert telemetry.summary() == {"attention:plain": 2 * 7, "poe:plain": 3 * 7}
+    # the plain versions ran, 2 attention calls and 1 PoE call (the whole
+    # lattice) per objective (5 train steps, 1 val batch, 1 test batch), and
+    # 1 PoE backward per train step
+    assert telemetry.summary() == {"attention:plain": 2 * 7, "poe:plain": 7,
+                                   "poe_bwd:plain": 5}
 
 
 def test_infer_restores_the_run_and_the_server_serves_it(cli_run, monkeypatch):
