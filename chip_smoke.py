@@ -22,7 +22,13 @@ three main paths at full width with random weights from a seed:
   ``main`` (the first under ``torch.profiler``) and 1 per-batch epoch,
   ``configs/config_cdspritesplus.yml`` (MOE) for 1 epoch; the run directory
   restored through ``MultimodalVAEInfer`` and served by
-  ``serving/server.py --model`` in a process of its own.
+  ``serving/server.py --model`` in a process of its own;
+* eval from config: each of those runs ends in ``Trainer.test()``, which
+  trains the CdSprites+ judge on the card (once; the MOE run loads it),
+  scores cross- and joint-coherence from the prior, ex-post and fitted-GMM
+  sources and writes ``cdspritesplus_stats.txt``; the eval CLI
+  (``eval_cdsprites -p``) gives the same stats from the cache in a process
+  of its own, and cross- and prior joint generation agree with the CPU's.
 
 Each path runs with the kernel counts set to 0 just before it and read just
 after, and must have launched every kernel it goes through and taken no
@@ -38,6 +44,7 @@ CUDA it exits 1 at once.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -145,6 +152,15 @@ KL_MULTI_SHAPES = ((1, TRAIN_BATCH, False), (2, TRAIN_BATCH, False), (2, TRAIN_B
                    (2, 256, False), (5, 256, True))
 # restored model vs the trainer's, eval mode, same eps
 RESTORE_RTOL, RESTORE_ATOL = 1e-5, 1e-5
+# the CdSprites+ benchmark (eval/eval_cdsprites.py): judged test rows, the
+# ex-post mixture's rows and batch, joint samples per source
+EVAL_ROWS, EXPOST_ROWS, EXPOST_BATCH, JOINT_ROWS = 250, 2048, 64, 64
+JOINT_SOURCES = ("prior", "expost", "fitted")
+# the judge's accuracy on real held-out images (chance is 33 %)
+JUDGE_MIN = 90.0
+# decoder means of the eval's generation on the card against the CPU's
+# plain path, same weights and eps: fp32 through the whole model
+EVAL_RTOL, EVAL_ATOL = 1e-4, 1e-4
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1579,6 +1595,71 @@ def expected_launches(mixing: str, objective_calls: int, train_steps: int) -> di
     return want
 
 
+def eval_launches(mixing: str, n_train: int) -> dict:
+    """Launches of one CdSprites+ benchmark (``eval_single_model``).
+
+    Its forwards: text->image and image->text cross-generation, then one
+    with both modalities per ex-post batch (64 train rows, up to 2048); its
+    decodes: one per joint source.  A POE forward launches the PoE kernel
+    once (one subset) and attention in the text encoder when text is
+    present and in the text decoder; a MOE forward decodes text from each
+    present modality's sample, and launches no KL.  A text decode is one
+    attention launch."""
+    batches = min(-(-n_train // EXPOST_BATCH), EXPOST_ROWS // EXPOST_BATCH)
+    joint = len(JOINT_SOURCES)
+    if mixing == "poe":
+        return {"attention": 2 + 1 + 2 * batches + joint, "poe": 2 + batches}
+    return {"attention": 2 + 2 + 3 * batches + joint}
+
+
+@contextlib.contextmanager
+def eval_stopwatch(times: dict):
+    """Seconds of the benchmark's parts while the block runs, summed into
+    ``times``: the judges (trained or loaded), cross-generation, each joint
+    source, the GMM fit and the whole eval.  Each part ends in host numpy,
+    so its clock reads finished device work."""
+    from multimodal_vae_comparison_tpu_torch.eval import eval_cdsprites as ec
+    from multimodal_vae_comparison_tpu_torch.eval.infer import MultimodalVAEInfer
+    parts = ((ec, "get_all_classifiers", lambda a, k: "judges_s"),
+             (ec, "calculate_cross_coherency", lambda a, k: "cross_s"),
+             (ec, "calculate_joint_coherency",
+              lambda a, k: f"joint_{k.get('source', 'prior')}_s"),
+             (MultimodalVAEInfer, "_fitted_prior", lambda a, k: "gmm_fit_s"),
+             (ec, "eval_single_model", lambda a, k: "eval_s"))
+    saved = [(owner, name, getattr(owner, name)) for owner, name, _ in parts]
+
+    def timed(fn, label):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                key = label(args, kwargs)
+                times[key] = times.get(key, 0.0) + time.perf_counter() - t0
+        return run
+
+    for (owner, name, label), (_, _, fn) in zip(parts, saved):
+        setattr(owner, name, timed(fn, label))
+    try:
+        yield times
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+
+
+def check_stats(label: str, stats: dict) -> None:
+    """The benchmark's 12 stats finite and in [0, 100] (a failed ex-post or
+    fitted source reads NaN), no ``eval_error``, and the judge at least
+    JUDGE_MIN on real images."""
+    from multimodal_vae_comparison_tpu_torch.eval.eval_cdsprites import STATS_KEYS
+    check("eval_error" not in stats, f"{label}: the eval failed: {stats.get('eval_error')}")
+    bad = {k: stats.get(k) for k in STATS_KEYS
+           if not (isinstance(stats.get(k), float) and 0.0 <= stats[k] <= 100.0)}
+    check(not bad, f"{label}: stats missing, not finite or out of [0, 100]: {bad}")
+    check(stats["Judge Accuracy Real"] >= JUDGE_MIN,
+          f"{label}: the judge reads {stats['Judge Accuracy Real']:.2f} % on real images")
+
+
 def kernel_busy_share(prof, wall_ms: float):
     """(device busy share, kernels) of a ``torch.profiler`` window: the union
     of the CUDA activity intervals over the host wall time, read from the
@@ -1656,6 +1737,86 @@ def serve_model_dir(run_dir: str, batch, log_path: str) -> dict:
     return {"server_up_s": up_s, "server_generate_ms": generate_ms}
 
 
+def phase_eval_from_config(card: str, run_dir: str) -> dict:
+    """The POE run's benchmark again, from its run directory: the eval CLI
+    (``eval_cdsprites -p``) in a process of its own must load the judge
+    from the cache and write the stats file ``test()`` wrote, byte for
+    byte; then cross-generation of the same EVAL_ROWS test rows and prior
+    joint generation of JOINT_ROWS, with the eval's own draws (from a CPU
+    generator seeded 0, so the same eps on both), on the card and
+    through the plain path on the CPU: decoder means within EVAL_RTOL /
+    EVAL_ATOL, the judged text->image and image->text Strict equal or one
+    row apart.  Returns its numbers."""
+    from multimodal_vae_comparison_tpu_torch.data.text import onehot2text
+    from multimodal_vae_comparison_tpu_torch.eval import eval_cdsprites as ec
+    from multimodal_vae_comparison_tpu_torch.eval.infer import MultimodalVAEInfer
+
+    numbers = {}
+    path = os.path.join(run_dir, "cdspritesplus_stats.txt")
+    with open(path) as f:
+        written = f.read()
+    check([line.split(":")[0] for line in written.splitlines()] == list(ec.STATS_KEYS),
+          f"{path} does not hold the 12 stats:\n{written}")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "multimodal_vae_comparison_tpu_torch.eval.eval_cdsprites",
+         "-p", run_dir], cwd=HERE, capture_output=True, text=True, timeout=600,
+        stdin=subprocess.DEVNULL)
+    numbers["eval_cli_s"] = time.perf_counter() - t0
+    check(proc.returncode == 0, f"eval_cdsprites -p exited {proc.returncode}:\n"
+          f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    check("classifier[shape]: cached" in proc.stdout,
+          f"eval_cdsprites -p did not load the cached judge:\n{proc.stdout[-3000:]}")
+    with open(path) as f:
+        again = f.read()
+    check(again == written, f"eval_cdsprites -p wrote other stats than test():\n{written}\n"
+          f"against\n{again}")
+    print(f"eval from config: eval_cdsprites -p {run_dir} in its own process, judge cached, "
+          f"{numbers['eval_cli_s']:.2f} s: the stats test() wrote, byte for byte")
+
+    card_exp, cpu_exp = MultimodalVAEInfer(run_dir), MultimodalVAEInfer(run_dir, device="cpu")
+    batch, labels = card_exp.get_test_samples(EVAL_ROWS)
+    texts = [" ".join(x) if isinstance(x, (list, tuple)) else str(x) for x in labels]
+    mapping = ec._mod_mapping(batch)
+    img, txt = mapping["image"], mapping["text"]
+    gt_texts = onehot2text(batch[txt]["data"], batch[txt]["masks"])
+    level = ec.dataset_level(card_exp)
+    out = {}
+    for name, exp in (("card", card_exp), ("cpu", cpu_exp)):
+        judges = ec.get_all_classifiers(exp, level, log_fn=None)
+        t0 = time.perf_counter()
+        t2i = exp.cross_generate(txt, batch[txt]["data"], batch[txt]["masks"])
+        i2t = exp.cross_generate(img, batch[img]["data"])
+        joint = exp.joint_generate(JOINT_ROWS, source="prior")
+        seconds = time.perf_counter() - t0
+        images = (np.clip(t2i[img], 0, 1) * 255).astype(np.uint8)
+        strict = (ec.text_to_image_accuracy(texts, images, judges, level)[0],
+                  ec.image_to_text_accuracy(gt_texts, onehot2text(i2t[txt]), level)[0])
+        out[name] = ({"text->image": t2i, "image->text": i2t, "prior joint": joint},
+                     strict, seconds)
+    worst = 0.0
+    for what, card_means in out["card"][0].items():
+        for mod, got in card_means.items():
+            want = out["cpu"][0][what][mod]
+            err = float(np.abs(got - want).max())
+            worst = max(worst, err)
+            check(np.allclose(got, want, rtol=EVAL_RTOL, atol=EVAL_ATOL),
+                  f"eval on the card vs the CPU: {what} {mod} max_abs_err={err:.3e}")
+    row = 100.0 / len(texts)
+    (card_t2i, card_i2t), (cpu_t2i, cpu_i2t) = out["card"][1], out["cpu"][1]
+    print(f"eval from config: card vs CPU over {len(texts)} test rows and {JOINT_ROWS} prior "
+          f"samples, the eval's draws: decoder means max_abs_err={worst:.3e} (rtol {EVAL_RTOL}, atol "
+          f"{EVAL_ATOL}); text->image Strict {card_t2i:.2f} / {cpu_t2i:.2f}, image->text "
+          f"Strict {card_i2t:.2f} / {cpu_i2t:.2f} (one row is {row:.2f}); generation "
+          f"{out['card'][2]:.3f} s on {card}, {out['cpu'][2]:.3f} s on the CPU")
+    for what, a, b in (("text->image", card_t2i, cpu_t2i), ("image->text", card_i2t, cpu_i2t)):
+        check(abs(a - b) <= row + 1e-9, f"judged {what} Strict {a} on the card, {b} on the CPU")
+    numbers.update(eval_card_vs_cpu_max_abs_err=worst,
+                   eval_strict_card=[card_t2i, card_i2t], eval_strict_cpu=[cpu_t2i, cpu_i2t],
+                   eval_generation_card_s=out["card"][2], eval_generation_cpu_s=out["cpu"][2])
+    return numbers
+
+
 def phase_train_from_config(card: str, root: str):
     """The config -> data -> Trainer -> checkpoint -> --model server path.
 
@@ -1666,9 +1827,12 @@ def phase_train_from_config(card: str, root: str):
     the per-batch ``run_epoch``, and ``config_cdspritesplus.yml`` (MOE) for 1
     epoch.  Each run is counted from zero and must launch exactly its
     objective calls (train steps + validation batches) times the kernels'
-    counts per call.  The run directory is restored through
-    ``MultimodalVAEInfer`` and served by ``serving/server.py --model``.
-    Returns (launches of the whole phase, its numbers)."""
+    counts per call, and the ``test()`` that ends each run the launches of
+    its CdSprites+ benchmark (:func:`eval_launches`), whose stats are
+    checked and, for POE, held again by :func:`phase_eval_from_config`.  The
+    run directory is restored through ``MultimodalVAEInfer`` and served by
+    ``serving/server.py --model``.  Returns (launches of the whole phase,
+    its numbers)."""
     from multimodal_vae_comparison_tpu_torch.data import native
     from multimodal_vae_comparison_tpu_torch.eval.infer import MultimodalVAEInfer
     from multimodal_vae_comparison_tpu_torch.main import main as train_main
@@ -1677,20 +1841,26 @@ def phase_train_from_config(card: str, root: str):
     from torch.profiler import ProfilerActivity, profile
 
     numbers, total = {"card": card}, {}
+    # the judges the POE run's test() trains, and the MOE run's and the
+    # eval CLI's load
+    os.environ["CDSPRITES_CLASSIFIER_DIR"] = os.path.join(root, "judges")
     t0 = time.perf_counter()
     level_dir, suffix, route = make_cdsprites(os.path.join(root, "data"))
     numbers["data_s"] = time.perf_counter() - t0
     print(f"train from config: data route {route}, {level_dir} in {numbers['data_s']:.2f} s; "
           f"native host kernels available: {native.available()}")
 
-    def counted(label, mixing, calls, train_steps, run):
+    def counted(label, mixing, calls, train_steps, run, extra=None):
         telemetry.reset()
         out = run()
         torch.cuda.synchronize()
         got, paths = telemetry.launches(), telemetry.summary()
         want = expected_launches(mixing, calls, train_steps)
+        for k, n in (extra or {}).items():
+            want[k] = want.get(k, 0) + n
         print(f"train from config {label}: launches {got}, expected {want} "
-              f"({calls} objective calls, {train_steps} of them train steps); dispatch {paths}")
+              f"({calls} objective calls, {train_steps} of them train steps"
+              + (f", and the eval's {extra}" if extra else "") + f"); dispatch {paths}")
         check(got == want, f"{label}: launched {got}, expected {want}")
         check(not any(k.endswith(":plain") for k in paths),
               f"{label}: a plain version ran: {paths}")
@@ -1703,6 +1873,13 @@ def phase_train_from_config(card: str, root: str):
                              epochs=epochs, iterseeds=1)
         trainer = Trainer(config, enable_viz=False)
         trainer.init_state()
+        stats, times = {}, {}
+
+        def test_and_keep(trainer=trainer, stats=stats):
+            stats.update(Trainer.test(trainer))
+            return stats
+
+        trainer.test = test_and_keep    # main() prints test()'s stats; keep them
         dm, bs = trainer.datamodule, config.batch_size
         steps, val_batches = dm.n_train // bs, dm.n_val // bs
         check(config.mixing == mixing and trainer.use_scan() and trainer.device.type == "cuda",
@@ -1717,7 +1894,9 @@ def phase_train_from_config(card: str, root: str):
                            for mod in staged.values() for t in mod.values() if t is not None)
         untrained = trainer.validate_scan(epochs - 1)["val_loss"]
         torch.cuda.reset_peak_memory_stats()
-        calls = epochs * (steps + val_batches) + val_batches   # fit, then test()
+        # fit, then test(): validation and the CdSprites+ benchmark
+        calls = epochs * (steps + val_batches) + val_batches
+        evals = eval_launches(mixing, dm.n_train)
         if mixing == "poe":
             def run():
                 with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1725,14 +1904,29 @@ def phase_train_from_config(card: str, root: str):
                     trainer.fit(epochs=1)
                     torch.cuda.synchronize()
                     wall_ms = (time.perf_counter() - t1) * 1e3
-                train_main(config, trainer=trainer, enable_viz=False)
+                with eval_stopwatch(times):
+                    train_main(config, trainer=trainer, enable_viz=False)
                 return prof, wall_ms
-            prof, wall_ms = counted(label, mixing, calls, epochs * steps, run)
+            prof, wall_ms = counted(label, mixing, calls, epochs * steps, run, evals)
             share, n_events = kernel_busy_share(prof, wall_ms)
             del prof
         else:
-            counted(label, mixing, calls, epochs * steps,
-                    lambda: train_main(config, trainer=trainer, enable_viz=False))
+            def run():
+                with eval_stopwatch(times):
+                    train_main(config, trainer=trainer, enable_viz=False)
+            counted(label, mixing, calls, epochs * steps, run, evals)
+        check_stats(label, stats)
+        check(trainer.model.K == config.K, f"{label}: test() left the model at K "
+              f"{trainer.model.K}, the config has {config.K}")
+        print(f"eval from config {label}: " + ", ".join(
+            f"{k} {stats[k]:.2f}" for k in stats if not k.startswith("val_"))
+            + f"; launches of the eval {evals}; seconds " + ", ".join(
+                f"{k[:-2]} {v:.3f}" for k, v in times.items()) + f" on {card}")
+        numbers.update({f"{mixing}_eval_stats": {k: v for k, v in stats.items()
+                                                 if not k.startswith("val_")},
+                        f"{mixing}_eval_s": times, f"{mixing}_eval_launches": evals})
+        if mixing == "poe":
+            numbers.update(phase_eval_from_config(card, config.mPath))
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         rows = _csv_rows(os.path.join(config.mPath, "metrics.csv"))
         trained = float(rows[-1]["val_loss"])
@@ -1816,6 +2010,7 @@ def phase_train_from_config(card: str, root: str):
         print(f"train from config {label}: serving/server.py --model answered /health after "
               f"{numbers['server_up_s']:.2f} s, /generate (2 rows, both modalities) 200 in "
               f"{numbers['server_generate_ms']:.1f} ms")
+    os.environ.pop("CDSPRITES_CLASSIFIER_DIR")
     return total, numbers
 
 
@@ -1938,8 +2133,9 @@ def main() -> int:
     check(paths.get("sparse_attention_bwd:cuda", 0) == 8 * VIDEO_STEPS,
           f"sparse_attention_bwd ran {paths.get('sparse_attention_bwd:cuda')} times")
 
-    # 9. this slice's main path: CdSprites+ from the configs through the
-    # data layer, Trainer, checkpoints and the --model server
+    # 9. the main path of the last two slices: CdSprites+ from the configs
+    # through the data layer, Trainer, checkpoints and the --model server,
+    # each run ending in test() and its benchmark ("eval from config")
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         config_launches, config_numbers = phase_train_from_config(card, tmp)

@@ -183,6 +183,9 @@ class Config:
         with open(os.path.join(self.mPath, "config.yml"), "w") as f:
             yaml.dump(self.params, f, default_flow_style=False)
 
+    def get_vis_dir(self) -> str:
+        return os.path.join(self.mPath, "visuals")
+
     def change_seed(self, seed: int) -> None:
         self.seed = seed
         self.params["seed"] = seed

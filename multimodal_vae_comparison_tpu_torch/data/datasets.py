@@ -171,9 +171,8 @@ class CDSPRITESPLUS(BaseDataset):
         return out
 
     def eval_statistics_fn(self):
-        # the CdSprites+ benchmark (eval_cdsprites) comes with ROADMAP Queue A
-        # item 6; until then the Trainer's test() only validates
-        return None
+        from multimodal_vae_comparison_tpu_torch.eval.eval_cdsprites import cdsprites_eval
+        return cdsprites_eval
 
     def _mod_specific_loaders(self):
         return {"image": self._load_image, "text": self._load_text}

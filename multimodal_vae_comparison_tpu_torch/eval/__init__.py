@@ -1,1 +1,1 @@
-"""Restoring trained runs for inference."""
+"""Restoring trained runs for inference, and the benchmarks that score them."""

@@ -155,6 +155,21 @@ class MMVAE(nn.Module):
         """The learned-scale Gaussian prior, (1, D)."""
         return Normal(*self.pz_params())
 
+    def sample_pz(self, num: int, temperature: float = 1.0,
+                  generator: Optional[torch.Generator] = None,
+                  eps: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """(1, num, D) draws of the learned-scale Gaussian prior for joint
+        generation, ``mu + temperature * scale * eps``; ``eps`` (1, num, D)
+        injected, or drawn from ``generator`` on its own device."""
+        mu, scale = self.pz_params()
+        shape = (1, num, self.n_latents)
+        if eps is None:
+            eps = torch.randn(shape, generator=generator,
+                              device=None if generator is None else generator.device)
+        elif tuple(eps.shape) != shape:
+            raise ValueError(f"eps has shape {tuple(eps.shape)}, expected {shape}")
+        return mu + temperature * scale * eps.to(mu.device, mu.dtype)
+
     def kld_to_prior(self, dist) -> torch.Tensor:
         """(B,) KL(dist || learned prior), closed form (the mixture prior's
         Monte-Carlo estimate over drawn samples is not ported)."""

@@ -43,11 +43,14 @@ class Normal:
                 generator: Optional[torch.Generator] = None,
                 eps: Optional[torch.Tensor] = None) -> torch.Tensor:
         """loc + eps * scale with eps of shape ``sample_shape + loc.shape``,
-        drawn from ``generator`` unless given."""
+        drawn from ``generator`` unless given.  The draw is made on the
+        generator's device and moved to ``loc``'s, so a CPU generator gives
+        the card the CPU's draws."""
         shape = tuple(sample_shape) + tuple(self.loc.shape)
         if eps is None:
             eps = torch.randn(shape, generator=generator, dtype=self.loc.dtype,
-                              device=self.loc.device)
+                              device=self.loc.device if generator is None
+                              else generator.device).to(self.loc.device)
         elif tuple(eps.shape) != shape:
             raise ValueError(f"eps has shape {tuple(eps.shape)}, expected {shape}")
         return self.loc + eps * self.scale

@@ -22,12 +22,16 @@ config through the data layer, as the reference's does:
 * checkpoints hold params, optimizer state, step and the best validation
   loss (``<run>/model/{last,best}/state.pt``, ``torch.save``); ``pre_trained``
   warm-starts the params and ``resume`` restarts a run from its own state;
-* CSV metrics, and TensorBoard when ``tensorboardX`` imports.
+* CSV metrics, and TensorBoard when ``tensorboardX`` imports;
+* every ``viz_freq`` epochs the visualizations of ``visualization.py``,
+  and at the end :meth:`Trainer.test`: validation, then the dataset's own
+  benchmark (CdSprites+: ``eval/eval_cdsprites.py``).
 """
 from __future__ import annotations
 
 import os
 import time
+import traceback
 from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
@@ -279,7 +283,6 @@ class Trainer:
         self._staged_epoch = None
         self._staged_val = None
         self.enable_viz = enable_viz
-        self._viz_logged = False
         self.step: Optional[int] = None     # None until init_state
         self.best_val = float("inf")
         self.csv: Optional[CSVLogger] = None
@@ -530,23 +533,32 @@ class Trainer:
                 self.save_checkpoint("last")
                 if improved:
                     self.save_checkpoint("best")
-            if (self.enable_viz and self.cfg.mPath and not self._viz_logged
+            if (self.enable_viz and self.cfg.mPath
                     and (epoch + 1) % max(int(self.cfg.viz_freq), 1) == 0):
-                if log_fn:
-                    log_fn("[viz] skipped: visualization.py is not ported yet "
-                           "(ROADMAP Queue A item 6)")
-                self._viz_logged = True
+                try:
+                    self.run_visualizations(epoch)
+                except Exception as e:  # a plot must never end training
+                    if log_fn:
+                        log_fn(f"[viz] skipped: {type(e).__name__}: {e}")
             history = metrics
         if self._tb is not None:
             self._tb.flush()
         return history
 
     def test(self) -> Dict[str, float]:
-        """Validation at training end, then the dataset's own evaluation
-        where it has one (reference trainer.py:171-178); CdSprites+'s comes
-        with ROADMAP Queue A item 6."""
+        """Validation at training end, then the dataset's own benchmark where
+        it has one (reference trainer.py:171-178).  A benchmark that raises
+        is reported, with its traceback on stderr, as ``stats["eval_error"]``."""
         stats = self.validate(epoch=10 ** 6)
         fn = self.datamodule.datasets[0].eval_statistics_fn()
         if fn is not None:
-            stats.update(fn(self))
+            try:
+                stats.update(fn(self))
+            except Exception as e:  # the trained run and its stats stay
+                traceback.print_exc()
+                stats["eval_error"] = f"{type(e).__name__}: {e}"
         return stats
+
+    def run_visualizations(self, epoch: int) -> None:
+        from multimodal_vae_comparison_tpu_torch import visualization
+        visualization.epoch_visualizations(self, epoch)

@@ -627,3 +627,68 @@ def test_axial_videogpt_on_the_card_matches_the_cpu(cuda):
     for name, g in out["cpu"][1].items():
         err = (out["cuda"][1][name] - g).abs().max().item()
         assert err <= VIDEO_GRAD_REL["elbo"] * g.abs().max().item() + 1e-5, f"{name}: {err}"
+
+
+def _level1_trainers(tmp_path, count=90):
+    """The flagship POE over generated CdSprites+ level 1 (``.pkl``: the
+    card's host may lack h5py), one Trainer on each device from one seed."""
+    from multimodal_vae_comparison_tpu_torch.config import Config
+    from multimodal_vae_comparison_tpu_torch.data_proc.cdsprites import generate_level
+    from multimodal_vae_comparison_tpu_torch.training.trainer import Trainer
+    level = generate_level(1, count, str(tmp_path), seed=0, fmt="pkl")
+    params = {"batch_size": 24, "epochs": 1, "exp_name": "eval", "lr": 1e-3, "n_latents": 16,
+              "mixing": "poe", "obj": "elbo", "seed": 3, "test_split": 0.25,
+              "dataset_name": "cdspritesplus", "labels": None}
+    for i, (mod_type, enc, dec, loss) in enumerate(
+            (("image", "CNN2", "CNN", "bce"),
+             ("text", "TxtTransformer", "TxtTransformer", "category_ce"))):
+        params[f"modality_{i + 1}"] = {
+            "encoder": enc, "decoder": dec, "mod_type": mod_type, "recon_loss": loss,
+            "path": f"{level}/traindata.pkl", "test_datapath": f"{level}/testdata.pkl"}
+    return {dev: Trainer(Config(params), device=dev, enable_viz=False).init_state()
+            for dev in ("cuda", "cpu")}
+
+
+def test_judge_trains_on_the_card_as_on_the_cpu(cuda, tmp_path):
+    """Two epochs of the CdSprites+ shape judge from one init on each
+    device: the same weights (Adam's steps where a gradient is within
+    rounding of zero aside) and the same predictions."""
+    from multimodal_vae_comparison_tpu_torch.eval.classifiers import (
+        CNNClassifier, predict, train_classifier)
+    from multimodal_vae_comparison_tpu_torch.eval.eval_cdsprites import (
+        CLASS_MAPPINGS, get_attribute)
+    dm = _level1_trainers(tmp_path)["cpu"].datamodule
+    images, _ = dm.split_arrays(0, "train")
+    y = np.array([CLASS_MAPPINGS["shape"].index(get_attribute("shape", t))
+                  for t in dm.labels_train])
+    judges = {dev: train_classifier(CNNClassifier(3).to(dev), images, y, epochs=2,
+                                    batch_size=16) for dev in ("cuda", "cpu")}
+    for (name, a), b in zip(judges["cuda"].named_parameters(), judges["cpu"].parameters()):
+        diff = (a.cpu() - b).detach().abs()
+        assert diff.max().item() <= 2 * 1e-3 * 2 * (len(images) // 16), name
+        share = (diff <= 1e-4 * b.abs().max()).float().mean().item()
+        assert share >= 0.999, f"{name}: {share}"
+    assert np.array_equal(predict(judges["cuda"], images), predict(judges["cpu"], images))
+
+
+def test_eval_generation_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """The eval's cross-generation of the test rows and its prior joint
+    generation, same weights and the eval's own seeded draws (a CPU
+    generator's, so the same eps on both): kernels on the card (counted),
+    plain versions on the CPU, decoder means within 1e-4."""
+    from multimodal_vae_comparison_tpu_torch.eval.infer import MultimodalVAEInfer
+    trainers = _level1_trainers(tmp_path)
+    out = {}
+    for dev, trainer in trainers.items():
+        exp = MultimodalVAEInfer.from_trainer(trainer)
+        batch, labels = exp.get_test_samples(250)
+        telemetry.reset()
+        t2i = exp.cross_generate("mod_2", batch["mod_2"]["data"], batch["mod_2"]["masks"])
+        i2t = exp.cross_generate("mod_1", batch["mod_1"]["data"])
+        joint = exp.joint_generate(64, seed=2)
+        if dev == "cuda":
+            assert telemetry.launches() == {"attention": 2 + 1 + 1, "poe": 2}
+        out[dev] = (t2i, i2t, joint)
+    for got, want in zip(out["cuda"], out["cpu"]):
+        for name in want:
+            np.testing.assert_allclose(got[name], want[name], **SLICE_TOL, err_msg=name)

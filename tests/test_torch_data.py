@@ -25,6 +25,7 @@ from multimodal_vae_comparison_tpu_torch.config import Config
 from multimodal_vae_comparison_tpu_torch.data import datasets, native
 from multimodal_vae_comparison_tpu_torch.data.datamodule import DataModule, prefetch_to_device
 from multimodal_vae_comparison_tpu_torch.data_proc import cdsprites
+from multimodal_vae_comparison_tpu_torch.eval.eval_cdsprites import cdsprites_eval
 
 REPO = Path(__file__).resolve().parents[1]
 CONFIGS = sorted(glob.glob(str(REPO / "configs" / "round5" / "*.yml"))) + [
@@ -296,7 +297,7 @@ def test_cdsprites_dataset_loads_and_decodes_as_jax(level1):
         out, ref = got.decode_output(gd[:2], gm[:2] if gm is not None else None), \
             want.decode_output(wd[:2], wm[:2] if wm is not None else None)
         assert np.array_equal(out, ref) if mod_type == "image" else out == ref
-    assert got.eval_statistics_fn() is None   # eval_cdsprites waits for item 6
+    assert got.eval_statistics_fn() is cdsprites_eval   # the port's benchmark
 
 
 def test_unported_and_unknown_datasets_raise():

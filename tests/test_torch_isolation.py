@@ -26,11 +26,13 @@ def refuse(*args, **kwargs):
 subprocess.Popen = refuse
 REQUIRED = {"multimodal_vae_comparison_tpu_torch." + m for m in (
     "bridge", "config", "data.datamodule", "data.datasets", "data.native", "data.text",
-    "data_proc.cdsprites", "eval.infer", "main", "models.base", "models.decoders",
+    "data_proc.cdsprites", "eval.classifiers", "eval.eval_cdsprites", "eval.infer",
+    "eval.train_classifiers", "main", "models.base", "models.decoders",
     "models.distributions", "models.encoders", "models.mmvae", "models.nets",
     "models.objectives", "ops.kernels.attention", "ops.kernels.kl_kernel",
     "ops.kernels.poe_kernel", "ops.kernels.sample_kernel", "ops.kernels.sparse_attention",
-    "serving.engine", "serving.server", "training.optim", "training.trainer")}
+    "serving.engine", "serving.server", "training.optim", "training.trainer", "utils",
+    "visualization")}
 import multimodal_vae_comparison_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
@@ -40,17 +42,21 @@ bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "triton",
                                     "multimodal_vae_comparison_tpu"))
 missing = sorted(REQUIRED - set(names))
-print(len(names), bad, missing)
-sys.exit(1 if bad or missing else 0)
+# the plotting and image packages load in the functions that draw
+optional = sorted(n for n in sys.modules
+                  if n.split(".")[0] in ("cv2", "matplotlib", "sklearn"))
+print(len(names), bad, missing, optional)
+sys.exit(1 if bad or missing or optional else 0)
 """
 
 
 def test_port_imports_no_jax_no_jax_package_and_no_triton():
-    """Every module of the port (the training, video and config/data/Trainer
-    slices' among them), and
+    """Every module of the port (the training, video, config/data/Trainer and
+    eval slices' among them), and
     chip_smoke.py, imported in a fresh process with no nvcc reachable: none
-    pulls in jax, flax, optax, triton or the JAX package, and none starts a
-    process (an nvcc build) at import."""
+    pulls in jax, flax, optax, triton or the JAX package, none loads cv2,
+    matplotlib or sklearn, and none starts a process (an nvcc build) at
+    import."""
     env = dict(os.environ, PATH=os.path.dirname(sys.executable),
                CUDA_HOME=str(REPO / "no-cuda-here"))
     env.pop("CUDA_PATH", None)

@@ -9,6 +9,8 @@ runner against the per-batch loop, the seeded reshuffle, save / restore /
 continue against an uninterrupted run, best_val and CSV resume, the CLI,
 ``MultimodalVAEInfer`` and the server on the run directory it wrote.
 """
+import contextlib
+import io
 import json
 import os
 import threading
@@ -33,6 +35,7 @@ from multimodal_vae_comparison_tpu_torch import main as port_main
 from multimodal_vae_comparison_tpu_torch.bridge import load_flax_params
 from multimodal_vae_comparison_tpu_torch.config import Config
 from multimodal_vae_comparison_tpu_torch.data_proc import cdsprites
+from multimodal_vae_comparison_tpu_torch.eval.eval_cdsprites import STATS_KEYS
 from multimodal_vae_comparison_tpu_torch.eval.infer import MultimodalVAEInfer
 from multimodal_vae_comparison_tpu_torch.models import distributions as tdist
 from multimodal_vae_comparison_tpu_torch.ops.kernels import telemetry
@@ -297,23 +300,28 @@ def test_reset_for_seed_repoints_the_run_and_redraws_the_weights(tmp_path, level
 
 @pytest.fixture(scope="module")
 def cli_run(level1, tmp_path_factory):
-    """One epoch through the CLI on the CPU, its first epoch profiled."""
+    """One epoch through the CLI on the CPU, its first epoch profiled, then
+    the CdSprites+ benchmark of ``test()`` (its judge cached under the
+    run's root); returns (root, trainer, printed output)."""
     root = tmp_path_factory.mktemp("cli")
     cfg = root / "cfg.yml"
     cfg.write_text(yaml.safe_dump(cdsprites_params(level1, exp_name="cli")))
     cwd = os.getcwd()
     os.chdir(root)
+    out = io.StringIO()
     try:
-        telemetry.reset()
-        trainer = port_main.cli(["--cfg", str(cfg), "--device", "cpu", "--epochs", "1",
-                                 "--no_viz", "--profile", str(root / "prof")])
+        with pytest.MonkeyPatch.context() as mp, contextlib.redirect_stdout(out):
+            mp.setenv("CDSPRITES_CLASSIFIER_DIR", str(root / "judges"))
+            telemetry.reset()
+            trainer = port_main.cli(["--cfg", str(cfg), "--device", "cpu", "--epochs", "1",
+                                     "--no_viz", "--profile", str(root / "prof")])
     finally:
         os.chdir(cwd)
-    return root, trainer
+    return root, trainer, out.getvalue()
 
 
 def test_cli_trains_one_epoch_into_its_run_directory(cli_run):
-    root, trainer = cli_run
+    root, trainer, printed = cli_run
     run = root / "results" / "cli" / "version_0"
     assert trainer.cfg.mPath == os.path.join("results", "cli", "version_0")
     for path in ("config.yml", "metrics.csv", "model/last/state.pt", "model/best/state.pt",
@@ -327,13 +335,22 @@ def test_cli_trains_one_epoch_into_its_run_directory(cli_run):
     assert trace["traceEvents"]
     # the plain versions ran, 2 attention calls and 1 PoE call (the whole
     # lattice) per objective (5 train steps, 1 val batch, 1 test batch), and
-    # 1 PoE backward per train step
-    assert telemetry.summary() == {"attention:plain": 2 * 7, "poe:plain": 7,
-                                   "poe_bwd:plain": 5}
+    # 1 PoE backward per train step; then the benchmark of test(): a PoE
+    # forward each for text->image (2 attention: text encoder and decoder),
+    # image->text (1) and the one ex-post batch of the 40 train rows (2),
+    # and a text decode (1 attention) for each of the 3 joint sources
+    eval_attention, eval_poe = 2 + 1 + 2 + 3, 3
+    assert telemetry.summary() == {"attention:plain": 2 * 7 + eval_attention,
+                                   "poe:plain": 7 + eval_poe, "poe_bwd:plain": 5}
+    stats = (run / "cdspritesplus_stats.txt").read_text().splitlines()
+    assert [line.split(":")[0] for line in stats] == list(STATS_KEYS)
+    test_line = next(line for line in printed.splitlines() if line.startswith("test: "))
+    assert all(f"'{k}'" in test_line for k in STATS_KEYS) and "eval_error" not in test_line
+    assert (root / "judges" / "cdspritesplus_classifier_level1_shape_v2.pt").is_file()
 
 
 def test_infer_restores_the_run_and_the_server_serves_it(cli_run, monkeypatch):
-    root, trainer = cli_run
+    root, trainer, _ = cli_run
     run = str(root / "results" / "cli" / "version_0")
     infer = MultimodalVAEInfer(os.path.join(run, "model", "last"), device="cpu")
     assert infer.run_dir == run and infer.mod_names == ("mod_1", "mod_2")
