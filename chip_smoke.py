@@ -131,14 +131,21 @@ DATA_COUNT = 10000
 # PoE once for the whole subset lattice; the MOE objective the same
 # attention and KL once for all modalities.  A train step and a validation
 # batch both make one call; a train step also runs one backward of each
-PER_OBJECTIVE = {"poe": {"attention": 2, "poe": 1}, "moe": {"attention": 2, "kl": 1}}
-PER_BACKWARD = {"poe": {"poe_bwd": 1}, "moe": {"kl_bwd": 1}}
+PER_OBJECTIVE = {"poe": {"attention": 2, "poe": 1}, "moe": {"attention": 2, "kl": 1},
+                 # MoPoE: PoE once for the fully present subsets, one text
+                 # decode; DMVAE: the joint's PoE, every private KL in one
+                 # launch, the text decoded from its own, the joint and the
+                 # image's shared sample
+                 "mopoe": {"attention": 2, "poe": 1},
+                 "dmvae": {"attention": 4, "poe": 1, "kl": 1}}
+PER_BACKWARD = {"poe": {"poe_bwd": 1}, "moe": {"kl_bwd": 1}, "mopoe": {"poe_bwd": 1},
+                "dmvae": {"poe_bwd": 1, "kl_bwd": 1}}
 # launches a train step on each route of the PoE and KL kernels: the
 # lattice route, and the route before it that kernel_variants.old_route
 # keeps (a PoE launch per subset, a KL launch per modality, each backward
 # in torch ops)
 ROUTE_PER_STEP = {mixing: {"new": {**PER_OBJECTIVE[mixing], **PER_BACKWARD[mixing]}}
-                  for mixing in PER_OBJECTIVE}
+                  for mixing in ("poe", "moe")}
 ROUTE_PER_STEP["poe"]["old"] = {"attention": 2, "poe": 3}
 ROUTE_PER_STEP["moe"]["old"] = {"attention": 2, "kl": 2}
 # poe_lattice's and kl_normal_std_multi's parity shapes: (experts, lattice
@@ -150,6 +157,20 @@ LATTICE_SHAPES = ((2, ((0, 1),), 128, 1.0), (2, None, TRAIN_BATCH, 1.0), (2, Non
 # (posteriors, rows, upstream gradient broadcast from a sum's backward)
 KL_MULTI_SHAPES = ((1, TRAIN_BATCH, False), (2, TRAIN_BATCH, False), (2, TRAIN_BATCH, True),
                    (2, 256, False), (5, 256, True))
+# poe_lattice's per-subset prior bitmask: every subset of M experts (E = 1
+# ... M each) with the prior expert on none, on all (POE) and on the full
+# set only (MoPoE); and PolyMNIST's MoPoE shape, M 5 of (128, 24)
+PRIOR_MASK_EXPERTS = (2, 3, 4, 5)
+PRIOR_MASKS = ("none", "all", "full")
+POLYMNIST_ROWS, POLYMNIST_LATENTS = 128, 24
+# the paper's four-model CdSprites+ comparison, level 1: (label, config,
+# mixing).  ResNet-50 (Enc_CNN) images, 16 shared + 10 private latents
+ZOO = (("MVAE", "configs/reproduce_paper/mvae/level1/level1_0.yml", "poe"),
+       ("MMVAE", "configs/reproduce_paper/mmvae/level1/level1_0.yml", "moe"),
+       ("MoPoE", "configs/reproduce_paper/mopoe/level1/level1_0.yml", "mopoe"),
+       ("DMVAE", "configs/reproduce_paper/dmvae/level1/level1_0.yml", "dmvae"))
+# the two the port newly trains from their configs: 1 resident epoch each
+ZOO_FROM_CONFIG = ("MoPoE", "DMVAE")
 # restored model vs the trainer's, eval mode, same eps
 RESTORE_RTOL, RESTORE_ATOL = 1e-5, 1e-5
 # the CdSprites+ benchmark (eval/eval_cdsprites.py): judged test rows, the
@@ -213,7 +234,37 @@ def numpy_eps(rng: np.random.Generator, mixing: str, n: int):
 def eps_to(eps, device):
     if isinstance(eps, dict):
         return {k: torch.from_numpy(v).to(device) for k, v in eps.items()}
+    if isinstance(eps, np.ndarray):
+        return torch.from_numpy(eps).to(device)
     return [torch.from_numpy(v).to(device) for v in eps]
+
+
+def paper_config(path: str):
+    """The Config of a reproduce_paper YAML for its model alone: no run
+    directory, CdSprites+'s feature dims filled in."""
+    from multimodal_vae_comparison_tpu_torch.config import Config
+    cfg = Config(os.path.join(HERE, path), eval_only=True)
+    for mod, dims in zip(cfg.mods, ([64, 64, 3], [SEQ_LEN, VOCAB])):
+        mod.feature_dims = dims
+    return cfg
+
+
+def zoo_eps(model, rng: np.random.Generator, n: int):
+    """Standard-normal draws, as numpy, in the form the model's objective and
+    its forward over every modality take: one (K, n, D) per subset (POE),
+    per modality (MOE), the joint's one (MoPOE), or DMVAE's list in its
+    order of draws."""
+    kind, shape = type(model).__name__, (model.K, n, model.n_latents)
+    if kind == "DMVAE":
+        return [rng.standard_normal(s).astype(np.float32)
+                for s in model.eps_shapes(model.mod_names, n)]
+    if kind == "MoPOE":
+        return rng.standard_normal(shape).astype(np.float32)
+    if kind == "MOE":
+        return {name: rng.standard_normal(shape).astype(np.float32)
+                for name in model.mod_names}
+    return [rng.standard_normal(shape).astype(np.float32)
+            for _ in range(2 ** len(model.specs) - 1)]
 
 
 def make_inputs(rng: np.random.Generator, n: int):
@@ -417,55 +468,75 @@ def phase_backward_parity():
                      (mu, scale), up, KL_RTOL, KL_ATOL)
 
 
-def lattice_inputs(g: torch.Generator, m: int, rows: int):
-    """M expert (or posterior) means and stddevs of (rows, N_LATENTS)."""
-    mus = [torch.randn(rows, N_LATENTS, generator=g, device="cuda") for _ in range(m)]
-    scales = [torch.rand(rows, N_LATENTS, generator=g, device="cuda") * 1.7 + 0.3
+def lattice_inputs(g: torch.Generator, m: int, rows: int, d: int = N_LATENTS):
+    """M expert (or posterior) means and stddevs of (rows, d)."""
+    mus = [torch.randn(rows, d, generator=g, device="cuda") for _ in range(m)]
+    scales = [torch.rand(rows, d, generator=g, device="cuda") * 1.7 + 0.3
               for _ in range(m)]
     return mus, scales
 
 
+def prior_mask(kind: str, subsets: int) -> int:
+    """The prior bitmask of ``kind`` over a whole lattice, whose last subset
+    is the full set: on no subset, on all, or on the full set only."""
+    return {"none": 0, "all": (1 << subsets) - 1, "full": 1 << (subsets - 1)}[kind]
+
+
+def _lattice_case(g, m, lattice, rows, prior, mask=None):
+    """poe_lattice at one shape: one forward and one backward launch; the
+    kernels against the plain versions (the closed forms summed in the same
+    order), the gradients against autograd through the plain forward."""
+    from multimodal_vae_comparison_tpu_torch.ops.kernels import poe_kernel
+    from multimodal_vae_comparison_tpu_torch.ops.kernels import telemetry
+    mus, scales = lattice_inputs(g, m, rows)
+    ups = [torch.randn((len(lattice), rows, N_LATENTS), generator=g, device="cuda")
+           for _ in range(2)]
+    leaves = [x.clone().requires_grad_() for x in mus + scales]
+    telemetry.reset()
+    mu, scale = poe_kernel.poe_lattice(leaves[:m], leaves[m:], lattice, prior, mask)
+    grads = torch.autograd.grad((mu, scale), leaves, ups)
+    took = telemetry.launches()
+    mu, scale = mu.detach(), scale.detach()
+    want = poe_kernel.poe_lattice_reference(mus, scales, lattice, prior, mask)
+    want_grads = sum(poe_kernel.poe_lattice_backward_reference(
+        mus, scales, mu, scale, *ups, lattice), [])
+    torch.cuda.synchronize()
+    label = (f"poe_lattice M={m} S={len(lattice)} ({rows}, {N_LATENTS}) p0={prior}"
+             + ("" if mask is None else f" prior mask {mask:#x}"))
+    err = max((a - b).abs().max().item() for a, b in zip((mu, scale), want))
+    err_bwd = max((a - b).abs().max().item() for a, b in zip(grads, want_grads))
+    print(f"parity {label}: forward max_abs_err={err:.3e}, backward kernel vs the plain "
+          f"closed form max_abs_err={err_bwd:.3e} (rtol {POE_RTOL}, atol {POE_ATOL}); "
+          f"launches {took}")
+    check(took == {"poe": 1, "poe_bwd": 1}, f"{label} launched {took}")
+    check(all(torch.allclose(a, b, rtol=POE_RTOL, atol=POE_ATOL)
+              for a, b in zip((mu, scale), want)),
+          f"{label}: the forward kernel disagrees with its plain version")
+    check(all(torch.allclose(a, b, rtol=POE_RTOL, atol=POE_ATOL)
+              for a, b in zip(grads, want_grads)),
+          f"{label}: the backward kernel disagrees with its plain version")
+    _grad_parity(label, lambda *x: poe_kernel.poe_lattice(x[:m], x[m:], lattice, prior, mask),
+                 lambda *x: poe_kernel.poe_lattice_reference(x[:m], x[m:], lattice, prior,
+                                                             mask),
+                 mus + scales, ups, POE_BWD_RTOL, POE_BWD_ATOL)
+
+
 def phase_lattice_parity():
     """poe_lattice and kl_normal_std_multi at the shapes of LATTICE_SHAPES
-    and KL_MULTI_SHAPES: one forward and one backward launch per call; the
-    forwards and the backward kernels against the plain versions (the
-    closed forms summed in the same order), and the gradients against
-    autograd through the plain forwards."""
+    and KL_MULTI_SHAPES, and poe_lattice with each prior bitmask of
+    PRIOR_MASKS at every M of PRIOR_MASK_EXPERTS: one forward and one
+    backward launch per call, each checked by :func:`_lattice_case` (the
+    KL's likewise)."""
     from multimodal_vae_comparison_tpu_torch.ops.fusion import subset_lattice
-    from multimodal_vae_comparison_tpu_torch.ops.kernels import kl_kernel, poe_kernel
+    from multimodal_vae_comparison_tpu_torch.ops.kernels import kl_kernel
     from multimodal_vae_comparison_tpu_torch.ops.kernels import telemetry
     g = torch.Generator(device="cuda").manual_seed(7)
     for m, lattice, rows, prior in LATTICE_SHAPES:
-        lattice = lattice or subset_lattice(m)
-        mus, scales = lattice_inputs(g, m, rows)
-        ups = [torch.randn((len(lattice), rows, N_LATENTS), generator=g, device="cuda")
-               for _ in range(2)]
-        leaves = [x.clone().requires_grad_() for x in mus + scales]
-        telemetry.reset()
-        mu, scale = poe_kernel.poe_lattice(leaves[:m], leaves[m:], lattice, prior)
-        grads = torch.autograd.grad((mu, scale), leaves, ups)
-        took = telemetry.launches()
-        mu, scale = mu.detach(), scale.detach()
-        want = poe_kernel.poe_lattice_reference(mus, scales, lattice, prior)
-        want_grads = sum(poe_kernel.poe_lattice_backward_reference(
-            mus, scales, mu, scale, *ups, lattice), [])
-        torch.cuda.synchronize()
-        label = f"poe_lattice M={m} S={len(lattice)} ({rows}, {N_LATENTS}) p0={prior}"
-        err = max((a - b).abs().max().item() for a, b in zip((mu, scale), want))
-        err_bwd = max((a - b).abs().max().item() for a, b in zip(grads, want_grads))
-        print(f"parity {label}: forward max_abs_err={err:.3e}, backward kernel vs the plain "
-              f"closed form max_abs_err={err_bwd:.3e} (rtol {POE_RTOL}, atol {POE_ATOL}); "
-              f"launches {took}")
-        check(took == {"poe": 1, "poe_bwd": 1}, f"{label} launched {took}")
-        check(all(torch.allclose(a, b, rtol=POE_RTOL, atol=POE_ATOL)
-                  for a, b in zip((mu, scale), want)),
-              f"{label}: the forward kernel disagrees with its plain version")
-        check(all(torch.allclose(a, b, rtol=POE_RTOL, atol=POE_ATOL)
-                  for a, b in zip(grads, want_grads)),
-              f"{label}: the backward kernel disagrees with its plain version")
-        _grad_parity(label, lambda *x: poe_kernel.poe_lattice(x[:m], x[m:], lattice, prior),
-                     lambda *x: poe_kernel.poe_lattice_reference(x[:m], x[m:], lattice, prior),
-                     mus + scales, ups, POE_BWD_RTOL, POE_BWD_ATOL)
+        _lattice_case(g, m, lattice or subset_lattice(m), rows, prior)
+    for m in PRIOR_MASK_EXPERTS:
+        lattice = subset_lattice(m)
+        for kind in PRIOR_MASKS:
+            _lattice_case(g, m, lattice, TRAIN_BATCH, 1.0, prior_mask(kind, len(lattice)))
     for m, rows, broadcast in KL_MULTI_SHAPES:
         mus, scales = lattice_inputs(g, m, rows)
         up = (torch.full((), 0.7, device="cuda").expand(m, rows) if broadcast
@@ -536,6 +607,113 @@ def phase_training_parity():
               f"+ {GRAD_ATOL})")
         check(worst <= 1.0, f"{label}: gradient of {worst_name} differs between "
               "the card and the CPU")
+
+
+@contextlib.contextmanager
+def same_branches(branches: list, replay: bool, flips: dict):
+    """``F.relu`` and ``F.max_pool2d`` that record, in call order, the branch
+    each element took (the sign of the relu's input, the pool's argmax),
+    or, with ``replay``, take the branches another run recorded: ``relu(x)``
+    becomes ``x * mask`` and the pool gathers at the recorded argmax.
+    ``flips`` counts the elements whose own branch differs from the
+    recorded one.  Two fp32 runs that round in another order can put an
+    input within rounding of a kink on either side of it, and one such
+    element moves its layer's gradient by about 1e-2 of max |g| (seen: the
+    ResNet-50 at its seeded init, one relu of about five million, both on
+    the CPU against float64 and on the card against the CPU); on the same
+    branches the gradients are smooth functions of the rounding."""
+    import torch.nn.functional as F
+    relu, pool = F.relu, F.max_pool2d
+    recorded = iter(branches)
+
+    def relu_(x, inplace=False):
+        if not replay:
+            branches.append(x.detach() > 0)
+            return relu(x, inplace=inplace)
+        mask = next(recorded).to(x.device)
+        flips["relu"] = flips.get("relu", 0) + int((mask != (x.detach() > 0)).sum())
+        return x * mask.to(x.dtype)
+
+    def pool_(x, kernel_size, stride=None, padding=0, dilation=1, ceil_mode=False,
+              return_indices=False):
+        out, idx = pool(x, kernel_size, stride, padding, dilation, ceil_mode,
+                        return_indices=True)
+        if replay:
+            own, idx = idx, next(recorded).to(x.device)
+            flips["max_pool2d"] = flips.get("max_pool2d", 0) + int((own != idx).sum())
+            out = x.flatten(2).gather(2, idx.flatten(2)).view(idx.shape)
+        else:
+            branches.append(idx.detach())
+        return (out, idx) if return_indices else out
+
+    F.relu, F.max_pool2d = relu_, pool_
+    try:
+        yield
+    finally:
+        F.relu, F.max_pool2d = relu, pool
+
+
+def phase_zoo_parity():
+    """The paper's four families (ZOO) built from their level-1 configs at
+    full width (ResNet-50 images, 16 + 10 latents): on one batch of
+    TRAIN_BATCH, the objective's loss, metrics and every gradient on the
+    card (kernels, TF32 off) against the CPU's plain path, on the same
+    seeded weights and draws, the CPU on the branches of relu and max-pool
+    that the card took (:func:`same_branches`; the elements where its own
+    would differ are counted); the card's call launches each kernel of its
+    family once forward and once backward, and no plain version.  Returns
+    {label: numbers}."""
+    from multimodal_vae_comparison_tpu_torch.models.encoders import Enc_CNN
+    from multimodal_vae_comparison_tpu_torch.ops.kernels import telemetry
+    from multimodal_vae_comparison_tpu_torch.training.trainer import build_model_from_config
+    rng = np.random.default_rng(18)
+    raw = make_inputs(rng, TRAIN_BATCH)
+    numbers = {}
+    for label, path, mixing in ZOO:
+        cfg = paper_config(path)
+        out, seconds, eps, branches, flips = {}, {}, None, [], {}
+        for dev in ("cuda", "cpu"):
+            model = build_model_from_config(cfg, device=dev)
+            check(cfg.mixing == mixing and isinstance(model.enc_mod_1, Enc_CNN),
+                  f"{label}: {path} built {type(model).__name__} on "
+                  f"{type(model.enc_mod_1).__name__}")
+            if eps is None:
+                eps = zoo_eps(model, rng, TRAIN_BATCH)
+            n_params = sum(p.numel() for p in model.parameters())
+            telemetry.reset()
+            t0 = time.perf_counter()
+            with same_branches(branches, dev == "cpu", flips):
+                out[dev] = _objective_grads(model, torch_batch(raw, dev), eps_to(eps, dev))
+            seconds[dev] = time.perf_counter() - t0
+            if dev == "cuda":
+                launches, paths = telemetry.launches(), telemetry.summary()
+            del model
+        (gl, gm, gg), (cl, cm, cg) = out["cuda"], out["cpu"]
+        want = expected_launches(mixing, 1, 1)
+        worst, worst_name = _worst_leaf(gg, cg, GRAD_REL, GRAD_ATOL)
+        print(f"zoo parity {label} ({path}, {n_params} parameters): loss cuda {gl:.6f} cpu "
+              f"{cl:.6f}; metrics " + ", ".join(f"{k} {gm[k]:.6f}/{cm[k]:.6f}" for k in sorted(gm))
+              + f"; {len(cg)} gradient leaves, worst error {worst:.3f} of its limit at "
+              f"{worst_name} (limit {GRAD_REL} x max|g| + {GRAD_ATOL}); launches {launches}, "
+              f"expected {want}; elements where the CPU's own branch differs from the card's "
+              f"{flips} of {sum(x.numel() for x in branches)} recorded; objective + backward "
+              f"{seconds['cuda']:.3f} s on the card, {seconds['cpu']:.3f} s on the CPU")
+        check(launches == want, f"{label}: launched {launches}, expected {want}")
+        check(not any(k.endswith(":plain") for k in paths),
+              f"{label}: a plain version ran on the card: {paths}")
+        check(np.isfinite(gl) and abs(gl - cl) <= TRAIN_RTOL * abs(cl),
+              f"{label}: loss {gl} on the card vs {cl} on the CPU")
+        check(sorted(gm) == sorted(cm), f"{label}: metric keys differ")
+        for k in gm:
+            check(abs(gm[k] - cm[k]) <= TRAIN_RTOL * abs(cm[k]) + 1e-4,
+                  f"{label}: metric {k} {gm[k]} on the card vs {cm[k]} on the CPU")
+        check(worst <= 1.0, f"{label}: gradient of {worst_name} differs between the card "
+              "and the CPU")
+        numbers[label] = {"params": n_params, "loss_cuda": gl, "loss_cpu": cl,
+                          "worst_grad_share_of_limit": worst, "worst_leaf": worst_name,
+                          "launches": launches, "branch_flips": flips,
+                          "card_s": seconds["cuda"], "cpu_s": seconds["cpu"]}
+    return numbers
 
 
 def phase_train():
@@ -749,6 +927,38 @@ def phase_kernel_route_times(card):
         "bwd": graph_ms(bwd), "bwd_eager": eager_ms(bwd), "bwd_plain": graph_ms(plain_bwd),
         "bwd_old": graph_ms(old_bwd), "bwd_old_eager": eager_ms(old_bwd)}
     times["fwd_again"], times["bwd_again"] = graph_ms(fwd), graph_ms(bwd)
+    # the prior bitmask's route, as MoPoE takes it (the prior expert on the
+    # full set only), beside the same lattice without a mask: at the
+    # flagship's lattice and at PolyMNIST's M 5 of (128, 24)
+    full_only = prior_mask("full", s)
+    times["fwd_mask"] = graph_ms(lambda: poe_kernel.poe_lattice(mus, scales, lattice, 1.0,
+                                                                full_only))
+    pm, ps = lattice_inputs(g, 5, POLYMNIST_ROWS, POLYMNIST_LATENTS)
+    k5, n5 = len(lattice5), POLYMNIST_ROWS * POLYMNIST_LATENTS
+    masks5, full5 = poe_kernel.lattice_masks(lattice5, 5), prior_mask("full", k5)
+    ups5 = [torch.randn((k5, POLYMNIST_ROWS, POLYMNIST_LATENTS), generator=g, device="cuda")
+            for _ in range(2)]
+    mu5, scale5 = poe_kernel.poe_lattice(pm, ps, lattice5, 1.0, full5)
+
+    def bwd5():
+        return poe_kernel._launch_backward(pm, ps, masks5, mu5, scale5, *ups5)
+
+    times["fwd_m5_poly"] = graph_ms(lambda: poe_kernel.poe_lattice(pm, ps, lattice5, 1.0))
+    times["fwd_m5_poly_mask"] = graph_ms(lambda: poe_kernel.poe_lattice(pm, ps, lattice5, 1.0,
+                                                                        full5))
+    times["fwd_m5_poly_plain"] = graph_ms(lambda: poe_kernel.poe_lattice_reference(
+        pm, ps, lattice5, 1.0, full5))
+    times["bwd_m5_poly"] = graph_ms(bwd5)
+    times["bwd_m5_poly_plain"] = graph_ms(lambda: poe_kernel.poe_lattice_backward_reference(
+        pm, ps, mu5, scale5, *ups5, lattice5))
+    want5 = poe_kernel.poe_lattice_reference(pm, ps, lattice5, 1.0, full5)
+    err_mask = max((a - w).abs().max().item() for a, w in zip((mu5, scale5), want5))
+    check(err_mask <= POE_ATOL + POE_RTOL * max(w.abs().max().item() for w in want5),
+          f"poe_lattice M 5 of (128, 24) with the prior on the full set: max_abs_err {err_mask}")
+    sizes5 = sum(len(sub) for sub in lattice5)
+    fwd5_bound = bound_ms(4 * (2 * 5 * n5 + 2 * k5 * n5), n5 * (4 * 5 + 2 * sizes5 + 4 * k5))
+    bwd5_bound = bound_ms(4 * (2 * 5 * n5 + 4 * k5 * n5 + 2 * 5 * n5),
+                          n5 * (6 * 5 + 5 * k5 + 7 * sizes5))
     want = poe_kernel.poe_lattice_reference(mus, scales, lattice, 1.0)
     err_fwd = max((a - w).abs().max().item() for a, w in zip((mu, scale), want))
     err_bwd = max((a - w).abs().max().item()
@@ -770,13 +980,31 @@ def phase_kernel_route_times(card):
                  "bound_by": fwd_bound[1], "eager_ms": times["fwd_eager"],
                  "old_route_ms": times["fwd_old"], "old_route_eager_ms": times["fwd_old_eager"],
                  "serving_one_subset_ms": times["fwd_serving"],
-                 "m5_lattice_31_subsets_ms": times["fwd_m5"]})
+                 "m5_lattice_31_subsets_ms": times["fwd_m5"],
+                 "prior_mask_full_set_only_ms": times["fwd_mask"],
+                 "polymnist_m5_128x24_ms": times["fwd_m5_poly"],
+                 "polymnist_m5_128x24_prior_mask_full_set_only_ms": times["fwd_m5_poly_mask"],
+                 "polymnist_m5_128x24_plain_ms": times["fwd_m5_poly_plain"],
+                 "polymnist_m5_128x24_bound_ms": fwd5_bound[0],
+                 "polymnist_m5_128x24_bound_by": fwd5_bound[1],
+                 "polymnist_m5_128x24_prior_mask_max_abs_err": err_mask})
     rows.append({"name": "poe_lattice_backward", "at": at, **common,
                  "replaces": f"{ref}/poe_kernel.py:124 (_poe_bwd, the VJP of :48)",
                  "max_abs_err": err_bwd, "ms": times["bwd"], "ms_again": times["bwd_again"],
                  "plain_ms": times["bwd_plain"], "bound_ms": bwd_bound[0],
                  "bound_by": bwd_bound[1], "eager_ms": times["bwd_eager"],
-                 "old_route_ms": times["bwd_old"], "old_route_eager_ms": times["bwd_old_eager"]})
+                 "old_route_ms": times["bwd_old"], "old_route_eager_ms": times["bwd_old_eager"],
+                 "polymnist_m5_128x24_prior_mask_full_set_only_ms": times["bwd_m5_poly"],
+                 "polymnist_m5_128x24_plain_ms": times["bwd_m5_poly_plain"],
+                 "polymnist_m5_128x24_bound_ms": bwd5_bound[0],
+                 "polymnist_m5_128x24_bound_by": bwd5_bound[1]})
+    print(f"time poe_lattice prior mask (full set only) [{at}]: forward {times['fwd_mask']:.5f} "
+          f"ms (no mask {times['fwd']:.5f}); [M=5 S=31 ({POLYMNIST_ROWS}, {POLYMNIST_LATENTS})]: "
+          f"forward {times['fwd_m5_poly_mask']:.5f} ms (no mask {times['fwd_m5_poly']:.5f}, "
+          f"plain {times['fwd_m5_poly_plain']:.5f}, bound {fwd5_bound[0]:.7f} by "
+          f"{fwd5_bound[1]}, max_abs_err {err_mask:.3e}), backward {times['bwd_m5_poly']:.5f} ms "
+          f"(plain {times['bwd_m5_poly_plain']:.5f}, bound {bwd5_bound[0]:.7f} by "
+          f"{bwd5_bound[1]}) on {card}")
     print(f"time poe_lattice [{at}]: forward kernel {times['fwd']:.5f} and "
           f"{times['fwd_again']:.5f} ms (eager {times['fwd_eager']:.5f}), old route (a launch "
           f"and two stacks per subset) {times['fwd_old']:.5f} ms (eager "
@@ -1600,16 +1828,44 @@ def eval_launches(mixing: str, n_train: int) -> dict:
 
     Its forwards: text->image and image->text cross-generation, then one
     with both modalities per ex-post batch (64 train rows, up to 2048); its
-    decodes: one per joint source.  A POE forward launches the PoE kernel
-    once (one subset) and attention in the text encoder when text is
-    present and in the text decoder; a MOE forward decodes text from each
-    present modality's sample, and launches no KL.  A text decode is one
-    attention launch."""
+    decodes: one per joint source.  A POE or MoPoE forward launches the PoE
+    kernel once (one subset, or MoPoE's fully present subsets) and attention
+    in the text encoder when text is present and in the text decoder; a MOE
+    forward decodes text from each present modality's sample, and launches
+    no KL; a DMVAE forward launches PoE once (the joint) and decodes text
+    from its own or the joint sample, from the joint sample, and from each
+    other present modality's.  A text decode is one attention launch."""
     batches = min(-(-n_train // EXPOST_BATCH), EXPOST_ROWS // EXPOST_BATCH)
     joint = len(JOINT_SOURCES)
-    if mixing == "poe":
+    if mixing in ("poe", "mopoe"):
         return {"attention": 2 + 1 + 2 * batches + joint, "poe": 2 + batches}
+    if mixing == "dmvae":
+        return {"attention": 3 + 3 + 4 * batches + joint, "poe": 2 + batches}
     return {"attention": 2 + 2 + 3 * batches + joint}
+
+
+def counted(label, mixing, calls, train_steps, run, total, extra=None):
+    """``run()`` with the kernel counts set to 0 just before it and read
+    just after: it must launch exactly ``calls`` objective calls' kernels
+    (``train_steps`` of them with their backward), plus ``extra``, and take
+    no plain version; the launches are added into ``total``."""
+    from multimodal_vae_comparison_tpu_torch.ops.kernels import telemetry
+    telemetry.reset()
+    out = run()
+    torch.cuda.synchronize()
+    got, paths = telemetry.launches(), telemetry.summary()
+    want = expected_launches(mixing, calls, train_steps)
+    for k, n in (extra or {}).items():
+        want[k] = want.get(k, 0) + n
+    print(f"train from config {label}: launches {got}, expected {want} "
+          f"({calls} objective calls, {train_steps} of them train steps"
+          + (f", and the eval's {extra}" if extra else "") + f"); dispatch {paths}")
+    check(got == want, f"{label}: launched {got}, expected {want}")
+    check(not any(k.endswith(":plain") for k in paths),
+          f"{label}: a plain version ran: {paths}")
+    for k, n in got.items():
+        total[k] = total.get(k, 0) + n
+    return out
 
 
 @contextlib.contextmanager
@@ -1817,7 +2073,56 @@ def phase_eval_from_config(card: str, run_dir: str) -> dict:
     return numbers
 
 
-def phase_train_from_config(card: str, root: str):
+def config_trainer(label: str, path: str, mixing: str, data, root: str, epochs: int):
+    """A Trainer of the shipped config ``path`` on the made rows (``data``),
+    its run directory under ``root``, at ``epochs`` and one seed, its state
+    initialised; its ``test()`` keeps the stats it returns in the dict
+    returned beside it.  Checks the mixing and the resident path on the
+    card."""
+    from multimodal_vae_comparison_tpu_torch.training.trainer import Trainer
+    config = from_config(path, data[0], data[1], os.path.join(root, "results"),
+                         epochs=epochs, iterseeds=1)
+    trainer = Trainer(config, enable_viz=False)
+    trainer.init_state()
+    stats = {}
+
+    def test_and_keep():
+        stats.update(Trainer.test(trainer))
+        return stats
+
+    trainer.test = test_and_keep    # main() prints test()'s stats; keep them
+    check(config.mixing == mixing and trainer.use_scan() and trainer.device.type == "cuda",
+          f"{label}: mixing {config.mixing}, resident {trainer.use_scan()}")
+    return config, trainer, stats
+
+
+def check_restored(label: str, run_dir: str, trainer, batch, eps) -> float:
+    """``model/last`` of ``run_dir`` restored on the card through
+    ``MultimodalVAEInfer``: the trainer's weights and buffers, and the
+    trainer's forward over both modalities on ``batch`` and ``eps`` within
+    RESTORE_RTOL / RESTORE_ATOL.  Returns the largest difference."""
+    from multimodal_vae_comparison_tpu_torch.eval.infer import MultimodalVAEInfer
+    infer = MultimodalVAEInfer(run_dir)
+    for (n, a), b in zip(infer.model.state_dict().items(),
+                         trainer.model.state_dict().values()):
+        check(torch.equal(a, b), f"{label}: restored {n} differs from the trainer's")
+    present = ("mod_1", "mod_2")
+    got = infer.forward(batch, present, eps=eps)
+    trainer.model.eval()
+    with torch.inference_mode():
+        want = trainer.model.forward(torch_batch(batch, trainer.device), present, eps=eps)
+    err = max((got.mods[n].decoder_dist.mean - want.mods[n].decoder_dist.mean)
+              .abs().max().item() for n in present)
+    print(f"train from config {label}: MultimodalVAEInfer({run_dir}) forward vs the "
+          f"trainer's model: max_abs_err={err:.3e} (rtol {RESTORE_RTOL}, atol {RESTORE_ATOL})")
+    for n in present:
+        check(torch.allclose(got.mods[n].decoder_dist.mean, want.mods[n].decoder_dist.mean,
+                             rtol=RESTORE_RTOL, atol=RESTORE_ATOL),
+              f"{label}: the restored model's forward differs at {n}")
+    return err
+
+
+def phase_train_from_config(card: str, root: str, data):
     """The config -> data -> Trainer -> checkpoint -> --model server path.
 
     CdSprites+ level 1 is made at DATA_COUNT; ``cdl1_r5_poe.yml`` trains for
@@ -1831,59 +2136,26 @@ def phase_train_from_config(card: str, root: str):
     its CdSprites+ benchmark (:func:`eval_launches`), whose stats are
     checked and, for POE, held again by :func:`phase_eval_from_config`.  The
     run directory is restored through ``MultimodalVAEInfer`` and served by
-    ``serving/server.py --model``.  Returns (launches of the whole phase,
-    its numbers)."""
+    ``serving/server.py --model``.  ``data`` is :func:`make_cdsprites`'s
+    result and its seconds.  Returns (launches of the whole phase, its
+    numbers)."""
     from multimodal_vae_comparison_tpu_torch.data import native
-    from multimodal_vae_comparison_tpu_torch.eval.infer import MultimodalVAEInfer
     from multimodal_vae_comparison_tpu_torch.main import main as train_main
-    from multimodal_vae_comparison_tpu_torch.ops.kernels import telemetry
-    from multimodal_vae_comparison_tpu_torch.training.trainer import Trainer
     from torch.profiler import ProfilerActivity, profile
 
     numbers, total = {"card": card}, {}
     # the judges the POE run's test() trains, and the MOE run's and the
     # eval CLI's load
     os.environ["CDSPRITES_CLASSIFIER_DIR"] = os.path.join(root, "judges")
-    t0 = time.perf_counter()
-    level_dir, suffix, route = make_cdsprites(os.path.join(root, "data"))
-    numbers["data_s"] = time.perf_counter() - t0
+    level_dir, _, route, numbers["data_s"] = data
     print(f"train from config: data route {route}, {level_dir} in {numbers['data_s']:.2f} s; "
           f"native host kernels available: {native.available()}")
 
-    def counted(label, mixing, calls, train_steps, run, extra=None):
-        telemetry.reset()
-        out = run()
-        torch.cuda.synchronize()
-        got, paths = telemetry.launches(), telemetry.summary()
-        want = expected_launches(mixing, calls, train_steps)
-        for k, n in (extra or {}).items():
-            want[k] = want.get(k, 0) + n
-        print(f"train from config {label}: launches {got}, expected {want} "
-              f"({calls} objective calls, {train_steps} of them train steps"
-              + (f", and the eval's {extra}" if extra else "") + f"); dispatch {paths}")
-        check(got == want, f"{label}: launched {got}, expected {want}")
-        check(not any(k.endswith(":plain") for k in paths),
-              f"{label}: a plain version ran: {paths}")
-        for k, n in got.items():
-            total[k] = total.get(k, 0) + n
-        return out
-
     for (label, path, epochs), mixing in zip(FROM_CONFIG, ("poe", "moe")):
-        config = from_config(path, level_dir, suffix, os.path.join(root, "results"),
-                             epochs=epochs, iterseeds=1)
-        trainer = Trainer(config, enable_viz=False)
-        trainer.init_state()
-        stats, times = {}, {}
-
-        def test_and_keep(trainer=trainer, stats=stats):
-            stats.update(Trainer.test(trainer))
-            return stats
-
-        trainer.test = test_and_keep    # main() prints test()'s stats; keep them
+        config, trainer, stats = config_trainer(label, path, mixing, data, root, epochs)
+        times = {}
         dm, bs = trainer.datamodule, config.batch_size
         steps, val_batches = dm.n_train // bs, dm.n_val // bs
-        check(config.mixing == mixing and trainer.use_scan() and trainer.device.type == "cuda",
-              f"{label}: mixing {config.mixing}, resident {trainer.use_scan()}")
         t0 = time.perf_counter()
         trainer.stage_epoch_data()
         trainer.stage_val_data()
@@ -1907,14 +2179,14 @@ def phase_train_from_config(card: str, root: str):
                 with eval_stopwatch(times):
                     train_main(config, trainer=trainer, enable_viz=False)
                 return prof, wall_ms
-            prof, wall_ms = counted(label, mixing, calls, epochs * steps, run, evals)
+            prof, wall_ms = counted(label, mixing, calls, epochs * steps, run, total, evals)
             share, n_events = kernel_busy_share(prof, wall_ms)
             del prof
         else:
             def run():
                 with eval_stopwatch(times):
                     train_main(config, trainer=trainer, enable_viz=False)
-            counted(label, mixing, calls, epochs * steps, run, evals)
+            counted(label, mixing, calls, epochs * steps, run, total, evals)
         check_stats(label, stats)
         check(trainer.model.K == config.K, f"{label}: test() left the model at K "
               f"{trainer.model.K}, the config has {config.K}")
@@ -1955,29 +2227,10 @@ def phase_train_from_config(card: str, root: str):
                        poe_profiled_device_events=n_events)
         print(f"train from config {label}: resident epoch 0 under torch.profiler: wall "
               f"{wall_ms:.1f} ms, device busy share {share:.4f} ({n_events} CUDA activities)")
-        # restore model/last on the card: the same weights, the same forward
-        infer = MultimodalVAEInfer(config.mPath)
-        for (n, a), b in zip(infer.model.state_dict().items(),
-                             trainer.model.state_dict().values()):
-            check(torch.equal(a, b), f"restored {n} differs from the trainer's")
         batch = next(dm.batches("val"))
-        eps = torch.from_numpy(np.random.default_rng(30).standard_normal(
-            (1, bs, N_LATENTS)).astype(np.float32)).to(trainer.device)
-        present = ("mod_1", "mod_2")
-        got = infer.forward(batch, present, eps=eps)
-        trainer.model.eval()
-        with torch.inference_mode():
-            want = trainer.model.forward(torch_batch(batch, trainer.device), present, eps=eps)
-        err = max((got.mods[n].decoder_dist.mean - want.mods[n].decoder_dist.mean)
-                  .abs().max().item() for n in present)
-        print(f"train from config {label}: MultimodalVAEInfer({config.mPath}) forward vs the "
-              f"trainer's model: max_abs_err={err:.3e} (rtol {RESTORE_RTOL}, atol "
-              f"{RESTORE_ATOL})")
-        for n in present:
-            check(torch.allclose(got.mods[n].decoder_dist.mean, want.mods[n].decoder_dist.mean,
-                                 rtol=RESTORE_RTOL, atol=RESTORE_ATOL),
-                  f"the restored model's forward differs at {n}")
-        del infer
+        check_restored(label, config.mPath, trainer, batch, torch.from_numpy(
+            np.random.default_rng(30).standard_normal((1, bs, N_LATENTS)).astype(np.float32)
+        ).to(trainer.device))
         t0 = time.perf_counter()
         trainer.validate_scan(epochs)
         val_scan_s = time.perf_counter() - t0
@@ -1992,7 +2245,8 @@ def phase_train_from_config(card: str, root: str):
             timed["val"] = trainer.validate(epochs)
             timed["train_s"], timed["val_s"] = t2 - t1, time.perf_counter() - t2
 
-        counted(f"{label} per-batch epoch", mixing, steps + val_batches, steps, per_batch)
+        counted(f"{label} per-batch epoch", mixing, steps + val_batches, steps, per_batch,
+                total)
         resident = rows[-1]
         numbers.update(
             poe_resident_val_s=val_scan_s, poe_per_batch_train_s=timed["train_s"],
@@ -2012,6 +2266,130 @@ def phase_train_from_config(card: str, root: str):
               f"{numbers['server_generate_ms']:.1f} ms")
     os.environ.pop("CDSPRITES_CLASSIFIER_DIR")
     return total, numbers
+
+
+def phase_zoo_from_config(card: str, root: str, data):
+    """This slice's main path: the MoPoE and DMVAE level-1 configs of
+    ``configs/reproduce_paper`` trained for 1 resident epoch each through
+    ``main(config)`` on the rows :func:`phase_train_from_config` made, each
+    ending in ``Trainer.test()`` with the judge that phase cached.  Each run
+    is counted from zero: exactly its objective calls (train steps +
+    validation batches, and test()'s validation) times the kernels' counts
+    per call, and its benchmark's launches (:func:`eval_launches`), no plain
+    version; the val loss falls; the 12 stats are finite and in [0, 100];
+    ``model/last`` restored through ``MultimodalVAEInfer`` gives the
+    trainer's forward within RESTORE_RTOL / RESTORE_ATOL.  Returns
+    (launches of the whole phase, its numbers)."""
+    from multimodal_vae_comparison_tpu_torch.main import main as train_main
+
+    numbers, total = {"card": card}, {}
+    os.environ["CDSPRITES_CLASSIFIER_DIR"] = os.path.join(root, "judges")
+    zoo = {label: (path, mixing) for label, path, mixing in ZOO}
+    for label in ZOO_FROM_CONFIG:
+        path, mixing = zoo[label]
+        config, trainer, stats = config_trainer(label, path, mixing, data, root, 1)
+        times = {}
+        dm, bs = trainer.datamodule, config.batch_size
+        steps, val_batches = dm.n_train // bs, dm.n_val // bs
+        trainer.stage_epoch_data()
+        trainer.stage_val_data()
+        untrained = trainer.validate_scan(0)["val_loss"]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        evals = eval_launches(mixing, dm.n_train)
+
+        def run(trainer=trainer, config=config, times=times):
+            with eval_stopwatch(times):
+                train_main(config, trainer=trainer, enable_viz=False)
+
+        t0 = time.perf_counter()
+        counted(label, mixing, steps + 2 * val_batches, steps, run, total, evals)
+        run_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        check_stats(label, stats)
+        rows = _csv_rows(os.path.join(config.mPath, "metrics.csv"))
+        trained = float(rows[-1]["val_loss"])
+        epoch_s, samples_s = float(rows[-1]["epoch_time_s"]), float(rows[-1]["samples_per_s"])
+        print(f"eval from config {label}: " + ", ".join(
+            f"{k} {stats[k]:.2f}" for k in stats if not k.startswith("val_"))
+            + f"; launches of the eval {evals}; seconds " + ", ".join(
+                f"{k[:-2]} {v:.3f}" for k, v in times.items()) + f" on {card}")
+        print(f"train from config {label} ({path}): {trainer.n_params()} parameters, "
+              f"{dm.n_train} train / {dm.n_val} val rows, {steps} steps of {bs}; val_loss "
+              f"untrained {untrained:.2f} -> {trained:.2f}; epoch {epoch_s:.3f} s, "
+              f"{samples_s:.1f} samples/s; main() with test() {run_s:.2f} s; peak memory "
+              f"{peak:.3f} GiB on {card}")
+        check(len(rows) == 1, f"{label}: metrics.csv has {len(rows)} rows for 1 epoch")
+        check(np.isfinite(trained) and trained < untrained,
+              f"{label}: val_loss {trained} after training, {untrained} before")
+        for tag in ("last", "best"):
+            check(os.path.isfile(os.path.join(config.mPath, "model", tag, "state.pt")),
+                  f"{label}: no model/{tag} checkpoint")
+        err = check_restored(label, config.mPath, trainer, next(dm.batches("val")), eps_to(
+            zoo_eps(trainer.model, np.random.default_rng(31), bs), trainer.device))
+        numbers[label] = {
+            "config": path, "params": trainer.n_params(), "steps": steps,
+            "val_loss_untrained": untrained, "val_loss": trained, "epoch_s": epoch_s,
+            "samples_per_s": samples_s, "main_with_test_s": run_s, "peak_memory_gib": peak,
+            "eval_stats": {k: v for k, v in stats.items() if not k.startswith("val_")},
+            "eval_s": times, "eval_launches": evals, "restore_max_abs_err": err}
+        del trainer
+    os.environ.pop("CDSPRITES_CLASSIFIER_DIR")
+    return total, numbers
+
+
+def phase_zoo_times(card: str, steps: int = 5) -> dict:
+    """The MoPoE and DMVAE train steps of ZOO_FROM_CONFIG at TRAIN_BATCH
+    profiled (:func:`profile_steps`), and the ResNet-50 trunk's forward +
+    backward alone (``Enc_CNN`` at the same batch): its device kernel ms
+    and kernels a call under ``torch.profiler``."""
+    import collections
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from multimodal_vae_comparison_tpu_torch.training.optim import make_optimizer
+    from multimodal_vae_comparison_tpu_torch.training.trainer import (
+        build_model_from_config, make_train_step)
+    zoo = {label: (path, mixing) for label, path, mixing in ZOO}
+    batch = torch_batch(make_inputs(np.random.default_rng(32), TRAIN_BATCH), "cuda")
+    numbers = {}
+    for label in ZOO_FROM_CONFIG:
+        cfg = paper_config(zoo[label][0])
+        model = build_model_from_config(cfg, device="cuda")
+        step = make_train_step(model, make_optimizer(cfg.optimizer, cfg.lr, model.parameters()))
+        gen = torch.Generator(device="cuda").manual_seed(33)
+        for _ in range(3):
+            step(batch, generator=gen)
+        numbers[label] = profile_steps(f"{label} {zoo[label][0]}", step, batch, gen,
+                                       TRAIN_BATCH, steps, card)
+    enc, x = model.enc_mod_1, batch["mod_1"]["data"]
+    ups = [torch.randn(TRAIN_BATCH, enc.out_dim, device="cuda") for _ in range(2)]
+
+    def trunk():
+        torch.autograd.backward(enc(x), ups)
+
+    for _ in range(3):
+        trunk()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            trunk()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    per_name = collections.Counter()
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
+            per_name[e.name] += e.time_range.elapsed_us()
+    check(bool(per_name), "the profiler recorded no kernel of the ResNet-50 trunk")
+    n_kernels = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
+                    and not getattr(e, "is_user_annotation", False)) / steps
+    numbers["resnet50_trunk"] = {
+        "batch": TRAIN_BATCH, "device_kernel_ms": sum(per_name.values()) / 1e3 / steps,
+        "wall_ms": wall_ms, "kernels": n_kernels,
+        "top_kernels_ms": {n[:80]: us / 1e3 / steps for n, us in per_name.most_common(4)},
+        "card": card}
+    print("time resnet50 trunk " + json.dumps(numbers["resnet50_trunk"]))
+    return numbers
 
 
 def main() -> int:
@@ -2133,33 +2511,49 @@ def main() -> int:
     check(paths.get("sparse_attention_bwd:cuda", 0) == 8 * VIDEO_STEPS,
           f"sparse_attention_bwd ran {paths.get('sparse_attention_bwd:cuda')} times")
 
-    # 9. the main path of the last two slices: CdSprites+ from the configs
-    # through the data layer, Trainer, checkpoints and the --model server,
-    # each run ending in test() and its benchmark ("eval from config")
+    # 9. the paper's four families at full width: card vs CPU
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        config_launches, config_numbers = phase_train_from_config(card, tmp)
-    config_numbers["phase_s"] = time.perf_counter() - t0
-    print("train from config " + json.dumps(config_numbers))
+    zoo_parity = phase_zoo_parity()
+    print(f"zoo parity in {time.perf_counter() - t0:.1f} s: " + json.dumps(zoo_parity))
 
-    # 10. times
+    # 10. the main path of the last three slices: CdSprites+ from the
+    # configs through the data layer, Trainer, checkpoints and the --model
+    # server, each run ending in test() and its benchmark ("eval from
+    # config"); then, on the same rows and judge, this slice's MoPoE and
+    # DMVAE configs of the paper's comparison
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        t0 = time.perf_counter()
+        data = make_cdsprites(os.path.join(tmp, "data"))
+        data += (time.perf_counter() - t0,)
+        config_launches, config_numbers = phase_train_from_config(card, tmp, data)
+        config_numbers["phase_s"] = time.perf_counter() - t0
+        print("train from config " + json.dumps(config_numbers))
+        t0 = time.perf_counter()
+        zoo_launches, zoo_numbers = phase_zoo_from_config(card, tmp, data)
+        zoo_numbers["phase_s"] = time.perf_counter() - t0
+        print("zoo from config " + json.dumps(zoo_numbers))
+
+    # 11. times
     rows = phase_times(engine, card)
     rows += phase_kernel_route_times(card)
     extra = phase_attention_backward_times(card)
     rows += phase_video_times(card)
     phase_route_times(card)
+    print("zoo times " + json.dumps(phase_zoo_times(card)))
     print(card)
     # one entry per kernel, at its heaviest main-path shape (the first row
     # of each); the other shapes are on the "time" lines above.  launches:
     # each kernel's count on the path that runs it, the train-from-config
-    # path (this slice's main path) or the video training and sampling
-    # paths, with the fixed-batch training and serving paths' beside it
+    # path (the POE and MOE configs and this slice's MoPoE and DMVAE
+    # configs, also apart) or the video training and sampling paths, with
+    # the fixed-batch training and serving paths' beside it
     primary = list({r["name"]: r for r in reversed(rows)}.values())[::-1]
     per_step["VideoGPTSparse MOE dreg"] = video_per_step
     for r in primary:
         kernel = KERNEL_OF[r["name"]]
-        r["launches"] = (video_launches if kernel in video_kernels
-                         else config_launches).get(kernel, 0)
+        r["launches"] = (video_launches.get(kernel, 0) if kernel in video_kernels
+                         else config_launches.get(kernel, 0) + zoo_launches.get(kernel, 0))
+        r["launches_zoo_from_config_path"] = zoo_launches.get(kernel, 0)
         r["launches_fixed_batch_training_path"] = train_launches.get(kernel, 0)
         r["launches_serving_path"] = serve_launches.get(kernel, 0)
         r["launches_per_train_step"] = {label: n.get(kernel, 0)

@@ -207,7 +207,7 @@ def _per_subset_poe():
         def forward(ctx, mus, scales, prior_precision):
             mu, scale = poe_kernel._launch_forward(
                 mus.unbind(0), scales.unbind(0), poe_kernel.lattice_masks(
-                    [tuple(range(mus.shape[0]))], mus.shape[0]), prior_precision)
+                    [tuple(range(mus.shape[0]))], mus.shape[0]), prior_precision, 1)
             mu, scale = mu[0], scale[0]
             ctx.save_for_backward(mus, scales, mu, scale)
             return mu, scale
@@ -299,9 +299,10 @@ def measure_poe(name: str, root: str) -> None:
                              (5, subset_lattice(5), cs.TRAIN_BATCH)):
         mus, scales = cs.lattice_inputs(g, m, rows)
         masks = poe_kernel.lattice_masks(lattice, m)
+        bits = poe_kernel.prior_bits(None, len(lattice))
         ups = [torch.randn((len(lattice), rows, cs.N_LATENTS), generator=g, device="cuda")
                for _ in range(2)]
-        mu, scale = poe_kernel._launch_forward(mus, scales, masks, 1.0)
+        mu, scale = poe_kernel._launch_forward(mus, scales, masks, 1.0, bits)
         grads = poe_kernel._launch_backward(mus, scales, masks, mu, scale, *ups)
         want = poe_kernel.poe_lattice_reference(mus, scales, lattice, 1.0)
         want_grads = poe_kernel.poe_lattice_backward_reference(mus, scales, mu, scale, *ups,
@@ -309,7 +310,7 @@ def measure_poe(name: str, root: str) -> None:
         err = max((a - b).abs().max().item() for a, b in zip((mu, scale), want))
         err_bwd = max((a - b).abs().max().item()
                       for a, b in zip(sum(map(list, grads), []), sum(want_grads, [])))
-        fwd = [cs.graph_ms(lambda: poe_kernel._launch_forward(mus, scales, masks, 1.0))
+        fwd = [cs.graph_ms(lambda: poe_kernel._launch_forward(mus, scales, masks, 1.0, bits))
                for _ in range(2)]
         bwd = [cs.graph_ms(lambda: poe_kernel._launch_backward(mus, scales, masks, mu, scale,
                                                                *ups)) for _ in range(2)]

@@ -11,10 +11,13 @@ the module ``a.b.c``; how it is laid out there depends on that module:
   every spatial axis and laid out ``(in, out, *spatial)`` (flax's transposed
   conv does not flip the kernel; PyTorch's does);
 * ``nn.LayerNorm``, ``nn.GroupNorm``: ``scale`` -> ``weight``;
+* ``FrozenBatchNorm``: ``scale`` -> ``weight``, ``bias`` -> ``bias``, and
+  the stop-gradient statistics ``mean`` and ``var`` -> its two buffers;
 * a leaf of any other module (``pz_logvar``) is copied as it is.
 
-Every flax leaf is consumed exactly once and every parameter of the module
-is written exactly once; a missing, extra or misshapen name raises.
+Every flax leaf is consumed exactly once and every parameter and buffer of
+the module is written exactly once; a missing, extra or misshapen name
+raises.
 The tree holds numpy arrays (``jax.tree_util.tree_map(np.asarray, p)``),
 so this module needs no JAX.
 """
@@ -26,6 +29,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from multimodal_vae_comparison_tpu_torch.models.nets import FrozenBatchNorm
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], np.ndarray]:
     out = {}
@@ -41,7 +45,7 @@ def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...
 _CONVS = (nn.Conv2d, nn.Conv3d)
 _CONV_TRANSPOSES = (nn.ConvTranspose2d, nn.ConvTranspose3d)
 _NORMS = (nn.LayerNorm, nn.GroupNorm)
-_LAYERS = (nn.Linear,) + _CONVS + _CONV_TRANSPOSES + _NORMS
+_LAYERS = (nn.Linear, FrozenBatchNorm) + _CONVS + _CONV_TRANSPOSES + _NORMS
 
 
 def _convert(module: nn.Module, leaf: str, arr: np.ndarray) -> Tuple[str, np.ndarray]:
@@ -67,6 +71,11 @@ def _convert(module: nn.Module, leaf: str, arr: np.ndarray) -> Tuple[str, np.nda
             return "weight", arr
         if leaf == "bias":
             return "bias", arr
+    elif isinstance(module, FrozenBatchNorm):
+        if leaf in ("mean", "var", "bias"):
+            return leaf, arr
+        if leaf == "scale":
+            return "weight", arr
     raise KeyError(f"no rule for flax leaf '{leaf}' on {type(module).__name__}")
 
 
@@ -75,6 +84,7 @@ def load_flax_params(model: nn.Module, flax_params: Mapping) -> None:
     into ``model`` in place."""
     tree = flax_params.get("params", flax_params)
     targets = dict(model.named_parameters())
+    targets.update(model.named_buffers())
     written = set()
     with torch.no_grad():
         for path, arr in _flatten(tree).items():
@@ -91,7 +101,7 @@ def load_flax_params(model: nn.Module, flax_params: Mapping) -> None:
             full = ".".join(mod_path + [name])
             if full not in targets:
                 raise KeyError(f"flax leaf {'/'.join(path)} -> '{full}' is not "
-                               f"a parameter of {type(model).__name__}")
+                               f"a parameter or buffer of {type(model).__name__}")
             if full in written:
                 raise KeyError(f"parameter '{full}' written twice")
             param = targets[full]
@@ -103,4 +113,4 @@ def load_flax_params(model: nn.Module, flax_params: Mapping) -> None:
             written.add(full)
     missing = sorted(set(targets) - written)
     if missing:
-        raise KeyError(f"parameters with no flax leaf: {missing}")
+        raise KeyError(f"parameters or buffers with no flax leaf: {missing}")

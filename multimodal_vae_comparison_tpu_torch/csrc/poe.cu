@@ -5,10 +5,13 @@
 // in multimodal_vae_comparison_tpu/ops/pallas/poe_kernel.py, and its
 // closed-form VJP _poe_bwd, which the JAX package runs as jnp outside the
 // kernel.  For every subset s of the M experts (a bitmask over M <= 8):
-//   prec_e = 1 / (scale_e^2 + EPS),  P_s = sum_{e in s} prec_e + p0,
+//   prec_e = 1 / (scale_e^2 + EPS),  P_s = sum_{e in s} prec_e + p0 b_s,
 //   mu_s = (sum_{e in s} mu_e prec_e) / P_s,  scale_s = sqrt(1 / P_s),
-// over experts of N = prod(..., D) elements each -> (S, N) outputs; the
-// one-subset case (S = 1, all experts) is the TPU kernel's own function.
+// over experts of N = prod(..., D) elements each -> (S, N) outputs, where
+// b_s is bit s of a prior mask: the N(0, 1/p0) prior expert joins the
+// subsets whose bit is set (POE: every subset; MoPoE: the full set only;
+// DMVAE's joint: none).  The one-subset case (S = 1, all experts) is the TPU
+// kernel's own function.
 // The backward sums the closed form of _poe_bwd over the subsets that hold
 // each expert, in lattice order:
 //   d_mu_e    = sum_s g_mu_s prec_e inv_s,              inv_s = scale_s^2
@@ -27,9 +30,12 @@
 // once per subset) and forms every subset's sums from them; the backward's
 // thread adds its experts' gradients over the subsets in registers, so
 // there are no atomics and the order of every sum is fixed.  The experts
-// come as M pointers and the lattice as S bitmasks, both passed by value in
-// the kernel's parameters: the caller stacks nothing, and no table is
-// copied to the device, so a launch is safe inside a CUDA graph.
+// come as M pointers and the lattice as S bitmasks with the prior mask
+// beside them, all passed by value in the kernel's parameters: the caller
+// stacks nothing, and no table is copied to the device, so a launch is safe
+// inside a CUDA graph.  The backward takes the same lattice but needs no
+// prior bit: it reads 1 / P_s as scale_s^2, which holds subset s's prior
+// term already.
 //
 // At these sizes a thread's chain of dependent latencies is the kernel's
 // time past the launch, so the design shortens it: every expert's loads,
@@ -60,6 +66,7 @@ struct Experts {
 
 struct Lattice {
   unsigned int mask[MAX_SUBSETS];  // bit e set: expert e is in the subset
+  unsigned int prior;              // bit s set: the prior expert joins subset s
 };
 
 // Every expert's mean and stddev at element i, all loads issued before any
@@ -105,7 +112,10 @@ poe_lattice_fwd(Experts ex, Lattice lat, int experts, int subsets,
           acc_mu = __fadd_rn(acc_mu, weighted[e]);
         }
       }
-      const float denom = __fadd_rn(acc_prec, prior_precision);
+      // p0 or 0 by the subset's prior bit: a subset without it adds an
+      // exact 0, so a mask of all ones gives the results of a lattice
+      // that has no mask, bit for bit
+      const float denom = __fadd_rn(acc_prec, lat.prior >> k & 1u ? prior_precision : 0.f);
       // about 2 ulp each, where IEEE rounding's slow-path branches cost a
       // third of a microsecond a subset
       mu_out[k * n + i] = __fdividef(acc_mu, denom);
@@ -187,9 +197,12 @@ unsigned int grid_for(long long n) {
 // The experts and lattice as kernel parameters; false where the counts or a
 // mask fall outside what the kernels take.
 bool pack(const void* const* mus, const void* const* scales, int experts,
-          const unsigned int* masks, int subsets, Experts* ex, Lattice* lat) {
+          const unsigned int* masks, int subsets, unsigned int prior_bits, Experts* ex,
+          Lattice* lat) {
   if (experts < 1 || experts > MAX_EXPERTS || subsets < 1 || subsets > MAX_SUBSETS)
     return false;
+  if (subsets < MAX_SUBSETS && (prior_bits >> subsets) != 0u) return false;
+  lat->prior = prior_bits;
   for (int e = 0; e < MAX_EXPERTS; ++e) {
     ex->mu[e] = e < experts ? (const float*)mus[e] : nullptr;
     ex->scale[e] = e < experts ? (const float*)scales[e] : nullptr;
@@ -208,32 +221,35 @@ extern "C" {
 
 // mus, scales: host arrays of `experts` device pointers, each to N
 // contiguous fp32; masks: host array of `subsets` non-empty bitmasks over
-// the experts; mu_out, scale_out: (subsets, N) contiguous fp32.  Launches
-// one kernel on `stream` and returns cudaGetLastError().
+// the experts; prior_bits: bit s set where the prior expert of precision
+// prior_precision joins subset s (no bit above subsets - 1); mu_out,
+// scale_out: (subsets, N) contiguous fp32.  Launches one kernel on `stream`
+// and returns cudaGetLastError().
 int poe_lattice_forward(const void* const* mus, const void* const* scales, int experts,
-                        const unsigned int* masks, int subsets, void* mu_out,
-                        void* scale_out, long long n, float prior_precision,
+                        const unsigned int* masks, int subsets, unsigned int prior_bits,
+                        void* mu_out, void* scale_out, long long n, float prior_precision,
                         void* stream) {
   Experts ex;
   Lattice lat;
-  if (!pack(mus, scales, experts, masks, subsets, &ex, &lat) || n < 1)
+  if (!pack(mus, scales, experts, masks, subsets, prior_bits, &ex, &lat) || n < 1)
     return (int)cudaErrorInvalidValue;
   poe_lattice_fwd<<<grid_for(n), THREADS, 0, (cudaStream_t)stream>>>(
       ex, lat, experts, subsets, (float*)mu_out, (float*)scale_out, n, prior_precision);
   return (int)cudaGetLastError();
 }
 
-// As poe_lattice_forward, plus g_mu, g_scale: (subsets, N) gradients of the
-// outputs; mu_out, scale_out: the forward's outputs; d_mus, d_scales:
-// (experts, N) contiguous fp32, each expert's gradient summed over the
-// subsets that hold it (0 where none does).
+// As poe_lattice_forward without the prior (the forward's scale_out holds
+// it), plus g_mu, g_scale: (subsets, N) gradients of the outputs; mu_out,
+// scale_out: the forward's outputs; d_mus, d_scales: (experts, N)
+// contiguous fp32, each expert's gradient summed over the subsets that hold
+// it (0 where none does).
 int poe_lattice_backward(const void* const* mus, const void* const* scales, int experts,
                          const unsigned int* masks, int subsets, const void* g_mu,
                          const void* g_scale, const void* mu_out, const void* scale_out,
                          void* d_mus, void* d_scales, long long n, void* stream) {
   Experts ex;
   Lattice lat;
-  if (!pack(mus, scales, experts, masks, subsets, &ex, &lat) || n < 1)
+  if (!pack(mus, scales, experts, masks, subsets, 0u, &ex, &lat) || n < 1)
     return (int)cudaErrorInvalidValue;
   poe_lattice_bwd<<<grid_for(n), THREADS, 0, (cudaStream_t)stream>>>(
       ex, lat, experts, subsets, (const float*)g_mu, (const float*)g_scale,

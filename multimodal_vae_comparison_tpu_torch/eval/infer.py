@@ -177,8 +177,10 @@ class MultimodalVAEInfer:
         """(loc, scale) rows of the per-row posteriors over the first
         ``max_samples`` rows of the train split, in 64-row batches (the last
         one padded, as the DataModule pads): the components of the
-        aggregate posterior mixture.  The fused joint posterior where the
-        model has one (POE), else every modality's own.  Cached."""
+        aggregate posterior mixture.  The joint posterior where the model
+        has one (POE, POE2 and DMVAE: the product of experts; MoPOE: the
+        stratified mixture of its subsets' products), else every modality's
+        own (MOE).  Cached."""
         if self._expost_cache is not None:
             return self._expost_cache
         mus, scales = [], []

@@ -1,12 +1,17 @@
 """Model zoo registry: mixing strategies by the config's ``mixing`` string.
 
-Only ``poe`` and ``moe`` are ported so far.
+POE (MVAE), MOE (MMVAE), MoPOE, DMVAE and the contrib POE2; the unimodal
+VAE is not ported yet.
 """
-from multimodal_vae_comparison_tpu_torch.models.mmvae import MOE, POE
+from multimodal_vae_comparison_tpu_torch.models.contrib import POE2
+from multimodal_vae_comparison_tpu_torch.models.mmvae import DMVAE, MOE, POE, MoPOE
 
 MIXING_REGISTRY = {
     "moe": MOE,
     "poe": POE,
+    "mopoe": MoPOE,
+    "dmvae": DMVAE,
+    "poe2": POE2,
 }
 
 

@@ -6,7 +6,7 @@ terms and the reconstruction log-likelihood.  Submodules carry flax's names
 (``enc_mod_1``, ``dec_mod_2``, ``pz_logvar``) so that
 ``bridge.load_flax_params`` maps the reference's parameters one to one.
 The mixture prior (``prior_components > 1``) and the aux endpoint head are
-not ported yet.
+not ported yet (ROADMAP Queue A item 2).
 """
 from __future__ import annotations
 
@@ -193,16 +193,21 @@ class MMVAE(nn.Module):
     def kld_std_all(self, dists: Dict[str, Any]) -> torch.Tensor:
         """(M, ...) :meth:`kld_std` of every modality's posterior, in spec
         order: the Gaussian ones under a Gaussian prior through one launch
-        of the KL kernel, any other family through :meth:`kld_std`."""
-        gauss = [s.name for s in self.specs
-                 if isinstance(dists[s.name], Normal) and s.prior in ("normal", "gaussian")]
+        of the KL kernel for each width among them (DMVAE's private
+        posteriors may differ in width), any other family through
+        :meth:`kld_std`."""
+        by_shape: Dict[tuple, list] = {}
+        for s in self.specs:
+            d = dists[s.name]
+            if isinstance(d, Normal) and s.prior in ("normal", "gaussian"):
+                by_shape.setdefault(tuple(d.loc.shape), []).append(s.name)
         rows = {}
-        if gauss:
-            fused = kl_normal_std_multi([dists[n].loc.contiguous() for n in gauss],
-                                        [dists[n].scale.contiguous() for n in gauss])
-            if len(gauss) == len(self.specs):
+        for names in by_shape.values():
+            fused = kl_normal_std_multi([dists[n].loc.contiguous() for n in names],
+                                        [dists[n].scale.contiguous() for n in names])
+            if len(names) == len(self.specs):
                 return fused
-            rows = dict(zip(gauss, fused.unbind(0)))
+            rows.update(zip(names, fused.unbind(0)))
         return torch.stack([rows[s.name] if s.name in rows else self.kld_std(s, dists[s.name])
                             for s in self.specs])
 

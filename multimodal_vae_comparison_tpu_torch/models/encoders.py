@@ -17,7 +17,7 @@ from torch import nn
 
 from multimodal_vae_comparison_tpu_torch.constants import ETA
 from multimodal_vae_comparison_tpu_torch.models.nets import (
-    AttentionResidualBlock, GroupNorm, SamePadConv3d,
+    AttentionResidualBlock, GroupNorm, ResNet50, SamePadConv3d,
     SparseAttentionResidualBlock, TransformerEncoder, positional_encoding,
     resample_strides)
 
@@ -46,6 +46,20 @@ class VaeEncoder(nn.Module):
         raw = self.logvar_layer(h)
         scale = torch.softmax(raw, dim=-1) + ETA
         return mu, scale
+
+
+class Enc_CNN(VaeEncoder):
+    """ResNet-50 trunk + SiLU + the (mu, scale) head for NHWC images.  The
+    trunk starts from random init: the reference's ImageNet weights are
+    not in the repository."""
+
+    def __init__(self, latent_dim, data_dim, latent_private=None):
+        super().__init__(latent_dim, data_dim, latent_private)
+        self.ResNet50_0 = ResNet50(in_channels=int(self.data_dim[-1]), num_outputs=1000)
+        self._add_head(1000)
+
+    def forward(self, data: torch.Tensor, mask=None):
+        return self.head(F.silu(self.ResNet50_0(data)))
 
 
 class Enc_CNN2(VaeEncoder):
@@ -161,6 +175,7 @@ class Enc_VideoGPTSparse(Enc_VideoGPT):
 
 
 ENCODERS = {
+    "CNN": Enc_CNN,
     "CNN2": Enc_CNN2,
     "FNN": Enc_FNN,
     "TxtTransformer": Enc_TxtTransformer,

@@ -1,12 +1,14 @@
 """The multimodal VAE zoo (counterpart of ``models/mmvae.py``).
 
-POE (MVAE) and MOE (MMVAE): inference forwards and training objectives.
-MoPOE, DMVAE and the unimodal VAE come with a later slice.
+POE (MVAE), MOE (MMVAE), MoPOE and DMVAE: inference forwards and training
+objectives.  The unimodal VAE comes with a later slice.
 
 Injected noise: ``POE.objective`` takes ``eps`` as a list of one (K, B, D)
 draw per subset, in lattice order; MOE's ``forward`` and ``objective`` take
-a dict from modality name to its (K, B, D) draw.  Without ``eps`` the draws
-come from ``generator`` in the same order (``self.specs`` order for MOE).
+a dict from modality name to its (K, B, D) draw; MoPOE takes the one (K, B,
+D) draw of its joint sample; DMVAE a list in the order the reference draws
+them (see its docstring).  Without ``eps`` the draws come from ``generator``
+in the same order (``self.specs`` order for MOE).
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ from multimodal_vae_comparison_tpu_torch.models.distributions import (
 from multimodal_vae_comparison_tpu_torch.models.output import (
     ModalityOutput, VAEOutput)
 from multimodal_vae_comparison_tpu_torch.ops.fusion import (
-    poe_lattice, product_of_experts, subset_lattice)
+    mixture_component_selection, poe_lattice, product_of_experts, subset_lattice)
 
 
 def _kmean(lpx: torch.Tensor) -> torch.Tensor:
@@ -184,6 +186,9 @@ class POE(MMVAE):
     """Product-of-experts MVAE: joint posterior = PoE(prior expert, present
     experts); the training objective sums one ELBO per modality subset."""
 
+    # whether the N(0, 1) prior expert joins every product (POE2: no)
+    prior_expert = True
+
     def _check_priors(self):
         for spec in self.specs:
             if spec.prior not in ("normal", "gaussian"):
@@ -191,18 +196,19 @@ class POE(MMVAE):
                                  "Adjust the config")
 
     def mix(self, qz_params, present: Tuple[str, ...]):
-        """PoE fusion of the present experts + analytic prior expert."""
+        """PoE fusion of the present experts (+ the analytic prior expert)."""
         mus = torch.stack([qz_params[n]["shared"][0] for n in present])
         scales = torch.stack([qz_params[n]["shared"][1] for n in present])
-        return product_of_experts(mus, scales, include_prior=True)
+        return product_of_experts(mus, scales, include_prior=self.prior_expert)
 
     def lattice_joints(self, qz_params, lattice) -> List[Normal]:
         """The joint posterior of every subset of ``lattice`` (tuples of
-        modality indices): PoE of its experts + the analytic prior expert,
+        modality indices): PoE of its experts (+ the analytic prior expert),
         all subsets in one launch of the PoE kernel."""
         shared = [qz_params[n]["shared"] for n in self.mod_names]
         mu, scale = poe_lattice([p[0].contiguous() for p in shared],
-                                [p[1].contiguous() for p in shared], lattice, 1.0)
+                                [p[1].contiguous() for p in shared], lattice, 1.0,
+                                prior_mask=None if self.prior_expert else 0)
         return [Normal(m, s) for m, s in zip(mu.unbind(0), scale.unbind(0))]
 
     def forward(self, batch, present: Tuple[str, ...],
@@ -278,5 +284,197 @@ class POE(MMVAE):
             total = total - (lpx_sum - self.beta * kld.sum())
             total_kld = total_kld + kld.mean()
         metrics = {"kld": total_kld / S,
+                   **{f"reconstruction_loss_{k}": v for k, v in rec_per_mod.items()}}
+        return total, metrics
+
+
+class MoPOE(MMVAE):
+    """Mixture of products of experts, the generalized multimodal ELBO: the
+    PoE of every fully present subset of the lattice (the N(0, 1) prior
+    expert on the full set only), all subsets in one launch of the PoE
+    kernel, then a stratified mixture across the subsets: each subset's
+    posterior takes its share of the batch rows
+    (:func:`mixture_component_selection`).
+
+    Injected noise: ``forward`` and ``objective`` take ``eps`` as the one
+    (K, B, D) draw of the joint sample.
+    """
+
+    def subsets(self) -> Tuple[Tuple[int, ...], ...]:
+        return tuple(subset_lattice(len(self.specs)))
+
+    def mix(self, qz_params, present: Tuple[str, ...]):
+        """(mixture-selected joint, {"mod_a_mod_b": subset posterior}) over
+        the subsets whose modalities are all present, in lattice order."""
+        experts = [i for i, s in enumerate(self.specs) if s.name in present]
+        slot = {i: k for k, i in enumerate(experts)}
+        subsets = [s for s in self.subsets() if all(i in slot for i in s)]
+        prior = sum(1 << k for k, s in enumerate(subsets) if len(s) == len(self.specs))
+        shared = [qz_params[self.specs[i].name]["shared"] for i in experts]
+        mu, scale = poe_lattice([p[0].contiguous() for p in shared],
+                                [p[1].contiguous() for p in shared],
+                                [tuple(slot[i] for i in s) for s in subsets], 1.0,
+                                prior_mask=prior)
+        subset_dists = {"_".join(sorted(self.specs[i].name for i in s)): Normal(m, sc)
+                        for s, m, sc in zip(subsets, mu.unbind(0), scale.unbind(0))}
+        return Normal(*mixture_component_selection(mu, scale)), subset_dists
+
+    def forward(self, batch, present: Tuple[str, ...],
+                eps: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> VAEOutput:
+        qz_params = self.encode(batch, present)
+        joint, _ = self.mix(qz_params, present)
+        z = joint.rsample((self.K,), generator=generator, eps=eps)
+        mods = {}
+        for spec in self.specs:
+            enc = (Normal(*qz_params[spec.name]["shared"])
+                   if spec.name in present else None)
+            dec = self.decode_mod(spec.name, z, _mask_of(batch, spec.name),
+                                  cond=self._cond_for(spec.name, batch, present))
+            mods[spec.name] = ModalityOutput(encoder_dist=enc, joint_dist=joint,
+                                             decoder_dist=dec, latents=z)
+        return VAEOutput(mods=mods)
+
+    def objective(self, batch, eps: Optional[torch.Tensor] = None,
+                  generator: Optional[torch.Generator] = None):
+        """Reconstruction of every modality from the mixture's sample (K
+        mean, then batch mean), and the group KL: the closed-form KL to the
+        learned prior of every subset posterior and of the joint, each
+        batch-averaged and weighted 1/(S+1)."""
+        present = self.mod_names
+        qz_params = self.encode(batch, present)
+        joint, subset_dists = self.mix(qz_params, present)
+        z = joint.rsample((self.K,), generator=generator, eps=eps)
+        dists = list(subset_dists.values()) + [joint]
+        w = 1.0 / len(dists)
+        group_div = torch.zeros((), device=z.device)
+        for d in dists:
+            group_div = group_div + w * self.kld_to_prior(d).mean()
+        lpx_total = torch.zeros((), device=z.device)
+        rec_per_mod = {}
+        for spec in self.specs:
+            dec = self.decode_mod(spec.name, z, _mask_of(batch, spec.name),
+                                  cond=self._cond_for(spec.name, batch, present))
+            lpx = _kmean(self.recon_lpx(spec, dec, batch))
+            lpx_total = lpx_total + lpx.mean()
+            rec_per_mod[spec.name] = -lpx.sum() / spec.llik_scaling
+        loss = -(lpx_total - self.beta * group_div)
+        metrics = {"kld": group_div,
+                   **{f"reconstruction_loss_{k}": v for k, v in rec_per_mod.items()}}
+        return loss, metrics
+
+
+class DMVAE(MMVAE):
+    """Disentangled multimodal VAE: shared and private latents per modality.
+
+    The joint posterior is the PoE of the present modalities' shared
+    experts without the prior expert.  Each present modality draws a shared
+    and a private sample; a missing one takes the joint sample and a
+    private draw from N(0, 1).  Each modality decodes its own sample, the
+    joint one and every other present modality's shared sample, each with
+    its private sample beside it.  The objective is a triple ELBO per
+    modality: own, joint, and the cross terms with the private KL once per
+    cross pair; the private KLs of all modalities take one launch of the KL
+    kernel.
+
+    Injected noise: ``eps`` is a list of draws in the order the reference
+    draws them: the (K, B, D) joint sample; then per modality in spec
+    order its shared (K, B, D) and private (K, B, P) draws (present) or the
+    private prior draw alone (missing), followed by one (K, B, D) shared
+    draw of each other present modality for its cross decodes.
+    """
+
+    def _check_factorized(self):
+        if not any(s.private_latents is not None for s in self.specs):
+            raise ValueError("DMVAE requires private_latents in the config")
+
+    def eps_shapes(self, present: Tuple[str, ...], batch_size: int) -> List[Tuple[int, ...]]:
+        """The shapes of the draws of a forward over ``present``, in order."""
+        shared = (self.K, batch_size, self.n_latents)
+        shapes = [shared]
+        for spec in self.specs:
+            private = (self.K, batch_size, spec.private_latents)
+            shapes += [shared, private] if spec.name in present else [private]
+            shapes += [shared] * (len(present) - (spec.name in present))
+        return shapes
+
+    def forward(self, batch, present: Tuple[str, ...],
+                eps: Optional[Sequence[torch.Tensor]] = None,
+                generator: Optional[torch.Generator] = None) -> VAEOutput:
+        self._check_factorized()
+        n_draws = len(self.eps_shapes(present, 0))
+        if eps is not None and len(eps) != n_draws:
+            raise ValueError(f"eps holds {len(eps)} draws; a forward over {present} "
+                             f"makes {n_draws}")
+        noise = iter(eps or ())
+
+        def draw(dist):
+            return dist.rsample((self.K,), generator=generator,
+                                eps=None if eps is None else next(noise))
+
+        qz_params = self.encode(batch, present)
+        mus = torch.stack([qz_params[n]["shared"][0] for n in present])
+        scales = torch.stack([qz_params[n]["shared"][1] for n in present])
+        joint = Normal(*product_of_experts(mus, scales, include_prior=False))
+        z_joint = draw(joint)
+        mods = {}
+        for spec in self.specs:
+            name = spec.name
+            mask = _mask_of(batch, name)
+            if name in present:
+                qz = Normal(*qz_params[name]["shared"])
+                qz_priv = Normal(*qz_params[name]["private"])
+                z_shared, z_priv = draw(qz), draw(qz_priv)
+            else:
+                qz, qz_priv = None, None
+                z_shared = z_joint
+                ones = z_joint.new_ones((z_joint.shape[1], spec.private_latents))
+                z_priv = draw(Normal(torch.zeros_like(ones), ones))
+            cond = self._cond_for(name, batch, present)
+            dec = self.decode_mod(name, torch.cat([z_shared, z_priv], -1), mask, cond=cond)
+            dec_joint = self.decode_mod(name, torch.cat([z_joint, z_priv], -1), mask,
+                                        cond=cond)
+            cross = {}
+            for other in present:
+                if other == name:
+                    continue
+                z_o = draw(Normal(*qz_params[other]["shared"]))
+                cross[other] = self.decode_mod(name, torch.cat([z_o, z_priv], -1), mask,
+                                               cond=cond)
+            mods[name] = ModalityOutput(encoder_dist=qz, enc_dist_private=qz_priv,
+                                        joint_dist=joint, decoder_dist=dec,
+                                        joint_decoder_dist=dec_joint,
+                                        cross_decoder_dist=cross, latents=z_shared)
+        return VAEOutput(mods=mods)
+
+    def objective(self, batch, eps: Optional[Sequence[torch.Tensor]] = None,
+                  generator: Optional[torch.Generator] = None):
+        """Sum over modalities of the own and the joint ELBO (closed-form KL
+        to the learned prior) and the cross reconstructions, with the
+        private KL to N(0, 1) counted once per cross pair."""
+        self._check_factorized()
+        out = self.forward(batch, self.mod_names, eps=eps, generator=generator)
+        kld_priv_all = self.kld_std_all({n: out.mods[n].enc_dist_private
+                                         for n in self.mod_names})      # (M, B)
+        total = torch.zeros((), device=kld_priv_all.device)
+        total_kld = torch.zeros((), device=kld_priv_all.device)
+        rec_per_mod = {}
+        for i, spec in enumerate(self.specs):
+            mo = out.mods[spec.name]
+            lpx = _kmean(self.recon_lpx(spec, mo.decoder_dist, batch))
+            lpx_joint = _kmean(self.recon_lpx(spec, mo.joint_decoder_dist, batch))
+            kld = self.kld_to_prior(mo.encoder_dist)
+            kld_joint = self.kld_to_prior(mo.joint_dist)
+            lpx_cross = torch.zeros((), device=total.device)
+            kld_priv = torch.zeros((), device=total.device)
+            for cross in mo.cross_decoder_dist.values():
+                lpx_cross = lpx_cross + _kmean(self.recon_lpx(spec, cross, batch)).sum()
+                kld_priv = kld_priv + kld_priv_all[i].sum()
+            total = total + (objectives.elbo(lpx, kld, self.beta)
+                             + objectives.elbo(lpx_joint, kld_joint, self.beta)
+                             - (lpx_cross - self.beta * kld_priv))
+            total_kld = total_kld + kld.mean()
+            rec_per_mod[spec.name] = -lpx.sum() / spec.llik_scaling
+        metrics = {"kld": total_kld / len(self.specs),
                    **{f"reconstruction_loss_{k}": v for k, v in rec_per_mod.items()}}
         return total, metrics

@@ -1,17 +1,19 @@
 """Shared network building blocks (counterpart of ``models/nets.py``).
 
 The blocks of the ported models: the transformer pieces of the CdSprites+
-text nets and the 3D conv and attention blocks of the VideoGPT family.
+text nets, the ResNet-50 trunk of ``Enc_CNN`` and the 3D conv and attention
+blocks of the VideoGPT family.
 Submodules carry the names
 that flax gives their counterparts (``Dense_0``, ``LayerNorm_1``,
 ``MultiHeadAttention_0``, ...), so that ``bridge.load_flax_params`` maps a
 flax parameter path onto a module path one to one.
 
 Numerics that differ from PyTorch's defaults and follow flax: LayerNorm and
-GroupNorm eps is 1e-6, GELU is the tanh approximation, and ``SAME`` padding
-of an even kernel is asymmetric.  Public functions keep the reference's
-layouts: NHWC images, (B, T, H, W, C) video volumes and (B, H, T, Dh)
-attention; modules permute to channels-first views around PyTorch's convs.
+GroupNorm eps is 1e-6 (FrozenBatchNorm's 1e-5), GELU is the tanh
+approximation, and ``SAME`` padding of an even kernel is asymmetric.
+Public functions keep the reference's layouts: NHWC images, (B, T, H, W, C)
+video volumes and (B, H, T, Dh) attention; modules permute to
+channels-first views around PyTorch's convs.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ from multimodal_vae_comparison_tpu_torch.ops.kernels.sparse_attention import (
     strided_block_sparse_attention)
 
 LN_EPS = 1e-6  # flax.linen.LayerNorm and GroupNorm default
+BN_EPS = 1e-5  # the reference's FrozenBatchNorm
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -305,3 +308,88 @@ class SparseAttentionResidualBlock(_AttentionResidual):
         b, t, hh, ww, c = h.shape
         att = self.StridedSparseSelfAttention_0(h.reshape(b, t * hh * ww, c))
         return x + att.reshape(b, t, hh, ww, c)
+
+
+# -- ResNet-50 trunk (Enc_CNN's backbone) ------------------------------------
+
+class FrozenBatchNorm(nn.Module):
+    """Inference-mode batch norm over the channels of an NCHW tensor:
+    ``(x - mean) * scale / sqrt(var + eps) + bias`` with the stored
+    statistics, as one ``F.batch_norm`` (the reference's XLA computes it
+    elementwise, as ``x * inv + shift``: the same function, which PyTorch
+    would take eight kernels forward and about fifteen backward to spell
+    out).  ``weight`` (flax's ``scale``) and ``bias`` train; ``mean`` and
+    ``var`` are buffers, which no optimizer sees and ``state_dict`` (so
+    every checkpoint) carries.  At init (mean 0, var 1) it is a learnable
+    affine."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("mean", torch.zeros(channels))
+        self.register_buffer("var", torch.ones(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.batch_norm(x, self.mean, self.var, self.weight, self.bias,
+                            training=False, eps=BN_EPS)
+
+
+class BottleneckBlock(nn.Module):
+    """1x1 -> 3x3 (the stride) -> 1x1 (4x the width) convs, each followed by
+    a FrozenBatchNorm, ReLU between; a 1x1 projection of the input where
+    its shape differs from the output's (each stage's first block)."""
+
+    def __init__(self, in_features: int, features: int, strides: int = 1):
+        super().__init__()
+        self.Conv_0 = nn.Conv2d(in_features, features, 1, bias=False)
+        self.FrozenBatchNorm_0 = FrozenBatchNorm(features)
+        self.Conv_1 = nn.Conv2d(features, features, 3, stride=strides, padding=1,
+                                bias=False)
+        self.FrozenBatchNorm_1 = FrozenBatchNorm(features)
+        self.Conv_2 = nn.Conv2d(features, features * 4, 1, bias=False)
+        self.FrozenBatchNorm_2 = FrozenBatchNorm(features * 4)
+        self.project = in_features != features * 4 or strides != 1
+        if self.project:
+            self.Conv_3 = nn.Conv2d(in_features, features * 4, 1, stride=strides,
+                                    bias=False)
+            self.FrozenBatchNorm_3 = FrozenBatchNorm(features * 4)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = F.relu(self.FrozenBatchNorm_0(self.Conv_0(x)))
+        h = F.relu(self.FrozenBatchNorm_1(self.Conv_1(h)))
+        h = self.FrozenBatchNorm_2(self.Conv_2(h))
+        residual = self.FrozenBatchNorm_3(self.Conv_3(x)) if self.project else x
+        return F.relu(h + residual)
+
+
+class ResNet50(nn.Module):
+    """ResNet-50 topology on NHWC images: 7x7/2 stem, 3x3/2 max pool, four
+    stages of (3, 4, 6, 3) bottleneck blocks (stride 2 in the first block of
+    stages 1-3), spatial mean, ``Dense(num_outputs)``.  The input is
+    permuted once to an NCHW view (channels-last in memory, as cuDNN takes
+    it).  The reference can install ImageNet weights; the port starts from
+    random init."""
+
+    def __init__(self, in_channels: int = 3, num_outputs: int = 1000,
+                 stage_sizes: Sequence[int] = (3, 4, 6, 3)):
+        super().__init__()
+        self.Conv_0 = nn.Conv2d(in_channels, 64, 7, stride=2, padding=3, bias=False)
+        self.FrozenBatchNorm_0 = FrozenBatchNorm(64)
+        self.n_blocks, channels = 0, 64
+        for i, n_blocks in enumerate(stage_sizes):
+            for j in range(n_blocks):
+                block = BottleneckBlock(channels, 64 * 2 ** i,
+                                        strides=2 if i > 0 and j == 0 else 1)
+                self.add_module(f"BottleneckBlock_{self.n_blocks}", block)
+                channels = 64 * 2 ** i * 4
+                self.n_blocks += 1
+        self.Dense_0 = nn.Linear(channels, num_outputs)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = F.relu(self.FrozenBatchNorm_0(self.Conv_0(x.permute(0, 3, 1, 2))))
+        # flax pads the pool with -inf, as PyTorch does
+        h = F.max_pool2d(h, 3, stride=2, padding=1)
+        for i in range(self.n_blocks):
+            h = getattr(self, f"BottleneckBlock_{i}")(h)
+        return self.Dense_0(h.mean(dim=(2, 3)))

@@ -2,7 +2,8 @@
 
 The PoE fusion of one set of experts (:func:`product_of_experts`) and of
 every subset of a lattice in one launch (:func:`poe_lattice`, from
-``ops/kernels/poe_kernel.py``), and the subset lattice.
+``ops/kernels/poe_kernel.py``), MoPoE's stratified mixture selection
+(:func:`mixture_component_selection`), and the subset lattice.
 """
 from __future__ import annotations
 
@@ -31,8 +32,40 @@ def poe_precision_fusion(mus: torch.Tensor, scales: torch.Tensor,
 def product_of_experts(mus: torch.Tensor, scales: torch.Tensor,
                        include_prior: bool = True):
     """PoE joint posterior from stacked experts; the CUDA kernel
-    (``ops/kernels/poe_kernel.py``) for CUDA tensors."""
-    return poe_fused(mus, scales, 1.0 if include_prior else 0.0)
+    (``ops/kernels/poe_kernel.py``) for CUDA tensors, where the prior
+    expert is the one subset's prior bit."""
+    return poe_fused(mus, scales, 1.0, prior_mask=None if include_prior else 0)
+
+
+def mixture_splits(num_components: int, num_samples: int) -> List[Tuple[int, int]]:
+    """The rows [start, end) of the batch that each of S uniformly weighted
+    mixture components takes: ``int(B * w)`` rows each, in order, with the
+    weight ``w = (1 / S) / sum of the S weights`` in Python floats as the
+    reference computes it, and the last one the remainder (B 24 over 3
+    gives 8/8/8, B 64 gives 21/21/22)."""
+    weights = [1.0 / num_components] * num_components
+    total = float(sum(weights))
+    splits, start = [], 0
+    for k in range(num_components):
+        end = (num_samples if k == num_components - 1
+               else start + int(num_samples * (weights[k] / total)))
+        splits.append((start, end))
+        start = end
+    return splits
+
+
+def mixture_component_selection(mus: torch.Tensor, scales: torch.Tensor):
+    """MoPoE's stratified draw from a uniform mixture of S components: the
+    batch is split across the components by :func:`mixture_splits` and each
+    row takes its component's parameters.
+
+    :param mus: (S, B, D) component means
+    :param scales: (S, B, D) component stddevs
+    :return: (B, D) selected means and stddevs
+    """
+    splits = mixture_splits(mus.shape[0], mus.shape[1])
+    return (torch.cat([mus[k, a:b] for k, (a, b) in enumerate(splits)], dim=0),
+            torch.cat([scales[k, a:b] for k, (a, b) in enumerate(splits)], dim=0))
 
 
 def subset_lattice(num_mods: int,

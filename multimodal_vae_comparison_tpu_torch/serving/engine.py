@@ -2,7 +2,7 @@
 
 * pads each request chunk up to the next bucket size by repeating its last
   row, and chunks requests larger than the largest bucket;
-* runs the model's ``forward`` (POE or MOE) under
+* runs the model's ``forward`` (any mixing of the zoo) under
   ``torch.inference_mode()`` on the engine's device (CUDA unless the
   caller passes ``device="cpu"``);
 * returns host numpy (images NHWC), trimmed to the true request size.

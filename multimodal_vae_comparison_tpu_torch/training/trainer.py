@@ -52,14 +52,16 @@ def build_model(specs: Tuple[ModalitySpec, ...], mixing: str, n_latents: int,
                 obj: str = "elbo", beta: float = 1.0, K: int = 1, seed: int = 0,
                 device: Optional[Union[str, torch.device]] = None,
                 remat: bool = False) -> MMVAE:
-    """The model of a config: the mixing class named by ``mixing`` over one
-    VAE per modality spec, weights drawn from ``seed``, on ``device``
-    (CUDA unless the caller passes ``"cpu"``); ``remat`` recomputes the
-    nets' activations in the backward pass instead of keeping them."""
+    """The model of a config: the mixing class named by ``mixing`` (poe,
+    moe, mopoe, dmvae or poe2) over one VAE per modality spec, weights drawn
+    from ``seed``, on ``device`` (CUDA unless the caller passes ``"cpu"``);
+    ``remat`` recomputes the nets' activations in the backward pass instead
+    of keeping them.  A config with one modality names the unimodal VAE,
+    which raises."""
     if len(specs) == 1:
         raise NotImplementedError(
-            "the unimodal VAE (one modality) is not ported yet "
-            "(ROADMAP Queue A item 3)")
+            "a config with one modality trains the unimodal VAE, which is not "
+            "ported yet (ROADMAP Queue A item 3)")
     return get_mixing(mixing)(specs, n_latents, K=K, seed=seed, device=device,
                               obj=obj, beta=beta, remat=remat)
 

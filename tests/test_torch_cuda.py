@@ -228,6 +228,39 @@ def test_poe_lattice_kernels_match_plain(cuda, m, lattice, rows, prior):
         torch.testing.assert_close(g, w, **POE_BWD_TOL)
 
 
+# (experts, prior mask): every subset of E = 1 ... M experts, with the prior
+# expert on no subset, on all (POE), or on the full set only (MoPoE)
+PRIOR_MASK_CASES = [(m, kind) for m in (2, 3, 4, 5) for kind in ("none", "all", "full")]
+
+
+@pytest.mark.parametrize("m,kind", PRIOR_MASK_CASES)
+def test_poe_lattice_prior_mask_kernels_match_plain(cuda, m, kind):
+    """The lattice with a per-subset prior bitmask: one forward and one
+    backward launch, against the plain versions within POE_TOL, and the
+    gradients against autograd through the plain forward within
+    POE_BWD_TOL."""
+    lattice = subset_lattice(m)
+    mask = {"none": 0, "all": (1 << len(lattice)) - 1, "full": 1 << (len(lattice) - 1)}[kind]
+    mus, scales = _experts_on(cuda, 50 + m, m, (24, 16))
+    ups = [torch.randn((len(lattice), 24, 16), device=cuda) for _ in range(2)]
+    leaves = [x.clone().requires_grad_() for x in mus + scales]
+    telemetry.reset()
+    mu, scale = tpoe.poe_lattice(leaves[:m], leaves[m:], lattice, 1.0, prior_mask=mask)
+    got = torch.autograd.grad((mu, scale), leaves, ups)
+    assert telemetry.launches() == {"poe": 1, "poe_bwd": 1}
+    want_mu, want_scale = tpoe.poe_lattice_reference(mus, scales, lattice, 1.0, mask)
+    torch.testing.assert_close(mu, want_mu, **POE_TOL)
+    torch.testing.assert_close(scale, want_scale, **POE_TOL)
+    d_mus, d_scales = tpoe.poe_lattice_backward_reference(mus, scales, mu.detach(),
+                                                          scale.detach(), *ups, lattice)
+    for g, w in zip(got, d_mus + d_scales):
+        torch.testing.assert_close(g, w, **POE_TOL)
+    want = _grads(lambda *x: tpoe.poe_lattice_reference(x[:m], x[m:], lattice, 1.0, mask),
+                  mus + scales, ups)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **POE_BWD_TOL)
+
+
 def test_poe_lattice_and_its_backward_replay_in_a_cuda_graph(cuda):
     """The flagship lattice's forward and backward captured in one CUDA
     graph: the lattice and the expert pointers are kernel parameters, so a
@@ -324,6 +357,45 @@ def test_full_width_train_step_on_the_card(cuda, mixing, kernels):
         # the step leaves its gradients in .grad
         out[dev] = (loss, {n: (torch.zeros_like(p) if p.grad is None else p.grad).cpu()
                            for n, p in model.named_parameters()})
+    assert out["cuda"][0] == pytest.approx(out["cpu"][0], rel=1e-5)
+    for name, g in out["cpu"][1].items():
+        err = (out["cuda"][1][name] - g).abs().max().item()
+        assert err <= 1e-4 * g.abs().max().item() + 1e-5, f"{name}: {err}"
+
+
+@pytest.mark.parametrize("mixing,kernels", [
+    ("mopoe", {"attention": 2, "poe": 1, "poe_bwd": 1}),
+    ("dmvae", {"attention": 4, "poe": 1, "poe_bwd": 1, "kl": 1, "kl_bwd": 1})])
+def test_zoo_objective_on_the_card_matches_the_cpu(cuda, mixing, kernels):
+    """MoPoE and DMVAE on the flagship's nets with 10 private latents at bs
+    24: one objective and its backward launch exactly their kernels (MoPoE's
+    lattice with the prior on the full set only, DMVAE's joint without it
+    and every private KL in one call), and the loss and every gradient
+    match the CPU's plain path on the same weights, batch and draws."""
+    import dataclasses
+    rng = np.random.default_rng(17)
+    img = rng.random((24, 64, 64, 3)).astype(np.float32)
+    txt = np.eye(27, dtype=np.float32)[rng.integers(0, 27, (24, 45))]
+    mask = np.arange(45)[None, :] < rng.integers(1, 46, (24, 1))
+    specs = tuple(dataclasses.replace(s, private_latents=10) for s in _flagship_specs())
+    out, draws = {}, None
+    for dev in ("cpu", "cuda"):
+        model = build_model(specs, mixing, 16, device=dev)
+        if draws is None:
+            shapes = ([(1, 24, 16)] if mixing == "mopoe"
+                      else model.eps_shapes(model.mod_names, 24))
+            draws = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+        eps = [torch.from_numpy(d).to(dev) for d in draws]
+        batch = {"mod_1": {"data": torch.from_numpy(img).to(dev), "masks": None},
+                 "mod_2": {"data": torch.from_numpy(txt).to(dev),
+                           "masks": torch.from_numpy(mask).to(dev)}}
+        telemetry.reset()
+        loss, _ = model.objective(batch, eps=eps[0] if mixing == "mopoe" else eps)
+        loss.backward()
+        if dev == "cuda":
+            assert telemetry.launches() == kernels
+        out[dev] = (loss.item(), {n: (torch.zeros_like(p) if p.grad is None else p.grad).cpu()
+                                  for n, p in model.named_parameters()})
     assert out["cuda"][0] == pytest.approx(out["cpu"][0], rel=1e-5)
     for name, g in out["cpu"][1].items():
         err = (out["cuda"][1][name] - g).abs().max().item()

@@ -97,6 +97,76 @@ def test_poe_lattice_gradients_match_jax_vjp(m, prior, rows):
         _close(got.numpy(), w)
 
 
+def _prior_mask(kind, lattice):
+    """The prior bitmask of ``kind``: on no subset, on all (None), on the
+    full set only (MoPoE), or on every other subset."""
+    full = max(len(s) for s in lattice)
+    return {"none": 0, "all": None,
+            "full": sum(1 << k for k, s in enumerate(lattice) if len(s) == full),
+            "alternate": sum(1 << k for k in range(0, len(lattice), 2))}[kind]
+
+
+MASK_CASES = [(m, kind) for m in (2, 3) for kind in ("none", "all", "full", "alternate")]
+
+
+@pytest.mark.parametrize("m,kind", MASK_CASES)
+def test_poe_lattice_with_a_prior_mask_matches_jax_per_subset(m, kind):
+    """Forward and backward: with a per-subset prior bitmask, row s is the
+    JAX package's poe_fused of subset s with the prior expert where bit s is
+    set (include_prior per subset, as MoPoE calls it), and each expert's
+    gradient is jax.vjp's of those outputs."""
+    mus, scales, rng = _experts(100 + m, m, 24, 16)
+    lattice = tfusion.subset_lattice(m)
+    mask = _prior_mask(kind, lattice)
+    bits = tpoe.prior_bits(mask, len(lattice))
+
+    def per_subset(a, b):
+        fused = [jpoe.poe_fused(a[np.asarray(s)], b[np.asarray(s)],
+                                1.0 if bits >> k & 1 else 0.0)
+                 for k, s in enumerate(lattice)]
+        return jnp.stack([f[0] for f in fused]), jnp.stack([f[1] for f in fused])
+
+    cot = [rng.normal(size=(len(lattice), 24, 16)).astype(np.float32) for _ in range(2)]
+    want, vjp = jax.vjp(per_subset, jnp.asarray(mus), jnp.asarray(scales))
+    want_grads = vjp(tuple(jnp.asarray(c) for c in cot))
+    mt = [torch.from_numpy(x).requires_grad_() for x in mus]
+    st = [torch.from_numpy(x).requires_grad_() for x in scales]
+    telemetry.reset()
+    out = tfusion.poe_lattice(mt, st, lattice, 1.0, prior_mask=mask)
+    for g, w in zip(out, want):
+        _close(g.detach().numpy(), w)
+    torch.autograd.backward(out, [torch.from_numpy(c) for c in cot])
+    assert telemetry.summary() == {"poe:plain": 1, "poe_bwd:plain": 1}
+    for got, w in ((torch.stack([t.grad for t in mt]), want_grads[0]),
+                   (torch.stack([t.grad for t in st]), want_grads[1])):
+        _close(got.numpy(), w)
+
+
+def test_a_full_prior_mask_gives_the_unmasked_lattice_bit_for_bit():
+    """Every bit set is the lattice without a mask (POE's route), and no bit
+    is p0 = 0, forward and backward; poe_fused's mask 0 is p0 = 0."""
+    mus, scales, rng = _experts(110, 3, 24, 16)
+    lattice = tfusion.subset_lattice(3)
+    cot = [torch.from_numpy(rng.normal(size=(7, 24, 16)).astype(np.float32))
+           for _ in range(2)]
+
+    def run(prior, mask):
+        leaves = [torch.from_numpy(x).requires_grad_() for x in list(mus) + list(scales)]
+        out = tpoe.poe_lattice(leaves[:3], leaves[3:], lattice, prior, prior_mask=mask)
+        return out + torch.autograd.grad(out, leaves, cot)
+
+    for a, b in zip(run(1.0, None), run(1.0, (1 << 7) - 1)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    for a, b in zip(run(0.0, None), run(1.0, 0)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    one = tpoe.poe_fused(torch.from_numpy(mus), torch.from_numpy(scales), 1.0, prior_mask=0)
+    for a, b in zip(one, tpoe.poe_fused(torch.from_numpy(mus), torch.from_numpy(scales), 0.0)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="past the 7 subsets"):
+        tpoe.poe_lattice(torch.from_numpy(mus), torch.from_numpy(scales), lattice,
+                         prior_mask=1 << 7)
+
+
 @pytest.mark.parametrize("m", [2, 3])
 def test_poe_lattice_closed_form_backward_equals_autograd_of_the_plain_version(m):
     """The plain backward (the closed form summed in lattice order) against

@@ -27,7 +27,7 @@ subprocess.Popen = refuse
 REQUIRED = {"multimodal_vae_comparison_tpu_torch." + m for m in (
     "bridge", "config", "data.datamodule", "data.datasets", "data.native", "data.text",
     "data_proc.cdsprites", "eval.classifiers", "eval.eval_cdsprites", "eval.infer",
-    "eval.train_classifiers", "main", "models.base", "models.decoders",
+    "eval.train_classifiers", "main", "models.base", "models.contrib", "models.decoders",
     "models.distributions", "models.encoders", "models.mmvae", "models.nets",
     "models.objectives", "ops.kernels.attention", "ops.kernels.kl_kernel",
     "ops.kernels.poe_kernel", "ops.kernels.sample_kernel", "ops.kernels.sparse_attention",
@@ -51,8 +51,8 @@ sys.exit(1 if bad or missing or optional else 0)
 
 
 def test_port_imports_no_jax_no_jax_package_and_no_triton():
-    """Every module of the port (the training, video, config/data/Trainer and
-    eval slices' among them), and
+    """Every module of the port (the training, video, config/data/Trainer,
+    eval and model-zoo slices' among them), and
     chip_smoke.py, imported in a fresh process with no nvcc reachable: none
     pulls in jax, flax, optax, triton or the JAX package, none loads cv2,
     matplotlib or sklearn, and none starts a process (an nvcc build) at
