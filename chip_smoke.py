@@ -28,7 +28,16 @@ three main paths at full width with random weights from a seed:
   scores cross- and joint-coherence from the prior, ex-post and fitted-GMM
   sources and writes ``cdspritesplus_stats.txt``; the eval CLI
   (``eval_cdsprites -p``) gives the same stats from the cache in a process
-  of its own, and cross- and prior joint generation agree with the CPU's.
+  of its own, and cross- and prior joint generation agree with the CPU's;
+* the paper's MoPoE and DMVAE configs trained and scored on the same rows
+  ("zoo from config");
+* SPRITES from its configs ("sprites from config"): the clips made by the
+  port's generator, ``configs/round4/sprites_r4_dreg_up.yml`` (MOE, DReG,
+  K 5) trained for 2 resident epochs through ``main`` and
+  ``configs/round2/sprites_r2_poe.yml`` (POE) for 1, each ending in
+  ``Trainer.test()`` and the SPRITES benchmark (its two video judges
+  trained on the card, then cached); the judges' CLI, and the judges and
+  both models on the card against the CPU.
 
 Each path runs with the kernel counts set to 0 just before it and read just
 after, and must have launched every kernel it goes through and taken no
@@ -482,14 +491,15 @@ def prior_mask(kind: str, subsets: int) -> int:
     return {"none": 0, "all": (1 << subsets) - 1, "full": 1 << (subsets - 1)}[kind]
 
 
-def _lattice_case(g, m, lattice, rows, prior, mask=None):
-    """poe_lattice at one shape: one forward and one backward launch; the
-    kernels against the plain versions (the closed forms summed in the same
-    order), the gradients against autograd through the plain forward."""
+def _lattice_case(g, m, lattice, rows, prior, mask=None, d=N_LATENTS):
+    """poe_lattice at one shape, (rows, d) an expert: one forward and one
+    backward launch; the kernels against the plain versions (the closed
+    forms summed in the same order), the gradients against autograd through
+    the plain forward."""
     from multimodal_vae_comparison_tpu_torch.ops.kernels import poe_kernel
     from multimodal_vae_comparison_tpu_torch.ops.kernels import telemetry
-    mus, scales = lattice_inputs(g, m, rows)
-    ups = [torch.randn((len(lattice), rows, N_LATENTS), generator=g, device="cuda")
+    mus, scales = lattice_inputs(g, m, rows, d)
+    ups = [torch.randn((len(lattice), rows, d), generator=g, device="cuda")
            for _ in range(2)]
     leaves = [x.clone().requires_grad_() for x in mus + scales]
     telemetry.reset()
@@ -501,7 +511,7 @@ def _lattice_case(g, m, lattice, rows, prior, mask=None):
     want_grads = sum(poe_kernel.poe_lattice_backward_reference(
         mus, scales, mu, scale, *ups, lattice), [])
     torch.cuda.synchronize()
-    label = (f"poe_lattice M={m} S={len(lattice)} ({rows}, {N_LATENTS}) p0={prior}"
+    label = (f"poe_lattice M={m} S={len(lattice)} ({rows}, {d}) p0={prior}"
              + ("" if mask is None else f" prior mask {mask:#x}"))
     err = max((a - b).abs().max().item() for a, b in zip((mu, scale), want))
     err_bwd = max((a - b).abs().max().item() for a, b in zip(grads, want_grads))
@@ -1129,13 +1139,18 @@ PROFILE_SYMBOLS = {"masked_attention": "masked_attention_", "poe_lattice": "poe_
                    "sparse_dkv": "sparse_dkv"}
 
 
+# the host calls that each put one kernel, copy or set on a stream (the
+# CUDA API's, as torch.profiler names them)
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+                "cudaMemcpyAsync", "cudaMemsetAsync", "cudaLaunchCooperativeKernel")
+
+
 def profile_steps(label, step, batch, gen, n, steps, card):
     """``steps`` warm train steps under ``torch.profiler``; one JSON line with
-    host wall ms, device kernel ms, the device's busy share (union of kernel
-    intervals over the wall time), launches per step, the port's kernels'
-    device ms and the kernels that take the most device time."""
-    import collections
-    from torch.autograd import DeviceType
+    host wall ms, device kernel ms, the device's busy share, kernels per step
+    (the host's launch calls) beside the device events the profiler kept,
+    the port's kernels' device ms and the kernels that take the most device
+    time (:func:`device_activity`)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1143,30 +1158,52 @@ def profile_steps(label, step, batch, gen, n, steps, card):
             step(batch, generator=gen)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # device events less the ranges that annotate them: the optimizer's
-    # "Optimizer.step#..." span lies on the device timeline too
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)
-               and not e.name.startswith("Optimizer.")]
-    check(bool(kernels), "the profiler recorded no CUDA kernel")
-    per_name = collections.Counter()
-    for e in kernels:
-        per_name[e.name] += e.time_range.elapsed_us()
-    busy = busy_ms([(e.time_range.start, e.time_range.end) for e in kernels])
-    port_ms = {k: sum(us for name, us in per_name.items() if sym in name) / 1e3 / steps
+    act = device_activity(prof, wall_ms)
+    per_name = act["ms_by_name"]
+    port_ms = {k: sum(ms for name, ms in per_name.items() if sym in name) / steps
                for k, sym in PROFILE_SYMBOLS.items()}
     numbers = {
         "model": label, "batch": n, "steps": steps,
         "wall_ms_per_step": wall_ms / steps,
-        "kernel_ms_per_step": sum(per_name.values()) / 1e3 / steps,
-        "device_busy_share": busy / wall_ms,
-        "kernels_per_step": len(kernels) / steps,
+        "kernel_ms_per_step": act["ms"] / steps,
+        "device_busy_share": act["busy_share"],
+        "kernels_per_step": act["launch_calls"] / steps,
+        "device_events_per_step": act["events"] / steps,
         "port_kernels_ms_per_step": {k: ms for k, ms in port_ms.items() if ms},
         "top_kernels_ms_per_step": {
-            name[:80]: us / 1e3 / steps for name, us in per_name.most_common(5)},
+            name[:80]: ms / steps for name, ms in per_name.most_common(5)},
         "card": card}
     print("profile train step " + json.dumps(numbers))
     return numbers
+
+
+def device_activity(prof, wall_ms: float) -> dict:
+    """The CUDA activities of a ``torch.profiler`` window, read from the raw
+    kineto events (building the profiler's event list for a whole epoch
+    takes longer than the epoch), less the ranges that annotate them (the
+    optimizer's "Optimizer.step#..." span lies on the device timeline too):
+    their number (``events``), device ``ms`` and ``ms_by_name`` (a Counter),
+    the device's ``busy_share`` (the union of their intervals over
+    ``wall_ms``), and the host's ``launch_calls``, one CUDA API call
+    (LAUNCH_CALLS) for each kernel, copy or set.  Kernels are counted by
+    the launch calls: the device record keeps fewer (on an H100, ~2.3 of a
+    POE step's 1,498, and at times far more), and its device ms and busy
+    share lose those with them."""
+    import collections
+    from torch.autograd import DeviceType
+    intervals, ms_by_name, calls = [], collections.Counter(), 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CPU:
+            calls += e.name() in LAUNCH_CALLS
+        elif (e.device_type() == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", lambda: False)()
+              and not e.name().startswith("Optimizer.")):
+            intervals.append((e.start_ns() / 1e3, e.end_ns() / 1e3))
+            ms_by_name[e.name()] += (e.end_ns() - e.start_ns()) / 1e6
+    check(bool(intervals), "the profiler recorded no CUDA activity")
+    return {"events": len(intervals), "ms": sum(ms_by_name.values()),
+            "ms_by_name": ms_by_name, "busy_share": busy_ms(intervals) / wall_ms,
+            "launch_calls": calls}
 
 
 def phase_route_times(card, blocks: int = 6, steps: int = 10, profiled: int = 10):
@@ -1800,27 +1837,38 @@ def make_cdsprites(root: str):
     return level_dir, f".{fmt}", f"data_proc.cdsprites.generate_level(fmt={fmt!r})"
 
 
-def from_config(path: str, level_dir: str, suffix: str, results_root: str, **over):
-    """The Config of a shipped YAML with its data paths on the made files and
-    its run directory under ``results_root``."""
+def from_config(path: str, data_paths: dict, results_root: str, eval_only=False, **over):
+    """The Config of a shipped YAML with every modality's ``path`` and
+    ``test_datapath`` set from ``data_paths`` (the made data) and its run
+    directory under ``results_root``."""
     import yaml
     from multimodal_vae_comparison_tpu_torch.config import Config
     with open(os.path.join(HERE, path)) as f:
         params = yaml.safe_load(f)
     for key, block in params.items():
         if key.startswith("modality_"):
-            block["path"] = os.path.join(level_dir, f"traindata{suffix}")
-            block["test_datapath"] = os.path.join(level_dir, f"testdata{suffix}")
+            block.update(data_paths)
     params.update(over)
-    return Config(params, results_root=results_root)
+    return Config(params, results_root=results_root, eval_only=eval_only)
 
 
-def expected_launches(mixing: str, objective_calls: int, train_steps: int) -> dict:
+def cdsprites_paths(data) -> dict:
+    """The data paths of :func:`make_cdsprites`'s level."""
+    level_dir, suffix = data[0], data[1]
+    return {"path": os.path.join(level_dir, f"traindata{suffix}"),
+            "test_datapath": os.path.join(level_dir, f"testdata{suffix}")}
+
+
+def expected_launches(mixing: str, objective_calls: int, train_steps: int,
+                      tables=(PER_OBJECTIVE, PER_BACKWARD)) -> dict:
     """Launches of ``objective_calls`` objective calls of which
-    ``train_steps`` (a train step's) also ran their backward."""
-    want = {k: n * objective_calls for k, n in PER_OBJECTIVE[mixing].items()}
-    want.update({k: n * train_steps for k, n in PER_BACKWARD[mixing].items()})
-    return want
+    ``train_steps`` (a train step's) also ran their backward, from the
+    per-call and per-backward ``tables``."""
+    per_objective, per_backward = tables
+    want = {k: n * objective_calls for k, n in per_objective[mixing].items()}
+    for k, n in per_backward[mixing].items():
+        want[k] = want.get(k, 0) + n * train_steps
+    return {k: n for k, n in want.items() if n}
 
 
 def eval_launches(mixing: str, n_train: int) -> dict:
@@ -1844,17 +1892,19 @@ def eval_launches(mixing: str, n_train: int) -> dict:
     return {"attention": 2 + 2 + 3 * batches + joint}
 
 
-def counted(label, mixing, calls, train_steps, run, total, extra=None):
+def counted(label, mixing, calls, train_steps, run, total, extra=None,
+            tables=(PER_OBJECTIVE, PER_BACKWARD)):
     """``run()`` with the kernel counts set to 0 just before it and read
     just after: it must launch exactly ``calls`` objective calls' kernels
-    (``train_steps`` of them with their backward), plus ``extra``, and take
-    no plain version; the launches are added into ``total``."""
+    (``train_steps`` of them with their backward; :func:`expected_launches`
+    from ``tables``), plus ``extra``, and take no plain version; the
+    launches are added into ``total``."""
     from multimodal_vae_comparison_tpu_torch.ops.kernels import telemetry
     telemetry.reset()
     out = run()
     torch.cuda.synchronize()
     got, paths = telemetry.launches(), telemetry.summary()
-    want = expected_launches(mixing, calls, train_steps)
+    want = expected_launches(mixing, calls, train_steps, tables)
     for k, n in (extra or {}).items():
         want[k] = want.get(k, 0) + n
     print(f"train from config {label}: launches {got}, expected {want} "
@@ -1869,19 +1919,10 @@ def counted(label, mixing, calls, train_steps, run, total, extra=None):
 
 
 @contextlib.contextmanager
-def eval_stopwatch(times: dict):
-    """Seconds of the benchmark's parts while the block runs, summed into
-    ``times``: the judges (trained or loaded), cross-generation, each joint
-    source, the GMM fit and the whole eval.  Each part ends in host numpy,
-    so its clock reads finished device work."""
-    from multimodal_vae_comparison_tpu_torch.eval import eval_cdsprites as ec
-    from multimodal_vae_comparison_tpu_torch.eval.infer import MultimodalVAEInfer
-    parts = ((ec, "get_all_classifiers", lambda a, k: "judges_s"),
-             (ec, "calculate_cross_coherency", lambda a, k: "cross_s"),
-             (ec, "calculate_joint_coherency",
-              lambda a, k: f"joint_{k.get('source', 'prior')}_s"),
-             (MultimodalVAEInfer, "_fitted_prior", lambda a, k: "gmm_fit_s"),
-             (ec, "eval_single_model", lambda a, k: "eval_s"))
+def stopwatch(parts, times: dict):
+    """Seconds of ``parts`` ((owner, function name, key of the call's args
+    and kwargs)) while the block runs, summed into ``times``.  Each part
+    ends in host numpy, so its clock reads finished device work."""
     saved = [(owner, name, getattr(owner, name)) for owner, name, _ in parts]
 
     def timed(fn, label):
@@ -1903,6 +1944,29 @@ def eval_stopwatch(times: dict):
             setattr(owner, name, fn)
 
 
+def eval_stopwatch(times: dict):
+    """:func:`stopwatch` over the CdSprites+ benchmark's parts: the judges
+    (trained or loaded), cross-generation, each joint source, the GMM fit
+    and the whole eval."""
+    from multimodal_vae_comparison_tpu_torch.eval import eval_cdsprites as ec
+    from multimodal_vae_comparison_tpu_torch.eval.infer import MultimodalVAEInfer
+    return stopwatch(((ec, "get_all_classifiers", lambda a, k: "judges_s"),
+                      (ec, "calculate_cross_coherency", lambda a, k: "cross_s"),
+                      (ec, "calculate_joint_coherency",
+                       lambda a, k: f"joint_{k.get('source', 'prior')}_s"),
+                      (MultimodalVAEInfer, "_fitted_prior", lambda a, k: "gmm_fit_s"),
+                      (ec, "eval_single_model", lambda a, k: "eval_s")), times)
+
+
+def sprites_stopwatch(times: dict):
+    """:func:`stopwatch` over the SPRITES benchmark's parts: each judge
+    (trained or loaded) and the whole eval."""
+    from multimodal_vae_comparison_tpu_torch.eval import eval_sprites as es
+    return stopwatch(((es, "_action_classifier", lambda a, k: "action_judge_s"),
+                      (es, "_attribute_classifier", lambda a, k: "attribute_judge_s"),
+                      (es, "sprites_stats", lambda a, k: "eval_s")), times)
+
+
 def check_stats(label: str, stats: dict) -> None:
     """The benchmark's 12 stats finite and in [0, 100] (a failed ex-post or
     fitted source reads NaN), no ``eval_error``, and the judge at least
@@ -1914,21 +1978,6 @@ def check_stats(label: str, stats: dict) -> None:
     check(not bad, f"{label}: stats missing, not finite or out of [0, 100]: {bad}")
     check(stats["Judge Accuracy Real"] >= JUDGE_MIN,
           f"{label}: the judge reads {stats['Judge Accuracy Real']:.2f} % on real images")
-
-
-def kernel_busy_share(prof, wall_ms: float):
-    """(device busy share, kernels) of a ``torch.profiler`` window: the union
-    of the CUDA activity intervals over the host wall time, read from the
-    raw kineto events (building the profiler's event list for a whole epoch
-    takes longer than the epoch)."""
-    from torch.autograd import DeviceType
-    intervals = [(e.start_ns() / 1e3, e.end_ns() / 1e3)
-                 for e in prof.profiler.kineto_results.events()
-                 if e.device_type() == DeviceType.CUDA
-                 and not getattr(e, "is_user_annotation", lambda: False)()
-                 and not e.name().startswith("Optimizer.")]
-    check(bool(intervals), "the profiler recorded no CUDA activity")
-    return busy_ms(intervals) / wall_ms, len(intervals)
 
 
 def _csv_rows(path: str):
@@ -2073,15 +2122,16 @@ def phase_eval_from_config(card: str, run_dir: str) -> dict:
     return numbers
 
 
-def config_trainer(label: str, path: str, mixing: str, data, root: str, epochs: int):
-    """A Trainer of the shipped config ``path`` on the made rows (``data``),
-    its run directory under ``root``, at ``epochs`` and one seed, its state
-    initialised; its ``test()`` keeps the stats it returns in the dict
-    returned beside it.  Checks the mixing and the resident path on the
-    card."""
+def config_trainer(label: str, path: str, mixing: str, data_paths: dict, root: str,
+                   epochs: int):
+    """A Trainer of the shipped config ``path`` on the made data
+    (``data_paths``), its run directory under ``root``, at ``epochs`` and
+    one seed, its state initialised; its ``test()`` keeps the stats it
+    returns in the dict returned beside it.  Checks the mixing and the
+    resident path on the card."""
     from multimodal_vae_comparison_tpu_torch.training.trainer import Trainer
-    config = from_config(path, data[0], data[1], os.path.join(root, "results"),
-                         epochs=epochs, iterseeds=1)
+    config = from_config(path, data_paths, os.path.join(root, "results"), epochs=epochs,
+                         iterseeds=1)
     trainer = Trainer(config, enable_viz=False)
     trainer.init_state()
     stats = {}
@@ -2099,18 +2149,23 @@ def config_trainer(label: str, path: str, mixing: str, data, root: str, epochs: 
 def check_restored(label: str, run_dir: str, trainer, batch, eps) -> float:
     """``model/last`` of ``run_dir`` restored on the card through
     ``MultimodalVAEInfer``: the trainer's weights and buffers, and the
-    trainer's forward over both modalities on ``batch`` and ``eps`` within
-    RESTORE_RTOL / RESTORE_ATOL.  Returns the largest difference."""
+    trainer's forward over every modality on ``batch`` and ``eps`` (one
+    sample, as the restored model draws) within RESTORE_RTOL /
+    RESTORE_ATOL.  Returns the largest difference."""
     from multimodal_vae_comparison_tpu_torch.eval.infer import MultimodalVAEInfer
     infer = MultimodalVAEInfer(run_dir)
     for (n, a), b in zip(infer.model.state_dict().items(),
                          trainer.model.state_dict().values()):
         check(torch.equal(a, b), f"{label}: restored {n} differs from the trainer's")
-    present = ("mod_1", "mod_2")
+    present = trainer.model.mod_names
     got = infer.forward(batch, present, eps=eps)
     trainer.model.eval()
-    with torch.inference_mode():
-        want = trainer.model.forward(torch_batch(batch, trainer.device), present, eps=eps)
+    K, trainer.model.K = trainer.model.K, 1
+    try:
+        with torch.inference_mode():
+            want = trainer.model.forward(torch_batch(batch, trainer.device), present, eps=eps)
+    finally:
+        trainer.model.K = K
     err = max((got.mods[n].decoder_dist.mean - want.mods[n].decoder_dist.mean)
               .abs().max().item() for n in present)
     print(f"train from config {label}: MultimodalVAEInfer({run_dir}) forward vs the "
@@ -2152,7 +2207,8 @@ def phase_train_from_config(card: str, root: str, data):
           f"native host kernels available: {native.available()}")
 
     for (label, path, epochs), mixing in zip(FROM_CONFIG, ("poe", "moe")):
-        config, trainer, stats = config_trainer(label, path, mixing, data, root, epochs)
+        config, trainer, stats = config_trainer(label, path, mixing, cdsprites_paths(data),
+                                                root, epochs)
         times = {}
         dm, bs = trainer.datamodule, config.batch_size
         steps, val_batches = dm.n_train // bs, dm.n_val // bs
@@ -2180,7 +2236,8 @@ def phase_train_from_config(card: str, root: str, data):
                     train_main(config, trainer=trainer, enable_viz=False)
                 return prof, wall_ms
             prof, wall_ms = counted(label, mixing, calls, epochs * steps, run, total, evals)
-            share, n_events = kernel_busy_share(prof, wall_ms)
+            act = device_activity(prof, wall_ms)
+            share, n_events = act["busy_share"], act["events"]
             del prof
         else:
             def run():
@@ -2287,7 +2344,8 @@ def phase_zoo_from_config(card: str, root: str, data):
     zoo = {label: (path, mixing) for label, path, mixing in ZOO}
     for label in ZOO_FROM_CONFIG:
         path, mixing = zoo[label]
-        config, trainer, stats = config_trainer(label, path, mixing, data, root, 1)
+        config, trainer, stats = config_trainer(label, path, mixing, cdsprites_paths(data),
+                                                root, 1)
         times = {}
         dm, bs = trainer.datamodule, config.batch_size
         steps, val_batches = dm.n_train // bs, dm.n_val // bs
@@ -2392,6 +2450,502 @@ def phase_zoo_times(card: str, steps: int = 5) -> dict:
     return numbers
 
 
+# -- SPRITES from the configs ------------------------------------------------
+
+# the generator's default: 64 clips a combination, 576 train and 108 test
+SPRITES_PER_COMBO = 64
+# (label, config, mixing, epochs): the MOE/DReG run at its config's widths
+# (K 5, bs 16, 32 latents, remat, llik 600 on both categorical modalities)
+# and the POE/ELBO run (K 1, bs 32, 10 latents); only the epochs are cut
+SPRITES_FROM_CONFIG = (
+    ("MOE sprites_r4_dreg_up", "configs/round4/sprites_r4_dreg_up.yml", "moe", 2),
+    ("POE sprites_r2_poe", "configs/round2/sprites_r2_poe.yml", "poe", 1))
+# launches of one SPRITES objective call (a train step or a validation
+# batch) and of a train step's backward.  Each call of the VideoGPT encoder
+# or decoder runs masked attention in 4 blocks x 3 axes = 12 times.
+# MOE/DReG: the encoder, and the decoder on all M*K*B samples twice (the
+# gradient-free pass for the importance weights and the weighted one); its
+# backward re-runs the encoder and the weighted decode (remat).  POE: the
+# encoder, one decode of all S*K*B subset samples, one PoE launch for the
+# lattice; its backward re-runs both nets and launches the PoE backward.
+# DReG takes no KL, and POE's is closed form against the learned prior
+SPRITES_PER_OBJECTIVE = {"moe": {"attention": 36}, "poe": {"attention": 24, "poe": 1}}
+SPRITES_PER_BACKWARD = {"moe": {"attention": 24}, "poe": {"attention": 24, "poe_bwd": 1}}
+SPRITES_VIDEO_CALL = 12
+# card against CPU: one objective and its backward of each config's model at
+# its widths on SPRITES_PARITY_BATCH real clips, remat off (it recomputes
+# the same activations), the CPU in float64 on the card's relu branches and
+# DReG importance weights (same_branches, same_dreg_weights)
+SPRITES_PARITY_BATCH = 2
+# the largest change a replay may make to a run's own DReG weights (an
+# H100 against the CPU in float64: ~2e-4 at the MOE config's widths)
+DREG_WEIGHT_ATOL = 1e-2
+
+
+@contextlib.contextmanager
+def same_dreg_weights(weights: list, replay: bool, moved: dict):
+    """``objectives.dreg_grad_weights`` that records the DReG importance
+    weights in call order or, with ``replay``, returns those another run
+    recorded, in this run's dtype and device, after checking that they are
+    within DREG_WEIGHT_ATOL of the run's own; ``moved`` gets the largest
+    change.  The weights are a softmax over K of log-weights of ~-1.5e5 (a
+    bce sum over a 98,304-value clip), whose fp32 rounding moves them by
+    about 1e-4, and every gradient is weighted by them: two runs that sum
+    in another order weight their gradients differently, by more than the
+    gradient limit at the MOE config's widths.  On the same weights the
+    gradients are smooth functions of the rounding."""
+    from multimodal_vae_comparison_tpu_torch.models import objectives
+    own = objectives.dreg_grad_weights
+    recorded = iter(list(weights))
+
+    def weights_(lw, dim=0):
+        w = own(lw, dim)
+        if not replay:
+            weights.append(w.cpu())
+            return w
+        took = next(recorded).to(device=w.device, dtype=w.dtype)
+        change = (took - w).abs().max().item()
+        moved["dreg_weights"] = max(moved.get("dreg_weights", 0.0), change)
+        check(change <= DREG_WEIGHT_ATOL, f"the recorded DReG weights differ from this "
+              f"run's own by {change:.3e} (limit {DREG_WEIGHT_ATOL})")
+        return took
+
+    objectives.dreg_grad_weights = weights_
+    try:
+        yield
+    finally:
+        objectives.dreg_grad_weights = own
+
+
+def make_sprites(root: str):
+    """SPRITES at the generator's default SPRITES_PER_COMBO through the
+    port's generator: (data directory, seconds)."""
+    from multimodal_vae_comparison_tpu_torch.data_proc import sprites_gen
+    t0 = time.perf_counter()
+    sprites_gen.generate(SPRITES_PER_COMBO, root, seed=0)
+    return root, time.perf_counter() - t0
+
+
+def sprites_paths(data_dir: str) -> dict:
+    """The data paths of :func:`make_sprites`'s shards."""
+    return {"path": data_dir, "test_datapath": os.path.join(data_dir, "test")}
+
+
+def sprites_eval_launches(mixing: str, tsne: bool) -> dict:
+    """Launches of one SPRITES benchmark (``eval_sprites.sprites_stats``).
+
+    Its forwards: cross-generation from the actions, the attributes and the
+    frames, and, where matplotlib imports, the labelled t-SNE's forward with
+    every modality; its decode: one prior joint generation.  A frames encode
+    or decode is SPRITES_VIDEO_CALL attention launches.  A MOE forward
+    decodes the frames from the first present modality's sample and again
+    from every present modality's other than the frames' own; a POE forward
+    launches the PoE kernel once and decodes the frames once, from the
+    joint."""
+    call = SPRITES_VIDEO_CALL
+    if mixing == "moe":
+        attention = 2 * call + 2 * call + (call + call) + call
+        return {"attention": attention + (call + 3 * call if tsne else 0)}
+    attention = call + call + (call + call) + call
+    return {"attention": attention + (2 * call if tsne else 0), "poe": 3 + (1 if tsne else 0)}
+
+
+def check_sprites_stats(label: str, stats: dict) -> None:
+    """The benchmark's 10 stats (fractions) finite and in [0, 1], and no
+    ``eval_error``."""
+    from multimodal_vae_comparison_tpu_torch.eval.eval_sprites import STATS_KEYS
+    check("eval_error" not in stats, f"{label}: the eval failed: {stats.get('eval_error')}")
+    bad = {k: stats.get(k) for k in STATS_KEYS
+           if not (isinstance(stats.get(k), float) and 0.0 <= stats[k] <= 1.0)}
+    check(not bad, f"{label}: stats missing, not finite or out of [0, 1]: {bad}")
+
+
+def phase_sprites_parity():
+    """The kernels at the SPRITES path's shapes against their plain
+    versions: masked attention forward at every axial shape the two runs
+    and their evals launch (T, H and W of an (8, 16, 16) volume: the
+    encoder's batches, MOE's M*K*B and POE's S*K*B decodes, the eval's
+    decode of the test rows at once) and its backward at the train steps'
+    encoder shapes; the PoE lattice forward and backward at M 3, S 7,
+    (32, 10)."""
+    from multimodal_vae_comparison_tpu_torch.ops.fusion import subset_lattice
+    from multimodal_vae_comparison_tpu_torch.ops.kernels import attention, telemetry
+    g = torch.Generator(device="cuda").manual_seed(41)
+    n_val = SPRITES_PER_COMBO * 9 - int(SPRITES_PER_COMBO * 9 * 0.9)
+    # the parity call's bs-2 encoder and decodes, the MOE run's bs-16
+    # encoder (and its restore's decode), its M*K*B decode, the POE run's
+    # bs-32 encoder and S*K*B decode, the eval's test rows and the t-SNE's
+    for clips in (2, 7 * 2, 3 * 5 * 2, 16, 3 * 5 * 16, 32, 7 * 32, n_val, 108):
+        for shape in axial_shapes(clips):
+            q, k, v, _ = attention_inputs(g, *shape, False)
+            telemetry.reset()
+            got = attention.masked_attention(q, k, v)
+            took = telemetry.variants()
+            want = attention.attention_reference(q, k, v)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            print(f"parity attention sprites {clips} clips {shape}: max_abs_err={err:.3e} "
+                  f"(rtol {ATTN_RTOL}, atol {ATTN_ATOL}); {took}")
+            check(took == {"attention:resident": 1}, f"attention at {shape} launched {took}")
+            check(torch.allclose(got, want, rtol=ATTN_RTOL, atol=ATTN_ATOL),
+                  f"attention kernel disagrees with its plain version at {shape}")
+    for shape in axial_shapes(16)[:2]:
+        q, k, v, _ = attention_inputs(g, *shape, False)
+        d_out = torch.randn(q.shape, generator=g, device="cuda")
+        _grad_parity(f"attention sprites {shape}",
+                     lambda q_, k_, v_: attention.masked_attention(q_, k_, v_),
+                     attention.attention_reference, (q, k, v), d_out, ATTN_RTOL, ATTN_ATOL)
+    _lattice_case(g, 3, subset_lattice(3), 32, 1.0, d=10)
+
+
+def axial_shapes(clips: int):
+    """(B, H, Tq, Tk, Dh) of the three axial attentions of ``clips`` clips
+    in a VideoGPT block: an (8, 16, 16) volume of 64 channels, 2 heads."""
+    t, h, w = 8, 16, 16
+    return ((clips * h * w, 2, t, t, 32), (clips * t * w, 2, h, h, 32),
+            (clips * t * h, 2, w, w, 32))
+
+
+def phase_sprites_from_config(card: str, root: str):
+    """This slice's main path: SPRITES made by the port's generator at
+    SPRITES_PER_COMBO, then each config of SPRITES_FROM_CONFIG trained at
+    its widths through ``main(config)`` on the resident path (the MOE run's
+    first epoch under ``torch.profiler``), ending in ``Trainer.test()`` and
+    the SPRITES benchmark: the MOE run trains both judges on the card, the
+    POE run loads them.  Each run is counted from zero: exactly its
+    objective calls (train steps + validation batches, and test()'s
+    validation) times SPRITES_PER_OBJECTIVE, its train steps times
+    SPRITES_PER_BACKWARD, and its benchmark's launches
+    (:func:`sprites_eval_launches`), no plain version; the val loss falls;
+    the 10 stats are in [0, 1]; ``model/last`` restored through
+    ``MultimodalVAEInfer`` gives the trainer's forward within RESTORE_RTOL /
+    RESTORE_ATOL.  Then the judges' CLI, the judges and each model's
+    objective and gradients on the card against the CPU.  Returns
+    (launches of the two runs, the phase's numbers)."""
+    import importlib.util
+    from torch.profiler import ProfilerActivity, profile
+    from multimodal_vae_comparison_tpu_torch.main import main as train_main
+
+    numbers, total = {"card": card}, {}
+    data_dir, numbers["data_s"] = make_sprites(os.path.join(root, "sprites"))
+    judges_dir = os.path.join(root, "sprites_judges")
+    os.environ["SPRITES_CLASSIFIER_DIR"] = judges_dir
+    tsne = importlib.util.find_spec("matplotlib") is not None
+    tables = (SPRITES_PER_OBJECTIVE, SPRITES_PER_BACKWARD)
+    parity_batch = None
+    for label, path, mixing, epochs in SPRITES_FROM_CONFIG:
+        config, trainer, stats = config_trainer(label, path, mixing, sprites_paths(data_dir),
+                                                root, epochs)
+        dm, bs = trainer.datamodule, config.batch_size
+        check(trainer.model.remat and trainer.model.K == config.K,
+              f"{label}: remat {trainer.model.remat}, K {trainer.model.K}")
+        steps, val_batches = dm.n_train // bs, dm.n_val // bs
+        t0 = time.perf_counter()
+        staged = (trainer.stage_epoch_data(), trainer.stage_val_data())
+        torch.cuda.synchronize()
+        stage_s = time.perf_counter() - t0
+        staged_bytes = sum(t.numel() * t.element_size() for split in staged
+                           for mod in split.values() for t in mod.values() if t is not None)
+        untrained = trainer.validate_scan(epochs - 1)["val_loss"]
+        torch.cuda.reset_peak_memory_stats()
+        evals = sprites_eval_launches(mixing, tsne)
+        times, profiled = {}, {}
+
+        def run(trainer=trainer, config=config, times=times, profiled=profiled, mixing=mixing):
+            if mixing == "moe":
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    t1 = time.perf_counter()
+                    trainer.fit(epochs=1)
+                    torch.cuda.synchronize()
+                    profiled["wall_ms"] = (time.perf_counter() - t1) * 1e3
+                act = device_activity(prof, profiled["wall_ms"])
+                profiled.update(busy_share=act["busy_share"], device_events=act["events"],
+                                device_ms=act["ms"], top_kernels_ms={
+                                    n[:80]: ms for n, ms in act["ms_by_name"].most_common(6)})
+            with sprites_stopwatch(times):
+                train_main(config, trainer=trainer, enable_viz=False)
+
+        t0 = time.perf_counter()
+        counted(label, mixing, epochs * (steps + val_batches) + val_batches, epochs * steps,
+                run, total, evals, tables)
+        run_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        check_sprites_stats(label, stats)
+        check(trainer.model.K == config.K, f"{label}: test() left the model at K "
+              f"{trainer.model.K}, the config has {config.K}")
+        for name in ("sprites_action_clf_v3.pt", "sprites_att_clf_v4.pt"):
+            check(os.path.isfile(os.path.join(judges_dir, name)), f"{label}: no judge {name}")
+        rows = _csv_rows(os.path.join(config.mPath, "metrics.csv"))
+        trained = float(rows[-1]["val_loss"])
+        check(len(rows) == epochs, f"{label}: metrics.csv has {len(rows)} rows for {epochs} "
+              "epochs")
+        check(np.isfinite(trained) and trained < untrained,
+              f"{label}: val_loss {trained} after training, {untrained} before")
+        check(os.path.isfile(os.path.join(config.mPath, "sprites_stats.txt")),
+              f"{label}: test() wrote no sprites_stats.txt")
+        for tag in ("last", "best"):
+            check(os.path.isfile(os.path.join(config.mPath, "model", tag, "state.pt")),
+                  f"{label}: no model/{tag} checkpoint")
+        batch = next(dm.batches("val"))
+        rng = np.random.default_rng(42)
+        draw = lambda: rng.standard_normal((1, bs, config.n_latents)).astype(np.float32)
+        eps = ({n: draw() for n in trainer.model.mod_names} if mixing == "moe" else draw())
+        err = check_restored(label, config.mPath, trainer, batch, eps_to(eps, trainer.device))
+        per_call = step_launches(label, trainer, batch, mixing)
+        if parity_batch is None:
+            parity_batch = {n: {"data": m["data"][:SPRITES_PARITY_BATCH], "masks": None}
+                            for n, m in batch.items()}
+        print(f"sprites from config {label} ({path}): {trainer.n_params()} parameters, "
+              f"{dm.n_train} train / {dm.n_val} val / {len(dm._test[0]['data'])} test clips, "
+              f"{steps} steps of {bs} at K {config.K}; staged {staged_bytes / 1e9:.3f} GB in "
+              f"{stage_s:.3f} s; val_loss untrained {untrained:.2f} -> {trained:.2f}; epochs "
+              + "; ".join(f"{r['step']}: {float(r['epoch_time_s']):.3f} s, "
+                          f"{float(r['samples_per_s']):.1f} samples/s" for r in rows)
+              + f"; main() with test() {run_s:.2f} s; peak memory {peak:.3f} GiB on {card}")
+        print(f"eval from config {label}: " + ", ".join(
+            f"{k} {100 * stats[k]:.2f}" for k in stats if not k.startswith("val_"))
+            + f" (%); launches of the eval {evals}; seconds " + ", ".join(
+                f"{k[:-2]} {v:.3f}" for k, v in times.items()) + f" on {card}")
+        numbers[label] = {
+            "config": path, "params": trainer.n_params(), "steps": steps, "batch": bs,
+            "K": config.K, "val_loss_untrained": untrained, "val_loss": trained,
+            "epochs": [{k: float(v) for k, v in r.items()} for r in rows],
+            "staged_bytes": staged_bytes, "stage_s": stage_s, "main_with_test_s": run_s,
+            "peak_memory_gib": peak,
+            "stats_percent": {k: 100 * v for k, v in stats.items() if not k.startswith("val_")},
+            "eval_s": times, "eval_launches": evals, "restore_max_abs_err": err,
+            **per_call}
+        if profiled:
+            numbers[label].update({f"profiled_epoch_{k}": v for k, v in profiled.items()})
+            print(f"sprites from config {label}: resident epoch 0 under torch.profiler: wall "
+                  f"{profiled['wall_ms']:.1f} ms, device busy share "
+                  f"{profiled['busy_share']:.4f} ({profiled['device_events']} CUDA activities, "
+                  f"{profiled['device_ms']:.1f} device ms); the largest by device ms "
+                  + json.dumps(profiled["top_kernels_ms"]))
+        del trainer, staged
+    numbers["judges_cli"] = phase_sprites_judges(card, data_dir, judges_dir, parity_batch)
+    numbers["card_vs_cpu"] = phase_sprites_card_vs_cpu(card, data_dir, root, parity_batch)
+    os.environ.pop("SPRITES_CLASSIFIER_DIR")
+    return total, numbers
+
+
+def step_launches(label: str, trainer, batch, mixing: str, calls: int = 2) -> dict:
+    """Launches of one objective call (the trainer's eval step), of one
+    train step (its objective and backward, remat as the config trains) and
+    of the backward alone, each the count's change over ``calls`` calls on
+    ``batch`` at the config's K; held to SPRITES_PER_OBJECTIVE and
+    SPRITES_PER_BACKWARD.  The train steps update the trainer's weights:
+    run it after whatever reads them."""
+    from multimodal_vae_comparison_tpu_torch.ops.kernels import telemetry
+    tb = torch_batch(batch, trainer.device)
+    gen = torch.Generator(device=trainer.device).manual_seed(45)
+    per = {}
+    for key, step in (("objective_call", trainer.eval_step),
+                      ("train_step", trainer.train_step)):
+        before = telemetry.launches()
+        for _ in range(calls):
+            step(tb, generator=gen)
+        torch.cuda.synchronize()
+        after = telemetry.launches()
+        per[key] = {k: (n - before.get(k, 0)) / calls for k, n in after.items()
+                    if n != before.get(k, 0)}
+    per["backward"] = {k: n - per["objective_call"].get(k, 0)
+                       for k, n in per["train_step"].items()
+                       if n != per["objective_call"].get(k, 0)}
+    print(f"sprites from config {label}: launches per call, measured over {calls} calls "
+          f"of each step at bs {len(tb['mod_1']['data'])}: " + json.dumps(per))
+    check(per["objective_call"] == SPRITES_PER_OBJECTIVE[mixing]
+          and per["backward"] == SPRITES_PER_BACKWARD[mixing],
+          f"{label}: launches per call {per}, expected {SPRITES_PER_OBJECTIVE[mixing]} per "
+          f"objective call and {SPRITES_PER_BACKWARD[mixing]} per backward")
+    return {f"launches_per_{k}": v for k, v in per.items()}
+
+
+def phase_sprites_judges(card: str, data_dir: str, judges_dir: str, batch) -> dict:
+    """``train_classifiers --dataset sprites`` on the card (its
+    ``VideoClassifier`` action judge), then the three judges' logits on the
+    card against the CPU's on the same weights (the two the eval trained,
+    and the CLI's) and the real clips of ``batch``, within EVAL_RTOL /
+    EVAL_ATOL."""
+    from multimodal_vae_comparison_tpu_torch.eval import classifiers as clf
+    from multimodal_vae_comparison_tpu_torch.eval import train_classifiers
+    t0 = time.perf_counter()
+    acc = train_classifiers.main(["--dataset", "sprites", "--path", data_dir,
+                                  "--out_dir", judges_dir])
+    cli_s = time.perf_counter() - t0
+    x = torch.from_numpy(np.ascontiguousarray(batch["mod_1"]["data"]))
+    worst = {}
+    for name, make, cache in (
+            ("ActionVideoClassifier", lambda: clf.ActionVideoClassifier(9), "sprites_action_clf_v3.pt"),
+            ("FrameAttributeClassifier", lambda: clf.FrameAttributeClassifier(6, heads=4),
+             "sprites_att_clf_v4.pt"),
+            ("VideoClassifier", lambda: clf.VideoClassifier(9), "sprites_action_clf_v2.pt")):
+        logits = {}
+        for dev in ("cuda", "cpu"):
+            judge = clf.load_classifier(make().to(dev), os.path.join(judges_dir, cache))
+            with torch.no_grad():
+                logits[dev] = judge(x.to(dev)).cpu()
+        worst[name] = (logits["cuda"] - logits["cpu"]).abs().max().item()
+        check(torch.allclose(logits["cuda"], logits["cpu"], rtol=EVAL_RTOL, atol=EVAL_ATOL),
+              f"judge {name}: logits on the card vs the CPU max_abs_err {worst[name]:.3e}")
+    print(f"sprites judges: train_classifiers --dataset sprites {cli_s:.2f} s (holdout acc "
+          f"{acc:.3f}); logits card vs CPU on {len(x)} real clips max_abs_err "
+          + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+          + f" (rtol {EVAL_RTOL}, atol {EVAL_ATOL}) on {card}")
+    return {"train_classifiers_s": cli_s, "train_classifiers_holdout_acc": acc,
+            "logits_card_vs_cpu_max_abs_err": worst}
+
+
+def phase_sprites_card_vs_cpu(card: str, data_dir: str, root: str, batch) -> dict:
+    """One objective and its backward of each SPRITES config's model at its
+    widths (seeded weights, real clips of ``batch``, drawn eps, remat off):
+    the card (kernels, fp32, TF32 off) against the CPU's plain path in
+    float64 on the card's relu branches and DReG weights: loss and metrics
+    within TRAIN_RTOL, every gradient within GRAD_REL x its leaf's max |g| +
+    GRAD_ATOL.  The referee is float64 because the CPU's fp32 is itself
+    about at that limit off float64 at the MOE decoder's last
+    transposed-conv weight, whose gradient sums ~10^6 products an element.
+    The card's launches: exactly one objective call and one backward
+    without remat."""
+    from multimodal_vae_comparison_tpu_torch.ops.kernels import telemetry
+    from multimodal_vae_comparison_tpu_torch.training.trainer import build_model_from_config
+    rng = np.random.default_rng(43)
+    n = SPRITES_PARITY_BATCH
+    numbers = {}
+    for label, path, mixing, _ in SPRITES_FROM_CONFIG:
+        cfg = from_config(path, sprites_paths(data_dir), root, eval_only=True)
+        for i, mod in enumerate(cfg.mods):
+            mod.feature_dims = list(batch[f"mod_{i + 1}"]["data"].shape[1:])
+        shape = (cfg.K, n, cfg.n_latents)
+        eps = ({m: rng.standard_normal(shape).astype(np.float32)
+                for m in ("mod_1", "mod_2", "mod_3")} if mixing == "moe"
+               else [rng.standard_normal(shape).astype(np.float32) for _ in range(7)])
+        branches, weights, out, moved, seconds = [], [], {}, {}, {}
+        for dev, dtype in (("cuda", torch.float32), ("cpu", torch.float64)):
+            model = build_model_from_config(cfg, device=dev).to(dtype)
+            model.remat = False
+            tb = {k: {"data": v["data"].to(dtype), "masks": None}
+                  for k, v in torch_batch(batch, dev).items()}
+            te = eps_to(eps, dev)
+            te = ({k: v.to(dtype) for k, v in te.items()} if isinstance(te, dict)
+                  else [v.to(dtype) for v in te])
+            telemetry.reset()
+            t0 = time.perf_counter()
+            with same_branches(branches, dev == "cpu", moved), \
+                    same_dreg_weights(weights, dev == "cpu", moved):
+                out[dev] = _objective_grads(model, tb, te)
+            seconds[dev] = time.perf_counter() - t0
+            if dev == "cuda":
+                launches, paths = telemetry.launches(), telemetry.summary()
+            del model
+        want_launches = dict(SPRITES_PER_OBJECTIVE[mixing])
+        if mixing == "poe":
+            want_launches["poe_bwd"] = 1
+        (gl, gm, gg), (cl, cm, cg) = out["cuda"], out["cpu"]
+        worst, worst_name = _worst_leaf(gg, {k: v.float() for k, v in cg.items()}, GRAD_REL,
+                                        GRAD_ATOL)
+        print(f"sprites card vs CPU {label} ({path}, bs {n}, K {cfg.K}): loss cuda {gl:.6f}, "
+              f"cpu float64 {cl:.6f}; worst gradient leaf {worst:.3f} of its limit at "
+              f"{worst_name} (limit {GRAD_REL} x max|g| + {GRAD_ATOL}); replayed on the CPU: "
+              f"{moved} (relu elements whose own branch differs, the largest DReG weight "
+              f"change, limit {DREG_WEIGHT_ATOL}); launches {launches}, expected "
+              f"{want_launches}; {seconds['cuda']:.3f} s on the card, {seconds['cpu']:.3f} s "
+              f"on the CPU")
+        check(launches == want_launches, f"{label}: launched {launches}, expected "
+              f"{want_launches}")
+        check(not any(k.endswith(":plain") for k in paths),
+              f"{label}: a plain version ran on the card: {paths}")
+        check(np.isfinite(gl) and abs(gl - cl) <= TRAIN_RTOL * abs(cl),
+              f"{label}: loss {gl} on the card vs {cl} on the CPU")
+        check(sorted(gm) == sorted(cm), f"{label}: metric keys differ")
+        for k in gm:
+            check(abs(gm[k] - cm[k]) <= TRAIN_RTOL * abs(cm[k]) + 1e-4,
+                  f"{label}: metric {k} {gm[k]} on the card vs {cm[k]} on the CPU")
+        check(worst <= 1.0, f"{label}: gradient of {worst_name} differs between the card "
+              "and the CPU")
+        numbers[label] = {"loss_cuda": gl, "loss_cpu64": cl,
+                          "worst_grad_share_of_limit_vs_cpu64": worst,
+                          "worst_leaf_vs_cpu64": worst_name, "replayed": moved,
+                          "launches": launches, "card_s": seconds["cuda"],
+                          "cpu64_s": seconds["cpu"]}
+    return numbers
+
+
+def phase_sprites_times(card: str):
+    """The SPRITES path's kernel shapes timed (device ms, graphed) beside
+    their plain versions, their bounds and the library's call: masked
+    attention on the T, H and W axes of a bs-16 encoder call, of a K*B = 80
+    clip decode and of the MOE run's lattice-batched decode of M*K*B = 240
+    clips (W's shape is H's); the PoE lattice forward and backward at the
+    POE run's M 3, S 7, (32, 10).  Returns one row per shape."""
+    import torch.nn.functional as F
+    from multimodal_vae_comparison_tpu_torch.ops.fusion import subset_lattice
+    from multimodal_vae_comparison_tpu_torch.ops.kernels import attention, poe_kernel
+    g = torch.Generator(device="cuda").manual_seed(44)
+    rows = []
+    src = "multimodal_vae_comparison_tpu_torch/csrc/"
+    ref = "multimodal_vae_comparison_tpu/ops/pallas/"
+    for label, clips in (("encoder bs 16", 16), ("decoder K*B 80", 80),
+                         ("decoder M*K*B 240", 240)):
+        for axis, shape in zip("TH", axial_shapes(clips)[:2]):
+            q, k, v, _ = attention_inputs(g, *shape, False)
+            b, h, tq, tk, dh = shape
+            kern = graph_ms(lambda: attention.masked_attention(q, k, v))
+            plain = graph_ms(lambda: attention.attention_reference(q, k, v))
+            try:
+                lib = graph_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+                lib_note = "F.scaled_dot_product_attention(q, k, v), graphed"
+            except RuntimeError as e:   # the library's limits, not the port's
+                lib, lib_note = None, f"SDPA refused the shape: {str(e)[:120]}"
+            err = (attention.masked_attention(q, k, v)
+                   - attention.attention_reference(q, k, v)).abs().max().item()
+            bound, by = bound_ms(4 * (2 * b * h * tq * dh + 2 * b * h * tk * dh),
+                                 4 * b * h * tq * tk * dh + 4 * b * h * tq * tk)
+            rows.append({"name": "masked_attention", "at": f"sprites {label}, {axis} {shape}",
+                         "route": "cuda", "source": src + "attention.cu",
+                         "replaces": ref + "attention.py:77", "max_abs_err": err, "ms": kern,
+                         "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+                         "library_ms": lib, "library_is": lib_note})
+    m, lattice, rows_, d = 3, subset_lattice(3), 32, 10
+    s, n = len(lattice), rows_ * d
+    mus, scales = lattice_inputs(g, m, rows_, d)
+    masks = poe_kernel.lattice_masks(lattice, m)
+    ups = [torch.randn((s, rows_, d), generator=g, device="cuda") for _ in range(2)]
+    mu, scale = poe_kernel.poe_lattice(mus, scales, lattice, 1.0)
+    want = poe_kernel.poe_lattice_reference(mus, scales, lattice, 1.0)
+    sizes = sum(len(sub) for sub in lattice)
+    at = f"sprites POE M={m} S={s} ({rows_}, {d})"
+    common = {"route": "cuda", "source": src + "poe.cu", "library_ms": None}
+    rows.append({"name": "poe_lattice", "at": at, **common,
+                 "replaces": ref + "poe_kernel.py:48",
+                 "max_abs_err": max((a - w).abs().max().item()
+                                    for a, w in zip((mu, scale), want)),
+                 "ms": graph_ms(lambda: poe_kernel.poe_lattice(mus, scales, lattice, 1.0)),
+                 "plain_ms": graph_ms(lambda: poe_kernel.poe_lattice_reference(
+                     mus, scales, lattice, 1.0)),
+                 **dict(zip(("bound_ms", "bound_by"), bound_ms(
+                     4 * (2 * m * n + 2 * s * n), n * (4 * m + 2 * sizes + 4 * s))))})
+    bwd = lambda: poe_kernel._launch_backward(mus, scales, masks, mu, scale, *ups)
+    plain_bwd = lambda: poe_kernel.poe_lattice_backward_reference(mus, scales, mu, scale,
+                                                                  *ups, lattice)
+    rows.append({"name": "poe_lattice_backward", "at": at, **common,
+                 "replaces": ref + "poe_kernel.py:124 (_poe_bwd, the VJP of :48)",
+                 "max_abs_err": max((a - w).abs().max().item()
+                                    for a, w in zip(sum(map(list, bwd()), []),
+                                                    sum(plain_bwd(), []))),
+                 "ms": graph_ms(bwd), "plain_ms": graph_ms(plain_bwd),
+                 **dict(zip(("bound_ms", "bound_by"), bound_ms(
+                     4 * (2 * m * n + 4 * s * n + 2 * m * n),
+                     n * (6 * m + 5 * s + 7 * sizes))))})
+    for r in rows:
+        print(f"time {r['name']} [{r['at']}]: kernel {r['ms']:.5f} ms, plain "
+              f"{r['plain_ms']:.5f} ms, library "
+              f"{'n/a' if r['library_ms'] is None else format(r['library_ms'], '.5f')} ms "
+              f"(SDPA, no mask), bound {r['bound_ms']:.6f} ms ({r['bound_by']}), max_abs_err "
+              f"{r['max_abs_err']:.3e} on {card}")
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2446,6 +3000,7 @@ def main() -> int:
     phase_lattice_parity()
     phase_sparse_parity()
     phase_sample_parity()
+    phase_sprites_parity()
 
     # 4. serving slice at full width
     model_gpu = get_mixing("poe")(flagship_specs(), N_LATENTS, seed=0, device="cuda")
@@ -2532,28 +3087,44 @@ def main() -> int:
         zoo_launches, zoo_numbers = phase_zoo_from_config(card, tmp, data)
         zoo_numbers["phase_s"] = time.perf_counter() - t0
         print("zoo from config " + json.dumps(zoo_numbers))
+        # this slice's main path: SPRITES from its configs, each run ending
+        # in test() and the SPRITES benchmark; the judges and the models on
+        # the card against the CPU
+        t0 = time.perf_counter()
+        sprites_launches, sprites_numbers = phase_sprites_from_config(card, tmp)
+        sprites_numbers["phase_s"] = time.perf_counter() - t0
+        print("sprites from config " + json.dumps(sprites_numbers))
 
     # 11. times
     rows = phase_times(engine, card)
     rows += phase_kernel_route_times(card)
     extra = phase_attention_backward_times(card)
     rows += phase_video_times(card)
+    sprites_rows = phase_sprites_times(card)
     phase_route_times(card)
     print("zoo times " + json.dumps(phase_zoo_times(card)))
     print(card)
     # one entry per kernel, at its heaviest main-path shape (the first row
     # of each); the other shapes are on the "time" lines above.  launches:
     # each kernel's count on the path that runs it, the train-from-config
-    # path (the POE and MOE configs and this slice's MoPoE and DMVAE
-    # configs, also apart) or the video training and sampling paths, with
-    # the fixed-batch training and serving paths' beside it
+    # path (the POE and MOE configs, the MoPoE and DMVAE configs and this
+    # slice's SPRITES configs, the last two also apart) or the video
+    # training and sampling paths, with the fixed-batch training and serving
+    # paths' beside it; the SPRITES path's shapes of a kernel beside its row
     primary = list({r["name"]: r for r in reversed(rows)}.values())[::-1]
     per_step["VideoGPTSparse MOE dreg"] = video_per_step
+    for label, _, _, _ in SPRITES_FROM_CONFIG:
+        per_step[f"SPRITES {label}"] = sprites_numbers[label]["launches_per_train_step"]
     for r in primary:
         kernel = KERNEL_OF[r["name"]]
         r["launches"] = (video_launches.get(kernel, 0) if kernel in video_kernels
-                         else config_launches.get(kernel, 0) + zoo_launches.get(kernel, 0))
+                         else config_launches.get(kernel, 0) + zoo_launches.get(kernel, 0)
+                         + sprites_launches.get(kernel, 0))
         r["launches_zoo_from_config_path"] = zoo_launches.get(kernel, 0)
+        r["launches_sprites_from_config_path"] = sprites_launches.get(kernel, 0)
+        r["sprites_shapes"] = [{k: v for k, v in x.items()
+                                if k not in ("name", "route", "source", "replaces")}
+                               for x in sprites_rows if x["name"] == r["name"]]
         r["launches_fixed_batch_training_path"] = train_launches.get(kernel, 0)
         r["launches_serving_path"] = serve_launches.get(kernel, 0)
         r["launches_per_train_step"] = {label: n.get(kernel, 0)

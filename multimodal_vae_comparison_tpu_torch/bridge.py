@@ -2,7 +2,9 @@
 
 The inverse of the converters in the reference's ``eval/weights.py``.  The
 port's modules carry flax's names, so a flax leaf ``a/b/c/kernel`` lands on
-the module ``a.b.c``; how it is laid out there depends on that module:
+the module ``a.b.c``; how it is laid out there depends on that module (the
+models, and the judges of ``eval/classifiers.py``, the video ones among
+them, are built of these layers):
 
 * ``nn.Linear``: Dense ``(in, out)`` -> ``(out, in)``; DenseGeneral
   ``(in, H, Dh)`` -> ``(H*Dh, in)`` and its bias ``(H, Dh)`` -> ``(H*Dh,)``;

@@ -6,8 +6,8 @@ dirs), data as float32 with masks as a separate boolean array, everything
 preprocessed once into contiguous arrays.  ``h5py`` and ``cv2`` are imported
 where a file of theirs is read.
 
-Only CdSprites+ is ported; the other datasets' names are known and raise,
-naming the ROADMAP item that brings them.
+CdSprites+ and SPRITES are ported; the other datasets' names are known and
+raise, naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
 
@@ -190,9 +190,78 @@ class CDSPRITESPLUS(BaseDataset):
         return self._load_text_onehot(texts, self.feature_dims["text"][0])
 
 
-DATASETS = {"cdspritesplus": CDSPRITESPLUS}
+class SPRITES(BaseDataset):
+    """Trimodal animated-sprites video dataset (reference datasets.py:497-648):
+    frames (8, 64, 64, 3), attributes (4, 6) and actions (9) from the
+    per-action, per-direction ``.npy`` shards of ``data_proc/sprites_gen.py``
+    in the directory ``path`` (train) or ``test_datapath`` (test)."""
+
+    feature_dims = {"frames": [8, 64, 64, 3], "attributes": [4, 6], "actions": [9]}
+    text2img_size = (64, 145, 3)
+    directions = ["front", "left", "right"]
+    actions_list = ["walk", "spellcard", "slash"]
+    label_map = ["walk front", "walk left", "walk right", "spellcard front",
+                 "spellcard left", "spellcard right", "slash front",
+                 "slash left", "slash right"]
+    attr_map = ["skin", "pants", "top", "hair"]
+    att_names = [["pink", "yellow", "grey", "silver", "beige", "brown"],
+                 ["white", "gold", "red", "armor", "blue", "green"],
+                 ["maroon", "blue", "white", "armor", "brown", "shirt"],
+                 ["green", "blue", "yellow", "silver", "red", "purple"]]
+
+    def eval_statistics_fn(self):
+        from multimodal_vae_comparison_tpu_torch.eval.eval_sprites import sprites_eval
+        return sprites_eval
+
+    def _split_tag(self):
+        return "test" if self.current_path == self.testdata and self.testdata else "train"
+
+    def _shards(self, kind):
+        """The 9 shards of ``kind`` (frames or attributes) of the current
+        split, in label order (action-major)."""
+        return [np.load(os.path.join(self.current_path,
+                                     f"{act}_{d}_{kind}_{self._split_tag()}.npy"))
+                for act in self.actions_list for d in self.directions]
+
+    def labels(self):
+        acts, _ = self._load_actions()
+        return [self.label_map[int(i)] for i in np.argmax(acts[:, :9], -1)]
+
+    def _mod_specific_loaders(self):
+        return {"frames": self._load_frames, "attributes": self._load_attributes,
+                "actions": self._load_actions}
+
+    def _mod_specific_savers(self):
+        return {"frames": self._decode_image,
+                "attributes": lambda d, m=None: d,
+                "actions": lambda d, m=None: d}
+
+    def _load_frames(self):
+        return np.concatenate(self._shards("frames"), 0).astype(np.float32), None
+
+    def _load_attributes(self):
+        """Frame 0 of the (N, 8, 4, 6) one-hots: the attributes are static."""
+        self.categorical = True
+        shards = [a[:, 0, :, :] for a in self._shards("attributes")]
+        return np.concatenate(shards, 0).astype(np.float32), None
+
+    def _load_actions(self):
+        """A 9-way one-hot of each clip's shard, ``3 * action + direction``."""
+        self.categorical = True
+        out = []
+        for ai, act in enumerate(self.actions_list):
+            for di, d in enumerate(self.directions):
+                a = np.load(os.path.join(self.current_path,
+                                         f"{act}_{d}_attributes_{self._split_tag()}.npy"))
+                one_hot = np.zeros((a.shape[0], 9), dtype=np.float32)
+                one_hot[:, 3 * ai + di] = 1
+                out.append(one_hot)
+        return np.concatenate(out, 0), None
+
+
+DATASETS = {"cdspritesplus": CDSPRITESPLUS, "sprites": SPRITES}
 # known to the JAX package, not ported yet
-_UNPORTED = ("cub", "mnist_svhn", "sprites", "celeba", "fashionmnist", "polymnist",
+_UNPORTED = ("cub", "mnist_svhn", "celeba", "fashionmnist", "polymnist",
              "vilanro", "synthetic")
 
 

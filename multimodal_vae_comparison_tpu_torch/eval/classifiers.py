@@ -1,31 +1,79 @@
 """Attribute classifiers ("judges") of the automatic benchmarks
-(counterpart of ``eval/classifiers.py``, its image-classifier part).
+(counterpart of ``eval/classifiers.py``).
 
 A conv image classifier per attribute (shape, size, color, position,
-background for CdSprites+; digits for MNIST-SVHN and PolyMNIST), trained on
-the dataset's own labeled train split at first use and cached, in place of
-the reference's downloaded ``.pth`` files.  The model takes NHWC images in
-[0, 1], as the JAX package's flax module does; its submodules carry flax's
-names (``Conv_0`` .. ``Conv_3``, ``Dense_0``, ``Dense_1``), so that
-``bridge.load_flax_params`` loads a JAX-trained judge.
-
-The video judges of SPRITES (``VideoClassifier``, ``FrameAttributeClassifier``,
-``ActionVideoClassifier``) come with that dataset's eval (ROADMAP Queue A
-item 8).
+background for CdSprites+; digits for MNIST-SVHN and PolyMNIST) and the
+three video judges of SPRITES, trained on the dataset's own labeled train
+split at first use and cached, in place of the reference's downloaded
+``.pth`` files.  The models take channels-last input in [0, 1] (NHWC
+images, (B, T, H, W, C) clips), as the JAX package's flax modules do; their
+submodules carry flax's names (``Conv_0`` .., ``Dense_0``, ``Dense_1``), so
+that ``bridge.load_flax_params`` loads a JAX-trained judge.  A layer whose
+flax padding is ``"SAME"`` pads explicitly, as flax does: at stride 2 the
+odd element of padding goes after.
 """
 from __future__ import annotations
 
+import contextlib
 import os
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from multimodal_vae_comparison_tpu_torch.models.nets import _same_pads
+
 # where the evals cache the judges they train (gitignored); the CdSprites+
 # eval takes $CDSPRITES_CLASSIFIER_DIR in its place
 CLASSIFIER_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "classifiers")
+
+
+# flax's default kernel init, lecun_normal: a normal of variance 1 / fan_in
+# cut at two standard deviations, its scale corrected for the cut
+_TRUNCATED_STD = 0.87962566103423978
+
+
+def _flax_init(module: nn.Module) -> None:
+    """Every conv and dense layer of ``module`` drawn as flax draws it:
+    kernels from lecun_normal, biases zero.  The judges' recipes (epochs,
+    learning rate) are the JAX package's, tuned for this scale: from
+    PyTorch's default (a uniform of a third of the variance) the frame
+    attribute judge trains far slower and ends its 40 epochs well below the
+    JAX package's on the same rows."""
+    for layer in module.modules():
+        if isinstance(layer, (nn.Conv2d, nn.Conv3d, nn.Linear)):
+            fan_in = layer.weight[0].numel()
+            std = (1.0 / fan_in) ** 0.5 / _TRUNCATED_STD
+            nn.init.trunc_normal_(layer.weight, 0.0, std, -2 * std, 2 * std)
+            nn.init.zeros_(layer.bias)
+
+
+@contextlib.contextmanager
+def _seeded(module: nn.Module, seed: int):
+    """Build the layers of ``module`` in the block, then draw their weights
+    as flax does (:func:`_flax_init`) from ``seed`` on the CPU, leaving the
+    global generator as it was."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        yield
+        _flax_init(module)
+
+
+def _same_conv3d(conv: nn.Conv3d, x: torch.Tensor) -> torch.Tensor:
+    """``conv`` on an NCDHW tensor with flax's ``"SAME"`` padding."""
+    pads = [_same_pads(n, conv.kernel_size[i], conv.stride[i])
+            for i, n in enumerate(x.shape[2:])]
+    return conv(F.pad(x, pads[2] + pads[1] + pads[0]))
+
+
+def _same_out(size: int, stride: int) -> int:
+    return -(-size // stride)
+
+
+def _heads_out(out: torch.Tensor, heads: int, num_classes: int) -> torch.Tensor:
+    return out.view(out.shape[0], heads, num_classes) if heads else out
 
 
 class CNNClassifier(nn.Module):
@@ -42,8 +90,7 @@ class CNNClassifier(nn.Module):
         self.num_classes = num_classes
         self.heads = heads
         h, w, c = in_shape
-        with torch.random.fork_rng(devices=[]):
-            torch.manual_seed(seed)
+        with _seeded(self, seed):
             for i in range(4):
                 self.add_module(f"Conv_{i}", nn.Conv2d(c if i == 0 else hid_channels,
                                                        hid_channels, 4, stride=2, padding=1))
@@ -56,10 +103,82 @@ class CNNClassifier(nn.Module):
         for i in range(4):
             h = torch.relu(getattr(self, f"Conv_{i}")(h))
         h = h.permute(0, 2, 3, 1).flatten(1)
-        out = self.Dense_1(torch.relu(self.Dense_0(h)))
-        if self.heads:
-            return out.view(out.shape[0], self.heads, self.num_classes)
-        return out
+        return _heads_out(self.Dense_1(torch.relu(self.Dense_0(h))), self.heads,
+                          self.num_classes)
+
+
+class VideoClassifier(nn.Module):
+    """3-D conv video judge: three Conv3d(3, strides (1, 2, 2), SAME) + ReLU
+    of ``hidden``, 2 ``hidden`` and 2 ``hidden`` channels, a mean pool over
+    (T, H, W), Dense(4 ``hidden``) + ReLU and a Dense head; ``heads > 0``
+    returns (B, heads, num_classes) logits.  Takes (B, T, H, W, C) clips."""
+
+    def __init__(self, num_classes: int, hidden: int = 32, heads: int = 0,
+                 in_channels: int = 3, seed: int = 0):
+        super().__init__()
+        self.num_classes, self.heads = num_classes, heads
+        with _seeded(self, seed):
+            c = in_channels
+            for i, feats in enumerate((hidden, hidden * 2, hidden * 2)):
+                self.add_module(f"Conv_{i}", nn.Conv3d(c, feats, 3, stride=(1, 2, 2)))
+                c = feats
+            self.Dense_0 = nn.Linear(c, hidden * 4)
+            self.Dense_1 = nn.Linear(hidden * 4, max(heads, 1) * num_classes)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = x.permute(0, 4, 1, 2, 3)
+        for i in range(3):
+            h = torch.relu(_same_conv3d(getattr(self, f"Conv_{i}"), h))
+        out = self.Dense_1(torch.relu(self.Dense_0(h.mean(dim=(2, 3, 4)))))
+        return _heads_out(out, self.heads, self.num_classes)
+
+
+class FrameAttributeClassifier(CNNClassifier):
+    """Multi-head attribute judge on frame 0 of a clip (the attributes are
+    static): the CNN judge with a spatial flatten (no pool, so where each
+    colour lies is kept) and ``heads`` x ``num_classes`` logits, (B, heads,
+    num_classes).  Takes (B, T, H, W, C) clips or (B, H, W, C) frames;
+    ``in_shape`` is a frame's (H, W, C)."""
+
+    def __init__(self, num_classes: int, heads: int = 4, hid_channels: int = 32,
+                 hidden_dim: int = 256, in_shape: Sequence[int] = (64, 64, 3),
+                 seed: int = 0):
+        super().__init__(num_classes, hid_channels, hidden_dim, heads,
+                         tuple(in_shape[-3:]), seed)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x[:, 0] if x.dim() == 5 else x)
+
+
+class ActionVideoClassifier(nn.Module):
+    """Motion-aware action judge: the frame-to-frame differences (zero at
+    t = 0) concatenated onto the channels, three Conv3d(3, SAME) + ReLU of
+    ``hid_channels``, 2x and 2x channels at strides (1, 2, 2), (2, 2, 2),
+    (2, 2, 2), a spatiotemporal flatten in (t, h, w, c) order,
+    Dense(hidden_dim) + ReLU and ``num_classes`` logits.  Takes (B, T, H,
+    W, C) clips of ``in_shape``."""
+
+    def __init__(self, num_classes: int, hid_channels: int = 32, hidden_dim: int = 256,
+                 in_shape: Sequence[int] = (8, 64, 64, 3), seed: int = 0):
+        super().__init__()
+        t, h, w, c = in_shape
+        c *= 2
+        with _seeded(self, seed):
+            for i, feats in enumerate((hid_channels, hid_channels * 2, hid_channels * 2)):
+                strides = (1 if i == 0 else 2, 2, 2)
+                self.add_module(f"Conv_{i}", nn.Conv3d(c, feats, 3, stride=strides))
+                t, h, w = (_same_out(n, s) for n, s in zip((t, h, w), strides))
+                c = feats
+            self.Dense_0 = nn.Linear(t * h * w * c, hidden_dim)
+            self.Dense_1 = nn.Linear(hidden_dim, num_classes)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        delta = torch.cat([torch.zeros_like(x[:, :1]), x[:, 1:] - x[:, :-1]], dim=1)
+        h = torch.cat([x, delta], dim=-1).permute(0, 4, 1, 2, 3)
+        for i in range(3):
+            h = torch.relu(_same_conv3d(getattr(self, f"Conv_{i}"), h))
+        h = h.permute(0, 2, 3, 4, 1).flatten(1)
+        return self.Dense_1(torch.relu(self.Dense_0(h)))
 
 
 def _device_of(model: nn.Module) -> torch.device:
@@ -116,7 +235,8 @@ def _argmax_batches(model: nn.Module, images, batch_size: int):
 
 
 def predict(model: nn.Module, images, batch_size: int = 256) -> np.ndarray:
-    """Arg-max class of each image (NHWC float in [0, 1])."""
+    """Arg-max class of each image or clip (channels-last float in [0, 1]):
+    (N,) or, for a multi-head judge, (N, heads)."""
     return np.concatenate(list(_argmax_batches(model, images, batch_size)))
 
 

@@ -4,13 +4,18 @@
     python -m multimodal_vae_comparison_tpu_torch.eval.train_classifiers \
         --dataset cdspritesplus --path data/level2/traindata.h5 --level 2
 
-One judge per attribute of the level, trained on 85 % of the given file and
-scored on the other 15 % (a judge scored on its own training rows reads
-high), saved under the name the eval loads
-(``cdspritesplus_classifier_level{L}_{att}_v2.pt``).  Give it the TRAINING
-file: the eval calibrates on the test or val rows, which must stay apart
-from it.  The SPRITES video judge comes with that dataset (ROADMAP Queue A
-items 7 and 8).
+    python -m multimodal_vae_comparison_tpu_torch.eval.train_classifiers \
+        --dataset sprites --path data/sprites
+
+CdSprites+: one judge per attribute of the level, saved under the name the
+eval loads (``cdspritesplus_classifier_level{L}_{att}_v2.pt``).  SPRITES:
+the action judge, a ``VideoClassifier`` saved as ``sprites_action_clf_v2.pt``
+as the JAX package's CLI does (its eval trains and reads an
+``ActionVideoClassifier`` as ``_v3``, and the attribute judge, itself).
+Each is trained on 85 % of the given training data and scored on the other
+15 % (a judge scored on its own training rows reads high).  Give it the
+TRAINING data: the eval calibrates on the test or val rows, which must stay
+apart from it.
 """
 from __future__ import annotations
 
@@ -21,7 +26,8 @@ import numpy as np
 
 from multimodal_vae_comparison_tpu_torch.device import resolve_device
 from multimodal_vae_comparison_tpu_torch.eval.classifiers import (
-    CLASSIFIER_DIR, CNNClassifier, classifier_accuracy, save_classifier, train_classifier)
+    CLASSIFIER_DIR, CNNClassifier, VideoClassifier, classifier_accuracy, save_classifier,
+    train_classifier)
 
 
 def _holdout_split(n: int, seed: int = 0):
@@ -56,6 +62,25 @@ def train_cdsprites(path: str, level: int, out_dir: str, device=None) -> dict:
     return accs
 
 
+def train_sprites(path: str, out_dir: str, device=None) -> float:
+    """Train and save the SPRITES action judge from the train shards in
+    ``path``; returns its holdout accuracy."""
+    from multimodal_vae_comparison_tpu_torch.data.datasets import SPRITES
+    device = resolve_device(device)
+    frames, _ = SPRITES(path, None, "frames").get_data("train")
+    actions, _ = SPRITES(path, None, "actions").get_data("train")
+    frames = frames.astype(np.float32)
+    y = np.argmax(actions, -1)
+    tr, ho = _holdout_split(len(frames))
+    model = VideoClassifier(num_classes=9, in_channels=frames.shape[-1]).to(device)
+    train_classifier(model, frames[tr], y[tr], log_fn=print)
+    acc = classifier_accuracy(model, frames[ho], y[ho])
+    out = os.path.join(out_dir, "sprites_action_clf_v2.pt")
+    save_classifier(model, out)
+    print(f"actions: holdout acc {acc:.3f} -> {out}")
+    return acc
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--dataset", required=True, choices=["cdspritesplus", "sprites"])
@@ -66,8 +91,7 @@ def main(argv=None):
                         help="torch device (default: cuda; cpu for the plain path)")
     args = parser.parse_args(argv)
     if args.dataset == "sprites":
-        raise NotImplementedError("the SPRITES dataset and its video judge are not "
-                                  "ported yet (ROADMAP Queue A items 7 and 8)")
+        return train_sprites(args.path, args.out_dir, device=args.device)
     return train_cdsprites(args.path, args.level, args.out_dir, device=args.device)
 
 

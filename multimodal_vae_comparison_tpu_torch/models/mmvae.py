@@ -171,7 +171,7 @@ class MOE(MMVAE):
             loss = objectives.iwae(lw.reshape(-1, lw.shape[-1]))
         else:
             with torch.no_grad():
-                w = torch.softmax(log_weights(zs), dim=1)        # over K
+                w = objectives.dreg_grad_weights(log_weights(zs), dim=1)   # over K
             zs_scaled = {name: objectives.scale_grad(zs[name], w[i][..., None])
                          for i, name in enumerate(self.mod_names)}
             lw2 = log_weights(zs_scaled)

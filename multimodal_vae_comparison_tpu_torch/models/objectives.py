@@ -109,6 +109,12 @@ class _ScaleGrad(torch.autograd.Function):
         return g * w, None
 
 
+def dreg_grad_weights(lw: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """The stop-gradient importance weights that re-scale the latents'
+    gradients: a softmax of the log-weights over the K axis ``dim``."""
+    return torch.softmax(lw.detach(), dim=dim)
+
+
 def scale_grad(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Identity on ``x`` whose gradient is multiplied elementwise by ``w``
     (``w`` gets none)."""
@@ -130,5 +136,4 @@ def iwae(lw: torch.Tensor) -> torch.Tensor:
 def dreg(lw: torch.Tensor) -> torch.Tensor:
     """DReG loss given (K, B) log-weights whose z-dependence went through
     :func:`scale_grad`; the weights are a softmax over K with no gradient."""
-    grad_wt = torch.softmax(lw, dim=0).detach()
-    return -(grad_wt * lw).mean(0).sum()
+    return -(dreg_grad_weights(lw) * lw).mean(0).sum()

@@ -3,11 +3,12 @@ per-dimension KL plots (counterpart of ``visualization.py``).
 
 The device makes the latents and reconstructions; everything else runs on
 host numpy.  The files land under ``<run>/visuals/epoch_K/`` with the JAX
-package's names (the video datasets' GIFs come with those datasets).
-``cv2``, ``matplotlib`` and ``sklearn`` are imported in the functions that
-use them; the t-SNE plot is skipped where
-``sklearn`` is missing or refuses a tiny split, and the Trainer logs and
-skips a visualization that raises.
+package's names; a video modality's reconstructions also go to an animated
+GIF.  ``cv2``, ``imageio``, ``matplotlib`` and ``sklearn`` are imported in
+the functions that use them; the t-SNE plot is skipped where ``sklearn`` is
+missing or refuses a tiny split, and the Trainer logs and skips a
+visualization that raises (so a missing ``imageio`` ends the epoch's
+visualizations at the first GIF).
 """
 from __future__ import annotations
 
@@ -45,6 +46,17 @@ def _to_tiles(dataset, decoded, img_size) -> np.ndarray:
             arr = np.repeat(arr, 3, -1)
         return arr
     return turn_text2image([str(x) for x in decoded], img_size)
+
+
+def save_video_gif(frames_batch: np.ndarray, path: str) -> None:
+    """A batch of clips (N, T, H, W, C) as one animated GIF, the clips side
+    by side in each frame (reference GIF writer, datasets.py:601-614)."""
+    import imageio
+    frames_batch = np.asarray(frames_batch)
+    if frames_batch.dtype != np.uint8:
+        frames_batch = (np.clip(frames_batch, 0, 1) * 255).astype(np.uint8)
+    frames = [np.hstack(list(frames_batch[:, t])) for t in range(frames_batch.shape[1])]
+    imageio.mimsave(path, frames, duration=0.15)
 
 
 def save_grid(rows: List[np.ndarray], path: str) -> None:
@@ -94,6 +106,8 @@ def save_reconstructions(trainer, epoch_dir: str, n: int = 8) -> None:
                 continue
             recon = mo.decoder_dist.mean[0].cpu().numpy()
             decoded = ds.decode_output(recon, batch[nm].get("masks"))
+            if isinstance(decoded, np.ndarray) and decoded.ndim == 5:
+                save_video_gif(decoded[:4], os.path.join(epoch_dir, f"recon_video_{nm}.gif"))
             rows.append(_to_tiles(ds, decoded, ds.text2img_size))
             gt = ds.decode_output(batch[nm]["data"], batch[nm].get("masks"))
             rows.append(_to_tiles(ds, gt, ds.text2img_size))

@@ -109,7 +109,8 @@ def test_chip_smokes_from_config_reads_a_shipped_config_with_the_data_paths_repl
         import chip_smoke
     finally:
         sys.path.remove(str(REPO))
-    cfg = chip_smoke.from_config(path, level1, ".h5", str(tmp_path), epochs=2, iterseeds=1)
+    cfg = chip_smoke.from_config(path, chip_smoke.cdsprites_paths((level1, ".h5")),
+                                 str(tmp_path), epochs=2, iterseeds=1)
     with open(REPO / path) as f:
         want = yaml.safe_load(f)
     want.update(epochs=2, iterseeds=1)
@@ -301,12 +302,13 @@ def test_cdsprites_dataset_loads_and_decodes_as_jax(level1):
 
 
 def test_unported_and_unknown_datasets_raise():
-    for name in ("cub", "mnist_svhn", "sprites", "celeba", "fashionmnist", "polymnist",
+    for name in ("cub", "mnist_svhn", "celeba", "fashionmnist", "polymnist",
                  "vilanro", "synthetic"):
         assert name in jdatasets.DATASETS
         with pytest.raises(NotImplementedError, match="Queue A item 7"):
             datasets.get_dataset_class(name)
     assert datasets.get_dataset_class("CdSpritesPlus") is datasets.CDSPRITESPLUS
+    assert datasets.get_dataset_class("sprites") is datasets.SPRITES
     with pytest.raises(KeyError):
         datasets.get_dataset_class("imagenet")
 

@@ -26,7 +26,8 @@ def refuse(*args, **kwargs):
 subprocess.Popen = refuse
 REQUIRED = {"multimodal_vae_comparison_tpu_torch." + m for m in (
     "bridge", "config", "data.datamodule", "data.datasets", "data.native", "data.text",
-    "data_proc.cdsprites", "eval.classifiers", "eval.eval_cdsprites", "eval.infer",
+    "data_proc.cdsprites", "data_proc.sprites_gen", "eval.classifiers", "eval.eval_cdsprites",
+    "eval.eval_sprites", "eval.infer",
     "eval.train_classifiers", "main", "models.base", "models.contrib", "models.decoders",
     "models.distributions", "models.encoders", "models.mmvae", "models.nets",
     "models.objectives", "ops.kernels.attention", "ops.kernels.kl_kernel",
@@ -42,9 +43,9 @@ bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "triton",
                                     "multimodal_vae_comparison_tpu"))
 missing = sorted(REQUIRED - set(names))
-# the plotting and image packages load in the functions that draw
+# the plotting, image and GIF packages load in the functions that draw
 optional = sorted(n for n in sys.modules
-                  if n.split(".")[0] in ("cv2", "matplotlib", "sklearn"))
+                  if n.split(".")[0] in ("cv2", "imageio", "matplotlib", "sklearn"))
 print(len(names), bad, missing, optional)
 sys.exit(1 if bad or missing or optional else 0)
 """
@@ -52,11 +53,11 @@ sys.exit(1 if bad or missing or optional else 0)
 
 def test_port_imports_no_jax_no_jax_package_and_no_triton():
     """Every module of the port (the training, video, config/data/Trainer,
-    eval and model-zoo slices' among them), and
+    eval, model-zoo and SPRITES slices' among them), and
     chip_smoke.py, imported in a fresh process with no nvcc reachable: none
     pulls in jax, flax, optax, triton or the JAX package, none loads cv2,
-    matplotlib or sklearn, and none starts a process (an nvcc build) at
-    import."""
+    imageio, matplotlib or sklearn, and none starts a process (an nvcc build)
+    at import."""
     env = dict(os.environ, PATH=os.path.dirname(sys.executable),
                CUDA_HOME=str(REPO / "no-cuda-here"))
     env.pop("CUDA_PATH", None)
@@ -77,7 +78,7 @@ os.environ["CXX"] = "/no/such/compiler"
 before = set(Path("build/torch_kernels").glob("libmmvae_io_*")) \
     if Path("build/torch_kernels").is_dir() else set()
 from multimodal_vae_comparison_tpu_torch.data import native
-from multimodal_vae_comparison_tpu_torch.data_proc import cdsprites
+from multimodal_vae_comparison_tpu_torch.data_proc import cdsprites, sprites_gen
 from multimodal_vae_comparison_tpu_torch.data import datamodule, datasets
 after = set(Path("build/torch_kernels").glob("libmmvae_io_*")) \
     if Path("build/torch_kernels").is_dir() else set()
