@@ -37,7 +37,18 @@ three main paths at full width with random weights from a seed:
   ``configs/round2/sprites_r2_poe.yml`` (POE) for 1, each ending in
   ``Trainer.test()`` and the SPRITES benchmark (its two video judges
   trained on the card, then cached); the judges' CLI, and the judges and
-  both models on the card against the CPU.
+  both models on the card against the CPU;
+* the mixture prior from its config ("mog from config"):
+  ``configs/round4/cdl1_r4_mog.yml`` (MOE, DReG K 10, 50 components)
+  trained for 1 resident epoch on the CdSprites+ rows, ending in
+  ``Trainer.test()``; its step on the card against the CPU in float64, and
+  POE's and MOE ELBO's under the mixture;
+* CelebA, CUB and the synthetic set from their configs ("celeba and cub
+  from config"): the surrogates made by the port's builders, masked
+  attention at CUB's 246-character captions against its plain version,
+  the two CelebA (POE), two CUB (MOE, MOE DReG K 10) and the synthetic
+  configs trained for 1 resident epoch each, each family's first ending in
+  ``Trainer.test()`` and its benchmark (judges trained on the card).
 
 Each path runs with the kernel counts set to 0 just before it and read just
 after, and must have launched every kernel it goes through and taken no
@@ -328,6 +339,25 @@ def bound_ms(nbytes: float, flops: float):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FP32_FLOP_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def attended_keys(tk: int, mask: torch.Tensor) -> int:
+    """The keys masked attention needs under the (B, Tk) key ``mask``,
+    summed over the batch: a masked key adds exactly 0 to its row's output,
+    so a row needs only its valid keys (all ``tk`` where every key of the
+    row is masked: its output is then the mean of every value row)."""
+    valid = mask.sum(dim=1)
+    return int(torch.where(valid == 0, tk, valid).sum().item())
+
+
+def attention_bound(b, h, tq, tk, dh, mask=None):
+    """:func:`bound_ms` of masked attention's forward over the keys it
+    needs (:func:`attended_keys`): Q read and O written in full, K and V
+    read at the needed keys, the mask read; two products and the softmax's
+    four operations per needed (query, key) pair."""
+    keys = b * tk if mask is None else attended_keys(tk, mask)
+    nbytes = 4 * (2 * b * h * tq * dh + 2 * h * keys * dh) + (0 if mask is None else b * tk)
+    return bound_ms(nbytes, 4 * h * tq * keys * dh + 4 * h * tq * keys)
 
 
 def busy_ms(intervals):
@@ -1112,10 +1142,13 @@ def phase_attention_backward_times(card):
     bwd = attention._MaskedAttention.backward
     bwd_ms = graph_ms(lambda: bwd(ctx, d_out))
     bwd_eager = eager_ms(lambda: bwd(ctx, d_out))
-    # five batched products (s, dv, dp, dq, dk); q, k, v, d_out and the mask
-    # read, dq, dk, dv written
-    cells = TRAIN_BATCH * 2 * SEQ_LEN * SEQ_LEN
-    bwd_bound, bwd_by = bound_ms(4 * 7 * q.numel() + mask.numel(), 5 * 2 * cells * 32)
+    # five batched products (s, dv, dp, dq, dk) over the needed keys; q,
+    # d_out and the mask read and dq written in full, k and v read at the
+    # needed keys, dk and dv written in full
+    keys = attended_keys(SEQ_LEN, mask)
+    cells = 2 * SEQ_LEN * keys
+    bwd_bound, bwd_by = bound_ms(4 * (5 * q.numel() + 2 * 2 * keys * 32) + mask.numel(),
+                                 5 * 2 * cells * 32)
     # the library's backward on the same inputs and key-padding mask (its
     # one fully masked row comes out NaN there, the uniform average here)
     leaves = [x.detach().requires_grad_() for x in (q, k, v)]
@@ -1326,9 +1359,7 @@ def phase_times(engine, card):
         print(f"time masked_attention [{label} {shape}]: resident kernel {kern:.5f} and "
               f"{kern_again:.5f} ms, chunked kernel {chunked_ms:.5f} ms, SDPA {lib:.5f} ms, an "
               f"empty kernel launched the same way {floor:.5f} ms on {card}")
-        nbytes = 4 * (2 * b * h * tq * dh + 2 * b * h * tk * dh) + (b * tk if masked else 0)
-        flops = 4 * b * h * tq * tk * dh + 4 * b * h * tq * tk
-        bound, by = bound_ms(nbytes, flops)
+        bound, by = attention_bound(b, h, tq, tk, dh, mask)
         err = (attention.masked_attention(q, k, v, mask)
                - attention.attention_reference(q, k, v, mask)).abs().max().item()
         rows.append({"name": "masked_attention", "at": f"{label} {shape}",
@@ -1838,25 +1869,28 @@ def make_cdsprites(root: str):
 
 
 def from_config(path: str, data_paths: dict, results_root: str, eval_only=False, **over):
-    """The Config of a shipped YAML with every modality's ``path`` and
-    ``test_datapath`` set from ``data_paths`` (the made data) and its run
-    directory under ``results_root``."""
+    """The Config of a shipped YAML with each modality's ``path`` and
+    ``test_datapath`` set from ``data_paths`` (the made data, one dict per
+    ``modality_i`` key; a modality without one keeps its config's) and its
+    run directory under ``results_root``."""
     import yaml
     from multimodal_vae_comparison_tpu_torch.config import Config
     with open(os.path.join(HERE, path)) as f:
         params = yaml.safe_load(f)
     for key, block in params.items():
         if key.startswith("modality_"):
-            block.update(data_paths)
+            block.update(data_paths.get(key, {}))
     params.update(over)
     return Config(params, results_root=results_root, eval_only=eval_only)
 
 
 def cdsprites_paths(data) -> dict:
-    """The data paths of :func:`make_cdsprites`'s level."""
+    """Each modality's data paths in :func:`make_cdsprites`'s level (both
+    modalities read the same files)."""
     level_dir, suffix = data[0], data[1]
-    return {"path": os.path.join(level_dir, f"traindata{suffix}"),
-            "test_datapath": os.path.join(level_dir, f"testdata{suffix}")}
+    paths = {"path": os.path.join(level_dir, f"traindata{suffix}"),
+             "test_datapath": os.path.join(level_dir, f"testdata{suffix}")}
+    return {f"modality_{i}": paths for i in (1, 2)}
 
 
 def expected_launches(mixing: str, objective_calls: int, train_steps: int,
@@ -2527,8 +2561,10 @@ def make_sprites(root: str):
 
 
 def sprites_paths(data_dir: str) -> dict:
-    """The data paths of :func:`make_sprites`'s shards."""
-    return {"path": data_dir, "test_datapath": os.path.join(data_dir, "test")}
+    """Each modality's data paths in :func:`make_sprites`'s shards (the
+    three modalities read the same shards)."""
+    paths = {"path": data_dir, "test_datapath": os.path.join(data_dir, "test")}
+    return {f"modality_{i}": paths for i in (1, 2, 3)}
 
 
 def sprites_eval_launches(mixing: str, tsne: bool) -> dict:
@@ -2729,13 +2765,15 @@ def phase_sprites_from_config(card: str, root: str):
     return total, numbers
 
 
-def step_launches(label: str, trainer, batch, mixing: str, calls: int = 2) -> dict:
+def step_launches(label: str, trainer, batch, mixing: str, calls: int = 2,
+                  tables=(SPRITES_PER_OBJECTIVE, SPRITES_PER_BACKWARD),
+                  phase: str = "sprites from config") -> dict:
     """Launches of one objective call (the trainer's eval step), of one
     train step (its objective and backward, remat as the config trains) and
     of the backward alone, each the count's change over ``calls`` calls on
-    ``batch`` at the config's K; held to SPRITES_PER_OBJECTIVE and
-    SPRITES_PER_BACKWARD.  The train steps update the trainer's weights:
-    run it after whatever reads them."""
+    ``batch`` at the config's K; held to ``tables[0][mixing]`` and
+    ``tables[1][mixing]`` (SPRITES' unless given).  The train steps update
+    the trainer's weights: run it after whatever reads them."""
     from multimodal_vae_comparison_tpu_torch.ops.kernels import telemetry
     tb = torch_batch(batch, trainer.device)
     gen = torch.Generator(device=trainer.device).manual_seed(45)
@@ -2752,12 +2790,12 @@ def step_launches(label: str, trainer, batch, mixing: str, calls: int = 2) -> di
     per["backward"] = {k: n - per["objective_call"].get(k, 0)
                        for k, n in per["train_step"].items()
                        if n != per["objective_call"].get(k, 0)}
-    print(f"sprites from config {label}: launches per call, measured over {calls} calls "
+    print(f"{phase} {label}: launches per call, measured over {calls} calls "
           f"of each step at bs {len(tb['mod_1']['data'])}: " + json.dumps(per))
-    check(per["objective_call"] == SPRITES_PER_OBJECTIVE[mixing]
-          and per["backward"] == SPRITES_PER_BACKWARD[mixing],
-          f"{label}: launches per call {per}, expected {SPRITES_PER_OBJECTIVE[mixing]} per "
-          f"objective call and {SPRITES_PER_BACKWARD[mixing]} per backward")
+    per_objective, per_backward = tables[0][mixing], tables[1][mixing]
+    check(per["objective_call"] == per_objective and per["backward"] == per_backward,
+          f"{label}: launches per call {per}, expected {per_objective} per "
+          f"objective call and {per_backward} per backward")
     return {f"launches_per_{k}": v for k, v in per.items()}
 
 
@@ -2899,8 +2937,7 @@ def phase_sprites_times(card: str):
                 lib, lib_note = None, f"SDPA refused the shape: {str(e)[:120]}"
             err = (attention.masked_attention(q, k, v)
                    - attention.attention_reference(q, k, v)).abs().max().item()
-            bound, by = bound_ms(4 * (2 * b * h * tq * dh + 2 * b * h * tk * dh),
-                                 4 * b * h * tq * tk * dh + 4 * b * h * tq * tk)
+            bound, by = attention_bound(b, h, tq, tk, dh)
             rows.append({"name": "masked_attention", "at": f"sprites {label}, {axis} {shape}",
                          "route": "cuda", "source": src + "attention.cu",
                          "replaces": ref + "attention.py:77", "max_abs_err": err, "ms": kern,
@@ -2944,6 +2981,492 @@ def phase_sprites_times(card: str):
               f"(SDPA, no mask), bound {r['bound_ms']:.6f} ms ({r['bound_by']}), max_abs_err "
               f"{r['max_abs_err']:.3e} on {card}")
     return rows
+
+
+# -- the mixture prior, and the CelebA, CUB and synthetic configs ------------
+
+# the mixture-prior config (MOE, DReG K 10, 50 components, bs 24) on the
+# CdSprites+ level-1 rows "train from config" makes: 1 resident epoch (not
+# 150), profiled, then test()
+MOG_FROM_CONFIG = ("MOE mog cdl1_r4_mog", "configs/round4/cdl1_r4_mog.yml")
+# launches of one objective call and of a train step's backward, by run.
+# DReG: the text encoder once and the text decoder on all M*K*B samples in
+# each of its two passes, and no KL kernel: DReG takes no KL.  MOE ELBO:
+# attention 2 and the KL kernel once for all modalities, but under the
+# mixture prior no KL kernel (the KL is a Monte-Carlo mean).  POE under the
+# mixture: attention 2 and the lattice's PoE.  CelebA's POE: no text, the
+# lattice's PoE alone
+FAMILY_PER_OBJECTIVE = {"dreg": {"attention": 3}, "moe": {"attention": 2, "kl": 1},
+                        "moe_mog": {"attention": 2}, "poe_mog": {"attention": 2, "poe": 1},
+                        "celeba": {"poe": 1}}
+FAMILY_PER_BACKWARD = {"dreg": {}, "moe": {"kl_bwd": 1}, "moe_mog": {},
+                       "poe_mog": {"poe_bwd": 1}, "celeba": {"poe_bwd": 1}}
+FAMILY_TABLES = (FAMILY_PER_OBJECTIVE, FAMILY_PER_BACKWARD)
+# card (fp32) against the CPU in float64 under the mixture prior, at the
+# config's widths and bs MOG_PARITY_BATCH: (label, overrides of the config,
+# launches key).  The POE and MOE ELBO steps are the config with another
+# mixing or objective: POE's KL to the prior and MOE's are the other
+# Monte-Carlo paths
+MOG_PARITY_BATCH = 2
+MOG_PARITY = (("MOE dreg K 10", {}, "dreg"),
+              ("POE elbo", {"mixing": "poe", "obj": "elbo", "K": 1}, "poe_mog"),
+              ("MOE elbo", {"obj": "elbo", "K": 1}, "moe_mog"))
+# the surrogates made in the run, (train rows, test rows) at seed 0: cut
+# from the builders' 8,000 / 1,000 (CelebA) and 6,000 / 800 (CUB)
+CELEBA_COUNTS, CUB_COUNTS = (2000, 400), (1500, 300)
+# (label, config, data, launches key, test()): 1 resident epoch each (not
+# 200-600); each family's first config ends in test() and its benchmark
+FAMILIES_FROM_CONFIG = (
+    ("POE celeba", "configs/config_celeba.yml", "celeba", "celeba", True),
+    ("POE celeba_r2", "configs/round2/celeba_r2.yml", "celeba", "celeba", False),
+    ("MOE cub", "configs/config_cub.yml", "cub", "moe", True),
+    ("MOE cub_r2", "configs/round2/cub_r2.yml", "cub", "dreg", False),
+    ("MOE synthetic", "configs/config_synthetic.yml", "synthetic", "moe", True))
+# launches of each benchmark: CelebA's two POE cross-generations (the PoE
+# kernel once each, no text); CUB's image->text forward (the text decoded
+# from the image's sample and as its cross), text->image (the text encoder
+# and its own decode) and the prior joint's text decode; the synthetic set
+# has none
+FAMILY_EVAL_LAUNCHES = {"celeba": {"poe": 2}, "cub": {"attention": 5}, "synthetic": {}}
+CUB_TEXT = 246
+
+
+def phase_mog_from_config(card: str, root: str, data):
+    """Queue A item 2a's main path: ``cdl1_r4_mog.yml`` (MOE, DReG K 10, a
+    50-component mixture prior) trained for 1 resident epoch through
+    ``main(config)`` on the rows :func:`phase_train_from_config` made, the
+    epoch under ``torch.profiler``, ending in ``Trainer.test()`` with the
+    judge that phase cached.  Counted from zero: exactly its objective
+    calls' attention (FAMILY_PER_OBJECTIVE["dreg"]) and no KL launch, plus
+    the benchmark's (:func:`eval_launches`); the val loss falls; the 12
+    stats are in range; the benchmark's prior joint draws once from the
+    mixture; ``model/last`` restored through ``MultimodalVAEInfer`` gives
+    the trainer's forward within RESTORE_RTOL / RESTORE_ATOL, and the prior
+    joint on the card that of the CPU, whose draw is the mixture's own.
+    Then the launches per call and step, and :func:`phase_mog_card_vs_cpu`.
+    Returns (launches of the run, its numbers)."""
+    from torch.profiler import ProfilerActivity, profile
+    from multimodal_vae_comparison_tpu_torch.eval.infer import MultimodalVAEInfer
+    from multimodal_vae_comparison_tpu_torch.main import main as train_main
+    from multimodal_vae_comparison_tpu_torch.models.distributions import MixtureNormal
+
+    numbers, total = {"card": card}, {}
+    os.environ["CDSPRITES_CLASSIFIER_DIR"] = os.path.join(root, "judges")
+    label, path = MOG_FROM_CONFIG
+    config, trainer, stats = config_trainer(label, path, "moe", cdsprites_paths(data), root, 1)
+    model = trainer.model
+    check(isinstance(model.pz(), MixtureNormal) and model.prior_components == 50
+          and model.K == 10 and model.obj == "dreg",
+          f"{label}: prior {type(model.pz()).__name__} of {model.prior_components}, "
+          f"K {model.K}, obj {model.obj}")
+    dm, bs = trainer.datamodule, config.batch_size
+    steps, val_batches = dm.n_train // bs, dm.n_val // bs
+    trainer.stage_epoch_data()
+    trainer.stage_val_data()
+    untrained = trainer.validate_scan(0)["val_loss"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    evals = eval_launches("moe", dm.n_train)
+    times, profiled, prior_draws = {}, {}, []
+    own_sample = MixtureNormal.sample
+
+    def counting_sample(self, num, *args, **kwargs):
+        prior_draws.append(num)
+        return own_sample(self, num, *args, **kwargs)
+
+    def run():
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            trainer.fit(epochs=1)
+            torch.cuda.synchronize()
+            profiled["wall_ms"] = (time.perf_counter() - t1) * 1e3
+        act = device_activity(prof, profiled["wall_ms"])
+        profiled.update(busy_share=act["busy_share"], device_events=act["events"],
+                        device_ms=act["ms"], top_kernels_ms={
+                            n[:80]: ms for n, ms in act["ms_by_name"].most_common(6)})
+        MixtureNormal.sample = counting_sample
+        try:
+            with eval_stopwatch(times):
+                train_main(config, trainer=trainer, enable_viz=False)
+        finally:
+            MixtureNormal.sample = own_sample
+
+    t0 = time.perf_counter()
+    counted(label, "dreg", steps + 2 * val_batches, steps, run, total, evals, FAMILY_TABLES)
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check_stats(label, stats)
+    check(prior_draws == [JOINT_ROWS], f"{label}: the benchmark drew {prior_draws} rows from "
+          f"the mixture prior, expected one prior joint of {JOINT_ROWS}")
+    check(trainer.model.K == config.K, f"{label}: test() left the model at K {trainer.model.K}")
+    rows = _csv_rows(os.path.join(config.mPath, "metrics.csv"))
+    trained = float(rows[-1]["val_loss"])
+    epoch_s, samples_s = float(rows[-1]["epoch_time_s"]), float(rows[-1]["samples_per_s"])
+    check(len(rows) == 1, f"{label}: metrics.csv has {len(rows)} rows for 1 epoch")
+    check(np.isfinite(trained) and trained < untrained,
+          f"{label}: val_loss {trained} after training, {untrained} before")
+    for tag in ("last", "best"):
+        check(os.path.isfile(os.path.join(config.mPath, "model", tag, "state.pt")),
+              f"{label}: no model/{tag} checkpoint")
+    batch = next(dm.batches("val"))
+    rng = np.random.default_rng(50)
+    err = check_restored(label, config.mPath, trainer, batch, eps_to(
+        {n: rng.standard_normal((1, bs, config.n_latents)).astype(np.float32)
+         for n in trainer.model.mod_names}, trainer.device))
+    # the prior joint on the card and on the CPU from the run directory: the
+    # CPU generator's draw is the mixture's (its component, then eps) on both
+    card_exp, cpu_exp = MultimodalVAEInfer(config.mPath), MultimodalVAEInfer(config.mPath,
+                                                                          device="cpu")
+    check(cpu_exp.model.prior_components == 50, f"{label}: restored without the mixture")
+    pz = cpu_exp.model.pz()
+    g = torch.Generator().manual_seed(0)
+    idx = torch.multinomial(torch.softmax(pz.logits.detach(), -1), JOINT_ROWS,
+                            replacement=True, generator=g)
+    eps = torch.randn(JOINT_ROWS, config.n_latents, generator=g)
+    with torch.no_grad():
+        want_z = pz.locs[idx] + pz.scales[idx] * eps
+        got_z = cpu_exp.model.sample_pz(JOINT_ROWS, generator=torch.Generator().manual_seed(0))
+    check(torch.allclose(got_z[0], want_z), f"{label}: sample_pz is not the mixture's draw")
+    joints = {name: exp.joint_generate(JOINT_ROWS, source="prior")
+              for name, exp in (("card", card_exp), ("cpu", cpu_exp))}
+    joint_err = max(float(np.abs(joints["card"][m] - joints["cpu"][m]).max())
+                    for m in joints["cpu"])
+    check(all(np.allclose(joints["card"][m], joints["cpu"][m], rtol=EVAL_RTOL, atol=EVAL_ATOL)
+              for m in joints["cpu"]),
+          f"{label}: prior joint on the card vs the CPU max_abs_err {joint_err:.3e}")
+    per_call = step_launches(label, trainer, batch, "dreg", tables=FAMILY_TABLES,
+                             phase="mog from config")
+    print(f"eval from config {label}: " + ", ".join(
+        f"{k} {stats[k]:.2f}" for k in stats if not k.startswith("val_"))
+        + f"; launches of the eval {evals}; seconds " + ", ".join(
+            f"{k[:-2]} {v:.3f}" for k, v in times.items()) + f" on {card}")
+    print(f"mog from config {label} ({path}): {trainer.n_params()} parameters "
+          f"(pz_mog_* {50 * (2 * config.n_latents + 1)}), {dm.n_train} train / {dm.n_val} val "
+          f"rows, {steps} steps of {bs} at K {config.K}; val_loss untrained {untrained:.2f} -> "
+          f"{trained:.2f}; epoch {epoch_s:.3f} s, {samples_s:.1f} samples/s (profiled: wall "
+          f"{profiled['wall_ms']:.1f} ms, busy {profiled['busy_share']:.4f}, "
+          f"{profiled['device_ms']:.1f} device ms); main() with test() {run_s:.2f} s; peak "
+          f"memory {peak:.3f} GiB; prior joint card vs CPU max_abs_err {joint_err:.3e}; "
+          f"largest by device ms {json.dumps(profiled['top_kernels_ms'])} on {card}")
+    numbers.update({
+        "config": path, "params": trainer.n_params(), "steps": steps, "batch": bs,
+        "K": config.K, "prior_components": 50, "val_loss_untrained": untrained,
+        "val_loss": trained, "epoch_s": epoch_s, "samples_per_s": samples_s,
+        "main_with_test_s": run_s, "peak_memory_gib": peak,
+        "eval_stats": {k: v for k, v in stats.items() if not k.startswith("val_")},
+        "eval_s": times, "eval_launches": evals, "restore_max_abs_err": err,
+        "prior_joint_card_vs_cpu_max_abs_err": joint_err,
+        **{f"profiled_epoch_{k}": v for k, v in profiled.items()}, **per_call})
+    del trainer, card_exp, cpu_exp
+    numbers["card_vs_cpu"] = phase_mog_card_vs_cpu(card, root, data, batch)
+    os.environ.pop("CDSPRITES_CLASSIFIER_DIR")
+    return total, numbers
+
+
+def phase_mog_card_vs_cpu(card: str, root: str, data, batch) -> dict:
+    """One objective and its backward under the mixture prior at the
+    config's widths (50 components, seeded weights, MOG_PARITY_BATCH real
+    rows of ``batch``, drawn eps) for each of MOG_PARITY: the card (kernels,
+    fp32, TF32 off) against the CPU's plain path in float64 on the card's
+    relu branches and DReG weights (:func:`same_branches`,
+    :func:`same_dreg_weights`): loss and metrics within TRAIN_RTOL, every
+    gradient (the pz_mog_* leaves among them, each nonzero) within GRAD_REL
+    x its leaf's max |g| + GRAD_ATOL; the card launches exactly one
+    objective call's and one backward's kernels, no KL kernel."""
+    from multimodal_vae_comparison_tpu_torch.ops.kernels import telemetry
+    from multimodal_vae_comparison_tpu_torch.training.trainer import build_model_from_config
+    label0, path = MOG_FROM_CONFIG
+    n, rng = MOG_PARITY_BATCH, np.random.default_rng(51)
+    rows = {k: {"data": v["data"][:n], "masks": None if v["masks"] is None else v["masks"][:n]}
+            for k, v in batch.items()}
+    numbers = {}
+    for label, over, key in MOG_PARITY:
+        cfg = from_config(path, cdsprites_paths(data), root, eval_only=True, **over)
+        for i, mod in enumerate(cfg.mods):
+            mod.feature_dims = list(rows[f"mod_{i + 1}"]["data"].shape[1:])
+        shape = (cfg.K, n, cfg.n_latents)
+        eps = ({m: rng.standard_normal(shape).astype(np.float32) for m in rows}
+               if cfg.mixing == "moe"
+               else [rng.standard_normal(shape).astype(np.float32) for _ in range(3)])
+        branches, weights, out, moved, seconds = [], [], {}, {}, {}
+        for dev, dtype in (("cuda", torch.float32), ("cpu", torch.float64)):
+            model = build_model_from_config(cfg, device=dev).to(dtype)
+            tb = {k: {"data": v["data"].to(dtype), "masks": v["masks"]}
+                  for k, v in torch_batch(rows, dev).items()}
+            te = eps_to(eps, dev)
+            te = ({k: v.to(dtype) for k, v in te.items()} if isinstance(te, dict)
+                  else [v.to(dtype) for v in te])
+            telemetry.reset()
+            t0 = time.perf_counter()
+            with same_branches(branches, dev == "cpu", moved), \
+                    same_dreg_weights(weights, dev == "cpu", moved):
+                out[dev] = _objective_grads(model, tb, te)
+            seconds[dev] = time.perf_counter() - t0
+            if dev == "cuda":
+                launches, paths = telemetry.launches(), telemetry.summary()
+            del model
+        want = expected_launches(key, 1, 1, FAMILY_TABLES)
+        (gl, gm, gg), (cl, cm, cg) = out["cuda"], out["cpu"]
+        worst, worst_name = _worst_leaf(gg, {k: v.float() for k, v in cg.items()}, GRAD_REL,
+                                        GRAD_ATOL)
+        print(f"mog card vs CPU {label} ({path}, 50 components, bs {n}, K {cfg.K}): loss cuda "
+              f"{gl:.6f}, cpu float64 {cl:.6f}; worst gradient leaf {worst:.3f} of its limit at "
+              f"{worst_name} (limit {GRAD_REL} x max|g| + {GRAD_ATOL}); replayed on the CPU: "
+              f"{moved}; launches {launches}, expected {want}; {seconds['cuda']:.3f} s on the "
+              f"card, {seconds['cpu']:.3f} s on the CPU ({card})")
+        check(launches == want, f"{label}: launched {launches}, expected {want}")
+        check(not any(k.endswith(":plain") for k in paths),
+              f"{label}: a plain version ran on the card: {paths}")
+        check(np.isfinite(gl) and abs(gl - cl) <= TRAIN_RTOL * abs(cl),
+              f"{label}: loss {gl} on the card vs {cl} on the CPU")
+        check(sorted(gm) == sorted(cm), f"{label}: metric keys differ")
+        for k in gm:
+            check(abs(gm[k] - cm[k]) <= TRAIN_RTOL * abs(cm[k]) + 1e-4,
+                  f"{label}: metric {k} {gm[k]} on the card vs {cm[k]} on the CPU")
+        check(worst <= 1.0, f"{label}: gradient of {worst_name} differs between the card "
+              "and the CPU")
+        check(all(gg[k].abs().sum().item() > 0 for k in gg if k.startswith("pz_mog_")),
+              f"{label}: a pz_mog_* leaf got no gradient")
+        numbers[label] = {"loss_cuda": gl, "loss_cpu64": cl,
+                          "worst_grad_share_of_limit_vs_cpu64": worst,
+                          "worst_leaf_vs_cpu64": worst_name, "replayed": moved,
+                          "launches": launches, "card_s": seconds["cuda"],
+                          "cpu64_s": seconds["cpu"]}
+    return numbers
+
+
+def make_surrogates(root: str):
+    """CelebA at CELEBA_COUNTS and CUB at CUB_COUNTS through the port's
+    surrogate builders (seed 0): ({family: directory}, seconds)."""
+    from multimodal_vae_comparison_tpu_torch.data_proc import surrogates
+    t0 = time.perf_counter()
+    dirs = {family: getattr(surrogates, f"build_{family}")(
+        os.path.join(root, family), n_train=counts[0], n_test=counts[1], seed=0)
+        for family, counts in (("celeba", CELEBA_COUNTS), ("cub", CUB_COUNTS))}
+    return dirs, time.perf_counter() - t0
+
+
+def family_paths(family: str, dirs: dict) -> dict:
+    """Each modality's data paths in the surrogate of ``family`` (the
+    synthetic set keeps its config's row count)."""
+    stems = {"celeba": ("images.npy", "atts.npy"), "cub": ("images.npy", "captions.pkl"),
+             "synthetic": ()}[family]
+    return {f"modality_{i + 1}": {"path": os.path.join(dirs[family], s),
+                                  "test_datapath": os.path.join(dirs[family], "test_" + s)}
+            for i, s in enumerate(stems)}
+
+
+def cub_attention_cases(cub_dir: str):
+    """(label, (B, H, Tq, Tk, Dh), key mask or None) of every masked
+    attention the CUB runs launch: the text encoder's self-attention at the
+    two configs' batches and the eval's val rows, each masked by real
+    captions' padding (the surrogate's first B train captions), and the
+    text decoder's cross-attention at their decode batches (cub_r2's M*K*B
+    = 640)."""
+    import pickle
+    from multimodal_vae_comparison_tpu_torch.data.text import encode_text_batch
+    with open(os.path.join(cub_dir, "captions.pkl"), "rb") as f:
+        captions = pickle.load(f)
+    n_val = CUB_COUNTS[0] - int(CUB_COUNTS[0] * 0.9)
+    cases = []
+    for label, b in (("cub_r2 encoder bs 32", 32), ("config_cub encoder bs 16", 16),
+                     (f"eval encoder {n_val} rows", n_val)):
+        mask = torch.from_numpy(encode_text_batch(captions[:b], CUB_TEXT)[1]).cuda()
+        cases.append((label, (b, 2, CUB_TEXT, CUB_TEXT, 32), mask))
+    for label, b in (("cub_r2 decoder M*K*B 640", 640), ("config_cub decoder M*K*B 32", 32),
+                     (f"eval decoder {n_val} rows", n_val)):
+        cases.append((label, (b, 2, CUB_TEXT, 1, 8), None))
+    return cases
+
+
+def phase_cub_attention(card: str, cub_dir: str):
+    """Masked attention at CUB's 246-character captions against its plain
+    version: the forward at every shape of :func:`cub_attention_cases` on
+    the resident kernel, the backward (the autograd Function's) at the two
+    train batches' encoder and cub_r2's decoder; then the train shapes timed
+    (device ms, graphed) beside the plain version, the byte bound and SDPA
+    with the same key-padding mask.  Returns (parity numbers, time rows)."""
+    import torch.nn.functional as F
+    from multimodal_vae_comparison_tpu_torch.ops.kernels import attention, telemetry
+    g = torch.Generator(device="cuda").manual_seed(52)
+    parity, rows = {}, []
+    cases = cub_attention_cases(cub_dir)
+    for label, shape, mask in cases:
+        q, k, v, _ = attention_inputs(g, *shape, False)
+        telemetry.reset()
+        got = attention.masked_attention(q, k, v, mask)
+        took = telemetry.variants()
+        want = attention.attention_reference(q, k, v, mask)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        padded = 0.0 if mask is None else 1.0 - mask.float().mean().item()
+        print(f"parity attention cub {label} {shape} (padded keys {padded:.3f}): "
+              f"max_abs_err={err:.3e} (rtol {ATTN_RTOL}, atol {ATTN_ATOL}); {took}")
+        check(took == {"attention:resident": 1}, f"attention at {shape} launched {took}")
+        check(torch.allclose(got, want, rtol=ATTN_RTOL, atol=ATTN_ATOL),
+              f"attention kernel disagrees with its plain version at {shape}")
+        parity[f"{label} {shape}"] = {"max_abs_err": err, "padded_keys": padded}
+    for label, shape, mask in (cases[0], cases[1], cases[3]):
+        q, k, v, _ = attention_inputs(g, *shape, False)
+        d_out = torch.randn(q.shape, generator=g, device="cuda")
+        _grad_parity(f"attention cub {label} {shape}",
+                     lambda q_, k_, v_: attention.masked_attention(q_, k_, v_, mask),
+                     lambda q_, k_, v_: attention.attention_reference(q_, k_, v_, mask),
+                     (q, k, v), d_out, ATTN_RTOL, ATTN_ATOL)
+    src = "multimodal_vae_comparison_tpu_torch/csrc/attention.cu"
+    for label, shape, mask in (cases[0], cases[1], cases[3]):
+        q, k, v, _ = attention_inputs(g, *shape, False)
+        b, h, tq, tk, dh = shape
+        lib_mask = None if mask is None else mask[:, None, None, :]
+        kern = graph_ms(lambda: attention.masked_attention(q, k, v, mask))
+        plain = graph_ms(lambda: attention.attention_reference(q, k, v, mask))
+        try:
+            lib = graph_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=lib_mask))
+            lib_note = "graphed"
+        except RuntimeError as e:   # the library's limits, not the port's
+            lib, lib_note = eager_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=lib_mask)), f"eager (graph capture refused: {str(e)[:80]})"
+        err = (attention.masked_attention(q, k, v, mask)
+               - attention.attention_reference(q, k, v, mask)).abs().max().item()
+        bound, by = attention_bound(b, h, tq, tk, dh, mask)
+        rows.append({"name": "masked_attention", "at": f"cub {label}, {shape}",
+                     "masked": mask is not None, "route": "cuda", "source": src,
+                     "replaces": "multimodal_vae_comparison_tpu/ops/pallas/attention.py:77",
+                     "max_abs_err": err, "ms": kern, "plain_ms": plain, "bound_ms": bound,
+                     "bound_by": by, "library_ms": lib,
+                     "library_is": "F.scaled_dot_product_attention(q, k, v, attn_mask=the "
+                                   f"key padding or none), {lib_note}"})
+        print(f"time masked_attention [cub {label} {shape}]: kernel {kern:.5f} ms, plain "
+              f"{plain:.5f} ms, SDPA {lib:.5f} ms, bound {bound:.6f} ms ({by}), max_abs_err "
+              f"{err:.3e} on {card}")
+    return parity, rows
+
+
+def family_stopwatch(times: dict):
+    """:func:`stopwatch` over the CelebA and CUB benchmarks' judges (trained
+    or loaded) and whole evals."""
+    from multimodal_vae_comparison_tpu_torch.eval import eval_celeba, eval_cub
+    return stopwatch(((eval_celeba, "_att_judge", lambda a, k: "judges_s"),
+                      (eval_celeba, "celeba_stats", lambda a, k: "eval_s"),
+                      (eval_cub, "_judges", lambda a, k: "judges_s"),
+                      (eval_cub, "cub_stats", lambda a, k: "eval_s")), times)
+
+
+def check_family_stats(label: str, family: str, stats: dict) -> None:
+    """The benchmark's stats (fractions) all there, finite and in [0, 1],
+    and no ``eval_error``."""
+    from multimodal_vae_comparison_tpu_torch.eval import eval_celeba, eval_cub
+    keys = {"celeba": eval_celeba.STATS_KEYS, "cub": eval_cub.STATS_KEYS}[family]
+    check("eval_error" not in stats, f"{label}: the eval failed: {stats.get('eval_error')}")
+    bad = {k: stats.get(k) for k in keys
+           if not (isinstance(stats.get(k), float) and 0.0 <= stats[k] <= 1.0)}
+    check(not bad, f"{label}: stats missing, not finite or out of [0, 1]: {bad}")
+
+
+def phase_families_from_config(card: str, root: str):
+    """Queue A item 7a's main path: the CelebA and CUB surrogates made by
+    the port's builders at CELEBA_COUNTS and CUB_COUNTS, masked attention
+    at CUB's caption length (:func:`phase_cub_attention`), then each config
+    of FAMILIES_FROM_CONFIG trained for 1 resident epoch; each family's
+    first config through ``main(config)``, ending in ``Trainer.test()`` and
+    its benchmark (the judges trained on the card), the others through
+    ``fit``.  Each run is counted from zero: exactly its objective calls
+    (train steps + validation batches, and test()'s validation) times
+    FAMILY_PER_OBJECTIVE, its train steps times FAMILY_PER_BACKWARD and its
+    benchmark's FAMILY_EVAL_LAUNCHES, no plain version; the val loss falls;
+    the stats are in [0, 1]; a tested run's ``model/last`` restored through
+    ``MultimodalVAEInfer`` gives the trainer's forward within RESTORE_RTOL /
+    RESTORE_ATOL; then the launches per call and step.  Returns (launches
+    of the runs, the phase's numbers, the attention time rows)."""
+    from multimodal_vae_comparison_tpu_torch.main import main as train_main
+
+    numbers, total = {"card": card}, {}
+    dirs, numbers["data_s"] = make_surrogates(os.path.join(root, "surrogates"))
+    dirs["synthetic"] = None
+    numbers["cut"] = {"celeba_train_test": CELEBA_COUNTS, "cub_train_test": CUB_COUNTS,
+                      "epochs": 1}
+    for family in ("CELEBA", "CUB"):
+        os.environ[f"{family}_CLASSIFIER_DIR"] = os.path.join(root, "family_judges")
+    numbers["attention_parity"], rows = phase_cub_attention(card, dirs["cub"])
+    for label, path, family, key, test in FAMILIES_FROM_CONFIG:
+        mixing = "poe" if key == "celeba" else "moe"
+        config, trainer, stats = config_trainer(label, path, mixing,
+                                                family_paths(family, dirs), root, 1)
+        dm, bs = trainer.datamodule, config.batch_size
+        steps, val_batches = dm.n_train // bs, dm.n_val // bs
+        t0 = time.perf_counter()
+        staged = (trainer.stage_epoch_data(), trainer.stage_val_data())
+        torch.cuda.synchronize()
+        stage_s = time.perf_counter() - t0
+        staged_bytes = sum(t.numel() * t.element_size() for split in staged
+                           for mod in split.values() for t in mod.values() if t is not None)
+        untrained = trainer.validate_scan(0)["val_loss"]
+        torch.cuda.reset_peak_memory_stats()
+        evals = dict(FAMILY_EVAL_LAUNCHES[family]) if test else {}
+        times = {}
+
+        def run(trainer=trainer, config=config, times=times, test=test):
+            if not test:
+                trainer.fit(epochs=1)
+                return
+            with family_stopwatch(times):
+                train_main(config, trainer=trainer, enable_viz=False)
+
+        t0 = time.perf_counter()
+        counted(label, key, steps + val_batches + (val_batches if test else 0), steps, run,
+                total, evals, FAMILY_TABLES)
+        run_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        rows_csv = _csv_rows(os.path.join(config.mPath, "metrics.csv"))
+        trained = float(rows_csv[-1]["val_loss"])
+        epoch_s = float(rows_csv[-1]["epoch_time_s"])
+        samples_s = float(rows_csv[-1]["samples_per_s"])
+        check(len(rows_csv) == 1, f"{label}: metrics.csv has {len(rows_csv)} rows for 1 epoch")
+        check(np.isfinite(trained) and trained < untrained,
+              f"{label}: val_loss {trained} after training, {untrained} before")
+        for tag in ("last", "best"):
+            check(os.path.isfile(os.path.join(config.mPath, "model", tag, "state.pt")),
+                  f"{label}: no model/{tag} checkpoint")
+        batch = next(dm.batches("val"))
+        err = None
+        if test:
+            check(trainer.model.K == config.K, f"{label}: test() left the model at K "
+                  f"{trainer.model.K}")
+            if family != "synthetic":
+                check_family_stats(label, family, stats)
+                check(os.path.isfile(os.path.join(config.mPath, f"{family}_stats.txt")),
+                      f"{label}: test() wrote no {family}_stats.txt")
+            rng = np.random.default_rng(53)
+            draw = lambda: rng.standard_normal((1, bs, config.n_latents)).astype(np.float32)
+            eps = {n: draw() for n in trainer.model.mod_names} if mixing == "moe" else draw()
+            err = check_restored(label, config.mPath, trainer, batch,
+                                 eps_to(eps, trainer.device))
+        per_call = step_launches(label, trainer, batch, key, tables=FAMILY_TABLES,
+                                 phase="families from config")
+        judged = {k: v for k, v in stats.items() if not k.startswith("val_")}
+        print(f"families from config {label} ({path}): {trainer.n_params()} parameters, "
+              f"{dm.n_train} train / {dm.n_val} val rows, {steps} steps of {bs} at K "
+              f"{config.K}; staged {staged_bytes / 1e9:.3f} GB in {stage_s:.3f} s; val_loss "
+              f"untrained {untrained:.2f} -> {trained:.2f}; epoch {epoch_s:.3f} s, "
+              f"{samples_s:.1f} samples/s; run {run_s:.2f} s; peak memory {peak:.3f} GiB on "
+              f"{card}")
+        if judged:
+            print(f"eval from config {label}: " + ", ".join(
+                f"{k} {100 * v:.2f}" for k, v in judged.items())
+                + f" (%; the judge_* stats are the judges' accuracy on real surrogate "
+                f"images); launches of the eval {evals}; seconds " + ", ".join(
+                    f"{k[:-2]} {v:.3f}" for k, v in times.items()) + f" on {card}")
+        numbers[label] = {
+            "config": path, "params": trainer.n_params(), "steps": steps, "batch": bs,
+            "K": config.K, "val_loss_untrained": untrained, "val_loss": trained,
+            "epoch_s": epoch_s, "samples_per_s": samples_s, "run_s": run_s,
+            "staged_bytes": staged_bytes, "stage_s": stage_s, "peak_memory_gib": peak,
+            "stats_percent": {k: 100 * v for k, v in judged.items()}, "eval_s": times,
+            "eval_launches": evals, "restore_max_abs_err": err, **per_call}
+        del trainer, staged
+    for family in ("CELEBA", "CUB"):
+        os.environ.pop(f"{family}_CLASSIFIER_DIR")
+    return total, numbers, rows
 
 
 def main() -> int:
@@ -3094,6 +3617,16 @@ def main() -> int:
         sprites_launches, sprites_numbers = phase_sprites_from_config(card, tmp)
         sprites_numbers["phase_s"] = time.perf_counter() - t0
         print("sprites from config " + json.dumps(sprites_numbers))
+        # this slice's main paths: the mixture-prior config on the CdSprites+
+        # rows, and the CelebA, CUB and synthetic configs on their surrogates
+        t0 = time.perf_counter()
+        mog_launches, mog_numbers = phase_mog_from_config(card, tmp, data)
+        mog_numbers["phase_s"] = time.perf_counter() - t0
+        print("mog from config " + json.dumps(mog_numbers))
+        t0 = time.perf_counter()
+        family_launches, family_numbers, cub_rows = phase_families_from_config(card, tmp)
+        family_numbers["phase_s"] = time.perf_counter() - t0
+        print("celeba and cub from config " + json.dumps(family_numbers))
 
     # 11. times
     rows = phase_times(engine, card)
@@ -3115,16 +3648,25 @@ def main() -> int:
     per_step["VideoGPTSparse MOE dreg"] = video_per_step
     for label, _, _, _ in SPRITES_FROM_CONFIG:
         per_step[f"SPRITES {label}"] = sprites_numbers[label]["launches_per_train_step"]
+    per_step[f"CdSprites+ {MOG_FROM_CONFIG[0]}"] = mog_numbers["launches_per_train_step"]
+    for label, *_ in FAMILIES_FROM_CONFIG:
+        per_step[label] = family_numbers[label]["launches_per_train_step"]
     for r in primary:
         kernel = KERNEL_OF[r["name"]]
         r["launches"] = (video_launches.get(kernel, 0) if kernel in video_kernels
                          else config_launches.get(kernel, 0) + zoo_launches.get(kernel, 0)
-                         + sprites_launches.get(kernel, 0))
+                         + sprites_launches.get(kernel, 0) + mog_launches.get(kernel, 0)
+                         + family_launches.get(kernel, 0))
         r["launches_zoo_from_config_path"] = zoo_launches.get(kernel, 0)
         r["launches_sprites_from_config_path"] = sprites_launches.get(kernel, 0)
+        r["launches_mog_from_config_path"] = mog_launches.get(kernel, 0)
+        r["launches_families_from_config_path"] = family_launches.get(kernel, 0)
         r["sprites_shapes"] = [{k: v for k, v in x.items()
                                 if k not in ("name", "route", "source", "replaces")}
                                for x in sprites_rows if x["name"] == r["name"]]
+        r["cub_shapes"] = [{k: v for k, v in x.items()
+                            if k not in ("name", "route", "source", "replaces")}
+                           for x in cub_rows if x["name"] == r["name"]]
         r["launches_fixed_batch_training_path"] = train_launches.get(kernel, 0)
         r["launches_serving_path"] = serve_launches.get(kernel, 0)
         r["launches_per_train_step"] = {label: n.get(kernel, 0)

@@ -10,7 +10,8 @@ line of a CUDA source there, builds it, and in a process of its own prints:
   the video model's decoder and encoder shapes, the same for the sparse
   backward's dq and dk/dv kernels (error of the Function's gradients against
   autograd through the plain version; registers at Dh 32 from ptxas), and the
-  masked attention's time at the text encoder's and decoder's shapes (device
+  masked attention's time beside its plain version's at the text encoder's
+  and decoder's shapes, the flagship's 45 characters and CUB's 246 (device
   ms per call, launches back to back in a CUDA graph, as ``chip_smoke.py``
   times them);
 * the video model's card-vs-float64 gradient check of ``chip_smoke.py``
@@ -29,6 +30,8 @@ line of a CUDA source there, builds it, and in a process of its own prints:
 * ``rows_3``: the resident attention kernel with 3 query rows a warp;
 * ``split_heads``: it splits a head's query rows over blocks up to four
   blocks an SM, not only where the heads do not fill the card;
+* ``rows_64_per_block``: it splits every head into blocks of at most 64
+  query rows (one row group a warp), however many heads there are;
 * ``bwd_three_blocks``: the sparse dq and dk/dv kernels compiled for three
   thread blocks an SM (at most 168 registers a thread), not two;
 * ``bwd_rows_in_smem``: their resident operands at Dh 32 (q and d_out, k
@@ -85,6 +88,8 @@ VARIANTS = {
     "rows_3": [(ATTENTION, "constexpr int ROWS = 4; ", "constexpr int ROWS = 3; ")],
     "split_heads": [(ATTENTION, "bh >= SM_COUNT ? 1 : (2 * SM_COUNT + bh - 1) / bh;",
                      "(4 * SM_COUNT + bh - 1) / bh;")],
+    "rows_64_per_block": [(ATTENTION, "bh >= SM_COUNT ? 1 : (2 * SM_COUNT + bh - 1) / bh;",
+                           "(tq + 63) / 64;")],
     "bwd_three_blocks": [(SPARSE, f"__launch_bounds__(MMA_WARPS * 32)\n{name}(",
                           f"__launch_bounds__(MMA_WARPS * 32, 3)\n{name}(")
                          for name in ("sparse_dq_mma", "sparse_dkv_mma")],
@@ -180,14 +185,17 @@ def measure(name: str, root: str) -> None:
               f"within tolerance: {ok}")
         del out, lse, args
     for label, shape, masked in (("encoder", (128, 2, 45, 45, 32), True),
-                                 ("decoder", (128, 2, 45, 1, 8), False)):
+                                 ("decoder", (128, 2, 45, 1, 8), False),
+                                 ("cub encoder", (32, 2, 246, 246, 32), True),
+                                 ("cub decoder", (640, 2, 246, 1, 8), False)):
         q, k, v, mask = cs.attention_inputs(g, *shape, masked)
         ok = torch.allclose(attention.masked_attention(q, k, v, mask),
                             attention.attention_reference(q, k, v, mask),
                             rtol=cs.ATTN_RTOL, atol=cs.ATTN_ATOL)
         ms = [cs.graph_ms(lambda: attention.masked_attention(q, k, v, mask)) for _ in range(2)]
+        plain = cs.graph_ms(lambda: attention.attention_reference(q, k, v, mask))
         print(f"variant {name}: masked attention {label} {shape}: {ms[0]:.5f} and "
-              f"{ms[1]:.5f} ms, within tolerance: {ok}")
+              f"{ms[1]:.5f} ms (plain {plain:.5f}), within tolerance: {ok}")
     try:
         cs.phase_video_parity()
     except RuntimeError as e:   # a failed check of chip_smoke: the finding, not a fault

@@ -6,8 +6,9 @@ dirs), data as float32 with masks as a separate boolean array, everything
 preprocessed once into contiguous arrays.  ``h5py`` and ``cv2`` are imported
 where a file of theirs is read.
 
-CdSprites+ and SPRITES are ported; the other datasets' names are known and
-raise, naming the ROADMAP item that brings them.
+CdSprites+, SPRITES, CUB, CelebA and the in-memory synthetic set are
+ported; the other datasets' names are known and raise, naming the ROADMAP
+item that brings them.
 """
 from __future__ import annotations
 
@@ -190,6 +191,84 @@ class CDSPRITESPLUS(BaseDataset):
         return self._load_text_onehot(texts, self.feature_dims["text"][0])
 
 
+class CUB(BaseDataset):
+    """Caltech-UCSD birds (reference datasets.py:323-414): 64x64 images from
+    an ``.npy`` or an image directory, and character one-hot captions of 246
+    characters from a ``.pkl`` list of strings (the JAX package's
+    ``data_proc/surrogates.py`` contract, which the port's copy writes)."""
+
+    feature_dims = {"image": [64, 64, 3], "text": [246, 27, 1]}
+    text2img_size = (64, 380, 3)
+
+    def eval_statistics_fn(self):
+        from multimodal_vae_comparison_tpu_torch.eval.eval_cub import cub_eval
+        return cub_eval
+
+    def _mod_specific_loaders(self):
+        return {"image": self._load_image, "text": self._load_text}
+
+    def _mod_specific_savers(self):
+        return {"image": self._decode_image, "text": self._decode_text}
+
+    def _load_image(self):
+        d = np.asarray(self.get_data_raw())
+        d = d.reshape(-1, *self.feature_dims["image"]).astype(np.float32)
+        if d.max() > 1.5:
+            d = d / 255.0
+        return d, None
+
+    def _load_text(self):
+        texts = [t.decode("utf8") if isinstance(t, bytes) else str(t)
+                 for t in self.get_data_raw()]
+        return self._load_text_onehot(texts, self.feature_dims["text"][0])
+
+
+class CELEBA(BaseDataset):
+    """CelebA images and 4 binary attributes as (4, 2) one-hots (reference
+    datasets.py:650-747): ``.npy`` images and ``.npy`` attributes in {-1,
+    1} (bald, eyeglasses, male, smiling)."""
+
+    feature_dims = {"image": [64, 64, 3], "atts": [4, 2]}
+    labelmap = [["hairy", "bald"], ["no eyeglasses", "eyeglasses"],
+                ["female", "male"], ["not smiling", "smiling"]]
+
+    def eval_statistics_fn(self):
+        from multimodal_vae_comparison_tpu_torch.eval.eval_celeba import celeba_eval
+        return celeba_eval
+
+    def labels(self):
+        # the decoded attribute strings of the last attributes loaded
+        return getattr(self, "_labels", None)
+
+    def _mod_specific_loaders(self):
+        return {"image": self._load_image, "atts": self._load_atts}
+
+    def _mod_specific_savers(self):
+        return {"image": self._decode_image, "atts": self._decode_atts}
+
+    def _load_image(self):
+        d = np.asarray(self.get_data_raw()).astype(np.float32)
+        d = d.reshape(-1, *self.feature_dims["image"])
+        if d.max() > 1.5:
+            d = d / 255.0
+        return d, None
+
+    def _load_atts(self):
+        """One-hot (N, 4, 2): slot 0 set where the attribute is present."""
+        self.categorical = True
+        raw = (np.asarray(self.get_data_raw()).astype(np.float32) + 1) / 2
+        onehot = np.zeros(raw.shape + (2,), dtype=np.float32)
+        onehot[..., 1] = raw == 0
+        onehot[..., 0] = raw == 1
+        self._labels = self._decode_atts(onehot)
+        return onehot, None
+
+    def _decode_atts(self, data, masks=None):
+        idx = np.asarray(data).argmax(-1)
+        return [", ".join(self.labelmap[i][int(v)] for i, v in enumerate(row))
+                for row in 1 - idx]   # slot 0 (present) -> labelmap[i][1]
+
+
 class SPRITES(BaseDataset):
     """Trimodal animated-sprites video dataset (reference datasets.py:497-648):
     frames (8, 64, 64, 3), attributes (4, 6) and actions (9) from the
@@ -259,17 +338,73 @@ class SPRITES(BaseDataset):
         return np.concatenate(out, 0), None
 
 
-DATASETS = {"cdspritesplus": CDSPRITESPLUS, "sprites": SPRITES}
-# known to the JAX package, not ported yet
-_UNPORTED = ("cub", "mnist_svhn", "celeba", "fashionmnist", "polymnist",
-             "vilanro", "synthetic")
+class SYNTHETIC(BaseDataset):
+    """In-memory synthetic bimodal dataset (a coloured square or circle and
+    its caption, a miniature CdSprites+) for tests and runs without
+    downloads.  ``path`` given as digits ("512") is the row count; the loaders
+    read no file, so the same rows serve every split."""
+
+    feature_dims = {"image": [64, 64, 3], "text": [45, 27, 1]}
+    COLORS = {"red": (1.0, 0.1, 0.1), "green": (0.1, 1.0, 0.1),
+              "blue": (0.2, 0.2, 1.0), "yellow": (1.0, 1.0, 0.1)}
+    SHAPES = ["square", "circle"]
+
+    def __init__(self, pth=None, testpth=None, mod_type="image", n: int = 256,
+                 seed: int = 0):
+        super().__init__(pth, testpth, mod_type)
+        self.n = int(pth) if pth and str(pth).isdigit() else n
+        self.seed = seed
+        self._cache = None
+
+    def _generate(self):
+        if self._cache is not None:
+            return self._cache
+        rng = np.random.default_rng(self.seed)
+        imgs = np.zeros((self.n, 64, 64, 3), dtype=np.float32)
+        caps = []
+        color_names = list(self.COLORS)
+        for i in range(self.n):
+            color = color_names[rng.integers(len(color_names))]
+            shape = self.SHAPES[rng.integers(len(self.SHAPES))]
+            cx, cy = rng.integers(16, 48, size=2)
+            r = int(rng.integers(6, 14))
+            c = np.array(self.COLORS[color], np.float32)
+            if shape == "square":
+                imgs[i, cy - r:cy + r, cx - r:cx + r] = c
+            else:
+                yy, xx = np.mgrid[:64, :64]
+                imgs[i][(yy - cy) ** 2 + (xx - cx) ** 2 <= r * r] = c
+            caps.append(f"{color} {shape}")
+        self._cache = (imgs, caps)
+        return self._cache
+
+    def labels(self):
+        return self._generate()[1]
+
+    def _mod_specific_loaders(self):
+        return {"image": self._load_image, "text": self._load_text}
+
+    def _mod_specific_savers(self):
+        return {"image": self._decode_image, "text": self._decode_text}
+
+    def _load_image(self):
+        return self._generate()[0], None
+
+    def _load_text(self):
+        return self._load_text_onehot(self._generate()[1], self.feature_dims["text"][0])
+
+
+DATASETS = {"cdspritesplus": CDSPRITESPLUS, "sprites": SPRITES, "cub": CUB,
+            "celeba": CELEBA, "synthetic": SYNTHETIC}
+# known to the JAX package, not ported yet: the ROADMAP Queue A item of each
+_UNPORTED = {"vilanro": "7b", "mnist_svhn": "7d", "fashionmnist": "7d", "polymnist": "7d"}
 
 
 def get_dataset_class(name: str):
     key = (name or "").lower()
     if key in _UNPORTED:
         raise NotImplementedError(f"dataset '{name}' is not ported yet "
-                                  "(ROADMAP Queue A item 7)")
+                                  f"(ROADMAP Queue A item {_UNPORTED[key]})")
     if key not in DATASETS:
         raise KeyError(f"Did not find dataset with name {name}; "
                        f"available: {sorted(DATASETS)}")

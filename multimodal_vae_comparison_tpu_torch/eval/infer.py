@@ -141,9 +141,10 @@ class MultimodalVAEInfer:
         samples of that aggregate posterior (:meth:`_fitted_prior`).
         ``temperature`` scales the sampling standard deviation.
 
-        The draws come from a CPU generator seeded ``seed``: for the prior
-        ``eps`` (1, num, D); for the mixtures the component ``idx`` (num,),
-        then ``eps`` (num, D).  Either may be passed in instead.
+        The draws come from a CPU generator seeded ``seed``: for the
+        Gaussian prior ``eps`` (1, num, D); for the mixtures (a mixture prior
+        of ``prior_components > 1`` among them) the component ``idx``
+        (num,), then ``eps`` (num, D).  Either may be passed in instead.
         """
         generator = torch.Generator().manual_seed(seed)
         if source in ("expost", "fitted"):
@@ -165,7 +166,8 @@ class MultimodalVAEInfer:
         elif source == "prior":
             with torch.inference_mode():
                 z = self.model.sample_pz(num_samples, temperature, generator=generator,
-                                         eps=None if eps is None else torch.as_tensor(eps))
+                                         eps=None if eps is None else torch.as_tensor(eps),
+                                         idx=None if idx is None else torch.as_tensor(idx))
         else:
             raise ValueError(f"source must be 'prior', 'expost' or 'fitted', got {source!r}")
         z = z.to(self.device)

@@ -3,10 +3,9 @@
 The static modality spec, ``build_specs``, and the shared machinery of
 every mixing strategy: encode/decode, the priors and posteriors, the KL
 terms and the reconstruction log-likelihood.  Submodules carry flax's names
-(``enc_mod_1``, ``dec_mod_2``, ``pz_logvar``) so that
+(``enc_mod_1``, ``dec_mod_2``, ``pz_logvar``, ``pz_mog_loc``) so that
 ``bridge.load_flax_params`` maps the reference's parameters one to one.
-The mixture prior (``prior_components > 1``) and the aux endpoint head are
-not ported yet (ROADMAP Queue A item 2).
+The aux endpoint head is not ported yet (ROADMAP Queue A item 7c).
 """
 from __future__ import annotations
 
@@ -15,6 +14,7 @@ import math
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -22,7 +22,7 @@ from multimodal_vae_comparison_tpu_torch.device import resolve_device
 from multimodal_vae_comparison_tpu_torch.models import objectives
 from multimodal_vae_comparison_tpu_torch.models.decoders import get_decoder
 from multimodal_vae_comparison_tpu_torch.models.distributions import (
-    Normal, get_dist, kl_divergence)
+    MixtureNormal, Normal, get_dist, kl_divergence)
 from multimodal_vae_comparison_tpu_torch.models.encoders import get_encoder
 from multimodal_vae_comparison_tpu_torch.models.output import VAEOutput
 from multimodal_vae_comparison_tpu_torch.ops.kernels.kl_kernel import (
@@ -91,6 +91,12 @@ class MMVAE(nn.Module):
     gradients are on: its activations are dropped after the forward and
     recomputed in the backward pass, trading operations for memory on the
     large video trunks.
+
+    ``prior_components = C > 1`` replaces the learned-scale Gaussian prior
+    with a learnable mixture of C diagonal Gaussians (``pz_mog_loc`` ~ N(0,
+    1), ``pz_mog_rawscale`` and ``pz_mog_logits`` zeros, as flax draws
+    them), whose KL to a posterior is a Monte-Carlo mean over the drawn
+    latents (:meth:`kld_to_prior`).
     """
 
     def __init__(self, specs: Tuple[ModalitySpec, ...], n_latents: int,
@@ -99,10 +105,8 @@ class MMVAE(nn.Module):
                  obj: str = "elbo", beta: float = 1.0,
                  prior_components: int = 1, remat: bool = False):
         super().__init__()
-        if prior_components != 1:
-            raise NotImplementedError(
-                "the mixture-of-Gaussians prior (prior_components > 1) is not "
-                "ported yet (ROADMAP Queue A item 2)")
+        if prior_components < 1:
+            raise ValueError(f"prior_components must be >= 1, got {prior_components}")
         device = resolve_device(device)
         self.specs = tuple(specs)
         self.n_latents = n_latents
@@ -110,6 +114,7 @@ class MMVAE(nn.Module):
         self.obj = obj
         self.beta = beta
         self.remat = remat
+        self.prior_components = prior_components
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
             for spec in self.specs:
@@ -119,6 +124,12 @@ class MMVAE(nn.Module):
                 self.add_module(f"dec_{spec.name}", get_decoder(spec.decoder)(
                     latent_dim=n_latents, data_dim=spec.feature_dims,
                     latent_private=spec.private_latents))
+            if prior_components > 1:
+                # spread component means; raw scale 0 -> softplus(0.5413) ~ 1
+                C = prior_components
+                self.pz_mog_loc = nn.Parameter(torch.randn(C, n_latents))
+                self.pz_mog_rawscale = nn.Parameter(torch.zeros(C, n_latents))
+                self.pz_mog_logits = nn.Parameter(torch.zeros(C))
         # learnable-scale prior: mu fixed 0, scale = softmax(raw) * D, raw
         # from zeros -> N(0, 1) at init
         self.pz_logvar = nn.Parameter(torch.zeros(1, n_latents))
@@ -151,16 +162,26 @@ class MMVAE(nn.Module):
         scale = torch.softmax(self.pz_logvar, dim=1) * self.pz_logvar.shape[-1]
         return torch.zeros_like(self.pz_logvar), scale
 
-    def pz(self) -> Normal:
-        """The learned-scale Gaussian prior, (1, D)."""
+    def pz(self):
+        """The prior: the learned-scale Gaussian, (1, D), or with
+        ``prior_components > 1`` the learnable mixture."""
+        if self.prior_components > 1:
+            scale = F.softplus(self.pz_mog_rawscale + 0.5413) + 1e-4
+            return MixtureNormal(self.pz_mog_loc, scale, self.pz_mog_logits)
         return Normal(*self.pz_params())
 
     def sample_pz(self, num: int, temperature: float = 1.0,
                   generator: Optional[torch.Generator] = None,
-                  eps: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """(1, num, D) draws of the learned-scale Gaussian prior for joint
-        generation, ``mu + temperature * scale * eps``; ``eps`` (1, num, D)
-        injected, or drawn from ``generator`` on its own device."""
+                  eps: Optional[torch.Tensor] = None,
+                  idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """(1, num, D) prior draws for joint generation.  The Gaussian's
+        ``mu + temperature * scale * eps`` with ``eps`` (1, num, D); the
+        mixture's :meth:`MixtureNormal.sample`, its component ``idx`` (num,)
+        then ``eps`` (num, D).  Each is injected, or drawn from
+        ``generator`` on its own device."""
+        if self.prior_components > 1:
+            return self.pz().sample(num, temperature, generator=generator, idx=idx,
+                                    eps=eps)[None]
         mu, scale = self.pz_params()
         shape = (1, num, self.n_latents)
         if eps is None:
@@ -170,10 +191,16 @@ class MMVAE(nn.Module):
             raise ValueError(f"eps has shape {tuple(eps.shape)}, expected {shape}")
         return mu + temperature * scale * eps.to(mu.device, mu.dtype)
 
-    def kld_to_prior(self, dist) -> torch.Tensor:
-        """(B,) KL(dist || learned prior), closed form (the mixture prior's
-        Monte-Carlo estimate over drawn samples is not ported)."""
-        return kl_divergence(dist, self.pz()).sum(-1)
+    def kld_to_prior(self, dist, z: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """(B,) KL(dist || learned prior): closed form for the Gaussian
+        prior; for the mixture, which has none, the Monte-Carlo mean over
+        the (K, B, D) latents ``z`` already drawn from ``dist``."""
+        pz = self.pz()
+        if isinstance(pz, Normal):
+            return kl_divergence(dist, pz).sum(-1)
+        if z is None:
+            raise ValueError("the mixture prior's KL needs the drawn latents z")
+        return (dist.log_prob(z).sum(-1) - pz.log_prob(z)).mean(0)
 
     def posterior(self, spec: ModalitySpec, mu, scale):
         return get_dist(spec.prior)(mu, scale)

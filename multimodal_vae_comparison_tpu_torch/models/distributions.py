@@ -1,11 +1,11 @@
 """Distributions (counterpart of ``models/distributions.py``).
 
-Only the diagonal ``Normal`` that serving and the training slice need.
-Like the reference it is a plain container of its parameters with
-``log_prob``, ``kl`` and ``rsample``; ``rsample`` draws from an explicit
-``torch.Generator`` or takes injected noise, so tests can feed both
-packages the same draws.  Laplace, Bernoulli, OneHotCategorical and
-MixtureNormal come with the slices whose models use them.
+The diagonal ``Normal`` and the learnable mixture-of-Gaussians prior
+``MixtureNormal``.  Like the reference each is a plain container of its
+parameters with ``log_prob`` and a sampler; the samplers draw from an
+explicit ``torch.Generator`` or take injected noise, so tests can feed
+both packages the same draws.  Laplace, Bernoulli and OneHotCategorical
+come with the slices whose models use them.
 """
 from __future__ import annotations
 
@@ -48,9 +48,7 @@ class Normal:
         the card the CPU's draws."""
         shape = tuple(sample_shape) + tuple(self.loc.shape)
         if eps is None:
-            eps = torch.randn(shape, generator=generator, dtype=self.loc.dtype,
-                              device=self.loc.device if generator is None
-                              else generator.device).to(self.loc.device)
+            eps = _draw(shape, generator, self.loc)
         elif tuple(eps.shape) != shape:
             raise ValueError(f"eps has shape {tuple(eps.shape)}, expected {shape}")
         return self.loc + eps * self.scale
@@ -77,16 +75,73 @@ def get_dist(name: str):
     return DIST_MAP[key]
 
 
+def _draw(shape, generator, like: torch.Tensor) -> torch.Tensor:
+    """A standard-normal draw of ``shape`` made on the generator's device
+    (the default one's when there is none) and moved to ``like``'s."""
+    return torch.randn(shape, generator=generator, dtype=like.dtype,
+                       device=like.device if generator is None
+                       else generator.device).to(like.device)
+
+
+@dataclasses.dataclass(frozen=True)
+class MixtureNormal:
+    """Mixture of diagonal Gaussians, the learnable prior of
+    ``prior_components > 1``: (C, D) ``locs`` and ``scales``, (C,)
+    ``logits``.
+
+    ``log_prob`` is the JOINT density over the last axis, (..., D) in,
+    (...) out, unlike the factorized families' per-dim terms; use
+    :func:`log_prob_joint` where both can come.
+    """
+
+    locs: torch.Tensor
+    scales: torch.Tensor
+    logits: torch.Tensor
+
+    @property
+    def mean(self) -> torch.Tensor:
+        """(1, D): the mixture weights' average of the component means."""
+        return (torch.softmax(self.logits, -1) @ self.locs)[None]
+
+    def log_prob(self, x: torch.Tensor) -> torch.Tensor:
+        comp = Normal(self.locs, self.scales).log_prob(x[..., None, :]).sum(-1)
+        return torch.logsumexp(comp + torch.log_softmax(self.logits, -1), dim=-1)
+
+    def sample(self, num: int, temperature: float = 1.0,
+               generator: Optional[torch.Generator] = None,
+               idx: Optional[torch.Tensor] = None,
+               eps: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """(num, D) ancestral draws, ``locs[idx] + temperature * scales[idx]
+        * eps``: the component ``idx`` (num,) drawn from the weights, then
+        ``eps`` (num, D), each from ``generator`` unless given.  The
+        component choice is not reparameterized (generation only)."""
+        D = self.locs.shape[-1]
+        if idx is None:
+            probs = torch.softmax(self.logits.detach(), -1)
+            if generator is not None:
+                probs = probs.to(generator.device)
+            idx = torch.multinomial(probs, num, replacement=True, generator=generator)
+        if eps is None:
+            eps = _draw((num, D), generator, self.locs)
+        elif tuple(eps.shape) != (num, D):
+            raise ValueError(f"eps has shape {tuple(eps.shape)}, expected {(num, D)}")
+        idx = torch.as_tensor(idx, device=self.locs.device).long()
+        eps = eps.to(self.locs.device, self.locs.dtype)
+        return self.locs[idx] + temperature * self.scales[idx] * eps
+
+
 def log_prob_joint(dist, x: torch.Tensor) -> torch.Tensor:
-    """Joint log-density over the event (last) axis; the ported families
-    are factorized, so the per-dim terms are summed."""
-    return dist.log_prob(x).sum(-1)
+    """Joint log-density over the event (last) axis for both conventions:
+    the factorized families' per-dim terms are summed, a MixtureNormal's is
+    already joint."""
+    lp = dist.log_prob(x)
+    return lp if isinstance(dist, MixtureNormal) else lp.sum(-1)
 
 
 def kl_divergence(d1, d2) -> torch.Tensor:
     """Closed-form KL when both distributions share a family.  The
     reference's Monte-Carlo estimate between mixed families waits for a
-    model that needs it."""
+    model that needs it; the mixture prior's KL is :meth:`MMVAE.kld_to_prior`'s."""
     if type(d1) is type(d2) and hasattr(d1, "kl"):
         return d1.kl(d2)
     raise NotImplementedError(

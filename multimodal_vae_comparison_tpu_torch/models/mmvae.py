@@ -9,6 +9,12 @@ a dict from modality name to its (K, B, D) draw; MoPOE takes the one (K, B,
 D) draw of its joint sample; DMVAE a list in the order the reference draws
 them (see its docstring).  Without ``eps`` the draws come from ``generator``
 in the same order (``self.specs`` order for MOE).
+
+Under the mixture prior (``prior_components > 1``) every KL to the prior is
+the Monte-Carlo mean over latents drawn from the posterior
+(:meth:`MMVAE.kld_to_prior`): MOE's and POE's over the draws they decode;
+MoPOE and DMVAE draw more, and their ``eps`` grows by those (see each
+``objective``).
 """
 from __future__ import annotations
 
@@ -105,12 +111,16 @@ class MOE(MMVAE):
     def _objective_elbo(self, batch, eps, generator):
         """Mixture ELBO, (1/M) sum_m [sum_n llik_n log p(x_n|z_m) - beta
         KL(q_m || N(0, 1))], with the own-reconstruction term once; under
-        ``elbo_iw`` each cross term is weighted by q_r(z_o) / q_o(z_o)."""
+        ``elbo_iw`` each cross term is weighted by q_r(z_o) / q_o(z_o).  Under
+        the mixture prior the KL is to the prior, over each modality's draw."""
         weighted = self.obj == "elbo_iw"
         qzs, zs = self._sample_all(batch, eps, generator)
         lpx_by_tgt = self._lpx_by_target(batch, zs)
         lpx_terms, rec_per_mod = [], {}
-        kld = self.kld_std_all(qzs)                              # (M, B)
+        if self.prior_components > 1:
+            kld = torch.stack([self.kld_to_prior(qzs[n], zs[n]) for n in self.mod_names])
+        else:
+            kld = self.kld_std_all(qzs)                          # (M, B)
         for i, spec in enumerate(self.specs):
             qz = qzs[spec.name]
             lpx_own = lpx_by_tgt[spec.name][i]
@@ -274,7 +284,7 @@ class POE(MMVAE):
         total_kld = torch.zeros((), device=z_all.device)
         rec_per_mod = {s.name: torch.zeros((), device=z_all.device) for s in self.specs}
         for s, present in enumerate(presents):
-            kld = self.kld_to_prior(joints[s])
+            kld = self.kld_to_prior(joints[s], z_subs[s])
             lpx_sum = torch.zeros((), device=z_all.device)
             for spec in self.specs:
                 lpx = lpx_sub[spec.name][s]
@@ -297,7 +307,9 @@ class MoPOE(MMVAE):
     (:func:`mixture_component_selection`).
 
     Injected noise: ``forward`` and ``objective`` take ``eps`` as the one
-    (K, B, D) draw of the joint sample.
+    (K, B, D) draw of the joint sample; under the mixture prior
+    ``objective`` takes a list: that draw, then one (K, B, D) draw of each
+    subset posterior in lattice order, for its Monte-Carlo KL.
     """
 
     def subsets(self) -> Tuple[Tuple[int, ...], ...]:
@@ -335,21 +347,35 @@ class MoPOE(MMVAE):
                                              decoder_dist=dec, latents=z)
         return VAEOutput(mods=mods)
 
-    def objective(self, batch, eps: Optional[torch.Tensor] = None,
-                  generator: Optional[torch.Generator] = None):
+    def objective(self, batch, eps=None, generator: Optional[torch.Generator] = None):
         """Reconstruction of every modality from the mixture's sample (K
-        mean, then batch mean), and the group KL: the closed-form KL to the
-        learned prior of every subset posterior and of the joint, each
-        batch-averaged and weighted 1/(S+1)."""
+        mean, then batch mean), and the group KL: the KL to the learned
+        prior of every subset posterior and of the joint, each
+        batch-averaged and weighted 1/(S+1); closed form, or under the
+        mixture prior over the joint's sample and a draw of each subset's."""
         present = self.mod_names
+        mog = self.prior_components > 1
         qz_params = self.encode(batch, present)
         joint, subset_dists = self.mix(qz_params, present)
+        subset_eps = None
+        if mog and eps is not None:
+            if len(eps) != len(subset_dists) + 1:
+                raise ValueError(f"eps holds {len(eps)} draws; under the mixture prior "
+                                 f"the objective makes {len(subset_dists) + 1}")
+            eps, subset_eps = eps[0], iter(eps[1:])
         z = joint.rsample((self.K,), generator=generator, eps=eps)
         dists = list(subset_dists.values()) + [joint]
         w = 1.0 / len(dists)
         group_div = torch.zeros((), device=z.device)
         for d in dists:
-            group_div = group_div + w * self.kld_to_prior(d).mean()
+            if mog:
+                z_d = z if d is joint else d.rsample(
+                    (self.K,), generator=generator,
+                    eps=None if subset_eps is None else next(subset_eps))
+                div = self.kld_to_prior(d, z_d)
+            else:
+                div = self.kld_to_prior(d)
+            group_div = group_div + w * div.mean()
         lpx_total = torch.zeros((), device=z.device)
         rec_per_mod = {}
         for spec in self.specs:
@@ -381,7 +407,9 @@ class DMVAE(MMVAE):
     draws them: the (K, B, D) joint sample; then per modality in spec
     order its shared (K, B, D) and private (K, B, P) draws (present) or the
     private prior draw alone (missing), followed by one (K, B, D) shared
-    draw of each other present modality for its cross decodes.
+    draw of each other present modality for its cross decodes.  Under the
+    mixture prior ``objective`` takes one more (K, B, D) draw of the joint
+    per modality after those, for the joint's Monte-Carlo KL.
     """
 
     def _check_factorized(self):
@@ -449,10 +477,20 @@ class DMVAE(MMVAE):
 
     def objective(self, batch, eps: Optional[Sequence[torch.Tensor]] = None,
                   generator: Optional[torch.Generator] = None):
-        """Sum over modalities of the own and the joint ELBO (closed-form KL
-        to the learned prior) and the cross reconstructions, with the
-        private KL to N(0, 1) counted once per cross pair."""
+        """Sum over modalities of the own and the joint ELBO (KL to the
+        learned prior: closed form, or under the mixture prior the
+        Monte-Carlo mean over the modality's shared draw and over a fresh
+        draw of the joint) and the cross reconstructions, with the private
+        KL to N(0, 1) counted once per cross pair."""
         self._check_factorized()
+        mog = self.prior_components > 1
+        joint_eps = None
+        if mog and eps is not None:
+            n = len(self.eps_shapes(self.mod_names, 0))
+            if len(eps) != n + len(self.specs):
+                raise ValueError(f"eps holds {len(eps)} draws; under the mixture prior "
+                                 f"the objective makes {n + len(self.specs)}")
+            eps, joint_eps = eps[:n], eps[n:]
         out = self.forward(batch, self.mod_names, eps=eps, generator=generator)
         kld_priv_all = self.kld_std_all({n: out.mods[n].enc_dist_private
                                          for n in self.mod_names})      # (M, B)
@@ -463,8 +501,14 @@ class DMVAE(MMVAE):
             mo = out.mods[spec.name]
             lpx = _kmean(self.recon_lpx(spec, mo.decoder_dist, batch))
             lpx_joint = _kmean(self.recon_lpx(spec, mo.joint_decoder_dist, batch))
-            kld = self.kld_to_prior(mo.encoder_dist)
-            kld_joint = self.kld_to_prior(mo.joint_dist)
+            if mog:
+                kld = self.kld_to_prior(mo.encoder_dist, mo.latents)
+                z_j = mo.joint_dist.rsample((self.K,), generator=generator,
+                                            eps=None if joint_eps is None else joint_eps[i])
+                kld_joint = self.kld_to_prior(mo.joint_dist, z_j)
+            else:
+                kld = self.kld_to_prior(mo.encoder_dist)
+                kld_joint = self.kld_to_prior(mo.joint_dist)
             lpx_cross = torch.zeros((), device=total.device)
             kld_priv = torch.zeros((), device=total.device)
             for cross in mo.cross_decoder_dist.values():

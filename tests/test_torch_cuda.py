@@ -848,3 +848,96 @@ def test_sprites_objective_on_the_card_matches_the_cpu(cuda, path, kernels):
     for name, g in out["cpu"][1].items():
         err = (out["cuda"][1][name] - g).abs().max().item()
         assert err <= 1e-4 * g.abs().max().item() + 1e-5, f"{name}: {err}"
+
+
+def _cub_masks(b, seed):
+    """Key-padding masks of b captions of the CUB surrogate's grammar at its
+    246 characters: 40-70 characters each, the rest padding."""
+    lengths = np.random.default_rng(seed).integers(40, 71, (b, 1))
+    return np.arange(246)[None, :] < lengths
+
+
+@pytest.mark.parametrize("b,tk,dh,masked", [
+    (32, 246, 32, True),     # cub_r2's text encoder: self-attention over captions
+    (16, 246, 32, True),     # config_cub's
+    (640, 1, 8, False)])     # cub_r2's text decoder on M*K*B = 640 latents
+def test_attention_at_cub_caption_length_matches_plain(cuda, b, tk, dh, masked):
+    """Masked attention at CUB's 246-character captions, on the resident
+    kernel (Tk <= 256 keys, 8 a lane): forward and the Function's backward
+    against autograd through the plain version."""
+    q, k, v, _ = _qkv(21, b, 2, 246, tk, dh, False, cuda)
+    mask = torch.from_numpy(_cub_masks(b, 22)).to(cuda) if masked else None
+    telemetry.reset()
+    got = tattn.masked_attention(q, k, v, mask)
+    assert telemetry.variants() == {"attention:resident": 1}
+    torch.testing.assert_close(got, tattn.attention_reference(q, k, v, mask), **ATTN_TOL)
+    d_out = torch.randn(q.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(3))
+    leaves = [[x.detach().clone().requires_grad_() for x in (q, k, v)] for _ in range(2)]
+    got = torch.autograd.grad(tattn.masked_attention(*leaves[0], mask), leaves[0], d_out)
+    want = torch.autograd.grad(tattn.attention_reference(*leaves[1], mask), leaves[1], d_out)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, **ATTN_TOL)
+
+
+@pytest.mark.parametrize("over,kernels", [
+    ({}, {"attention": 3}),
+    ({"mixing": "poe", "obj": "elbo", "K": 1}, {"attention": 2, "poe": 1, "poe_bwd": 1}),
+    ({"obj": "elbo", "K": 1}, {"attention": 2})],
+    ids=["moe-dreg", "poe-elbo", "moe-elbo"])
+def test_mixture_prior_step_on_the_card_matches_the_cpu(cuda, over, kernels):
+    """``configs/round4/cdl1_r4_mog.yml`` (50 mixture components) at its
+    widths and bs 2: MOE/DReG at K 10, and POE and MOE ELBO under the same
+    prior.  One objective and its backward launch exactly their kernels, no
+    KL kernel (the KL to the mixture is a Monte-Carlo mean), and the loss
+    and every gradient (pz_mog_* among them) match the CPU's plain path in
+    float64 on the same weights, batch and draws, the CPU on the card's relu
+    branches and DReG weights (chip_smoke.same_branches,
+    same_dreg_weights)."""
+    import pathlib
+    import sys
+    from multimodal_vae_comparison_tpu_torch.config import Config
+    from multimodal_vae_comparison_tpu_torch.training.trainer import build_model_from_config
+    root = pathlib.Path(__file__).resolve().parents[1]
+    sys.path.insert(0, str(root))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.pop(0)
+    cfg = Config(str(root / "configs/round4/cdl1_r4_mog.yml"), overrides=over, eval_only=True)
+    for mod, dims in zip(cfg.mods, ((64, 64, 3), (45, 27))):
+        mod.feature_dims = list(dims)
+    rng = np.random.default_rng(23)
+    data = {"mod_1": rng.random((2, 64, 64, 3)).astype(np.float32),
+            "mod_2": np.eye(27, dtype=np.float32)[rng.integers(0, 27, (2, 45))]}
+    masks = np.arange(45)[None, :] < np.array([[20], [45]])
+    shape = (cfg.K, 2, cfg.n_latents)
+    draws = ({n: rng.standard_normal(shape).astype(np.float32) for n in data}
+             if cfg.mixing == "moe" else [rng.standard_normal(shape).astype(np.float32)
+                                          for _ in range(3)])
+    branches, weights, out = [], [], {}
+    for dev, dtype in (("cuda", torch.float32), ("cpu", torch.float64)):
+        model = build_model_from_config(cfg, device=dev).to(dtype)
+        assert model.prior_components == 50
+        batch = {n: {"data": torch.from_numpy(d).to(dev, dtype),
+                     "masks": torch.from_numpy(masks).to(dev) if n == "mod_2" else None}
+                 for n, d in data.items()}
+        eps = ({n: torch.from_numpy(d).to(dev, dtype) for n, d in draws.items()}
+               if isinstance(draws, dict)
+               else [torch.from_numpy(d).to(dev, dtype) for d in draws])
+        telemetry.reset()
+        with chip_smoke.same_branches(branches, dev == "cpu", {}), \
+                chip_smoke.same_dreg_weights(weights, dev == "cpu", {}):
+            loss, _ = model.objective(batch, eps=eps)
+            loss.backward()
+        if dev == "cuda":
+            assert telemetry.launches() == kernels
+            assert not any(k.endswith(":plain") for k in telemetry.summary())
+        out[dev] = (loss.item(), {n: (torch.zeros_like(p) if p.grad is None
+                                      else p.grad).float().cpu()
+                                  for n, p in model.named_parameters()})
+    assert out["cuda"][0] == pytest.approx(out["cpu"][0], rel=1e-5)
+    for name, g in out["cpu"][1].items():
+        err = (out["cuda"][1][name] - g).abs().max().item()
+        assert err <= 1e-4 * g.abs().max().item() + 1e-5, f"{name}: {err}"
+    assert all(out["cuda"][1][n].abs().sum() > 0 for n in ("pz_mog_loc", "pz_mog_rawscale",
+                                                           "pz_mog_logits"))

@@ -26,7 +26,8 @@ def refuse(*args, **kwargs):
 subprocess.Popen = refuse
 REQUIRED = {"multimodal_vae_comparison_tpu_torch." + m for m in (
     "bridge", "config", "data.datamodule", "data.datasets", "data.native", "data.text",
-    "data_proc.cdsprites", "data_proc.sprites_gen", "eval.classifiers", "eval.eval_cdsprites",
+    "data_proc.cdsprites", "data_proc.sprites_gen", "data_proc.surrogates",
+    "eval.classifiers", "eval.eval_cdsprites", "eval.eval_celeba", "eval.eval_cub",
     "eval.eval_sprites", "eval.infer",
     "eval.train_classifiers", "main", "models.base", "models.contrib", "models.decoders",
     "models.distributions", "models.encoders", "models.mmvae", "models.nets",
@@ -53,7 +54,7 @@ sys.exit(1 if bad or missing or optional else 0)
 
 def test_port_imports_no_jax_no_jax_package_and_no_triton():
     """Every module of the port (the training, video, config/data/Trainer,
-    eval, model-zoo and SPRITES slices' among them), and
+    eval, model-zoo, SPRITES and CelebA/CUB slices' among them), and
     chip_smoke.py, imported in a fresh process with no nvcc reachable: none
     pulls in jax, flax, optax, triton or the JAX package, none loads cv2,
     imageio, matplotlib or sklearn, and none starts a process (an nvcc build)
@@ -78,7 +79,7 @@ os.environ["CXX"] = "/no/such/compiler"
 before = set(Path("build/torch_kernels").glob("libmmvae_io_*")) \
     if Path("build/torch_kernels").is_dir() else set()
 from multimodal_vae_comparison_tpu_torch.data import native
-from multimodal_vae_comparison_tpu_torch.data_proc import cdsprites, sprites_gen
+from multimodal_vae_comparison_tpu_torch.data_proc import cdsprites, sprites_gen, surrogates
 from multimodal_vae_comparison_tpu_torch.data import datamodule, datasets
 after = set(Path("build/torch_kernels").glob("libmmvae_io_*")) \
     if Path("build/torch_kernels").is_dir() else set()
@@ -90,8 +91,9 @@ sys.exit(0 if native._lib is None and after == before and not loaded else 1)
 
 def test_importing_the_data_layer_starts_no_build_and_loads_no_optional_module():
     """``data.native`` compiles ``native/mmvae_io.cpp`` at first use and the
-    generator imports cv2 and h5py where it draws and writes: importing
-    them starts no process, loads no library and no optional module."""
+    generators (the surrogate builders among them) import cv2 and h5py
+    where they draw and write: importing them starts no process, loads no
+    library and no optional module."""
     proc = subprocess.run([sys.executable, "-c", _IMPORT_DATA], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -377,8 +377,9 @@ def test_moe_forward_imputes_missing_modalities_from_the_first_present():
 
 def test_unported_model_options_raise():
     specs = tuple(ModalitySpec(**k) for k in spec_kwargs(NARROW))
-    with pytest.raises(NotImplementedError, match="Queue A item 2"):
-        get_mixing("moe")(specs, 8, device="cpu", prior_components=4)
+    # the mixture prior is ported: it builds (tests/test_torch_prior.py holds it)
+    model = get_mixing("moe")(specs, 8, device="cpu", prior_components=4)
+    assert model.pz_mog_loc.shape == (4, 8) and type(model.pz()).__name__ == "MixtureNormal"
     with pytest.raises(NotImplementedError, match="Queue A item 3"):
         build_model(specs[:1], "moe", 8, device="cpu")
     with pytest.raises(KeyError):
