@@ -48,7 +48,16 @@ three main paths at full width with random weights from a seed:
   attention at CUB's 246-character captions against its plain version,
   the two CelebA (POE), two CUB (MOE, MOE DReG K 10) and the synthetic
   configs trained for 1 resident epoch each, each family's first ending in
-  ``Trainer.test()`` and its benchmark (judges trained on the card).
+  ``Trainer.test()`` and its benchmark (judges trained on the card);
+* VILANRO from its configs ("vilanro from config"): the data collected by
+  the port's LANRO collector (2,000 episodes by each of three recipes),
+  masked attention at its head dim 16 and the PoE lattice at its shapes
+  against their plain versions, ``configs/config_vilanro.yml``,
+  ``round3/vilanro_r3_tokens.yml`` and ``round3/vilanro_r3_way_p2.yml``
+  (the three action encodings) trained for 1 resident epoch each under
+  ``torch.profiler``; on the first, the closed loop (``vilanro_test``
+  open loop and replanning), the grounding probe, a DAgger round, and its
+  step on the card against the CPU.
 
 Each path runs with the kernel counts set to 0 just before it and read just
 after, and must have launched every kernel it goes through and taken no
@@ -2909,6 +2918,51 @@ def phase_sprites_card_vs_cpu(card: str, data_dir: str, root: str, batch) -> dic
     return numbers
 
 
+def poe_lattice_time_rows(g: torch.Generator, m: int, rows_: int, d: int, label: str):
+    """The PoE lattice forward and backward over every subset of ``m``
+    experts at (``rows_``, ``d``), timed (device ms, graphed) beside their
+    plain versions and bounds: two rows of the kernels line."""
+    from multimodal_vae_comparison_tpu_torch.ops.fusion import subset_lattice
+    from multimodal_vae_comparison_tpu_torch.ops.kernels import poe_kernel
+    src = "multimodal_vae_comparison_tpu_torch/csrc/"
+    ref = "multimodal_vae_comparison_tpu/ops/pallas/"
+    lattice = subset_lattice(m)
+    s, n = len(lattice), rows_ * d
+    mus, scales = lattice_inputs(g, m, rows_, d)
+    masks = poe_kernel.lattice_masks(lattice, m)
+    ups = [torch.randn((s, rows_, d), generator=g, device="cuda") for _ in range(2)]
+    mu, scale = poe_kernel.poe_lattice(mus, scales, lattice, 1.0)
+    want = poe_kernel.poe_lattice_reference(mus, scales, lattice, 1.0)
+    sizes = sum(len(sub) for sub in lattice)
+    at = f"{label} M={m} S={s} ({rows_}, {d})"
+    common = {"route": "cuda", "source": src + "poe.cu", "library_ms": None}
+    rows = [{"name": "poe_lattice", "at": at, **common,
+             "replaces": ref + "poe_kernel.py:48",
+             "max_abs_err": max((a - w).abs().max().item()
+                                for a, w in zip((mu, scale), want)),
+             "within_tolerance": all(torch.allclose(a, w, rtol=POE_RTOL, atol=POE_ATOL)
+                                     for a, w in zip((mu, scale), want)),
+             "ms": graph_ms(lambda: poe_kernel.poe_lattice(mus, scales, lattice, 1.0)),
+             "plain_ms": graph_ms(lambda: poe_kernel.poe_lattice_reference(
+                 mus, scales, lattice, 1.0)),
+             **dict(zip(("bound_ms", "bound_by"), bound_ms(
+                 4 * (2 * m * n + 2 * s * n), n * (4 * m + 2 * sizes + 4 * s))))}]
+    bwd = lambda: poe_kernel._launch_backward(mus, scales, masks, mu, scale, *ups)
+    plain_bwd = lambda: poe_kernel.poe_lattice_backward_reference(mus, scales, mu, scale,
+                                                                  *ups, lattice)
+    pairs = list(zip(sum(map(list, bwd()), []), sum(plain_bwd(), [])))
+    rows.append({"name": "poe_lattice_backward", "at": at, **common,
+                 "replaces": ref + "poe_kernel.py:124 (_poe_bwd, the VJP of :48)",
+                 "max_abs_err": max((a - w).abs().max().item() for a, w in pairs),
+                 "within_tolerance": all(torch.allclose(a, w, rtol=POE_BWD_RTOL,
+                                                        atol=POE_BWD_ATOL) for a, w in pairs),
+                 "ms": graph_ms(bwd), "plain_ms": graph_ms(plain_bwd),
+                 **dict(zip(("bound_ms", "bound_by"), bound_ms(
+                     4 * (2 * m * n + 4 * s * n + 2 * m * n),
+                     n * (6 * m + 5 * s + 7 * sizes))))})
+    return rows
+
+
 def phase_sprites_times(card: str):
     """The SPRITES path's kernel shapes timed (device ms, graphed) beside
     their plain versions, their bounds and the library's call: masked
@@ -2917,8 +2971,7 @@ def phase_sprites_times(card: str):
     clips (W's shape is H's); the PoE lattice forward and backward at the
     POE run's M 3, S 7, (32, 10).  Returns one row per shape."""
     import torch.nn.functional as F
-    from multimodal_vae_comparison_tpu_torch.ops.fusion import subset_lattice
-    from multimodal_vae_comparison_tpu_torch.ops.kernels import attention, poe_kernel
+    from multimodal_vae_comparison_tpu_torch.ops.kernels import attention
     g = torch.Generator(device="cuda").manual_seed(44)
     rows = []
     src = "multimodal_vae_comparison_tpu_torch/csrc/"
@@ -2943,37 +2996,7 @@ def phase_sprites_times(card: str):
                          "replaces": ref + "attention.py:77", "max_abs_err": err, "ms": kern,
                          "plain_ms": plain, "bound_ms": bound, "bound_by": by,
                          "library_ms": lib, "library_is": lib_note})
-    m, lattice, rows_, d = 3, subset_lattice(3), 32, 10
-    s, n = len(lattice), rows_ * d
-    mus, scales = lattice_inputs(g, m, rows_, d)
-    masks = poe_kernel.lattice_masks(lattice, m)
-    ups = [torch.randn((s, rows_, d), generator=g, device="cuda") for _ in range(2)]
-    mu, scale = poe_kernel.poe_lattice(mus, scales, lattice, 1.0)
-    want = poe_kernel.poe_lattice_reference(mus, scales, lattice, 1.0)
-    sizes = sum(len(sub) for sub in lattice)
-    at = f"sprites POE M={m} S={s} ({rows_}, {d})"
-    common = {"route": "cuda", "source": src + "poe.cu", "library_ms": None}
-    rows.append({"name": "poe_lattice", "at": at, **common,
-                 "replaces": ref + "poe_kernel.py:48",
-                 "max_abs_err": max((a - w).abs().max().item()
-                                    for a, w in zip((mu, scale), want)),
-                 "ms": graph_ms(lambda: poe_kernel.poe_lattice(mus, scales, lattice, 1.0)),
-                 "plain_ms": graph_ms(lambda: poe_kernel.poe_lattice_reference(
-                     mus, scales, lattice, 1.0)),
-                 **dict(zip(("bound_ms", "bound_by"), bound_ms(
-                     4 * (2 * m * n + 2 * s * n), n * (4 * m + 2 * sizes + 4 * s))))})
-    bwd = lambda: poe_kernel._launch_backward(mus, scales, masks, mu, scale, *ups)
-    plain_bwd = lambda: poe_kernel.poe_lattice_backward_reference(mus, scales, mu, scale,
-                                                                  *ups, lattice)
-    rows.append({"name": "poe_lattice_backward", "at": at, **common,
-                 "replaces": ref + "poe_kernel.py:124 (_poe_bwd, the VJP of :48)",
-                 "max_abs_err": max((a - w).abs().max().item()
-                                    for a, w in zip(sum(map(list, bwd()), []),
-                                                    sum(plain_bwd(), []))),
-                 "ms": graph_ms(bwd), "plain_ms": graph_ms(plain_bwd),
-                 **dict(zip(("bound_ms", "bound_by"), bound_ms(
-                     4 * (2 * m * n + 4 * s * n + 2 * m * n),
-                     n * (6 * m + 5 * s + 7 * sizes))))})
+    rows += poe_lattice_time_rows(g, 3, 32, 10, "sprites POE")
     for r in rows:
         print(f"time {r['name']} [{r['at']}]: kernel {r['ms']:.5f} ms, plain "
               f"{r['plain_ms']:.5f} ms, library "
@@ -3469,6 +3492,394 @@ def phase_families_from_config(card: str, root: str):
     return total, numbers, rows
 
 
+# -- VILANRO (ROADMAP Queue A item 7b) ---------------------------------------
+
+# the data the three trained configs name, collected in the run by the port's
+# collector (NLReach2-v0, seed 0) at its default 2,000 episodes, each by its
+# recipe: D1 the defaults; D1chunk hindsight chunks every 5 steps; D1way_p2
+# those chunks as start-relative waypoints
+VILANRO_EPISODES = 2000
+VILANRO_DATA = (("D1", {}), ("D1chunk", {"chunk_every": 5}),
+                ("D1way_p2", {"chunk_every": 5, "waypoints": True}))
+VILANRO_STEMS = ("instructions_final.pkl", "endeff_actions_final.pkl", "image_final.pkl")
+# (label, config, data): the three action encodings, 1 resident epoch each
+# (not 400-600) under torch.profiler; the first ends in test() and drives the
+# closed loop, the probe and a DAgger round
+VILANRO_FROM_CONFIG = (
+    ("POE vilanro", "configs/config_vilanro.yml", "D1"),
+    ("POE vilanro_r3_tokens", "configs/round3/vilanro_r3_tokens.yml", "D1chunk"),
+    ("POE vilanro_r3_way_p2", "configs/round3/vilanro_r3_way_p2.yml", "D1way_p2"))
+# launches of one objective call and of a train step's backward: attention
+# in the language encoder (1 layer), the action encoder (8), the language
+# decoder (1) and the action decoder (4); PoE once for the whole lattice
+VILANRO_PER_OBJECTIVE = {"poe": {"attention": 14, "poe": 1}}
+VILANRO_PER_BACKWARD = {"poe": {"poe_bwd": 1}}
+VILANRO_TABLES = (VILANRO_PER_OBJECTIVE, VILANRO_PER_BACKWARD)
+# the closed loop (trials, open loop and replanning every 5 steps), the probe's
+# scenes and the DAgger round's episodes (one batch of rollouts)
+VILANRO_TRIALS, VILANRO_REPLAN, VILANRO_SCENES, VILANRO_DAGGER = 200, 5, 400, 20
+VILANRO_PARITY_BATCH = 4
+VILANRO_LANGUAGE = "mod_1"   # modality_1 of every VILANRO config
+
+
+def vilanro_forward_launches(presents) -> dict:
+    """Launches of the inference forwards with the modalities ``presents``
+    (one tuple a forward): each decodes every modality (attention in the
+    language decoder and the action decoder's 4 layers), encodes the
+    language where it is present (1) and fuses the present experts (PoE
+    once)."""
+    attention = sum(5 + (VILANRO_LANGUAGE in p) for p in presents)
+    return {k: n for k, n in (("attention", attention), ("poe", len(presents))) if n}
+
+
+def make_vilanro(root: str):
+    """VILANRO_DATA collected by the port's collector:
+    ({name: directory}, {name: the collector's stats and seconds})."""
+    from multimodal_vae_comparison_tpu_torch.lanro.collect import collect
+    dirs, stats = {}, {}
+    for name, options in VILANRO_DATA:
+        t0 = time.perf_counter()
+        st = collect("NLReach2-v0", VILANRO_EPISODES, os.path.join(root, name), seed=0,
+                     **options)
+        st["seconds"] = time.perf_counter() - t0
+        print(f"vilanro collect {name} {options}: {st['episodes']} episodes, {st['samples']} "
+              f"samples, expert success {100 * st['expert_success']:.1f} %, vocabulary "
+              f"{st['vocab_size']} words, {st['seconds']:.2f} s on the host")
+        check(st["expert_success"] == 1.0, f"vilanro {name}: the scripted expert succeeded in "
+              f"{100 * st['expert_success']:.1f} % of episodes")
+        dirs[name], stats[name] = st["out_dir"], st
+    return dirs, stats
+
+
+def vilanro_paths(data_dir: str) -> dict:
+    """Each modality's data path in a collected directory (language,
+    actions, front RGB; no test file)."""
+    return {f"modality_{i + 1}": {"path": os.path.join(data_dir, stem), "test_datapath": None}
+            for i, stem in enumerate(VILANRO_STEMS)}
+
+
+def phase_vilanro_attention(card: str, data_dir: str, batch: int, decodes: int):
+    """Masked attention at VILANRO's shapes (head dim 16 at 32 latents)
+    against its plain version, forward and the Function's backward: the
+    action encoder's self-attention over ``batch`` collected trajectories
+    (100 steps, their own step masks), the language encoder's over their
+    instructions, and the two sequence decoders' cross-attention to one
+    memory token on the lattice's ``decodes`` rows.  Then each timed
+    (device ms, graphed) beside the plain version, SDPA with the same mask
+    and the bound over the keys each row needs.  Returns (parity numbers,
+    time rows)."""
+    import torch.nn.functional as F
+    from multimodal_vae_comparison_tpu_torch.data.datasets import VILANRO
+    from multimodal_vae_comparison_tpu_torch.ops.kernels import attention, telemetry
+    masks = {t: torch.from_numpy(VILANRO(os.path.join(data_dir, stem), None, t)
+                                 .get_data()[1][:batch]).cuda()
+             for t, stem in (("actions", VILANRO_STEMS[1]), ("language", VILANRO_STEMS[0]))}
+    steps, words = masks["actions"].shape[1], masks["language"].shape[1]
+    cases = ((f"action encoder bs {batch}", (batch, 2, steps, steps, 16), masks["actions"]),
+             (f"language encoder bs {batch}", (batch, 2, words, words, 32), masks["language"]),
+             (f"action decoder S*K*B {decodes}", (decodes, 2, steps, 1, 16), None),
+             (f"language decoder S*K*B {decodes}", (decodes, 2, words, 1, 16), None))
+    g = torch.Generator(device="cuda").manual_seed(60)
+    src = "multimodal_vae_comparison_tpu_torch/csrc/attention.cu"
+    parity, rows = {}, []
+    for label, shape, mask in cases:
+        q, k, v, _ = attention_inputs(g, *shape, False)
+        telemetry.reset()
+        got = attention.masked_attention(q, k, v, mask)
+        took = telemetry.variants()
+        want = attention.attention_reference(q, k, v, mask)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        padded = 0.0 if mask is None else 1.0 - mask.float().mean().item()
+        print(f"parity attention vilanro {label} {shape} (padded keys {padded:.3f}): "
+              f"max_abs_err={err:.3e} (rtol {ATTN_RTOL}, atol {ATTN_ATOL}); {took}")
+        check(took == {"attention:resident": 1}, f"attention at {shape} launched {took}")
+        check(torch.allclose(got, want, rtol=ATTN_RTOL, atol=ATTN_ATOL),
+              f"attention kernel disagrees with its plain version at {shape}")
+        d_out = torch.randn(q.shape, generator=g, device="cuda")
+        _grad_parity(f"attention vilanro {label} {shape}",
+                     lambda q_, k_, v_: attention.masked_attention(q_, k_, v_, mask),
+                     lambda q_, k_, v_: attention.attention_reference(q_, k_, v_, mask),
+                     (q, k, v), d_out, ATTN_RTOL, ATTN_ATOL)
+        parity[f"{label} {shape}"] = {"max_abs_err": err, "padded_keys": padded}
+        b, h, tq, tk, dh = shape
+        lib_mask = None if mask is None else mask[:, None, None, :]
+        kern = graph_ms(lambda: attention.masked_attention(q, k, v, mask))
+        plain = graph_ms(lambda: attention.attention_reference(q, k, v, mask))
+        try:
+            lib = graph_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=lib_mask))
+            lib_note = "graphed"
+        except RuntimeError as e:   # the library's limits, not the port's
+            lib, lib_note = eager_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=lib_mask)), f"eager (graph capture refused: {str(e)[:80]})"
+        bound, by = attention_bound(b, h, tq, tk, dh, mask)
+        rows.append({"name": "masked_attention", "at": f"vilanro {label}, {shape}",
+                     "masked": mask is not None, "padded_keys": padded, "route": "cuda",
+                     "source": src,
+                     "replaces": "multimodal_vae_comparison_tpu/ops/pallas/attention.py:77",
+                     "max_abs_err": err, "ms": kern, "plain_ms": plain, "bound_ms": bound,
+                     "bound_by": by, "library_ms": lib,
+                     "library_is": "F.scaled_dot_product_attention(q, k, v, attn_mask=the "
+                                   f"key padding or none), {lib_note}"})
+        print(f"time masked_attention [vilanro {label} {shape}]: kernel {kern:.5f} ms, plain "
+              f"{plain:.5f} ms, SDPA {lib:.5f} ms, bound {bound:.6f} ms ({by}), max_abs_err "
+              f"{err:.3e} on {card}")
+    for r in poe_lattice_time_rows(g, 3, batch, 32, "vilanro POE"):
+        print(f"time {r['name']} [{r['at']}]: kernel {r['ms']:.5f} ms, plain "
+              f"{r['plain_ms']:.5f} ms, bound {r['bound_ms']:.6f} ms ({r['bound_by']}), "
+              f"max_abs_err {r['max_abs_err']:.3e} on {card}")
+        check(r["within_tolerance"], f"{r['name']} at {r['at']} disagrees with its plain "
+              f"version: max_abs_err {r['max_abs_err']:.3e}")
+        rows.append(r)
+    return parity, rows
+
+
+def phase_vilanro_closed_loop(card: str, run_dir: str, root: str, total: dict) -> dict:
+    """The closed loop on a trained run, through the port's entry points on
+    the card: ``vilanro_test`` over VILANRO_TRIALS trials open loop and
+    replanning every VILANRO_REPLAN steps, ``vilanro_probe`` over
+    VILANRO_SCENES scenes (both CLIs, each restoring the run and writing
+    its stats file), then one ``collect_dagger`` round of VILANRO_DAGGER
+    episodes from the run.  Counted from zero: exactly the launches of the
+    forwards they made (:func:`vilanro_forward_launches`), no plain
+    version.  Returns the numbers: stats, seconds, launches."""
+    from multimodal_vae_comparison_tpu_torch.data.datasets import VILANRO
+    from multimodal_vae_comparison_tpu_torch.eval import vilanro_probe, vilanro_test
+    from multimodal_vae_comparison_tpu_torch.eval.infer import MultimodalVAEInfer
+    from multimodal_vae_comparison_tpu_torch.lanro import collect
+    presents, stats, seconds = [], {}, {}
+    own_forward = MultimodalVAEInfer.forward
+    own_loop, own_probe = vilanro_test.infer_loop, vilanro_probe.probe_report
+    dagger_dir = os.path.join(root, "vilanro_dagger")
+
+    def counting_forward(self, inputs, present, *args, **kwargs):
+        presents.append(tuple(present))
+        return own_forward(self, inputs, present, *args, **kwargs)
+
+    def keeping(fn, key):
+        def run(*args, **kwargs):
+            stats[key] = fn(*args, **kwargs)
+            return stats[key]
+        return run
+
+    def run():
+        argv = sys.argv
+        MultimodalVAEInfer.forward = counting_forward
+        try:
+            for replan in (0, VILANRO_REPLAN):
+                vilanro_test.infer_loop = keeping(own_loop, f"replan{replan}")
+                sys.argv = ["vilanro_test", "--model", run_dir, "--trials",
+                            str(VILANRO_TRIALS), "--replan", str(replan)]
+                t0 = time.perf_counter()
+                vilanro_test.main()
+                seconds[f"vilanro_test_replan{replan}_s"] = time.perf_counter() - t0
+            vilanro_probe.probe_report = keeping(own_probe, "probe")
+            sys.argv = ["vilanro_probe", "--model", run_dir, "--scenes", str(VILANRO_SCENES)]
+            t0 = time.perf_counter()
+            vilanro_probe.main()
+            seconds["vilanro_probe_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            stats["dagger"] = collect.collect_dagger("NLReach2-v0", VILANRO_DAGGER, dagger_dir,
+                                                     run_dir, batch=VILANRO_DAGGER)
+            seconds["collect_dagger_s"] = time.perf_counter() - t0
+        finally:
+            sys.argv = argv
+            MultimodalVAEInfer.forward = own_forward
+            vilanro_test.infer_loop, vilanro_probe.probe_report = own_loop, own_probe
+
+    from multimodal_vae_comparison_tpu_torch.ops.kernels import telemetry
+    telemetry.reset()
+    run()
+    torch.cuda.synchronize()
+    got, paths = telemetry.launches(), telemetry.summary()
+    want = vilanro_forward_launches(presents)
+    print(f"vilanro closed loop: {len(presents)} forwards, launches {got}, expected {want}; "
+          f"dispatch {paths}")
+    check(got == want, f"vilanro closed loop: launched {got}, expected {want}")
+    check(not any(k.endswith(":plain") for k in paths),
+          f"vilanro closed loop: a plain version ran: {paths}")
+    for k, n in got.items():
+        total[k] = total.get(k, 0) + n
+    for replan in (0, VILANRO_REPLAN):
+        st = stats[f"replan{replan}"]
+        check(st["trials"] == VILANRO_TRIALS and 0.0 <= st["success_rate"] <= 1.0
+              and all(np.isfinite(v) for v in st.values()),
+              f"vilanro_test replan {replan}: {st}")
+        check(os.path.isfile(os.path.join(run_dir, f"vilanro_NLReach2-v0_replan{replan}"
+                                                   "_stats.txt")),
+              f"vilanro_test replan {replan} wrote no stats file")
+    check(all(np.isfinite(v) for v in stats["probe"].values())
+          and os.path.isfile(os.path.join(run_dir, "vilanro_probe_NLReach2-v0_stats.txt")),
+          f"vilanro_probe: {stats['probe']}")
+    dagger_actions, dagger_masks = VILANRO(os.path.join(dagger_dir, VILANRO_STEMS[1]), None,
+                                           "actions").get_data()
+    check(stats["dagger"]["samples"] == len(dagger_actions) > 0 and dagger_masks.any(1).all(),
+          f"collect_dagger: {stats['dagger']}")
+    for key in ("replan0", f"replan{VILANRO_REPLAN}", "probe"):
+        print(f"vilanro closed loop {key}: " + json.dumps(stats[key]) + f" on {card}")
+    print(f"vilanro closed loop: DAgger round {json.dumps(stats['dagger'])}; seconds "
+          + json.dumps(seconds) + f" on {card}")
+    return {"stats": stats, "seconds": seconds, "forwards": len(presents), "launches": got}
+
+
+def phase_vilanro_card_vs_cpu(card: str, path: str, data_dir: str, root: str, batch) -> dict:
+    """One objective and its backward of ``path`` at its widths on
+    VILANRO_PARITY_BATCH collected rows of ``batch`` and drawn eps: the
+    card (kernels, fp32, TF32 off) against the CPU's plain path in float64
+    on the card's relu branches: loss and metrics within TRAIN_RTOL, every
+    gradient within GRAD_REL x its leaf's max |g| + GRAD_ATOL; the card
+    launches exactly one objective call's and one backward's kernels."""
+    from multimodal_vae_comparison_tpu_torch.ops.kernels import telemetry
+    from multimodal_vae_comparison_tpu_torch.training.trainer import build_model_from_config
+    n, rng = VILANRO_PARITY_BATCH, np.random.default_rng(61)
+    rows = {k: {"data": v["data"][:n], "masks": None if v["masks"] is None else v["masks"][:n]}
+            for k, v in batch.items()}
+    cfg = from_config(path, vilanro_paths(data_dir), root, eval_only=True)
+    for i, mod in enumerate(cfg.mods):
+        mod.feature_dims = list(rows[f"mod_{i + 1}"]["data"].shape[1:])
+    eps = [rng.standard_normal((cfg.K, n, cfg.n_latents)).astype(np.float32)
+           for _ in range(7)]
+    branches, out, moved, seconds = [], {}, {}, {}
+    for dev, dtype in (("cuda", torch.float32), ("cpu", torch.float64)):
+        model = build_model_from_config(cfg, device=dev).to(dtype)
+        tb = {k: {"data": v["data"].to(dtype), "masks": v["masks"]}
+              for k, v in torch_batch(rows, dev).items()}
+        telemetry.reset()
+        t0 = time.perf_counter()
+        with same_branches(branches, dev == "cpu", moved):
+            out[dev] = _objective_grads(model, tb, [e.to(dtype) for e in eps_to(eps, dev)])
+        seconds[dev] = time.perf_counter() - t0
+        if dev == "cuda":
+            launches, paths = telemetry.launches(), telemetry.summary()
+        del model
+    want = expected_launches("poe", 1, 1, VILANRO_TABLES)
+    (gl, gm, gg), (cl, cm, cg) = out["cuda"], out["cpu"]
+    worst, worst_name = _worst_leaf(gg, {k: v.float() for k, v in cg.items()}, GRAD_REL,
+                                    GRAD_ATOL)
+    print(f"vilanro card vs CPU ({path}, bs {n}): loss cuda {gl:.6f}, cpu float64 {cl:.6f}; "
+          "metrics " + ", ".join(f"{k} {gm[k]:.6f}/{cm[k]:.6f}" for k in sorted(gm))
+          + f"; worst gradient leaf {worst:.3f} of its limit at {worst_name} (limit "
+          f"{GRAD_REL} x max|g| + {GRAD_ATOL}); relu branches replayed on the CPU: {moved}; "
+          f"launches {launches}, expected {want}; {seconds['cuda']:.3f} s on the card, "
+          f"{seconds['cpu']:.3f} s on the CPU ({card})")
+    check(launches == want, f"vilanro card vs CPU: launched {launches}, expected {want}")
+    check(not any(k.endswith(":plain") for k in paths),
+          f"vilanro card vs CPU: a plain version ran on the card: {paths}")
+    check(np.isfinite(gl) and abs(gl - cl) <= TRAIN_RTOL * abs(cl),
+          f"vilanro card vs CPU: loss {gl} on the card vs {cl} on the CPU")
+    check(sorted(gm) == sorted(cm), "vilanro card vs CPU: metric keys differ")
+    for k in gm:
+        check(abs(gm[k] - cm[k]) <= TRAIN_RTOL * abs(cm[k]) + 1e-4,
+              f"vilanro card vs CPU: metric {k} {gm[k]} on the card vs {cm[k]} on the CPU")
+    check(worst <= 1.0, f"vilanro card vs CPU: gradient of {worst_name} differs")
+    return {"loss_cuda": gl, "loss_cpu64": cl, "worst_grad_share_of_limit_vs_cpu64": worst,
+            "worst_leaf_vs_cpu64": worst_name, "replayed": moved, "launches": launches,
+            "card_s": seconds["cuda"], "cpu64_s": seconds["cpu"]}
+
+
+def phase_vilanro_from_config(card: str, root: str):
+    """Queue A item 7b's main path: VILANRO_DATA collected by the port's
+    collector, masked attention and the PoE lattice at VILANRO's shapes
+    (:func:`phase_vilanro_attention`), then each config of
+    VILANRO_FROM_CONFIG trained for 1 resident epoch under
+    ``torch.profiler`` at its full width and batch, the first through
+    ``main(config)`` (ending in ``Trainer.test()``, its validation: VILANRO
+    has no benchmark).  Each run is counted from zero: exactly its
+    objective calls (train steps + validation batches, and test()'s)
+    times VILANRO_PER_OBJECTIVE and its train steps times
+    VILANRO_PER_BACKWARD, no KL launch, no plain version; the val loss
+    falls; ``model/last`` restored through ``MultimodalVAEInfer`` gives the
+    trainer's forward within RESTORE_RTOL / RESTORE_ATOL; then the launches
+    per call and step.  On the first run: the closed loop, the probe and a
+    DAgger round (:func:`phase_vilanro_closed_loop`), and its step on the
+    card against the CPU (:func:`phase_vilanro_card_vs_cpu`).  Returns
+    (launches of the runs, the phase's numbers, the time rows)."""
+    from torch.profiler import ProfilerActivity, profile
+    from multimodal_vae_comparison_tpu_torch.main import main as train_main
+    numbers, total = {"card": card}, {}
+    dirs, numbers["collect"] = make_vilanro(os.path.join(root, "vilanro"))
+    numbers["cut"] = {"epochs": 1}
+    rows = None
+    for i, (label, path, data) in enumerate(VILANRO_FROM_CONFIG):
+        config, trainer, stats = config_trainer(label, path, "poe", vilanro_paths(dirs[data]),
+                                                root, 1)
+        dm, bs = trainer.datamodule, config.batch_size
+        if rows is None:
+            decodes = (2 ** len(config.mods) - 1) * config.K * bs
+            numbers["attention_parity"], rows = phase_vilanro_attention(card, dirs[data], bs,
+                                                                        decodes)
+        steps, val_batches = dm.n_train // bs, dm.n_val // bs
+        t0 = time.perf_counter()
+        staged = (trainer.stage_epoch_data(), trainer.stage_val_data())
+        torch.cuda.synchronize()
+        stage_s = time.perf_counter() - t0
+        untrained = trainer.validate_scan(0)["val_loss"]
+        torch.cuda.reset_peak_memory_stats()
+        profiled = {}
+
+        def run(trainer=trainer, config=config, profiled=profiled, test=i == 0):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t1 = time.perf_counter()
+                trainer.fit(epochs=1)
+                torch.cuda.synchronize()
+                profiled["wall_ms"] = (time.perf_counter() - t1) * 1e3
+            act = device_activity(prof, profiled["wall_ms"])
+            profiled.update(busy_share=act["busy_share"], device_events=act["events"],
+                            device_ms=act["ms"], top_kernels_ms={
+                                n[:80]: ms for n, ms in act["ms_by_name"].most_common(6)})
+            if test:
+                train_main(config, trainer=trainer, enable_viz=False)
+
+        t0 = time.perf_counter()
+        counted(label, "poe", steps + val_batches * (2 if i == 0 else 1), steps, run, total,
+                None, VILANRO_TABLES)
+        run_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        csv = _csv_rows(os.path.join(config.mPath, "metrics.csv"))
+        trained = float(csv[-1]["val_loss"])
+        epoch_s, samples_s = float(csv[-1]["epoch_time_s"]), float(csv[-1]["samples_per_s"])
+        check(len(csv) == 1, f"{label}: metrics.csv has {len(csv)} rows for 1 epoch")
+        check(np.isfinite(trained) and trained < untrained,
+              f"{label}: val_loss {trained} after training, {untrained} before")
+        for tag in ("last", "best"):
+            check(os.path.isfile(os.path.join(config.mPath, "model", tag, "state.pt")),
+                  f"{label}: no model/{tag} checkpoint")
+        batch = next(dm.batches("val"))
+        rng = np.random.default_rng(62)
+        err = check_restored(label, config.mPath, trainer, batch, eps_to(
+            rng.standard_normal((1, bs, config.n_latents)).astype(np.float32), trainer.device))
+        per_call = step_launches(label, trainer, batch, "poe", tables=VILANRO_TABLES,
+                                 phase="vilanro from config")
+        types_ = [m.mod_type for m in config.mods]
+        staged_bytes = sum(t.numel() * t.element_size() for split in staged
+                           for mod in split.values() for t in mod.values() if t is not None)
+        print(f"vilanro from config {label} ({path}, {types_}, {config.mods[1].recon_loss} "
+              f"on the actions): {trainer.n_params()} parameters, {dm.n_train} train / "
+              f"{dm.n_val} val rows of {data}, {steps} steps of {bs}; feature dims "
+              f"{dm.feature_dims()}; staged {staged_bytes / 1e9:.3f} GB in {stage_s:.3f} s; val_loss untrained {untrained:.2f} -> {trained:.2f}; epoch "
+              f"{epoch_s:.3f} s, {samples_s:.1f} samples/s (profiled: wall "
+              f"{profiled['wall_ms']:.1f} ms, busy {profiled['busy_share']:.4f}, "
+              f"{profiled['device_ms']:.1f} device ms); run {run_s:.2f} s; peak memory "
+              f"{peak:.3f} GiB; largest by device ms {json.dumps(profiled['top_kernels_ms'])} "
+              f"on {card}")
+        numbers[label] = {
+            "config": path, "data": data, "params": trainer.n_params(), "steps": steps,
+            "batch": bs, "feature_dims": dm.feature_dims(), "val_loss_untrained": untrained,
+            "val_loss": trained, "epoch_s": epoch_s, "samples_per_s": samples_s,
+            "run_s": run_s, "staged_bytes": staged_bytes, "stage_s": stage_s,
+            "peak_memory_gib": peak, "restore_max_abs_err": err,
+            **{f"profiled_epoch_{k}": v for k, v in profiled.items()}, **per_call}
+        if i == 0:
+            check(stats and all(k.startswith("val_") for k in stats),
+                  f"{label}: test() returned {stats}")
+            numbers[label]["closed_loop"] = phase_vilanro_closed_loop(card, config.mPath, root,
+                                                                      total)
+            numbers[label]["card_vs_cpu"] = phase_vilanro_card_vs_cpu(card, path, dirs[data],
+                                                                      root, batch)
+        del trainer, staged
+    return total, numbers, rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3627,6 +4038,12 @@ def main() -> int:
         family_launches, family_numbers, cub_rows = phase_families_from_config(card, tmp)
         family_numbers["phase_s"] = time.perf_counter() - t0
         print("celeba and cub from config " + json.dumps(family_numbers))
+        # this slice's main path: VILANRO collected, trained from three
+        # configs, then the closed loop, the probe and a DAgger round
+        t0 = time.perf_counter()
+        vilanro_launches, vilanro_numbers, vilanro_rows = phase_vilanro_from_config(card, tmp)
+        vilanro_numbers["phase_s"] = time.perf_counter() - t0
+        print("vilanro from config " + json.dumps(vilanro_numbers))
 
     # 11. times
     rows = phase_times(engine, card)
@@ -3651,22 +4068,28 @@ def main() -> int:
     per_step[f"CdSprites+ {MOG_FROM_CONFIG[0]}"] = mog_numbers["launches_per_train_step"]
     for label, *_ in FAMILIES_FROM_CONFIG:
         per_step[label] = family_numbers[label]["launches_per_train_step"]
+    for label, *_ in VILANRO_FROM_CONFIG:
+        per_step[f"VILANRO {label}"] = vilanro_numbers[label]["launches_per_train_step"]
     for r in primary:
         kernel = KERNEL_OF[r["name"]]
         r["launches"] = (video_launches.get(kernel, 0) if kernel in video_kernels
                          else config_launches.get(kernel, 0) + zoo_launches.get(kernel, 0)
                          + sprites_launches.get(kernel, 0) + mog_launches.get(kernel, 0)
-                         + family_launches.get(kernel, 0))
+                         + family_launches.get(kernel, 0) + vilanro_launches.get(kernel, 0))
         r["launches_zoo_from_config_path"] = zoo_launches.get(kernel, 0)
         r["launches_sprites_from_config_path"] = sprites_launches.get(kernel, 0)
         r["launches_mog_from_config_path"] = mog_launches.get(kernel, 0)
         r["launches_families_from_config_path"] = family_launches.get(kernel, 0)
+        r["launches_vilanro_from_config_path"] = vilanro_launches.get(kernel, 0)
         r["sprites_shapes"] = [{k: v for k, v in x.items()
                                 if k not in ("name", "route", "source", "replaces")}
                                for x in sprites_rows if x["name"] == r["name"]]
         r["cub_shapes"] = [{k: v for k, v in x.items()
                             if k not in ("name", "route", "source", "replaces")}
                            for x in cub_rows if x["name"] == r["name"]]
+        r["vilanro_shapes"] = [{k: v for k, v in x.items()
+                                if k not in ("name", "route", "source", "replaces")}
+                               for x in vilanro_rows if x["name"] == r["name"]]
         r["launches_fixed_batch_training_path"] = train_launches.get(kernel, 0)
         r["launches_serving_path"] = serve_launches.get(kernel, 0)
         r["launches_per_train_step"] = {label: n.get(kernel, 0)

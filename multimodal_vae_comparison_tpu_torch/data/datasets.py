@@ -6,8 +6,8 @@ dirs), data as float32 with masks as a separate boolean array, everything
 preprocessed once into contiguous arrays.  ``h5py`` and ``cv2`` are imported
 where a file of theirs is read.
 
-CdSprites+, SPRITES, CUB, CelebA and the in-memory synthetic set are
-ported; the other datasets' names are known and raise, naming the ROADMAP
+CdSprites+, SPRITES, CUB, CelebA, VILANRO and the in-memory synthetic set
+are ported; the other datasets' names are known and raise, naming the ROADMAP
 item that brings them.
 """
 from __future__ import annotations
@@ -338,6 +338,204 @@ class SPRITES(BaseDataset):
         return np.concatenate(out, 0), None
 
 
+class VILANRO(BaseDataset):
+    """VILANRO trimodal robotics dataset (reference datasets.py:884-1125):
+    front RGB images, word-level language one-hots, padded action
+    trajectories, plus the auxiliary shapes / colors / objects modalities,
+    from the pkl layout of ``lanro/collect.py`` (``vocab.txt`` beside the
+    files).  Actions come as padded floats (``actions``), as 41-bin
+    quantile tokens (``action_tokens``) or as start-relative waypoints
+    padded by their last step (``action_waypoints``)."""
+
+    feature_dims = {"front RGB": [64, 64, 3], "objects": [1, 3],
+                    "actions": [100, 4, 1], "language": [4, 9, 1],
+                    "shapes": [2, 6], "colors": [2, 6],
+                    "action_tokens": [100, 4, 41],
+                    "action_waypoints": [100, 4, 1]}
+    text2img_size = (64, 250, 3)
+    # discretized-action-token vocabulary size (per action dimension)
+    ACTION_BINS = 41
+
+    def __init__(self, pth, testpth, mod_type):
+        super().__init__(pth, testpth, mod_type)
+        self.vocab = self._load_vocab("vocab.txt")
+        self.feature_dims = dict(self.feature_dims)
+        self.feature_dims["language"] = [4, len(self.vocab), 1]
+        try:
+            self.vocab_atts = self._load_vocab("vocab_atts.txt")
+        except FileNotFoundError:
+            self.vocab_atts = []
+        self.lang_labels = None
+
+    def get_forbidden_subsets(self):
+        if "stage2" in (self.path or "") or "stage3" in (self.path or ""):
+            return ["front RGB+objects+language"]
+        return []
+
+    def _load_vocab(self, fname):
+        path = os.path.join(os.path.dirname(self.path or "."), fname)
+        if not os.path.exists(path):
+            raise FileNotFoundError(f"Path to {fname} not found at {path}")
+        with open(path) as f:
+            return [line.strip() for line in f if line.strip()]
+
+    def _mod_specific_loaders(self):
+        return {"front RGB": self._load_rgb, "actions": self._load_actions,
+                "language": self._load_lang, "objects": self._load_atts,
+                "shapes": self._load_atts, "colors": self._load_atts,
+                "action_tokens": self._load_action_tokens,
+                "action_waypoints": self._load_waypoints}
+
+    def _mod_specific_savers(self):
+        return {"front RGB": self._decode_image,
+                "actions": lambda d, m=None: d,
+                "objects": lambda d, m=None: d,
+                "language": self._decode_lang,
+                "shapes": self._decode_atts, "colors": self._decode_atts,
+                "action_tokens": self._decode_action_tokens,
+                "action_waypoints": lambda d, m=None: d}
+
+    def _load_rgb(self):
+        """Frames in [0, 1]; the camera's size is read from them (the
+        collector renders 64 px, or larger with ``--size``)."""
+        d = np.asarray(self.get_data_raw()).astype(np.float32)
+        if d.ndim == 4:
+            s = d.shape[1]
+        else:
+            s = int(round((d.size / len(d) / 3) ** 0.5))
+        d = d.reshape(-1, s, s, 3)
+        self.feature_dims["front RGB"] = [s, s, 3]
+        if d.max() > 1.5:
+            d = d / 255.0
+        return d, None
+
+    def _load_lang(self):
+        """Word one-hots and masks.  The sequence length is fitted on the
+        train file and then frozen, so that a test split is cut or padded
+        to the encoder's length (measured from the train file when the test
+        split loads first)."""
+        self.has_masks = True
+        self.categorical = True
+        data = self.get_data_raw()
+        self.lang_labels = list(data)
+        seqs = [[self.vocab.index(w) for w in str(x).split(" ") if w] for x in data]
+        if self.current_path == self.path:
+            self._lang_max_len = max(len(s) for s in seqs)
+        elif getattr(self, "_lang_max_len", None) is None:
+            train_raw = load_data(self.path)
+            self._lang_max_len = max(
+                len([w for w in str(x).split(" ") if w]) for x in train_raw)
+        max_len = self._lang_max_len
+        self.feature_dims["language"][0] = max_len
+        idx = np.zeros((len(seqs), max_len), dtype=np.int64)
+        for i, s in enumerate(seqs):
+            s = s[:max_len]
+            idx[i, :len(s)] = s
+        onehot = np.eye(len(self.vocab), dtype=np.float32)[idx]
+        masks = text_utils.lengths_to_mask(
+            [min(len(s), max_len) for s in seqs], max_len)
+        return onehot, masks
+
+    def _load_actions(self):
+        """Trajectories zero-padded to 100 steps, masks on the real ones."""
+        self.has_masks = True
+        data = [np.asarray(x, dtype=np.float32) for x in self.get_data_raw()]
+        max_len = self.feature_dims["actions"][0]
+        dim = data[0].shape[-1]
+        out = np.zeros((len(data), max_len, dim), dtype=np.float32)
+        lens = []
+        for i, seq in enumerate(data):
+            n = min(len(seq), max_len)
+            out[i, :n] = seq[:n]
+            lens.append(n)
+        return out, text_utils.lengths_to_mask(lens, max_len)
+
+    def _load_atts(self):
+        self.categorical = True
+        data = self.get_data_raw()
+        return np.stack([text_utils.one_hot_encode_words(self.vocab_atts, f)
+                         for f in data]).astype(np.float32), None
+
+    def _load_waypoints(self):
+        """Start-relative achieved end-effector positions (``collect.py
+        --waypoints``): the "actions" layout, but padded by repeating the
+        last position, with full masks, so every tail step is a supervised
+        endpoint prediction."""
+        data, masks = self._load_actions()
+        lens = masks.sum(axis=1).astype(int)
+        for i, n in enumerate(lens):
+            if 0 < n < data.shape[1]:
+                data[i, n:] = data[i, n - 1]
+        return data, np.ones_like(masks)
+
+    def _fit_action_codebook(self, cont, masks, K):
+        valid = cont[masks]                              # (M, A) real steps
+        qs = np.linspace(0.0, 1.0, K + 1)
+        self._action_edges = np.quantile(valid, qs, axis=0)     # (K+1, A)
+        # bin centres decode tokens; the interior edges bin actions
+        self.action_bin_centers = (
+            0.5 * (self._action_edges[:-1] + self._action_edges[1:])
+        ).astype(np.float32)                             # (K, A)
+
+    def _load_action_tokens(self):
+        """Each action dimension binned into ``ACTION_BINS`` bins at its
+        quantiles over the real steps and one-hot encoded: (N, T, A) floats
+        become (N, T, A, K) tokens, trained with ``category_ce``.  The
+        codebook is fitted on the train file and then frozen (fitted from
+        the train file when the test split loads first), so that test
+        targets and decoded tokens use the model's own codebook."""
+        self.categorical = True
+        cont, masks = self._load_actions()               # (N, T, A), (N, T)
+        K = self.ACTION_BINS
+        A = cont.shape[-1]
+        if self.current_path == self.path:
+            self._fit_action_codebook(cont, masks, K)
+        elif getattr(self, "_action_edges", None) is None:
+            saved = self.current_path
+            self.current_path = self.path
+            try:
+                train_cont, train_masks = self._load_actions()
+            finally:
+                self.current_path = saved
+            self._fit_action_codebook(train_cont, train_masks, K)
+        edges = self._action_edges
+        idx = np.stack([np.digitize(cont[..., a], edges[1:-1, a])
+                        for a in range(A)], axis=-1)     # (N, T, A) in [0, K)
+        self.feature_dims["action_tokens"] = [cont.shape[1], A, K]
+        return np.eye(K, dtype=np.float32)[idx], masks
+
+    def _decode_action_tokens(self, data, masks=None):
+        """(..., T, A, K) token scores -> continuous (..., T, A) actions: each
+        dimension's argmax bin centre (the inverse of the tokens' load)."""
+        idx = np.asarray(data).argmax(-1)                # (..., T, A)
+        centers = self.action_bin_centers                # (K, A)
+        out = np.stack([centers[idx[..., a], a]
+                        for a in range(idx.shape[-1])], axis=-1)
+        if masks is not None:
+            out = out * np.asarray(masks, out.dtype)[..., None]
+        return out
+
+    def _decode_lang(self, data, masks=None):
+        idx = np.asarray(data).argmax(-1)
+        out = []
+        for i, row in enumerate(idx):
+            words = [self.vocab[int(j)] for j in np.atleast_1d(row)]
+            if masks is not None:
+                words = words[: int(np.asarray(masks[i]).sum())]
+            out.append(" ".join(words).replace("none", "").strip())
+        return out
+
+    def _decode_atts(self, data, masks=None):
+        idx = np.asarray(data).argmax(-1)
+        return [" ".join(self.vocab_atts[int(j)] for j in np.atleast_1d(row))
+                for row in idx]
+
+    def labels(self):
+        if self.mod_type != "language":
+            return None
+        return self.lang_labels
+
+
 class SYNTHETIC(BaseDataset):
     """In-memory synthetic bimodal dataset (a coloured square or circle and
     its caption, a miniature CdSprites+) for tests and runs without
@@ -395,9 +593,9 @@ class SYNTHETIC(BaseDataset):
 
 
 DATASETS = {"cdspritesplus": CDSPRITESPLUS, "sprites": SPRITES, "cub": CUB,
-            "celeba": CELEBA, "synthetic": SYNTHETIC}
+            "celeba": CELEBA, "vilanro": VILANRO, "synthetic": SYNTHETIC}
 # known to the JAX package, not ported yet: the ROADMAP Queue A item of each
-_UNPORTED = {"vilanro": "7b", "mnist_svhn": "7d", "fashionmnist": "7d", "polymnist": "7d"}
+_UNPORTED = {"mnist_svhn": "7d", "fashionmnist": "7d", "polymnist": "7d"}
 
 
 def get_dataset_class(name: str):

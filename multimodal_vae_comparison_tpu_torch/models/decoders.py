@@ -138,6 +138,38 @@ class Dec_TxtTransformer(VaeDecoder):
         return out, self.scale_like(out)
 
 
+class Dec_Transformer(VaeDecoder):
+    """Transformer decoder for arbitrary sequences (VILANRO's action
+    trajectories): 4 layers of time-queries cross-attending to z (ff 1024,
+    2 heads), a ``finallayer`` to joints x feats a step; emits (B, T,
+    joints, feats), or (B, T, joints) for a 2-D ``data_dim``, zeroing the
+    padded steps."""
+
+    def __init__(self, latent_dim, data_dim, latent_private=None,
+                 ff_size: int = 1024, num_layers: int = 4, num_heads: int = 2):
+        super().__init__(latent_dim, data_dim, latent_private)
+        self.seq_len, self.njoints = int(self.data_dim[0]), int(self.data_dim[1])
+        self.nfeats = int(self.data_dim[2]) if len(self.data_dim) > 2 else 1
+        self.num_layers = num_layers
+        self.d_model = math.ceil(self.out_dim / num_heads) * num_heads
+        if self.d_model != self.out_dim:
+            self.Dense_0 = nn.Linear(self.out_dim, self.d_model)
+        _add_time_query_layers(self, self.d_model, num_layers, num_heads, ff_size)
+        self.finallayer = nn.Linear(self.d_model, self.njoints * self.nfeats)
+
+    def forward(self, z: torch.Tensor, mask: Optional[torch.Tensor] = None):
+        b = z.shape[0]
+        zin = self.Dense_0(z) if self.d_model != z.shape[-1] else z
+        out = _time_query_decode(self, zin, self.seq_len, self.d_model,
+                                 self.num_layers)
+        out = self.finallayer(out).reshape(b, self.seq_len, self.njoints, self.nfeats)
+        if len(self.data_dim) <= 2:
+            out = out.squeeze(-1)
+        if mask is not None:
+            out = out * mask.to(out.dtype).reshape(b, self.seq_len, *([1] * (out.dim() - 2)))
+        return out, self.scale_like(out)
+
+
 class Dec_FNN(VaeDecoder):
     """Generic MLP decoder."""
 
@@ -204,6 +236,7 @@ class Dec_VideoGPTSparse(Dec_VideoGPT):
 DECODERS = {
     "CNN": Dec_CNN,
     "FNN": Dec_FNN,
+    "Transformer": Dec_Transformer,
     "TxtTransformer": Dec_TxtTransformer,
     "VideoGPT": Dec_VideoGPT,
     "VideoGPTSparse": Dec_VideoGPTSparse,

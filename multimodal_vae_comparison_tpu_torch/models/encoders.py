@@ -86,6 +86,20 @@ class Enc_CNN2(VaeEncoder):
         return self.head(self.Dense_0(h))
 
 
+def _encode_sequence(embedding: nn.Module, encoder: nn.Module, d_model: int,
+                     data: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Per-step embedding, sinusoidal positions, the masked post-norm
+    encoder, and a mean pool over the valid steps (every step unmasked)."""
+    b, t = data.shape[0], data.shape[1]
+    x = embedding(data.reshape(b, t, -1))
+    x = x + positional_encoding(t, d_model, device=x.device, dtype=x.dtype)[None]
+    h = encoder(x, key_mask=mask)
+    if mask is None:
+        return h.mean(dim=1)
+    m = mask.to(h.dtype)[..., None]
+    return (h * m).sum(1) / torch.clamp(m.sum(1), min=1.0)
+
+
 class Enc_TxtTransformer(VaeEncoder):
     """Character-level text transformer encoder on one-hot input: embedding
     matmul, positional encoding, post-norm encoder, masked mean pool."""
@@ -101,17 +115,29 @@ class Enc_TxtTransformer(VaeEncoder):
         self._add_head(d_model)
 
     def forward(self, data: torch.Tensor, mask: Optional[torch.Tensor] = None):
-        b, t = data.shape[0], data.shape[1]
-        x = self.embedding(data.reshape(b, t, -1))
-        x = x + positional_encoding(t, self.d_model, device=x.device,
-                                    dtype=x.dtype)[None]
-        h = self.TransformerEncoder_0(x, key_mask=mask)
-        if mask is not None:
-            m = mask.to(h.dtype)[..., None]
-            h = (h * m).sum(1) / torch.clamp(m.sum(1), min=1.0)
-        else:
-            h = h.mean(dim=1)
-        return self.head(h)
+        return self.head(_encode_sequence(self.embedding, self.TransformerEncoder_0,
+                                          self.d_model, data, mask))
+
+
+class Enc_Transformer(VaeEncoder):
+    """ACTOR-style transformer encoder for arbitrary sequences (VILANRO's
+    action trajectories, (B, T, ...) flattened per step): a per-step linear
+    ``skel_embedding`` to d_model (the latent width rounded down to a
+    multiple of the heads), positional encoding, 8 masked post-norm layers
+    (ff 1024, 2 heads), masked mean pool."""
+
+    def __init__(self, latent_dim, data_dim, latent_private=None,
+                 ff_size: int = 1024, num_layers: int = 8, num_heads: int = 2):
+        super().__init__(latent_dim, data_dim, latent_private)
+        self.d_model = max(num_heads, self.out_dim - self.out_dim % num_heads)
+        self.skel_embedding = nn.Linear(math.prod(self.data_dim[1:]), self.d_model)
+        self.TransformerEncoder_0 = TransformerEncoder(num_layers, self.d_model,
+                                                       num_heads, ff_size)
+        self._add_head(self.d_model)
+
+    def forward(self, data: torch.Tensor, mask: Optional[torch.Tensor] = None):
+        return self.head(_encode_sequence(self.skel_embedding, self.TransformerEncoder_0,
+                                          self.d_model, data, mask))
 
 
 class Enc_FNN(VaeEncoder):
@@ -178,6 +204,7 @@ ENCODERS = {
     "CNN": Enc_CNN,
     "CNN2": Enc_CNN2,
     "FNN": Enc_FNN,
+    "Transformer": Enc_Transformer,
     "TxtTransformer": Enc_TxtTransformer,
     "VideoGPT": Enc_VideoGPT,
     "VideoGPTSparse": Enc_VideoGPTSparse,

@@ -7,9 +7,9 @@ gradient re-weighting is :func:`scale_grad`, an identity whose backward
 multiplies the incoming gradient by fixed importance weights (the
 reference's ``jax.custom_vjp``).
 
-Not ported yet: ``lprob``, ``optimal_sigma`` and ``feature_loss`` (their
-models come in later slices); ``recon_log_prob`` raises ``KeyError`` for
-them, naming the losses it has.
+Not ported yet: ``lprob`` and ``feature_loss`` (:data:`UNPORTED`, with
+the ROADMAP Queue A item of each); :func:`check_ported` raises for them,
+and ``build_model_from_config`` calls it for every modality of a config.
 """
 from __future__ import annotations
 
@@ -18,7 +18,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from multimodal_vae_comparison_tpu_torch.constants import ETA
+from multimodal_vae_comparison_tpu_torch.constants import ETA, LOG2PI
 from multimodal_vae_comparison_tpu_torch.models.distributions import log_mean_exp
 
 
@@ -80,18 +80,53 @@ def category_ce(dist, target, mask=None, batch_ndims=1):
     return _sum_features(ll, mask, batch_ndims)
 
 
+def softclip(x: torch.Tensor, low: float) -> torch.Tensor:
+    """Smoothly clamp ``x`` from below at ``low``."""
+    return low + F.softplus(x - low)
+
+
+def optimal_sigma(dist, target, mask=None, batch_ndims=1):
+    """Gaussian log-likelihood with the analytic optimal sigma of the whole
+    call (sigma-VAE): sigma^2 is the mean squared error over the valid
+    positions only (padding does not count in the denominator), its log
+    softclipped from below at -6; the gradient flows through sigma too."""
+    err2 = _apply_mask((target - dist.mean).square(), mask, batch_ndims)
+    if mask is None:
+        mean_err2 = err2.mean()
+    else:
+        valid = _apply_mask(torch.ones_like(err2), mask, batch_ndims)
+        mean_err2 = err2.sum() / torch.clamp(valid.sum(), min=1.0)
+    log_sigma = softclip(0.5 * torch.log(mean_err2 + 1e-12), -6.0)
+    ll = -(0.5 * err2 / torch.exp(2.0 * log_sigma) + log_sigma + 0.5 * LOG2PI)
+    return _sum_features(ll, mask, batch_ndims)
+
+
 RECON_LOSSES = {
     "bce": bce,
     "l1": l1,
     "mse": mse,
     "category_ce": category_ce,
+    "optimal_sigma": optimal_sigma,
 }
+# the JAX package's other losses, not ported yet: the ROADMAP Queue A item
+# of each
+UNPORTED = {"lprob": "7d", "feature_loss": "8"}
+
+
+def check_ported(ltype: str) -> None:
+    """Raise for a reconstruction loss the port does not have:
+    ``NotImplementedError`` naming the Queue A item for the JAX package's
+    unported ones, ``KeyError`` for an unknown name."""
+    if ltype in UNPORTED:
+        raise NotImplementedError(f"recon loss '{ltype}' is not ported yet "
+                                  f"(ROADMAP Queue A item {UNPORTED[ltype]})")
+    if ltype not in RECON_LOSSES:
+        raise KeyError(f"recon loss '{ltype}' is not known; available: "
+                       f"{sorted(RECON_LOSSES)}")
 
 
 def recon_log_prob(ltype: str, dist, target, mask=None, batch_ndims=1):
-    if ltype not in RECON_LOSSES:
-        raise KeyError(f"recon loss '{ltype}' is not ported; available: "
-                       f"{sorted(RECON_LOSSES)}")
+    check_ported(ltype)
     return RECON_LOSSES[ltype](dist, target, mask, batch_ndims)
 
 

@@ -40,7 +40,7 @@ import torch
 from multimodal_vae_comparison_tpu_torch.data.datamodule import (
     DataModule, prefetch_to_device)
 from multimodal_vae_comparison_tpu_torch.device import resolve_device
-from multimodal_vae_comparison_tpu_torch.models import get_mixing
+from multimodal_vae_comparison_tpu_torch.models import get_mixing, objectives
 from multimodal_vae_comparison_tpu_torch.models.base import MMVAE, ModalitySpec, build_specs
 from multimodal_vae_comparison_tpu_torch.ops.kernels import telemetry
 from multimodal_vae_comparison_tpu_torch.training.optim import make_optimizer
@@ -72,13 +72,16 @@ def build_model_from_config(cfg, device: Optional[Union[str, torch.device]] = No
                             ) -> MMVAE:
     """:func:`build_model` from a parsed Config whose modalities carry their
     ``feature_dims`` (``DataModule.setup`` fills them in); weights are drawn
-    from ``cfg.seed``.  Options the port does not have yet raise."""
+    from ``cfg.seed``.  Options and reconstruction losses the port does
+    not have yet raise."""
     if str(getattr(cfg, "precision", "32")) in ("bf16", "bfloat16"):
         raise NotImplementedError("precision: bf16 is not ported yet; the nets and "
                                   "kernels run in fp32 (ROADMAP Queue A item 4)")
     if float(getattr(cfg, "aux_endpoint", 0.0) or 0.0):
         raise NotImplementedError("the aux endpoint head (aux_endpoint > 0) is not "
                                   "ported yet (ROADMAP Queue A item 7c)")
+    for m in cfg.mods:
+        objectives.check_ported(m.recon_loss)
     return build_model(build_specs(cfg), cfg.mixing, cfg.n_latents, obj=cfg.obj,
                        beta=cfg.beta, K=cfg.K, seed=cfg.seed, device=device,
                        remat=bool(getattr(cfg, "remat", False)),

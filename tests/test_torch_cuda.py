@@ -941,3 +941,106 @@ def test_mixture_prior_step_on_the_card_matches_the_cpu(cuda, over, kernels):
         assert err <= 1e-4 * g.abs().max().item() + 1e-5, f"{name}: {err}"
     assert all(out["cuda"][1][n].abs().sum() > 0 for n in ("pz_mog_loc", "pz_mog_rawscale",
                                                            "pz_mog_logits"))
+
+
+def _vilanro(tmp_path, episodes, **options):
+    """A VILANRO directory collected by the port's collector (NLReach2-v0,
+    seed 0): 7-step reach trajectories padded to 100 steps, 4-word
+    instructions."""
+    from multimodal_vae_comparison_tpu_torch.lanro.collect import collect
+    return collect("NLReach2-v0", episodes, str(tmp_path / "vilanro"), seed=0,
+                   **options)["out_dir"]
+
+
+@pytest.mark.parametrize("b,tq,tk,dh,masked", [
+    (64, 100, 100, 16, True),   # the action encoder: trajectories, ~93 % of keys padding
+    (64, 4, 4, 32, True),       # the language encoder
+    (448, 100, 1, 16, False),   # the action decoder on S*K*B = 7 * 64 latents
+    (448, 4, 1, 16, False)],    # the language decoder
+    ids=["action-encoder", "language-encoder", "action-decoder", "language-decoder"])
+def test_attention_at_vilanro_shapes_matches_plain(cuda, tmp_path, b, tq, tk, dh, masked):
+    """Masked attention at VILANRO's shapes (head dim 16 at 32 latents), on
+    the resident kernel, masked by the collected trajectories' and
+    instructions' own padding: forward and the Function's backward against
+    autograd through the plain version."""
+    import os
+    from multimodal_vae_comparison_tpu_torch.data.datasets import VILANRO
+    q, k, v, _ = _qkv(31, b, 2, tq, tk, dh, False, cuda)
+    mask = None
+    if masked:
+        d = _vilanro(tmp_path, b)
+        mod_type, stem = (("actions", "endeff_actions_final.pkl") if tk == 100
+                          else ("language", "instructions_final.pkl"))
+        mask = torch.from_numpy(VILANRO(os.path.join(d, stem), None, mod_type)
+                                .get_data()[1]).to(cuda)
+        assert mask.shape == (b, tk)
+        if tk == 100:
+            assert mask.float().mean().item() < 0.1
+    telemetry.reset()
+    got = tattn.masked_attention(q, k, v, mask)
+    assert telemetry.variants() == {"attention:resident": 1}
+    torch.testing.assert_close(got, tattn.attention_reference(q, k, v, mask), **ATTN_TOL)
+    d_out = torch.randn(q.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(4))
+    leaves = [[x.detach().clone().requires_grad_() for x in (q, k, v)] for _ in range(2)]
+    got = torch.autograd.grad(tattn.masked_attention(*leaves[0], mask), leaves[0], d_out)
+    want = torch.autograd.grad(tattn.attention_reference(*leaves[1], mask), leaves[1], d_out)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, **ATTN_TOL)
+
+
+def test_vilanro_step_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """``configs/config_vilanro.yml`` at its widths (8-layer action encoder,
+    optimal_sigma on all three modalities) at bs 4 on collected rows: one
+    objective and its backward launch exactly their kernels (attention 14,
+    the lattice's PoE and its backward), and the loss, the metrics and
+    every gradient match the CPU's plain path in float64 on the same
+    weights, batch and draws, the CPU on the card's relu branches
+    (chip_smoke.same_branches)."""
+    import pathlib
+    import sys
+    import yaml
+    from multimodal_vae_comparison_tpu_torch.config import Config
+    from multimodal_vae_comparison_tpu_torch.data.datamodule import DataModule
+    from multimodal_vae_comparison_tpu_torch.training.trainer import build_model_from_config
+    root = pathlib.Path(__file__).resolve().parents[1]
+    sys.path.insert(0, str(root))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.pop(0)
+    d = _vilanro(tmp_path, 20, chunk_every=5)
+    with open(root / "configs/config_vilanro.yml") as f:
+        params = yaml.safe_load(f)
+    params.update(batch_size=4)
+    params.update({f"modality_{i + 1}": dict(params[f"modality_{i + 1}"],
+                                             path=str(pathlib.Path(d) / stem))
+                   for i, stem in enumerate(chip_smoke.VILANRO_STEMS)})
+    cfg = Config(params, results_root=str(tmp_path / "results"))
+    dm = DataModule(cfg)
+    dm.setup()
+    raw = next(dm.batches("train"))
+    rng = np.random.default_rng(24)
+    draws = [rng.standard_normal((1, 4, cfg.n_latents)).astype(np.float32) for _ in range(7)]
+    branches, out = [], {}
+    for dev, dtype in (("cuda", torch.float32), ("cpu", torch.float64)):
+        model = build_model_from_config(cfg, device=dev).to(dtype)
+        batch = {n: {"data": torch.from_numpy(m["data"]).to(dev, dtype),
+                     "masks": None if m["masks"] is None else torch.from_numpy(m["masks"]).to(dev)}
+                 for n, m in raw.items()}
+        telemetry.reset()
+        with chip_smoke.same_branches(branches, dev == "cpu", {}):
+            loss, metrics = model.objective(batch, eps=[torch.from_numpy(e).to(dev, dtype)
+                                                        for e in draws])
+            loss.backward()
+        if dev == "cuda":
+            assert telemetry.launches() == {"attention": 14, "poe": 1, "poe_bwd": 1}
+            assert not any(k.endswith(":plain") for k in telemetry.summary())
+        out[dev] = (loss.item(), {k: v.item() for k, v in metrics.items()},
+                    {n: (torch.zeros_like(p) if p.grad is None else p.grad).float().cpu()
+                     for n, p in model.named_parameters()})
+    assert out["cuda"][0] == pytest.approx(out["cpu"][0], rel=1e-5)
+    for k, v in out["cpu"][1].items():
+        assert out["cuda"][1][k] == pytest.approx(v, rel=1e-5, abs=1e-4), k
+    for name, g in out["cpu"][2].items():
+        err = (out["cuda"][2][name] - g).abs().max().item()
+        assert err <= 1e-4 * g.abs().max().item() + 1e-5, f"{name}: {err}"

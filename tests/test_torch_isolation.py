@@ -28,8 +28,9 @@ REQUIRED = {"multimodal_vae_comparison_tpu_torch." + m for m in (
     "bridge", "config", "data.datamodule", "data.datasets", "data.native", "data.text",
     "data_proc.cdsprites", "data_proc.sprites_gen", "data_proc.surrogates",
     "eval.classifiers", "eval.eval_cdsprites", "eval.eval_celeba", "eval.eval_cub",
-    "eval.eval_sprites", "eval.infer",
-    "eval.train_classifiers", "main", "models.base", "models.contrib", "models.decoders",
+    "eval.eval_sprites", "eval.infer", "eval.vilanro_probe", "eval.vilanro_test",
+    "eval.train_classifiers", "lanro", "lanro.arm", "lanro.collect", "lanro.env",
+    "lanro.simulation", "main", "models.base", "models.contrib", "models.decoders",
     "models.distributions", "models.encoders", "models.mmvae", "models.nets",
     "models.objectives", "ops.kernels.attention", "ops.kernels.kl_kernel",
     "ops.kernels.poe_kernel", "ops.kernels.sample_kernel", "ops.kernels.sparse_attention",
@@ -54,7 +55,7 @@ sys.exit(1 if bad or missing or optional else 0)
 
 def test_port_imports_no_jax_no_jax_package_and_no_triton():
     """Every module of the port (the training, video, config/data/Trainer,
-    eval, model-zoo, SPRITES and CelebA/CUB slices' among them), and
+    eval, model-zoo, SPRITES, CelebA/CUB and VILANRO slices' among them), and
     chip_smoke.py, imported in a fresh process with no nvcc reachable: none
     pulls in jax, flax, optax, triton or the JAX package, none loads cv2,
     imageio, matplotlib or sklearn, and none starts a process (an nvcc build)
@@ -81,9 +82,12 @@ before = set(Path("build/torch_kernels").glob("libmmvae_io_*")) \
 from multimodal_vae_comparison_tpu_torch.data import native
 from multimodal_vae_comparison_tpu_torch.data_proc import cdsprites, sprites_gen, surrogates
 from multimodal_vae_comparison_tpu_torch.data import datamodule, datasets
+from multimodal_vae_comparison_tpu_torch.lanro import arm, collect, env, simulation
+from multimodal_vae_comparison_tpu_torch.eval import vilanro_probe, vilanro_test
 after = set(Path("build/torch_kernels").glob("libmmvae_io_*")) \
     if Path("build/torch_kernels").is_dir() else set()
-loaded = sorted(n for n in ("cv2", "h5py", "yaml", "tensorboardX") if n in sys.modules)
+loaded = sorted(n for n in ("cv2", "h5py", "yaml", "tensorboardX", "scipy", "sklearn", "jax")
+                if n in sys.modules)
 print(native._lib, after - before, loaded)
 sys.exit(0 if native._lib is None and after == before and not loaded else 1)
 """
@@ -91,9 +95,11 @@ sys.exit(0 if native._lib is None and after == before and not loaded else 1)
 
 def test_importing_the_data_layer_starts_no_build_and_loads_no_optional_module():
     """``data.native`` compiles ``native/mmvae_io.cpp`` at first use and the
-    generators (the surrogate builders among them) import cv2 and h5py
-    where they draw and write: importing them starts no process, loads no
-    library and no optional module."""
+    generators (the surrogate builders and the LANRO simulator and
+    collector among them) import cv2 and h5py where they draw and write,
+    the VILANRO probe scipy where it fits: importing them (and the closed
+    loop) starts no process, loads no library and no optional module, and
+    loads neither sklearn nor jax."""
     proc = subprocess.run([sys.executable, "-c", _IMPORT_DATA], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr

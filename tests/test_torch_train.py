@@ -134,8 +134,10 @@ def test_recon_losses_match_jax(ltype, logits, feat, masked, lead):
 
 def test_recon_log_prob_names_the_ported_losses():
     t, _ = _decoder_dists(0, (), (3,), False)
-    with pytest.raises(KeyError, match="category_ce"):
-        tobj.recon_log_prob("optimal_sigma", t, torch.zeros(3, 3))
+    with pytest.raises(KeyError, match="optimal_sigma"):
+        tobj.recon_log_prob("no_such_loss", t, torch.zeros(3, 3))
+    with pytest.raises(NotImplementedError, match="Queue A item 7d"):
+        tobj.recon_log_prob("lprob", t, torch.zeros(3, 3))
 
 
 def test_scale_grad_and_estimators_match_jax():
