@@ -617,12 +617,21 @@ def _objective_grads(model, batch, eps):
              for n, p in model.named_parameters()})
 
 
-def _worst_leaf(got, want, rel, atol=1e-5):
-    """(worst error as a share of its limit rel * max|g| + atol, leaf name)."""
+def _worst_leaf(got, want, rel, atol=1e-5, key_bias_scale=False):
+    """(worst error as a share of its limit rel * max|g| + atol, leaf name).
+
+    With ``key_bias_scale`` an attention layer's key bias is held to the
+    max |g| of its key weight: its exact gradient is 0 (a row's softmax is
+    invariant to a shift all its keys share), so each side's is rounding
+    noise far below the key weight's, which at the gradients of VILANRO's
+    second-slice configs (llik 600, the aux term at weight 1e4) exceeds
+    the 1e-5 floor."""
     worst, worst_name = 0.0, None
     for n in want:
+        scale = want[n[:-len("bias")] + "weight"] if (
+            key_bias_scale and n.endswith("key.bias")) else want[n]
         ratio = (got[n] - want[n]).abs().max().item() \
-            / (rel * want[n].abs().max().item() + atol)
+            / (rel * scale.abs().max().item() + atol)
         if ratio > worst:
             worst, worst_name = ratio, n
     return worst, worst_name
@@ -3512,14 +3521,31 @@ VILANRO_FROM_CONFIG = (
 # launches of one objective call and of a train step's backward: attention
 # in the language encoder (1 layer), the action encoder (8), the language
 # decoder (1) and the action decoder (4); PoE once for the whole lattice
-VILANRO_PER_OBJECTIVE = {"poe": {"attention": 14, "poe": 1}}
-VILANRO_PER_BACKWARD = {"poe": {"poe_bwd": 1}}
+VILANRO_PER_OBJECTIVE = {"poe": {"attention": 14, "poe": 1}, "poe_cond": {"attention": 38, "poe": 1},
+                         "moe_dreg": {"attention": 19}}
+VILANRO_PER_BACKWARD = {"poe": {"poe_bwd": 1}, "poe_cond": {"poe_bwd": 1}, "moe_dreg": {}}
 VILANRO_TABLES = (VILANRO_PER_OBJECTIVE, VILANRO_PER_BACKWARD)
 # the closed loop (trials, open loop and replanning every 5 steps), the probe's
 # scenes and the DAgger round's episodes (one batch of rollouts)
 VILANRO_TRIALS, VILANRO_REPLAN, VILANRO_SCENES, VILANRO_DAGGER = 200, 5, 400, 20
 VILANRO_PARITY_BATCH = 4
 VILANRO_LANGUAGE = "mod_1"   # modality_1 of every VILANRO config
+
+
+def vilanro_launch_key(cfg) -> str:
+    """The key of a VILANRO config's rows in VILANRO_PER_OBJECTIVE and
+    _PER_BACKWARD: "moe_dreg" for the MOE DReG config (attention in the two
+    encoders, 1 + 8, and in each DReG pass's language and action decodes of
+    the three samples stacked, 1 + 4); "poe_cond" where the action decoder
+    is conditioned only on subsets with the language (it decodes per
+    subset: 7 x 4 layers); "poe" for the others, ``cond_always`` among them
+    (one decode for the whole lattice)."""
+    if cfg.mixing == "moe":
+        return "moe_dreg"
+    if any(getattr(m, "cond_on", None) and not getattr(m, "cond_always", False)
+           for m in cfg.mods):
+        return "poe_cond"
+    return "poe"
 
 
 def vilanro_forward_launches(presents) -> dict:
@@ -3532,15 +3558,15 @@ def vilanro_forward_launches(presents) -> dict:
     return {k: n for k, n in (("attention", attention), ("poe", len(presents))) if n}
 
 
-def make_vilanro(root: str):
-    """VILANRO_DATA collected by the port's collector:
-    ({name: directory}, {name: the collector's stats and seconds})."""
+def make_vilanro(root: str, data=VILANRO_DATA, episodes: int = VILANRO_EPISODES):
+    """``data`` (VILANRO_DATA unless given) collected by the port's
+    collector, ``episodes`` each: ({name: directory}, {name: the
+    collector's stats and seconds})."""
     from multimodal_vae_comparison_tpu_torch.lanro.collect import collect
     dirs, stats = {}, {}
-    for name, options in VILANRO_DATA:
+    for name, options in data:
         t0 = time.perf_counter()
-        st = collect("NLReach2-v0", VILANRO_EPISODES, os.path.join(root, name), seed=0,
-                     **options)
+        st = collect("NLReach2-v0", episodes, os.path.join(root, name), seed=0, **options)
         st["seconds"] = time.perf_counter() - t0
         print(f"vilanro collect {name} {options}: {st['episodes']} episodes, {st['samples']} "
               f"samples, expert success {100 * st['expert_success']:.1f} %, vocabulary "
@@ -3558,6 +3584,58 @@ def vilanro_paths(data_dir: str) -> dict:
             for i, stem in enumerate(VILANRO_STEMS)}
 
 
+def attention_case(card: str, g: torch.Generator, label: str, shape, mask, at: str):
+    """Masked attention at ``shape`` (B, H, Tq, Tk, Dh) under the (B, Tk)
+    key ``mask`` or none, on the resident kernel against its plain version,
+    forward and the Function's backward, then timed (device ms, graphed)
+    beside the plain version, SDPA under the same mask and the bound over
+    the keys each row needs (:func:`attention_bound`).  Returns (parity
+    numbers, the time row, whose "at" is ``at``)."""
+    import torch.nn.functional as F
+    from multimodal_vae_comparison_tpu_torch.ops.kernels import attention, telemetry
+    q, k, v, _ = attention_inputs(g, *shape, False)
+    telemetry.reset()
+    got = attention.masked_attention(q, k, v, mask)
+    took = telemetry.variants()
+    want = attention.attention_reference(q, k, v, mask)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    padded = 0.0 if mask is None else 1.0 - mask.float().mean().item()
+    print(f"parity attention {label} {shape} (padded keys {padded:.3f}): "
+          f"max_abs_err={err:.3e} (rtol {ATTN_RTOL}, atol {ATTN_ATOL}); {took}")
+    check(took == {"attention:resident": 1}, f"attention at {shape} launched {took}")
+    check(torch.allclose(got, want, rtol=ATTN_RTOL, atol=ATTN_ATOL),
+          f"attention kernel disagrees with its plain version at {shape}")
+    d_out = torch.randn(q.shape, generator=g, device="cuda")
+    _grad_parity(f"attention {label} {shape}",
+                 lambda q_, k_, v_: attention.masked_attention(q_, k_, v_, mask),
+                 lambda q_, k_, v_: attention.attention_reference(q_, k_, v_, mask),
+                 (q, k, v), d_out, ATTN_RTOL, ATTN_ATOL)
+    b, h, tq, tk, dh = shape
+    lib_mask = None if mask is None else mask[:, None, None, :]
+    kern = graph_ms(lambda: attention.masked_attention(q, k, v, mask))
+    plain = graph_ms(lambda: attention.attention_reference(q, k, v, mask))
+    try:
+        lib = graph_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=lib_mask))
+        lib_note = "graphed"
+    except RuntimeError as e:   # the library's limits, not the port's
+        lib, lib_note = eager_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=lib_mask)), f"eager (graph capture refused: {str(e)[:80]})"
+    bound, by = attention_bound(b, h, tq, tk, dh, mask)
+    row = {"name": "masked_attention", "at": at, "masked": mask is not None,
+           "padded_keys": padded, "route": "cuda",
+           "source": "multimodal_vae_comparison_tpu_torch/csrc/attention.cu",
+           "replaces": "multimodal_vae_comparison_tpu/ops/pallas/attention.py:77",
+           "max_abs_err": err, "ms": kern, "plain_ms": plain, "bound_ms": bound,
+           "bound_by": by, "library_ms": lib,
+           "library_is": "F.scaled_dot_product_attention(q, k, v, attn_mask=the "
+                         f"key padding or none), {lib_note}"}
+    print(f"time masked_attention [{label} {shape}]: kernel {kern:.5f} ms, plain "
+          f"{plain:.5f} ms, SDPA {lib:.5f} ms, bound {bound:.6f} ms ({by}), "
+          f"{kern / bound:.1f}x the bound, max_abs_err {err:.3e} on {card}")
+    return {"max_abs_err": err, "padded_keys": padded}, row
+
+
 def phase_vilanro_attention(card: str, data_dir: str, batch: int, decodes: int):
     """Masked attention at VILANRO's shapes (head dim 16 at 32 latents)
     against its plain version, forward and the Function's backward: the
@@ -3568,9 +3646,7 @@ def phase_vilanro_attention(card: str, data_dir: str, batch: int, decodes: int):
     (device ms, graphed) beside the plain version, SDPA with the same mask
     and the bound over the keys each row needs.  Returns (parity numbers,
     time rows)."""
-    import torch.nn.functional as F
     from multimodal_vae_comparison_tpu_torch.data.datasets import VILANRO
-    from multimodal_vae_comparison_tpu_torch.ops.kernels import attention, telemetry
     masks = {t: torch.from_numpy(VILANRO(os.path.join(data_dir, stem), None, t)
                                  .get_data()[1][:batch]).cuda()
              for t, stem in (("actions", VILANRO_STEMS[1]), ("language", VILANRO_STEMS[0]))}
@@ -3580,69 +3656,26 @@ def phase_vilanro_attention(card: str, data_dir: str, batch: int, decodes: int):
              (f"action decoder S*K*B {decodes}", (decodes, 2, steps, 1, 16), None),
              (f"language decoder S*K*B {decodes}", (decodes, 2, words, 1, 16), None))
     g = torch.Generator(device="cuda").manual_seed(60)
-    src = "multimodal_vae_comparison_tpu_torch/csrc/attention.cu"
     parity, rows = {}, []
     for label, shape, mask in cases:
-        q, k, v, _ = attention_inputs(g, *shape, False)
-        telemetry.reset()
-        got = attention.masked_attention(q, k, v, mask)
-        took = telemetry.variants()
-        want = attention.attention_reference(q, k, v, mask)
-        torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        padded = 0.0 if mask is None else 1.0 - mask.float().mean().item()
-        print(f"parity attention vilanro {label} {shape} (padded keys {padded:.3f}): "
-              f"max_abs_err={err:.3e} (rtol {ATTN_RTOL}, atol {ATTN_ATOL}); {took}")
-        check(took == {"attention:resident": 1}, f"attention at {shape} launched {took}")
-        check(torch.allclose(got, want, rtol=ATTN_RTOL, atol=ATTN_ATOL),
-              f"attention kernel disagrees with its plain version at {shape}")
-        d_out = torch.randn(q.shape, generator=g, device="cuda")
-        _grad_parity(f"attention vilanro {label} {shape}",
-                     lambda q_, k_, v_: attention.masked_attention(q_, k_, v_, mask),
-                     lambda q_, k_, v_: attention.attention_reference(q_, k_, v_, mask),
-                     (q, k, v), d_out, ATTN_RTOL, ATTN_ATOL)
-        parity[f"{label} {shape}"] = {"max_abs_err": err, "padded_keys": padded}
-        b, h, tq, tk, dh = shape
-        lib_mask = None if mask is None else mask[:, None, None, :]
-        kern = graph_ms(lambda: attention.masked_attention(q, k, v, mask))
-        plain = graph_ms(lambda: attention.attention_reference(q, k, v, mask))
-        try:
-            lib = graph_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=lib_mask))
-            lib_note = "graphed"
-        except RuntimeError as e:   # the library's limits, not the port's
-            lib, lib_note = eager_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=lib_mask)), f"eager (graph capture refused: {str(e)[:80]})"
-        bound, by = attention_bound(b, h, tq, tk, dh, mask)
-        rows.append({"name": "masked_attention", "at": f"vilanro {label}, {shape}",
-                     "masked": mask is not None, "padded_keys": padded, "route": "cuda",
-                     "source": src,
-                     "replaces": "multimodal_vae_comparison_tpu/ops/pallas/attention.py:77",
-                     "max_abs_err": err, "ms": kern, "plain_ms": plain, "bound_ms": bound,
-                     "bound_by": by, "library_ms": lib,
-                     "library_is": "F.scaled_dot_product_attention(q, k, v, attn_mask=the "
-                                   f"key padding or none), {lib_note}"})
-        print(f"time masked_attention [vilanro {label} {shape}]: kernel {kern:.5f} ms, plain "
-              f"{plain:.5f} ms, SDPA {lib:.5f} ms, bound {bound:.6f} ms ({by}), max_abs_err "
-              f"{err:.3e} on {card}")
-    for r in poe_lattice_time_rows(g, 3, batch, 32, "vilanro POE"):
-        print(f"time {r['name']} [{r['at']}]: kernel {r['ms']:.5f} ms, plain "
-              f"{r['plain_ms']:.5f} ms, bound {r['bound_ms']:.6f} ms ({r['bound_by']}), "
-              f"max_abs_err {r['max_abs_err']:.3e} on {card}")
-        check(r["within_tolerance"], f"{r['name']} at {r['at']} disagrees with its plain "
-              f"version: max_abs_err {r['max_abs_err']:.3e}")
-        rows.append(r)
+        parity[f"{label} {shape}"], row = attention_case(card, g, f"vilanro {label}", shape,
+                                                         mask, f"vilanro {label}, {shape}")
+        rows.append(row)
+    rows += checked_poe_rows(card, g, 3, batch, 32, "vilanro POE")
     return parity, rows
 
 
-def phase_vilanro_closed_loop(card: str, run_dir: str, root: str, total: dict) -> dict:
+def phase_vilanro_closed_loop(card: str, run_dir: str, root: str, total: dict,
+                              replans=(0, VILANRO_REPLAN), dagger: bool = True) -> dict:
     """The closed loop on a trained run, through the port's entry points on
-    the card: ``vilanro_test`` over VILANRO_TRIALS trials open loop and
-    replanning every VILANRO_REPLAN steps, ``vilanro_probe`` over
-    VILANRO_SCENES scenes (both CLIs, each restoring the run and writing
-    its stats file), then one ``collect_dagger`` round of VILANRO_DAGGER
-    episodes from the run.  Counted from zero: exactly the launches of the
-    forwards they made (:func:`vilanro_forward_launches`), no plain
-    version.  Returns the numbers: stats, seconds, launches."""
+    the card: ``vilanro_test`` over VILANRO_TRIALS trials for each of
+    ``replans`` (0: open loop; else replanning every that many steps),
+    ``vilanro_probe`` over VILANRO_SCENES scenes (both CLIs, each restoring
+    the run and writing its stats file), then, with ``dagger``, one
+    ``collect_dagger`` round of VILANRO_DAGGER episodes from the run.
+    Counted from zero: exactly the launches of the forwards they made
+    (:func:`vilanro_forward_launches`), no plain version.  Returns the
+    numbers: stats, seconds, launches."""
     from multimodal_vae_comparison_tpu_torch.data.datasets import VILANRO
     from multimodal_vae_comparison_tpu_torch.eval import vilanro_probe, vilanro_test
     from multimodal_vae_comparison_tpu_torch.eval.infer import MultimodalVAEInfer
@@ -3666,7 +3699,7 @@ def phase_vilanro_closed_loop(card: str, run_dir: str, root: str, total: dict) -
         argv = sys.argv
         MultimodalVAEInfer.forward = counting_forward
         try:
-            for replan in (0, VILANRO_REPLAN):
+            for replan in replans:
                 vilanro_test.infer_loop = keeping(own_loop, f"replan{replan}")
                 sys.argv = ["vilanro_test", "--model", run_dir, "--trials",
                             str(VILANRO_TRIALS), "--replan", str(replan)]
@@ -3678,10 +3711,12 @@ def phase_vilanro_closed_loop(card: str, run_dir: str, root: str, total: dict) -
             t0 = time.perf_counter()
             vilanro_probe.main()
             seconds["vilanro_probe_s"] = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            stats["dagger"] = collect.collect_dagger("NLReach2-v0", VILANRO_DAGGER, dagger_dir,
-                                                     run_dir, batch=VILANRO_DAGGER)
-            seconds["collect_dagger_s"] = time.perf_counter() - t0
+            if dagger:
+                t0 = time.perf_counter()
+                stats["dagger"] = collect.collect_dagger("NLReach2-v0", VILANRO_DAGGER,
+                                                         dagger_dir, run_dir,
+                                                         batch=VILANRO_DAGGER)
+                seconds["collect_dagger_s"] = time.perf_counter() - t0
         finally:
             sys.argv = argv
             MultimodalVAEInfer.forward = own_forward
@@ -3700,7 +3735,7 @@ def phase_vilanro_closed_loop(card: str, run_dir: str, root: str, total: dict) -
           f"vilanro closed loop: a plain version ran: {paths}")
     for k, n in got.items():
         total[k] = total.get(k, 0) + n
-    for replan in (0, VILANRO_REPLAN):
+    for replan in replans:
         st = stats[f"replan{replan}"]
         check(st["trials"] == VILANRO_TRIALS and 0.0 <= st["success_rate"] <= 1.0
               and all(np.isfinite(v) for v in st.values()),
@@ -3711,24 +3746,30 @@ def phase_vilanro_closed_loop(card: str, run_dir: str, root: str, total: dict) -
     check(all(np.isfinite(v) for v in stats["probe"].values())
           and os.path.isfile(os.path.join(run_dir, "vilanro_probe_NLReach2-v0_stats.txt")),
           f"vilanro_probe: {stats['probe']}")
-    dagger_actions, dagger_masks = VILANRO(os.path.join(dagger_dir, VILANRO_STEMS[1]), None,
-                                           "actions").get_data()
-    check(stats["dagger"]["samples"] == len(dagger_actions) > 0 and dagger_masks.any(1).all(),
-          f"collect_dagger: {stats['dagger']}")
-    for key in ("replan0", f"replan{VILANRO_REPLAN}", "probe"):
+    if dagger:
+        dagger_actions, dagger_masks = VILANRO(os.path.join(dagger_dir, VILANRO_STEMS[1]),
+                                               None, "actions").get_data()
+        check(stats["dagger"]["samples"] == len(dagger_actions) > 0
+              and dagger_masks.any(1).all(), f"collect_dagger: {stats['dagger']}")
+    for key in [f"replan{r}" for r in replans] + ["probe"]:
         print(f"vilanro closed loop {key}: " + json.dumps(stats[key]) + f" on {card}")
-    print(f"vilanro closed loop: DAgger round {json.dumps(stats['dagger'])}; seconds "
+    print(f"vilanro closed loop: DAgger round {json.dumps(stats.get('dagger'))}; seconds "
           + json.dumps(seconds) + f" on {card}")
     return {"stats": stats, "seconds": seconds, "forwards": len(presents), "launches": got}
 
 
-def phase_vilanro_card_vs_cpu(card: str, path: str, data_dir: str, root: str, batch) -> dict:
+def phase_vilanro_card_vs_cpu(card: str, path: str, data_dir: str, root: str, batch,
+                              key_bias_scale: bool = False) -> dict:
     """One objective and its backward of ``path`` at its widths on
     VILANRO_PARITY_BATCH collected rows of ``batch`` and drawn eps: the
     card (kernels, fp32, TF32 off) against the CPU's plain path in float64
-    on the card's relu branches: loss and metrics within TRAIN_RTOL, every
-    gradient within GRAD_REL x its leaf's max |g| + GRAD_ATOL; the card
-    launches exactly one objective call's and one backward's kernels."""
+    on the card's relu branches (and, for DReG, the card's importance
+    weights: :func:`same_dreg_weights`): loss and metrics within
+    TRAIN_RTOL, every gradient within GRAD_REL x its leaf's max |g| +
+    GRAD_ATOL (with ``key_bias_scale`` a key bias at its key weight's
+    scale: :func:`_worst_leaf`); the card launches exactly one
+    objective call's and one backward's kernels (VILANRO_TABLES at
+    :func:`vilanro_launch_key`)."""
     from multimodal_vae_comparison_tpu_torch.ops.kernels import telemetry
     from multimodal_vae_comparison_tpu_torch.training.trainer import build_model_from_config
     n, rng = VILANRO_PARITY_BATCH, np.random.default_rng(61)
@@ -3737,29 +3778,38 @@ def phase_vilanro_card_vs_cpu(card: str, path: str, data_dir: str, root: str, ba
     cfg = from_config(path, vilanro_paths(data_dir), root, eval_only=True)
     for i, mod in enumerate(cfg.mods):
         mod.feature_dims = list(rows[f"mod_{i + 1}"]["data"].shape[1:])
-    eps = [rng.standard_normal((cfg.K, n, cfg.n_latents)).astype(np.float32)
-           for _ in range(7)]
-    branches, out, moved, seconds = [], {}, {}, {}
+    key = vilanro_launch_key(cfg)
+    shape = (cfg.K, n, cfg.n_latents)
+    eps = ({m.name: rng.standard_normal(shape).astype(np.float32) for m in cfg.mods}
+           if cfg.mixing == "moe" else
+           [rng.standard_normal(shape).astype(np.float32) for _ in range(7)])
+    branches, weights, out, moved, seconds = [], [], {}, {}, {}
     for dev, dtype in (("cuda", torch.float32), ("cpu", torch.float64)):
         model = build_model_from_config(cfg, device=dev).to(dtype)
         tb = {k: {"data": v["data"].to(dtype), "masks": v["masks"]}
               for k, v in torch_batch(rows, dev).items()}
+        dev_eps = eps_to(eps, dev)
+        dev_eps = ({k: v.to(dtype) for k, v in dev_eps.items()} if isinstance(dev_eps, dict)
+                   else [e.to(dtype) for e in dev_eps])
         telemetry.reset()
         t0 = time.perf_counter()
-        with same_branches(branches, dev == "cpu", moved):
-            out[dev] = _objective_grads(model, tb, [e.to(dtype) for e in eps_to(eps, dev)])
+        with same_branches(branches, dev == "cpu", moved), \
+                same_dreg_weights(weights, dev == "cpu", moved):
+            out[dev] = _objective_grads(model, tb, dev_eps)
         seconds[dev] = time.perf_counter() - t0
         if dev == "cuda":
             launches, paths = telemetry.launches(), telemetry.summary()
         del model
-    want = expected_launches("poe", 1, 1, VILANRO_TABLES)
+    want = expected_launches(key, 1, 1, VILANRO_TABLES)
     (gl, gm, gg), (cl, cm, cg) = out["cuda"], out["cpu"]
     worst, worst_name = _worst_leaf(gg, {k: v.float() for k, v in cg.items()}, GRAD_REL,
-                                    GRAD_ATOL)
+                                    GRAD_ATOL, key_bias_scale=key_bias_scale)
     print(f"vilanro card vs CPU ({path}, bs {n}): loss cuda {gl:.6f}, cpu float64 {cl:.6f}; "
           "metrics " + ", ".join(f"{k} {gm[k]:.6f}/{cm[k]:.6f}" for k in sorted(gm))
           + f"; worst gradient leaf {worst:.3f} of its limit at {worst_name} (limit "
-          f"{GRAD_REL} x max|g| + {GRAD_ATOL}); relu branches replayed on the CPU: {moved}; "
+          f"{GRAD_REL} x max|g| + {GRAD_ATOL}" + (", key biases at their key weight's "
+                                                   "scale" if key_bias_scale else "")
+          + f"); relu branches and DReG weights replayed on the CPU: {moved}; "
           f"launches {launches}, expected {want}; {seconds['cuda']:.3f} s on the card, "
           f"{seconds['cpu']:.3f} s on the CPU ({card})")
     check(launches == want, f"vilanro card vs CPU: launched {launches}, expected {want}")
@@ -3777,106 +3827,339 @@ def phase_vilanro_card_vs_cpu(card: str, path: str, data_dir: str, root: str, ba
             "card_s": seconds["cuda"], "cpu64_s": seconds["cpu"]}
 
 
+def one_epoch_checks(label: str, config, untrained: float):
+    """A run of 1 epoch wrote one row of ``metrics.csv`` whose val loss is
+    below ``untrained`` and both checkpoints: (val loss, epoch s, samples/s)."""
+    csv = _csv_rows(os.path.join(config.mPath, "metrics.csv"))
+    trained = float(csv[-1]["val_loss"])
+    check(len(csv) == 1, f"{label}: metrics.csv has {len(csv)} rows for 1 epoch")
+    check(np.isfinite(trained) and trained < untrained,
+          f"{label}: val_loss {trained} after training, {untrained} before")
+    for tag in ("last", "best"):
+        check(os.path.isfile(os.path.join(config.mPath, "model", tag, "state.pt")),
+              f"{label}: no model/{tag} checkpoint")
+    return trained, float(csv[-1]["epoch_time_s"]), float(csv[-1]["samples_per_s"])
+
+
+def vilanro_config_run(card: str, label: str, path: str, data: str, data_dir: str, root: str,
+                       total: dict, test: bool = False, profiled: bool = True):
+    """One VILANRO config trained for 1 resident epoch at its full width and
+    batch on ``data_dir`` (collected by ``data``'s recipe), under
+    ``torch.profiler`` with ``profiled``, and with ``test`` through
+    ``main(config)`` (ending in ``Trainer.test()``, its validation: VILANRO
+    has no benchmark).  Counted from zero: exactly its objective calls
+    (train steps + validation batches, and test()'s) times
+    VILANRO_PER_OBJECTIVE and its train steps times VILANRO_PER_BACKWARD
+    (both at :func:`vilanro_launch_key`), no plain version; the val loss
+    falls; ``model/last`` restored through ``MultimodalVAEInfer`` gives the
+    trainer's forward within RESTORE_RTOL / RESTORE_ATOL; then the launches
+    per call and step.  Returns (the config, its numbers, a val batch)."""
+    import yaml
+    from torch.profiler import ProfilerActivity, profile
+    from multimodal_vae_comparison_tpu_torch.main import main as train_main
+    with open(os.path.join(HERE, path)) as f:
+        mixing = yaml.safe_load(f)["mixing"]
+    config, trainer, stats = config_trainer(label, path, mixing, vilanro_paths(data_dir),
+                                            root, 1)
+    key = vilanro_launch_key(config)
+    dm, bs = trainer.datamodule, config.batch_size
+    steps, val_batches = dm.n_train // bs, dm.n_val // bs
+    t0 = time.perf_counter()
+    staged = (trainer.stage_epoch_data(), trainer.stage_val_data())
+    torch.cuda.synchronize()
+    stage_s = time.perf_counter() - t0
+    untrained = trainer.validate_scan(0)["val_loss"]
+    torch.cuda.reset_peak_memory_stats()
+    prof = {}
+
+    def run():
+        t1 = time.perf_counter()
+        if profiled:
+            with profile(activities=[ProfilerActivity.CUDA]) as p:
+                trainer.fit(epochs=1)
+                torch.cuda.synchronize()
+                prof["wall_ms"] = (time.perf_counter() - t1) * 1e3
+            act = device_activity(p, prof["wall_ms"])
+            prof.update(busy_share=act["busy_share"], device_events=act["events"],
+                        device_ms=act["ms"], top_kernels_ms={
+                            n[:80]: ms for n, ms in act["ms_by_name"].most_common(6)})
+        else:
+            trainer.fit(epochs=1)
+        if test:
+            train_main(config, trainer=trainer, enable_viz=False)
+
+    t0 = time.perf_counter()
+    counted(label, key, steps + val_batches * (2 if test else 1), steps, run, total, None,
+            VILANRO_TABLES)
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    trained, epoch_s, samples_s = one_epoch_checks(label, config, untrained)
+    if test:
+        check(stats and all(k.startswith("val_") for k in stats),
+              f"{label}: test() returned {stats}")
+    batch = next(dm.batches("val"))
+    rng = np.random.default_rng(62)
+    draw = lambda: rng.standard_normal((1, bs, config.n_latents)).astype(np.float32)
+    eps = {m.name: draw() for m in config.mods} if config.mixing == "moe" else draw()
+    err = check_restored(label, config.mPath, trainer, batch, eps_to(eps, trainer.device))
+    per_call = step_launches(label, trainer, batch, key, tables=VILANRO_TABLES,
+                             phase="vilanro from config")
+    types_ = [m.mod_type for m in config.mods]
+    staged_bytes = sum(t.numel() * t.element_size() for split in staged
+                       for mod in split.values() for t in mod.values() if t is not None)
+    busy = (f" (profiled: wall {prof['wall_ms']:.1f} ms, busy {prof['busy_share']:.4f}, "
+            f"{prof['device_ms']:.1f} device ms)" if profiled else "")
+    print(f"vilanro from config {label} ({path}, {types_}, {config.mods[1].recon_loss} on the "
+          f"actions, {[m.encoder for m in config.mods]} / {[m.decoder for m in config.mods]}): "
+          f"{trainer.n_params()} parameters, {dm.n_train} train / {dm.n_val} val rows of "
+          f"{data}, {steps} steps of {bs}; feature dims {dm.feature_dims()}; staged "
+          f"{staged_bytes / 1e9:.3f} GB in {stage_s:.3f} s; val_loss untrained "
+          f"{untrained:.2f} -> {trained:.2f}; epoch {epoch_s:.3f} s, {samples_s:.1f} "
+          f"samples/s{busy}; run {run_s:.2f} s; peak memory {peak:.3f} GiB"
+          + (f"; largest by device ms {json.dumps(prof['top_kernels_ms'])}" if profiled else "")
+          + f" on {card}")
+    numbers = {"config": path, "data": data, "params": trainer.n_params(), "steps": steps,
+               "batch": bs, "feature_dims": dm.feature_dims(), "val_loss_untrained": untrained,
+               "val_loss": trained, "epoch_s": epoch_s, "samples_per_s": samples_s,
+               "run_s": run_s, "staged_bytes": staged_bytes, "stage_s": stage_s,
+               "peak_memory_gib": peak, "restore_max_abs_err": err,
+               **{f"profiled_epoch_{k}": v for k, v in prof.items()}, **per_call}
+    del trainer, staged
+    return config, numbers, batch
+
+
 def phase_vilanro_from_config(card: str, root: str):
     """Queue A item 7b's main path: VILANRO_DATA collected by the port's
     collector, masked attention and the PoE lattice at VILANRO's shapes
     (:func:`phase_vilanro_attention`), then each config of
     VILANRO_FROM_CONFIG trained for 1 resident epoch under
-    ``torch.profiler`` at its full width and batch, the first through
-    ``main(config)`` (ending in ``Trainer.test()``, its validation: VILANRO
-    has no benchmark).  Each run is counted from zero: exactly its
-    objective calls (train steps + validation batches, and test()'s)
-    times VILANRO_PER_OBJECTIVE and its train steps times
-    VILANRO_PER_BACKWARD, no KL launch, no plain version; the val loss
-    falls; ``model/last`` restored through ``MultimodalVAEInfer`` gives the
-    trainer's forward within RESTORE_RTOL / RESTORE_ATOL; then the launches
-    per call and step.  On the first run: the closed loop, the probe and a
+    ``torch.profiler`` (:func:`vilanro_config_run`), the first ending in
+    ``Trainer.test()``.  On the first run: the closed loop, the probe and a
     DAgger round (:func:`phase_vilanro_closed_loop`), and its step on the
     card against the CPU (:func:`phase_vilanro_card_vs_cpu`).  Returns
     (launches of the runs, the phase's numbers, the time rows)."""
-    from torch.profiler import ProfilerActivity, profile
-    from multimodal_vae_comparison_tpu_torch.main import main as train_main
     numbers, total = {"card": card}, {}
     dirs, numbers["collect"] = make_vilanro(os.path.join(root, "vilanro"))
     numbers["cut"] = {"epochs": 1}
-    rows = None
+    first = from_config(VILANRO_FROM_CONFIG[0][1], {}, root, eval_only=True)
+    bs = first.batch_size
+    decodes = (2 ** len(first.mods) - 1) * first.K * bs
+    numbers["attention_parity"], rows = phase_vilanro_attention(
+        card, dirs[VILANRO_FROM_CONFIG[0][2]], bs, decodes)
     for i, (label, path, data) in enumerate(VILANRO_FROM_CONFIG):
-        config, trainer, stats = config_trainer(label, path, "poe", vilanro_paths(dirs[data]),
-                                                root, 1)
-        dm, bs = trainer.datamodule, config.batch_size
-        if rows is None:
-            decodes = (2 ** len(config.mods) - 1) * config.K * bs
-            numbers["attention_parity"], rows = phase_vilanro_attention(card, dirs[data], bs,
-                                                                        decodes)
-        steps, val_batches = dm.n_train // bs, dm.n_val // bs
-        t0 = time.perf_counter()
-        staged = (trainer.stage_epoch_data(), trainer.stage_val_data())
-        torch.cuda.synchronize()
-        stage_s = time.perf_counter() - t0
-        untrained = trainer.validate_scan(0)["val_loss"]
-        torch.cuda.reset_peak_memory_stats()
-        profiled = {}
-
-        def run(trainer=trainer, config=config, profiled=profiled, test=i == 0):
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                t1 = time.perf_counter()
-                trainer.fit(epochs=1)
-                torch.cuda.synchronize()
-                profiled["wall_ms"] = (time.perf_counter() - t1) * 1e3
-            act = device_activity(prof, profiled["wall_ms"])
-            profiled.update(busy_share=act["busy_share"], device_events=act["events"],
-                            device_ms=act["ms"], top_kernels_ms={
-                                n[:80]: ms for n, ms in act["ms_by_name"].most_common(6)})
-            if test:
-                train_main(config, trainer=trainer, enable_viz=False)
-
-        t0 = time.perf_counter()
-        counted(label, "poe", steps + val_batches * (2 if i == 0 else 1), steps, run, total,
-                None, VILANRO_TABLES)
-        run_s = time.perf_counter() - t0
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        csv = _csv_rows(os.path.join(config.mPath, "metrics.csv"))
-        trained = float(csv[-1]["val_loss"])
-        epoch_s, samples_s = float(csv[-1]["epoch_time_s"]), float(csv[-1]["samples_per_s"])
-        check(len(csv) == 1, f"{label}: metrics.csv has {len(csv)} rows for 1 epoch")
-        check(np.isfinite(trained) and trained < untrained,
-              f"{label}: val_loss {trained} after training, {untrained} before")
-        for tag in ("last", "best"):
-            check(os.path.isfile(os.path.join(config.mPath, "model", tag, "state.pt")),
-                  f"{label}: no model/{tag} checkpoint")
-        batch = next(dm.batches("val"))
-        rng = np.random.default_rng(62)
-        err = check_restored(label, config.mPath, trainer, batch, eps_to(
-            rng.standard_normal((1, bs, config.n_latents)).astype(np.float32), trainer.device))
-        per_call = step_launches(label, trainer, batch, "poe", tables=VILANRO_TABLES,
-                                 phase="vilanro from config")
-        types_ = [m.mod_type for m in config.mods]
-        staged_bytes = sum(t.numel() * t.element_size() for split in staged
-                           for mod in split.values() for t in mod.values() if t is not None)
-        print(f"vilanro from config {label} ({path}, {types_}, {config.mods[1].recon_loss} "
-              f"on the actions): {trainer.n_params()} parameters, {dm.n_train} train / "
-              f"{dm.n_val} val rows of {data}, {steps} steps of {bs}; feature dims "
-              f"{dm.feature_dims()}; staged {staged_bytes / 1e9:.3f} GB in {stage_s:.3f} s; val_loss untrained {untrained:.2f} -> {trained:.2f}; epoch "
-              f"{epoch_s:.3f} s, {samples_s:.1f} samples/s (profiled: wall "
-              f"{profiled['wall_ms']:.1f} ms, busy {profiled['busy_share']:.4f}, "
-              f"{profiled['device_ms']:.1f} device ms); run {run_s:.2f} s; peak memory "
-              f"{peak:.3f} GiB; largest by device ms {json.dumps(profiled['top_kernels_ms'])} "
-              f"on {card}")
-        numbers[label] = {
-            "config": path, "data": data, "params": trainer.n_params(), "steps": steps,
-            "batch": bs, "feature_dims": dm.feature_dims(), "val_loss_untrained": untrained,
-            "val_loss": trained, "epoch_s": epoch_s, "samples_per_s": samples_s,
-            "run_s": run_s, "staged_bytes": staged_bytes, "stage_s": stage_s,
-            "peak_memory_gib": peak, "restore_max_abs_err": err,
-            **{f"profiled_epoch_{k}": v for k, v in profiled.items()}, **per_call}
+        config, numbers[label], batch = vilanro_config_run(card, label, path, data, dirs[data],
+                                                           root, total, test=i == 0)
         if i == 0:
-            check(stats and all(k.startswith("val_") for k in stats),
-                  f"{label}: test() returned {stats}")
             numbers[label]["closed_loop"] = phase_vilanro_closed_loop(card, config.mPath, root,
                                                                       total)
             numbers[label]["card_vs_cpu"] = phase_vilanro_card_vs_cpu(card, path, dirs[data],
                                                                       root, batch)
-        del trainer, staged
+    return total, numbers, rows
+
+
+# -- VILANRO's conditioned second slice (ROADMAP Queue A item 7c) ---------------
+
+# the data of the slice's 5 configs: D1way_p2 the earlier phase's, D1way_r4
+# and D1way_r5 collected here by their recipes (lanro/collect.py) at the
+# recipes' 8,000 episodes (14,214 rows each)
+VILANRO_COND_EPISODES = 8000
+VILANRO_COND_DATA = (("D1way_r4", {"chunk_every": 5, "waypoints": True}),
+                     ("D1way_r5", {"chunk_every": 5, "waypoints": True, "img_size": 128}))
+# (label, config, data): 1 resident epoch each (not 300-600), the first
+# profiled; the r5 run ends in test() and drives the closed loop and the probe
+VILANRO_COND_FROM_CONFIG = (
+    ("POE vilanro_r3_way_p2c", "configs/round3/vilanro_r3_way_p2c.yml", "D1way_p2"),
+    ("MOE vilanro_r3_way_p2d", "configs/round3/vilanro_r3_way_p2d.yml", "D1way_p2"),
+    ("POE vilanro_r4_cond", "configs/round4/vilanro_r4_cond.yml", "D1way_p2"),
+    ("POE vilanro_r4b_spatial", "configs/round4/vilanro_r4b_spatial.yml", "D1way_r4"),
+    ("POE vilanro_r5_128", "configs/round5/vilanro_r5_128.yml", "D1way_r5"))
+VILANRO_COND_LOOP = "POE vilanro_r5_128"
+# held card against CPU float64: per-subset conditioned decodes with the aux
+# term, and MOE DReG K 5
+VILANRO_COND_PARITY = ("POE vilanro_r4_cond", "MOE vilanro_r3_way_p2d")
+# Dec_TransformerCond's cross-attention: d_model 128, 4 heads (head dim 32),
+# 100 waypoint queries, the z key and the instruction's 4 word keys
+COND_HEADS, COND_DH, COND_KEYS = 4, 32, 5
+
+
+def phase_vilanro_cond_attention(card: str, data_dir: str, batch: int, lattice: int):
+    """Masked attention at Dec_TransformerCond's shapes against its plain
+    version, forward and the Function's backward, then timed (device ms,
+    graphed) beside the plain version, SDPA under the same mask and the
+    bound over the keys each row needs (:func:`attention_bound`): the one
+    decode of a ``cond_always`` lattice (``lattice`` = S*K*B rows, each
+    row's keys the z token and its instruction's words under their padding),
+    and vilanro_r4_cond's per-subset decodes of ``batch`` rows, conditioned
+    (5 keys) and not (the z token alone).  Then the PoE lattice at M 3, S 7
+    over 64 latents.  Returns (parity numbers, time rows)."""
+    from multimodal_vae_comparison_tpu_torch.data.datasets import VILANRO
+    words = torch.from_numpy(VILANRO(os.path.join(data_dir, VILANRO_STEMS[0]), None,
+                                     "language").get_data()[1][:batch]).cuda()
+    check(words.shape == (batch, COND_KEYS - 1), f"instruction masks {tuple(words.shape)}")
+    keep = torch.cat([torch.ones(batch, 1, dtype=torch.bool, device="cuda"), words], 1)
+    cases = ((f"cond_always lattice decode S*K*B {lattice}",
+              (lattice, COND_HEADS, 100, COND_KEYS, COND_DH),
+              keep.repeat_interleave(lattice // batch, 0).contiguous()),
+             (f"per-subset conditioned decode B {batch}",
+              (batch, COND_HEADS, 100, COND_KEYS, COND_DH), keep.contiguous()),
+             (f"per-subset unconditioned decode B {batch}",
+              (batch, COND_HEADS, 100, 1, COND_DH), None))
+    g = torch.Generator(device="cuda").manual_seed(63)
+    parity, rows = {}, []
+    for label, shape, mask in cases:
+        parity[f"{label} {shape}"], row = attention_case(
+            card, g, f"vilanro cond {label}", shape, mask,
+            f"vilanro TransformerCond {label}, {shape}")
+        rows.append(row)
+    rows += checked_poe_rows(card, g, 3, batch, 64, "vilanro cond POE")
+    return parity, rows
+
+
+def checked_poe_rows(card: str, g: torch.Generator, m: int, rows_: int, d: int, label: str):
+    """:func:`poe_lattice_time_rows`, each row printed and held to its plain
+    version."""
+    out = poe_lattice_time_rows(g, m, rows_, d, label)
+    for r in out:
+        print(f"time {r['name']} [{r['at']}]: kernel {r['ms']:.5f} ms, plain "
+              f"{r['plain_ms']:.5f} ms, bound {r['bound_ms']:.6f} ms ({r['bound_by']}), "
+              f"max_abs_err {r['max_abs_err']:.3e} on {card}")
+        check(r["within_tolerance"], f"{r['name']} at {r['at']} disagrees with its plain "
+              f"version: max_abs_err {r['max_abs_err']:.3e}")
+    return out
+
+
+def phase_vilanro_cond_from_config(card: str, root: str, collected: dict):
+    """Queue A item 7c's main path: VILANRO_COND_DATA collected by the
+    port's collector beside the earlier phase's D1way_p2 (``collected``,
+    its collector stats), attention at Dec_TransformerCond's shapes and the
+    PoE lattice at 64 latents (:func:`phase_vilanro_cond_attention`), then
+    each config of VILANRO_COND_FROM_CONFIG trained for 1 resident epoch
+    (:func:`vilanro_config_run`; the first profiled, VILANRO_COND_LOOP
+    ending in ``Trainer.test()``).  On VILANRO_COND_LOOP's run the closed
+    loop (open loop) and the probe; VILANRO_COND_PARITY's steps on the card
+    against the CPU in float64.  Returns (launches of the runs, the phase's
+    numbers, the time rows)."""
+    numbers, total = {"card": card}, {}
+    dirs, numbers["collect"] = make_vilanro(os.path.join(root, "vilanro"), VILANRO_COND_DATA,
+                                            VILANRO_COND_EPISODES)
+    dirs["D1way_p2"] = collected["D1way_p2"]["out_dir"]
+    numbers["cut"] = {"epochs": 1, "closed_loop": "open loop only, no DAgger round"}
+    first = from_config(VILANRO_COND_FROM_CONFIG[0][1], {}, root, eval_only=True)
+    lattice = (2 ** len(first.mods) - 1) * first.K * first.batch_size
+    numbers["attention_parity"], rows = phase_vilanro_cond_attention(
+        card, dirs["D1way_p2"], first.batch_size, lattice)
+    for i, (label, path, data) in enumerate(VILANRO_COND_FROM_CONFIG):
+        loop = label == VILANRO_COND_LOOP
+        config, numbers[label], batch = vilanro_config_run(card, label, path, data, dirs[data],
+                                                           root, total, test=loop,
+                                                           profiled=i == 0)
+        if loop:
+            numbers[label]["closed_loop"] = phase_vilanro_closed_loop(
+                card, config.mPath, root, total, replans=(0,), dagger=False)
+        if label in VILANRO_COND_PARITY:
+            numbers[label]["card_vs_cpu"] = phase_vilanro_card_vs_cpu(
+                card, path, dirs[data], root, batch, key_bias_scale=True)
+    return total, numbers, rows
+
+
+# -- FashionMNIST (ROADMAP Queue A item 7d's first part) -------------------------
+
+# the two configs, 1 resident epoch each (not 200-600) on the surrogate made
+# in the run at the builder's default 10,000 / 2,000 rows; the first ends in
+# test() and its benchmark
+FASHION_FROM_CONFIG = (("POE fashionmnist", "configs/config_fashionmnist.yml"),
+                       ("POE fashionmnist_r2", "configs/round2/fashionmnist_r2.yml"))
+# an objective call launches the PoE lattice once (M 2, S 3) and no attention;
+# a backward its backward once
+FASHION_PER_OBJECTIVE = {"poe": {"poe": 1}}
+FASHION_PER_BACKWARD = {"poe": {"poe_bwd": 1}}
+FASHION_TABLES = (FASHION_PER_OBJECTIVE, FASHION_PER_BACKWARD)
+# the benchmark's forwards: the latent probe's (both modalities) and the two
+# cross-generations, a PoE launch each; the joint generation decodes only
+FASHION_EVAL_LAUNCHES = {"poe": 3}
+
+
+def phase_fashionmnist_from_config(card: str, root: str):
+    """FashionMNIST's main path: the surrogate built in the run by the
+    port's builder at its default 10,000 / 2,000 rows, then each config of
+    FASHION_FROM_CONFIG trained for 1 resident epoch at its batch, the
+    first through ``main(config)``, ending in ``Trainer.test()`` and the
+    benchmark (its judge trained on the card at first use).  Each run is
+    counted from zero: exactly its objective calls times
+    FASHION_PER_OBJECTIVE, its train steps times FASHION_PER_BACKWARD and
+    the benchmark's FASHION_EVAL_LAUNCHES, no plain version; the val loss
+    falls; the restored forward is within RESTORE_RTOL / RESTORE_ATOL; the
+    5 stats lie in [0, 1].  Then the PoE lattice at both configs' shapes.
+    Returns (launches of the runs, the phase's numbers, the time rows)."""
+    from multimodal_vae_comparison_tpu_torch.data_proc.surrogates import build_fashionmnist
+    from multimodal_vae_comparison_tpu_torch.eval.eval_fashionmnist import STATS_KEYS
+    from multimodal_vae_comparison_tpu_torch.main import main as train_main
+    numbers, total = {"card": card, "cut": {"epochs": 1}}, {}
+    t0 = time.perf_counter()
+    data_dir = build_fashionmnist(os.path.join(root, "fashionmnist"))
+    numbers["build_s"] = time.perf_counter() - t0
+    judges = os.environ.get("FASHIONMNIST_CLASSIFIER_DIR")
+    os.environ["FASHIONMNIST_CLASSIFIER_DIR"] = os.path.join(root, "fashion_judges")
+    try:
+        for i, (label, path) in enumerate(FASHION_FROM_CONFIG):
+            paths = {"path": data_dir}
+            if i:   # round2 names its test split; config_fashionmnist none
+                paths["test_datapath"] = os.path.join(data_dir, "test")
+            config, trainer, stats = config_trainer(label, path, "poe", {
+                "modality_1": paths, "modality_2": paths}, root, 1)
+            dm, bs = trainer.datamodule, config.batch_size
+            steps, val_batches = dm.n_train // bs, dm.n_val // bs
+            untrained = trainer.validate_scan(0)["val_loss"]
+            torch.cuda.reset_peak_memory_stats()
+
+            def run(trainer=trainer, config=config, test=i == 0):
+                trainer.fit(epochs=1)
+                if test:
+                    train_main(config, trainer=trainer, enable_viz=False)
+
+            t0 = time.perf_counter()
+            counted(label, "poe", steps + val_batches * (2 if i == 0 else 1), steps, run, total,
+                    FASHION_EVAL_LAUNCHES if i == 0 else None, FASHION_TABLES)
+            run_s = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            trained, epoch_s, samples_s = one_epoch_checks(label, config, untrained)
+            if i == 0:
+                check(all(k in stats and 0.0 <= stats[k] <= 1.0 for k in STATS_KEYS),
+                      f"{label}: test() returned {stats}")
+                check(os.path.isfile(os.path.join(config.mPath, "fashionmnist_stats.txt")),
+                      f"{label}: no fashionmnist_stats.txt")
+            batch = next(dm.batches("val"))
+            eps = np.random.default_rng(64).standard_normal(
+                (1, bs, config.n_latents)).astype(np.float32)
+            err = check_restored(label, config.mPath, trainer, batch, eps_to(eps, trainer.device))
+            per_call = step_launches(label, trainer, batch, "poe", tables=FASHION_TABLES,
+                                     phase="fashionmnist from config")
+            print(f"fashionmnist from config {label} ({path}): {trainer.n_params()} "
+                  f"parameters, {dm.n_train} train / {dm.n_val} val rows, {steps} steps of "
+                  f"{bs}; val_loss untrained {untrained:.2f} -> {trained:.2f}; epoch "
+                  f"{epoch_s:.3f} s, {samples_s:.1f} samples/s; run {run_s:.2f} s; peak "
+                  f"memory {peak:.3f} GiB"
+                  + (f"; stats {json.dumps({k: stats[k] for k in STATS_KEYS})}" if i == 0
+                     else "") + f" on {card}")
+            numbers[label] = {"config": path, "params": trainer.n_params(), "steps": steps,
+                              "batch": bs, "val_loss_untrained": untrained,
+                              "val_loss": trained, "epoch_s": epoch_s,
+                              "samples_per_s": samples_s, "run_s": run_s,
+                              "peak_memory_gib": peak, "restore_max_abs_err": err,
+                              **({"stats": {k: stats[k] for k in STATS_KEYS}} if i == 0
+                                 else {}), **per_call}
+            del trainer
+    finally:
+        if judges is None:
+            os.environ.pop("FASHIONMNIST_CLASSIFIER_DIR", None)
+        else:
+            os.environ["FASHIONMNIST_CLASSIFIER_DIR"] = judges
+    g = torch.Generator(device="cuda").manual_seed(65)
+    rows = []
+    for label, path in FASHION_FROM_CONFIG:
+        cfg = from_config(path, {}, root, eval_only=True)
+        rows += checked_poe_rows(card, g, 2, cfg.batch_size, cfg.n_latents,
+                                 f"fashionmnist POE ({label})")
     return total, numbers, rows
 
 
@@ -4044,6 +4327,18 @@ def main() -> int:
         vilanro_launches, vilanro_numbers, vilanro_rows = phase_vilanro_from_config(card, tmp)
         vilanro_numbers["phase_s"] = time.perf_counter() - t0
         print("vilanro from config " + json.dumps(vilanro_numbers))
+        # this slice's main paths: VILANRO's conditioned configs (CoordConv,
+        # spatial softmax, TransformerCond, the aux head, 128 px data), then
+        # FashionMNIST from its surrogate through its benchmark
+        t0 = time.perf_counter()
+        cond_launches, cond_numbers, cond_rows = phase_vilanro_cond_from_config(
+            card, tmp, vilanro_numbers["collect"])
+        cond_numbers["phase_s"] = time.perf_counter() - t0
+        print("vilanro cond from config " + json.dumps(cond_numbers))
+        t0 = time.perf_counter()
+        fashion_launches, fashion_numbers, fashion_rows = phase_fashionmnist_from_config(card, tmp)
+        fashion_numbers["phase_s"] = time.perf_counter() - t0
+        print("fashionmnist from config " + json.dumps(fashion_numbers))
 
     # 11. times
     rows = phase_times(engine, card)
@@ -4068,28 +4363,37 @@ def main() -> int:
     per_step[f"CdSprites+ {MOG_FROM_CONFIG[0]}"] = mog_numbers["launches_per_train_step"]
     for label, *_ in FAMILIES_FROM_CONFIG:
         per_step[label] = family_numbers[label]["launches_per_train_step"]
-    for label, *_ in VILANRO_FROM_CONFIG:
-        per_step[f"VILANRO {label}"] = vilanro_numbers[label]["launches_per_train_step"]
+    for label, *_ in VILANRO_FROM_CONFIG + VILANRO_COND_FROM_CONFIG:
+        run_numbers = (vilanro_numbers if label in vilanro_numbers else cond_numbers)[label]
+        per_step[f"VILANRO {label}"] = run_numbers["launches_per_train_step"]
+    for label, _ in FASHION_FROM_CONFIG:
+        per_step[f"FashionMNIST {label}"] = fashion_numbers[label]["launches_per_train_step"]
     for r in primary:
         kernel = KERNEL_OF[r["name"]]
         r["launches"] = (video_launches.get(kernel, 0) if kernel in video_kernels
                          else config_launches.get(kernel, 0) + zoo_launches.get(kernel, 0)
                          + sprites_launches.get(kernel, 0) + mog_launches.get(kernel, 0)
-                         + family_launches.get(kernel, 0) + vilanro_launches.get(kernel, 0))
+                         + family_launches.get(kernel, 0) + vilanro_launches.get(kernel, 0)
+                         + cond_launches.get(kernel, 0) + fashion_launches.get(kernel, 0))
         r["launches_zoo_from_config_path"] = zoo_launches.get(kernel, 0)
         r["launches_sprites_from_config_path"] = sprites_launches.get(kernel, 0)
         r["launches_mog_from_config_path"] = mog_launches.get(kernel, 0)
         r["launches_families_from_config_path"] = family_launches.get(kernel, 0)
         r["launches_vilanro_from_config_path"] = vilanro_launches.get(kernel, 0)
+        r["launches_vilanro_cond_from_config_path"] = cond_launches.get(kernel, 0)
+        r["launches_fashionmnist_from_config_path"] = fashion_launches.get(kernel, 0)
         r["sprites_shapes"] = [{k: v for k, v in x.items()
                                 if k not in ("name", "route", "source", "replaces")}
                                for x in sprites_rows if x["name"] == r["name"]]
         r["cub_shapes"] = [{k: v for k, v in x.items()
                             if k not in ("name", "route", "source", "replaces")}
                            for x in cub_rows if x["name"] == r["name"]]
-        r["vilanro_shapes"] = [{k: v for k, v in x.items()
-                                if k not in ("name", "route", "source", "replaces")}
-                               for x in vilanro_rows if x["name"] == r["name"]]
+        for key, extra_rows in (("vilanro_shapes", vilanro_rows),
+                                ("vilanro_cond_shapes", cond_rows),
+                                ("fashionmnist_shapes", fashion_rows)):
+            r[key] = [{k: v for k, v in x.items()
+                       if k not in ("name", "route", "source", "replaces")}
+                      for x in extra_rows if x["name"] == r["name"]]
         r["launches_fixed_batch_training_path"] = train_launches.get(kernel, 0)
         r["launches_serving_path"] = serve_launches.get(kernel, 0)
         r["launches_per_train_step"] = {label: n.get(kernel, 0)

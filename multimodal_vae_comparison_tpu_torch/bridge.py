@@ -8,14 +8,17 @@ them, are built of these layers):
 
 * ``nn.Linear``: Dense ``(in, out)`` -> ``(out, in)``; DenseGeneral
   ``(in, H, Dh)`` -> ``(H*Dh, in)`` and its bias ``(H, Dh)`` -> ``(H*Dh,)``;
-* ``nn.Conv2d``, ``nn.Conv3d``: HWIO -> OIHW, DHWIO -> OIDHW;
+* ``nn.Conv2d``, ``nn.Conv3d``: HWIO -> OIHW, DHWIO -> OIDHW (a CoordConv
+  kernel's input channels keep the reference's order, the two coordinate
+  channels last, since ``Enc_CNNCoord`` appends them after the features);
 * ``nn.ConvTranspose2d``, ``nn.ConvTranspose3d``: the kernel reversed on
   every spatial axis and laid out ``(in, out, *spatial)`` (flax's transposed
   conv does not flip the kernel; PyTorch's does);
 * ``nn.LayerNorm``, ``nn.GroupNorm``: ``scale`` -> ``weight``;
 * ``FrozenBatchNorm``: ``scale`` -> ``weight``, ``bias`` -> ``bias``, and
   the stop-gradient statistics ``mean`` and ``var`` -> its two buffers;
-* a leaf of any other module (``pz_logvar``) is copied as it is.
+* a leaf of any other module (``pz_logvar``, ``Enc_CNNSpatial``'s
+  ``ss_log_temp``) is copied as it is.
 
 Every flax leaf is consumed exactly once and every parameter and buffer of
 the module is written exactly once; a missing, extra or misshapen name

@@ -6,8 +6,8 @@ dirs), data as float32 with masks as a separate boolean array, everything
 preprocessed once into contiguous arrays.  ``h5py`` and ``cv2`` are imported
 where a file of theirs is read.
 
-CdSprites+, SPRITES, CUB, CelebA, VILANRO and the in-memory synthetic set
-are ported; the other datasets' names are known and raise, naming the ROADMAP
+CdSprites+, SPRITES, CUB, CelebA, VILANRO, FashionMNIST and the in-memory
+synthetic set are ported; the other datasets' names are known and raise, naming the ROADMAP
 item that brings them.
 """
 from __future__ import annotations
@@ -267,6 +267,56 @@ class CELEBA(BaseDataset):
         idx = np.asarray(data).argmax(-1)
         return [", ".join(self.labelmap[i][int(v)] for i, v in enumerate(row))
                 for row in 1 - idx]   # slot 0 (present) -> labelmap[i][1]
+
+
+class FASHIONMNIST(BaseDataset):
+    """FashionMNIST image and label (reference datasets.py:749-810), read
+    offline from ``fashionmnist.npz`` (keys ``data`` (N, 28, 28) and
+    ``labels`` (N,)) at ``path``, a file or the directory that holds it;
+    the label modality is the 10-class one-hot."""
+
+    feature_dims = {"image": [28, 28, 1], "label": [10]}
+    text2img_size = (28, 64, 3)
+
+    def __init__(self, pth, testpth, mod_type):
+        super().__init__(pth, testpth, mod_type)
+        self.labels_train = None
+
+    def labels(self):
+        # the integer labels of the last file read
+        return self.labels_train
+
+    def eval_statistics_fn(self):
+        from multimodal_vae_comparison_tpu_torch.eval.eval_fashionmnist import (
+            fashionmnist_eval)
+        return fashionmnist_eval
+
+    def _npz(self):
+        path = self.current_path
+        if os.path.isdir(path):
+            path = os.path.join(path, "fashionmnist.npz")
+        d = np.load(path)
+        self.labels_train = [int(x) for x in d["labels"]]
+        return d["data"], d["labels"]
+
+    def _mod_specific_loaders(self):
+        return {"image": self._load_image, "label": self._load_label}
+
+    def _mod_specific_savers(self):
+        return {"image": self._decode_image,
+                "label": lambda d, m=None: [str(i) for i in np.argmax(d, -1)]}
+
+    def _load_image(self):
+        data, _ = self._npz()
+        d = data.reshape(-1, 28, 28, 1).astype(np.float32)
+        return d / max(d.max(), 1.0), None
+
+    def _load_label(self):
+        self.categorical = True
+        _, labels = self._npz()
+        onehot = np.zeros((len(labels), 10), dtype=np.float32)
+        onehot[np.arange(len(labels)), labels] = 1
+        return onehot, None
 
 
 class SPRITES(BaseDataset):
@@ -593,9 +643,10 @@ class SYNTHETIC(BaseDataset):
 
 
 DATASETS = {"cdspritesplus": CDSPRITESPLUS, "sprites": SPRITES, "cub": CUB,
-            "celeba": CELEBA, "vilanro": VILANRO, "synthetic": SYNTHETIC}
+            "celeba": CELEBA, "vilanro": VILANRO, "synthetic": SYNTHETIC,
+            "fashionmnist": FASHIONMNIST}
 # known to the JAX package, not ported yet: the ROADMAP Queue A item of each
-_UNPORTED = {"mnist_svhn": "7d", "fashionmnist": "7d", "polymnist": "7d"}
+_UNPORTED = {"mnist_svhn": "7d", "polymnist": "7d"}
 
 
 def get_dataset_class(name: str):

@@ -2,7 +2,7 @@
 ``data_proc/surrogates.py``).
 
 A copy of the JAX package's builders (the port imports nothing of that
-package): CelebA and CUB are downloads, so each family gets a
+package): CelebA, FashionMNIST and CUB are downloads, so each family gets a
 procedural surrogate with the real data's file contract, modality shapes
 and factor structure, so that every stage (loaders, training, cross and
 joint eval) runs without a download.  From the same seed it writes the same
@@ -13,10 +13,14 @@ image is drawn.
 
 * CelebA:       images (N,64,64,3) uint8 + atts (N,4) in {-1,1}
                 (bald/eyeglasses/male/smiling — reference datasets.py:660)
+* FashionMNIST: fashionmnist.npz  data (N,28,28) uint8, labels (N,), and
+                test/fashionmnist.npz
 * CUB:          images (N,64,64,3) uint8 + captions list[str] pkl
 
     python -m multimodal_vae_comparison_tpu_torch.data_proc.surrogates cub \
         --out ./data/cub --train 6000 --test 800
+    python -m multimodal_vae_comparison_tpu_torch.data_proc.surrogates fashionmnist \
+        --out ./data/fashionmnist
 """
 from __future__ import annotations
 
@@ -85,6 +89,57 @@ def build_celeba(out_dir: str, n_train: int = 8000, n_test: int = 1000,
         # reference attr files are {-1,1} (datasets.py:683)
         np.save(os.path.join(out_dir, f"{tag}atts.npy"),
                 (atts * 2 - 1).astype(np.float32))
+    return out_dir
+
+
+# -- FashionMNIST ------------------------------------------------------------
+
+def _render_garment(rng, cls: int) -> np.ndarray:
+    """28x28 grayscale silhouette for one of the 10 FashionMNIST classes."""
+    import cv2
+    img = np.zeros((28, 28), np.float32)
+    j = lambda k=2: int(rng.integers(-k, k + 1))
+    v = float(rng.uniform(0.7, 1.0))
+    if cls in (0, 2, 4, 6):  # tshirt / pullover / coat / shirt: torso+sleeves
+        cv2.rectangle(img, (9 + j(), 8 + j()), (19 + j(), 24 + j()), v, -1)
+        sleeve = {0: 3, 2: 6, 4: 8, 6: 5}[cls]
+        cv2.rectangle(img, (4 + j(1), 8 + j(1)), (9, 8 + sleeve + j(1)), v, -1)
+        cv2.rectangle(img, (19, 8 + j(1)), (24 + j(1), 8 + sleeve + j(1)), v, -1)
+        if cls == 6:  # shirt: button line
+            img[10:24, 14] = 0.2
+    elif cls == 1:  # trousers: two legs
+        cv2.rectangle(img, (9 + j(1), 6 + j()), (13, 25 + j(1)), v, -1)
+        cv2.rectangle(img, (15, 6 + j()), (19 + j(1), 25 + j(1)), v, -1)
+        cv2.rectangle(img, (9, 6), (19, 10), v, -1)
+    elif cls == 3:  # dress: flared trapezoid
+        pts = np.array([[12 + j(1), 5 + j(1)], [16 + j(1), 5],
+                        [21 + j(1), 25], [7 + j(1), 25 + j(1)]])
+        cv2.fillPoly(img, [pts], v)
+    elif cls in (5, 7, 9):  # sandal / sneaker / boot
+        hh = {5: 3, 7: 6, 9: 12}[cls]
+        cv2.rectangle(img, (5 + j(1), 22 - hh + j(1)), (23 + j(1), 24), v, -1)
+        if cls == 9:
+            cv2.rectangle(img, (5, 10 + j(1)), (14, 24), v, -1)
+        if cls == 5:
+            img[18:22, 8:21:4] = 0.0  # straps
+    else:  # bag
+        cv2.rectangle(img, (6 + j(1), 12 + j(1)), (22 + j(1), 24 + j(1)), v, -1)
+        cv2.ellipse(img, (14 + j(1), 12), (5, 4), 0, 180, 360, v, 2)
+    img += rng.normal(0, 0.03, img.shape)
+    return (np.clip(img, 0, 1) * 255).astype(np.uint8)
+
+
+def build_fashionmnist(out_dir: str, n_train: int = 10000,
+                       n_test: int = 2000, seed: int = 0) -> str:
+    rng = np.random.default_rng(seed)
+    _note(out_dir, "Procedural garment silhouettes — NOT real FashionMNIST.")
+    for name, n in (("fashionmnist.npz", n_train),
+                    ("test/fashionmnist.npz", n_test)):
+        labels = rng.integers(0, 10, n)
+        data = np.stack([_render_garment(rng, c) for c in labels])
+        path = os.path.join(out_dir, name)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        np.savez(path, data=data, labels=labels.astype(np.int64))
     return out_dir
 
 
@@ -159,13 +214,14 @@ def build_cub(out_dir: str, n_train: int = 6000, n_test: int = 800,
 
 def main():
     p = argparse.ArgumentParser(description="Build offline surrogates")
-    p.add_argument("family", choices=["celeba", "cub"])
+    p.add_argument("family", choices=["celeba", "fashionmnist", "cub"])
     p.add_argument("--out", required=True)
     p.add_argument("--train", type=int, default=None)
     p.add_argument("--test", type=int, default=None)
     p.add_argument("--seed", type=int, default=0)
     args = p.parse_args()
-    fn = {"celeba": build_celeba, "cub": build_cub}[args.family]
+    fn = {"celeba": build_celeba, "fashionmnist": build_fashionmnist,
+          "cub": build_cub}[args.family]
     kw = {"seed": args.seed}
     if args.train:
         kw["n_train"] = args.train

@@ -192,13 +192,14 @@ def r2_score(y_true: np.ndarray, y_pred: np.ndarray) -> float:
     return float(scores.mean())
 
 
-def logreg_fit(x: np.ndarray, y: np.ndarray):
+def logreg_fit(x: np.ndarray, y: np.ndarray, max_iter: int = LOGREG_MAX_ITER):
     """L2-penalised logistic regression by L-BFGS from zeros, on the mean
     log-loss plus 1/(2Cn)·|W|² (the intercept unpenalised): multinomial over
     the classes of ``y``, or one weight vector for two classes.  The
     objective's scale, the start and the stopping rule (gradient tolerance
     LOGREG_TOL, 50 line-search steps) are sklearn's ``LogisticRegression``
-    defaults, so that its early stop lands where sklearn's does.  Returns
+    defaults, so that its early stop lands where sklearn's does; at most
+    ``max_iter`` L-BFGS iterations, as sklearn's ``max_iter``.  Returns
     (classes, W (d, c), b (c,)), c = 1 for two classes."""
     from scipy.optimize import minimize
     from scipy.special import log_softmax, softmax
@@ -225,7 +226,7 @@ def logreg_fit(x: np.ndarray, y: np.ndarray):
         return value, np.concatenate([grad_w.ravel(), g.sum(0) / n])
 
     res = minimize(loss, np.zeros(d * c + c), jac=True, method="L-BFGS-B",
-                   options={"maxiter": LOGREG_MAX_ITER, "maxls": 50, "gtol": LOGREG_TOL,
+                   options={"maxiter": max_iter, "maxls": 50, "gtol": LOGREG_TOL,
                             "ftol": 64 * np.finfo(float).eps})
     return classes, res.x[:d * c].reshape(d, c), res.x[d * c:]
 

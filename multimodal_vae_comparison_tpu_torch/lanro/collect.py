@@ -11,6 +11,17 @@ port's own, restored through ``eval/infer.py``, on the card unless
 
     python -m multimodal_vae_comparison_tpu_torch.lanro.collect \
         --env NLReach2-v0 --episodes 2000 --out data/vilanro/D1
+
+The recipes of the waypoint configs' data (NLReach2-v0, seed 0; the
+expert succeeds in every episode):
+
+* ``D1way_p2`` (``round3/vilanro_r3_way_p2*``, ``round4/vilanro_r4_cond``):
+  2,000 scenes, hindsight chunks every 5 steps, as start-relative
+  waypoints: ``--episodes 2000 --chunk_every 5 --waypoints``;
+* ``D1way_r4`` (``round4/vilanro_r4b_spatial``): the same at 8,000
+  episodes, 14,214 samples: ``--episodes 8000 --chunk_every 5 --waypoints``;
+* ``D1way_r5`` (``round5/vilanro_r5_128``): D1way_r4's recipe rendered at
+  128 px: ``--episodes 8000 --chunk_every 5 --waypoints --size 128``.
 """
 from __future__ import annotations
 

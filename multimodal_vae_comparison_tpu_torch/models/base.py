@@ -5,7 +5,6 @@ every mixing strategy: encode/decode, the priors and posteriors, the KL
 terms and the reconstruction log-likelihood.  Submodules carry flax's names
 (``enc_mod_1``, ``dec_mod_2``, ``pz_logvar``, ``pz_mog_loc``) so that
 ``bridge.load_flax_params`` maps the reference's parameters one to one.
-The aux endpoint head is not ported yet (ROADMAP Queue A item 7c).
 """
 from __future__ import annotations
 
@@ -77,6 +76,19 @@ def build_specs(cfg) -> Tuple[ModalitySpec, ...]:
     return tuple(specs)
 
 
+class _EndpointHead(nn.Module):
+    """Dense 128, relu, Dense 3: the joint latents -> the predicted 3-D
+    endpoint of the action trajectory (auxiliary latent supervision)."""
+
+    def __init__(self, n_latents: int, hidden: int = 128):
+        super().__init__()
+        self.Dense_0 = nn.Linear(n_latents, hidden)
+        self.Dense_1 = nn.Linear(hidden, 3)
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        return self.Dense_1(F.relu(self.Dense_0(z)))
+
+
 class MMVAE(nn.Module):
     """Base multimodal VAE.  Subclasses implement ``forward``, which takes
     the tuple ``present`` of modality names with data available, and
@@ -97,13 +109,20 @@ class MMVAE(nn.Module):
     1), ``pz_mog_rawscale`` and ``pz_mog_logits`` zeros, as flax draws
     them), whose KL to a posterior is a Monte-Carlo mean over the drawn
     latents (:meth:`kld_to_prior`).
+
+    ``aux_endpoint > 0`` adds ``aux_head``, the endpoint head that
+    :meth:`aux_endpoint_loss` trains with that weight (POE's objective
+    reads it), where there is an action-waypoint modality to supervise it.
+    A modality with ``cond_on`` gets a decoder built for the conditioning
+    modality's token width (``cond_features``).
     """
 
     def __init__(self, specs: Tuple[ModalitySpec, ...], n_latents: int,
                  K: int = 1, seed: int = 0,
                  device: Optional[Union[str, torch.device]] = None,
                  obj: str = "elbo", beta: float = 1.0,
-                 prior_components: int = 1, remat: bool = False):
+                 prior_components: int = 1, remat: bool = False,
+                 aux_endpoint: float = 0.0):
         super().__init__()
         if prior_components < 1:
             raise ValueError(f"prior_components must be >= 1, got {prior_components}")
@@ -115,21 +134,28 @@ class MMVAE(nn.Module):
         self.beta = beta
         self.remat = remat
         self.prior_components = prior_components
+        self.aux_endpoint = float(aux_endpoint)
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
             for spec in self.specs:
                 self.add_module(f"enc_{spec.name}", get_encoder(spec.encoder)(
                     latent_dim=n_latents, data_dim=spec.feature_dims,
                     latent_private=spec.private_latents))
+                extra = {}
+                if spec.cond_on is not None:
+                    extra["cond_features"] = math.prod(
+                        int(d) for d in self.spec(spec.cond_on).feature_dims[1:])
                 self.add_module(f"dec_{spec.name}", get_decoder(spec.decoder)(
                     latent_dim=n_latents, data_dim=spec.feature_dims,
-                    latent_private=spec.private_latents))
+                    latent_private=spec.private_latents, **extra))
             if prior_components > 1:
                 # spread component means; raw scale 0 -> softplus(0.5413) ~ 1
                 C = prior_components
                 self.pz_mog_loc = nn.Parameter(torch.randn(C, n_latents))
                 self.pz_mog_rawscale = nn.Parameter(torch.zeros(C, n_latents))
                 self.pz_mog_logits = nn.Parameter(torch.zeros(C))
+            if self.aux_endpoint > 0 and self.endpoint_spec():
+                self.aux_head = _EndpointHead(n_latents)
         # learnable-scale prior: mu fixed 0, scale = softmax(raw) * D, raw
         # from zeros -> N(0, 1) at init
         self.pz_logvar = nn.Parameter(torch.zeros(1, n_latents))
@@ -333,6 +359,26 @@ class MMVAE(nn.Module):
         if logits is not None:
             logits = logits.reshape((B, K) + logits.shape[1:]).transpose(0, 1)
         return Normal(mean, scale, loc_logits=logits)
+
+    def endpoint_spec(self) -> Optional[ModalitySpec]:
+        """The action-waypoint modality the endpoint head is supervised on
+        (waypoints are padded by repeating the last achieved position, so
+        ``data[:, -1, :3]`` is the trajectory's endpoint)."""
+        return next((s for s in self.specs if s.mod_type == "action_waypoints"), None)
+
+    def aux_endpoint_loss(self, z: torch.Tensor, batch):
+        """(weighted loss term, mean per-row squared error) of the endpoint
+        head on the (K, B, D) latents ``z``: the squared error to the first
+        3 features of the last waypoint, averaged over K, summed over B for
+        the loss (times ``aux_endpoint``) and averaged for the metric."""
+        spec = self.endpoint_spec()
+        if spec is None:
+            raise ValueError("aux_endpoint needs an action_waypoints modality")
+        target = batch[spec.name]["data"][:, -1]
+        target = target.reshape(target.shape[0], -1)[:, :3]          # (B, 3)
+        pred = self.aux_head(z[..., : self.n_latents])               # (K, B, 3)
+        per_sample = ((pred - target[None]) ** 2).sum(-1).mean(0)    # (B,)
+        return self.aux_endpoint * per_sample.sum(), per_sample.mean()
 
     def forward(self, batch, present: Tuple[str, ...], eps=None,
                 generator=None) -> VAEOutput:

@@ -95,15 +95,23 @@ def _add_time_query_layers(dec: nn.Module, d_model: int, num_layers: int,
 
 
 def _time_query_decode(dec: nn.Module, z: torch.Tensor, seq_len: int,
-                       d_model: int, num_layers: int) -> torch.Tensor:
+                       d_model: int, num_layers: int,
+                       memory: Optional[torch.Tensor] = None,
+                       memory_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Positional time-queries cross-attend to z as a single-token memory;
-    no self-attention among the queries (see the reference's docstring)."""
+    no self-attention among the queries (see the reference's docstring).
+
+    ``memory`` (B, Tm, d_model) replaces the one z token (conditioned
+    decoding: z and the instruction's tokens) and ``memory_mask`` (B, Tm)
+    bool, True = attend, is its key padding: the reference's additive
+    (B, 1, 1, Tm) ``memory_bias`` in the form the attention kernel takes."""
     b = z.shape[0]
     h = positional_encoding(seq_len, d_model, device=z.device,
                             dtype=z.dtype)[None].expand(b, seq_len, d_model)
-    memory = z[:, None, :]
+    if memory is None:
+        memory = z[:, None, :]
     for i in range(num_layers):
-        att = getattr(dec, f"cross_attn_{i}")(h, memory)
+        att = getattr(dec, f"cross_attn_{i}")(h, memory, memory_mask)
         h = getattr(dec, f"ln1_{i}")(h + att)
         ff = getattr(dec, f"ff2_{i}")(gelu(getattr(dec, f"ff1_{i}")(h)))
         h = getattr(dec, f"ln2_{i}")(h + ff)
@@ -168,6 +176,69 @@ class Dec_Transformer(VaeDecoder):
         if mask is not None:
             out = out * mask.to(out.dtype).reshape(b, self.seq_len, *([1] * (out.dim() - 2)))
         return out, self.scale_like(out)
+
+
+class Dec_TransformerCond(VaeDecoder):
+    """Conditioned sequence decoder: Dec_Transformer (4 layers, ff 1024) at
+    d_model 128 and 4 heads, whose cross-attention memory holds the z token
+    (``z_proj``) and the conditioning modality's tokens (``cond_embed`` of
+    the (B, L, vocab) one-hots plus positions), under a key-padding bias
+    from ``cond_mask`` that always keeps the z key.  With ``cond=None``
+    (the conditioning modality absent) it decodes from the z token alone.
+    ``cond_features`` is the width of a conditioning token (the vocabulary);
+    without it the decoder has no ``cond_embed`` and takes no ``cond``."""
+
+    def __init__(self, latent_dim, data_dim, latent_private=None,
+                 cond_features: Optional[int] = None, ff_size: int = 1024,
+                 num_layers: int = 4, num_heads: int = 4, d_model: int = 128):
+        super().__init__(latent_dim, data_dim, latent_private)
+        self.seq_len, self.njoints = int(self.data_dim[0]), int(self.data_dim[1])
+        self.nfeats = int(self.data_dim[2]) if len(self.data_dim) > 2 else 1
+        self.num_layers, self.d_model = num_layers, d_model
+        self.z_proj = nn.Linear(self.out_dim, d_model)
+        if cond_features is not None:
+            self.cond_embed = nn.Linear(cond_features, d_model)
+        _add_time_query_layers(self, d_model, num_layers, num_heads, ff_size)
+        self.finallayer = nn.Linear(d_model, self.njoints * self.nfeats)
+
+    def forward(self, z: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                cond: Optional[torch.Tensor] = None,
+                cond_mask: Optional[torch.Tensor] = None):
+        b = z.shape[0]
+        z_tok = self.z_proj(z)[:, None, :]
+        memory, keep = z_tok, None
+        if cond is not None:
+            ce = self.cond_embed(cond)
+            ce = ce + positional_encoding(ce.shape[1], self.d_model, device=ce.device,
+                                          dtype=ce.dtype)[None]
+            memory = torch.cat([z_tok, ce], dim=1)
+            if cond_mask is not None:   # the z key is always kept
+                keep = torch.cat([torch.ones(b, 1, dtype=torch.bool, device=z.device),
+                                  cond_mask.to(torch.bool)], dim=1)
+        out = _time_query_decode(self, z_tok[:, 0], self.seq_len, self.d_model,
+                                 self.num_layers, memory=memory, memory_mask=keep)
+        out = self.finallayer(out).reshape(b, self.seq_len, self.njoints, self.nfeats)
+        if len(self.data_dim) <= 2:
+            out = out.squeeze(-1)
+        if mask is not None:
+            out = out * mask.to(out.dtype).reshape(b, self.seq_len, *([1] * (out.dim() - 2)))
+        return out, self.scale_like(out)
+
+
+class Dec_MNIST(VaeDecoder):
+    """2-layer MLP decoder (width 400, relu) to ``data_dim`` (28x28x1),
+    squashed as the image decoders are."""
+
+    def __init__(self, latent_dim, data_dim, latent_private=None,
+                 hidden_dim: int = 400):
+        super().__init__(latent_dim, data_dim, latent_private)
+        self.Dense_0 = nn.Linear(self.out_dim, hidden_dim)
+        self.Dense_1 = nn.Linear(hidden_dim, hidden_dim)
+        self.Dense_2 = nn.Linear(hidden_dim, math.prod(self.data_dim))
+
+    def forward(self, z: torch.Tensor, mask=None):
+        h = F.relu(self.Dense_1(F.relu(self.Dense_0(z))))
+        return self.squash_dist(self.Dense_2(h), z.shape[0])
 
 
 class Dec_FNN(VaeDecoder):
@@ -236,7 +307,9 @@ class Dec_VideoGPTSparse(Dec_VideoGPT):
 DECODERS = {
     "CNN": Dec_CNN,
     "FNN": Dec_FNN,
+    "MNIST": Dec_MNIST,
     "Transformer": Dec_Transformer,
+    "TransformerCond": Dec_TransformerCond,
     "TxtTransformer": Dec_TxtTransformer,
     "VideoGPT": Dec_VideoGPT,
     "VideoGPTSparse": Dec_VideoGPTSparse,

@@ -86,6 +86,103 @@ class Enc_CNN2(VaeEncoder):
         return self.head(self.Dense_0(h))
 
 
+def _coords(h: int, w: int, like: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(ys (h,), xs (w,)): ``linspace(-1, 1)`` over each spatial axis."""
+    return (torch.linspace(-1.0, 1.0, h, device=like.device, dtype=like.dtype),
+            torch.linspace(-1.0, 1.0, w, device=like.device, dtype=like.dtype))
+
+
+def _append_coords(h: torch.Tensor) -> torch.Tensor:
+    """Concatenate the normalized y and x coordinate channels (CoordConv,
+    Liu et al. 2018) after the channels of an NCHW feature map: the order of
+    the reference's NHWC concatenation, so a conv kernel's input channels
+    line up with the reference's."""
+    b, _, hh, ww = h.shape
+    ys, xs = _coords(hh, ww, h)
+    coords = torch.stack([ys[:, None].expand(hh, ww), xs[None, :].expand(hh, ww)])
+    return torch.cat([h, coords[None].expand(b, 2, hh, ww)], dim=1)
+
+
+class Enc_CNNCoord(VaeEncoder):
+    """Enc_CNN2 with the y and x coordinate channels appended before each of
+    its 4 stride-2 convs (CoordConv), so each conv takes C + 2 channels:
+    position becomes an input feature (VILANRO's image encoder since
+    ``vilanro_r3_way_p2c``)."""
+
+    def __init__(self, latent_dim, data_dim, latent_private=None,
+                 hid_channels: int = 32, hidden_dim: int = 512):
+        super().__init__(latent_dim, data_dim, latent_private)
+        h, w, c = self.data_dim[0], self.data_dim[1], self.data_dim[-1]
+        for i in range(4):
+            self.add_module(f"Conv_{i}", nn.Conv2d(c + 2, hid_channels, 4,
+                                                   stride=2, padding=1))
+            c = hid_channels
+            h, w = (h - 2) // 2 + 1, (w - 2) // 2 + 1
+        self.Dense_0 = nn.Linear(hid_channels * h * w, hidden_dim)
+        self._add_head(hidden_dim)
+
+    def forward(self, data: torch.Tensor, mask=None):
+        h = data.permute(0, 3, 1, 2)
+        for i in range(4):
+            h = F.silu(getattr(self, f"Conv_{i}")(_append_coords(h)))
+        h = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)
+        return self.head(self.Dense_0(h))
+
+
+class Enc_CNNSpatial(VaeEncoder):
+    """Conv trunk with a spatial-softmax (soft-argmax) keypoint head
+    (Levine et al. 2016): 3 stride-2 convs, a 3x3 conv to ``n_maps`` maps,
+    a softmax over the positions of each map (in fp32 or wider, its logits
+    scaled by the learned ``exp(ss_log_temp)``), each map's expected x and
+    y and its mean activation in the order ``[kx, ky, presence]``, then
+    Dense + silu and the head.  At 64 px the maps are 8x8, at 128 px
+    16x16."""
+
+    def __init__(self, latent_dim, data_dim, latent_private=None,
+                 hid_channels: int = 32, n_maps: int = 32, hidden_dim: int = 256):
+        super().__init__(latent_dim, data_dim, latent_private)
+        c = self.data_dim[-1]
+        for i in range(3):
+            self.add_module(f"Conv_{i}", nn.Conv2d(c, hid_channels, 4, stride=2, padding=1))
+            c = hid_channels
+        self.add_module("Conv_3", nn.Conv2d(hid_channels, n_maps, 3, padding=1))
+        self.ss_log_temp = nn.Parameter(torch.zeros(1))
+        self.Dense_0 = nn.Linear(3 * n_maps, hidden_dim)
+        self._add_head(hidden_dim)
+
+    def forward(self, data: torch.Tensor, mask=None):
+        h = data.permute(0, 3, 1, 2)
+        for i in range(3):
+            h = F.silu(getattr(self, f"Conv_{i}")(h))
+        h = self.Conv_3(h)                                   # (B, C, H, W)
+        b, c, hh, ww = h.shape
+        hf = h.to(torch.promote_types(h.dtype, torch.float32))   # fp32 at least
+        logits = (hf * torch.exp(self.ss_log_temp.to(hf.dtype))).reshape(b, c, hh * ww)
+        attn = torch.softmax(logits, dim=-1).reshape(b, c, hh, ww)
+        ys, xs = _coords(hh, ww, hf)
+        ky = (attn * ys[:, None]).sum(dim=(2, 3))             # (B, C) expected y
+        kx = (attn * xs[None, :]).sum(dim=(2, 3))             # (B, C) expected x
+        presence = hf.mean(dim=(2, 3))
+        feats = torch.cat([kx, ky, presence], dim=-1).to(h.dtype)
+        return self.head(F.silu(self.Dense_0(feats)))
+
+
+class Enc_MNIST(VaeEncoder):
+    """2-layer MLP encoder (width 400, relu) on the NHWC flatten of a
+    28x28x1 image."""
+
+    def __init__(self, latent_dim, data_dim, latent_private=None,
+                 hidden_dim: int = 400):
+        super().__init__(latent_dim, data_dim, latent_private)
+        self.Dense_0 = nn.Linear(math.prod(self.data_dim), hidden_dim)
+        self.Dense_1 = nn.Linear(hidden_dim, hidden_dim)
+        self._add_head(hidden_dim)
+
+    def forward(self, data: torch.Tensor, mask=None):
+        h = F.relu(self.Dense_0(data.reshape(data.shape[0], -1)))
+        return self.head(F.relu(self.Dense_1(h)))
+
+
 def _encode_sequence(embedding: nn.Module, encoder: nn.Module, d_model: int,
                      data: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
     """Per-step embedding, sinusoidal positions, the masked post-norm
@@ -203,7 +300,10 @@ class Enc_VideoGPTSparse(Enc_VideoGPT):
 ENCODERS = {
     "CNN": Enc_CNN,
     "CNN2": Enc_CNN2,
+    "CNNCoord": Enc_CNNCoord,
+    "CNNSpatial": Enc_CNNSpatial,
     "FNN": Enc_FNN,
+    "MNIST": Enc_MNIST,
     "Transformer": Enc_Transformer,
     "TxtTransformer": Enc_TxtTransformer,
     "VideoGPT": Enc_VideoGPT,

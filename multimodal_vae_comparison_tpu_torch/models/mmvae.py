@@ -283,6 +283,8 @@ class POE(MMVAE):
         total = torch.zeros((), device=z_all.device)
         total_kld = torch.zeros((), device=z_all.device)
         rec_per_mod = {s.name: torch.zeros((), device=z_all.device) for s in self.specs}
+        aux_spec = self.endpoint_spec() if hasattr(self, "aux_head") else None
+        aux_metrics = {}
         for s, present in enumerate(presents):
             kld = self.kld_to_prior(joints[s], z_subs[s])
             lpx_sum = torch.zeros((), device=z_all.device)
@@ -293,7 +295,15 @@ class POE(MMVAE):
                     rec_per_mod[spec.name] = -lpx.sum() / spec.llik_scaling
             total = total - (lpx_sum - self.beta * kld.sum())
             total_kld = total_kld + kld.mean()
-        metrics = {"kld": total_kld / S,
+            # the endpoint head reads the joint posterior of every modality
+            # but the action one (the evaluation's conditioning set): on the
+            # full set the action expert would hand it its own endpoint
+            if (aux_spec is not None and aux_spec.name not in present
+                    and len(present) == len(self.specs) - 1):
+                aux_term, aux_mse = self.aux_endpoint_loss(z_subs[s], batch)
+                total = total + aux_term
+                aux_metrics["aux_endpoint_mse"] = aux_mse
+        metrics = {"kld": total_kld / S, **aux_metrics,
                    **{f"reconstruction_loss_{k}": v for k, v in rec_per_mod.items()}}
         return total, metrics
 

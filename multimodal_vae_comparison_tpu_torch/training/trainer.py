@@ -51,21 +51,24 @@ CKPT_FILE = "state.pt"
 def build_model(specs: Tuple[ModalitySpec, ...], mixing: str, n_latents: int,
                 obj: str = "elbo", beta: float = 1.0, K: int = 1, seed: int = 0,
                 device: Optional[Union[str, torch.device]] = None,
-                remat: bool = False, prior_components: int = 1) -> MMVAE:
+                remat: bool = False, prior_components: int = 1,
+                aux_endpoint: float = 0.0) -> MMVAE:
     """The model of a config: the mixing class named by ``mixing`` (poe,
     moe, mopoe, dmvae or poe2) over one VAE per modality spec, weights drawn
     from ``seed``, on ``device`` (CUDA unless the caller passes ``"cpu"``);
     ``remat`` recomputes the nets' activations in the backward pass instead
     of keeping them; ``prior_components > 1`` learns a mixture-of-Gaussians
-    prior of that many components.  A config with one modality names the
-    unimodal VAE, which raises."""
+    prior of that many components; ``aux_endpoint > 0`` adds the endpoint
+    head, which POE's objective trains with that weight.  A config with one
+    modality names the unimodal VAE, which raises."""
     if len(specs) == 1:
         raise NotImplementedError(
             "a config with one modality trains the unimodal VAE, which is not "
             "ported yet (ROADMAP Queue A item 3)")
     return get_mixing(mixing)(specs, n_latents, K=K, seed=seed, device=device,
                               obj=obj, beta=beta, remat=remat,
-                              prior_components=prior_components)
+                              prior_components=prior_components,
+                              aux_endpoint=aux_endpoint)
 
 
 def build_model_from_config(cfg, device: Optional[Union[str, torch.device]] = None
@@ -77,15 +80,13 @@ def build_model_from_config(cfg, device: Optional[Union[str, torch.device]] = No
     if str(getattr(cfg, "precision", "32")) in ("bf16", "bfloat16"):
         raise NotImplementedError("precision: bf16 is not ported yet; the nets and "
                                   "kernels run in fp32 (ROADMAP Queue A item 4)")
-    if float(getattr(cfg, "aux_endpoint", 0.0) or 0.0):
-        raise NotImplementedError("the aux endpoint head (aux_endpoint > 0) is not "
-                                  "ported yet (ROADMAP Queue A item 7c)")
     for m in cfg.mods:
         objectives.check_ported(m.recon_loss)
     return build_model(build_specs(cfg), cfg.mixing, cfg.n_latents, obj=cfg.obj,
                        beta=cfg.beta, K=cfg.K, seed=cfg.seed, device=device,
                        remat=bool(getattr(cfg, "remat", False)),
-                       prior_components=int(getattr(cfg, "prior_components", 1) or 1))
+                       prior_components=int(getattr(cfg, "prior_components", 1) or 1),
+                       aux_endpoint=float(getattr(cfg, "aux_endpoint", 0.0) or 0.0))
 
 
 def _chunk(batch, eps, g: int, G: int):

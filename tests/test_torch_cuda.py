@@ -1044,3 +1044,98 @@ def test_vilanro_step_on_the_card_matches_the_cpu(cuda, tmp_path):
     for name, g in out["cpu"][2].items():
         err = (out["cuda"][2][name] - g).abs().max().item()
         assert err <= 1e-4 * g.abs().max().item() + 1e-5, f"{name}: {err}"
+
+
+@pytest.mark.parametrize("rows,tk,masked", [
+    (448, 5, True),     # a cond_always lattice's one decode: S*K*B = 7 * 64 rows
+    (64, 5, True),      # vilanro_r4_cond's per-subset decode with the instruction
+    (64, 1, False)],    # and without it: the z token alone
+    ids=["cond-always-lattice", "per-subset-conditioned", "per-subset-z-only"])
+def test_attention_at_transformer_cond_shapes_matches_plain(cuda, tmp_path, rows, tk, masked):
+    """Masked attention at Dec_TransformerCond's cross-attention (d_model
+    128, 4 heads, head dim 32, 100 waypoint queries), its keys the z token
+    and a collected instruction's 4 words under their padding (z always
+    kept), on the resident kernel: forward and the Function's backward
+    against autograd through the plain version."""
+    import os
+    from multimodal_vae_comparison_tpu_torch.data.datasets import VILANRO
+    q, k, v, _ = _qkv(32, rows, 4, 100, tk, 32, False, cuda)
+    mask = None
+    if masked:
+        d = _vilanro(tmp_path, 64)
+        words = torch.from_numpy(VILANRO(os.path.join(d, "instructions_final.pkl"), None,
+                                         "language").get_data()[1][:64])
+        keep = torch.cat([torch.ones(64, 1, dtype=torch.bool), words], 1)
+        mask = keep.repeat_interleave(rows // 64, 0).contiguous().to(cuda)
+        assert mask.shape == (rows, tk) and mask[:, 0].all()
+    telemetry.reset()
+    got = tattn.masked_attention(q, k, v, mask)
+    assert telemetry.variants() == {"attention:resident": 1}
+    torch.testing.assert_close(got, tattn.attention_reference(q, k, v, mask), **ATTN_TOL)
+    d_out = torch.randn(q.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(5))
+    leaves = [[x.detach().clone().requires_grad_() for x in (q, k, v)] for _ in range(2)]
+    got = torch.autograd.grad(tattn.masked_attention(*leaves[0], mask), leaves[0], d_out)
+    want = torch.autograd.grad(tattn.attention_reference(*leaves[1], mask), leaves[1], d_out)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, **ATTN_TOL)
+
+
+def test_vilanro_r4_cond_step_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """``configs/round4/vilanro_r4_cond.yml`` at its widths (CoordConv,
+    TransformerCond decoding per subset, the aux head at weight 1e4) at bs 4
+    on collected waypoints: one objective and its backward launch exactly
+    their kernels (attention 38, the lattice's PoE and its backward), and
+    the loss, the metrics (``aux_endpoint_mse`` among them) and every
+    gradient match the CPU's plain path in float64 on the same weights,
+    batch and draws, on the card's relu branches; a key bias, whose exact
+    gradient is 0, is held at its key weight's scale
+    (chip_smoke._worst_leaf)."""
+    import pathlib
+    import sys
+    import yaml
+    from multimodal_vae_comparison_tpu_torch.config import Config
+    from multimodal_vae_comparison_tpu_torch.data.datamodule import DataModule
+    from multimodal_vae_comparison_tpu_torch.training.trainer import build_model_from_config
+    root = pathlib.Path(__file__).resolve().parents[1]
+    sys.path.insert(0, str(root))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.pop(0)
+    d = _vilanro(tmp_path, 20, chunk_every=5, waypoints=True)
+    with open(root / "configs/round4/vilanro_r4_cond.yml") as f:
+        params = yaml.safe_load(f)
+    params.update(batch_size=4)
+    params.update({f"modality_{i + 1}": dict(params[f"modality_{i + 1}"],
+                                             path=str(pathlib.Path(d) / stem))
+                   for i, stem in enumerate(chip_smoke.VILANRO_STEMS)})
+    cfg = Config(params, results_root=str(tmp_path / "results"))
+    dm = DataModule(cfg)
+    dm.setup()
+    raw = next(dm.batches("train"))
+    rng = np.random.default_rng(25)
+    draws = [rng.standard_normal((1, 4, cfg.n_latents)).astype(np.float32) for _ in range(7)]
+    branches, out = [], {}
+    for dev, dtype in (("cuda", torch.float32), ("cpu", torch.float64)):
+        model = build_model_from_config(cfg, device=dev).to(dtype)
+        batch = {n: {"data": torch.from_numpy(m["data"]).to(dev, dtype),
+                     "masks": None if m["masks"] is None else torch.from_numpy(m["masks"]).to(dev)}
+                 for n, m in raw.items()}
+        telemetry.reset()
+        with chip_smoke.same_branches(branches, dev == "cpu", {}):
+            loss, metrics = model.objective(batch, eps=[torch.from_numpy(e).to(dev, dtype)
+                                                        for e in draws])
+            loss.backward()
+        if dev == "cuda":
+            assert telemetry.launches() == {"attention": 38, "poe": 1, "poe_bwd": 1}
+            assert not any(k.endswith(":plain") for k in telemetry.summary())
+        out[dev] = (loss.item(), {k: v.item() for k, v in metrics.items()},
+                    {n: (torch.zeros_like(p) if p.grad is None else p.grad).float().cpu()
+                     for n, p in model.named_parameters()})
+    assert "aux_endpoint_mse" in out["cuda"][1]
+    assert out["cuda"][0] == pytest.approx(out["cpu"][0], rel=1e-5)
+    for k, v in out["cpu"][1].items():
+        assert out["cuda"][1][k] == pytest.approx(v, rel=1e-5, abs=1e-4), k
+    worst, name = chip_smoke._worst_leaf(out["cuda"][2], out["cpu"][2], 1e-4, 1e-5,
+                                         key_bias_scale=True)
+    assert worst <= 1.0, f"{name}: {worst:.3f} of its limit"

@@ -302,7 +302,7 @@ def test_cdsprites_dataset_loads_and_decodes_as_jax(level1):
 
 
 def test_unported_and_unknown_datasets_raise():
-    for name, item in (("mnist_svhn", "7d"), ("fashionmnist", "7d"), ("polymnist", "7d")):
+    for name, item in (("mnist_svhn", "7d"), ("polymnist", "7d")):
         assert name in jdatasets.DATASETS
         with pytest.raises(NotImplementedError, match=f"Queue A item {item}"):
             datasets.get_dataset_class(name)
@@ -310,7 +310,7 @@ def test_unported_and_unknown_datasets_raise():
         jdatasets.DATASETS)
     assert datasets.get_dataset_class("CdSpritesPlus") is datasets.CDSPRITESPLUS
     assert datasets.get_dataset_class("sprites") is datasets.SPRITES
-    for name in ("cub", "celeba", "vilanro", "synthetic"):
+    for name in ("cub", "celeba", "vilanro", "synthetic", "fashionmnist"):
         assert datasets.get_dataset_class(name).__name__ == name.upper()
     with pytest.raises(KeyError):
         datasets.get_dataset_class("imagenet")

@@ -28,7 +28,8 @@ REQUIRED = {"multimodal_vae_comparison_tpu_torch." + m for m in (
     "bridge", "config", "data.datamodule", "data.datasets", "data.native", "data.text",
     "data_proc.cdsprites", "data_proc.sprites_gen", "data_proc.surrogates",
     "eval.classifiers", "eval.eval_cdsprites", "eval.eval_celeba", "eval.eval_cub",
-    "eval.eval_sprites", "eval.infer", "eval.vilanro_probe", "eval.vilanro_test",
+    "eval.eval_fashionmnist", "eval.eval_mnistsvhn", "eval.eval_sprites", "eval.infer",
+    "eval.vilanro_probe", "eval.vilanro_test",
     "eval.train_classifiers", "lanro", "lanro.arm", "lanro.collect", "lanro.env",
     "lanro.simulation", "main", "models.base", "models.contrib", "models.decoders",
     "models.distributions", "models.encoders", "models.mmvae", "models.nets",
@@ -55,7 +56,8 @@ sys.exit(1 if bad or missing or optional else 0)
 
 def test_port_imports_no_jax_no_jax_package_and_no_triton():
     """Every module of the port (the training, video, config/data/Trainer,
-    eval, model-zoo, SPRITES, CelebA/CUB and VILANRO slices' among them), and
+    eval, model-zoo, SPRITES, CelebA/CUB, VILANRO and FashionMNIST slices'
+    among them), and
     chip_smoke.py, imported in a fresh process with no nvcc reachable: none
     pulls in jax, flax, optax, triton or the JAX package, none loads cv2,
     imageio, matplotlib or sklearn, and none starts a process (an nvcc build)

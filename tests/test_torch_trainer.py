@@ -404,17 +404,24 @@ def test_infer_restores_the_run_and_the_server_serves_it(cli_run, monkeypatch):
 @pytest.mark.parametrize("over,item", [
     ({"precision": "bf16"}, "item 4"),
     ({"prior_components": 4}, None),
-    ({"aux_endpoint": 0.5}, "item 7c"),
+    ({"aux_endpoint": 0.5}, None),
     ({"num_devices": 2}, "item 9"),
     ({"dataset_name": "mnist_svhn"}, "item 7d"),
 ], ids=["bf16", "mixture-prior", "aux-endpoint", "devices", "dataset"])
 def test_unported_options_raise_with_their_roadmap_item(tmp_path, level1, over, item):
     """Each option the port does not have raises naming its ROADMAP item;
-    the mixture prior (``item`` None), ported since, builds."""
+    the mixture prior and the aux endpoint weight (``item`` None), ported
+    since, build: the weight on a config without an action-waypoint
+    modality builds no endpoint head, as the JAX package's tree has none."""
     if item is None:
         trainer = port_trainer(level1, tmp_path, **over)
-        assert trainer.model.prior_components == 4
-        assert trainer.model.pz_mog_loc.shape == (4, trainer.cfg.n_latents)
+        if "prior_components" in over:
+            assert trainer.model.prior_components == 4
+            assert trainer.model.pz_mog_loc.shape == (4, trainer.cfg.n_latents)
+        else:
+            assert trainer.model.aux_endpoint == 0.5
+            assert trainer.model.endpoint_spec() is None
+            assert not hasattr(trainer.model, "aux_head")
         return
     with pytest.raises(NotImplementedError, match=f"Queue A {item}"):
         port_trainer(level1, tmp_path, **over)
