@@ -57,7 +57,16 @@ three main paths at full width with random weights from a seed:
   (the three action encodings) trained for 1 resident epoch each under
   ``torch.profiler``; on the first, the closed loop (``vilanro_test``
   open loop and replanning), the grounding probe, a DAgger round, and its
-  step on the card against the CPU.
+  step on the card against the CPU; then VILANRO's conditioned configs
+  ("vilanro cond from config") and FashionMNIST ("fashionmnist from
+  config");
+* MNIST-SVHN and PolyMNIST from their configs ("digits from config"): both
+  surrogates made by the port's builders from the 8x8 digits, the two
+  MNIST-SVHN configs (MOE, DReG K 30, Laplace posteriors; no kernel at
+  all) and the two PolyMNIST configs (POE and MoPoE over 5 modalities,
+  the PoE lattice at M 5) trained for 1 resident epoch each, the first of
+  each family ending in ``Trainer.test()`` and its benchmark; a DReG and
+  a MoPoE step on the card against the CPU in float64.
 
 Each path runs with the kernel counts set to 0 just before it and read just
 after, and must have launched every kernel it goes through and taken no
@@ -4163,6 +4172,234 @@ def phase_fashionmnist_from_config(card: str, root: str):
     return total, numbers, rows
 
 
+# -- MNIST-SVHN and PolyMNIST (ROADMAP Queue A item 7d) ---------------------------
+
+# the four configs, 1 resident epoch each (not 150-600) on the surrogates
+# made in the run at the builders' defaults (MNIST-SVHN pairs 20 / 5,
+# PolyMNIST 10,000 / 2,000 rows); each first one ends in test() and its
+# benchmark: (label, config, launch key, paths key)
+DIGITS_FROM_CONFIG = (
+    ("MOE mnistsvhn", "configs/config_mnistsvhn.yml", "moe_dreg", "mnistsvhn_pt"),
+    ("MOE mnistsvhn_r2", "configs/round2/config_mnistsvhn_r2.yml", "moe_dreg", "mnistsvhn"),
+    ("POE polymnist", "configs/config_polymnist.yml", "poe", "polymnist_pt"),
+    ("MoPoE polymnist_r2_mopoe", "configs/round2/polymnist_r2_mopoe.yml", "mopoe", "polymnist"))
+DIGITS_TEST = ("MOE mnistsvhn", "POE polymnist")
+# MNIST-SVHN (MOE, DReG, Laplace posteriors) launches no kernel: DReG takes
+# no KL, the KL kernel is for Gaussian posteriors, and there is no attention
+# or PoE; PolyMNIST's POE and MoPoE launch the PoE lattice once a call (M 5,
+# all 31 subsets; MoPoE's full set with the prior expert) and its backward
+# once a step
+DIGITS_PER_OBJECTIVE = {"moe_dreg": {}, "poe": {"poe": 1}, "mopoe": {"poe": 1}}
+DIGITS_PER_BACKWARD = {"moe_dreg": {}, "poe": {"poe_bwd": 1}, "mopoe": {"poe_bwd": 1}}
+DIGITS_TABLES = (DIGITS_PER_OBJECTIVE, DIGITS_PER_BACKWARD)
+# the benchmarks' forwards: the latent probe's (every modality) and one
+# cross-generation per modality, a PoE launch each on PolyMNIST; the joint
+# generation decodes only
+DIGITS_EVAL_LAUNCHES = {"moe_dreg": {}, "poe": {"poe": 6}, "mopoe": {"poe": 6}}
+# the card against the CPU in float64 at this batch: (label, config)
+DIGITS_PARITY = (("MOE mnistsvhn", "configs/config_mnistsvhn.yml"),
+                 ("MoPoE polymnist_r2_mopoe", "configs/round2/polymnist_r2_mopoe.yml"))
+DIGITS_PARITY_BATCH = 4
+# the stats of each benchmark: MNIST-SVHN's 6 and PolyMNIST's 24 (3 summary
+# stats, the 20 ordered pairs, joint coherence)
+DIGITS_STATS = {"MOE mnistsvhn": 6, "POE polymnist": 24}
+
+
+def make_digits(root: str):
+    """Both surrogates through the port's builders at their defaults, and
+    the ``.pt`` files ``config_mnistsvhn.yml`` and ``config_polymnist.yml``
+    name (``torch.save`` of the builders' arrays): ({paths key: the
+    modalities' data paths}, seconds of each build)."""
+    from multimodal_vae_comparison_tpu_torch.data_proc import mnistsvhn, polymnist
+    seconds = {}
+    t0 = time.perf_counter()
+    ms = mnistsvhn.build_surrogate(os.path.join(root, "mnist_svhn"))
+    seconds["mnistsvhn"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pm = polymnist.build_surrogate(os.path.join(root, "polymnist"))
+    seconds["polymnist"] = time.perf_counter() - t0
+    paths = {"mnistsvhn": {}, "mnistsvhn_pt": {}, "polymnist": {}, "polymnist_pt": {}}
+    for i, m in enumerate(("mnist", "svhn")):
+        key = f"modality_{i + 1}"
+        paths["mnistsvhn"][key] = {"path": os.path.join(ms, f"{m}_idx_train.npy"),
+                                   "test_datapath": os.path.join(ms, f"{m}_idx_test.npy")}
+        pt = os.path.join(ms, f"train-ms-{m}-idx.pt")
+        torch.save(torch.from_numpy(np.load(paths["mnistsvhn"][key]["path"])), pt)
+        paths["mnistsvhn_pt"][key] = {"path": pt}
+    for i in range(5):
+        key = f"modality_{i + 1}"
+        paths["polymnist"][key] = {"path": os.path.join(pm, f"m{i}.npy"),
+                                   "test_datapath": os.path.join(pm, f"test_m{i}.npy")}
+        pt = os.path.join(pm, f"m{i}.pt")
+        torch.save(torch.from_numpy(np.load(paths["polymnist"][key]["path"])), pt)
+        paths["polymnist_pt"][key] = {"path": pt}
+    return paths, seconds
+
+
+def digits_eps(rng: np.random.Generator, config, mixing: str, k: int, n: int):
+    """Draws in the form the config's forward (and MOE's and MoPoE's
+    objective) takes: MOE's Laplace posteriors a uniform (k, n, D) draw per
+    modality in the open interval of their sampler, the joint of POE and
+    MoPoE one standard-normal (k, n, D) draw."""
+    from multimodal_vae_comparison_tpu_torch.models.distributions import Laplace
+    shape = (k, n, config.n_latents)
+    if mixing == "moe":
+        return {m.name: rng.uniform(Laplace.U_LOW, Laplace.U_HIGH, shape).astype(np.float32)
+                for m in config.mods}
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+def phase_digits_card_vs_cpu(card: str, label: str, path: str, paths: dict, root: str, key: str,
+                             batch) -> dict:
+    """One objective and its backward of ``path`` at its widths and K on
+    DIGITS_PARITY_BATCH rows of ``batch`` and drawn eps: the card (kernels,
+    fp32, TF32 off) against the CPU's plain path in float64 on the card's
+    relu branches and DReG importance weights (:func:`same_branches`,
+    :func:`same_dreg_weights`): loss and metrics within TRAIN_RTOL, every
+    gradient within GRAD_REL x its leaf's max |g| + GRAD_ATOL; the card
+    launches exactly one objective call's and one backward's kernels
+    (DIGITS_TABLES at ``key``: none for MNIST-SVHN) and no plain version."""
+    from multimodal_vae_comparison_tpu_torch.ops.kernels import telemetry
+    from multimodal_vae_comparison_tpu_torch.training.trainer import build_model_from_config
+    n = DIGITS_PARITY_BATCH
+    rows = {k: {"data": v["data"][:n], "masks": None} for k, v in batch.items()}
+    cfg = from_config(path, paths, root, eval_only=True)
+    for i, mod in enumerate(cfg.mods):
+        mod.feature_dims = list(rows[f"mod_{i + 1}"]["data"].shape[1:])
+    eps = digits_eps(np.random.default_rng(66), cfg, cfg.mixing, cfg.K, n)
+    branches, weights, out, moved, seconds = [], [], {}, {}, {}
+    for dev, dtype in (("cuda", torch.float32), ("cpu", torch.float64)):
+        model = build_model_from_config(cfg, device=dev).to(dtype)
+        tb = {k: {"data": v["data"].to(dtype), "masks": None}
+              for k, v in torch_batch(rows, dev).items()}
+        dev_eps = eps_to(eps, dev)
+        dev_eps = ({k: v.to(dtype) for k, v in dev_eps.items()} if isinstance(dev_eps, dict)
+                   else dev_eps.to(dtype))
+        telemetry.reset()
+        t0 = time.perf_counter()
+        with same_branches(branches, dev == "cpu", moved), \
+                same_dreg_weights(weights, dev == "cpu", moved):
+            out[dev] = _objective_grads(model, tb, dev_eps)
+        seconds[dev] = time.perf_counter() - t0
+        if dev == "cuda":
+            launches, dispatch = telemetry.launches(), telemetry.summary()
+        del model
+    want = expected_launches(key, 1, 1, DIGITS_TABLES)
+    (gl, gm, gg), (cl, cm, cg) = out["cuda"], out["cpu"]
+    worst, worst_name = _worst_leaf(gg, {k: v.float() for k, v in cg.items()}, GRAD_REL,
+                                    GRAD_ATOL)
+    print(f"digits card vs CPU {label} ({path}, bs {n}, K {cfg.K}): loss cuda {gl:.6f}, cpu "
+          "float64 {:.6f}; metrics ".format(cl)
+          + ", ".join(f"{k} {gm[k]:.6f}/{cm[k]:.6f}" for k in sorted(gm))
+          + f"; worst gradient leaf {worst:.3f} of its limit at {worst_name} (limit "
+          f"{GRAD_REL} x max|g| + {GRAD_ATOL}); relu branches and DReG weights replayed on "
+          f"the CPU: {moved}; launches {launches}, expected {want}; dispatch {dispatch}; "
+          f"{seconds['cuda']:.3f} s on the card, {seconds['cpu']:.3f} s on the CPU ({card})")
+    check(launches == want, f"{label} card vs CPU: launched {launches}, expected {want}")
+    check(not any(k.endswith(":plain") for k in dispatch),
+          f"{label} card vs CPU: a plain version ran on the card: {dispatch}")
+    check(np.isfinite(gl) and abs(gl - cl) <= TRAIN_RTOL * abs(cl),
+          f"{label} card vs CPU: loss {gl} on the card vs {cl} on the CPU")
+    check(sorted(gm) == sorted(cm), f"{label} card vs CPU: metric keys differ")
+    for k in gm:
+        check(abs(gm[k] - cm[k]) <= TRAIN_RTOL * abs(cm[k]) + 1e-4,
+              f"{label} card vs CPU: metric {k} {gm[k]} on the card vs {cm[k]} on the CPU")
+    check(worst <= 1.0, f"{label} card vs CPU: gradient of {worst_name} differs")
+    return {"loss_cuda": gl, "loss_cpu64": cl, "worst_grad_share_of_limit_vs_cpu64": worst,
+            "worst_leaf_vs_cpu64": worst_name, "replayed": moved, "launches": launches,
+            "card_s": seconds["cuda"], "cpu64_s": seconds["cpu"]}
+
+
+def phase_digits_from_config(card: str, root: str):
+    """Queue A item 7d's main path: both surrogates built in the run by the
+    port's builders (:func:`make_digits`), then each config of
+    DIGITS_FROM_CONFIG trained for 1 resident epoch at its batch and K, at
+    full width, the DIGITS_TEST ones through ``main(config)``, ending in
+    ``Trainer.test()`` and the dataset's benchmark (its judges trained on
+    the card at first use).  Each run is counted from zero: exactly its
+    objective calls times DIGITS_PER_OBJECTIVE, its train steps times
+    DIGITS_PER_BACKWARD and the benchmark's DIGITS_EVAL_LAUNCHES (nothing
+    at all on MNIST-SVHN), no plain version; the val loss falls; the
+    restored forward is within RESTORE_RTOL / RESTORE_ATOL; the stats lie
+    in [0, 1].  DIGITS_PARITY's steps on the card against the CPU in
+    float64, then the PoE lattice at M 5 at both PolyMNIST configs'
+    shapes.  Returns (launches of the runs, the phase's numbers, the time
+    rows)."""
+    from multimodal_vae_comparison_tpu_torch.main import main as train_main
+    numbers, total = {"card": card, "cut": {"epochs": 1}}, {}
+    paths, numbers["build_s"] = make_digits(os.path.join(root, "digits"))
+    saved = {k: os.environ.get(k) for k in ("MNISTSVHN_CLASSIFIER_DIR",
+                                            "POLYMNIST_CLASSIFIER_DIR")}
+    for k in saved:
+        os.environ[k] = os.path.join(root, k.split("_")[0].lower() + "_judges")
+    parity = dict(DIGITS_PARITY)
+    try:
+        for label, path, key, data in DIGITS_FROM_CONFIG:
+            test = label in DIGITS_TEST
+            mixing = key.split("_")[0]
+            config, trainer, stats = config_trainer(label, path, mixing, paths[data], root, 1)
+            dm, bs = trainer.datamodule, config.batch_size
+            steps, val_batches = dm.n_train // bs, dm.n_val // bs
+            untrained = trainer.validate_scan(0)["val_loss"]
+            torch.cuda.reset_peak_memory_stats()
+
+            def run(trainer=trainer, config=config, test=test):
+                trainer.fit(epochs=1)
+                if test:
+                    train_main(config, trainer=trainer, enable_viz=False)
+
+            t0 = time.perf_counter()
+            counted(label, key, steps + val_batches * (2 if test else 1), steps, run, total,
+                    DIGITS_EVAL_LAUNCHES[key] if test else None, DIGITS_TABLES)
+            run_s = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            trained, epoch_s, samples_s = one_epoch_checks(label, config, untrained)
+            if test:
+                # test()'s validation, then the benchmark's stats
+                stats = {k: v for k, v in stats.items() if not k.startswith("val_")}
+                check(len(stats) == DIGITS_STATS[label] and all(
+                    isinstance(v, float) and 0.0 <= v <= 1.0 for v in stats.values()),
+                      f"{label}: test() returned {stats}")
+                name = "mnist_svhn" if mixing == "moe" else "polymnist"
+                check(os.path.isfile(os.path.join(config.mPath, f"{name}_stats.txt")),
+                      f"{label}: no {name}_stats.txt")
+            batch = next(dm.batches("val"))
+            eps = digits_eps(np.random.default_rng(64), config, mixing, 1, bs)
+            err = check_restored(label, config.mPath, trainer, batch, eps_to(eps, trainer.device))
+            per_call = step_launches(label, trainer, batch, key, tables=DIGITS_TABLES,
+                                     phase="digits from config")
+            print(f"digits from config {label} ({path}): {trainer.n_params()} parameters, "
+                  f"{dm.n_train} train / {dm.n_val} val rows, {steps} steps of {bs} at K "
+                  f"{config.K}; val_loss untrained {untrained:.2f} -> {trained:.2f}; epoch "
+                  f"{epoch_s:.3f} s, {samples_s:.1f} samples/s; run {run_s:.2f} s; peak "
+                  f"memory {peak:.3f} GiB"
+                  + (f"; stats {json.dumps(stats)}" if test else "") + f" on {card}")
+            numbers[label] = {"config": path, "params": trainer.n_params(), "steps": steps,
+                              "batch": bs, "K": config.K, "val_loss_untrained": untrained,
+                              "val_loss": trained, "epoch_s": epoch_s,
+                              "samples_per_s": samples_s, "run_s": run_s,
+                              "peak_memory_gib": peak, "restore_max_abs_err": err,
+                              **({"stats": stats} if test else {}), **per_call}
+            if label in parity:
+                numbers[label]["card_vs_cpu"] = phase_digits_card_vs_cpu(
+                    card, label, parity[label], paths[data], root, key, batch)
+            del trainer
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    g = torch.Generator(device="cuda").manual_seed(67)
+    rows = []
+    for label, path, key, _ in DIGITS_FROM_CONFIG:
+        if key != "moe_dreg":
+            cfg = from_config(path, {}, root, eval_only=True)
+            rows += checked_poe_rows(card, g, 5, cfg.batch_size, cfg.n_latents,
+                                     f"digits {label}")
+    return total, numbers, rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -4339,6 +4576,12 @@ def main() -> int:
         fashion_launches, fashion_numbers, fashion_rows = phase_fashionmnist_from_config(card, tmp)
         fashion_numbers["phase_s"] = time.perf_counter() - t0
         print("fashionmnist from config " + json.dumps(fashion_numbers))
+        # this slice's main path: MNIST-SVHN and PolyMNIST from their
+        # surrogates through their benchmarks, and the PoE lattice at M 5
+        t0 = time.perf_counter()
+        digits_launches, digits_numbers, digits_rows = phase_digits_from_config(card, tmp)
+        digits_numbers["phase_s"] = time.perf_counter() - t0
+        print("digits from config " + json.dumps(digits_numbers))
 
     # 11. times
     rows = phase_times(engine, card)
@@ -4368,13 +4611,16 @@ def main() -> int:
         per_step[f"VILANRO {label}"] = run_numbers["launches_per_train_step"]
     for label, _ in FASHION_FROM_CONFIG:
         per_step[f"FashionMNIST {label}"] = fashion_numbers[label]["launches_per_train_step"]
+    for label, *_ in DIGITS_FROM_CONFIG:
+        per_step[f"digits {label}"] = digits_numbers[label]["launches_per_train_step"]
     for r in primary:
         kernel = KERNEL_OF[r["name"]]
         r["launches"] = (video_launches.get(kernel, 0) if kernel in video_kernels
                          else config_launches.get(kernel, 0) + zoo_launches.get(kernel, 0)
                          + sprites_launches.get(kernel, 0) + mog_launches.get(kernel, 0)
                          + family_launches.get(kernel, 0) + vilanro_launches.get(kernel, 0)
-                         + cond_launches.get(kernel, 0) + fashion_launches.get(kernel, 0))
+                         + cond_launches.get(kernel, 0) + fashion_launches.get(kernel, 0)
+                         + digits_launches.get(kernel, 0))
         r["launches_zoo_from_config_path"] = zoo_launches.get(kernel, 0)
         r["launches_sprites_from_config_path"] = sprites_launches.get(kernel, 0)
         r["launches_mog_from_config_path"] = mog_launches.get(kernel, 0)
@@ -4382,6 +4628,7 @@ def main() -> int:
         r["launches_vilanro_from_config_path"] = vilanro_launches.get(kernel, 0)
         r["launches_vilanro_cond_from_config_path"] = cond_launches.get(kernel, 0)
         r["launches_fashionmnist_from_config_path"] = fashion_launches.get(kernel, 0)
+        r["launches_digits_from_config_path"] = digits_launches.get(kernel, 0)
         r["sprites_shapes"] = [{k: v for k, v in x.items()
                                 if k not in ("name", "route", "source", "replaces")}
                                for x in sprites_rows if x["name"] == r["name"]]
@@ -4390,7 +4637,8 @@ def main() -> int:
                            for x in cub_rows if x["name"] == r["name"]]
         for key, extra_rows in (("vilanro_shapes", vilanro_rows),
                                 ("vilanro_cond_shapes", cond_rows),
-                                ("fashionmnist_shapes", fashion_rows)):
+                                ("fashionmnist_shapes", fashion_rows),
+                                ("digits_shapes", digits_rows)):
             r[key] = [{k: v for k, v in x.items()
                        if k not in ("name", "route", "source", "replaces")}
                       for x in extra_rows if x["name"] == r["name"]]

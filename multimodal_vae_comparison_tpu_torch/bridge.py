@@ -13,7 +13,10 @@ them, are built of these layers):
   channels last, since ``Enc_CNNCoord`` appends them after the features);
 * ``nn.ConvTranspose2d``, ``nn.ConvTranspose3d``: the kernel reversed on
   every spatial axis and laid out ``(in, out, *spatial)`` (flax's transposed
-  conv does not flip the kernel; PyTorch's does);
+  conv does not flip the kernel; PyTorch's does), whatever flax's padding:
+  the module crops for it (``Dec_SVHN``'s ``VALID`` one is PyTorch's
+  unpadded one, ``Dec_PolyMNIST``'s ``SAME`` ones at stride 2 cut a row
+  and a column);
 * ``nn.LayerNorm``, ``nn.GroupNorm``: ``scale`` -> ``weight``;
 * ``FrozenBatchNorm``: ``scale`` -> ``weight``, ``bias`` -> ``bias``, and
   the stop-gradient statistics ``mean`` and ``var`` -> its two buffers;

@@ -6,9 +6,9 @@ dirs), data as float32 with masks as a separate boolean array, everything
 preprocessed once into contiguous arrays.  ``h5py`` and ``cv2`` are imported
 where a file of theirs is read.
 
-CdSprites+, SPRITES, CUB, CelebA, VILANRO, FashionMNIST and the in-memory
-synthetic set are ported; the other datasets' names are known and raise, naming the ROADMAP
-item that brings them.
+Every dataset of the JAX package is ported: CdSprites+, MNIST-SVHN,
+SPRITES, CUB, CelebA, FashionMNIST, PolyMNIST, VILANRO and the in-memory
+synthetic set.
 """
 from __future__ import annotations
 
@@ -319,6 +319,65 @@ class FASHIONMNIST(BaseDataset):
         return onehot, None
 
 
+class MNIST_SVHN(BaseDataset):
+    """MNIST-SVHN pairs by index files (reference datasets.py:416-495).
+
+    ``path`` / ``test_datapath`` name a split's index file (``.npy``, or
+    ``.pt`` as ``torch.save`` wrote it); the digit arrays are read from
+    ``mnist.npz`` / ``svhn.npz`` (keys 'data', 'labels') beside it, the
+    ``data_proc/mnistsvhn.py`` contract.  Every 7th pair is kept, from the
+    second, up to 200,000, as the reference subsamples; each image is
+    divided by the largest value of its split."""
+
+    feature_dims = {"mnist": [28, 28, 1], "svhn": [32, 32, 3]}
+    text2img_size = (32, 32, 3)
+
+    def __init__(self, pth, testpth, mod_type):
+        super().__init__(pth, testpth, mod_type)
+        self.train_labels = None
+
+    def labels(self):
+        # the digit labels of the last split read
+        return self.train_labels
+
+    def eval_statistics_fn(self):
+        from multimodal_vae_comparison_tpu_torch.eval.eval_mnistsvhn import mnistsvhn_eval
+        return mnistsvhn_eval
+
+    def _mod_specific_loaders(self):
+        return {"mnist": self._load_mnist, "svhn": self._load_svhn}
+
+    def _mod_specific_savers(self):
+        return {"mnist": self._decode_image, "svhn": self._decode_image}
+
+    def _raw_arrays(self, name):
+        npz = os.path.join(os.path.dirname(self.current_path), f"{name}.npz")
+        if not os.path.exists(npz):
+            raise FileNotFoundError(f"expected {npz} with keys 'data', 'labels' beside "
+                                    "the index file")
+        with np.load(npz) as d:
+            return d["data"], d["labels"]
+
+    def _indices(self):
+        return np.asarray(load_data(self.current_path))[1::7][:200000]
+
+    def _load_mnist(self):
+        data, labels = self._raw_arrays("mnist")
+        idx = self._indices()
+        self.train_labels = labels[idx]
+        d = data[idx].reshape(-1, 28, 28, 1).astype(np.float32)
+        return d / d.max(), None
+
+    def _load_svhn(self):
+        data, labels = self._raw_arrays("svhn")
+        idx = self._indices()
+        self.train_labels = labels[idx]
+        d = data[idx].astype(np.float32)
+        if d.shape[1] == 3:           # CHW -> HWC
+            d = d.transpose(0, 2, 3, 1)
+        return d / d.max(), None
+
+
 class SPRITES(BaseDataset):
     """Trimodal animated-sprites video dataset (reference datasets.py:497-648):
     frames (8, 64, 64, 3), attributes (4, 6) and actions (9) from the
@@ -386,6 +445,46 @@ class SPRITES(BaseDataset):
                 one_hot[:, 3 * ai + di] = 1
                 out.append(one_hot)
         return np.concatenate(out, 0), None
+
+
+class POLYMNIST(BaseDataset):
+    """PolyMNIST: 5 image modalities m0..m4 (reference datasets.py:812-881)
+    from ``.npy`` (or ``torch.save``'d ``.pt``) arrays of (N, 28, 28, 3).
+    The digit labels are read from ``labels.npy`` / ``test_labels.npy``
+    beside the arrays (the ``data_proc/polymnist.py`` contract; a file
+    named ``test_*`` takes the test labels), when there."""
+
+    feature_dims = {f"m{i}": [28, 28, 3] for i in range(5)}
+    text2img_size = (28, 28, 3)
+
+    def __init__(self, pth, testpth, mod_type):
+        super().__init__(pth, testpth, mod_type)
+        self._labels = None
+
+    def labels(self):
+        return self._labels
+
+    def eval_statistics_fn(self):
+        from multimodal_vae_comparison_tpu_torch.eval.eval_polymnist import polymnist_eval
+        return polymnist_eval
+
+    def _mod_specific_loaders(self):
+        return {k: self._load_image for k in self.feature_dims}
+
+    def _mod_specific_savers(self):
+        return {k: self._decode_image for k in self.feature_dims}
+
+    def _load_image(self):
+        d = np.asarray(self.get_data_raw()).astype(np.float32)
+        d = d.reshape(-1, *self.feature_dims[self.mod_type])
+        if d.max() > 1.5:
+            d = d / 255.0
+        base = os.path.basename(str(self.current_path))
+        lab = os.path.join(os.path.dirname(str(self.current_path)),
+                           "test_labels.npy" if base.startswith("test_") else "labels.npy")
+        if os.path.exists(lab):
+            self._labels = np.load(lab)
+        return d, None
 
 
 class VILANRO(BaseDataset):
@@ -642,18 +741,13 @@ class SYNTHETIC(BaseDataset):
         return self._load_text_onehot(self._generate()[1], self.feature_dims["text"][0])
 
 
-DATASETS = {"cdspritesplus": CDSPRITESPLUS, "sprites": SPRITES, "cub": CUB,
-            "celeba": CELEBA, "vilanro": VILANRO, "synthetic": SYNTHETIC,
-            "fashionmnist": FASHIONMNIST}
-# known to the JAX package, not ported yet: the ROADMAP Queue A item of each
-_UNPORTED = {"mnist_svhn": "7d", "polymnist": "7d"}
+DATASETS = {"cdspritesplus": CDSPRITESPLUS, "mnist_svhn": MNIST_SVHN, "sprites": SPRITES,
+            "cub": CUB, "celeba": CELEBA, "fashionmnist": FASHIONMNIST,
+            "polymnist": POLYMNIST, "vilanro": VILANRO, "synthetic": SYNTHETIC}
 
 
 def get_dataset_class(name: str):
     key = (name or "").lower()
-    if key in _UNPORTED:
-        raise NotImplementedError(f"dataset '{name}' is not ported yet "
-                                  f"(ROADMAP Queue A item {_UNPORTED[key]})")
     if key not in DATASETS:
         raise KeyError(f"Did not find dataset with name {name}; "
                        f"available: {sorted(DATASETS)}")

@@ -19,7 +19,7 @@ from multimodal_vae_comparison_tpu_torch.constants import DEC_SCALE, ETA
 from multimodal_vae_comparison_tpu_torch.models.nets import (
     LN_EPS, AttentionResidualBlock, ConvTranspose2dTorch, GroupNorm,
     MultiHeadAttention, SamePadConvTranspose3d, SparseAttentionResidualBlock,
-    gelu, positional_encoding, resample_strides)
+    transpose_crops, gelu, positional_encoding, resample_strides)
 
 # logit(1 - ETA): clipping logits to +-this bound == clipping sigmoid(x) to
 # [ETA, 1-ETA] (see VaeDecoder.squash_dist)
@@ -241,6 +241,97 @@ class Dec_MNIST(VaeDecoder):
         return self.squash_dist(self.Dense_2(h), z.shape[0])
 
 
+class Dec_MNIST2(VaeDecoder):
+    """1-layer MLP decoder (width 400, relu) of the MMVAE repository to
+    ``data_dim``, squashed as the image decoders are."""
+
+    def __init__(self, latent_dim, data_dim, latent_private=None,
+                 hidden_dim: int = 400):
+        super().__init__(latent_dim, data_dim, latent_private)
+        self.Dense_0 = nn.Linear(self.out_dim, hidden_dim)
+        self.Dense_1 = nn.Linear(hidden_dim, math.prod(self.data_dim))
+
+    def forward(self, z: torch.Tensor, mask=None):
+        return self.squash_dist(self.Dense_1(F.relu(self.Dense_0(z))), z.shape[0])
+
+
+def _up_stack(dec: nn.Module, x: torch.Tensor, n: int) -> torch.Tensor:
+    """``ConvTranspose2dTorch_0`` .. ``_{n-1}`` on NHWC ``x``, relu after
+    each but the last."""
+    for i in range(n):
+        x = getattr(dec, f"ConvTranspose2dTorch_{i}")(x)
+        if i < n - 1:
+            x = F.relu(x)
+    return x
+
+
+class Dec_SVHN(VaeDecoder):
+    """SVHN decoder to 32x32x3: Dense 128 + relu as a 1x1 map, a 4x4
+    unpadded transposed conv to 4x4x64 (flax's ``VALID``), then three 2x
+    transposed convs (64, 32, 3; relu between)."""
+
+    def __init__(self, latent_dim, data_dim, latent_private=None):
+        super().__init__(latent_dim, data_dim, latent_private)
+        self.Dense_0 = nn.Linear(self.out_dim, 128)
+        self.ConvTranspose_0 = nn.ConvTranspose2d(128, 64, 4)
+        for i, (c_in, c_out) in enumerate(((64, 64), (64, 32), (32, 3))):
+            self.add_module(f"ConvTranspose2dTorch_{i}", ConvTranspose2dTorch(c_in, c_out))
+
+    def forward(self, z: torch.Tensor, mask=None):
+        b = z.shape[0]
+        h = F.relu(self.Dense_0(z)).reshape(b, 128, 1, 1)
+        h = F.relu(self.ConvTranspose_0(h)).permute(0, 2, 3, 1)
+        return self.squash_dist(_up_stack(self, h, 3), b)
+
+
+class Dec_SVHN2(VaeDecoder):
+    """SVHN decoder of the MMVAE repository: z as a 1x1 map, a 4x4 unpadded
+    transposed conv to 4x4 x fBase*4 (flax's ``VALID``), then three 2x
+    transposed convs (fBase*2, fBase, 3; relu between) to 32x32x3."""
+
+    def __init__(self, latent_dim, data_dim, latent_private=None, fBase: int = 32):
+        super().__init__(latent_dim, data_dim, latent_private)
+        self.ConvTranspose_0 = nn.ConvTranspose2d(self.out_dim, fBase * 4, 4)
+        for i, (c_in, c_out) in enumerate(((fBase * 4, fBase * 2), (fBase * 2, fBase),
+                                           (fBase, 3))):
+            self.add_module(f"ConvTranspose2dTorch_{i}", ConvTranspose2dTorch(c_in, c_out))
+
+    def forward(self, z: torch.Tensor, mask=None):
+        b = z.shape[0]
+        h = F.relu(self.ConvTranspose_0(z.reshape(b, -1, 1, 1))).permute(0, 2, 3, 1)
+        return self.squash_dist(_up_stack(self, h, 3), b)
+
+
+class Dec_PolyMNIST(VaeDecoder):
+    """PolyMNIST deconv decoder (MVTCAE): Dense 2048 + relu as a 4x4x128 map,
+    three 3x3 stride-2 transposed convs with flax's ``SAME`` padding (64,
+    32, 3; relu between) to 32x32, cropped to the centre 28x28.
+
+    Flax's ``SAME`` transposed conv at kernel 3, stride 2 is PyTorch's
+    unpadded one (on the flipped kernel, which the bridge flips) with its
+    last row and column cut: 2n + 1 -> 2n."""
+
+    def __init__(self, latent_dim, data_dim, latent_private=None):
+        super().__init__(latent_dim, data_dim, latent_private)
+        self.Dense_0 = nn.Linear(self.out_dim, 2048)
+        for i, (c_in, c_out) in enumerate(((128, 64), (64, 32), (32, 3))):
+            self.add_module(f"ConvTranspose_{i}", nn.ConvTranspose2d(c_in, c_out, 3, stride=2))
+        self.crop = transpose_crops(3, 2)
+
+    def forward(self, z: torch.Tensor, mask=None):
+        b = z.shape[0]
+        # NHWC (b, 4, 4, 128), as the reference reshapes, viewed as NCHW
+        h = F.relu(self.Dense_0(z)).reshape(b, 4, 4, 128).permute(0, 3, 1, 2)
+        lo, hi = self.crop
+        for i in range(3):
+            h = getattr(self, f"ConvTranspose_{i}")(h)
+            h = h[:, :, lo:h.shape[2] - hi, lo:h.shape[3] - hi]
+            if i < 2:
+                h = F.relu(h)
+        # 4 -> 8 -> 16 -> 32, the centre 28x28
+        return self.squash_dist(h[:, :, 2:30, 2:30].permute(0, 2, 3, 1), b)
+
+
 class Dec_FNN(VaeDecoder):
     """Generic MLP decoder."""
 
@@ -308,6 +399,10 @@ DECODERS = {
     "CNN": Dec_CNN,
     "FNN": Dec_FNN,
     "MNIST": Dec_MNIST,
+    "MNIST2": Dec_MNIST2,
+    "PolyMNIST": Dec_PolyMNIST,
+    "SVHN": Dec_SVHN,
+    "SVHN2": Dec_SVHN2,
     "Transformer": Dec_Transformer,
     "TransformerCond": Dec_TransformerCond,
     "TxtTransformer": Dec_TxtTransformer,

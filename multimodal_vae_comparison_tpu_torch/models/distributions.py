@@ -1,11 +1,11 @@
 """Distributions (counterpart of ``models/distributions.py``).
 
-The diagonal ``Normal`` and the learnable mixture-of-Gaussians prior
-``MixtureNormal``.  Like the reference each is a plain container of its
-parameters with ``log_prob`` and a sampler; the samplers draw from an
-explicit ``torch.Generator`` or take injected noise, so tests can feed
-both packages the same draws.  Laplace, Bernoulli and OneHotCategorical
-come with the slices whose models use them.
+The diagonal ``Normal`` and ``Laplace`` and the learnable
+mixture-of-Gaussians prior ``MixtureNormal``.  Like the reference each is a
+plain container of its parameters with ``log_prob`` and a sampler; the
+samplers draw from an explicit ``torch.Generator`` or take injected noise,
+so tests can feed both packages the same draws.  Bernoulli and
+OneHotCategorical come with the slices whose models use them.
 """
 from __future__ import annotations
 
@@ -60,10 +60,57 @@ class Normal:
         return 0.5 * (var_ratio + t1 - 1.0 - torch.log(var_ratio))
 
 
+@dataclasses.dataclass(frozen=True)
+class Laplace:
+    loc: torch.Tensor
+    scale: torch.Tensor
+
+    # the open interval of the uniform draw of the inverse-CDF sampler
+    U_LOW, U_HIGH = -0.5 + 1e-7, 0.5 - 1e-7
+
+    @property
+    def mean(self) -> torch.Tensor:
+        return self.loc
+
+    def log_prob(self, x: torch.Tensor) -> torch.Tensor:
+        return -(x - self.loc).abs() / self.scale - torch.log(2.0 * self.scale)
+
+    def rsample(self, sample_shape: Sequence[int] = (),
+                generator: Optional[torch.Generator] = None,
+                eps: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Inverse-CDF sampling, ``loc - scale sign(u) log1p(-2 |u|)``, with
+        ``u`` ~ U(U_LOW, U_HIGH) of shape ``sample_shape + loc.shape``:
+        ``eps`` is that uniform draw when given, else it is drawn from
+        ``generator`` on the generator's device and moved to ``loc``'s."""
+        shape = tuple(sample_shape) + tuple(self.loc.shape)
+        if eps is None:
+            r = torch.rand(shape, generator=generator, dtype=self.loc.dtype,
+                           device=self.loc.device if generator is None else generator.device)
+            eps = (self.U_LOW + (self.U_HIGH - self.U_LOW) * r).to(self.loc.device)
+        elif tuple(eps.shape) != shape:
+            raise ValueError(f"eps has shape {tuple(eps.shape)}, expected {shape}")
+        return self.loc - self.scale * torch.sign(eps) * torch.log1p(-2.0 * eps.abs())
+
+    def kl(self, other: "Laplace") -> torch.Tensor:
+        """Closed-form KL(self || other) between Laplace distributions."""
+        scale_ratio = self.scale / other.scale
+        delta = (self.loc - other.loc).abs()
+        return (scale_ratio * torch.exp(-delta / self.scale) + delta / other.scale - 1.0
+                - torch.log(scale_ratio))
+
+
+def stop_gradient(dist):
+    """``dist`` of the same family with every tensor parameter detached."""
+    return dataclasses.replace(dist, **{
+        f.name: getattr(dist, f.name).detach() for f in dataclasses.fields(dist)
+        if torch.is_tensor(getattr(dist, f.name))})
+
+
 # the reference's DIST_MAP, restricted to the ported families
 DIST_MAP = {
     "normal": Normal,
     "gaussian": Normal,
+    "laplace": Laplace,
 }
 
 

@@ -183,6 +183,105 @@ class Enc_MNIST(VaeEncoder):
         return self.head(F.relu(self.Dense_1(h)))
 
 
+def _scaled_softmax(raw: torch.Tensor) -> torch.Tensor:
+    """The MMVAE repository's scale activation, ``softmax(raw) * D + ETA``."""
+    return torch.softmax(raw, dim=-1) * raw.shape[-1] + ETA
+
+
+class Enc_MNISTMoE(VaeEncoder):
+    """1-layer MLP encoder (width 400, relu) of the MMVAE repository on the
+    NHWC flatten of an image; its scale is ``softmax(raw) * D + ETA``."""
+
+    def __init__(self, latent_dim, data_dim, latent_private=None,
+                 hidden_dim: int = 400):
+        super().__init__(latent_dim, data_dim, latent_private)
+        self.Dense_0 = nn.Linear(math.prod(self.data_dim), hidden_dim)
+        self.Dense_1 = nn.Linear(hidden_dim, self.out_dim)
+        self.Dense_2 = nn.Linear(hidden_dim, self.out_dim)
+
+    def forward(self, data: torch.Tensor, mask=None):
+        h = F.relu(self.Dense_0(data.reshape(data.shape[0], -1)))
+        return self.Dense_1(h), _scaled_softmax(self.Dense_2(h))
+
+
+def _add_convs(enc: nn.Module, specs, c: int, h: int, w: int, kernel: int, stride: int):
+    """Register ``Conv_i`` for each (features, padding) of ``specs`` on an
+    (h, w, c) input; returns the (h, w, c) of the last one's output."""
+    for i, (feat, pad) in enumerate(specs):
+        enc.add_module(f"Conv_{i}", nn.Conv2d(c, feat, kernel, stride=stride, padding=pad))
+        c = feat
+        h, w = (h + 2 * pad - kernel) // stride + 1, (w + 2 * pad - kernel) // stride + 1
+    return h, w, c
+
+
+def _relu_convs(enc: nn.Module, data: torch.Tensor, n: int) -> torch.Tensor:
+    """``Conv_0`` .. ``Conv_{n-1}`` each followed by relu, on NHWC ``data``;
+    the output is NCHW."""
+    h = data.permute(0, 3, 1, 2)
+    for i in range(n):
+        h = F.relu(getattr(enc, f"Conv_{i}")(h))
+    return h
+
+
+def _flatten_nhwc(h: torch.Tensor) -> torch.Tensor:
+    """Flatten an NCHW feature map in NHWC order, as the reference's Dense
+    reads it."""
+    return h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)
+
+
+class Enc_PolyMNIST(VaeEncoder):
+    """PolyMNIST conv encoder (MVTCAE): three 3x3 stride-2 convs (32, 64,
+    128; relu) on a 28x28x3 image, Dense 400 + relu, and mu and raw-scale
+    Dense layers with the scale ``softmax(raw) * D + ETA``."""
+
+    def __init__(self, latent_dim, data_dim, latent_private=None,
+                 hidden_dim: int = 400):
+        super().__init__(latent_dim, data_dim, latent_private)
+        h, w, c = _add_convs(self, ((32, 1), (64, 1), (128, 1)), int(self.data_dim[-1]),
+                             int(self.data_dim[0]), int(self.data_dim[1]), 3, 2)
+        self.Dense_0 = nn.Linear(h * w * c, hidden_dim)
+        self.Dense_1 = nn.Linear(hidden_dim, self.out_dim)
+        self.Dense_2 = nn.Linear(hidden_dim, self.out_dim)
+
+    def forward(self, data: torch.Tensor, mask=None):
+        h = F.relu(self.Dense_0(_flatten_nhwc(_relu_convs(self, data, 3))))
+        return self.Dense_1(h), _scaled_softmax(self.Dense_2(h))
+
+
+class Enc_SVHN(VaeEncoder):
+    """SVHN conv encoder: four 4x4 stride-2 convs (32, 64, 64 padded by 1;
+    128 unpadded; relu) from 32x32x3 to 1x1x128, then the head."""
+
+    def __init__(self, latent_dim, data_dim, latent_private=None):
+        super().__init__(latent_dim, data_dim, latent_private)
+        h, w, c = _add_convs(self, ((32, 1), (64, 1), (64, 1), (128, 0)),
+                             int(self.data_dim[-1]), int(self.data_dim[0]),
+                             int(self.data_dim[1]), 4, 2)
+        self._add_head(h * w * c)
+
+    def forward(self, data: torch.Tensor, mask=None):
+        return self.head(_flatten_nhwc(_relu_convs(self, data, 4)))
+
+
+class Enc_SVHN2(VaeEncoder):
+    """SVHN encoder of the MMVAE repository: three 4x4 stride-2 convs
+    (fBase x 1, 2, 4; relu) from 32x32 to 4x4, then two 4x4 unpadded convs
+    to 1x1 for mu and the raw scale, ``softmax(raw) * D + ETA``."""
+
+    def __init__(self, latent_dim, data_dim, latent_private=None, fBase: int = 32):
+        super().__init__(latent_dim, data_dim, latent_private)
+        _, _, c = _add_convs(self, ((fBase, 1), (fBase * 2, 1), (fBase * 4, 1)),
+                             int(self.data_dim[-1]), int(self.data_dim[0]),
+                             int(self.data_dim[1]), 4, 2)
+        self.Conv_3 = nn.Conv2d(c, self.out_dim, 4)
+        self.Conv_4 = nn.Conv2d(c, self.out_dim, 4)
+
+    def forward(self, data: torch.Tensor, mask=None):
+        h = _relu_convs(self, data, 3)
+        mu = _flatten_nhwc(self.Conv_3(h))
+        return mu, _scaled_softmax(_flatten_nhwc(self.Conv_4(h)))
+
+
 def _encode_sequence(embedding: nn.Module, encoder: nn.Module, d_model: int,
                      data: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
     """Per-step embedding, sinusoidal positions, the masked post-norm
@@ -304,6 +403,10 @@ ENCODERS = {
     "CNNSpatial": Enc_CNNSpatial,
     "FNN": Enc_FNN,
     "MNIST": Enc_MNIST,
+    "MNISTMoE": Enc_MNISTMoE,
+    "PolyMNIST": Enc_PolyMNIST,
+    "SVHN": Enc_SVHN,
+    "SVHN2": Enc_SVHN2,
     "Transformer": Enc_Transformer,
     "TxtTransformer": Enc_TxtTransformer,
     "VideoGPT": Enc_VideoGPT,

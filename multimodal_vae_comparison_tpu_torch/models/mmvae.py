@@ -25,7 +25,7 @@ import torch
 from multimodal_vae_comparison_tpu_torch.models import objectives
 from multimodal_vae_comparison_tpu_torch.models.base import MMVAE
 from multimodal_vae_comparison_tpu_torch.models.distributions import (
-    Normal, log_mean_exp, log_prob_joint)
+    Normal, log_mean_exp, log_prob_joint, stop_gradient)
 from multimodal_vae_comparison_tpu_torch.models.output import (
     ModalityOutput, VAEOutput)
 from multimodal_vae_comparison_tpu_torch.ops.fusion import (
@@ -154,8 +154,9 @@ class MOE(MMVAE):
         dreg = self.obj == "dreg"
         pz = self.pz()
         qzs, zs = self._sample_all(batch, eps, generator)
-        q_lp = ({n: Normal(q.loc.detach(), q.scale.detach()) for n, q in qzs.items()}
-                if dreg else qzs)
+        # DReG's lqz takes the posteriors without a gradient, each in its own
+        # family (Laplace under ``prior: laplace``)
+        q_lp = {n: stop_gradient(q) for n, q in qzs.items()} if dreg else qzs
         rec_per_mod = {}
 
         def log_weights(zs_dict):

@@ -181,7 +181,7 @@ def resample_strides(factors: Sequence[int]):
     return out
 
 
-def _transpose_crops(kernel: int, stride: int) -> Tuple[int, int]:
+def transpose_crops(kernel: int, stride: int) -> Tuple[int, int]:
     """What to cut from each end of a full transposed conv (PyTorch's with no
     padding) to get flax/XLA's ``SAME`` one, whose output is size * stride."""
     pad_len = kernel + stride - 2
@@ -198,7 +198,7 @@ class SamePadConvTranspose3d(nn.Module):
     def __init__(self, in_features: int, features: int, kernel: int = 4,
                  strides: Sequence[int] = (1, 1, 1)):
         super().__init__()
-        crops = [_transpose_crops(kernel, s) for s in strides]
+        crops = [transpose_crops(kernel, s) for s in strides]
         padding = tuple(min(c) for c in crops)
         self.extra = tuple((lo - p, hi - p) for (lo, hi), p in zip(crops, padding))
         self.ConvTranspose_0 = nn.ConvTranspose3d(in_features, features, kernel,

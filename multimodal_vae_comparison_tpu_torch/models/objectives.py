@@ -7,9 +7,9 @@ gradient re-weighting is :func:`scale_grad`, an identity whose backward
 multiplies the incoming gradient by fixed importance weights (the
 reference's ``jax.custom_vjp``).
 
-Not ported yet: ``lprob`` and ``feature_loss`` (:data:`UNPORTED`, with
-the ROADMAP Queue A item of each); :func:`check_ported` raises for them,
-and ``build_model_from_config`` calls it for every modality of a config.
+Not ported yet: ``feature_loss`` (:data:`UNPORTED`, with its ROADMAP
+Queue A item); :func:`check_ported` raises for it, and
+``build_model_from_config`` calls it for every modality of a config.
 """
 from __future__ import annotations
 
@@ -62,6 +62,13 @@ def bce(dist, target, mask=None, batch_ndims=1):
     return _sum_features(ll, mask, batch_ndims)
 
 
+def lprob(dist, target, mask=None, batch_ndims=1):
+    """Exact log-probability of the targets under the likelihood
+    distribution, a NaN term counted as 0."""
+    ll = torch.nan_to_num(dist.log_prob(target), nan=0.0)
+    return _sum_features(ll, mask, batch_ndims)
+
+
 def l1(dist, target, mask=None, batch_ndims=1):
     ll = -(dist.mean - target.to(dist.mean.dtype)).abs()
     return _sum_features(ll, mask, batch_ndims)
@@ -103,14 +110,14 @@ def optimal_sigma(dist, target, mask=None, batch_ndims=1):
 
 RECON_LOSSES = {
     "bce": bce,
+    "lprob": lprob,
     "l1": l1,
     "mse": mse,
     "category_ce": category_ce,
     "optimal_sigma": optimal_sigma,
 }
-# the JAX package's other losses, not ported yet: the ROADMAP Queue A item
-# of each
-UNPORTED = {"lprob": "7d", "feature_loss": "8"}
+# the JAX package's other loss, not ported yet: its ROADMAP Queue A item
+UNPORTED = {"feature_loss": "8"}
 
 
 def check_ported(ltype: str) -> None:

@@ -179,7 +179,9 @@ def analyse_data(trainer, epoch_dir: str, max_points: int = 512) -> None:
             plt.close(fig)
         q = mo.encoder_dist or mo.joint_dist
         if q is not None:
-            kld = q.kl(Normal(torch.zeros_like(q.loc), torch.ones_like(q.scale)))
+            # as a Gaussian whatever the posterior's family, as the reference plots it
+            kld = Normal(q.loc, q.scale).kl(Normal(torch.zeros_like(q.loc),
+                                                   torch.ones_like(q.scale)))
             kld = kld.cpu().numpy()
             fig, ax = plt.subplots(figsize=(8, 4))
             ax.boxplot([kld[:, d] for d in range(kld.shape[1])])

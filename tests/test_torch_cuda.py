@@ -1139,3 +1139,85 @@ def test_vilanro_r4_cond_step_on_the_card_matches_the_cpu(cuda, tmp_path):
     worst, name = chip_smoke._worst_leaf(out["cuda"][2], out["cpu"][2], 1e-4, 1e-5,
                                          key_bias_scale=True)
     assert worst <= 1.0, f"{name}: {worst:.3f} of its limit"
+
+
+# PolyMNIST's lattice (M 5, all 31 subsets) at its configs' (rows, latents):
+# config_polymnist's POE (bs 32, 32 latents; the prior expert on every
+# subset) and polymnist_r2_mopoe's MoPoE (bs 128, 24 latents; the prior on
+# the full set only), each also without the prior expert
+POLYMNIST_LATTICE_CASES = [(32, 32, "all"), (32, 32, "none"), (128, 24, "full"),
+                           (128, 24, "none")]
+
+
+@pytest.mark.parametrize("rows,d,kind", POLYMNIST_LATTICE_CASES)
+def test_poe_lattice_at_polymnist_shapes_matches_plain(cuda, rows, d, kind):
+    """One forward and one backward launch over the 31 subsets of 5 experts,
+    against the plain versions within POE_TOL, and the gradients against
+    autograd through the plain forward within POE_BWD_TOL."""
+    lattice = subset_lattice(5)
+    mask = {"none": 0, "all": (1 << 31) - 1, "full": 1 << 30}[kind]
+    mus, scales = _experts_on(cuda, 70 + rows + d, 5, (rows, d))
+    ups = [torch.randn((31, rows, d), device=cuda) for _ in range(2)]
+    leaves = [x.clone().requires_grad_() for x in mus + scales]
+    telemetry.reset()
+    mu, scale = tpoe.poe_lattice(leaves[:5], leaves[5:], lattice, 1.0, prior_mask=mask)
+    got = torch.autograd.grad((mu, scale), leaves, ups)
+    assert telemetry.launches() == {"poe": 1, "poe_bwd": 1}
+    assert not any(k.endswith(":plain") for k in telemetry.summary())
+    want_mu, want_scale = tpoe.poe_lattice_reference(mus, scales, lattice, 1.0, mask)
+    torch.testing.assert_close(mu, want_mu, **POE_TOL)
+    torch.testing.assert_close(scale, want_scale, **POE_TOL)
+    want = _grads(lambda *x: tpoe.poe_lattice_reference(x[:5], x[5:], lattice, 1.0, mask),
+                  mus + scales, ups)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **POE_BWD_TOL)
+
+
+def test_laplace_dreg_step_on_the_card_matches_the_cpu(cuda):
+    """``configs/config_mnistsvhn.yml`` at its widths (MOE, DReG at K 30,
+    Laplace posteriors, lprob, llik auto) at bs 4 on random digit-sized
+    rows and uniform draws: one objective and its backward launch no kernel
+    and no plain version, and the loss, the metrics and every gradient
+    match the CPU's plain path in float64 on the same weights, batch and
+    draws, on the card's relu branches and DReG weights
+    (chip_smoke.same_branches, same_dreg_weights)."""
+    import pathlib
+    import sys
+    from multimodal_vae_comparison_tpu_torch.config import Config
+    from multimodal_vae_comparison_tpu_torch.models.distributions import Laplace
+    from multimodal_vae_comparison_tpu_torch.training.trainer import build_model_from_config
+    root = pathlib.Path(__file__).resolve().parents[1]
+    sys.path.insert(0, str(root))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.pop(0)
+    cfg = Config(str(root / "configs/config_mnistsvhn.yml"), eval_only=True)
+    for mod, dims in zip(cfg.mods, ([28, 28, 1], [32, 32, 3])):
+        mod.feature_dims = dims
+    rng = np.random.default_rng(26)
+    data = {m.name: rng.random((4, *m.feature_dims)).astype(np.float32) for m in cfg.mods}
+    draws = {m.name: rng.uniform(Laplace.U_LOW, Laplace.U_HIGH, (cfg.K, 4, cfg.n_latents))
+             .astype(np.float32) for m in cfg.mods}
+    branches, weights, out = [], [], {}
+    for dev, dtype in (("cuda", torch.float32), ("cpu", torch.float64)):
+        model = build_model_from_config(cfg, device=dev).to(dtype)
+        batch = {n: {"data": torch.from_numpy(d).to(dev, dtype), "masks": None}
+                 for n, d in data.items()}
+        telemetry.reset()
+        with chip_smoke.same_branches(branches, dev == "cpu", {}), \
+                chip_smoke.same_dreg_weights(weights, dev == "cpu", {}):
+            loss, metrics = model.objective(batch, eps={n: torch.from_numpy(e).to(dev, dtype)
+                                                        for n, e in draws.items()})
+            loss.backward()
+        if dev == "cuda":
+            assert type(model.posterior(model.specs[0], *[torch.zeros(1)] * 2)) is Laplace
+            assert telemetry.summary() == {}
+        out[dev] = (loss.item(), {k: v.item() for k, v in metrics.items()},
+                    {n: (torch.zeros_like(p) if p.grad is None else p.grad).float().cpu()
+                     for n, p in model.named_parameters()})
+    assert out["cuda"][0] == pytest.approx(out["cpu"][0], rel=1e-5)
+    for k, v in out["cpu"][1].items():
+        assert out["cuda"][1][k] == pytest.approx(v, rel=1e-5, abs=1e-4), k
+    worst, name = chip_smoke._worst_leaf(out["cuda"][2], out["cpu"][2], 1e-4, 1e-5)
+    assert worst <= 1.0, f"{name}: {worst:.3f} of its limit"

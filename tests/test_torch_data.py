@@ -302,12 +302,12 @@ def test_cdsprites_dataset_loads_and_decodes_as_jax(level1):
 
 
 def test_unported_and_unknown_datasets_raise():
-    for name, item in (("mnist_svhn", "7d"), ("polymnist", "7d")):
+    """Every dataset name of the JAX package resolves (the digit family
+    last, since item 7d); an unknown name raises."""
+    for name in ("mnist_svhn", "polymnist"):
         assert name in jdatasets.DATASETS
-        with pytest.raises(NotImplementedError, match=f"Queue A item {item}"):
-            datasets.get_dataset_class(name)
-    assert sorted(list(datasets.DATASETS) + list(datasets._UNPORTED)) == sorted(
-        jdatasets.DATASETS)
+        assert datasets.get_dataset_class(name).__name__ == name.upper()
+    assert sorted(datasets.DATASETS) == sorted(jdatasets.DATASETS)
     assert datasets.get_dataset_class("CdSpritesPlus") is datasets.CDSPRITESPLUS
     assert datasets.get_dataset_class("sprites") is datasets.SPRITES
     for name in ("cub", "celeba", "vilanro", "synthetic", "fashionmnist"):

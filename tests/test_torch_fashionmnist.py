@@ -8,7 +8,8 @@ gradients from carried weights; both configs' POE objectives at bs 4, the
 port fed JAX's draws, give JAX's loss, metrics and gradients;
 ``fashionmnist_eval`` computes JAX's stats and stats file from fixed judges
 and generations; ``latent_digit_accuracy`` scores what the JAX package's
-(sklearn's logistic regression) scores; both configs build through
+(sklearn's logistic regression) scores; the digit family and ``lprob``,
+which this file once found refused, build; both configs build through
 ``build_model_from_config`` with the JAX tree; ``config_fashionmnist.yml``
 trains and ends in its benchmark through ``Trainer`` with ``device="cpu"``,
 launching the kernels' plain versions as chip_smoke.py counts them.
@@ -130,11 +131,13 @@ def test_dataset_gives_jax_arrays_labels_and_decodes(built, mod_type, as_file):
 
 
 def test_the_digit_family_and_lprob_still_raise_naming_item_7d():
-    for name in ("mnist_svhn", "polymnist"):
-        with pytest.raises(NotImplementedError, match="Queue A item 7d"):
-            datasets.get_dataset_class(name)
-    with pytest.raises(NotImplementedError, match="lprob.*Queue A item 7d"):
-        objectives.check_ported("lprob")
+    """Item 7d is done: the digit family's datasets and ``lprob`` build
+    (test_torch_mnistsvhn.py and test_torch_polymnist.py hold them against
+    the JAX package)."""
+    assert datasets.get_dataset_class("mnist_svhn") is datasets.MNIST_SVHN
+    assert datasets.get_dataset_class("polymnist") is datasets.POLYMNIST
+    objectives.check_ported("lprob")
+    assert objectives.RECON_LOSSES["lprob"] is objectives.lprob
 
 
 @pytest.mark.parametrize("kind", ["enc", "dec"])

@@ -26,9 +26,11 @@ def refuse(*args, **kwargs):
 subprocess.Popen = refuse
 REQUIRED = {"multimodal_vae_comparison_tpu_torch." + m for m in (
     "bridge", "config", "data.datamodule", "data.datasets", "data.native", "data.text",
-    "data_proc.cdsprites", "data_proc.sprites_gen", "data_proc.surrogates",
+    "data_proc.cdsprites", "data_proc.digits", "data_proc.mnistsvhn", "data_proc.polymnist",
+    "data_proc.sprites_gen", "data_proc.surrogates",
     "eval.classifiers", "eval.eval_cdsprites", "eval.eval_celeba", "eval.eval_cub",
-    "eval.eval_fashionmnist", "eval.eval_mnistsvhn", "eval.eval_sprites", "eval.infer",
+    "eval.eval_fashionmnist", "eval.eval_mnistsvhn", "eval.eval_polymnist",
+    "eval.eval_sprites", "eval.infer",
     "eval.vilanro_probe", "eval.vilanro_test",
     "eval.train_classifiers", "lanro", "lanro.arm", "lanro.collect", "lanro.env",
     "lanro.simulation", "main", "models.base", "models.contrib", "models.decoders",
@@ -83,7 +85,10 @@ before = set(Path("build/torch_kernels").glob("libmmvae_io_*")) \
     if Path("build/torch_kernels").is_dir() else set()
 from multimodal_vae_comparison_tpu_torch.data import native
 from multimodal_vae_comparison_tpu_torch.data_proc import cdsprites, sprites_gen, surrogates
+from multimodal_vae_comparison_tpu_torch.data_proc import digits, mnistsvhn, polymnist
 from multimodal_vae_comparison_tpu_torch.data import datamodule, datasets
+glyphs = digits.load_digits()
+assert glyphs.images.shape == (1797, 8, 8) and glyphs.target.shape == (1797,)
 from multimodal_vae_comparison_tpu_torch.lanro import arm, collect, env, simulation
 from multimodal_vae_comparison_tpu_torch.eval import vilanro_probe, vilanro_test
 after = set(Path("build/torch_kernels").glob("libmmvae_io_*")) \
@@ -97,11 +102,12 @@ sys.exit(0 if native._lib is None and after == before and not loaded else 1)
 
 def test_importing_the_data_layer_starts_no_build_and_loads_no_optional_module():
     """``data.native`` compiles ``native/mmvae_io.cpp`` at first use and the
-    generators (the surrogate builders and the LANRO simulator and
-    collector among them) import cv2 and h5py where they draw and write,
-    the VILANRO probe scipy where it fits: importing them (and the closed
-    loop) starts no process, loads no library and no optional module, and
-    loads neither sklearn nor jax."""
+    generators (the surrogate builders, the MNIST-SVHN and PolyMNIST
+    builders and the LANRO simulator and collector among them) import cv2
+    and h5py where they draw and write, the VILANRO probe scipy where it
+    fits: importing them (and the closed loop) starts no process, loads no
+    library and no optional module, and loads neither sklearn nor jax; the
+    8x8 digits load from the package's own copy without sklearn."""
     proc = subprocess.run([sys.executable, "-c", _IMPORT_DATA], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -77,11 +77,17 @@ def test_normal_log_prob_kl_and_variance_match_jax():
 
 
 def test_kl_divergence_of_mixed_families_and_unported_dists_raise():
+    """A KL between families (the Monte-Carlo branch) and an unported family
+    raise; Laplace is ported (test_torch_mnistsvhn.py holds it)."""
     with pytest.raises(NotImplementedError):
         tdist.kl_divergence(tdist.Normal(torch.zeros(1), torch.ones(1)), object())
-    with pytest.raises(KeyError, match="normal"):
-        tdist.get_dist("laplace")
+    with pytest.raises(NotImplementedError, match="Monte-Carlo"):
+        tdist.kl_divergence(tdist.Laplace(torch.zeros(1), torch.ones(1)),
+                            tdist.Normal(torch.zeros(1), torch.ones(1)))
+    with pytest.raises(KeyError, match="laplace"):
+        tdist.get_dist("bernoulli")
     assert tdist.get_dist("Gaussian") is tdist.Normal
+    assert tdist.get_dist("laplace") is tdist.Laplace
 
 
 @pytest.mark.parametrize("dim,keepdim", [(0, False), (1, True), (-1, False)])
@@ -136,8 +142,8 @@ def test_recon_log_prob_names_the_ported_losses():
     t, _ = _decoder_dists(0, (), (3,), False)
     with pytest.raises(KeyError, match="optimal_sigma"):
         tobj.recon_log_prob("no_such_loss", t, torch.zeros(3, 3))
-    with pytest.raises(NotImplementedError, match="Queue A item 7d"):
-        tobj.recon_log_prob("lprob", t, torch.zeros(3, 3))
+    with pytest.raises(NotImplementedError, match="Queue A item 8"):
+        tobj.recon_log_prob("feature_loss", t, torch.zeros(3, 3))
 
 
 def test_scale_grad_and_estimators_match_jax():

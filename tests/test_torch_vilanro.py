@@ -207,10 +207,12 @@ def test_dataset_gives_jax_arrays_masks_codebook_and_decodes(collected, attribut
 
 
 def test_vilanro_is_ported_and_the_others_still_raise():
+    """VILANRO resolves, and since item 7d so does every other dataset name
+    of the JAX package; an unknown one raises."""
     assert datasets.get_dataset_class("VILANRO") is datasets.VILANRO
-    assert "vilanro" not in datasets._UNPORTED
-    with pytest.raises(NotImplementedError, match="Queue A item 7d"):
-        datasets.get_dataset_class("polymnist")
+    assert datasets.get_dataset_class("polymnist") is datasets.POLYMNIST
+    with pytest.raises(KeyError, match="vilanro"):
+        datasets.get_dataset_class("imagenet")
 
 
 # -- optimal_sigma ---------------------------------------------------------------
@@ -255,10 +257,10 @@ def test_softclip_matches_jax():
                                np.asarray(jobj.softclip(jnp.asarray(x), -6.0)), rtol=1e-6)
 
 
-def _lprob_config(tmp_path):
+def _recon_loss_config(tmp_path, loss):
     with open(os.path.join(REPO, CONFIGS[0])) as f:
         params = yaml.safe_load(f)
-    params["modality_2"]["recon_loss"] = "lprob"
+    params["modality_2"]["recon_loss"] = loss
     cfg = Config(params, results_root=str(tmp_path), eval_only=True)
     for m, dims in zip(cfg.mods, ([4, 12], [100, 4], [64, 64, 3])):
         m.feature_dims = dims
@@ -266,11 +268,14 @@ def _lprob_config(tmp_path):
 
 
 def test_build_refuses_an_unported_recon_loss_at_build_time(tmp_path):
-    """``lprob`` (item 7d) raises at build_model_from_config, naming the
-    item; an unknown loss raises KeyError there too."""
-    cfg = _lprob_config(tmp_path)
-    with pytest.raises(NotImplementedError, match="lprob.*Queue A item 7d"):
+    """``feature_loss`` (item 8) raises at build_model_from_config, naming
+    the item; ``lprob``, ported since (item 7d), builds; an unknown loss
+    raises KeyError there too."""
+    cfg = _recon_loss_config(tmp_path, "feature_loss")
+    with pytest.raises(NotImplementedError, match="feature_loss.*Queue A item 8"):
         build_model_from_config(cfg, device="cpu")
+    cfg.mods[1].recon_loss = "lprob"
+    assert build_model_from_config(cfg, device="cpu").specs[1].recon_loss == "lprob"
     cfg.mods[1].recon_loss = "no_such_loss"
     with pytest.raises(KeyError, match="no_such_loss"):
         build_model_from_config(cfg, device="cpu")
