@@ -18,8 +18,8 @@ three main paths at full width with random weights from a seed:
   points, every sparse-attention call through the block-sparse kernels,
   forward and backward; and the sampling op through its own entry point;
 * train from config: CdSprites+ level 1 made at 10,000 samples,
-  ``configs/round5/cdl1_r5_poe.yml`` trained for 2 resident epochs through
-  ``main`` (the first under ``torch.profiler``) and 1 per-batch epoch,
+  ``configs/round5/cdl1_r5_poe.yml`` trained for 1 resident epoch through
+  ``main`` (under ``torch.profiler``) and 1 per-batch epoch,
   ``configs/config_cdspritesplus.yml`` (MOE) for 1 epoch; the run directory
   restored through ``MultimodalVAEInfer`` and served by
   ``serving/server.py --model`` in a process of its own;
@@ -33,7 +33,7 @@ three main paths at full width with random weights from a seed:
   ("zoo from config");
 * SPRITES from its configs ("sprites from config"): the clips made by the
   port's generator, ``configs/round4/sprites_r4_dreg_up.yml`` (MOE, DReG,
-  K 5) trained for 2 resident epochs through ``main`` and
+  K 5) trained for 1 resident epoch through ``main`` and
   ``configs/round2/sprites_r2_poe.yml`` (POE) for 1, each ending in
   ``Trainer.test()`` and the SPRITES benchmark (its two video judges
   trained on the card, then cached); the judges' CLI, and the judges and
@@ -58,15 +58,24 @@ three main paths at full width with random weights from a seed:
   ``torch.profiler``; on the first, the closed loop (``vilanro_test``
   open loop and replanning), the grounding probe, a DAgger round, and its
   step on the card against the CPU; then VILANRO's conditioned configs
-  ("vilanro cond from config") and FashionMNIST ("fashionmnist from
-  config");
+  ("vilanro cond from config", their data at 2,000 episodes a recipe) and
+  FashionMNIST ("fashionmnist from config");
 * MNIST-SVHN and PolyMNIST from their configs ("digits from config"): both
   surrogates made by the port's builders from the 8x8 digits, the two
   MNIST-SVHN configs (MOE, DReG K 30, Laplace posteriors; no kernel at
   all) and the two PolyMNIST configs (POE and MoPoE over 5 modalities,
   the PoE lattice at M 5) trained for 1 resident epoch each, the first of
   each family ending in ``Trainer.test()`` and its benchmark; a DReG and
-  a MoPoE step on the card against the CPU in float64.
+  a MoPoE step on the card against the CPU in float64;
+* the rest of the model zoo ("zoo remainder from config"): shipped configs
+  edited in the run, trained for 1 resident epoch each on the CdSprites+
+  rows and SPRITES clips above: the unimodal VAE (the image alone under
+  ELBO, ending in ``Trainer.test()``, and under DReG K 10; the text alone
+  under ``prior: gumbel``), two CdSprites+ POE configs with the ViT, GRU
+  and conv-text nets and the residual conv nets, and a SPRITES POE config
+  with the TransformerIMG nets; each restored, and a step of each on the
+  card against the CPU in float64; masked attention at the new nets'
+  shapes (head dim 64 among them) and the KL kernel at M 1 timed.
 
 Each path runs with the kernel counts set to 0 just before it and read just
 after, and must have launched every kernel it goes through and taken no
@@ -160,8 +169,10 @@ SERVE_SIZES = (1, 5, 32, 128, 300)
 SEQ_LEN, VOCAB, N_LATENTS = 45, 27, 16
 
 # train from config: the two CdSprites+ configs the port trains, on level 1
-# at generate_level's own default count (9,999 train rows, 999 test rows)
-FROM_CONFIG = (("POE cdl1_r5_poe", "configs/round5/cdl1_r5_poe.yml", 2),
+# at generate_level's own default count (9,999 train rows, 999 test rows);
+# the POE config 1 resident epoch, then 1 per-batch one (its second
+# resident epoch was cut to keep the script within its time limit)
+FROM_CONFIG = (("POE cdl1_r5_poe", "configs/round5/cdl1_r5_poe.yml", 1),
                ("MOE cdspritesplus", "configs/config_cdspritesplus.yml", 1))
 DATA_COUNT = 10000
 # objective calls that launch each kernel once per the count given: the
@@ -1895,15 +1906,19 @@ def make_cdsprites(root: str):
     return level_dir, f".{fmt}", f"data_proc.cdsprites.generate_level(fmt={fmt!r})"
 
 
-def from_config(path: str, data_paths: dict, results_root: str, eval_only=False, **over):
+def from_config(path: str, data_paths: dict, results_root: str, eval_only=False, edit=None,
+                **over):
     """The Config of a shipped YAML with each modality's ``path`` and
     ``test_datapath`` set from ``data_paths`` (the made data, one dict per
     ``modality_i`` key; a modality without one keeps its config's) and its
-    run directory under ``results_root``."""
+    run directory under ``results_root``; ``edit(params)``, where given,
+    changes the YAML's dict first."""
     import yaml
     from multimodal_vae_comparison_tpu_torch.config import Config
     with open(os.path.join(HERE, path)) as f:
         params = yaml.safe_load(f)
+    if edit is not None:
+        edit(params)
     for key, block in params.items():
         if key.startswith("modality_"):
             block.update(data_paths.get(key, {}))
@@ -2184,15 +2199,16 @@ def phase_eval_from_config(card: str, run_dir: str) -> dict:
 
 
 def config_trainer(label: str, path: str, mixing: str, data_paths: dict, root: str,
-                   epochs: int):
-    """A Trainer of the shipped config ``path`` on the made data
-    (``data_paths``), its run directory under ``root``, at ``epochs`` and
-    one seed, its state initialised; its ``test()`` keeps the stats it
-    returns in the dict returned beside it.  Checks the mixing and the
-    resident path on the card."""
+                   epochs: int, edit=None):
+    """A Trainer of the shipped config ``path`` (changed by ``edit``, see
+    :func:`from_config`) on the made data (``data_paths``), its run
+    directory under ``root``, at ``epochs`` and one seed, its state
+    initialised; its ``test()`` keeps the stats it returns in the dict
+    returned beside it.  Checks the mixing and the resident path on the
+    card."""
     from multimodal_vae_comparison_tpu_torch.training.trainer import Trainer
-    config = from_config(path, data_paths, os.path.join(root, "results"), epochs=epochs,
-                         iterseeds=1)
+    config = from_config(path, data_paths, os.path.join(root, "results"), edit=edit,
+                         epochs=epochs, iterseeds=1)
     trainer = Trainer(config, enable_viz=False)
     trainer.init_state()
     stats = {}
@@ -2207,24 +2223,30 @@ def config_trainer(label: str, path: str, mixing: str, data_paths: dict, root: s
     return config, trainer, stats
 
 
-def check_restored(label: str, run_dir: str, trainer, batch, eps) -> float:
+def check_restored(label: str, run_dir: str, trainer, batch, eps, forward=None) -> float:
     """``model/last`` of ``run_dir`` restored on the card through
     ``MultimodalVAEInfer``: the trainer's weights and buffers, and the
     trainer's forward over every modality on ``batch`` and ``eps`` (one
     sample, as the restored model draws) within RESTORE_RTOL /
-    RESTORE_ATOL.  Returns the largest difference."""
+    RESTORE_ATOL; ``forward(model, batch, eps)``, where given (the gumbel
+    path's), runs on both models in place of their forwards.  Returns the
+    largest difference."""
     from multimodal_vae_comparison_tpu_torch.eval.infer import MultimodalVAEInfer
     infer = MultimodalVAEInfer(run_dir)
     for (n, a), b in zip(infer.model.state_dict().items(),
                          trainer.model.state_dict().values()):
         check(torch.equal(a, b), f"{label}: restored {n} differs from the trainer's")
     present = trainer.model.mod_names
-    got = infer.forward(batch, present, eps=eps)
+    tb = torch_batch(batch, trainer.device)
     trainer.model.eval()
     K, trainer.model.K = trainer.model.K, 1
     try:
         with torch.inference_mode():
-            want = trainer.model.forward(torch_batch(batch, trainer.device), present, eps=eps)
+            if forward is None:
+                got = infer.forward(batch, present, eps=eps)
+                want = trainer.model.forward(tb, present, eps=eps)
+            else:
+                got, want = forward(infer.model, tb, eps), forward(trainer.model, tb, eps)
     finally:
         trainer.model.K = K
     err = max((got.mods[n].decoder_dist.mean - want.mods[n].decoder_dist.mean)
@@ -2242,7 +2264,7 @@ def phase_train_from_config(card: str, root: str, data):
     """The config -> data -> Trainer -> checkpoint -> --model server path.
 
     CdSprites+ level 1 is made at DATA_COUNT; ``cdl1_r5_poe.yml`` trains for
-    2 epochs through ``main(config)`` on the resident path, its first epoch
+    1 epoch through ``main(config)`` on the resident path, the epoch
     under ``torch.profiler`` as the CLI's ``--profile`` runs it (a Trainer,
     ``fit(epochs=1)``, then ``main(config, trainer)``); then one epoch through
     the per-batch ``run_epoch``, and ``config_cdspritesplus.yml`` (MOE) for 1
@@ -2518,8 +2540,9 @@ SPRITES_PER_COMBO = 64
 # (label, config, mixing, epochs): the MOE/DReG run at its config's widths
 # (K 5, bs 16, 32 latents, remat, llik 600 on both categorical modalities)
 # and the POE/ELBO run (K 1, bs 32, 10 latents); only the epochs are cut
+# (the MOE run's second epoch too, to keep the script within its limit)
 SPRITES_FROM_CONFIG = (
-    ("MOE sprites_r4_dreg_up", "configs/round4/sprites_r4_dreg_up.yml", "moe", 2),
+    ("MOE sprites_r4_dreg_up", "configs/round4/sprites_r4_dreg_up.yml", "moe", 1),
     ("POE sprites_r2_poe", "configs/round2/sprites_r2_poe.yml", "poe", 1))
 # launches of one SPRITES objective call (a train step or a validation
 # batch) and of a train step's backward.  Each call of the VideoGPT encoder
@@ -3969,9 +3992,11 @@ def phase_vilanro_from_config(card: str, root: str):
 # -- VILANRO's conditioned second slice (ROADMAP Queue A item 7c) ---------------
 
 # the data of the slice's 5 configs: D1way_p2 the earlier phase's, D1way_r4
-# and D1way_r5 collected here by their recipes (lanro/collect.py) at the
-# recipes' 8,000 episodes (14,214 rows each)
-VILANRO_COND_EPISODES = 8000
+# and D1way_r5 collected here by their recipes (lanro/collect.py) at a
+# quarter of the recipes' 8,000 episodes, as many as the first VILANRO
+# phase's (depth cut to keep the script within its time limit; the
+# recipes' options and image sizes as they are)
+VILANRO_COND_EPISODES = 2000
 VILANRO_COND_DATA = (("D1way_r4", {"chunk_every": 5, "waypoints": True}),
                      ("D1way_r5", {"chunk_every": 5, "waypoints": True, "img_size": 128}))
 # (label, config, data): 1 resident epoch each (not 300-600), the first
@@ -4052,7 +4077,8 @@ def phase_vilanro_cond_from_config(card: str, root: str, collected: dict):
     dirs, numbers["collect"] = make_vilanro(os.path.join(root, "vilanro"), VILANRO_COND_DATA,
                                             VILANRO_COND_EPISODES)
     dirs["D1way_p2"] = collected["D1way_p2"]["out_dir"]
-    numbers["cut"] = {"epochs": 1, "closed_loop": "open loop only, no DAgger round"}
+    numbers["cut"] = {"epochs": 1, "closed_loop": "open loop only, no DAgger round",
+                      "episodes": f"{VILANRO_COND_EPISODES} of the recipes' 8000"}
     first = from_config(VILANRO_COND_FROM_CONFIG[0][1], {}, root, eval_only=True)
     lattice = (2 ** len(first.mods) - 1) * first.K * first.batch_size
     numbers["attention_parity"], rows = phase_vilanro_cond_attention(
@@ -4249,31 +4275,26 @@ def digits_eps(rng: np.random.Generator, config, mixing: str, k: int, n: int):
     return rng.standard_normal(shape).astype(np.float32)
 
 
-def phase_digits_card_vs_cpu(card: str, label: str, path: str, paths: dict, root: str, key: str,
-                             batch) -> dict:
-    """One objective and its backward of ``path`` at its widths and K on
-    DIGITS_PARITY_BATCH rows of ``batch`` and drawn eps: the card (kernels,
-    fp32, TF32 off) against the CPU's plain path in float64 on the card's
-    relu branches and DReG importance weights (:func:`same_branches`,
-    :func:`same_dreg_weights`): loss and metrics within TRAIN_RTOL, every
-    gradient within GRAD_REL x its leaf's max |g| + GRAD_ATOL; the card
-    launches exactly one objective call's and one backward's kernels
-    (DIGITS_TABLES at ``key``: none for MNIST-SVHN) and no plain version."""
+def card_vs_cpu_step(card: str, phase: str, label: str, cfg, rows: dict, eps, key: str,
+                     tables) -> dict:
+    """One objective and its backward of ``cfg``'s model at its widths and K
+    on the numpy ``rows`` and draws ``eps`` (an array, a list or a dict of
+    arrays): the card (kernels, fp32, TF32 off) against the CPU's plain
+    path in float64 on the card's relu branches and DReG importance weights
+    (:func:`same_branches`, :func:`same_dreg_weights`): loss and metrics
+    within TRAIN_RTOL, every gradient within GRAD_REL x its leaf's max |g|
+    + GRAD_ATOL; the card launches exactly one objective call's and one
+    backward's kernels (``tables`` at ``key``) and no plain version."""
     from multimodal_vae_comparison_tpu_torch.ops.kernels import telemetry
     from multimodal_vae_comparison_tpu_torch.training.trainer import build_model_from_config
-    n = DIGITS_PARITY_BATCH
-    rows = {k: {"data": v["data"][:n], "masks": None} for k, v in batch.items()}
-    cfg = from_config(path, paths, root, eval_only=True)
-    for i, mod in enumerate(cfg.mods):
-        mod.feature_dims = list(rows[f"mod_{i + 1}"]["data"].shape[1:])
-    eps = digits_eps(np.random.default_rng(66), cfg, cfg.mixing, cfg.K, n)
     branches, weights, out, moved, seconds = [], [], {}, {}, {}
     for dev, dtype in (("cuda", torch.float32), ("cpu", torch.float64)):
         model = build_model_from_config(cfg, device=dev).to(dtype)
-        tb = {k: {"data": v["data"].to(dtype), "masks": None}
+        tb = {k: {"data": v["data"].to(dtype), "masks": v["masks"]}
               for k, v in torch_batch(rows, dev).items()}
         dev_eps = eps_to(eps, dev)
         dev_eps = ({k: v.to(dtype) for k, v in dev_eps.items()} if isinstance(dev_eps, dict)
+                   else [e.to(dtype) for e in dev_eps] if isinstance(dev_eps, list)
                    else dev_eps.to(dtype))
         telemetry.reset()
         t0 = time.perf_counter()
@@ -4284,11 +4305,12 @@ def phase_digits_card_vs_cpu(card: str, label: str, path: str, paths: dict, root
         if dev == "cuda":
             launches, dispatch = telemetry.launches(), telemetry.summary()
         del model
-    want = expected_launches(key, 1, 1, DIGITS_TABLES)
+    want = expected_launches(key, 1, 1, tables)
     (gl, gm, gg), (cl, cm, cg) = out["cuda"], out["cpu"]
     worst, worst_name = _worst_leaf(gg, {k: v.float() for k, v in cg.items()}, GRAD_REL,
                                     GRAD_ATOL)
-    print(f"digits card vs CPU {label} ({path}, bs {n}, K {cfg.K}): loss cuda {gl:.6f}, cpu "
+    n = len(next(iter(rows.values()))["data"])
+    print(f"{phase} card vs CPU {label} (bs {n}, K {cfg.K}): loss cuda {gl:.6f}, cpu "
           "float64 {:.6f}; metrics ".format(cl)
           + ", ".join(f"{k} {gm[k]:.6f}/{cm[k]:.6f}" for k in sorted(gm))
           + f"; worst gradient leaf {worst:.3f} of its limit at {worst_name} (limit "
@@ -4308,6 +4330,20 @@ def phase_digits_card_vs_cpu(card: str, label: str, path: str, paths: dict, root
     return {"loss_cuda": gl, "loss_cpu64": cl, "worst_grad_share_of_limit_vs_cpu64": worst,
             "worst_leaf_vs_cpu64": worst_name, "replayed": moved, "launches": launches,
             "card_s": seconds["cuda"], "cpu64_s": seconds["cpu"]}
+
+
+def phase_digits_card_vs_cpu(card: str, label: str, path: str, paths: dict, root: str, key: str,
+                             batch) -> dict:
+    """:func:`card_vs_cpu_step` of ``path`` on DIGITS_PARITY_BATCH rows of
+    ``batch`` and drawn eps (DIGITS_TABLES at ``key``: no launch for
+    MNIST-SVHN)."""
+    n = DIGITS_PARITY_BATCH
+    rows = {k: {"data": v["data"][:n], "masks": None} for k, v in batch.items()}
+    cfg = from_config(path, paths, root, eval_only=True)
+    for i, mod in enumerate(cfg.mods):
+        mod.feature_dims = list(rows[f"mod_{i + 1}"]["data"].shape[1:])
+    eps = digits_eps(np.random.default_rng(66), cfg, cfg.mixing, cfg.K, n)
+    return card_vs_cpu_step(card, "digits", label, cfg, rows, eps, key, DIGITS_TABLES)
 
 
 def phase_digits_from_config(card: str, root: str):
@@ -4397,6 +4433,299 @@ def phase_digits_from_config(card: str, root: str):
             cfg = from_config(path, {}, root, eval_only=True)
             rows += checked_poe_rows(card, g, 5, cfg.batch_size, cfg.n_latents,
                                      f"digits {label}")
+    return total, numbers, rows
+
+# -- the rest of the model zoo (ROADMAP Queue A items 11 and 3) -------------------------
+
+
+def _drop(block: str):
+    """A config edit that removes the ``block`` modality (a one-modality
+    config, which builds the unimodal VAE)."""
+    return lambda p: p.pop(block)
+
+
+def _nets(**mods):
+    """A config edit setting each named modality's (encoder, decoder)."""
+    def edit(p):
+        for key, (enc, dec) in mods.items():
+            p[key].update(encoder=enc, decoder=dec)
+    return edit
+
+
+def _gumbel_text(p):
+    """The text modality alone under ``prior: gumbel``: 54 latents, two
+    categoricals of the alphabet's 27 classes."""
+    p.pop("modality_1")
+    p["modality_2"]["prior"] = "gumbel"
+    p["n_latents"] = 54
+
+
+# (label, base config, launch key, data, config edit, overrides): each
+# trained 1 resident epoch at the classes' default widths (not 150-400)
+ZOO_REST_FROM_CONFIG = (
+    ("VAE cdsprites image elbo", "configs/config_cdspritesplus.yml", "vae_elbo", "cdsprites",
+     _drop("modality_2"), {"obj": "elbo"}),
+    ("VAE cdsprites image dreg", "configs/config_cdspritesplus.yml", "vae_dreg", "cdsprites",
+     _drop("modality_2"), {"obj": "dreg", "K": 10}),
+    ("VAE cdsprites text gumbel", "configs/config_cdspritesplus.yml", "vae_gumbel",
+     "cdsprites", _gumbel_text, {"obj": "elbo"}),
+    ("POE cdl1 VIT TxtRNN", "configs/round5/cdl1_r5_poe.yml", "poe_vit", "cdsprites",
+     _nets(modality_1=("VIT", "CNN"), modality_2=("TxtRNN", "ConvTxt")), {}),
+    ("POE cdl1 RESCNN ConvTxt", "configs/round5/cdl1_r5_poe.yml", "poe", "cdsprites",
+     _nets(modality_1=("RESCNN", "RESCNN"), modality_2=("ConvTxt", "ConvTxt")), {}),
+    ("POE sprites TransformerIMG", "configs/config_sprites.yml", "poe_sprites", "sprites",
+     _nets(modality_1=("TransformerIMG", "TransformerIMG")), {}))
+# the unimodal image ELBO ends in test(): the CdSprites+ benchmark needs
+# both modalities and raises, in the JAX package too, which test() records
+ZOO_REST_TEST = "VAE cdsprites image elbo"
+ZOO_REST_EVAL_ERROR = "KeyError: 'mod_2'"
+# a call's launches: the unimodal ELBO's KL through the KL kernel (M 1), no
+# kernel under DReG, the gumbel text nets' attention (encoder, decoder);
+# POE's lattice, with the ViT's 6 layers of attention, or TransformerIMG's
+# 4 encoder and 4 decoder layers (every subset decoded in one call)
+ZOO_REST_PER_OBJECTIVE = {"vae_elbo": {"kl": 1}, "vae_dreg": {}, "vae_gumbel": {"attention": 2},
+                          "poe_vit": {"attention": 6, "poe": 1}, "poe": {"poe": 1},
+                          "poe_sprites": {"attention": 8, "poe": 1}}
+ZOO_REST_PER_BACKWARD = {"vae_elbo": {"kl_bwd": 1}, "vae_dreg": {}, "vae_gumbel": {},
+                         "poe_vit": {"poe_bwd": 1}, "poe": {"poe_bwd": 1},
+                         "poe_sprites": {"poe_bwd": 1}}
+ZOO_REST_TABLES = (ZOO_REST_PER_OBJECTIVE, ZOO_REST_PER_BACKWARD)
+ZOO_REST_PARITY_BATCH = 4
+
+
+def zoo_rest_edit(edit, fixed: dict):
+    """The config edit of a ZOO_REST_FROM_CONFIG part: ``edit``, then the
+    ``fixed`` top-level values."""
+    def apply(params):
+        edit(params)
+        params.update(fixed)
+    return apply
+
+
+def zoo_rest_config(label: str, data_paths: dict, root: str, eval_only=False, **over):
+    """The Config of ZOO_REST_FROM_CONFIG's ``label`` on ``data_paths``."""
+    _, path, _, _, edit, fixed = next(p for p in ZOO_REST_FROM_CONFIG if p[0] == label)
+    return from_config(path, data_paths, root, eval_only=eval_only,
+                       edit=zoo_rest_edit(edit, fixed), **over)
+
+
+def zoo_rest_eps(rng: np.random.Generator, cfg, n: int):
+    """Draws in the form the config's objective takes: the unimodal VAE one
+    standard-normal (K, n, D) draw, or on its gumbel path the (K, n,
+    groups, cats) Gumbel noise; POE one (K, n, D) draw per subset."""
+    K, D, first = cfg.K, cfg.n_latents, cfg.mods[0]
+    if len(cfg.mods) > 1:
+        return [rng.standard_normal((K, n, D)).astype(np.float32)
+                for _ in range(2 ** len(cfg.mods) - 1)]
+    if _gumbel(cfg):
+        cats = int(first.feature_dims[1])
+        u = rng.uniform(np.finfo(np.float32).tiny, 1.0, (K, n, D // cats, cats))
+        return (-np.log(-np.log(u))).astype(np.float32)
+    return rng.standard_normal((K, n, D)).astype(np.float32)
+
+
+def _gumbel(cfg) -> bool:
+    """Whether a one-modality config trains the unimodal VAE's gumbel path."""
+    return len(cfg.mods) == 1 and (cfg.obj == "elbo_gumbel" or cfg.mods[0].prior == "gumbel")
+
+
+def phase_zoo_rest_card_vs_cpu(card: str, label: str, paths: dict, root: str, key: str,
+                               batch) -> dict:
+    """:func:`card_vs_cpu_step` of ``label``'s config on
+    ZOO_REST_PARITY_BATCH rows of ``batch`` and drawn noise
+    (ZOO_REST_TABLES at ``key``)."""
+    n = ZOO_REST_PARITY_BATCH
+    rows = {k: {"data": v["data"][:n], "masks": None if v.get("masks") is None
+                else v["masks"][:n]} for k, v in batch.items()}
+    cfg = zoo_rest_config(label, paths, root, eval_only=True)
+    for i, mod in enumerate(cfg.mods):
+        mod.feature_dims = list(rows[f"mod_{i + 1}"]["data"].shape[1:])
+    eps = zoo_rest_eps(np.random.default_rng(71), cfg, n)
+    return card_vs_cpu_step(card, "zoo remainder", label, cfg, rows, eps, key,
+                            ZOO_REST_TABLES)
+
+
+def kl_m1_rows(card: str, g: torch.Generator, b: int, d: int, label: str):
+    """The KL kernel at M 1, the unimodal ELBO's call, at (b, d): forward
+    and backward on the card against the plain versions, then timed
+    (graphed) beside them and the library's KL, with their bounds."""
+    from torch.distributions import Normal
+    from torch.distributions.kl import kl_divergence
+    from multimodal_vae_comparison_tpu_torch.ops.kernels import kl_kernel
+    mu = torch.randn((b, d), generator=g, device="cuda")
+    scale = torch.rand((b, d), generator=g, device="cuda") + 0.1
+    up = torch.randn((1, b), generator=g, device="cuda")
+    unit = Normal(torch.zeros((), device="cuda"), torch.ones((), device="cuda"),
+                  validate_args=False)
+
+    def fwd():
+        return kl_kernel.kl_normal_std_fused(mu, scale)
+
+    def bwd():
+        return kl_kernel._launch_backward([mu], [scale], up)
+
+    def plain_bwd():
+        return up[0][:, None] * mu, up[0][:, None] * (scale - 1.0 / scale)
+
+    def library():
+        return kl_divergence(Normal(mu, scale, validate_args=False), unit).sum(-1)
+
+    err_fwd = (fwd() - kl_kernel.kl_reference(mu, scale)).abs().max().item()
+    (d_mu,), (d_scale,) = bwd()
+    want_mu, want_scale = plain_bwd()
+    err_bwd = max((d_mu - want_mu).abs().max().item(),
+                  (d_scale - want_scale).abs().max().item())
+    check(err_fwd <= KL_ATOL + KL_RTOL * kl_kernel.kl_reference(mu, scale).abs().max().item()
+          and torch.allclose(d_mu, want_mu, rtol=KL_RTOL, atol=KL_ATOL)
+          and torch.allclose(d_scale, want_scale, rtol=KL_RTOL, atol=KL_ATOL),
+          f"the KL kernel at M 1 ({b}, {d}) disagrees with its plain version: "
+          f"{err_fwd:.3e} forward, {err_bwd:.3e} backward")
+    n = b * d
+    fb, bb = bound_ms(4 * (2 * n + b), 8 * n), bound_ms(4 * (2 * n + b + 2 * n), 4 * n)
+    at = f"M=1 ({b}, {d}) [{label}]"
+    common = {"route": "cuda", "at": at,
+              "source": "multimodal_vae_comparison_tpu_torch/csrc/kl.cu"}
+    ref = "multimodal_vae_comparison_tpu/ops/pallas/kl_kernel.py"
+    rows = [{"name": "kl_normal_std_multi", **common, "replaces": f"{ref}:30",
+             "max_abs_err": err_fwd, "ms": graph_ms(fwd),
+             "plain_ms": graph_ms(lambda: kl_kernel.kl_reference(mu, scale)),
+             "bound_ms": fb[0], "bound_by": fb[1], "library_ms": graph_ms(library),
+             "library_is": "torch.distributions.kl.kl_divergence(Normal(mu, scale), "
+                           "Normal(0, 1)).sum(-1), validate_args=False, graphed"},
+            {"name": "kl_normal_std_multi_backward", **common,
+             "replaces": f"{ref}:72 (_kl_bwd, the VJP of :30)", "max_abs_err": err_bwd,
+             "ms": graph_ms(bwd), "plain_ms": graph_ms(plain_bwd), "bound_ms": bb[0],
+             "bound_by": bb[1], "library_ms": None,
+             "library_is": "none: no single PyTorch call gives (g mu, g (scale - 1/scale))"}]
+    for r in rows:
+        print(f"time {r['name']} [{at}]: kernel {r['ms']:.5f} ms, plain {r['plain_ms']:.5f} "
+              f"ms" + (f", library {r['library_ms']:.5f} ms" if r["library_ms"] else "")
+              + f", bound {r['bound_ms']:.7f} ms ({r['bound_by']}), max_abs_err "
+              f"{r['max_abs_err']:.3e} on {card}")
+    return rows
+
+
+def phase_zoo_rest_attention(card: str, vit_batch: int, clip_batch: int, frames: int,
+                             subsets: int):
+    """Masked attention at the new nets' shapes, on the resident kernel
+    against its plain version (forward and backward), timed beside the
+    plain version, SDPA on the same mask and the bound over the keys each
+    row needs: the ViT's (B, 8, 17, 17, 32) without a mask,
+    Enc_TransformerIMG's (B, 4, T, T, 64) under a partly padded frame mask
+    and Dec_TransformerIMG's cross-attention (S B, 4, T, 1, 64) to the z
+    token.  Returns (parity numbers, time rows)."""
+    g = torch.Generator(device="cuda").manual_seed(72)
+    lengths = torch.randint(1, frames + 1, (clip_batch, 1), generator=g, device="cuda")
+    lengths[0] = frames
+    frame_mask = (torch.arange(frames, device="cuda")[None, :] < lengths).contiguous()
+    # the ViT: width 256 over 8 heads; TransformerIMG: d_model 256 over 4
+    cases = (("Enc_VIT", (vit_batch, 8, 17, 17, 32), None),
+             ("Enc_TransformerIMG", (clip_batch, 4, frames, frames, 64), frame_mask),
+             ("Dec_TransformerIMG", (subsets * clip_batch, 4, frames, 1, 64), None))
+    parity, rows = {}, []
+    for label, shape, mask in cases:
+        parity[label], row = attention_case(card, g, label, shape, mask,
+                                            f"{label} {tuple(shape)}")
+        rows.append(row)
+    return parity, rows
+
+
+def config_mixing(path: str) -> str:
+    """The ``mixing`` a shipped YAML names."""
+    import yaml
+    with open(os.path.join(HERE, path)) as f:
+        return yaml.safe_load(f)["mixing"]
+
+
+def phase_zoo_rest_from_config(card: str, root: str, data, sprites_dir: str):
+    """Queue A items 11 and 3's main path: each config of
+    ZOO_REST_FROM_CONFIG, a shipped YAML with the unported nets swapped in
+    or one modality removed, trained for 1 resident epoch at the classes'
+    default widths on the CdSprites+ level 1 rows and the SPRITES clips
+    made earlier in the run (``data``, ``sprites_dir``), ZOO_REST_TEST
+    ending in ``Trainer.test()``, whose ``eval_error`` must be the
+    benchmark's refusal of one modality.  Each run is counted from zero:
+    exactly its objective calls times ZOO_REST_PER_OBJECTIVE and its train
+    steps times ZOO_REST_PER_BACKWARD, no plain version; the val loss
+    falls; ``model/last`` restored gives the trainer's forward; one step
+    on the card against the CPU in float64.  Then the attention kernel at
+    the new nets' shapes and the KL kernel at M 1.  Returns (launches of
+    the runs, the phase's numbers, the time rows)."""
+    numbers, total = {"card": card, "cut": {"epochs": 1}}, {}
+    data_paths = {"cdsprites": cdsprites_paths(data), "sprites": sprites_paths(sprites_dir)}
+    saved = os.environ.get("CDSPRITES_CLASSIFIER_DIR")
+    os.environ["CDSPRITES_CLASSIFIER_DIR"] = os.path.join(root, "judges")
+    try:
+        for label, path, key, data_key, edit, fixed in ZOO_REST_FROM_CONFIG:
+            test = label == ZOO_REST_TEST
+            paths = data_paths[data_key]
+            config, trainer, stats = config_trainer(label, path, config_mixing(path), paths,
+                                                    root, 1, edit=zoo_rest_edit(edit, fixed))
+            for k, v in fixed.items():
+                check(getattr(config, k) == v, f"{label}: {k} is {getattr(config, k)}")
+            model = trainer.model
+            uni = type(model).__name__ == "UnimodalVAE"
+            check(uni == key.startswith("vae"), f"{label}: built {type(model).__name__}")
+            dm, bs = trainer.datamodule, config.batch_size
+            steps, val_batches = dm.n_train // bs, dm.n_val // bs
+            untrained = trainer.validate_scan(0)["val_loss"]
+            torch.cuda.reset_peak_memory_stats()
+
+            def run(trainer=trainer, test=test):
+                trainer.fit(epochs=1, log_fn=None)
+                if test:
+                    trainer.test()
+
+            t0 = time.perf_counter()
+            counted(label, key, steps + val_batches * (2 if test else 1), steps, run, total,
+                    None, ZOO_REST_TABLES)
+            run_s = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            trained, epoch_s, samples_s = one_epoch_checks(label, config, untrained)
+            if test:
+                check(stats.get("eval_error") == ZOO_REST_EVAL_ERROR,
+                      f"{label}: test() gave eval_error {stats.get('eval_error')!r}, "
+                      f"expected {ZOO_REST_EVAL_ERROR!r}")
+            batch = next(dm.batches("val"))
+            # one sample, as the restored model draws: the posterior's, or POE's joint
+            eps = zoo_rest_eps(np.random.default_rng(70), config, bs)
+            eps = eps_to(eps[:1] if uni else eps[0][:1], trainer.device)
+            gumbel = (lambda m, b, e: m._gumbel_forward(b, eps=e)) if _gumbel(config) else None
+            err = check_restored(label, config.mPath, trainer, batch, eps, forward=gumbel)
+            per_call = step_launches(label, trainer, batch, key, tables=ZOO_REST_TABLES,
+                                     phase="zoo remainder from config")
+            print(f"zoo remainder from config {label} ({path}, {type(model).__name__}, "
+                  + ", ".join(f"{s.name} {s.encoder}/{s.decoder}" for s in model.specs)
+                  + f"): {trainer.n_params()} parameters, {dm.n_train} train / {dm.n_val} "
+                  f"val rows, {steps} steps of {bs} at K {config.K}; val_loss untrained "
+                  f"{untrained:.2f} -> {trained:.2f}; epoch {epoch_s:.3f} s, {samples_s:.1f} "
+                  f"samples/s; run {run_s:.2f} s; peak memory {peak:.3f} GiB"
+                  + (f"; test() eval_error {stats.get('eval_error')!r}" if test else "")
+                  + f" on {card}")
+            numbers[label] = {"config": path, "model": type(model).__name__,
+                              "nets": {s.name: [s.encoder, s.decoder] for s in model.specs},
+                              "params": trainer.n_params(), "steps": steps, "batch": bs,
+                              "K": config.K, "val_loss_untrained": untrained,
+                              "val_loss": trained, "epoch_s": epoch_s,
+                              "samples_per_s": samples_s, "run_s": run_s,
+                              "peak_memory_gib": peak, "restore_max_abs_err": err,
+                              **({"eval_error": stats.get("eval_error")} if test else {}),
+                              **per_call}
+            numbers[label]["card_vs_cpu"] = phase_zoo_rest_card_vs_cpu(
+                card, label, paths, root, key, batch)
+            del trainer, model
+    finally:
+        if saved is None:
+            os.environ.pop("CDSPRITES_CLASSIFIER_DIR", None)
+        else:
+            os.environ["CDSPRITES_CLASSIFIER_DIR"] = saved
+    vit = zoo_rest_config("POE cdl1 VIT TxtRNN", {}, root, eval_only=True)
+    clip = zoo_rest_config("POE sprites TransformerIMG", {}, root, eval_only=True)
+    numbers["attention_parity"], rows = phase_zoo_rest_attention(
+        card, vit.batch_size, clip.batch_size, 8, 2 ** len(clip.mods) - 1)
+    uni = zoo_rest_config(ZOO_REST_TEST, {}, root, eval_only=True)
+    rows += kl_m1_rows(card, torch.Generator(device="cuda").manual_seed(73), uni.batch_size,
+                       uni.n_latents, ZOO_REST_TEST)
     return total, numbers, rows
 
 
@@ -4582,6 +4911,14 @@ def main() -> int:
         digits_launches, digits_numbers, digits_rows = phase_digits_from_config(card, tmp)
         digits_numbers["phase_s"] = time.perf_counter() - t0
         print("digits from config " + json.dumps(digits_numbers))
+        # this slice's main path: the unimodal VAE (ELBO, DReG, the gumbel
+        # path) and the nets no shipped config names, from shipped configs
+        # edited in the run, on the CdSprites+ rows and SPRITES clips above
+        t0 = time.perf_counter()
+        zoo_rest_launches, zoo_rest_numbers, zoo_rest_rows = phase_zoo_rest_from_config(
+            card, tmp, data, os.path.join(tmp, "sprites"))
+        zoo_rest_numbers["phase_s"] = time.perf_counter() - t0
+        print("zoo remainder from config " + json.dumps(zoo_rest_numbers))
 
     # 11. times
     rows = phase_times(engine, card)
@@ -4613,6 +4950,8 @@ def main() -> int:
         per_step[f"FashionMNIST {label}"] = fashion_numbers[label]["launches_per_train_step"]
     for label, *_ in DIGITS_FROM_CONFIG:
         per_step[f"digits {label}"] = digits_numbers[label]["launches_per_train_step"]
+    for label, *_ in ZOO_REST_FROM_CONFIG:
+        per_step[f"zoo remainder {label}"] = zoo_rest_numbers[label]["launches_per_train_step"]
     for r in primary:
         kernel = KERNEL_OF[r["name"]]
         r["launches"] = (video_launches.get(kernel, 0) if kernel in video_kernels
@@ -4620,7 +4959,7 @@ def main() -> int:
                          + sprites_launches.get(kernel, 0) + mog_launches.get(kernel, 0)
                          + family_launches.get(kernel, 0) + vilanro_launches.get(kernel, 0)
                          + cond_launches.get(kernel, 0) + fashion_launches.get(kernel, 0)
-                         + digits_launches.get(kernel, 0))
+                         + digits_launches.get(kernel, 0) + zoo_rest_launches.get(kernel, 0))
         r["launches_zoo_from_config_path"] = zoo_launches.get(kernel, 0)
         r["launches_sprites_from_config_path"] = sprites_launches.get(kernel, 0)
         r["launches_mog_from_config_path"] = mog_launches.get(kernel, 0)
@@ -4629,6 +4968,7 @@ def main() -> int:
         r["launches_vilanro_cond_from_config_path"] = cond_launches.get(kernel, 0)
         r["launches_fashionmnist_from_config_path"] = fashion_launches.get(kernel, 0)
         r["launches_digits_from_config_path"] = digits_launches.get(kernel, 0)
+        r["launches_zoo_rest_from_config_path"] = zoo_rest_launches.get(kernel, 0)
         r["sprites_shapes"] = [{k: v for k, v in x.items()
                                 if k not in ("name", "route", "source", "replaces")}
                                for x in sprites_rows if x["name"] == r["name"]]
@@ -4638,7 +4978,8 @@ def main() -> int:
         for key, extra_rows in (("vilanro_shapes", vilanro_rows),
                                 ("vilanro_cond_shapes", cond_rows),
                                 ("fashionmnist_shapes", fashion_rows),
-                                ("digits_shapes", digits_rows)):
+                                ("digits_shapes", digits_rows),
+                                ("zoo_rest_shapes", zoo_rest_rows)):
             r[key] = [{k: v for k, v in x.items()
                        if k not in ("name", "route", "source", "replaces")}
                       for x in extra_rows if x["name"] == r["name"]]

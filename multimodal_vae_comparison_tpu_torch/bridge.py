@@ -8,20 +8,28 @@ them, are built of these layers):
 
 * ``nn.Linear``: Dense ``(in, out)`` -> ``(out, in)``; DenseGeneral
   ``(in, H, Dh)`` -> ``(H*Dh, in)`` and its bias ``(H, Dh)`` -> ``(H*Dh,)``;
-* ``nn.Conv2d``, ``nn.Conv3d``: HWIO -> OIHW, DHWIO -> OIDHW (a CoordConv
+* ``nn.Conv1d``, ``nn.Conv2d``, ``nn.Conv3d``: WIO -> OIW, HWIO -> OIHW,
+  DHWIO -> OIDHW (a CoordConv
   kernel's input channels keep the reference's order, the two coordinate
   channels last, since ``Enc_CNNCoord`` appends them after the features);
-* ``nn.ConvTranspose2d``, ``nn.ConvTranspose3d``: the kernel reversed on
-  every spatial axis and laid out ``(in, out, *spatial)`` (flax's transposed
+* ``nn.ConvTranspose1d``, ``2d``, ``3d``: the kernel reversed on every
+  spatial axis and laid out ``(in, out, *spatial)`` (flax's transposed
   conv does not flip the kernel; PyTorch's does), whatever flax's padding:
   the module crops for it (``Dec_SVHN``'s ``VALID`` one is PyTorch's
-  unpadded one, ``Dec_PolyMNIST``'s ``SAME`` ones at stride 2 cut a row
-  and a column);
+  unpadded one, ``Dec_PolyMNIST``'s and ``Dec_ConvTxt``'s ``SAME`` ones at
+  stride 2 cut a row and a column, or the last step);
+* ``nn.GRU`` (one layer, one direction): the ten leaves of a flax
+  ``GRUCell``, input Denses ``ir``, ``iz``, ``in`` with bias and hidden
+  Denses ``hr``, ``hz`` without and ``hn`` with, stack in PyTorch's gate
+  order r, z, n: ``weight_ih_l0`` and ``weight_hh_l0`` the three kernels,
+  transposed; ``bias_ih_l0`` the three input biases; ``bias_hh_l0``
+  ``[0, 0, b_hn]`` (PyTorch's n gate multiplies ``W_hn h + b_hn`` by r, as
+  flax's does);
 * ``nn.LayerNorm``, ``nn.GroupNorm``: ``scale`` -> ``weight``;
 * ``FrozenBatchNorm``: ``scale`` -> ``weight``, ``bias`` -> ``bias``, and
   the stop-gradient statistics ``mean`` and ``var`` -> its two buffers;
 * a leaf of any other module (``pz_logvar``, ``Enc_CNNSpatial``'s
-  ``ss_log_temp``) is copied as it is.
+  ``ss_log_temp``, the ViT's ``cls`` and ``pos_embed``) is copied as it is.
 
 Every flax leaf is consumed exactly once and every parameter and buffer of
 the module is written exactly once; a missing, extra or misshapen name
@@ -50,8 +58,9 @@ def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...
     return out
 
 
-_CONVS = (nn.Conv2d, nn.Conv3d)
-_CONV_TRANSPOSES = (nn.ConvTranspose2d, nn.ConvTranspose3d)
+_CONVS = (nn.Conv1d, nn.Conv2d, nn.Conv3d)
+_CONV_TRANSPOSES = (nn.ConvTranspose1d, nn.ConvTranspose2d, nn.ConvTranspose3d)
+_GRU_GATES = ("r", "z", "n")
 _NORMS = (nn.LayerNorm, nn.GroupNorm)
 _LAYERS = (nn.Linear, FrozenBatchNorm) + _CONVS + _CONV_TRANSPOSES + _NORMS
 
@@ -87,6 +96,35 @@ def _convert(module: nn.Module, leaf: str, arr: np.ndarray) -> Tuple[str, np.nda
     raise KeyError(f"no rule for flax leaf '{leaf}' on {type(module).__name__}")
 
 
+def _gru_prefix(model: nn.Module, mod_path) -> int:
+    """The length of the prefix of ``mod_path`` that names an ``nn.GRU`` of
+    ``model``, or 0."""
+    for n in range(len(mod_path) - 1, 0, -1):
+        try:
+            module = model.get_submodule(".".join(mod_path[:n]))
+        except AttributeError:
+            continue
+        return n if isinstance(module, nn.GRU) else 0
+    return 0
+
+
+def _gru_params(cell: Dict[Tuple[str, ...], np.ndarray], where: str):
+    """{torch parameter name: array} of one flax ``GRUCell``'s leaves, keyed
+    (dense, leaf)."""
+    want = {(f"{side}{g}", "kernel") for side in "ih" for g in _GRU_GATES}
+    want |= {(f"i{g}", "bias") for g in _GRU_GATES} | {("hn", "bias")}
+    if set(cell) != want:
+        raise KeyError(f"flax GRUCell {where} has leaves {sorted(cell)}; expected "
+                       f"{sorted(want)}")
+    hn = cell[("hn", "bias")]
+    return {
+        "weight_ih_l0": np.concatenate([cell[(f"i{g}", "kernel")].T for g in _GRU_GATES]),
+        "weight_hh_l0": np.concatenate([cell[(f"h{g}", "kernel")].T for g in _GRU_GATES]),
+        "bias_ih_l0": np.concatenate([cell[(f"i{g}", "bias")] for g in _GRU_GATES]),
+        "bias_hh_l0": np.concatenate([np.zeros(2 * hn.shape[0], hn.dtype), hn]),
+    }
+
+
 def load_flax_params(model: nn.Module, flax_params: Mapping) -> None:
     """Copy ``flax_params`` (the variables dict or its ``"params"`` entry)
     into ``model`` in place."""
@@ -94,8 +132,18 @@ def load_flax_params(model: nn.Module, flax_params: Mapping) -> None:
     targets = dict(model.named_parameters())
     targets.update(model.named_buffers())
     written = set()
+    leaves, grus = [], {}
+    for path, arr in _flatten(tree).items():
+        n = _gru_prefix(model, path[:-1])
+        if n:   # a GRUCell's leaf: gathered, then stacked in PyTorch's layout
+            grus.setdefault(path[:n], {})[path[n:]] = arr
+        else:
+            leaves.append((path, arr))
+    for gru_path, cell in grus.items():
+        where = "/".join(gru_path)
+        leaves += [(gru_path + (name,), value) for name, value in _gru_params(cell, where).items()]
     with torch.no_grad():
-        for path, arr in _flatten(tree).items():
+        for path, arr in leaves:
             *mod_path, leaf = path
             try:
                 module = model.get_submodule(".".join(mod_path))
@@ -104,7 +152,7 @@ def load_flax_params(model: nn.Module, flax_params: Mapping) -> None:
                                f"in {type(model).__name__}") from e
             if isinstance(module, _LAYERS):
                 name, value = _convert(module, leaf, arr)
-            else:  # a parameter of a container module, e.g. pz_logvar
+            else:  # a parameter of a container module (pz_logvar, ViT's cls)
                 name, value = leaf, arr
             full = ".".join(mod_path + [name])
             if full not in targets:

@@ -1,7 +1,8 @@
 """Model zoo registry: mixing strategies by the config's ``mixing`` string.
 
-POE (MVAE), MOE (MMVAE), MoPOE, DMVAE and the contrib POE2; the unimodal
-VAE is not ported yet.
+POE (MVAE), MOE (MMVAE), MoPOE, DMVAE and the contrib POE2.  A config
+with one modality builds ``mmvae.UnimodalVAE`` whatever its ``mixing``
+(``training.trainer.build_model``), as the reference does.
 """
 from multimodal_vae_comparison_tpu_torch.models.contrib import POE2
 from multimodal_vae_comparison_tpu_torch.models.mmvae import DMVAE, MOE, POE, MoPOE

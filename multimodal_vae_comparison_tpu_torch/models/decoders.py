@@ -18,8 +18,8 @@ from torch import nn
 from multimodal_vae_comparison_tpu_torch.constants import DEC_SCALE, ETA
 from multimodal_vae_comparison_tpu_torch.models.nets import (
     LN_EPS, AttentionResidualBlock, ConvTranspose2dTorch, GroupNorm,
-    MultiHeadAttention, SamePadConvTranspose3d, SparseAttentionResidualBlock,
-    transpose_crops, gelu, positional_encoding, resample_strides)
+    MultiHeadAttention, ResUp, SamePadConvTranspose3d, SparseAttentionResidualBlock,
+    transpose_crops, gelu, group_norm, positional_encoding, resample_strides)
 
 # logit(1 - ETA): clipping logits to +-this bound == clipping sigmoid(x) to
 # [ETA, 1-ETA] (see VaeDecoder.squash_dist)
@@ -332,6 +332,95 @@ class Dec_PolyMNIST(VaeDecoder):
         return self.squash_dist(h[:, :, 2:30, 2:30].permute(0, 2, 3, 1), b)
 
 
+class Dec_RESCNN(VaeDecoder):
+    """Residual up-sampling decoder: Dense to a 4x4 x 16``ch`` map (NHWC, as
+    the reference reshapes), four ``ResUp`` blocks (8, 4, 2 and 1 x ``ch``;
+    4 -> 64 px), a 3x3 conv to 3 channels, squashed as the image decoders
+    are."""
+
+    def __init__(self, latent_dim, data_dim, latent_private=None, ch: int = 64):
+        super().__init__(latent_dim, data_dim, latent_private)
+        self.ch = ch
+        self.Dense_0 = nn.Linear(self.out_dim, 16 * ch * 16)
+        c = 16 * ch
+        for i, mult in enumerate((8, 4, 2, 1)):
+            self.add_module(f"ResUp_{i}", ResUp(c, ch * mult))
+            c = ch * mult
+        self.Conv_0 = nn.Conv2d(ch, 3, 3, padding=1)
+
+    def forward(self, z: torch.Tensor, mask=None):
+        b = z.shape[0]
+        h = self.Dense_0(z).reshape(b, 4, 4, 16 * self.ch).permute(0, 3, 1, 2)
+        for i in range(4):
+            h = getattr(self, f"ResUp_{i}")(h)
+        return self.squash_dist(self.Conv_0(h).permute(0, 2, 3, 1), b)
+
+
+class Dec_ConvTxt(VaeDecoder):
+    """Deconvolutional text decoder: Dense to (seq // 8, 3 fBase), three 1-D
+    transposed convs (k 3, stride 2, flax's ``SAME``: PyTorch's unpadded one
+    cut by ``transpose_crops``; 3, 2 and 1 x fBase channels) each followed
+    by GroupNorm and ReLU, the (B, T', C) flatten, ``toVocabSize`` to seq x
+    vocab, and a sigmoid."""
+
+    def __init__(self, latent_dim, data_dim, latent_private=None, fBase: int = 64):
+        super().__init__(latent_dim, data_dim, latent_private)
+        self.seq_len, self.vocab = int(self.data_dim[0]), int(self.data_dim[1])
+        self.start, self.width = max(self.seq_len // 8, 1), fBase * 3
+        self.Dense_0 = nn.Linear(self.out_dim, self.start * self.width)
+        c = self.width
+        for i, feat in enumerate((fBase * 3, fBase * 2, fBase)):
+            self.add_module(f"ConvTranspose_{i}", nn.ConvTranspose1d(c, feat, 3, stride=2))
+            self.add_module(f"GroupNorm_{i}", group_norm(feat))
+            c = feat
+        self.crop = transpose_crops(3, 2)
+        self.toVocabSize = nn.Linear(self.start * 8 * fBase, self.seq_len * self.vocab)
+
+    def forward(self, z: torch.Tensor, mask=None):
+        b = z.shape[0]
+        h = self.Dense_0(z).reshape(b, self.start, self.width).transpose(1, 2)  # (B, C, T)
+        lo, hi = self.crop
+        for i in range(3):
+            h = getattr(self, f"ConvTranspose_{i}")(h)
+            h = F.relu(getattr(self, f"GroupNorm_{i}")(h[:, :, lo:h.shape[2] - hi]))
+        out = self.toVocabSize(h.transpose(1, 2).reshape(b, -1))
+        mean = torch.sigmoid(out).reshape(b, self.seq_len, self.vocab)
+        return mean, self.scale_like(mean)
+
+
+class Dec_TransformerIMG(VaeDecoder):
+    """Image-sequence decoder to (B, T, 64, 64, 3): Dense to d_model 256,
+    time-queries cross-attending to the z token (4 layers, 4 heads, ff 1024;
+    Dh 64, one key), ``Dense`` to a 4x4 x ``hid_channels`` map per frame,
+    three 2x transposed convs with SiLU and a last one to 3 channels, and a
+    sigmoid."""
+
+    def __init__(self, latent_dim, data_dim, latent_private=None, ff_size: int = 1024,
+                 num_layers: int = 4, num_heads: int = 4, hid_channels: int = 64,
+                 d_model: int = 256):
+        super().__init__(latent_dim, data_dim, latent_private)
+        self.seq_len, self.num_layers = int(self.data_dim[0]), num_layers
+        self.d_model, self.hid_channels = d_model, hid_channels
+        self.Dense_0 = nn.Linear(self.out_dim, d_model)
+        _add_time_query_layers(self, d_model, num_layers, num_heads, ff_size)
+        self.Dense_1 = nn.Linear(d_model, hid_channels * 16)
+        for i in range(4):
+            self.add_module(f"ConvTranspose2dTorch_{i}", ConvTranspose2dTorch(
+                hid_channels, 3 if i == 3 else hid_channels))
+
+    def forward(self, z: torch.Tensor, mask=None):
+        b = z.shape[0]
+        out = _time_query_decode(self, self.Dense_0(z), self.seq_len, self.d_model,
+                                 self.num_layers)
+        h = self.Dense_1(out).reshape(b * self.seq_len, 4, 4, self.hid_channels)
+        for i in range(4):
+            h = getattr(self, f"ConvTranspose2dTorch_{i}")(h)
+            if i < 3:
+                h = F.silu(h)
+        mean = torch.sigmoid(h).reshape(b, self.seq_len, *self.data_dim[1:])
+        return mean, self.scale_like(mean)
+
+
 class Dec_FNN(VaeDecoder):
     """Generic MLP decoder."""
 
@@ -401,18 +490,21 @@ DECODERS = {
     "MNIST": Dec_MNIST,
     "MNIST2": Dec_MNIST2,
     "PolyMNIST": Dec_PolyMNIST,
+    "RESCNN": Dec_RESCNN,
     "SVHN": Dec_SVHN,
     "SVHN2": Dec_SVHN2,
     "Transformer": Dec_Transformer,
     "TransformerCond": Dec_TransformerCond,
     "TxtTransformer": Dec_TxtTransformer,
+    "ConvTxt": Dec_ConvTxt,
+    "TransformerIMG": Dec_TransformerIMG,
     "VideoGPT": Dec_VideoGPT,
     "VideoGPTSparse": Dec_VideoGPTSparse,
 }
 
 
 def get_decoder(name: str):
-    """Decoder factory by config name; only the ported decoders so far."""
+    """Decoder factory by config name (every decoder of the reference)."""
     if name not in DECODERS:
         raise KeyError(f"Did not find decoder {name}; available: {sorted(DECODERS)}")
     return DECODERS[name]

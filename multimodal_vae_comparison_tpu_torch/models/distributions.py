@@ -1,11 +1,12 @@
 """Distributions (counterpart of ``models/distributions.py``).
 
-The diagonal ``Normal`` and ``Laplace`` and the learnable
-mixture-of-Gaussians prior ``MixtureNormal``.  Like the reference each is a
-plain container of its parameters with ``log_prob`` and a sampler; the
-samplers draw from an explicit ``torch.Generator`` or take injected noise,
-so tests can feed both packages the same draws.  Bernoulli and
-OneHotCategorical come with the slices whose models use them.
+The diagonal ``Normal`` and ``Laplace``, the ``OneHotCategorical`` of the
+unimodal VAE's gumbel-softmax path, and the learnable mixture-of-Gaussians
+prior ``MixtureNormal``.  Like the reference each is a plain container of
+its parameters with ``log_prob`` and a sampler; the samplers draw from an
+explicit ``torch.Generator`` or take injected noise, so tests can feed both
+packages the same draws.  Bernoulli comes with the slice whose model uses
+it.
 """
 from __future__ import annotations
 
@@ -99,6 +100,51 @@ class Laplace:
                 - torch.log(scale_ratio))
 
 
+@dataclasses.dataclass(frozen=True)
+class OneHotCategorical:
+    """Categorical over the last axis, parameterized by ``logits``."""
+
+    logits: torch.Tensor
+
+    @property
+    def probs(self) -> torch.Tensor:
+        return torch.softmax(self.logits, dim=-1)
+
+    @property
+    def mean(self) -> torch.Tensor:
+        return self.probs
+
+    def log_prob(self, x_onehot: torch.Tensor) -> torch.Tensor:
+        return (x_onehot * torch.log_softmax(self.logits, dim=-1)).sum(-1)
+
+    def rsample(self, sample_shape: Sequence[int] = (),
+                generator: Optional[torch.Generator] = None,
+                eps: Optional[torch.Tensor] = None,
+                temperature: float = 1.0) -> torch.Tensor:
+        """Gumbel-softmax relaxed one-hot draw, ``softmax((logits + g) / T)``,
+        with no straight-through estimator.  ``eps`` is the standard Gumbel
+        noise ``g`` of shape ``sample_shape + logits.shape`` when given, else
+        ``-log(-log(u))`` of a uniform ``u`` in [tiny, 1) drawn from
+        ``generator`` on the generator's device and moved to the logits'."""
+        shape = tuple(sample_shape) + tuple(self.logits.shape)
+        if eps is None:
+            dtype = self.logits.dtype
+            u = torch.rand(shape, generator=generator, dtype=dtype,
+                           device=self.logits.device if generator is None
+                           else generator.device)
+            eps = (-torch.log(-torch.log(u.clamp_min(torch.finfo(dtype).tiny)))
+                   ).to(self.logits.device)
+        elif tuple(eps.shape) != shape:
+            raise ValueError(f"eps has shape {tuple(eps.shape)}, expected {shape}")
+        return torch.softmax((self.logits + eps) / temperature, dim=-1)
+
+    def kl(self, other: "OneHotCategorical") -> torch.Tensor:
+        """Closed-form KL(self || other) over the last axis."""
+        logp = torch.log_softmax(self.logits, dim=-1)
+        logq = torch.log_softmax(other.logits, dim=-1)
+        return (torch.exp(logp) * (logp - logq)).sum(-1)
+
+
 def stop_gradient(dist):
     """``dist`` of the same family with every tensor parameter detached."""
     return dataclasses.replace(dist, **{
@@ -111,6 +157,8 @@ DIST_MAP = {
     "normal": Normal,
     "gaussian": Normal,
     "laplace": Laplace,
+    "categorical": OneHotCategorical,
+    "gumbel": OneHotCategorical,   # the gumbel-softmax sampling path
 }
 
 

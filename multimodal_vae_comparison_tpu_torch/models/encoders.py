@@ -17,9 +17,9 @@ from torch import nn
 
 from multimodal_vae_comparison_tpu_torch.constants import ETA
 from multimodal_vae_comparison_tpu_torch.models.nets import (
-    AttentionResidualBlock, GroupNorm, ResNet50, SamePadConv3d,
-    SparseAttentionResidualBlock, TransformerEncoder, positional_encoding,
-    resample_strides)
+    AttentionResidualBlock, GroupNorm, ResDown, ResNet50, SamePadConv3d,
+    SparseAttentionResidualBlock, TransformerEncoder, ViT, group_norm,
+    positional_encoding, resample_strides)
 
 
 class VaeEncoder(nn.Module):
@@ -60,6 +60,20 @@ class Enc_CNN(VaeEncoder):
 
     def forward(self, data: torch.Tensor, mask=None):
         return self.head(F.silu(self.ResNet50_0(data)))
+
+
+class Enc_VIT(VaeEncoder):
+    """ViT trunk (width 256, depth 6, 8 heads, 1000 outputs) + SiLU + the
+    (mu, scale) head for NHWC images."""
+
+    def __init__(self, latent_dim, data_dim, latent_private=None):
+        super().__init__(latent_dim, data_dim, latent_private)
+        self.ViT_0 = ViT(self.data_dim[:2], in_channels=int(self.data_dim[-1]),
+                         num_outputs=1000)
+        self._add_head(1000)
+
+    def forward(self, data: torch.Tensor, mask=None):
+        return self.head(F.silu(self.ViT_0(data)))
 
 
 class Enc_CNN2(VaeEncoder):
@@ -282,6 +296,28 @@ class Enc_SVHN2(VaeEncoder):
         return mu, _scaled_softmax(_flatten_nhwc(self.Conv_4(h)))
 
 
+class Enc_RESCNN(VaeEncoder):
+    """Fully convolutional residual encoder: a 7x7 conv (``ch``) + ELU, four
+    ``ResDown`` blocks (2, 4, 8 and 16 x ``ch``; 64 px -> 4x4x1024), the
+    NHWC flatten, and the head."""
+
+    def __init__(self, latent_dim, data_dim, latent_private=None, ch: int = 64):
+        super().__init__(latent_dim, data_dim, latent_private)
+        h, w = int(self.data_dim[0]), int(self.data_dim[1])
+        self.Conv_0 = nn.Conv2d(int(self.data_dim[-1]), ch, 7, padding=3)
+        c = ch
+        for i, mult in enumerate((2, 4, 8, 16)):
+            self.add_module(f"ResDown_{i}", ResDown(c, ch * mult))
+            c, h, w = ch * mult, (h - 1) // 2 + 1, (w - 1) // 2 + 1
+        self._add_head(h * w * c)
+
+    def forward(self, data: torch.Tensor, mask=None):
+        h = F.elu(self.Conv_0(data.permute(0, 3, 1, 2)))
+        for i in range(4):
+            h = getattr(self, f"ResDown_{i}")(h)
+        return self.head(_flatten_nhwc(h))
+
+
 def _encode_sequence(embedding: nn.Module, encoder: nn.Module, d_model: int,
                      data: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
     """Per-step embedding, sinusoidal positions, the masked post-norm
@@ -334,6 +370,111 @@ class Enc_Transformer(VaeEncoder):
     def forward(self, data: torch.Tensor, mask: Optional[torch.Tensor] = None):
         return self.head(_encode_sequence(self.skel_embedding, self.TransformerEncoder_0,
                                           self.d_model, data, mask))
+
+
+class Enc_ConvTxt(VaeEncoder):
+    """Convolutional text encoder: a per-character ``embedding`` Dense, then
+    three 1-D convs (k 3, stride 2, padding 1, no bias; fBase x 1, 2, 3
+    channels), each followed by GroupNorm and ReLU, the (B, T', C) flatten,
+    and the head."""
+
+    def __init__(self, latent_dim, data_dim, latent_private=None, fBase: int = 32,
+                 embed_dim: int = 32):
+        super().__init__(latent_dim, data_dim, latent_private)
+        self.embedding = nn.Linear(math.prod(self.data_dim[1:]), embed_dim)
+        c, t = embed_dim, int(self.data_dim[0])
+        for i, feat in enumerate((fBase, fBase * 2, fBase * 3)):
+            self.add_module(f"Conv_{i}", nn.Conv1d(c, feat, 3, stride=2, padding=1,
+                                                   bias=False))
+            self.add_module(f"GroupNorm_{i}", group_norm(feat))
+            c, t = feat, (t - 1) // 2 + 1
+        self._add_head(t * c)
+
+    def forward(self, data: torch.Tensor, mask=None):
+        b, t = data.shape[0], data.shape[1]
+        x = self.embedding(data.reshape(b, t, -1)).transpose(1, 2)   # (B, C, T)
+        for i in range(3):
+            x = F.relu(getattr(self, f"GroupNorm_{i}")(getattr(self, f"Conv_{i}")(x)))
+        return self.head(x.transpose(1, 2).reshape(b, -1))
+
+
+class Enc_TxtRNN(VaeEncoder):
+    """Bidirectional GRU text encoder: a per-character ``embed`` Dense to
+    ``hidden_size``, a forward GRU (``GRUCell_0``) and a backward one
+    (``GRUCell_1``) whose final states at each row's true end are summed,
+    and ``o2p`` to (mu, raw) with ``scale = softmax(raw) + ETA``.
+
+    A row's length is its mask's count of valid steps (the full length
+    without a mask; at least 1).  The forward state is the GRU's output at
+    step length - 1; the backward one runs over the row's valid prefix
+    reversed, the padding left after it, and is read at the same step: the
+    reference's ``nn.RNN(..., seq_lengths=, reverse=True)``, with no host
+    sync for the lengths.
+
+    Each GRU is PyTorch's (cuDNN's on the card) in flax's ``GRUCell`` form:
+    the hidden-side reset and update gates have no bias in flax, so those
+    two thirds of ``bias_hh_l0`` start at 0 and their gradient is held at
+    0."""
+
+    def __init__(self, latent_dim, data_dim, latent_private=None, hidden_size: int = 512):
+        super().__init__(latent_dim, data_dim, latent_private)
+        self.hidden_size = hidden_size
+        self.embed = nn.Linear(math.prod(self.data_dim[1:]), hidden_size)
+        for i in range(2):
+            gru = nn.GRU(hidden_size, hidden_size, batch_first=True)
+            with torch.no_grad():
+                gru.bias_hh_l0[: 2 * hidden_size].zero_()
+            keep = torch.ones(3 * hidden_size)
+            keep[: 2 * hidden_size] = 0.0
+            gru.bias_hh_l0.register_hook(lambda g, keep=keep: g * keep.to(g.device, g.dtype))
+            self.add_module(f"GRUCell_{i}", gru)
+        self.o2p = nn.Linear(hidden_size, 2 * self.out_dim)
+
+    def forward(self, data: torch.Tensor, mask: Optional[torch.Tensor] = None):
+        b, t = data.shape[0], data.shape[1]
+        x = self.embed(data.reshape(b, t, -1))
+        steps = torch.arange(t, device=x.device)
+        if mask is None:
+            lengths = torch.full((b,), t, device=x.device)
+        else:
+            lengths = mask.reshape(b, t).sum(-1).clamp(min=1)
+        last = (lengths - 1)[:, None, None].expand(b, 1, self.hidden_size)
+        # each row's valid prefix reversed, its padding kept after it
+        rev = torch.where(steps[None] < lengths[:, None], lengths[:, None] - 1 - steps[None],
+                          steps[None])
+        x_rev = x.gather(1, rev[..., None].expand(b, t, x.shape[-1]))
+        fwd = self.GRUCell_0(x)[0].gather(1, last)[:, 0]
+        bwd = self.GRUCell_1(x_rev)[0].gather(1, last)[:, 0]
+        mu, raw = self.o2p(fwd + bwd).chunk(2, dim=-1)
+        return mu, torch.softmax(raw, dim=-1) + ETA
+
+
+class Enc_TransformerIMG(VaeEncoder):
+    """Image-sequence encoder on (B, T, H, W, C): four 4x4 stride-2 convs
+    (``hid_channels``, SiLU) per frame, the NHWC flatten, ``Dense`` to 256,
+    positional encoding, a 4-layer 4-head post-norm encoder (ff 1024; Dh
+    64) under the frame mask, the masked mean over frames, and the head."""
+
+    def __init__(self, latent_dim, data_dim, latent_private=None, ff_size: int = 1024,
+                 num_layers: int = 4, num_heads: int = 4, hid_channels: int = 64,
+                 d_model: int = 256):
+        super().__init__(latent_dim, data_dim, latent_private)
+        self.d_model = d_model
+        h, w, c = _add_convs(self, ((hid_channels, 1),) * 4, int(self.data_dim[-1]),
+                             int(self.data_dim[1]), int(self.data_dim[2]), 4, 2)
+        self.Dense_0 = nn.Linear(h * w * c, d_model)
+        self.TransformerEncoder_0 = TransformerEncoder(num_layers, d_model, num_heads,
+                                                       ff_size)
+        self._add_head(d_model)
+
+    def forward(self, data: torch.Tensor, mask: Optional[torch.Tensor] = None):
+        b, t = data.shape[0], data.shape[1]
+        h = data.reshape((b * t,) + tuple(data.shape[2:])).permute(0, 3, 1, 2)
+        for i in range(4):
+            h = F.silu(getattr(self, f"Conv_{i}")(h))
+        frames = _flatten_nhwc(h).reshape(b, t, -1)
+        return self.head(_encode_sequence(self.Dense_0, self.TransformerEncoder_0,
+                                          self.d_model, frames, mask))
 
 
 class Enc_FNN(VaeEncoder):
@@ -398,24 +539,29 @@ class Enc_VideoGPTSparse(Enc_VideoGPT):
 
 ENCODERS = {
     "CNN": Enc_CNN,
+    "VIT": Enc_VIT,
     "CNN2": Enc_CNN2,
     "CNNCoord": Enc_CNNCoord,
     "CNNSpatial": Enc_CNNSpatial,
     "FNN": Enc_FNN,
     "MNIST": Enc_MNIST,
     "MNISTMoE": Enc_MNISTMoE,
+    "RESCNN": Enc_RESCNN,
     "PolyMNIST": Enc_PolyMNIST,
     "SVHN": Enc_SVHN,
     "SVHN2": Enc_SVHN2,
     "Transformer": Enc_Transformer,
     "TxtTransformer": Enc_TxtTransformer,
+    "ConvTxt": Enc_ConvTxt,
+    "TxtRNN": Enc_TxtRNN,
+    "TransformerIMG": Enc_TransformerIMG,
     "VideoGPT": Enc_VideoGPT,
     "VideoGPTSparse": Enc_VideoGPTSparse,
 }
 
 
 def get_encoder(name: str):
-    """Encoder factory by config name; only the ported encoders so far."""
+    """Encoder factory by config name (every encoder of the reference)."""
     if name not in ENCODERS:
         raise KeyError(f"Did not find encoder {name}; available: {sorted(ENCODERS)}")
     return ENCODERS[name]

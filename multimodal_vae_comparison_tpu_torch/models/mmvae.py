@@ -1,13 +1,16 @@
 """The multimodal VAE zoo (counterpart of ``models/mmvae.py``).
 
-POE (MVAE), MOE (MMVAE), MoPOE and DMVAE: inference forwards and training
-objectives.  The unimodal VAE comes with a later slice.
+POE (MVAE), MOE (MMVAE), MoPOE, DMVAE and the one-modality VAE
+(``UnimodalVAE``, with its gumbel-softmax path): inference forwards and
+training objectives.
 
 Injected noise: ``POE.objective`` takes ``eps`` as a list of one (K, B, D)
 draw per subset, in lattice order; MOE's ``forward`` and ``objective`` take
 a dict from modality name to its (K, B, D) draw; MoPOE takes the one (K, B,
 D) draw of its joint sample; DMVAE a list in the order the reference draws
-them (see its docstring).  Without ``eps`` the draws come from ``generator``
+them (see its docstring); UnimodalVAE the one (K, B, D) draw of its
+posterior, or on the gumbel path the (K, B, groups, cats) Gumbel noise.
+Without ``eps`` the draws come from ``generator``
 in the same order (``self.specs`` order for MOE).
 
 Under the mixture prior (``prior_components > 1``) every KL to the prior is
@@ -21,11 +24,12 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from multimodal_vae_comparison_tpu_torch.models import objectives
 from multimodal_vae_comparison_tpu_torch.models.base import MMVAE
 from multimodal_vae_comparison_tpu_torch.models.distributions import (
-    Normal, log_mean_exp, log_prob_joint, stop_gradient)
+    Normal, OneHotCategorical, log_mean_exp, log_prob_joint, stop_gradient)
 from multimodal_vae_comparison_tpu_torch.models.output import (
     ModalityOutput, VAEOutput)
 from multimodal_vae_comparison_tpu_torch.ops.fusion import (
@@ -533,3 +537,84 @@ class DMVAE(MMVAE):
         metrics = {"kld": total_kld / len(self.specs),
                    **{f"reconstruction_loss_{k}": v for k, v in rec_per_mod.items()}}
         return total, metrics
+
+
+class UnimodalVAE(MMVAE):
+    """The VAE of a config with one modality block: encode, draw K latents
+    from the posterior, decode.
+
+    ``objective`` takes ``elbo`` (the KL to N(0, 1) through the KL kernel,
+    or under the mixture prior the Monte-Carlo KL over the draws), ``dreg``
+    (the stop-gradient posterior of its own family, every z-path gradient
+    re-weighted by :func:`objectives.scale_grad` through a second decode),
+    ``iwae``, and the gumbel-softmax path: under ``obj: elbo_gumbel`` or
+    ``prior: gumbel`` the relu'd encoder means are logits of ``n_latents //
+    cats`` categoricals of ``cats = feature_dims[1]`` classes, whose relaxed
+    one-hot draws are decoded, with the KL to the uniform categorical.  The
+    ELBO terms sum over K and the batch; the reconstruction metric is
+    -sum(lpx), its llik scaling kept.  Another objective name raises
+    ``KeyError``.
+    """
+
+    def forward(self, batch, present: Optional[Tuple[str, ...]] = None,
+                eps: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> VAEOutput:
+        """:param present: ignored (the one modality is encoded)
+        :param eps: optional injected (K, B, D) draw of the posterior"""
+        spec = self.specs[0]
+        qz_params = self.encode(batch, (spec.name,))
+        qz, z = self.sample_posterior(spec, qz_params[spec.name]["shared"], eps=eps,
+                                      generator=generator)
+        dec = self.decode_mod(spec.name, z, _mask_of(batch, spec.name))
+        return VAEOutput(mods={spec.name: ModalityOutput(
+            encoder_dist=qz, decoder_dist=dec, latents=z)})
+
+    def _gumbel_forward(self, batch, eps=None, generator=None) -> VAEOutput:
+        """The categorical latent path: relu'd encoder means as (B, groups,
+        cats) logits, K relaxed one-hot draws (``eps`` the (K, B, groups,
+        cats) Gumbel noise), flattened to (K, B, groups * cats) and decoded."""
+        spec = self.specs[0]
+        mu, _ = self.encode(batch, (spec.name,))[spec.name]["shared"]
+        cats = int(spec.feature_dims[1])
+        groups = self.n_latents // cats
+        qz = OneHotCategorical(F.relu(mu).reshape(mu.shape[0], groups, cats))
+        z = qz.rsample((self.K,), generator=generator, eps=eps)
+        z = z.reshape(self.K, mu.shape[0], groups * cats)
+        dec = self.decode_mod(spec.name, z, _mask_of(batch, spec.name))
+        return VAEOutput(mods={spec.name: ModalityOutput(
+            encoder_dist=qz, decoder_dist=dec, latents=z)})
+
+    def objective(self, batch, eps: Optional[torch.Tensor] = None,
+                  generator: Optional[torch.Generator] = None):
+        spec = self.specs[0]
+        rec = f"reconstruction_loss_{spec.name}"
+        if self.obj == "elbo_gumbel" or spec.prior == "gumbel":
+            mo = self._gumbel_forward(batch, eps, generator).mods[spec.name]
+            lpx = self.recon_lpx(spec, mo.decoder_dist, batch)
+            uniform = OneHotCategorical(torch.zeros_like(mo.encoder_dist.logits))
+            kld = mo.encoder_dist.kl(uniform).sum(-1)
+            return objectives.elbo(lpx, kld, self.beta), {"kld": kld.sum(), rec: -lpx.sum()}
+        if self.obj not in ("elbo", "dreg", "iwae"):
+            raise KeyError(f"UnimodalVAE has no objective '{self.obj}'; available: "
+                           "['dreg', 'elbo', 'elbo_gumbel', 'iwae']")
+        mo = self.forward(batch, eps=eps, generator=generator).mods[spec.name]
+        lpx = self.recon_lpx(spec, mo.decoder_dist, batch)
+        kld_m = torch.zeros((), device=lpx.device)
+        if self.obj == "elbo":
+            kld = (self.kld_to_prior(mo.encoder_dist, mo.latents)
+                   if self.prior_components > 1 else self.kld_std(spec, mo.encoder_dist))
+            loss, kld_m = objectives.elbo(lpx, kld, self.beta), kld.sum()
+        elif self.obj == "dreg":
+            pz, z = self.pz(), mo.latents
+            q_sg = stop_gradient(mo.encoder_dist)
+            lw = log_prob_joint(pz, z) + lpx - q_sg.log_prob(z).sum(-1)
+            w = objectives.dreg_grad_weights(lw)                     # (K, B)
+            z_s = objectives.scale_grad(z, w[..., None])
+            lpx_s = self.recon_lpx(spec, self.decode_mod(spec.name, z_s,
+                                                         _mask_of(batch, spec.name)), batch)
+            loss = objectives.dreg(log_prob_joint(pz, z_s) + lpx_s
+                                   - q_sg.log_prob(z_s).sum(-1))
+        else:
+            lqz = mo.encoder_dist.log_prob(mo.latents).sum(-1)
+            loss = objectives.iwae(log_prob_joint(self.pz(), mo.latents) + lpx - lqz)
+        return loss, {"kld": kld_m, rec: -lpx.sum()}

@@ -1,8 +1,9 @@
 """Shared network building blocks (counterpart of ``models/nets.py``).
 
 The blocks of the ported models: the transformer pieces of the CdSprites+
-text nets, the ResNet-50 trunk of ``Enc_CNN`` and the 3D conv and attention
-blocks of the VideoGPT family.
+text nets, the ResNet-50 trunk of ``Enc_CNN``, the ViT trunk of
+``Enc_VIT``, the residual blocks of the RESCNN nets and the 3D conv and
+attention blocks of the VideoGPT family.
 Submodules carry the names
 that flax gives their counterparts (``Dense_0``, ``LayerNorm_1``,
 ``MultiHeadAttention_0``, ...), so that ``bridge.load_flax_params`` maps a
@@ -13,7 +14,9 @@ GroupNorm eps is 1e-6 (FrozenBatchNorm's 1e-5), GELU is the tanh
 approximation, and ``SAME`` padding of an even kernel is asymmetric.
 Public functions keep the reference's layouts: NHWC images, (B, T, H, W, C)
 video volumes and (B, H, T, Dh) attention; modules permute to
-channels-first views around PyTorch's convs.
+channels-first views around PyTorch's convs (``ResDown`` and ``ResUp``, the
+inner blocks of the RESCNN nets, take and return NCHW, so that the stack
+permutes once).
 """
 from __future__ import annotations
 
@@ -134,6 +137,12 @@ class ConvTranspose2dTorch(nn.Module):
 
 
 # -- VideoGPT-style 3D blocks -------------------------------------------------
+
+def group_norm(channels: int) -> nn.GroupNorm:
+    """The reference's ``group_norm`` on channels-first input: gcd(8, C)
+    groups and flax's eps."""
+    return nn.GroupNorm(math.gcd(8, channels), channels, eps=LN_EPS)
+
 
 class GroupNorm(nn.GroupNorm):
     """The reference's ``group_norm`` on channels-last input: gcd(8, C)
@@ -308,6 +317,83 @@ class SparseAttentionResidualBlock(_AttentionResidual):
         b, t, hh, ww, c = h.shape
         att = self.StridedSparseSelfAttention_0(h.reshape(b, t * hh * ww, c))
         return x + att.reshape(b, t, hh, ww, c)
+
+
+# -- residual conv blocks (the RESCNN nets) ----------------------------------
+
+class ResDown(nn.Module):
+    """Residual down-sampling block on NCHW: a 3x3 stride-2 skip conv, and
+    3x3 stride-2 (C/2) -> GroupNorm -> ELU -> 3x3 (C) -> GroupNorm; ELU of
+    the sum."""
+
+    def __init__(self, in_features: int, channels: int):
+        super().__init__()
+        self.Conv_0 = nn.Conv2d(in_features, channels, 3, stride=2, padding=1)
+        self.Conv_1 = nn.Conv2d(in_features, channels // 2, 3, stride=2, padding=1)
+        self.GroupNorm_0 = group_norm(channels // 2)
+        self.Conv_2 = nn.Conv2d(channels // 2, channels, 3, padding=1)
+        self.GroupNorm_1 = group_norm(channels)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = F.elu(self.GroupNorm_0(self.Conv_1(x)))
+        h = self.GroupNorm_1(self.Conv_2(h))
+        return F.elu(h + self.Conv_0(x))
+
+
+class ResUp(nn.Module):
+    """Residual up-sampling block on NCHW: a 2x nearest up-sampling (the
+    reference's ``jax.image.resize(..., "nearest")`` at exactly 2x), then a
+    3x3 skip conv, and 3x3 (C/2) -> GroupNorm -> ELU -> 3x3 (C) ->
+    GroupNorm; ELU of the sum."""
+
+    def __init__(self, in_features: int, channels: int):
+        super().__init__()
+        self.Conv_0 = nn.Conv2d(in_features, channels, 3, padding=1)
+        self.Conv_1 = nn.Conv2d(in_features, channels // 2, 3, padding=1)
+        self.GroupNorm_0 = group_norm(channels // 2)
+        self.Conv_2 = nn.Conv2d(channels // 2, channels, 3, padding=1)
+        self.GroupNorm_1 = group_norm(channels)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        up = F.interpolate(x, scale_factor=2, mode="nearest")
+        h = F.elu(self.GroupNorm_0(self.Conv_1(up)))
+        h = self.GroupNorm_1(self.Conv_2(h))
+        return F.elu(h + self.Conv_0(up))
+
+
+# -- ViT trunk (Enc_VIT's backbone) --------------------------------------------
+
+class ViT(nn.Module):
+    """Compact ViT on NHWC images: a ``patch`` x ``patch`` conv of stride
+    ``patch`` (flax's ``SAME`` padding, none at 64 px) to ``width``-wide
+    tokens in row-major order, a learned ``cls`` token (zeros) in front, a
+    learned ``pos_embed`` (normal, std 0.02), the post-norm encoder (depth 6,
+    8 heads, MLP 4x width) with no mask, and ``Dense(num_outputs)`` on the
+    cls token.  At 64 px: 16 patch tokens + cls, attention at Dh 32."""
+
+    def __init__(self, image_hw: Sequence[int], in_channels: int = 3, patch: int = 16,
+                 width: int = 256, depth: int = 6, heads: int = 8,
+                 num_outputs: int = 1000):
+        super().__init__()
+        self.patch = patch
+        n_tokens = 1 + math.prod(-(-int(n) // patch) for n in image_hw)
+        self.Conv_0 = nn.Conv2d(in_channels, width, patch, stride=patch)
+        self.cls = nn.Parameter(torch.zeros(1, 1, width))
+        self.pos_embed = nn.Parameter(0.02 * torch.randn(1, n_tokens, width))
+        self.TransformerEncoder_0 = TransformerEncoder(depth, width, heads, width * 4)
+        self.Dense_0 = nn.Linear(width, num_outputs)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b = x.shape[0]
+        h_pad = _same_pads(x.shape[1], self.patch, self.patch)
+        w_pad = _same_pads(x.shape[2], self.patch, self.patch)
+        h = x.permute(0, 3, 1, 2)
+        if any(h_pad + w_pad):
+            h = F.pad(h, w_pad + h_pad)
+        h = self.Conv_0(h).flatten(2).transpose(1, 2)        # (B, tokens, width)
+        h = torch.cat([self.cls.expand(b, -1, -1).to(h.dtype), h], dim=1)
+        h = self.TransformerEncoder_0(h + self.pos_embed.to(h.dtype))
+        return self.Dense_0(h[:, 0])
 
 
 # -- ResNet-50 trunk (Enc_CNN's backbone) ------------------------------------

@@ -42,6 +42,7 @@ from multimodal_vae_comparison_tpu_torch.data.datamodule import (
 from multimodal_vae_comparison_tpu_torch.device import resolve_device
 from multimodal_vae_comparison_tpu_torch.models import get_mixing, objectives
 from multimodal_vae_comparison_tpu_torch.models.base import MMVAE, ModalitySpec, build_specs
+from multimodal_vae_comparison_tpu_torch.models.mmvae import UnimodalVAE
 from multimodal_vae_comparison_tpu_torch.ops.kernels import telemetry
 from multimodal_vae_comparison_tpu_torch.training.optim import make_optimizer
 
@@ -59,16 +60,12 @@ def build_model(specs: Tuple[ModalitySpec, ...], mixing: str, n_latents: int,
     ``remat`` recomputes the nets' activations in the backward pass instead
     of keeping them; ``prior_components > 1`` learns a mixture-of-Gaussians
     prior of that many components; ``aux_endpoint > 0`` adds the endpoint
-    head, which POE's objective trains with that weight.  A config with one
-    modality names the unimodal VAE, which raises."""
-    if len(specs) == 1:
-        raise NotImplementedError(
-            "a config with one modality trains the unimodal VAE, which is not "
-            "ported yet (ROADMAP Queue A item 3)")
-    return get_mixing(mixing)(specs, n_latents, K=K, seed=seed, device=device,
-                              obj=obj, beta=beta, remat=remat,
-                              prior_components=prior_components,
-                              aux_endpoint=aux_endpoint)
+    head, which POE's objective trains with that weight.  One modality spec
+    builds :class:`UnimodalVAE`, whatever ``mixing`` names."""
+    cls = UnimodalVAE if len(specs) == 1 else get_mixing(mixing)
+    return cls(specs, n_latents, K=K, seed=seed, device=device, obj=obj, beta=beta,
+               remat=remat, prior_components=prior_components,
+               aux_endpoint=aux_endpoint)
 
 
 def build_model_from_config(cfg, device: Optional[Union[str, torch.device]] = None

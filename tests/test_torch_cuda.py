@@ -1221,3 +1221,28 @@ def test_laplace_dreg_step_on_the_card_matches_the_cpu(cuda):
         assert out["cuda"][1][k] == pytest.approx(v, rel=1e-5, abs=1e-4), k
     worst, name = chip_smoke._worst_leaf(out["cuda"][2], out["cpu"][2], 1e-4, 1e-5)
     assert worst <= 1.0, f"{name}: {worst:.3f} of its limit"
+
+
+@pytest.mark.parametrize("b,h,tq,tk,dh,masked", [
+    (24, 8, 17, 17, 32, False),    # Enc_VIT: 16 patch tokens and cls, width 256
+    (16, 4, 8, 8, 64, True),       # Enc_TransformerIMG over 8 frames, d_model 256
+    (112, 4, 8, 1, 64, False),     # Dec_TransformerIMG's cross-attention, 7 subsets
+    (3, 4, 45, 45, 64, True)],     # head dim 64 at the text length
+    ids=["vit", "transformer-img-enc", "transformer-img-dec", "dh64-text"])
+def test_attention_at_head_dim_64_and_the_vit_shape_matches_plain(cuda, b, h, tq, tk, dh,
+                                                                  masked):
+    """Masked attention at the new nets' shapes, head dim 64 among them, on
+    the resident kernel: forward and the Function's backward against
+    autograd through the plain version (a partly padded key mask, one row
+    with every key masked)."""
+    q, k, v, mask = _qkv(64, b, h, tq, tk, dh, masked, cuda)
+    telemetry.reset()
+    got = tattn.masked_attention(q, k, v, mask)
+    assert telemetry.variants() == {"attention:resident": 1}
+    torch.testing.assert_close(got, tattn.attention_reference(q, k, v, mask), **ATTN_TOL)
+    d_out = torch.randn(q.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(6))
+    leaves = [[x.detach().clone().requires_grad_() for x in (q, k, v)] for _ in range(2)]
+    got = torch.autograd.grad(tattn.masked_attention(*leaves[0], mask), leaves[0], d_out)
+    want = torch.autograd.grad(tattn.attention_reference(*leaves[1], mask), leaves[1], d_out)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, **ATTN_TOL)

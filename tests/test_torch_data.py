@@ -26,6 +26,7 @@ from multimodal_vae_comparison_tpu_torch.data import datasets, native
 from multimodal_vae_comparison_tpu_torch.data.datamodule import DataModule, prefetch_to_device
 from multimodal_vae_comparison_tpu_torch.data_proc import cdsprites
 from multimodal_vae_comparison_tpu_torch.eval.eval_cdsprites import cdsprites_eval
+from test_torch_slice import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 CONFIGS = sorted(glob.glob(str(REPO / "configs" / "round5" / "*.yml"))) + [

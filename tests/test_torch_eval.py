@@ -50,6 +50,7 @@ from multimodal_vae_comparison_tpu_torch.eval import train_classifiers
 from multimodal_vae_comparison_tpu_torch.models import distributions as tdist
 from multimodal_vae_comparison_tpu_torch.training.trainer import Trainer
 from test_torch_data import cdsprites_params
+from test_torch_slice import one_torch_thread  # noqa: F401 (autouse)
 
 # 255 rows: 191 train, 64 val (test_split 0.25)
 N_LATENTS, COUNT, JOINT_N, JUDGE_ROWS = 8, 255, 64, 60

@@ -43,6 +43,7 @@ from multimodal_vae_comparison_tpu_torch.eval.infer import MultimodalVAEInfer
 from multimodal_vae_comparison_tpu_torch.models import get_mixing
 from multimodal_vae_comparison_tpu_torch.training.trainer import (
     Trainer, build_model_from_config)
+from test_torch_slice import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the slice's eight configs and the feature dims their data gives

@@ -51,6 +51,7 @@ from multimodal_vae_comparison_tpu_torch.ops.kernels import telemetry
 from multimodal_vae_comparison_tpu_torch.training.trainer import (
     Trainer, build_model_from_config)
 from test_torch_families import _assert_same_run, _fake_exps, _JaxJudge, _patch_judges, _PortJudge
+from test_torch_slice import one_torch_thread  # noqa: F401 (autouse)
 from test_torch_vilanro import _jit, _Recorder, _torch_batch
 from test_torch_zoo import draw_params
 

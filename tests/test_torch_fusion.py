@@ -31,6 +31,7 @@ from multimodal_vae_comparison_tpu_torch.ops import fusion as tfusion
 from multimodal_vae_comparison_tpu_torch.ops.kernels import kl_kernel as tkl
 from multimodal_vae_comparison_tpu_torch.ops.kernels import poe_kernel as tpoe
 from multimodal_vae_comparison_tpu_torch.ops.kernels import telemetry
+from test_torch_slice import one_torch_thread  # noqa: F401 (autouse)
 
 
 

@@ -37,7 +37,8 @@ REQUIRED = {"multimodal_vae_comparison_tpu_torch." + m for m in (
     "models.distributions", "models.encoders", "models.mmvae", "models.nets",
     "models.objectives", "ops.kernels.attention", "ops.kernels.kl_kernel",
     "ops.kernels.poe_kernel", "ops.kernels.sample_kernel", "ops.kernels.sparse_attention",
-    "serving.engine", "serving.server", "training.optim", "training.trainer", "utils",
+    "serving.engine", "serving.server", "training.optim", "training.surgery",
+    "training.trainer", "utils",
     "visualization")}
 import multimodal_vae_comparison_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]

@@ -26,6 +26,7 @@ from multimodal_vae_comparison_tpu_torch.ops.kernels import kl_kernel as tkl
 from multimodal_vae_comparison_tpu_torch.ops.kernels import poe_kernel as tpoe
 from multimodal_vae_comparison_tpu_torch.ops.kernels import sparse_attention as tsparse
 from multimodal_vae_comparison_tpu_torch.ops.kernels import telemetry
+from test_torch_slice import one_torch_thread  # noqa: F401 (autouse)
 
 ATTN_TOL = dict(rtol=2e-4, atol=2e-5)   # as tests/test_pallas.py
 POE_TOL = dict(rtol=1e-5, atol=1e-6)    # elementwise fp32, one sum over E

@@ -20,6 +20,7 @@ from multimodal_vae_comparison_tpu_torch.bridge import load_flax_params
 from multimodal_vae_comparison_tpu_torch.models import decoders as tdec
 from multimodal_vae_comparison_tpu_torch.models import encoders as tenc
 from multimodal_vae_comparison_tpu_torch.models import nets as tnets
+from test_torch_slice import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 
@@ -198,7 +199,8 @@ def test_dec_txt_transformer(latents, masked):
 def test_registries():
     assert tenc.get_encoder("CNN2") is tenc.Enc_CNN2
     assert tdec.get_decoder("TxtTransformer") is tdec.Dec_TxtTransformer
+    assert tenc.get_encoder("VIT") is tenc.Enc_VIT
     with pytest.raises(KeyError):
-        tenc.get_encoder("VIT")
+        tenc.get_encoder("ViT")
     with pytest.raises(KeyError):
         tdec.get_decoder("nope")

@@ -52,6 +52,7 @@ from multimodal_vae_comparison_tpu_torch.training.trainer import build_model_fro
 from test_torch_families import _assert_same_run, _fake_exps, _JaxJudge, _patch_judges, _PortJudge
 from test_torch_mnistsvhn import (
     FAST_COMPILE, _chip_smoke, _with_labels, check_net, compile_all, grads_match, lower_net)
+from test_torch_slice import one_torch_thread  # noqa: F401 (autouse)
 from test_torch_vilanro import _Recorder, _torch_batch
 from test_torch_vilanro_cond import _init_all
 from test_torch_zoo import draw_params

@@ -27,7 +27,7 @@ from multimodal_vae_comparison_tpu_torch.models import distributions as tdist
 from multimodal_vae_comparison_tpu_torch.models import get_mixing, objectives
 from multimodal_vae_comparison_tpu_torch.models.base import ModalitySpec
 from multimodal_vae_comparison_tpu_torch.training.trainer import build_model
-from test_torch_slice import draw_params
+from test_torch_slice import draw_params, one_torch_thread  # noqa: F401 (one_torch_thread: autouse)
 from test_torch_zoo import _Recorder, _jit
 
 TOL = dict(rtol=1e-5, atol=1e-5)

@@ -35,6 +35,19 @@ NARROW = dict(img=(32, 32, 3), seq=12, latents=8, batch=3)
 FLAGSHIP = dict(img=(64, 64, 3), seq=45, latents=16, batch=2)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """PyTorch on one thread for a module's tests (autouse; the port's CPU
+    test files import it): their tensors are small, and pytest-xdist runs
+    several test processes at once, each of whose default pools (a thread
+    per core) oversubscribed the host, running the port's tests tens of
+    times slower than alone."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def spec_kwargs(cfg):
     return (
         dict(name="mod_1", encoder="CNN2", decoder="CNN", feature_dims=cfg["img"],

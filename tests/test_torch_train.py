@@ -35,7 +35,8 @@ from multimodal_vae_comparison_tpu_torch.ops.kernels import telemetry
 from multimodal_vae_comparison_tpu_torch.training.optim import RULES, make_optimizer
 from multimodal_vae_comparison_tpu_torch.training.trainer import (
     build_model, make_eval_step, make_train_step)
-from test_torch_slice import FLAGSHIP, NARROW, draw_params, numpy_batch, spec_kwargs
+from test_torch_slice import (  # noqa: F401 (one_torch_thread: autouse)
+    FLAGSHIP, NARROW, draw_params, numpy_batch, one_torch_thread, spec_kwargs)
 
 TOL = dict(rtol=1e-5, atol=1e-5)        # elementwise fp32 terms
 LOSS_TOL = dict(rtol=1e-6, atol=1e-3)   # batch sums of ~1e4 in fp32
@@ -388,8 +389,16 @@ def test_unported_model_options_raise():
     # the mixture prior is ported: it builds (tests/test_torch_prior.py holds it)
     model = get_mixing("moe")(specs, 8, device="cpu", prior_components=4)
     assert model.pz_mog_loc.shape == (4, 8) and type(model.pz()).__name__ == "MixtureNormal"
-    with pytest.raises(NotImplementedError, match="Queue A item 3"):
-        build_model(specs[:1], "moe", 8, device="cpu")
+    # one modality builds the unimodal VAE (tests/test_torch_unimodal.py
+    # holds it against JAX), and a step of it trains
+    uni = build_model(specs[:1], "moe", 8, device="cpu")
+    assert type(uni).__name__ == "UnimodalVAE" and uni.mod_names == ("mod_1",)
+    one = {"mod_1": _torch_batch(numpy_batch(NARROW, 0))["mod_1"]}
+    before = [p.detach().clone() for p in uni.parameters()]
+    metrics = make_train_step(uni, make_optimizer("adam", 1e-3, uni.parameters()))(
+        one, generator=torch.Generator().manual_seed(0))
+    assert torch.isfinite(metrics["loss"]) and "reconstruction_loss_mod_1" in metrics
+    assert any(not torch.equal(a, b) for a, b in zip(before, uni.parameters()))
     with pytest.raises(KeyError):
         _port_model(NARROW, "moe", "vib", 1).objective(_torch_batch(numpy_batch(NARROW, 0)))
 

@@ -25,11 +25,13 @@ import torch
 import yaml
 
 from multimodal_vae_comparison_tpu.config import Config as JConfig
+from multimodal_vae_comparison_tpu.data.datamodule import DataModule as JDataModule
 from multimodal_vae_comparison_tpu.models import distributions as jdist
 from multimodal_vae_comparison_tpu.parallel.mesh import make_mesh
 from multimodal_vae_comparison_tpu.training.trainer import CSVLogger as JCSVLogger
 from multimodal_vae_comparison_tpu.training.trainer import Trainer as JTrainer
 from multimodal_vae_comparison_tpu.training.trainer import TrainState
+from multimodal_vae_comparison_tpu.training.trainer import build_model as jbuild_model
 from multimodal_vae_comparison_tpu.training.trainer import make_train_step as jmake_train_step
 from multimodal_vae_comparison_tpu_torch import main as port_main
 from multimodal_vae_comparison_tpu_torch.bridge import load_flax_params
@@ -44,6 +46,7 @@ from multimodal_vae_comparison_tpu_torch.serving.engine import InferenceEngine
 from multimodal_vae_comparison_tpu_torch.training.trainer import (
     CSVLogger, Trainer, make_epoch_runner)
 from test_torch_data import cdsprites_params
+from test_torch_slice import one_torch_thread  # noqa: F401 (autouse)
 
 # one epoch of 6 amsgrad steps at lr 1e-4 from bridged weights on JAX's
 # draws.  Train metrics are batch sums of ~2e5 in fp32.  amsgrad moves a
@@ -434,7 +437,26 @@ def test_unported_options_raise_with_their_roadmap_item(tmp_path, level1, over, 
 
 
 def test_a_single_modality_raises_with_its_roadmap_item(tmp_path, level1):
+    """One modality block (the image alone) trains the unimodal VAE, as the
+    JAX package's build_model makes it, an epoch into its checkpoint, which
+    restores and serves."""
     params = cdsprites_params(level1)
     del params["modality_2"]
-    with pytest.raises(NotImplementedError, match="Queue A item 3"):
-        Trainer(Config(params, results_root=str(tmp_path)), device="cpu")
+    trainer = Trainer(Config(params, results_root=str(tmp_path)), device="cpu",
+                      enable_viz=False)
+    assert type(trainer.model).__name__ == "UnimodalVAE"
+    jcfg = JConfig(params, results_root=str(tmp_path / "j"))
+    JDataModule(jcfg).setup()
+    assert type(jbuild_model(jcfg)).__name__ == "UnimodalVAE"
+    metrics = trainer.fit(log_fn=None)
+    assert np.isfinite(metrics["train_loss"]) and "train_reconstruction_loss_mod_1" in metrics
+    again = Trainer(Config(dict(params, pre_trained=trainer.cfg.mPath),
+                           results_root=str(tmp_path / "again")), device="cpu",
+                    enable_viz=False).init_state()
+    for (name, x), y in zip(trainer.model.state_dict().items(),
+                            again.model.state_dict().values()):
+        assert torch.equal(x, y), name
+    engine = InferenceEngine(MultimodalVAEInfer(trainer.cfg.mPath, device="cpu"), device="cpu")
+    out = engine.generate({"mod_1": {"data": np.random.default_rng(0).random(
+        (3, 64, 64, 3), dtype=np.float32)}})
+    assert list(out) == ["mod_1"] and np.asarray(out["mod_1"]).shape == (3, 64, 64, 3)

@@ -32,7 +32,7 @@ from multimodal_vae_comparison_tpu_torch.ops.kernels import telemetry
 from multimodal_vae_comparison_tpu_torch.training.optim import make_optimizer
 from multimodal_vae_comparison_tpu_torch.training.trainer import build_model, make_train_step
 from test_torch_modules import bridged, close, flax_params
-from test_torch_slice import draw_params
+from test_torch_slice import draw_params, one_torch_thread  # noqa: F401 (one_torch_thread: autouse)
 from test_torch_train import _Recorder
 
 FWD_TOL = dict(rtol=2e-4, atol=2e-5)   # as tests/test_pallas.py, forward

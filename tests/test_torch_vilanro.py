@@ -59,6 +59,7 @@ from multimodal_vae_comparison_tpu_torch.models import objectives
 from multimodal_vae_comparison_tpu_torch.ops.kernels import telemetry
 from multimodal_vae_comparison_tpu_torch.training.trainer import (
     Trainer, build_model_from_config)
+from test_torch_slice import one_torch_thread  # noqa: F401 (autouse)
 from test_torch_zoo import draw_params
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -47,6 +47,7 @@ from multimodal_vae_comparison_tpu_torch.ops.kernels import telemetry
 from multimodal_vae_comparison_tpu_torch.training.trainer import build_model_from_config
 from test_torch_vilanro import (GRAD_ATOL, GRAD_REL, LOSS_RTOL, NET_TOL, REPO,
                                 _config_params, _Recorder, _torch_batch)
+from test_torch_slice import one_torch_thread  # noqa: F401 (autouse)
 from test_torch_zoo import draw_params
 
 # the 5 configs of this slice: (path, mixing, image encoder, action decoder)
