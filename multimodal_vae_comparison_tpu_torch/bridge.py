@@ -31,6 +31,11 @@ them, are built of these layers):
 * a leaf of any other module (``pz_logvar``, ``Enc_CNNSpatial``'s
   ``ss_log_temp``, the ViT's ``cls`` and ``pos_embed``) is copied as it is.
 
+The frozen feature nets load by the same rules: ``VGGFeatures``'s
+``Conv_0`` .. ``Conv_7`` are 2-D convs, and ``InceptionV3``'s
+torchvision-named ``<block>.conv`` / ``<block>.bn`` a 2-D conv and a
+FrozenBatchNorm each.
+
 Every flax leaf is consumed exactly once and every parameter and buffer of
 the module is written exactly once; a missing, extra or misshapen name
 raises.

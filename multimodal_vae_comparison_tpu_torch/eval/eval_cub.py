@@ -16,11 +16,13 @@ does the port:
 
 The judges are trained on the run's train split at first use and cached as
 ``cub_color_clf_v2.pt`` and ``cub_factor_judge_v1.pt`` under
-``eval/classifiers/`` (``CUB_CLASSIFIER_DIR`` overrides it).  The JAX
-package adds an FID of the caption-generated images when its FID module
-runs, and drops it silently when that fails; the port has no FID yet
-(ROADMAP Queue A item 8), so ``fid`` is not among its stats.  The stats
-are fractions; ``<run>/cub_stats.txt`` holds them as percentages.
+``eval/classifiers/`` (``CUB_CLASSIFIER_DIR`` overrides it).  Last, ``fid``:
+the FID of the caption-generated images against the real ones
+(``eval/fid.py``, its feature net's label printed), on the run's device.
+The JAX package drops the stat when its FID fails; the port does not: a
+failing FID fails the eval.  The stats are fractions and ``fid`` a
+distance; ``<run>/cub_stats.txt`` holds the fractions as percentages and
+``fid`` as it is.
 
     MultimodalVAEInfer(<run dir>).eval_statistics()    # or Trainer.test()
 """
@@ -47,7 +49,7 @@ STATS_KEYS = ("judge_accuracy_real", "image_to_text_factors", "image_to_text_str
               "image_to_text_letters", "text_to_image_color", "judge4_size_accuracy_real",
               "judge4_color_accuracy_real", "judge4_beak_accuracy_real",
               "judge4_belly_accuracy_real", "text_to_image_feats", "text_to_image_strict",
-              "joint_feats", "joint_strict")
+              "joint_feats", "joint_strict", "fid")
 
 
 def _word_factor(caption: str, factor: str) -> str:
@@ -156,10 +158,11 @@ def _feats(hit, valid):
 
 
 def cub_stats(exp) -> Dict[str, float]:
-    """The 13 stats of one run (a MultimodalVAEInfer at K = 1) over at most
-    400 val rows, as fractions, written to ``<run>/cub_stats.txt`` as
-    percentages."""
+    """The 14 stats of one run (a MultimodalVAEInfer at K = 1) over at most
+    400 val rows: 13 fractions, written to ``<run>/cub_stats.txt`` as
+    percentages, and the FID."""
     from multimodal_vae_comparison_tpu_torch.eval.eval_cdsprites import count_same_letters
+    from multimodal_vae_comparison_tpu_torch.eval.fid import calculate_fid_given_data
     from multimodal_vae_comparison_tpu_torch.utils import print_save_stats
     mapping = mods_by_type(exp)
     color_judge, judge4 = _judges(exp, mapping,
@@ -208,10 +211,11 @@ def cub_stats(exp) -> Dict[str, float]:
     stats["joint_feats"] = float(_feats(j_hit, j_valid).mean())
     stats["joint_strict"] = float(np.mean((j_valid.sum(1) >= 3)
                                           & np.where(j_valid, j_hit, True).all(1)))
+    stats["fid"] = float(calculate_fid_given_data(real, gen_imgs, device=exp.device))
     run_dir = getattr(exp, "run_dir", None) or exp.config.mPath
     if run_dir:
-        print_save_stats({k: {"value": 100 * v, "stdev": None} for k, v in stats.items()},
-                         run_dir, "cub")
+        print_save_stats({k: {"value": v if k == "fid" else 100 * v, "stdev": None}
+                          for k, v in stats.items()}, run_dir, "cub")
     return stats
 
 

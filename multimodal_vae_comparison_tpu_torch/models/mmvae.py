@@ -82,12 +82,12 @@ class MOE(MMVAE):
 
     def objective(self, batch, eps: Optional[Dict[str, torch.Tensor]] = None,
                   generator: Optional[torch.Generator] = None):
+        """``elbo`` and ``elbo_iw`` take the mixture ELBO, ``dreg`` the DReG
+        bound and any other name the IWAE bound, as the JAX package routes
+        them."""
         if self.obj in ("elbo", "elbo_iw"):
             return self._objective_elbo(batch, eps, generator)
-        if self.obj in ("iwae", "dreg"):
-            return self._objective_kweighted(batch, eps, generator)
-        raise KeyError(f"MOE has no objective '{self.obj}'; available: "
-                       "['dreg', 'elbo', 'elbo_iw', 'iwae']")
+        return self._objective_kweighted(batch, eps, generator)
 
     def _sample_all(self, batch, eps, generator):
         qz_params = self.encode(batch, self.mod_names)
@@ -547,13 +547,13 @@ class UnimodalVAE(MMVAE):
     or under the mixture prior the Monte-Carlo KL over the draws), ``dreg``
     (the stop-gradient posterior of its own family, every z-path gradient
     re-weighted by :func:`objectives.scale_grad` through a second decode),
-    ``iwae``, and the gumbel-softmax path: under ``obj: elbo_gumbel`` or
+    the IWAE bound under any other name (``iwae``, ``elbo_iw``: the JAX
+    package's routing), and the gumbel-softmax path: under ``obj: elbo_gumbel`` or
     ``prior: gumbel`` the relu'd encoder means are logits of ``n_latents //
     cats`` categoricals of ``cats = feature_dims[1]`` classes, whose relaxed
     one-hot draws are decoded, with the KL to the uniform categorical.  The
     ELBO terms sum over K and the batch; the reconstruction metric is
-    -sum(lpx), its llik scaling kept.  Another objective name raises
-    ``KeyError``.
+    -sum(lpx), its llik scaling kept.
     """
 
     def forward(self, batch, present: Optional[Tuple[str, ...]] = None,
@@ -594,9 +594,6 @@ class UnimodalVAE(MMVAE):
             uniform = OneHotCategorical(torch.zeros_like(mo.encoder_dist.logits))
             kld = mo.encoder_dist.kl(uniform).sum(-1)
             return objectives.elbo(lpx, kld, self.beta), {"kld": kld.sum(), rec: -lpx.sum()}
-        if self.obj not in ("elbo", "dreg", "iwae"):
-            raise KeyError(f"UnimodalVAE has no objective '{self.obj}'; available: "
-                           "['dreg', 'elbo', 'elbo_gumbel', 'iwae']")
         mo = self.forward(batch, eps=eps, generator=generator).mods[spec.name]
         lpx = self.recon_lpx(spec, mo.decoder_dist, batch)
         kld_m = torch.zeros((), device=lpx.device)

@@ -2,8 +2,9 @@
 
 The blocks of the ported models: the transformer pieces of the CdSprites+
 text nets, the ResNet-50 trunk of ``Enc_CNN``, the ViT trunk of
-``Enc_VIT``, the residual blocks of the RESCNN nets and the 3D conv and
-attention blocks of the VideoGPT family.
+``Enc_VIT``, the residual blocks of the RESCNN nets, the 3D conv and
+attention blocks of the VideoGPT family, and VGG19's first convs (the
+perceptual loss's extractor).
 Submodules carry the names
 that flax gives their counterparts (``Dense_0``, ``LayerNorm_1``,
 ``MultiHeadAttention_0``, ...), so that ``bridge.load_flax_params`` maps a
@@ -407,10 +408,12 @@ class FrozenBatchNorm(nn.Module):
     out).  ``weight`` (flax's ``scale``) and ``bias`` train; ``mean`` and
     ``var`` are buffers, which no optimizer sees and ``state_dict`` (so
     every checkpoint) carries.  At init (mean 0, var 1) it is a learnable
-    affine."""
+    affine.  ``eps`` is the ResNet-50's BN_EPS unless given (InceptionV3's
+    convs take 1e-3)."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, eps: float = BN_EPS):
         super().__init__()
+        self.eps = eps
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("mean", torch.zeros(channels))
@@ -418,7 +421,7 @@ class FrozenBatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.batch_norm(x, self.mean, self.var, self.weight, self.bias,
-                            training=False, eps=BN_EPS)
+                            training=False, eps=self.eps)
 
 
 class BottleneckBlock(nn.Module):
@@ -454,8 +457,8 @@ class ResNet50(nn.Module):
     stages of (3, 4, 6, 3) bottleneck blocks (stride 2 in the first block of
     stages 1-3), spatial mean, ``Dense(num_outputs)``.  The input is
     permuted once to an NCHW view (channels-last in memory, as cuDNN takes
-    it).  The reference can install ImageNet weights; the port starts from
-    random init."""
+    it).  Random init; ``eval/weights.install_pretrained`` loads a
+    torchvision ``resnet50`` file into it where one is installed."""
 
     def __init__(self, in_channels: int = 3, num_outputs: int = 1000,
                  stage_sizes: Sequence[int] = (3, 4, 6, 3)):
@@ -479,3 +482,39 @@ class ResNet50(nn.Module):
         for i in range(self.n_blocks):
             h = getattr(self, f"BottleneckBlock_{i}")(h)
         return self.Dense_0(h.mean(dim=(2, 3)))
+
+
+# -- VGG19's first convs (the perceptual loss's extractor, the FID's features) --
+
+class VGGFeatures(nn.Module):
+    """VGG19's first eight 3x3 convs (``cfg`` 64, 64, M, 128, 128, M, 256 x 4,
+    M; ReLU after each conv, 2x2 max pools) on NHWC images.  ``taps="pool"``
+    returns one map per max pool (the FID's), ``taps="conv"`` every conv's
+    output before its ReLU (``feature_loss``'s), each NHWC.  The convs are
+    ``Conv_0`` .. ``Conv_7``, flax's names, so that the bridge and
+    ``eval/weights.convert_vgg19`` fill them."""
+
+    CFG = (64, 64, "M", 128, 128, "M", 256, 256, 256, 256, "M")
+
+    def __init__(self, in_channels: int = 3, cfg: Sequence = CFG):
+        super().__init__()
+        self.cfg = tuple(cfg)
+        n = 0
+        for v in self.cfg:
+            if v != "M":
+                self.add_module(f"Conv_{n}", nn.Conv2d(in_channels, v, 3, padding=1))
+                in_channels, n = v, n + 1
+
+    def forward(self, x: torch.Tensor, taps: str = "pool"):
+        pool_feats, conv_feats = [], []
+        h, n = x.permute(0, 3, 1, 2), 0
+        for v in self.cfg:
+            if v == "M":
+                h = F.max_pool2d(h, 2, stride=2)
+                pool_feats.append(h)
+            else:
+                h = getattr(self, f"Conv_{n}")(h)
+                conv_feats.append(h)
+                h, n = F.relu(h), n + 1
+        feats = conv_feats if taps == "conv" else pool_feats
+        return [f.permute(0, 2, 3, 1) for f in feats]

@@ -5,10 +5,9 @@ functions over tensors.  ``recon_log_prob(ltype, dist, target, mask)``
 returns per-batch-element log-likelihoods (higher is better).  DReG's
 gradient re-weighting is :func:`scale_grad`, an identity whose backward
 multiplies the incoming gradient by fixed importance weights (the
-reference's ``jax.custom_vjp``).
-
-Not ported yet: ``feature_loss`` (:data:`UNPORTED`, with its ROADMAP
-Queue A item); :func:`check_ported` raises for it, and
+reference's ``jax.custom_vjp``).  ``feature_loss``, the perceptual loss
+over a frozen VGG extractor, lives in ``models/perceptual.py``.
+:func:`check_ported` raises for a name the table lacks;
 ``build_model_from_config`` calls it for every modality of a config.
 """
 from __future__ import annotations
@@ -20,6 +19,7 @@ import torch.nn.functional as F
 
 from multimodal_vae_comparison_tpu_torch.constants import ETA, LOG2PI
 from multimodal_vae_comparison_tpu_torch.models.distributions import log_mean_exp
+from multimodal_vae_comparison_tpu_torch.models.perceptual import feature_loss
 
 
 def _flatten_features(x: torch.Tensor, batch_ndims: int) -> torch.Tensor:
@@ -115,18 +115,12 @@ RECON_LOSSES = {
     "mse": mse,
     "category_ce": category_ce,
     "optimal_sigma": optimal_sigma,
+    "feature_loss": feature_loss,
 }
-# the JAX package's other loss, not ported yet: its ROADMAP Queue A item
-UNPORTED = {"feature_loss": "8"}
 
 
 def check_ported(ltype: str) -> None:
-    """Raise for a reconstruction loss the port does not have:
-    ``NotImplementedError`` naming the Queue A item for the JAX package's
-    unported ones, ``KeyError`` for an unknown name."""
-    if ltype in UNPORTED:
-        raise NotImplementedError(f"recon loss '{ltype}' is not ported yet "
-                                  f"(ROADMAP Queue A item {UNPORTED[ltype]})")
+    """Raise ``KeyError`` for a reconstruction loss the table lacks."""
     if ltype not in RECON_LOSSES:
         raise KeyError(f"recon loss '{ltype}' is not known; available: "
                        f"{sorted(RECON_LOSSES)}")

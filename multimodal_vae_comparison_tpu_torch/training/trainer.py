@@ -40,6 +40,7 @@ import torch
 from multimodal_vae_comparison_tpu_torch.data.datamodule import (
     DataModule, prefetch_to_device)
 from multimodal_vae_comparison_tpu_torch.device import resolve_device
+from multimodal_vae_comparison_tpu_torch.eval.weights import install_pretrained
 from multimodal_vae_comparison_tpu_torch.models import get_mixing, objectives
 from multimodal_vae_comparison_tpu_torch.models.base import MMVAE, ModalitySpec, build_specs
 from multimodal_vae_comparison_tpu_torch.models.mmvae import UnimodalVAE
@@ -72,8 +73,8 @@ def build_model_from_config(cfg, device: Optional[Union[str, torch.device]] = No
                             ) -> MMVAE:
     """:func:`build_model` from a parsed Config whose modalities carry their
     ``feature_dims`` (``DataModule.setup`` fills them in); weights are drawn
-    from ``cfg.seed``.  Options and reconstruction losses the port does
-    not have yet raise."""
+    from ``cfg.seed``.  An option the port does not have yet and an
+    unknown reconstruction loss raise."""
     if str(getattr(cfg, "precision", "32")) in ("bf16", "bfloat16"):
         raise NotImplementedError("precision: bf16 is not ported yet; the nets and "
                                   "kernels run in fp32 (ROADMAP Queue A item 4)")
@@ -325,15 +326,17 @@ class Trainer:
 
     def init_state(self) -> "Trainer":
         """Fresh weights from ``cfg.seed`` and a fresh optimizer, at step 0;
-        then the ``pre_trained`` params, or with ``resume`` this run's own
-        last checkpoint (params, optimizer state, step, best_val).  The
-        pretrained-trunk install of the JAX package is not ported (ROADMAP
-        Queue A item 7)."""
+        the ImageNet ResNet-50 loaded into every ``Enc_CNN`` trunk where a
+        ``resnet50`` file is installed (``eval/weights.install_pretrained``;
+        a no-op without one, and a file that does not fit raises); then the
+        ``pre_trained`` params, or with ``resume`` this run's own last
+        checkpoint (params, optimizer state, step, best_val)."""
         seed, fresh = self._fresh
         if seed != self.cfg.seed:
             fresh = build_model_from_config(self.cfg, "cpu").state_dict()
             self._fresh = (self.cfg.seed, fresh)
         self.model.load_state_dict(fresh)
+        install_pretrained(self.model)
         self.opt.state.clear()
         self.step = 0
         if getattr(self.cfg, "pre_trained", None):

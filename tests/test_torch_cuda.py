@@ -1246,3 +1246,73 @@ def test_attention_at_head_dim_64_and_the_vit_shape_matches_plain(cuda, b, h, tq
     want = torch.autograd.grad(tattn.attention_reference(*leaves[1], mask), leaves[1], d_out)
     for a, w in zip(got, want):
         torch.testing.assert_close(a, w, **ATTN_TOL)
+
+
+# the frozen feature nets, card (cuDNN fp32, TF32 off) against the CPU in
+# float64, within this share of the largest |value|
+FEATURE_NET_REL = 1e-4
+
+
+def _rel_err(got, want):
+    return ((got.double().cpu() - want).abs().max() / want.abs().max()).item()
+
+
+@pytest.mark.parametrize("lead", [(8,), (3, 8)], ids=["batch_ndims1", "batch_ndims2"])
+def test_feature_loss_gradient_on_the_card_matches_the_cpu(cuda, tmp_path, monkeypatch, lead):
+    """``feature_loss`` through the frozen VGG extractor (its fixed random
+    weights: no file in the weights directory) on (lead..., 64, 64, 3)
+    reconstructions: the per-(K, B) values and the gradient of a weighted
+    sum with respect to the reconstruction on the card, within 1e-4 of the
+    largest |value| of the CPU's in float64, the CPU on the card's relu and
+    max-pool branches (chip_smoke.same_branches: an argmax within rounding
+    of a tie moves a pixel's gradient to its neighbour, seen at 2.5e-3 of
+    the largest |value| without the replay); the extractor takes no
+    gradient."""
+    import pathlib
+    import sys
+    from multimodal_vae_comparison_tpu_torch.models import perceptual
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.pop(0)
+    monkeypatch.setenv("MVAE_TPU_WEIGHTS_DIR", str(tmp_path))
+    perceptual.reset_extractor_cache()
+    try:
+        g = torch.Generator().manual_seed(7)
+        recon = torch.rand(lead + (64, 64, 3), generator=g)
+        target = torch.rand((8, 64, 64, 3), generator=g)
+        up = torch.randn(lead, generator=g)
+        branches, out = [], {}
+        for dev, dtype in ((cuda, torch.float32), (torch.device("cpu"), torch.float64)):
+            r = recon.to(dev, dtype).requires_grad_(True)
+            dist = type("Dist", (), {"mean": r})()
+            with chip_smoke.same_branches(branches, dev.type == "cpu", {}):
+                ll = perceptual.feature_loss(dist, target.to(dev, dtype), None, len(lead))
+                (ll * up.to(dev, dtype)).sum().backward()
+            out[dev.type] = (ll.detach(), r.grad)
+        assert out["cuda"][0].shape == lead
+        for got, want in zip(out["cuda"], out["cpu"]):
+            assert _rel_err(got, want) <= FEATURE_NET_REL
+        assert not any(p.requires_grad for p in perceptual.extractor(cuda).parameters())
+    finally:
+        perceptual.reset_extractor_cache()
+
+
+def test_inception_v3_on_the_card_matches_the_cpu(cuda):
+    """InceptionV3 pool-3 features of 64 px images (the resize to 299 on the
+    card) from seeded weights with non-trivial batch-norm statistics, card
+    against the CPU in float64: within 1e-4 of the largest |value|."""
+    from multimodal_vae_comparison_tpu_torch.models.inception import InceptionV3
+    torch.manual_seed(8)
+    net = InceptionV3()
+    with torch.no_grad():
+        for name, buf in net.named_buffers():
+            buf.copy_(torch.rand_like(buf) + 0.5 if name.endswith("var")
+                      else 0.1 * torch.randn_like(buf))
+    x = torch.rand((4, 64, 64, 3), generator=torch.Generator().manual_seed(9))
+    with torch.no_grad():
+        want = net.double()(x.double())
+        got = net.float().to(cuda)(x.to(cuda))
+    assert got.shape == (4, 2048)
+    assert _rel_err(got, want) <= FEATURE_NET_REL

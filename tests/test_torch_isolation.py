@@ -27,15 +27,16 @@ subprocess.Popen = refuse
 REQUIRED = {"multimodal_vae_comparison_tpu_torch." + m for m in (
     "bridge", "config", "data.datamodule", "data.datasets", "data.native", "data.text",
     "data_proc.cdsprites", "data_proc.digits", "data_proc.mnistsvhn", "data_proc.polymnist",
-    "data_proc.sprites_gen", "data_proc.surrogates",
+    "data_proc.sprites_gen", "data_proc.surrogates", "data_proc.gebid",
+    "data_proc.generate_configs",
     "eval.classifiers", "eval.eval_cdsprites", "eval.eval_celeba", "eval.eval_cub",
     "eval.eval_fashionmnist", "eval.eval_mnistsvhn", "eval.eval_polymnist",
-    "eval.eval_sprites", "eval.infer",
+    "eval.eval_sprites", "eval.fid", "eval.infer", "eval.weights",
     "eval.vilanro_probe", "eval.vilanro_test",
     "eval.train_classifiers", "lanro", "lanro.arm", "lanro.collect", "lanro.env",
     "lanro.simulation", "main", "models.base", "models.contrib", "models.decoders",
-    "models.distributions", "models.encoders", "models.mmvae", "models.nets",
-    "models.objectives", "ops.kernels.attention", "ops.kernels.kl_kernel",
+    "models.distributions", "models.encoders", "models.inception", "models.mmvae",
+    "models.nets", "models.objectives", "models.perceptual", "ops.kernels.attention", "ops.kernels.kl_kernel",
     "ops.kernels.poe_kernel", "ops.kernels.sample_kernel", "ops.kernels.sparse_attention",
     "serving.engine", "serving.server", "training.optim", "training.surgery",
     "training.trainer", "utils",

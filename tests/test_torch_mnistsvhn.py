@@ -238,10 +238,15 @@ def test_lprob_value_and_gradient_match_jax(masked):
 
 
 def test_lprob_is_ported_and_feature_loss_still_raises():
-    assert "lprob" in objectives.RECON_LOSSES and "lprob" not in objectives.UNPORTED
-    objectives.check_ported("lprob")
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
-        objectives.check_ported("feature_loss")
+    """``lprob`` is in the port's loss table; ``feature_loss``, which raised
+    until the perceptual loss was ported, is in it too, as in the JAX
+    package's; a name neither table has still raises ``KeyError``."""
+    from multimodal_vae_comparison_tpu.models import objectives as jobjectives
+    for name in ("lprob", "feature_loss"):
+        assert name in objectives.RECON_LOSSES and name in jobjectives.RECON_LOSSES
+        objectives.check_ported(name)
+    with pytest.raises(KeyError, match="no_such_loss"):
+        objectives.check_ported("no_such_loss")
 
 
 # -- the nets ---------------------------------------------------------------------------

@@ -3,10 +3,12 @@ port against the JAX package, on the CPU.
 
 ``OneHotCategorical`` (log_prob, kl, and rsample on injected Gumbel noise);
 ``UnimodalVAE``'s loss, metrics and every gradient for ``elbo``, ``iwae``,
-``dreg`` (on JAX's importance weights), ``elbo`` under the mixture prior
-and the gumbel path (``obj: elbo_gumbel``, and ``prior: gumbel`` on
-masked text), from bridged weights and JAX's own draws (its samplers
-patched to keep them); ``build_model`` of one modality spec;
+``elbo_iw`` (IWAE, as JAX routes every name it does not list), ``dreg``
+(on JAX's importance weights), ``elbo`` under the mixture prior and the
+gumbel path (``obj: elbo_gumbel``, and ``prior: gumbel`` on masked text),
+from bridged weights and JAX's own draws (its samplers patched to keep
+them); MOE's routing of a name outside its list (``iwae_k``) to the
+K-weighted bound, against JAX's; ``build_model`` of one modality spec;
 ``grow_latents``: the same leaves grow as JAX's on a model of every
 decoder of the registry, the old entries are kept, and with JAX's padded
 values bridged in the grown loss is JAX's.
@@ -26,12 +28,14 @@ import pytest
 import torch
 
 from multimodal_vae_comparison_tpu.models import distributions as jdist
+from multimodal_vae_comparison_tpu.models import get_mixing as jget_mixing
 from multimodal_vae_comparison_tpu.models.base import ModalitySpec as JSpec
 from multimodal_vae_comparison_tpu.models.decoders import DECODERS as JDECODERS
 from multimodal_vae_comparison_tpu.models.mmvae import UnimodalVAE as JUnimodalVAE
 from multimodal_vae_comparison_tpu.training.surgery import grow_latents as jgrow_latents
 from multimodal_vae_comparison_tpu_torch.bridge import load_flax_params
 from multimodal_vae_comparison_tpu_torch.models import distributions as tdist
+from multimodal_vae_comparison_tpu_torch.models import get_mixing
 from multimodal_vae_comparison_tpu_torch.models import objectives
 from multimodal_vae_comparison_tpu_torch.models.base import ModalitySpec
 from multimodal_vae_comparison_tpu_torch.models.mmvae import UnimodalVAE
@@ -42,7 +46,7 @@ from test_torch_slice import draw_params, one_torch_thread  # noqa: F401 (one_to
 
 DIST_TOL = dict(rtol=1e-6, atol=1e-6)
 LOSS_TOL = dict(rtol=1e-6, atol=1e-3)
-GRAD_REL = {"elbo": 1e-4, "elbo_gumbel": 1e-4, "iwae": 2e-3, "dreg": 2e-3}
+GRAD_REL = {"elbo": 1e-4, "elbo_gumbel": 1e-4, "iwae": 2e-3, "elbo_iw": 2e-3, "dreg": 2e-3}
 GRAD_ATOL = 1e-5
 B = 5
 FAST_COMPILE = {"xla_llvm_disable_expensive_passes": True}
@@ -59,6 +63,8 @@ ONEHOT = dict(name="mod_1", encoder="FNN", decoder="FNN", feature_dims=(6, 4),
 CASES = {
     "elbo": (IMAGE, 6, "elbo", 2, 1),
     "iwae": (IMAGE, 6, "iwae", 3, 1),
+    # a name the unimodal VAE does not list: IWAE, as JAX routes it
+    "elbo_iw": (IMAGE, 6, "elbo_iw", 3, 1),
     "dreg": (IMAGE, 6, "dreg", 3, 1),
     "elbo-mixture-prior": (IMAGE, 6, "elbo", 2, 4),
     "elbo_gumbel": (ONEHOT, 12, "elbo_gumbel", 2, 1),
@@ -276,8 +282,8 @@ def test_objective_and_every_gradient_match_jax(jax_side, monkeypatch, case):
 def test_one_modality_builds_the_unimodal_vae_whatever_the_mixing():
     """build_model of one spec is a UnimodalVAE with the given fields, for
     every mixing name; its forward draws from the generator (the same seed,
-    the same latents), and an objective it does not have raises KeyError
-    naming the ones it has."""
+    the same latents), and an objective name it does not list runs the
+    IWAE bound, as the JAX package's does."""
     specs = (ModalitySpec(**IMAGE),)
     for mixing in ("poe", "moe", "mopoe", "dmvae", "poe2"):
         model = build_model(specs, mixing, 6, obj="iwae", K=3, beta=2.0, device="cpu",
@@ -291,9 +297,65 @@ def test_one_modality_builds_the_unimodal_vae_whatever_the_mixing():
     assert a.mods["mod_1"].latents.shape == (3, B, 6)
     torch.testing.assert_close(a.mods["mod_1"].latents, b.mods["mod_1"].latents)
     assert a.mods["mod_1"].decoder_dist.mean.shape == (3, B, 8, 8, 3)
-    model.obj = "elbo_iw"
-    with pytest.raises(KeyError, match="elbo_gumbel"):
-        model.objective(batch)
+    eps = torch.randn((3, B, 6), generator=torch.Generator().manual_seed(1))
+    iwae, _ = model.objective(batch, eps=eps)
+    for name in ("elbo_iw", "no_such_objective"):
+        model.obj = name
+        loss, _ = model.objective(batch, eps=eps)
+        assert torch.equal(loss, iwae), name
+
+
+MOE_SPECS = (dict(IMAGE), dict(name="mod_2", encoder="FNN", decoder="FNN",
+                                feature_dims=(10,), recon_loss="mse"))
+
+
+def test_moe_routes_an_unlisted_objective_name_to_the_k_weighted_bound(monkeypatch):
+    """JAX's MOE sends every name but ``elbo`` and ``elbo_iw`` to its
+    K-weighted path (IWAE unless ``dreg``); so does the port's: under
+    ``iwae_k`` at K 3, loss, metrics and every gradient equal JAX's on its
+    draws, and the loss equals the port's own ``iwae`` on them."""
+    draws = _Draws(monkeypatch)
+    jmodel = jget_mixing("moe")(specs=tuple(JSpec(**k) for k in MOE_SPECS), n_latents=6,
+                                obj="iwae_k", K=3)
+    rng = np.random.default_rng(2)
+    batch = {"mod_1": {"data": rng.random((B, 8, 8, 3)).astype(np.float32), "masks": None},
+             "mod_2": {"data": rng.normal(size=(B, 10)).astype(np.float32), "masks": None}}
+    jb = jax.tree_util.tree_map(jnp.asarray, batch)
+    params = draw_params(jax.eval_shape(lambda: jmodel.init(
+        {"params": jax.random.PRNGKey(0), "sample": jax.random.PRNGKey(1)}, jb,
+        method=jmodel.objective)), 12)
+
+    def loss_fn(p):
+        draws.noise.clear()
+        loss, metrics = jmodel.apply(p, jb, rngs={"sample": jax.random.PRNGKey(5)},
+                                     method=jmodel.objective)
+        return loss, (metrics, list(draws.noise))
+
+    (jloss, (jmetrics, noise)), jgrads = jax.jit(
+        jax.value_and_grad(loss_fn, has_aux=True))(params)
+
+    def port(p, obj):
+        model = get_mixing("moe")(tuple(ModalitySpec(**k) for k in MOE_SPECS), 6, K=3,
+                                  obj=obj, device="cpu")
+        load_flax_params(model, jax.tree_util.tree_map(np.asarray, p))
+        return model
+
+    eps = {f"mod_{i + 1}": torch.from_numpy(np.array(e)) for i, e in enumerate(noise)}
+    model = port(params, "iwae_k")
+    loss, metrics = model.objective(_torch_batch(batch), eps=eps)
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(jloss), **LOSS_TOL)
+    assert sorted(metrics) == sorted(jmetrics)
+    for k, v in metrics.items():
+        np.testing.assert_allclose(v.item(), float(jmetrics[k]), **LOSS_TOL, err_msg=k)
+    for (name, p), g in zip(model.named_parameters(), port(jgrads, "iwae").parameters()):
+        got = torch.zeros_like(p) if p.grad is None else p.grad
+        err = (got - g).abs().max().item()
+        limit = GRAD_REL["iwae"] * g.abs().max().item() + GRAD_ATOL
+        assert err <= limit, f"{name}: max abs error {err:.3e} > {limit:.3e}"
+    with torch.no_grad():
+        iwae, _ = port(params, "iwae").objective(_torch_batch(batch), eps=eps)
+    assert torch.equal(iwae, loss.detach())
 
 
 # -- grow_latents --------------------------------------------------------------------------

@@ -269,12 +269,11 @@ def _recon_loss_config(tmp_path, loss):
 
 
 def test_build_refuses_an_unported_recon_loss_at_build_time(tmp_path):
-    """``feature_loss`` (item 8) raises at build_model_from_config, naming
-    the item; ``lprob``, ported since (item 7d), builds; an unknown loss
-    raises KeyError there too."""
+    """Every loss of the JAX package builds through build_model_from_config
+    (``feature_loss``, ported since item 8, and ``lprob``, since item 7d);
+    an unknown loss raises KeyError at build time."""
     cfg = _recon_loss_config(tmp_path, "feature_loss")
-    with pytest.raises(NotImplementedError, match="feature_loss.*Queue A item 8"):
-        build_model_from_config(cfg, device="cpu")
+    assert build_model_from_config(cfg, device="cpu").specs[1].recon_loss == "feature_loss"
     cfg.mods[1].recon_loss = "lprob"
     assert build_model_from_config(cfg, device="cpu").specs[1].recon_loss == "lprob"
     cfg.mods[1].recon_loss = "no_such_loss"
