@@ -88,7 +88,17 @@ three main paths at full width with random weights from a seed:
   ``vgg19``, ``inception_v3`` and ``resnet50`` files: VGGFeatures and
   InceptionV3 on the card against the CPU in float64, and the ResNet-50
   trunk installed by ``Trainer.init_state``.  CUB's ``test()`` in the
-  families phase reports its ``fid`` with the feature net's label.
+  families phase reports its ``fid`` with the feature net's label;
+* precision bf16 ("bf16 steps", "bf16 from config"): each bf16 launcher
+  (masked attention, the sparse forward, dq, dk/dv) against the fp32
+  kernel on the widened inputs; the flagship POE and MOE steps and the
+  VideoGPTSparse step in bf16, card against the CPU's bf16 within the bf16
+  yardstick, their p50 in fp32 and bf16 at bs 24 and 256 and their
+  ``ops.flops.step_flops``, equal on the card and the CPU; then
+  ``cdl1_r5_poe.yml`` through the CLI with ``--precision bf16`` beside the
+  same epoch in fp32, each ending in ``Trainer.test()``, the bf16 run
+  restored into an fp32 model, and ``sprites_r4_dreg_up`` 1 epoch in bf16,
+  profiled.
 
 Each path runs with the kernel counts set to 0 just before it and read just
 after, and must have launched every kernel it goes through and taken no
@@ -5061,6 +5071,475 @@ def phase_eval_rest_from_config(card: str, root: str, data, plain_epoch_s: float
             os.environ["MVAE_TPU_WEIGHTS_DIR"] = saved
     return total, numbers
 
+# -- precision: bf16 ----------------------------------------------------------------
+
+# tests/test_torch_bf16.py's yardstick: a bf16 result may differ from its
+# reference's bf16 by BF16_C times the reference's own bf16 error (bf16
+# against fp32) plus BF16_ATOL, in units of the reference array's max |x|
+# (scalars: of their fp32 value); here the card against the CPU, both the
+# port, the CPU's fp32 taking the reference's place
+BF16_C, BF16_ATOL = 3.0, 2.0 ** -8
+BF16_BATCHES = (24, 256)          # the flagship steps timed in both precisions
+BF16_TIMED_STEPS = 20             # steps behind each p50
+BF16_VIDEO_FLOPS = (2, 2)         # (batch, K) of the video step counted on both devices
+PEAK_BF16_FLOP_PER_S = 989e12     # dense bf16 tensor cores, the H100 SXM data sheet
+# the bf16 launchers against the fp32 kernel at the main paths' shapes, (label,
+# (b, h, tq, tk, dh), masked); the sparse (b, h, t, dh) of the video decoder
+BF16_ATTENTION_CASES = (("flagship text encoder", (24, 2, 45, 45, 32), True),
+                        ("CUB caption encoder", (32, 2, 246, 246, 32), True),
+                        ("CUB DReG decoder", (640, 2, 246, 1, 8), False))
+BF16_SPARSE_SHAPE = (80, 2, 2048, 32)
+
+
+def _yard_worst(got: dict, b: dict, f: dict, key_bias_scale: bool = True):
+    """(worst share of its limit, leaf): each leaf of ``got`` against ``b``
+    within BF16_C * max|b - f| + BF16_ATOL, in units of max |b| (an
+    attention key bias at its key weight's)."""
+    worst, name = 0.0, None
+    for n in b:
+        ref = b[n[:-len("bias")] + "weight"] if key_bias_scale and n.endswith("key.bias") \
+            else b[n]
+        s = ref.abs().max().item() or 1.0
+        limit = BF16_C * (b[n] - f[n]).abs().max().item() / s + BF16_ATOL
+        share = (got[n] - b[n]).abs().max().item() / s / limit
+        if share > worst:
+            worst, name = share, n
+    return worst, name
+
+
+def _scalar_share(got: float, b: float, f: float) -> float:
+    return abs(got - b) / (BF16_C * abs(b - f) + BF16_ATOL * max(abs(f), 1e-6))
+
+
+def phase_bf16_kernels(card: str) -> dict:
+    """Each bf16 launcher (the masked attention's forward, the sparse
+    forward, dq and dk/dv) against the fp32 kernel on the widened inputs,
+    at the main paths' shapes, within the tolerance the fp32 kernel meets
+    against its plain version: the variant it took, its ms, its bound
+    (:func:`bound_ms` over its bytes at 2 a bf16 element, its operations at
+    the fp32 rate it runs them at) and SDPA's bf16 time.  Returns {kernel row name: [numbers]}."""
+    import torch.nn.functional as F
+    from multimodal_vae_comparison_tpu_torch.ops.kernels import attention, telemetry
+    from multimodal_vae_comparison_tpu_torch.ops.kernels import sparse_attention as sp
+    g = torch.Generator(device="cuda").manual_seed(71)
+    rows = {}
+    for label, (b, h, tq, tk, dh), masked in BF16_ATTENTION_CASES:
+        q, k, v, mask = attention_inputs(g, b, h, tq, tk, dh, masked)
+        q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+        wide = (q.float(), k.float(), v.float())
+        telemetry.reset()
+        got = attention._launch(q, k, v, mask)
+        took = telemetry.dtypes()
+        want = attention._launch(*wide, mask)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        check(got.dtype == torch.float32 and torch.allclose(got, want, rtol=ATTN_RTOL,
+                                                            atol=ATTN_ATOL),
+              f"bf16 attention {label}: max_abs_err {err} against the fp32 kernel")
+        ms = graph_ms(lambda: attention._launch(q, k, v, mask))
+        fp32_ms = graph_ms(lambda: attention._launch(*wide, mask))
+        bias = None if mask is None else torch.zeros(b, 1, 1, tk, device="cuda",
+                                                     dtype=torch.bfloat16).masked_fill(
+            ~mask[:, None, None, :], float("-inf"))
+        if bias is not None:
+            bias[0] = 0.0    # SDPA's all-masked row would be NaN; its time is what counts
+        sdpa = graph_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias))
+        keys = b * tk if mask is None else attended_keys(tk, mask)
+        nbytes = 2 * (b * h * tq * dh + 2 * h * keys * dh) + 4 * b * h * tq * dh \
+            + (0 if mask is None else b * tk)
+        bound, by = bound_ms(nbytes, 4 * h * tq * keys * dh + 4 * h * tq * keys)
+        rows.setdefault("masked_attention", []).append({
+            "at": f"{label} {(b, h, tq, tk, dh)}", "variant": sorted(took),
+            "max_abs_err_vs_fp32_kernel": err, "ms": ms, "fp32_kernel_ms": fp32_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": sdpa,
+            "library_is": "F.scaled_dot_product_attention on bf16 q, k, v"})
+        print(f"bf16 attention {label} {(b, h, tq, tk, dh)}: {sorted(took)}, max_abs_err "
+              f"{err:.3e} against the fp32 kernel on the widened inputs; {ms:.5f} ms (fp32 "
+              f"kernel {fp32_ms:.5f}), bf16 byte bound {bound:.6f} ms ({by}), SDPA bf16 "
+              f"{sdpa:.5f} ms on {card}")
+    b, h, t, dh = BF16_SPARSE_SHAPE
+    q, k, v = (torch.randn(BF16_SPARSE_SHAPE, generator=g, device="cuda").bfloat16()
+               for _ in range(3))
+    wide = [x.float() for x in (q, k, v)]
+    blk, stride = SPARSE_BLOCK, SPARSE_STRIDE
+    telemetry.reset()
+    out, lse = sp._launch_forward(q, k, v, blk, stride)
+    out32, lse32 = sp._launch_forward(*wide, blk, stride)
+    d_out = torch.randn(BF16_SPARSE_SHAPE, generator=g, device="cuda")
+    delta = (d_out * out32).sum(-1)
+    args16 = (q, k, v, d_out, lse32, delta, blk, stride)
+    args32 = (*wide, d_out, lse32, delta, blk, stride)
+    dq, (dk, dv) = sp._launch_dq(*args16), sp._launch_dkv(*args16)
+    took = telemetry.dtypes()
+    dq32, (dk32, dv32) = sp._launch_dq(*args32), sp._launch_dkv(*args32)
+    torch.cuda.synchronize()
+    check(dq.dtype == dk.dtype == dv.dtype == torch.bfloat16 and out.dtype == torch.float32,
+          f"bf16 sparse: out {out.dtype}, dq/dk/dv {dq.dtype}/{dk.dtype}/{dv.dtype}")
+    errs = {"forward": max((out - out32).abs().max().item(), (lse - lse32).abs().max().item()),
+            "dq": (dq.float() - dq32.bfloat16().float()).abs().max().item(),
+            "dkv": max((dk.float() - dk32.bfloat16().float()).abs().max().item(),
+                       (dv.float() - dv32.bfloat16().float()).abs().max().item())}
+    check(torch.allclose(out, out32, rtol=SPARSE_RTOL, atol=SPARSE_ATOL)
+          and torch.allclose(lse, lse32, rtol=SPARSE_RTOL, atol=SPARSE_ATOL),
+          f"bf16 sparse forward: {errs['forward']} against the fp32 kernel")
+    for name, got, want in (("dq", dq, dq32), ("dk", dk, dk32), ("dv", dv, dv32)):
+        check(torch.allclose(got.float(), want.bfloat16().float(), rtol=SPARSE_BWD_RTOL,
+                             atol=SPARSE_BWD_ATOL),
+              f"bf16 sparse {name}: against the fp32 kernel's, rounded to bf16")
+    visible = sp.visibility(t, blk, stride, "cuda")
+    sdpa = graph_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=visible))
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    sdpa_out = F.scaled_dot_product_attention(*leaves, attn_mask=visible)
+    sdpa_bwd = eager_ms(lambda: torch.autograd.grad(sdpa_out, leaves, d_out.bfloat16(),
+                                                    retain_graph=True), iters=10)
+    del leaves, sdpa_out
+    _, cells = sp.sparse_work(t, blk, stride)
+    n, n_rows = b * h * t * dh, b * h * t
+    for row, part, fn, fn32, nbytes, per_cell, lib in (
+            ("strided_block_sparse_attention", "forward",
+             lambda: sp._launch_forward(q, k, v, blk, stride),
+             lambda: sp._launch_forward(*wide, blk, stride),
+             2 * 3 * n + 4 * (n + n_rows), 4 * dh, sdpa),
+            ("strided_block_sparse_attention_dq", "dq", lambda: sp._launch_dq(*args16),
+             lambda: sp._launch_dq(*args32), 2 * 4 * n + 4 * (n + 2 * n_rows), 6 * dh, sdpa_bwd),
+            ("strided_block_sparse_attention_dkv", "dkv", lambda: sp._launch_dkv(*args16),
+             lambda: sp._launch_dkv(*args32), 2 * 5 * n + 4 * (n + 2 * n_rows), 8 * dh,
+             sdpa_bwd)):
+        ms, fp32_ms = graph_ms(fn, reps=10), graph_ms(fn32, reps=10)
+        bound, by = bound_ms(nbytes, b * h * cells * per_cell)
+        # the unit the mma variant runs on, as the fp32 rows give it: three
+        # TF32 MMAs per widened product at the tensor cores' dense TF32 rate
+        tensor_bound = 3 * b * h * cells * per_cell / PEAK_TF32_FLOP_PER_S * 1e3
+        key = {"forward": "sparse_attention", "dq": "sparse_attention_dq",
+               "dkv": "sparse_attention_dkv"}[part]
+        rows[row] = [{"at": f"video decoder {BF16_SPARSE_SHAPE} block {blk} stride {stride}",
+                      "variant": sorted(x for x in took if x.startswith(key + ":")),
+                      "max_abs_err_vs_fp32_kernel": errs[part], "ms": ms,
+                      "fp32_kernel_ms": fp32_ms, "bound_ms": bound, "bound_by": by,
+                      "tensor_bound_ms": tensor_bound, "library_ms": lib, "library_is": "F.scaled_dot_product_attention(q, k, "
+                      "v, attn_mask=visible) on bf16, " + ("forward" if part == "forward"
+                                                           else "its backward (eager)")}]
+        print(f"bf16 {row} {BF16_SPARSE_SHAPE}: {rows[row][0]['variant']}, max_abs_err "
+              f"{errs[part]:.3e} against the fp32 kernel; {ms:.5f} ms (fp32 kernel "
+              f"{fp32_ms:.5f}), bf16 byte bound {bound:.6f} ms ({by}), bound of 3 TF32 MMAs "
+              f"per product at 495 TFLOP/s {tensor_bound:.6f} ms, SDPA bf16 {lib:.5f} ms "
+              f"on {card}")
+    del q, k, v, wide, out, lse, out32, lse32, d_out, delta, args16, args32
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _p50_step_ms(step, batch, gen, steps: int = BF16_TIMED_STEPS) -> float:
+    """Median wall ms of ``steps`` train steps, each ended by a synchronize,
+    after 3 warm ones."""
+    for _ in range(3):
+        step(batch, generator=gen)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        step(batch, generator=gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def phase_bf16_steps(card: str) -> dict:
+    """The flagship POE and MOE train steps and the VideoGPTSparse MOE DReG
+    step under ``dtype=bf16``.  Card against the port's CPU in bf16 on the
+    same weights, batch and eps, the CPU on the card's relu branches
+    (:func:`same_branches`), held to the bf16 yardstick with the CPU's fp32
+    as the reference's fp32 (loss, metrics, every gradient leaf); exact
+    launches a step and no plain version; p50 step ms in fp32 and bf16 side
+    by side at BF16_BATCHES; ``ops.flops.step_flops`` of each step on the
+    card and on the CPU, equal, and the TFLOP/s it gives."""
+    from multimodal_vae_comparison_tpu_torch.ops.flops import step_flops
+    from multimodal_vae_comparison_tpu_torch.ops.kernels import telemetry
+    from multimodal_vae_comparison_tpu_torch.training.optim import make_optimizer
+    from multimodal_vae_comparison_tpu_torch.training.trainer import (
+        build_model, make_train_step)
+    bf16, numbers = torch.bfloat16, {"card": card}
+    rng = np.random.default_rng(72)
+    raw = make_inputs(rng, TRAIN_BATCH)
+    for label, mixing, obj in training_models():
+        eps = numpy_eps(rng, mixing, TRAIN_BATCH)
+        out, branches, flips = {}, [], {}
+        for key, dev, dt in (("card", "cuda", bf16), ("cpu_bf16", "cpu", bf16),
+                             ("cpu_fp32", "cpu", torch.float32)):
+            model = build_model(flagship_specs(), mixing, N_LATENTS, obj=obj, seed=0,
+                                device=dev, dtype=dt)
+            telemetry.reset()
+            with same_branches(branches, dev == "cpu", flips):
+                out[key] = _objective_grads(model, torch_batch(raw, dev), eps_to(eps, dev))
+            if dev == "cuda":
+                launches, kinds, paths = (telemetry.launches(), telemetry.dtypes(),
+                                          telemetry.summary())
+        (gl, gm, gg), (bl, bm, bg), (fl, fm, fg) = out["card"], out["cpu_bf16"], out["cpu_fp32"]
+        worst, worst_name = _yard_worst(gg, bg, fg)
+        shares = {"loss": _scalar_share(gl, bl, fl),
+                  **{k: _scalar_share(gm[k], bm[k], fm[k]) for k in gm}}
+        print(f"bf16 parity {label}: loss card {gl:.6f}, CPU bf16 {bl:.6f}, CPU fp32 {fl:.6f}; "
+              f"worst scalar {max(shares.values()):.3f} of its limit; {len(gg)} gradient "
+              f"leaves, worst {worst:.3f} of its limit at {worst_name} (limit {BF16_C} x "
+              f"|CPU bf16 - CPU fp32| + {BF16_ATOL} of max|g|); branch flips {flips}; "
+              f"launches {launches}, {kinds}")
+        check(np.isfinite(gl) and all(bool(torch.isfinite(x).all()) for x in gg.values()),
+              f"bf16 {label}: non-finite loss or gradient on the card")
+        check(max(shares.values()) <= 1.0, f"bf16 {label}: loss or metric off: {shares}")
+        check(worst <= 1.0, f"bf16 {label}: gradient of {worst_name} off the yardstick")
+        check(launches == expected_launches(mixing, 1, 1) and not any(
+            p.endswith(":plain") for p in paths), f"bf16 {label}: launched {launches}, {paths}")
+        check(any(x.startswith("attention:") and x.endswith(":bfloat16") for x in kinds),
+              f"bf16 {label}: the attention kernel saw no bf16 input: {kinds}")
+        numbers[label] = {"loss_card": gl, "loss_cpu_bf16": bl, "loss_cpu_fp32": fl,
+                          "worst_grad_share_of_limit": worst, "worst_leaf": worst_name,
+                          "scalar_shares_of_limit": shares, "branch_flips": flips,
+                          "launches_objective_and_backward": launches, "variants": kinds}
+        steps_info = {}
+        for n in BF16_BATCHES:
+            batch = torch_batch(make_inputs(np.random.default_rng(73), n), "cuda")
+            for dt in (torch.float32, bf16):
+                model = build_model(flagship_specs(), mixing, N_LATENTS, obj=obj, seed=0,
+                                    device="cuda", dtype=dt)
+                step = make_train_step(model, make_optimizer("adam", TRAIN_LR,
+                                                             model.parameters()))
+                gen = torch.Generator(device="cuda").manual_seed(74)
+                telemetry.reset()
+                metrics = step(batch, generator=gen)
+                torch.cuda.synchronize()
+                per_step, paths = telemetry.launches(), telemetry.summary()
+                check(per_step == ROUTE_PER_STEP[mixing]["new"] and not any(
+                    p.endswith(":plain") for p in paths),
+                    f"bf16 {label} bs {n} {dt}: launched {per_step} a step, {paths}")
+                check(all(bool(torch.isfinite(v).all()) for v in metrics.values())
+                      and all(p.grad is None or bool(torch.isfinite(p.grad).all())
+                              for p in model.parameters()),
+                      f"bf16 {label} bs {n} {dt}: non-finite metrics or gradients")
+                flops = step_flops(step, batch, generator=gen)["flops"]
+                p50 = _p50_step_ms(step, batch, gen)
+                steps_info[f"bs{n}_{str(dt)[6:]}"] = {
+                    "p50_step_ms": p50, "flops": flops,
+                    "tflop_per_s": flops / p50 / 1e9,
+                    "share_of_peak": flops / p50 / 1e9 / (
+                        PEAK_BF16_FLOP_PER_S if dt == bf16 else PEAK_FP32_FLOP_PER_S) * 1e12}
+                del model, step
+            cpu_flops = {}
+            if n == TRAIN_BATCH:
+                for dt in (torch.float32, bf16):
+                    model = build_model(flagship_specs(), mixing, N_LATENTS, obj=obj,
+                                        seed=0, device="cpu", dtype=dt)
+                    step = make_train_step(model, make_optimizer("adam", TRAIN_LR,
+                                                                 model.parameters()))
+                    cpu_flops[str(dt)[6:]] = step_flops(
+                        step, torch_batch(make_inputs(np.random.default_rng(73), n), "cpu"),
+                        generator=torch.Generator().manual_seed(74))["flops"]
+                    check(cpu_flops[str(dt)[6:]] == steps_info[f"bs{n}_{str(dt)[6:]}"]["flops"],
+                          f"{label} bs {n} {dt}: step_flops {cpu_flops} on the CPU, "
+                          f"{steps_info[f'bs{n}_{str(dt)[6:]}']['flops']} on the card")
+            a, b_ = steps_info[f"bs{n}_float32"], steps_info[f"bs{n}_bfloat16"]
+            print(f"bf16 step {label} bs {n}: p50 fp32 {a['p50_step_ms']:.3f} ms, bf16 "
+                  f"{b_['p50_step_ms']:.3f} ms; step_flops {a['flops']} (card"
+                  + (f", CPU {cpu_flops}" if cpu_flops else "") + f"): {a['tflop_per_s']:.4f} "
+                  f"TFLOP/s fp32 ({100 * a['share_of_peak']:.4f} % of 67), "
+                  f"{b_['tflop_per_s']:.4f} bf16 ({100 * b_['share_of_peak']:.4f} % of 989; "
+                  f"495 TF32) on {card}")
+        numbers[label]["steps"] = steps_info
+    # the video step: its three sparse launchers on bf16 inputs
+    raw_v, eps_v = video_inputs(np.random.default_rng(75), VIDEO_BATCH, VIDEO_K)
+    batch = torch_batch(raw_v, "cuda")
+    video = {}
+    for dt in (torch.float32, bf16):
+        model = build_model(video_specs(), "moe", VIDEO_LATENTS, obj="dreg", K=VIDEO_K, seed=0,
+                            device="cuda", remat=True, dtype=dt)
+        step = make_train_step(model, make_optimizer("adam", VIDEO_LR, model.parameters()))
+        gen = torch.Generator(device="cuda").manual_seed(76)
+        telemetry.reset()
+        metrics = step(batch, generator=gen)
+        torch.cuda.synchronize()
+        per_step, kinds, paths = telemetry.launches(), telemetry.dtypes(), telemetry.summary()
+        want = {"sparse_attention": 20, "sparse_attention_dq": 8, "sparse_attention_dkv": 8}
+        check(per_step == want and not any(p.endswith(":plain") for p in paths),
+              f"video {dt}: launched {per_step} a step, expected {want}; {paths}")
+        check(bool(torch.isfinite(metrics["loss"])), f"video {dt}: non-finite loss")
+        if dt == bf16:
+            check(all(x.endswith(":bfloat16") for x in kinds) and len(kinds) == 3,
+                  f"video bf16: the sparse launchers ran on {kinds}")
+        flops = step_flops(step, batch, generator=gen)["flops"]
+        p50 = _p50_step_ms(step, batch, gen, steps=10)
+        video[str(dt)[6:]] = {"p50_step_ms": p50, "flops": flops, "variants": kinds,
+                              "launches_per_step": per_step, "tflop_per_s": flops / p50 / 1e9}
+        del model, step
+    # the same integer on both devices, at a batch the CPU steps in seconds
+    nb, kb = BF16_VIDEO_FLOPS
+    raw_s, _ = video_inputs(np.random.default_rng(77), nb, kb)
+    counts = {}
+    for dev, dt in (("cuda", torch.float32), ("cuda", bf16), ("cpu", torch.float32)):
+        model = build_model(video_specs(), "moe", VIDEO_LATENTS, obj="dreg", K=kb, seed=0,
+                            device=dev, remat=True, dtype=dt)
+        step = make_train_step(model, make_optimizer("adam", VIDEO_LR, model.parameters()))
+        gen = torch.Generator(device=dev).manual_seed(78)
+        counts[f"{dev}_{str(dt)[6:]}"] = step_flops(step, torch_batch(raw_s, dev),
+                                                    generator=gen)["flops"]
+    check(counts["cuda_float32"] == counts["cpu_float32"] == counts["cuda_bfloat16"],
+          f"video step_flops differ between devices: {counts}")
+    video["step_flops_card_and_cpu"] = {"batch": nb, "K": kb, **counts}
+    print(f"bf16 video step (bs {VIDEO_BATCH}, K {VIDEO_K}, DReG, remat): p50 fp32 "
+          f"{video['float32']['p50_step_ms']:.3f} ms, bf16 {video['bfloat16']['p50_step_ms']:.3f}"
+          f" ms; step_flops {video['float32']['flops']}: "
+          f"{video['float32']['tflop_per_s']:.4f} / {video['bfloat16']['tflop_per_s']:.4f} "
+          f"TFLOP/s; sparse launchers {video['bfloat16']['variants']}; step_flops at bs {nb}, "
+          f"K {kb} on card and CPU {counts} on {card}")
+    numbers["VideoGPTSparse MOE dreg"] = video
+    return numbers
+
+
+def phase_bf16_from_config(card: str, root: str, data, sprites_dir: str,
+                           sprites_fp32: dict) -> dict:
+    """``cdl1_r5_poe.yml`` with ``--precision bf16`` through the port's CLI
+    (``main.cli``) on the ZOO_DATA_COUNT rows of level 1 for 1 epoch and
+    ``test()``, beside the same epoch in fp32: exact launches, no plain
+    version, the val loss falls, the 12 stats in range, and ``model/last``
+    restored through ``MultimodalVAEInfer`` into an fp32 model whose weights
+    are the trainer's and whose forward is that of the trainer's weights in
+    fp32 within RESTORE_RTOL / RESTORE_ATOL.  Then ``sprites_r4_dreg_up``
+    under ``precision: bf16`` for 1 epoch on the SPRITES clips made before,
+    under ``torch.profiler``, beside the fp32 epoch of "sprites from
+    config"."""
+    import yaml
+    from torch.profiler import ProfilerActivity, profile
+    from multimodal_vae_comparison_tpu_torch.eval.infer import MultimodalVAEInfer
+    from multimodal_vae_comparison_tpu_torch.main import cli
+    from multimodal_vae_comparison_tpu_torch.training.trainer import Trainer
+    numbers, total = {"card": card}, {}
+    os.environ["CDSPRITES_CLASSIFIER_DIR"] = os.path.join(root, "judges")
+    path = "configs/round5/cdl1_r5_poe.yml"
+    with open(os.path.join(HERE, path)) as f:
+        params = yaml.safe_load(f)
+    for key, block in cdsprites_paths(data).items():
+        params[key].update(block)
+    params.update(iterseeds=1, epochs=1, exp_name="cdl1_r5_poe_bf16")
+    yml = os.path.join(root, "cdl1_r5_poe_bf16.yml")
+    with open(yml, "w") as f:
+        yaml.safe_dump(params, f)
+    stats, runs = {}, {}
+    original_test = Trainer.test
+
+    def test_and_keep(self):
+        stats.clear()
+        stats.update(original_test(self))
+        return stats
+
+    cwd = os.getcwd()
+    os.chdir(root)
+    Trainer.test = test_and_keep
+    try:
+        for precision in ("32", "bf16"):
+            probe = Trainer(from_config(path, cdsprites_paths(data), os.path.join(
+                root, "probe"), eval_only=False, precision=precision, iterseeds=1,
+                epochs=1), enable_viz=False)
+            probe.init_state()
+            untrained = probe.validate(0)["val_loss"]
+            dm, bs = probe.datamodule, probe.cfg.batch_size
+            steps, val_batches = dm.n_train // bs, dm.n_val // bs
+            del probe
+            args = ["--cfg", yml, "--precision", precision, "--no_viz"]
+            if precision == "32":
+                args += ["--exp_name", "cdl1_r5_poe_fp32"]
+            trainer = counted(f"POE cdl1_r5_poe precision {precision}", "poe",
+                              steps + 2 * val_batches, steps, lambda: cli(args), total,
+                              eval_launches("poe", dm.n_train))
+            check_stats(f"bf16 cdl1_r5_poe {precision}", stats)
+            rows = _csv_rows(os.path.join(trainer.cfg.mPath, "metrics.csv"))
+            trained = float(rows[-1]["val_loss"])
+            check(np.isfinite(trained) and trained < untrained,
+                  f"cdl1_r5_poe precision {precision}: val_loss {trained}, untrained {untrained}")
+            dt = torch.bfloat16 if precision == "bf16" else torch.float32
+            check(trainer.model.dtype == dt and all(
+                p.dtype == torch.float32 for p in trainer.model.parameters()),
+                f"cdl1_r5_poe precision {precision}: model {trainer.model.dtype}")
+            runs[precision] = {"val_loss_untrained": untrained, "val_loss": trained,
+                               "epoch_s": float(rows[-1]["epoch_time_s"]),
+                               "samples_per_s": float(rows[-1]["samples_per_s"]),
+                               "stats": {k: v for k, v in stats.items()
+                                         if not k.startswith("val_")}}
+            if precision == "bf16":
+                infer = MultimodalVAEInfer(trainer.cfg.mPath)
+                live = MultimodalVAEInfer.from_trainer(trainer)
+                check(infer.model.dtype == live.model.dtype == torch.float32,
+                      "the restored bf16 run is not fp32")
+                for (n, a), b in zip(infer.model.state_dict().items(),
+                                     trainer.model.state_dict().values()):
+                    check(torch.equal(a, b), f"bf16 cdl1_r5_poe: restored {n} differs")
+                batch = next(dm.batches("val"))
+                eps = eps_to(np.random.default_rng(79).standard_normal(
+                    (1, bs, trainer.cfg.n_latents)).astype(np.float32), trainer.device)
+                live.model.eval()
+                live.model.K = 1
+                with torch.inference_mode():
+                    got = infer.forward(batch, trainer.model.mod_names, eps=eps)
+                    want = live.model.forward(torch_batch(batch, trainer.device),
+                                              trainer.model.mod_names, eps=eps)
+                err = max((got.mods[n].decoder_dist.mean - want.mods[n].decoder_dist.mean)
+                          .abs().max().item() for n in trainer.model.mod_names)
+                check(err <= RESTORE_ATOL + RESTORE_RTOL, f"bf16 cdl1_r5_poe: the restored "
+                      f"fp32 forward differs by {err}")
+                runs[precision]["restore_fp32_max_abs_err"] = err
+            print(f"bf16 from config cdl1_r5_poe --precision {precision}: {dm.n_train} train "
+                  f"rows, {steps} steps of {bs}; val_loss {untrained:.2f} -> {trained:.2f}; "
+                  f"epoch {runs[precision]['epoch_s']:.3f} s, "
+                  f"{runs[precision]['samples_per_s']:.1f} samples/s; stats "
+                  + ", ".join(f"{k} {v:.2f}" for k, v in runs[precision]["stats"].items())
+                  + f" on {card}")
+            del trainer
+    finally:
+        Trainer.test = original_test
+        os.chdir(cwd)
+        os.environ.pop("CDSPRITES_CLASSIFIER_DIR")
+    numbers["cdl1_r5_poe"] = runs
+    # sprites_r4_dreg_up, one epoch in bf16 on the clips of "sprites from config"
+    config, trainer, _ = config_trainer("MOE sprites_r4_dreg_up bf16",
+                                        "configs/round4/sprites_r4_dreg_up.yml", "moe",
+                                        sprites_paths(sprites_dir), root, 1,
+                                        edit=lambda p: p.update(precision="bf16"))
+    check(trainer.model.dtype == torch.bfloat16, "sprites bf16: the model is not bf16")
+    dm, bs = trainer.datamodule, config.batch_size
+    steps, val_batches = dm.n_train // bs, dm.n_val // bs
+    trainer.stage_epoch_data()
+    trainer.stage_val_data()
+    untrained = trainer.validate_scan(0)["val_loss"]
+    profiled = {}
+
+    def run():
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            trainer.fit(epochs=1)
+            torch.cuda.synchronize()
+            profiled["wall_ms"] = (time.perf_counter() - t0) * 1e3
+        profiled.update(device_activity(prof, profiled["wall_ms"]))
+
+    counted("MOE sprites_r4_dreg_up bf16", "moe", steps + val_batches, steps, run, total,
+            tables=(SPRITES_PER_OBJECTIVE, SPRITES_PER_BACKWARD))
+    trained = trainer.validate_scan(1)["val_loss"]
+    check(np.isfinite(trained) and trained < untrained,
+          f"sprites bf16: val_loss {trained}, untrained {untrained}")
+    fp32 = sprites_fp32.get("MOE sprites_r4_dreg_up", {})
+    fp32_epoch = (fp32.get("epochs") or [{}])[0].get("epoch_time_s")
+    numbers["sprites_r4_dreg_up"] = {
+        "epoch_wall_s": profiled["wall_ms"] / 1e3, "device_ms": profiled["ms"],
+        "busy_share": profiled["busy_share"], "val_loss_untrained": untrained,
+        "val_loss": trained, "fp32_epoch_s": fp32_epoch,
+        "fp32_device_ms": fp32.get("profiled_epoch_device_ms"),
+        "top_kernels_ms": {n[:80]: ms for n, ms in profiled["ms_by_name"].most_common(6)}}
+    print(f"bf16 from config sprites_r4_dreg_up: {steps} steps of {bs}; val_loss "
+          f"{untrained:.2f} -> {trained:.2f}; epoch {profiled['wall_ms'] / 1e3:.3f} s, "
+          f"{profiled['ms']:.1f} device ms, busy {profiled['busy_share']:.4f} (fp32: epoch "
+          f"{fp32_epoch} s, {fp32.get('profiled_epoch_device_ms')} device ms); the largest by "
+          f"device ms " + json.dumps(numbers["sprites_r4_dreg_up"]["top_kernels_ms"])
+          + f" on {card}")
+    del trainer
+    return total, numbers
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -5181,6 +5660,14 @@ def main() -> int:
     check(paths.get("sparse_attention_bwd:cuda", 0) == 8 * VIDEO_STEPS,
           f"sparse_attention_bwd ran {paths.get('sparse_attention_bwd:cuda')} times")
 
+    # 8b. precision: bf16: the bf16 launchers against the fp32 kernels, the
+    # flagship and video steps in bf16 card vs CPU, their times and FLOPs
+    t0 = time.perf_counter()
+    bf16_kernel_rows = phase_bf16_kernels(card)
+    bf16_steps = phase_bf16_steps(card)
+    bf16_steps["phase_s"] = time.perf_counter() - t0
+    print("bf16 steps " + json.dumps(bf16_steps))
+
     # 9. the paper's four families at full width: card vs CPU
     t0 = time.perf_counter()
     zoo_parity = phase_zoo_parity()
@@ -5263,6 +5750,13 @@ def main() -> int:
             card, tmp, small, family_numbers["POE celeba"]["epoch_s"])
         eval_rest_numbers["phase_s"] = time.perf_counter() - t0
         print("eval remainder from config " + json.dumps(eval_rest_numbers))
+        # this slice's main path: precision bf16 from the CLI, cdl1_r5_poe
+        # on the rows above and sprites_r4_dreg_up on the clips above
+        t0 = time.perf_counter()
+        bf16_launches, bf16_numbers = phase_bf16_from_config(
+            card, tmp, small, os.path.join(tmp, "sprites"), sprites_numbers)
+        bf16_numbers["phase_s"] = time.perf_counter() - t0
+        print("bf16 from config " + json.dumps(bf16_numbers))
 
     # 11. times
     rows = phase_times(engine, card)
@@ -5306,7 +5800,7 @@ def main() -> int:
                          + family_launches.get(kernel, 0) + vilanro_launches.get(kernel, 0)
                          + cond_launches.get(kernel, 0) + fashion_launches.get(kernel, 0)
                          + digits_launches.get(kernel, 0) + zoo_rest_launches.get(kernel, 0)
-                         + eval_rest_launches.get(kernel, 0))
+                         + eval_rest_launches.get(kernel, 0) + bf16_launches.get(kernel, 0))
         r["launches_zoo_from_config_path"] = zoo_launches.get(kernel, 0)
         r["launches_sprites_from_config_path"] = sprites_launches.get(kernel, 0)
         r["launches_mog_from_config_path"] = mog_launches.get(kernel, 0)
@@ -5317,6 +5811,14 @@ def main() -> int:
         r["launches_digits_from_config_path"] = digits_launches.get(kernel, 0)
         r["launches_zoo_rest_from_config_path"] = zoo_rest_launches.get(kernel, 0)
         r["launches_eval_rest_from_config_path"] = eval_rest_launches.get(kernel, 0)
+        r["launches_bf16_from_config_path"] = bf16_launches.get(kernel, 0)
+        # the bf16 launcher beside the fp32 kernel, where the kernel has one
+        if r["name"] in bf16_kernel_rows:
+            # the bf16 path's launches: the video step's for the sparse
+            # kernels, the bf16 configs' for the attention
+            n = (bf16_steps["VideoGPTSparse MOE dreg"]["bfloat16"]["launches_per_step"]
+                 .get(kernel, 0) if kernel in video_kernels else bf16_launches.get(kernel, 0))
+            r["bf16"] = [dict(x, launches=n) for x in bf16_kernel_rows[r["name"]]]
         r["sprites_shapes"] = [{k: v for k, v in x.items()
                                 if k not in ("name", "route", "source", "replaces")}
                                for x in sprites_rows if x["name"] == r["name"]]

@@ -1,4 +1,5 @@
-// Masked attention forward for Hopper (sm_90a), fp32.
+// Masked attention forward for Hopper (sm_90a): fp32 or bf16 q, k, v, fp32
+// out.
 //
 // Replaces the Pallas TPU kernel masked_flash_attention -> _flash_pallas
 // (body _attn_kernel) in multimodal_vae_comparison_tpu/ops/pallas/attention.py:
@@ -33,6 +34,17 @@
 // Masking is additive with -1e30 exactly as the TPU kernel does it; masked
 // keys are never skipped, so a row with every key masked gives the uniform
 // average of V, as the Pallas kernel and the XLA path both give.
+//
+// Input dtype.  Every kernel is a template on the element type T of q, k and
+// v, instantiated for float and __nv_bfloat16 (masked_attention_forward and
+// masked_attention_forward_bf16).  bf16 is widened to fp32 as it is staged
+// (exact), so the arithmetic after it is the fp32 kernel's and the output is
+// fp32, as the Pallas kernel widens its bf16 inputs.  The resident path's
+// vector staging moves 4 elements a thread: a 16-byte cp.async for fp32, an
+// 8-byte load widened into a float4 for bf16.  Its rule (Dh % 4 == 0 and
+// 16-byte aligned inputs) keeps every bf16 unit 8-byte aligned, so it holds
+// for both types.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -75,6 +87,19 @@ __device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem));
 }
 
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// 4 consecutive elements at g -> 4 floats at s (16-byte aligned): an async
+// copy for fp32; for bf16 an 8-byte load, widened
+__device__ __forceinline__ void stage4(float* s, const float* g) { cp_async16(s, g); }
+__device__ __forceinline__ void stage4(float* s, const __nv_bfloat16* g) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(g);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  *reinterpret_cast<float4*>(s) = make_float4(a.x, a.y, b.x, b.y);
+}
+
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\n" ::);
   asm volatile("cp.async.wait_group 0;\n" ::);
@@ -107,10 +132,10 @@ struct ResidentPlan {
 // grid (batch*heads, row splits), up to MAX_WARPS warps; dynamic shared
 // memory of ResidentPlan::floats floats.  rows_per_block is a multiple of
 // ROWS.  vec: Dh % 4 == 0 and q, k, v are 16-byte aligned.  Dh <= 32 * SLOTS.
-template <int KPL, int SLOTS>
+template <typename T, int KPL, int SLOTS>
 __global__ void __launch_bounds__(MAX_WARPS * WARP)
-masked_attention_resident(const float* __restrict__ q, const float* __restrict__ k,
-                          const float* __restrict__ v,
+masked_attention_resident(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v,
                           const uint8_t* __restrict__ key_mask,  // (B, Tk) or null
                           float* __restrict__ out, int heads, int tq, int tk,
                           int dh, int rows_per_block, float sm_scale, int vec) {
@@ -127,9 +152,9 @@ masked_attention_resident(const float* __restrict__ q, const float* __restrict__
   const int b = bh / heads;
   const int row_begin = blockIdx.y * rows_per_block;
   const int rows = min(rows_per_block, tq - row_begin);
-  const float* kh = k + (size_t)bh * tk * dh;
-  const float* vh = v + (size_t)bh * tk * dh;
-  const float* qh = q + ((size_t)bh * tq + row_begin) * dh;
+  const T* kh = k + (size_t)bh * tk * dh;
+  const T* vh = v + (size_t)bh * tk * dh;
+  const T* qh = q + ((size_t)bh * tq + row_begin) * dh;
 
   // stage the head: thread (tr, tc) copies 16-byte unit tc of rows tr,
   // tr + rstep, ...; one division per thread, none per element
@@ -139,11 +164,11 @@ masked_attention_resident(const float* __restrict__ q, const float* __restrict__
     const int rstep = blockDim.x / cpr;
     if (tr < rstep) {
       for (int r = tr; r < tk; r += rstep) {
-        cp_async16(ks + r * kstride + tc, kh + (size_t)r * dh + tc);
-        cp_async16(vs + r * dh4 + tc, vh + (size_t)r * dh + tc);
+        stage4(ks + r * kstride + tc, kh + (size_t)r * dh + tc);
+        stage4(vs + r * dh4 + tc, vh + (size_t)r * dh + tc);
       }
       for (int r = tr; r < rows; r += rstep)
-        cp_async16(qs + r * dh4 + tc, qh + (size_t)r * dh + tc);
+        stage4(qs + r * dh4 + tc, qh + (size_t)r * dh + tc);
     }
   } else {
     // Dh not a multiple of 4, or unaligned inputs: a warp copies a row, by
@@ -152,11 +177,11 @@ masked_attention_resident(const float* __restrict__ q, const float* __restrict__
     for (int c = threadIdx.x % WARP; c < dh4; c += WARP) {
       const bool real = c < dh;
       for (int r = w; r < tk; r += nw) {
-        ks[r * kstride + c] = real ? kh[(size_t)r * dh + c] : 0.f;
-        vs[r * dh4 + c] = real ? vh[(size_t)r * dh + c] : 0.f;
+        ks[r * kstride + c] = real ? to_f(kh[(size_t)r * dh + c]) : 0.f;
+        vs[r * dh4 + c] = real ? to_f(vh[(size_t)r * dh + c]) : 0.f;
       }
       for (int r = w; r < rows; r += nw)
-        qs[r * dh4 + c] = real ? qh[(size_t)r * dh + c] : 0.f;
+        qs[r * dh4 + c] = real ? to_f(qh[(size_t)r * dh + c]) : 0.f;
     }
   }
   for (int idx = threadIdx.x; idx < (tk4 - tk) * dh4; idx += blockDim.x)
@@ -255,9 +280,10 @@ masked_attention_resident(const float* __restrict__ q, const float* __restrict__
 // grid (batch*heads, ceil(Tq / CHUNK_ROWS)), CHUNK_ROWS warps; dynamic shared
 // memory: K chunk [32][Dh + 1] (+1: lanes read rows, no bank conflicts),
 // V chunk [32][Dh], Q [CHUNK_ROWS][Dh], bias [32]
+template <typename T>
 __global__ void __launch_bounds__(CHUNK_ROWS * WARP)
-masked_attention_chunked(const float* __restrict__ q, const float* __restrict__ k,
-                         const float* __restrict__ v,
+masked_attention_chunked(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v,
                          const uint8_t* __restrict__ key_mask,  // (B, Tk) or null
                          float* __restrict__ out, int heads, int tq, int tk,
                          int dh, float sm_scale) {
@@ -278,11 +304,12 @@ masked_attention_chunked(const float* __restrict__ q, const float* __restrict__ 
   const int tr = threadIdx.x / dh, tc = threadIdx.x - tr * dh;
   const int rstep = blockDim.x / dh;
 
-  const float* qrow = q + ((size_t)bh * tq + row) * dh;
-  for (int d = lane; d < dh; d += WARP) qs[warp * dh + d] = active ? qrow[d] * sm_scale : 0.f;
+  const T* qrow = q + ((size_t)bh * tq + row) * dh;
+  for (int d = lane; d < dh; d += WARP)
+    qs[warp * dh + d] = active ? to_f(qrow[d]) * sm_scale : 0.f;
 
-  const float* kh = k + (size_t)bh * tk * dh;
-  const float* vh = v + (size_t)bh * tk * dh;
+  const T* kh = k + (size_t)bh * tk * dh;
+  const T* vh = v + (size_t)bh * tk * dh;
   float acc[DH_SLOTS];
 #pragma unroll
   for (int i = 0; i < DH_SLOTS; ++i) acc[i] = 0.f;
@@ -293,8 +320,8 @@ masked_attention_chunked(const float* __restrict__ q, const float* __restrict__ 
     __syncthreads();  // the previous chunk is consumed (and qs is written)
     if (tr < rstep)
       for (int j = tr; j < n; j += rstep) {
-        ks[j * kstride + tc] = kh[(size_t)(k0 + j) * dh + tc];
-        vs[j * dh + tc] = vh[(size_t)(k0 + j) * dh + tc];
+        ks[j * kstride + tc] = to_f(kh[(size_t)(k0 + j) * dh + tc]);
+        vs[j * dh + tc] = to_f(vh[(size_t)(k0 + j) * dh + tc]);
       }
     for (int j = threadIdx.x; j < n; j += blockDim.x)
       bias[j] = (key_mask == nullptr || key_mask[(size_t)b * tk + k0 + j]) ? 0.f : NEG_INF;
@@ -369,69 +396,84 @@ ResidentLaunch plan_resident(int bh, int tq, int tk, int dh) {
   return r;
 }
 
-template <int KPL, int SLOTS>
-cudaError_t launch_resident(const ResidentLaunch& r, const float* q, const float* k,
-                            const float* v, const uint8_t* key_mask, float* out,
+template <typename T, int KPL, int SLOTS>
+cudaError_t launch_resident(const ResidentLaunch& r, const T* q, const T* k,
+                            const T* v, const uint8_t* key_mask, float* out,
                             int bh, int heads, int tq, int tk, int dh,
                             float sm_scale, cudaStream_t stream) {
   if (r.smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(masked_attention_resident<KPL, SLOTS>,
+    cudaError_t err = cudaFuncSetAttribute(masked_attention_resident<T, KPL, SLOTS>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)r.smem);
     if (err != cudaSuccess) return err;
   }
   const uintptr_t bits = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v;
   const int vec = dh % 4 == 0 && bits % 16 == 0;
-  masked_attention_resident<KPL, SLOTS>
+  masked_attention_resident<T, KPL, SLOTS>
       <<<dim3(bh, r.nsplit), r.nwarps * WARP, r.smem, stream>>>(
           q, k, v, key_mask, out, heads, tq, tk, dh, r.rows_per_block, sm_scale, vec);
   return cudaGetLastError();
 }
 
-cudaError_t launch_chunked(const float* q, const float* k, const float* v,
+template <typename T>
+cudaError_t launch_chunked(const T* q, const T* k, const T* v,
                            const uint8_t* key_mask, float* out, int bh, int heads,
                            int tq, int tk, int dh, float sm_scale, cudaStream_t stream) {
   const size_t smem = ((size_t)KV_CHUNK * (2 * dh + 1) + (size_t)CHUNK_ROWS * dh + KV_CHUNK)
                       * sizeof(float);
   dim3 grid(bh, (tq + CHUNK_ROWS - 1) / CHUNK_ROWS);
-  masked_attention_chunked<<<grid, CHUNK_ROWS * WARP, smem, stream>>>(
+  masked_attention_chunked<T><<<grid, CHUNK_ROWS * WARP, smem, stream>>>(
       q, k, v, key_mask, out, heads, tq, tk, dh, sm_scale);
   return cudaGetLastError();
+}
+
+// Picks the path by shape, writes which one to *variant (0 resident, 1
+// chunked) and launches on `stream`.
+template <typename T>
+cudaError_t forward(const T* q, const T* k, const T* v, const uint8_t* mask, float* out,
+                    int batch, int heads, int tq, int tk, int dh, float sm_scale,
+                    cudaStream_t s, int* variant) {
+  const int bh = batch * heads;
+  const ResidentLaunch r = plan_resident(bh, tq, tk, dh);
+  if (!r.fits) {
+    *variant = CHUNKED;
+    return launch_chunked<T>(q, k, v, mask, out, bh, heads, tq, tk, dh, sm_scale, s);
+  }
+  *variant = RESIDENT;
+#define LAUNCH(KPL)                                                                  \
+  (dh <= WARP ? launch_resident<T, KPL, 1>(r, q, k, v, mask, out, bh, heads, tq, tk, dh, \
+                                           sm_scale, s)                             \
+              : launch_resident<T, KPL, DH_SLOTS>(r, q, k, v, mask, out, bh, heads, tq, \
+                                                  tk, dh, sm_scale, s))
+  return r.kpl == 1 ? LAUNCH(1) : r.kpl == 2 ? LAUNCH(2) : r.kpl == 4 ? LAUNCH(4) : LAUNCH(8);
+#undef LAUNCH
 }
 
 }  // namespace
 
 extern "C" {
 
-// q: (B*H, Tq, Dh), k/v: (B*H, Tk, Dh), out: (B*H, Tq, Dh), all contiguous
-// fp32 on the device; key_mask: (B, Tk) bool (1 byte) or null.  1 <= Dh <=
-// 128.  Picks the path by shape, writes which one to *variant (0 resident,
-// 1 chunked), launches on `stream` and returns cudaGetLastError().
+// q: (B*H, Tq, Dh), k/v: (B*H, Tk, Dh) contiguous fp32 (masked_attention_forward)
+// or bf16 (masked_attention_forward_bf16) on the device; out: (B*H, Tq, Dh)
+// contiguous fp32; key_mask: (B, Tk) bool (1 byte) or null.  1 <= Dh <= 128.
+// Picks the path by shape, writes which one to *variant (0 resident, 1
+// chunked), launches on `stream` and returns cudaGetLastError().
 int masked_attention_forward(const void* q, const void* k, const void* v,
                              const void* key_mask, void* out, int batch,
                              int heads, int tq, int tk, int dh,
                              float sm_scale, void* stream, int* variant) {
-  const int bh = batch * heads;
-  const float* qf = (const float*)q;
-  const float* kf = (const float*)k;
-  const float* vf = (const float*)v;
-  const uint8_t* mask = (const uint8_t*)key_mask;
-  cudaStream_t s = (cudaStream_t)stream;
-  const ResidentLaunch r = plan_resident(bh, tq, tk, dh);
-  if (!r.fits) {
-    *variant = CHUNKED;
-    return (int)launch_chunked(qf, kf, vf, mask, (float*)out, bh, heads, tq, tk, dh,
-                               sm_scale, s);
-  }
-  *variant = RESIDENT;
-#define LAUNCH(KPL)                                                             \
-  (dh <= WARP ? launch_resident<KPL, 1>(r, qf, kf, vf, mask, (float*)out, bh,    \
-                                        heads, tq, tk, dh, sm_scale, s)          \
-              : launch_resident<KPL, DH_SLOTS>(r, qf, kf, vf, mask, (float*)out, \
-                                               bh, heads, tq, tk, dh, sm_scale, s))
-  return (int)(r.kpl == 1 ? LAUNCH(1) : r.kpl == 2 ? LAUNCH(2)
-               : r.kpl == 4 ? LAUNCH(4) : LAUNCH(8));
-#undef LAUNCH
+  return (int)forward((const float*)q, (const float*)k, (const float*)v,
+                      (const uint8_t*)key_mask, (float*)out, batch, heads, tq, tk, dh,
+                      sm_scale, (cudaStream_t)stream, variant);
+}
+
+int masked_attention_forward_bf16(const void* q, const void* k, const void* v,
+                                  const void* key_mask, void* out, int batch,
+                                  int heads, int tq, int tk, int dh,
+                                  float sm_scale, void* stream, int* variant) {
+  return (int)forward((const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+                      (const __nv_bfloat16*)v, (const uint8_t*)key_mask, (float*)out,
+                      batch, heads, tq, tk, dh, sm_scale, (cudaStream_t)stream, variant);
 }
 
 // The chunked kernel whatever the shape: a yardstick for the resident path
@@ -440,7 +482,7 @@ int masked_attention_forward_chunked(const void* q, const void* k, const void* v
                                      const void* key_mask, void* out, int batch,
                                      int heads, int tq, int tk, int dh,
                                      float sm_scale, void* stream) {
-  return (int)launch_chunked((const float*)q, (const float*)k, (const float*)v,
+  return (int)launch_chunked<float>((const float*)q, (const float*)k, (const float*)v,
                              (const uint8_t*)key_mask, (float*)out, batch * heads,
                              heads, tq, tk, dh, sm_scale, (cudaStream_t)stream);
 }

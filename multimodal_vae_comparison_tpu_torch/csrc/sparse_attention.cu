@@ -1,5 +1,5 @@
-// Strided block-sparse causal self-attention for Hopper (sm_90a), fp32 in
-// and out: forward (with the row log-sum-exp), dq, and dk/dv.
+// Strided block-sparse causal self-attention for Hopper (sm_90a): forward
+// (with the row log-sum-exp), dq, and dk/dv, on fp32 or bf16 q, k, v.
 //
 // Replaces the Pallas TPU kernels of
 // multimodal_vae_comparison_tpu/ops/pallas/sparse_attention.py:
@@ -75,6 +75,20 @@
 // accumulate in registers and are written once: no atomics, so the result is
 // deterministic.  Dh is padded to DHP in {4,8,16,32,64} (zeros) so that the
 // inner loops unroll; block <= 128 rows per tile.
+//
+// Input dtype.  Every kernel is a template on the element type T of q, k
+// and v, instantiated for float and __nv_bfloat16 (the launchers' _bf16
+// instances).  bf16 is widened to fp32 where it is loaded, into registers or
+// shared memory (exact), so the arithmetic after it is the fp32 kernels'.
+// o, lse, d_out and delta are fp32 in both; dq, dk and dv are written in T,
+// as the Pallas kernels cast them back to the inputs' dtype.  The tensor-core
+// kernels' staging moves 4 elements a thread: a 16-byte cp.async for fp32,
+// an 8-byte load widened into a float4 for bf16 (synchronous, so the next
+// tile no longer loads under the current one's math).  Their rule (Dh % 4 ==
+// 0 and 16-byte aligned tensors) keeps every bf16 unit 8-byte aligned and
+// every bf16 pair that store_rows writes 4-byte aligned, so it holds for both
+// types.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -86,21 +100,33 @@ constexpr int CHUNK = 16;        // keys scored before one rescale of the row
 constexpr float NEG_INF = -1e30f;
 constexpr size_t STATIC_SMEM_LIMIT = 48 * 1024;
 
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
 // rows x dh floats at g -> rows x DHP at s, zero padded, times mul
-template <int DHP>
-__device__ __forceinline__ void stage_tile(float* s, const float* __restrict__ g,
+template <int DHP, typename S>
+__device__ __forceinline__ void stage_tile(float* s, const S* __restrict__ g,
                                            int rows, int dh, float mul) {
   for (int idx = threadIdx.x; idx < rows * DHP; idx += blockDim.x) {
     const int r = idx / DHP, d = idx - r * DHP;
-    s[idx] = d < dh ? g[(size_t)r * dh + d] * mul : 0.f;
+    s[idx] = d < dh ? to_f(g[(size_t)r * dh + d]) * mul : 0.f;
   }
 }
 
-template <int DHP>
-__device__ __forceinline__ void load_row(float (&x)[DHP], const float* __restrict__ g,
+template <int DHP, typename S>
+__device__ __forceinline__ void load_row(float (&x)[DHP], const S* __restrict__ g,
                                          int dh, float mul) {
 #pragma unroll
-  for (int d = 0; d < DHP; ++d) x[d] = d < dh ? g[d] * mul : 0.f;
+  for (int d = 0; d < DHP; ++d) x[d] = d < dh ? to_f(g[d]) * mul : 0.f;
 }
 
 template <int DHP>
@@ -128,10 +154,10 @@ __device__ __forceinline__ void axpy_row(float (&acc)[DHP], float a, const float
 }
 
 // grid (batch*heads, T / block), `block` threads
-template <int DHP>
+template <typename T, int DHP>
 __global__ void __launch_bounds__(MAX_BLOCK)
-sparse_fwd(const float* __restrict__ q, const float* __restrict__ k,
-           const float* __restrict__ v, float* __restrict__ o,
+sparse_fwd(const T* __restrict__ q, const T* __restrict__ k,
+           const T* __restrict__ v, float* __restrict__ o,
            float* __restrict__ lse, int t, int dh, int block, int stride,
            float sm_scale) {
   extern __shared__ float4 smem4[];
@@ -209,6 +235,16 @@ __device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem));
 }
 
+// 4 consecutive elements at g -> 4 floats at s (16-byte aligned): an async
+// copy for fp32; for bf16 an 8-byte load, widened
+__device__ __forceinline__ void stage4(float* s, const float* g) { cp_async16(s, g); }
+__device__ __forceinline__ void stage4(float* s, const __nv_bfloat16* g) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(g);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  *reinterpret_cast<float4*>(s) = make_float4(a.x, a.y, b.x, b.y);
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -278,16 +314,16 @@ __device__ __forceinline__ void mma_3xtf32(float (&big)[M][N][4], float (&small)
     for (int n = 0; n < N; ++n) mma_tf32(big[m][n], a_hi[m], b0_hi[n], b1_hi[n]);
 }
 
-// rows x dh floats at g -> rows x (DHP + MMA_PAD) at s by 16-byte async
-// copies; the units past dh are zeros
-template <int DHP>
-__device__ __forceinline__ void stage_tile_async(float* s, const float* __restrict__ g,
+// rows x dh elements at g -> rows x (DHP + MMA_PAD) floats at s, 4 elements
+// a copy (stage4: async for fp32); the units past dh are zeros
+template <int DHP, typename S>
+__device__ __forceinline__ void stage_tile_async(float* s, const S* __restrict__ g,
                                                  int rows, int dh) {
   constexpr int UNITS = DHP / 4;
   for (int idx = threadIdx.x; idx < rows * UNITS; idx += blockDim.x) {
     const int r = idx / UNITS, c = 4 * (idx % UNITS);
     float* dst = s + r * (DHP + MMA_PAD) + c;
-    if (c < dh) cp_async16(dst, g + (size_t)r * dh + c);
+    if (c < dh) stage4(dst, g + (size_t)r * dh + c);
     else *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
   }
 }
@@ -297,10 +333,10 @@ __device__ __forceinline__ void stage_tile_async(float* s, const float* __restri
 // ceil(block / (16 * MT))) threads; dynamic shared memory 4 * block *
 // (DHP + 4) floats (two stages of a K and a V tile).  block % 16 == 0,
 // dh % 4 == 0, 8 <= dh <= DHP.
-template <int DHP, int MT>
+template <typename T, int DHP, int MT>
 __global__ void __launch_bounds__(MMA_WARPS * 32)
-sparse_fwd_mma(const float* __restrict__ q, const float* __restrict__ k,
-               const float* __restrict__ v, float* __restrict__ o,
+sparse_fwd_mma(const T* __restrict__ q, const T* __restrict__ k,
+               const T* __restrict__ v, float* __restrict__ o,
                float* __restrict__ lse, int t, int dh, int block, int stride,
                float sm_scale) {
   constexpr int KS = DHP / 8;            // k-steps of q k^T = n-tiles of p v
@@ -339,7 +375,7 @@ sparse_fwd_mma(const float* __restrict__ q, const float* __restrict__ k,
         const int col = ks * 8 + tg + (e >> 1) * 4;
         const int row = mt * 16 + g + (e & 1) * 8;
         const float x = (r0 + row < block && col < dh)
-            ? q[(row0 + row) * dh + col] * (sm_scale * LOG2E) : 0.f;
+            ? to_f(q[(row0 + row) * dh + col]) * (sm_scale * LOG2E) : 0.f;
         split_tf32(x, q_hi[ks][mt][e], q_lo[ks][mt][e]);
         acc[mt][ks][e] = 0.f;
       }
@@ -498,12 +534,12 @@ sparse_fwd_mma(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // grid (batch*heads, T / block), `block` threads
-template <int DHP>
+template <typename T, int DHP>
 __global__ void __launch_bounds__(MAX_BLOCK)
-sparse_dq(const float* __restrict__ q, const float* __restrict__ k,
-          const float* __restrict__ v, const float* __restrict__ d_out,
+sparse_dq(const T* __restrict__ q, const T* __restrict__ k,
+          const T* __restrict__ v, const float* __restrict__ d_out,
           const float* __restrict__ lse, const float* __restrict__ delta,
-          float* __restrict__ dq, int t, int dh, int block, int stride,
+          T* __restrict__ dq, int t, int dh, int block, int stride,
           float sm_scale) {
   extern __shared__ float4 smem4[];
   float* ks = reinterpret_cast<float*>(smem4);
@@ -536,20 +572,20 @@ sparse_dq(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
 
-  float* out = dq + row * dh;
+  T* out = dq + row * dh;
 #pragma unroll
   for (int d = 0; d < DHP; ++d)
-    if (d < dh) out[d] = acc[d] * sm_scale;
+    if (d < dh) out[d] = from_f<T>(acc[d] * sm_scale);
 }
 
 // grid (batch*heads, T / block) over KEY blocks, `block` threads, one key
 // row each; walks the query blocks i = j, j + stride, ... that see block j
-template <int DHP>
+template <typename T, int DHP>
 __global__ void __launch_bounds__(MAX_BLOCK)
-sparse_dkv(const float* __restrict__ q, const float* __restrict__ k,
-           const float* __restrict__ v, const float* __restrict__ d_out,
+sparse_dkv(const T* __restrict__ q, const T* __restrict__ k,
+           const T* __restrict__ v, const float* __restrict__ d_out,
            const float* __restrict__ lse, const float* __restrict__ delta,
-           float* __restrict__ dk, float* __restrict__ dv, int t, int dh,
+           T* __restrict__ dk, T* __restrict__ dv, int t, int dh,
            int block, int stride, float sm_scale) {
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);   // q rows, already scaled
@@ -588,13 +624,13 @@ sparse_dkv(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
 
-  float* dk_out = dk + row * dh;
-  float* dv_out = dv + row * dh;
+  T* dk_out = dk + row * dh;
+  T* dv_out = dv + row * dh;
 #pragma unroll
   for (int d = 0; d < DHP; ++d)
     if (d < dh) {
-      dk_out[d] = dkr[d];
-      dv_out[d] = dvr[d];
+      dk_out[d] = from_f<T>(dkr[d]);
+      dv_out[d] = from_f<T>(dvr[d]);
     }
 }
 
@@ -621,7 +657,8 @@ struct RowFrags {
 
   // rows r0 .. r0 + 16 MT of the rows x dh matrix at g (zeros past `rows`
   // and dh); IN_SMEM, the same rows staged at s instead
-  __device__ __forceinline__ void load(const float* __restrict__ g, const float* s, int r0,
+  template <typename S>
+  __device__ __forceinline__ void load(const S* __restrict__ g, const float* s, int r0,
                                        int rows, int dh, float scale) {
     staged = s;
     mul = scale;
@@ -635,7 +672,8 @@ struct RowFrags {
           for (int e = 0; e < 4; ++e) {
             const int col = ks * 8 + tg + (e >> 1) * 4;
             const int row = r0 + mt * 16 + gq + (e & 1) * 8;
-            const float x = (row < rows && col < dh) ? g[(size_t)row * dh + col] * mul : 0.f;
+            const float x = (row < rows && col < dh) ? to_f(g[(size_t)row * dh + col]) * mul
+                                                     : 0.f;
             split_tf32(x, w[ks][mt][e][0], w[ks][mt][e][1]);
           }
     }
@@ -755,8 +793,15 @@ __device__ __forceinline__ void tile_accumulate(float (&acc)[MT][DHP / 8][4],
 
 // rows x dh of a warp's accumulator (row tiles of 16 from r0, its C layout)
 // times mul, to the rows x dh matrix at g
-template <int DHP, int MT>
-__device__ __forceinline__ void store_rows(float* __restrict__ g,
+__device__ __forceinline__ void store2(float* g, float a, float b) {
+  *reinterpret_cast<float2*>(g) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* g, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(g) = __floats2bfloat162_rn(a, b);
+}
+
+template <int DHP, int MT, typename T>
+__device__ __forceinline__ void store_rows(T* __restrict__ g,
                                            const float (&acc)[MT][DHP / 8][4], int r0,
                                            int rows, int dh, float mul) {
   const int lane = threadIdx.x & 31, gq = lane >> 2, tg = lane & 3;
@@ -770,8 +815,8 @@ __device__ __forceinline__ void store_rows(float* __restrict__ g,
       for (int ks = 0; ks < DHP / 8; ++ks) {
         const int col = ks * 8 + 2 * tg;
         if (col < dh)
-          *reinterpret_cast<float2*>(g + (size_t)row * dh + col) =
-              make_float2(acc[mt][ks][2 * h] * mul, acc[mt][ks][2 * h + 1] * mul);
+          store2(g + (size_t)row * dh + col, acc[mt][ks][2 * h] * mul,
+                 acc[mt][ks][2 * h + 1] * mul);
       }
     }
 }
@@ -785,12 +830,12 @@ __device__ __forceinline__ void store_rows(float* __restrict__ g,
 // and threads as sparse_fwd_mma, heavy query blocks first; dynamic shared
 // memory that of sparse_fwd_mma, and for Dh 64 the block's q and d_out rows
 // after it (2 * 64 MT * (DHP + 4) floats).
-template <int DHP, int MT>
+template <typename T, int DHP, int MT>
 __global__ void __launch_bounds__(MMA_WARPS * 32)
-sparse_dq_mma(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, const float* __restrict__ d_out,
+sparse_dq_mma(const T* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, const float* __restrict__ d_out,
               const float* __restrict__ lse, const float* __restrict__ delta,
-              float* __restrict__ dq, int t, int dh, int block, int stride,
+              T* __restrict__ dq, int t, int dh, int block, int stride,
               float sm_scale) {
   constexpr int KS = DHP / 8, NT = MMA_KEYS / 8, LD = DHP + MMA_PAD;
   constexpr int WARP_ROWS = 16 * MT, BLOCK_ROWS = MMA_WARPS * WARP_ROWS;
@@ -906,12 +951,12 @@ sparse_dq_mma(const float* __restrict__ q, const float* __restrict__ k,
 // blocks first; dynamic shared memory two stages of 2 * block * (DHP + 4)
 // + 2 * block floats, and for Dh 64 the block's k and v rows after them (2 *
 // 64 MT * (DHP + 4) floats).
-template <int DHP, int MT>
+template <typename T, int DHP, int MT>
 __global__ void __launch_bounds__(MMA_WARPS * 32)
-sparse_dkv_mma(const float* __restrict__ q, const float* __restrict__ k,
-               const float* __restrict__ v, const float* __restrict__ d_out,
+sparse_dkv_mma(const T* __restrict__ q, const T* __restrict__ k,
+               const T* __restrict__ v, const float* __restrict__ d_out,
                const float* __restrict__ lse, const float* __restrict__ delta,
-               float* __restrict__ dk, float* __restrict__ dv, int t, int dh,
+               T* __restrict__ dk, T* __restrict__ dv, int t, int dh,
                int block, int stride, float sm_scale) {
   constexpr int KS = DHP / 8, NT = MMA_KEYS / 8, LD = DHP + MMA_PAD;
   constexpr int WARP_ROWS = 16 * MT, BLOCK_ROWS = MMA_WARPS * WARP_ROWS;
@@ -1029,14 +1074,14 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               (int)bytes);
 }
 
-template <int DHP>
-cudaError_t launch_fwd(const float* q, const float* k, const float* v, float* o,
+template <typename T, int DHP>
+cudaError_t launch_fwd(const T* q, const T* k, const T* v, float* o,
                        float* lse, int bh, int t, int dh, int block, int stride,
                        float sm_scale, cudaStream_t stream) {
   const size_t smem = 2 * (size_t)block * DHP * sizeof(float);
-  cudaError_t err = allow_smem(sparse_fwd<DHP>, smem);
+  cudaError_t err = allow_smem(sparse_fwd<T, DHP>, smem);
   if (err != cudaSuccess) return err;
-  sparse_fwd<DHP><<<dim3(bh, t / block), block, smem, stream>>>(
+  sparse_fwd<T, DHP><<<dim3(bh, t / block), block, smem, stream>>>(
       q, k, v, o, lse, t, dh, block, stride, sm_scale);
   return cudaGetLastError();
 }
@@ -1065,78 +1110,78 @@ void mma_launch_shape(int bh, int t, int block, dim3& grid, int& threads) {
   threads = 32 * (row_tiles < MMA_WARPS ? row_tiles : MMA_WARPS);
 }
 
-template <int DHP, int MT>
-cudaError_t launch_fwd_mma(const float* q, const float* k, const float* v, float* o,
+template <typename T, int DHP, int MT>
+cudaError_t launch_fwd_mma(const T* q, const T* k, const T* v, float* o,
                            float* lse, int bh, int t, int dh, int block, int stride,
                            float sm_scale, cudaStream_t stream) {
   const size_t smem = 4 * (size_t)block * (DHP + MMA_PAD) * sizeof(float);
-  cudaError_t err = allow_smem(sparse_fwd_mma<DHP, MT>, smem);
+  cudaError_t err = allow_smem(sparse_fwd_mma<T, DHP, MT>, smem);
   if (err != cudaSuccess) return err;
   dim3 grid;
   int threads;
   mma_launch_shape<MT>(bh, t, block, grid, threads);
-  sparse_fwd_mma<DHP, MT><<<grid, threads, smem, stream>>>(
+  sparse_fwd_mma<T, DHP, MT><<<grid, threads, smem, stream>>>(
       q, k, v, o, lse, t, dh, block, stride, sm_scale);
   return cudaGetLastError();
 }
 
-template <int DHP, int MT>
-cudaError_t launch_dq_mma(const float* q, const float* k, const float* v,
+template <typename T, int DHP, int MT>
+cudaError_t launch_dq_mma(const T* q, const T* k, const T* v,
                           const float* d_out, const float* lse, const float* delta,
-                          float* dq, int bh, int t, int dh, int block, int stride,
+                          T* dq, int bh, int t, int dh, int block, int stride,
                           float sm_scale, cudaStream_t stream) {
   const size_t smem = (4 * (size_t)block + (rows_in_smem(DHP) ? 2 * 64 * MT : 0))
                       * (DHP + MMA_PAD) * sizeof(float);
-  cudaError_t err = allow_smem(sparse_dq_mma<DHP, MT>, smem);
+  cudaError_t err = allow_smem(sparse_dq_mma<T, DHP, MT>, smem);
   if (err != cudaSuccess) return err;
   dim3 grid;
   int threads;
   mma_launch_shape<MT>(bh, t, block, grid, threads);
-  sparse_dq_mma<DHP, MT><<<grid, threads, smem, stream>>>(
+  sparse_dq_mma<T, DHP, MT><<<grid, threads, smem, stream>>>(
       q, k, v, d_out, lse, delta, dq, t, dh, block, stride, sm_scale);
   return cudaGetLastError();
 }
 
-template <int DHP, int MT>
-cudaError_t launch_dkv_mma(const float* q, const float* k, const float* v,
+template <typename T, int DHP, int MT>
+cudaError_t launch_dkv_mma(const T* q, const T* k, const T* v,
                            const float* d_out, const float* lse, const float* delta,
-                           float* dk, float* dv, int bh, int t, int dh, int block,
+                           T* dk, T* dv, int bh, int t, int dh, int block,
                            int stride, float sm_scale, cudaStream_t stream) {
   const size_t smem = (2 * (2 * (size_t)block * (DHP + MMA_PAD) + 2 * (size_t)block)
                        + (rows_in_smem(DHP) ? 2 * 64 * MT * (DHP + MMA_PAD) : 0))
                       * sizeof(float);
-  cudaError_t err = allow_smem(sparse_dkv_mma<DHP, MT>, smem);
+  cudaError_t err = allow_smem(sparse_dkv_mma<T, DHP, MT>, smem);
   if (err != cudaSuccess) return err;
   dim3 grid;
   int threads;
   mma_launch_shape<MT>(bh, t, block, grid, threads);
-  sparse_dkv_mma<DHP, MT><<<grid, threads, smem, stream>>>(
+  sparse_dkv_mma<T, DHP, MT><<<grid, threads, smem, stream>>>(
       q, k, v, d_out, lse, delta, dk, dv, t, dh, block, stride, sm_scale);
   return cudaGetLastError();
 }
 
-template <int DHP>
-cudaError_t launch_dq(const float* q, const float* k, const float* v,
+template <typename T, int DHP>
+cudaError_t launch_dq(const T* q, const T* k, const T* v,
                       const float* d_out, const float* lse, const float* delta,
-                      float* dq, int bh, int t, int dh, int block, int stride,
+                      T* dq, int bh, int t, int dh, int block, int stride,
                       float sm_scale, cudaStream_t stream) {
   const size_t smem = 2 * (size_t)block * DHP * sizeof(float);
-  cudaError_t err = allow_smem(sparse_dq<DHP>, smem);
+  cudaError_t err = allow_smem(sparse_dq<T, DHP>, smem);
   if (err != cudaSuccess) return err;
-  sparse_dq<DHP><<<dim3(bh, t / block), block, smem, stream>>>(
+  sparse_dq<T, DHP><<<dim3(bh, t / block), block, smem, stream>>>(
       q, k, v, d_out, lse, delta, dq, t, dh, block, stride, sm_scale);
   return cudaGetLastError();
 }
 
-template <int DHP>
-cudaError_t launch_dkv(const float* q, const float* k, const float* v,
+template <typename T, int DHP>
+cudaError_t launch_dkv(const T* q, const T* k, const T* v,
                        const float* d_out, const float* lse, const float* delta,
-                       float* dk, float* dv, int bh, int t, int dh, int block,
+                       T* dk, T* dv, int bh, int t, int dh, int block,
                        int stride, float sm_scale, cudaStream_t stream) {
   const size_t smem = (2 * (size_t)block * DHP + 2 * (size_t)block) * sizeof(float);
-  cudaError_t err = allow_smem(sparse_dkv<DHP>, smem);
+  cudaError_t err = allow_smem(sparse_dkv<T, DHP>, smem);
   if (err != cudaSuccess) return err;
-  sparse_dkv<DHP><<<dim3(bh, t / block), block, smem, stream>>>(
+  sparse_dkv<T, DHP><<<dim3(bh, t / block), block, smem, stream>>>(
       q, k, v, d_out, lse, delta, dk, dv, t, dh, block, stride, sm_scale);
   return cudaGetLastError();
 }
@@ -1153,6 +1198,73 @@ cudaError_t launch_dkv(const float* q, const float* k, const float* v,
   ((dh) <= 8 ? LAUNCH(8, 1) : (dh) <= 16 ? LAUNCH(16, 1) \
    : (dh) <= 32 ? LAUNCH(32, 1) : LAUNCH(64, 1))
 
+// The three launchers, each on q, k, v of element type T: the tensor-core
+// kernel where it takes the shape (*variant 0), else the FMA kernel (1).
+template <typename T>
+cudaError_t forward(const T* q, const T* k, const T* v, float* o, float* lse, int bh,
+                    int t, int dh, int block, int stride, float sm_scale,
+                    cudaStream_t stream, int* variant) {
+  if (mma_takes(address_bits(q, k, v, o), t, dh, block)) {
+    *variant = 0;
+    // two row tiles a warp halve the splits and shared-memory reads per MMA;
+    // one where the registers (Dh 64) or the rows (block 16) do not allow two
+#define LAUNCH(DHP, MT) \
+  launch_fwd_mma<T, DHP, MT>(q, k, v, o, lse, bh, t, dh, block, stride, sm_scale, stream)
+    if (dh > 32) return LAUNCH(64, 1);
+    if (block < 32) return dh <= 8 ? LAUNCH(8, 1) : dh <= 16 ? LAUNCH(16, 1) : LAUNCH(32, 1);
+    return dh <= 8 ? LAUNCH(8, 2) : dh <= 16 ? LAUNCH(16, 2) : LAUNCH(32, 2);
+#undef LAUNCH
+  }
+  *variant = 1;
+#define LAUNCH(DHP) \
+  launch_fwd<T, DHP>(q, k, v, o, lse, bh, t, dh, block, stride, sm_scale, stream)
+  return FOR_HEAD_DIM(dh, LAUNCH);
+#undef LAUNCH
+}
+
+template <typename T>
+cudaError_t dq_launch(const T* q, const T* k, const T* v, const float* d_out,
+                      const float* lse, const float* delta, T* dq, int bh, int t, int dh,
+                      int block, int stride, float sm_scale, cudaStream_t stream,
+                      int* variant) {
+  if (mma_takes(address_bits(q, k, v, d_out, lse, delta, dq), t, dh, block)) {
+    *variant = 0;
+#define LAUNCH(DHP, MT)                                                                \
+  launch_dq_mma<T, DHP, MT>(q, k, v, d_out, lse, delta, dq, bh, t, dh, block, stride, \
+                            sm_scale, stream)
+    return FOR_MMA_HEAD_DIM(dh, LAUNCH);
+#undef LAUNCH
+  }
+  *variant = 1;
+#define LAUNCH(DHP) \
+  launch_dq<T, DHP>(q, k, v, d_out, lse, delta, dq, bh, t, dh, block, stride, sm_scale, stream)
+  return FOR_HEAD_DIM(dh, LAUNCH);
+#undef LAUNCH
+}
+
+template <typename T>
+cudaError_t dkv_launch(const T* q, const T* k, const T* v, const float* d_out,
+                       const float* lse, const float* delta, T* dk, T* dv, int bh, int t,
+                       int dh, int block, int stride, float sm_scale, cudaStream_t stream,
+                       int* variant) {
+  if (mma_takes(address_bits(q, k, v, d_out, lse, delta, dk, dv), t, dh, block)) {
+    *variant = 0;
+#define LAUNCH(DHP, MT)                                                                   \
+  launch_dkv_mma<T, DHP, MT>(q, k, v, d_out, lse, delta, dk, dv, bh, t, dh, block, stride, \
+                             sm_scale, stream)
+    return FOR_MMA_HEAD_DIM(dh, LAUNCH);
+#undef LAUNCH
+  }
+  *variant = 1;
+#define LAUNCH(DHP)                                                                  \
+  launch_dkv<T, DHP>(q, k, v, d_out, lse, delta, dk, dv, bh, t, dh, block, stride,   \
+                     sm_scale, stream)
+  return FOR_HEAD_DIM(dh, LAUNCH);
+#undef LAUNCH
+}
+
+using bf16 = __nv_bfloat16;
+
 }  // namespace
 
 extern "C" {
@@ -1163,10 +1275,10 @@ extern "C" {
 int sparse_attention_forward_fma(const void* q, const void* k, const void* v, void* o,
                                  void* lse, int bh, int t, int dh, int block,
                                  int stride, float sm_scale, void* stream) {
-#define LAUNCH(DHP)                                                          \
-  launch_fwd<DHP>((const float*)q, (const float*)k, (const float*)v, (float*)o, \
-                  (float*)lse, bh, t, dh, block, stride, sm_scale,           \
-                  (cudaStream_t)stream)
+#define LAUNCH(DHP)                                                                 \
+  launch_fwd<float, DHP>((const float*)q, (const float*)k, (const float*)v, (float*)o, \
+                         (float*)lse, bh, t, dh, block, stride, sm_scale,           \
+                         (cudaStream_t)stream)
   return (int)FOR_HEAD_DIM(dh, LAUNCH);
 #undef LAUNCH
 }
@@ -1178,11 +1290,11 @@ int sparse_attention_dq_fma(const void* q, const void* k, const void* v,
                             const void* d_out, const void* lse, const void* delta,
                             void* dq, int bh, int t, int dh, int block, int stride,
                             float sm_scale, void* stream) {
-#define LAUNCH(DHP)                                                          \
-  launch_dq<DHP>((const float*)q, (const float*)k, (const float*)v,          \
-                 (const float*)d_out, (const float*)lse, (const float*)delta, \
-                 (float*)dq, bh, t, dh, block, stride, sm_scale,             \
-                 (cudaStream_t)stream)
+#define LAUNCH(DHP)                                                                 \
+  launch_dq<float, DHP>((const float*)q, (const float*)k, (const float*)v,          \
+                        (const float*)d_out, (const float*)lse, (const float*)delta, \
+                        (float*)dq, bh, t, dh, block, stride, sm_scale,             \
+                        (cudaStream_t)stream)
   return (int)FOR_HEAD_DIM(dh, LAUNCH);
 #undef LAUNCH
 }
@@ -1191,81 +1303,55 @@ int sparse_attention_dkv_fma(const void* q, const void* k, const void* v,
                              const void* d_out, const void* lse, const void* delta,
                              void* dk, void* dv, int bh, int t, int dh, int block,
                              int stride, float sm_scale, void* stream) {
-#define LAUNCH(DHP)                                                          \
-  launch_dkv<DHP>((const float*)q, (const float*)k, (const float*)v,         \
-                  (const float*)d_out, (const float*)lse, (const float*)delta, \
-                  (float*)dk, (float*)dv, bh, t, dh, block, stride, sm_scale, \
-                  (cudaStream_t)stream)
+#define LAUNCH(DHP)                                                                 \
+  launch_dkv<float, DHP>((const float*)q, (const float*)k, (const float*)v,         \
+                         (const float*)d_out, (const float*)lse, (const float*)delta, \
+                         (float*)dk, (float*)dv, bh, t, dh, block, stride, sm_scale, \
+                         (cudaStream_t)stream)
   return (int)FOR_HEAD_DIM(dh, LAUNCH);
 #undef LAUNCH
 }
 
-// All tensors contiguous fp32 on the device: q, k, v, o, d_out, dq, dk, dv
-// (bh, t, dh); lse, delta (bh, t).  1 <= dh <= 64, 1 <= block <= 128,
-// t % block == 0, t / block <= 65535, stride >= 1.  Each launches on
+// q, k, v, dq, dk, dv: (bh, t, dh) contiguous fp32 (sparse_attention_forward,
+// _dq, _dkv) or bf16 (the _bf16 instances) on the device; o, d_out (bh, t,
+// dh) and lse, delta (bh, t) contiguous fp32.  1 <= dh <= 64, 1 <= block <=
+// 128, t % block == 0, t / block <= 65535, stride >= 1.  Each launches on
 // `stream` and returns the cudaError_t of the launch.  Each picks its kernel
 // by shape and writes which to *variant: 0 the tensor-core kernel
-// (sparse_fwd_mma, sparse_dq_mma, sparse_dkv_mma), 1 the fp32 FMA kernel
+// (sparse_fwd_mma, sparse_dq_mma, sparse_dkv_mma), 1 the FMA kernel
 // (sparse_fwd, sparse_dq, sparse_dkv).
-int sparse_attention_forward(const void* q, const void* k, const void* v, void* o,
-                             void* lse, int bh, int t, int dh, int block,
-                             int stride, float sm_scale, void* stream, int* variant) {
-  if (mma_takes(address_bits(q, k, v, o), t, dh, block)) {
-    *variant = 0;
-    // two row tiles a warp halve the splits and shared-memory reads per MMA;
-    // one where the registers (Dh 64) or the rows (block 16) do not allow two
-#define LAUNCH(DHP, MT)                                                      \
-  launch_fwd_mma<DHP, MT>((const float*)q, (const float*)k, (const float*)v, \
-                          (float*)o, (float*)lse, bh, t, dh, block, stride,  \
-                          sm_scale, (cudaStream_t)stream)
-    if (dh > 32) return (int)LAUNCH(64, 1);
-    if (block < 32)
-      return (int)(dh <= 8 ? LAUNCH(8, 1) : dh <= 16 ? LAUNCH(16, 1) : LAUNCH(32, 1));
-    return (int)(dh <= 8 ? LAUNCH(8, 2) : dh <= 16 ? LAUNCH(16, 2) : LAUNCH(32, 2));
-#undef LAUNCH
+#define EXPORT(SUFFIX, T)                                                                \
+  int sparse_attention_forward##SUFFIX(const void* q, const void* k, const void* v,     \
+                                       void* o, void* lse, int bh, int t, int dh,       \
+                                       int block, int stride, float sm_scale,           \
+                                       void* stream, int* variant) {                    \
+    return (int)forward((const T*)q, (const T*)k, (const T*)v, (float*)o, (float*)lse, \
+                        bh, t, dh, block, stride, sm_scale, (cudaStream_t)stream,       \
+                        variant);                                                       \
+  }                                                                                     \
+  int sparse_attention_dq##SUFFIX(const void* q, const void* k, const void* v,          \
+                                  const void* d_out, const void* lse, const void* delta, \
+                                  void* dq, int bh, int t, int dh, int block,           \
+                                  int stride, float sm_scale, void* stream,             \
+                                  int* variant) {                                       \
+    return (int)dq_launch((const T*)q, (const T*)k, (const T*)v, (const float*)d_out,  \
+                          (const float*)lse, (const float*)delta, (T*)dq, bh, t, dh,   \
+                          block, stride, sm_scale, (cudaStream_t)stream, variant);     \
+  }                                                                                     \
+  int sparse_attention_dkv##SUFFIX(const void* q, const void* k, const void* v,         \
+                                   const void* d_out, const void* lse,                  \
+                                   const void* delta, void* dk, void* dv, int bh,       \
+                                   int t, int dh, int block, int stride,                \
+                                   float sm_scale, void* stream, int* variant) {        \
+    return (int)dkv_launch((const T*)q, (const T*)k, (const T*)v, (const float*)d_out, \
+                           (const float*)lse, (const float*)delta, (T*)dk, (T*)dv, bh, \
+                           t, dh, block, stride, sm_scale, (cudaStream_t)stream,       \
+                           variant);                                                    \
   }
-  *variant = 1;
-  return sparse_attention_forward_fma(q, k, v, o, lse, bh, t, dh, block, stride,
-                                      sm_scale, stream);
-}
 
-int sparse_attention_dq(const void* q, const void* k, const void* v,
-                        const void* d_out, const void* lse, const void* delta,
-                        void* dq, int bh, int t, int dh, int block, int stride,
-                        float sm_scale, void* stream, int* variant) {
-  if (mma_takes(address_bits(q, k, v, d_out, lse, delta, dq), t, dh, block)) {
-    *variant = 0;
-#define LAUNCH(DHP, MT)                                                        \
-  launch_dq_mma<DHP, MT>((const float*)q, (const float*)k, (const float*)v,    \
-                         (const float*)d_out, (const float*)lse,               \
-                         (const float*)delta, (float*)dq, bh, t, dh, block,    \
-                         stride, sm_scale, (cudaStream_t)stream)
-    return (int)FOR_MMA_HEAD_DIM(dh, LAUNCH);
-#undef LAUNCH
-  }
-  *variant = 1;
-  return sparse_attention_dq_fma(q, k, v, d_out, lse, delta, dq, bh, t, dh, block,
-                                 stride, sm_scale, stream);
-}
-
-int sparse_attention_dkv(const void* q, const void* k, const void* v,
-                         const void* d_out, const void* lse, const void* delta,
-                         void* dk, void* dv, int bh, int t, int dh, int block,
-                         int stride, float sm_scale, void* stream, int* variant) {
-  if (mma_takes(address_bits(q, k, v, d_out, lse, delta, dk, dv), t, dh, block)) {
-    *variant = 0;
-#define LAUNCH(DHP, MT)                                                         \
-  launch_dkv_mma<DHP, MT>((const float*)q, (const float*)k, (const float*)v,    \
-                          (const float*)d_out, (const float*)lse,               \
-                          (const float*)delta, (float*)dk, (float*)dv, bh, t,   \
-                          dh, block, stride, sm_scale, (cudaStream_t)stream)
-    return (int)FOR_MMA_HEAD_DIM(dh, LAUNCH);
-#undef LAUNCH
-  }
-  *variant = 1;
-  return sparse_attention_dkv_fma(q, k, v, d_out, lse, delta, dk, dv, bh, t, dh, block,
-                                  stride, sm_scale, stream);
-}
+EXPORT(, float)
+EXPORT(_bf16, bf16)
+#undef EXPORT
 
 const char* error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 

@@ -57,7 +57,9 @@ class MultimodalVAEInfer:
         self.config.mPath = self.run_dir
         self.datamod = DataModule(self.config)
         self.datamod.setup()
-        self.model = build_model_from_config(self.config, self.device)
+        # eval and serving run fp32 whatever precision trained the run, as
+        # the reference's do: a bf16 run's fp32 parameters restore as they are
+        self.model = build_model_from_config(self.config, self.device, dtype=torch.float32)
         # generation draws one sample: a K > 1 training objective would only
         # multiply every decode.  K shapes no weight.
         self.model.K = 1
@@ -71,14 +73,21 @@ class MultimodalVAEInfer:
     @classmethod
     def from_trainer(cls, trainer) -> "MultimodalVAEInfer":
         """The same APIs over a live Trainer's config, data, model and run
-        directory; no checkpoint is read.  The model is the trainer's own:
-        a caller that changes its ``K`` or mode restores them."""
+        directory; no checkpoint is read.  The model is the trainer's own (a
+        caller that changes its ``K`` or mode restores them); under a compute
+        dtype other than fp32 it is an fp32 model holding the trainer's
+        weights, its ``K`` and mode, since eval runs fp32."""
         self = cls.__new__(cls)
         self.device = trainer.device
         self.run_dir = trainer.cfg.mPath
         self.config = trainer.cfg
         self.datamod = trainer.datamodule
         self.model = trainer.model
+        if self.model.dtype != torch.float32:
+            fp32 = build_model_from_config(trainer.cfg, trainer.device, dtype=torch.float32)
+            fp32.load_state_dict(self.model.state_dict())
+            fp32.K = self.model.K
+            self.model = fp32.train(self.model.training)
         self.ckpt_path = None
         self._expost_cache = None
         self._fitted_cache = None

@@ -23,7 +23,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--cfg", type=str, required=True, help="path to the YAML config")
     parser.add_argument("--precision", type=str, default=None,
                         choices=["64", "32", "16", "bf16"],
-                        help="numeric precision (bf16 is not ported yet)")
+                        help="compute precision: bf16 runs the nets in bf16 (parameters, "
+                             "optimizer and eval stay fp32); 64, 32 and 16 run fp32")
     parser.add_argument("--epochs", type=int, default=None)
     parser.add_argument("--batch_size", type=int, default=None)
     parser.add_argument("--lr", type=float, default=None)

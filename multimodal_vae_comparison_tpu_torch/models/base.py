@@ -24,6 +24,7 @@ from multimodal_vae_comparison_tpu_torch.models.distributions import (
     MixtureNormal, Normal, get_dist, kl_divergence)
 from multimodal_vae_comparison_tpu_torch.models.encoders import get_encoder
 from multimodal_vae_comparison_tpu_torch.models.output import VAEOutput
+from multimodal_vae_comparison_tpu_torch.models.precision import Linear, set_compute_dtype
 from multimodal_vae_comparison_tpu_torch.ops.kernels.kl_kernel import (
     kl_normal_std_fused, kl_normal_std_multi)
 
@@ -78,12 +79,15 @@ def build_specs(cfg) -> Tuple[ModalitySpec, ...]:
 
 class _EndpointHead(nn.Module):
     """Dense 128, relu, Dense 3: the joint latents -> the predicted 3-D
-    endpoint of the action trajectory (auxiliary latent supervision)."""
+    endpoint of the action trajectory (auxiliary latent supervision).  The
+    last Dense computes in fp32 under any compute dtype, as the reference
+    builds it."""
 
     def __init__(self, n_latents: int, hidden: int = 128):
         super().__init__()
-        self.Dense_0 = nn.Linear(n_latents, hidden)
-        self.Dense_1 = nn.Linear(hidden, 3)
+        self.Dense_0 = Linear(n_latents, hidden)
+        self.Dense_1 = Linear(hidden, 3)
+        self.Dense_1.fp32_only = True
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
         return self.Dense_1(F.relu(self.Dense_0(z)))
@@ -115,6 +119,11 @@ class MMVAE(nn.Module):
     reads it), where there is an action-waypoint modality to supervise it.
     A modality with ``cond_on`` gets a decoder built for the conditioning
     modality's token width (``cond_features``).
+
+    ``dtype`` is the nets' compute dtype (``models/precision.py``): bf16
+    runs every layer in bf16 as the reference's ``dtype=bf16`` does, while
+    the parameters, the priors, the posteriors and the losses' sums stay
+    fp32.
     """
 
     def __init__(self, specs: Tuple[ModalitySpec, ...], n_latents: int,
@@ -122,7 +131,7 @@ class MMVAE(nn.Module):
                  device: Optional[Union[str, torch.device]] = None,
                  obj: str = "elbo", beta: float = 1.0,
                  prior_components: int = 1, remat: bool = False,
-                 aux_endpoint: float = 0.0):
+                 aux_endpoint: float = 0.0, dtype: torch.dtype = torch.float32):
         super().__init__()
         if prior_components < 1:
             raise ValueError(f"prior_components must be >= 1, got {prior_components}")
@@ -159,6 +168,8 @@ class MMVAE(nn.Module):
         # learnable-scale prior: mu fixed 0, scale = softmax(raw) * D, raw
         # from zeros -> N(0, 1) at init
         self.pz_logvar = nn.Parameter(torch.zeros(1, n_latents))
+        self.dtype = dtype
+        set_compute_dtype(self, dtype)
         self.to(device)
 
     # -- spec helpers --------------------------------------------------------

@@ -2,8 +2,12 @@
 
 Decoders take ``(z, mask)`` with z of shape (B, total_latents) and return
 ``(mean, scale)`` (decoders that end in ``squash_dist`` also the clipped
-logits), with ``scale`` the fixed likelihood scale ``DEC_SCALE``.  Images
-come out NHWC and videos (B, T, H, W, C).
+logits), with ``scale`` the fixed likelihood scale ``DEC_SCALE``, an fp32 scalar.
+Images come out NHWC and videos (B, T, H, W, C).  The nets compute in the
+model's compute dtype (``models/precision.py``); as in the reference the
+squashed image decoders give their mean and clipped logits in it, and the
+sequence, text-deconv, image-sequence and video decoders widen their output
+to fp32 first.
 """
 from __future__ import annotations
 
@@ -16,6 +20,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from multimodal_vae_comparison_tpu_torch.constants import DEC_SCALE, ETA
+from multimodal_vae_comparison_tpu_torch.models.precision import (
+    ConvTranspose1d, ConvTranspose2d, Conv2d, LayerNorm, Linear, widen)
 from multimodal_vae_comparison_tpu_torch.models.nets import (
     LN_EPS, AttentionResidualBlock, ConvTranspose2dTorch, GroupNorm,
     MultiHeadAttention, ResUp, SamePadConvTranspose3d, SparseAttentionResidualBlock,
@@ -28,6 +34,8 @@ _LOGIT_BOUND = float(np.log((1.0 - ETA) / ETA))
 
 class VaeDecoder(nn.Module):
     """Base decoder: holds dims."""
+
+    compute_dtype = None
 
     def __init__(self, latent_dim: int, data_dim: Sequence[int],
                  latent_private: Optional[int] = None):
@@ -62,9 +70,9 @@ class Dec_CNN(VaeDecoder):
         out_ch = int(self.data_dim[-1]) if len(self.data_dim) >= 3 else 3
         self.n_up = max(int(round(np.log2(out_hw / 4))), 1)  # 4x4 seed -> out_hw
         self.hid_channels = hid_channels
-        self.Dense_0 = nn.Linear(self.out_dim, hidden_dim)
-        self.Dense_1 = nn.Linear(hidden_dim, hidden_dim)
-        self.Dense_2 = nn.Linear(hidden_dim, hid_channels * 16)
+        self.Dense_0 = Linear(self.out_dim, hidden_dim)
+        self.Dense_1 = Linear(hidden_dim, hidden_dim)
+        self.Dense_2 = Linear(hidden_dim, hid_channels * 16)
         for i in range(self.n_up):
             self.add_module(f"ConvTranspose2dTorch_{i}", ConvTranspose2dTorch(
                 hid_channels, out_ch if i == self.n_up - 1 else hid_channels))
@@ -88,10 +96,10 @@ def _add_time_query_layers(dec: nn.Module, d_model: int, num_layers: int,
     reference's names (cross_attn_i, ln1_i, ff1_i, ff2_i, ln2_i)."""
     for i in range(num_layers):
         dec.add_module(f"cross_attn_{i}", MultiHeadAttention(d_model, num_heads))
-        dec.add_module(f"ln1_{i}", nn.LayerNorm(d_model, eps=LN_EPS))
-        dec.add_module(f"ff1_{i}", nn.Linear(d_model, ff_size))
-        dec.add_module(f"ff2_{i}", nn.Linear(ff_size, d_model))
-        dec.add_module(f"ln2_{i}", nn.LayerNorm(d_model, eps=LN_EPS))
+        dec.add_module(f"ln1_{i}", LayerNorm(d_model, eps=LN_EPS))
+        dec.add_module(f"ff1_{i}", Linear(d_model, ff_size))
+        dec.add_module(f"ff2_{i}", Linear(ff_size, d_model))
+        dec.add_module(f"ln2_{i}", LayerNorm(d_model, eps=LN_EPS))
 
 
 def _time_query_decode(dec: nn.Module, z: torch.Tensor, seq_len: int,
@@ -107,7 +115,8 @@ def _time_query_decode(dec: nn.Module, z: torch.Tensor, seq_len: int,
     (B, 1, 1, Tm) ``memory_bias`` in the form the attention kernel takes."""
     b = z.shape[0]
     h = positional_encoding(seq_len, d_model, device=z.device,
-                            dtype=z.dtype)[None].expand(b, seq_len, d_model)
+                            dtype=dec.compute_dtype or z.dtype)[None].expand(
+                                b, seq_len, d_model)
     if memory is None:
         memory = z[:, None, :]
     for i in range(num_layers):
@@ -132,15 +141,15 @@ class Dec_TxtTransformer(VaeDecoder):
         # and Tk = 1
         self.d_model = math.ceil(self.out_dim / num_heads) * num_heads
         if self.d_model != self.out_dim:
-            self.Dense_0 = nn.Linear(self.out_dim, self.d_model)
+            self.Dense_0 = Linear(self.out_dim, self.d_model)
         _add_time_query_layers(self, self.d_model, num_layers, num_heads, ff_size)
-        self.finallayer = nn.Linear(self.d_model, vocab)
+        self.finallayer = Linear(self.d_model, vocab)
 
     def forward(self, z: torch.Tensor, mask: Optional[torch.Tensor] = None):
         zin = self.Dense_0(z) if self.d_model != z.shape[-1] else z
         out = _time_query_decode(self, zin, self.seq_len, self.d_model,
                                  self.num_layers)
-        out = self.finallayer(out)
+        out = widen(self.finallayer(out))
         if mask is not None:
             out = out * mask.to(out.dtype)[..., None]
         return out, self.scale_like(out)
@@ -161,16 +170,17 @@ class Dec_Transformer(VaeDecoder):
         self.num_layers = num_layers
         self.d_model = math.ceil(self.out_dim / num_heads) * num_heads
         if self.d_model != self.out_dim:
-            self.Dense_0 = nn.Linear(self.out_dim, self.d_model)
+            self.Dense_0 = Linear(self.out_dim, self.d_model)
         _add_time_query_layers(self, self.d_model, num_layers, num_heads, ff_size)
-        self.finallayer = nn.Linear(self.d_model, self.njoints * self.nfeats)
+        self.finallayer = Linear(self.d_model, self.njoints * self.nfeats)
 
     def forward(self, z: torch.Tensor, mask: Optional[torch.Tensor] = None):
         b = z.shape[0]
         zin = self.Dense_0(z) if self.d_model != z.shape[-1] else z
         out = _time_query_decode(self, zin, self.seq_len, self.d_model,
                                  self.num_layers)
-        out = self.finallayer(out).reshape(b, self.seq_len, self.njoints, self.nfeats)
+        out = widen(self.finallayer(out)).reshape(b, self.seq_len, self.njoints,
+                                                  self.nfeats)
         if len(self.data_dim) <= 2:
             out = out.squeeze(-1)
         if mask is not None:
@@ -195,11 +205,11 @@ class Dec_TransformerCond(VaeDecoder):
         self.seq_len, self.njoints = int(self.data_dim[0]), int(self.data_dim[1])
         self.nfeats = int(self.data_dim[2]) if len(self.data_dim) > 2 else 1
         self.num_layers, self.d_model = num_layers, d_model
-        self.z_proj = nn.Linear(self.out_dim, d_model)
+        self.z_proj = Linear(self.out_dim, d_model)
         if cond_features is not None:
-            self.cond_embed = nn.Linear(cond_features, d_model)
+            self.cond_embed = Linear(cond_features, d_model)
         _add_time_query_layers(self, d_model, num_layers, num_heads, ff_size)
-        self.finallayer = nn.Linear(d_model, self.njoints * self.nfeats)
+        self.finallayer = Linear(d_model, self.njoints * self.nfeats)
 
     def forward(self, z: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 cond: Optional[torch.Tensor] = None,
@@ -217,7 +227,8 @@ class Dec_TransformerCond(VaeDecoder):
                                   cond_mask.to(torch.bool)], dim=1)
         out = _time_query_decode(self, z_tok[:, 0], self.seq_len, self.d_model,
                                  self.num_layers, memory=memory, memory_mask=keep)
-        out = self.finallayer(out).reshape(b, self.seq_len, self.njoints, self.nfeats)
+        out = widen(self.finallayer(out)).reshape(b, self.seq_len, self.njoints,
+                                                  self.nfeats)
         if len(self.data_dim) <= 2:
             out = out.squeeze(-1)
         if mask is not None:
@@ -232,9 +243,9 @@ class Dec_MNIST(VaeDecoder):
     def __init__(self, latent_dim, data_dim, latent_private=None,
                  hidden_dim: int = 400):
         super().__init__(latent_dim, data_dim, latent_private)
-        self.Dense_0 = nn.Linear(self.out_dim, hidden_dim)
-        self.Dense_1 = nn.Linear(hidden_dim, hidden_dim)
-        self.Dense_2 = nn.Linear(hidden_dim, math.prod(self.data_dim))
+        self.Dense_0 = Linear(self.out_dim, hidden_dim)
+        self.Dense_1 = Linear(hidden_dim, hidden_dim)
+        self.Dense_2 = Linear(hidden_dim, math.prod(self.data_dim))
 
     def forward(self, z: torch.Tensor, mask=None):
         h = F.relu(self.Dense_1(F.relu(self.Dense_0(z))))
@@ -248,8 +259,8 @@ class Dec_MNIST2(VaeDecoder):
     def __init__(self, latent_dim, data_dim, latent_private=None,
                  hidden_dim: int = 400):
         super().__init__(latent_dim, data_dim, latent_private)
-        self.Dense_0 = nn.Linear(self.out_dim, hidden_dim)
-        self.Dense_1 = nn.Linear(hidden_dim, math.prod(self.data_dim))
+        self.Dense_0 = Linear(self.out_dim, hidden_dim)
+        self.Dense_1 = Linear(hidden_dim, math.prod(self.data_dim))
 
     def forward(self, z: torch.Tensor, mask=None):
         return self.squash_dist(self.Dense_1(F.relu(self.Dense_0(z))), z.shape[0])
@@ -272,8 +283,8 @@ class Dec_SVHN(VaeDecoder):
 
     def __init__(self, latent_dim, data_dim, latent_private=None):
         super().__init__(latent_dim, data_dim, latent_private)
-        self.Dense_0 = nn.Linear(self.out_dim, 128)
-        self.ConvTranspose_0 = nn.ConvTranspose2d(128, 64, 4)
+        self.Dense_0 = Linear(self.out_dim, 128)
+        self.ConvTranspose_0 = ConvTranspose2d(128, 64, 4)
         for i, (c_in, c_out) in enumerate(((64, 64), (64, 32), (32, 3))):
             self.add_module(f"ConvTranspose2dTorch_{i}", ConvTranspose2dTorch(c_in, c_out))
 
@@ -291,7 +302,7 @@ class Dec_SVHN2(VaeDecoder):
 
     def __init__(self, latent_dim, data_dim, latent_private=None, fBase: int = 32):
         super().__init__(latent_dim, data_dim, latent_private)
-        self.ConvTranspose_0 = nn.ConvTranspose2d(self.out_dim, fBase * 4, 4)
+        self.ConvTranspose_0 = ConvTranspose2d(self.out_dim, fBase * 4, 4)
         for i, (c_in, c_out) in enumerate(((fBase * 4, fBase * 2), (fBase * 2, fBase),
                                            (fBase, 3))):
             self.add_module(f"ConvTranspose2dTorch_{i}", ConvTranspose2dTorch(c_in, c_out))
@@ -313,9 +324,9 @@ class Dec_PolyMNIST(VaeDecoder):
 
     def __init__(self, latent_dim, data_dim, latent_private=None):
         super().__init__(latent_dim, data_dim, latent_private)
-        self.Dense_0 = nn.Linear(self.out_dim, 2048)
+        self.Dense_0 = Linear(self.out_dim, 2048)
         for i, (c_in, c_out) in enumerate(((128, 64), (64, 32), (32, 3))):
-            self.add_module(f"ConvTranspose_{i}", nn.ConvTranspose2d(c_in, c_out, 3, stride=2))
+            self.add_module(f"ConvTranspose_{i}", ConvTranspose2d(c_in, c_out, 3, stride=2))
         self.crop = transpose_crops(3, 2)
 
     def forward(self, z: torch.Tensor, mask=None):
@@ -341,12 +352,12 @@ class Dec_RESCNN(VaeDecoder):
     def __init__(self, latent_dim, data_dim, latent_private=None, ch: int = 64):
         super().__init__(latent_dim, data_dim, latent_private)
         self.ch = ch
-        self.Dense_0 = nn.Linear(self.out_dim, 16 * ch * 16)
+        self.Dense_0 = Linear(self.out_dim, 16 * ch * 16)
         c = 16 * ch
         for i, mult in enumerate((8, 4, 2, 1)):
             self.add_module(f"ResUp_{i}", ResUp(c, ch * mult))
             c = ch * mult
-        self.Conv_0 = nn.Conv2d(ch, 3, 3, padding=1)
+        self.Conv_0 = Conv2d(ch, 3, 3, padding=1)
 
     def forward(self, z: torch.Tensor, mask=None):
         b = z.shape[0]
@@ -367,14 +378,14 @@ class Dec_ConvTxt(VaeDecoder):
         super().__init__(latent_dim, data_dim, latent_private)
         self.seq_len, self.vocab = int(self.data_dim[0]), int(self.data_dim[1])
         self.start, self.width = max(self.seq_len // 8, 1), fBase * 3
-        self.Dense_0 = nn.Linear(self.out_dim, self.start * self.width)
+        self.Dense_0 = Linear(self.out_dim, self.start * self.width)
         c = self.width
         for i, feat in enumerate((fBase * 3, fBase * 2, fBase)):
-            self.add_module(f"ConvTranspose_{i}", nn.ConvTranspose1d(c, feat, 3, stride=2))
+            self.add_module(f"ConvTranspose_{i}", ConvTranspose1d(c, feat, 3, stride=2))
             self.add_module(f"GroupNorm_{i}", group_norm(feat))
             c = feat
         self.crop = transpose_crops(3, 2)
-        self.toVocabSize = nn.Linear(self.start * 8 * fBase, self.seq_len * self.vocab)
+        self.toVocabSize = Linear(self.start * 8 * fBase, self.seq_len * self.vocab)
 
     def forward(self, z: torch.Tensor, mask=None):
         b = z.shape[0]
@@ -384,7 +395,7 @@ class Dec_ConvTxt(VaeDecoder):
             h = getattr(self, f"ConvTranspose_{i}")(h)
             h = F.relu(getattr(self, f"GroupNorm_{i}")(h[:, :, lo:h.shape[2] - hi]))
         out = self.toVocabSize(h.transpose(1, 2).reshape(b, -1))
-        mean = torch.sigmoid(out).reshape(b, self.seq_len, self.vocab)
+        mean = torch.sigmoid(widen(out)).reshape(b, self.seq_len, self.vocab)
         return mean, self.scale_like(mean)
 
 
@@ -401,9 +412,9 @@ class Dec_TransformerIMG(VaeDecoder):
         super().__init__(latent_dim, data_dim, latent_private)
         self.seq_len, self.num_layers = int(self.data_dim[0]), num_layers
         self.d_model, self.hid_channels = d_model, hid_channels
-        self.Dense_0 = nn.Linear(self.out_dim, d_model)
+        self.Dense_0 = Linear(self.out_dim, d_model)
         _add_time_query_layers(self, d_model, num_layers, num_heads, ff_size)
-        self.Dense_1 = nn.Linear(d_model, hid_channels * 16)
+        self.Dense_1 = Linear(d_model, hid_channels * 16)
         for i in range(4):
             self.add_module(f"ConvTranspose2dTorch_{i}", ConvTranspose2dTorch(
                 hid_channels, 3 if i == 3 else hid_channels))
@@ -417,7 +428,7 @@ class Dec_TransformerIMG(VaeDecoder):
             h = getattr(self, f"ConvTranspose2dTorch_{i}")(h)
             if i < 3:
                 h = F.silu(h)
-        mean = torch.sigmoid(h).reshape(b, self.seq_len, *self.data_dim[1:])
+        mean = torch.sigmoid(widen(h)).reshape(b, self.seq_len, *self.data_dim[1:])
         return mean, self.scale_like(mean)
 
 
@@ -427,8 +438,8 @@ class Dec_FNN(VaeDecoder):
     def __init__(self, latent_dim, data_dim, latent_private=None,
                  hidden_dim: int = 128):
         super().__init__(latent_dim, data_dim, latent_private)
-        self.Dense_0 = nn.Linear(self.out_dim, hidden_dim)
-        self.Dense_1 = nn.Linear(hidden_dim, math.prod(self.data_dim))
+        self.Dense_0 = Linear(self.out_dim, hidden_dim)
+        self.Dense_1 = Linear(hidden_dim, math.prod(self.data_dim))
 
     def forward(self, z: torch.Tensor, mask=None):
         return self.squash_dist(self.Dense_1(F.relu(self.Dense_0(z))), z.shape[0])
@@ -449,7 +460,7 @@ class Dec_VideoGPT(VaeDecoder):
         self.n_res_layers, self.hidden = n_res_layers, hidden
         self.frames = int(self.data_dim[0])
         self.base = int(self.data_dim[1]) // int(upsample[1])
-        self.upsample_lin = nn.Linear(
+        self.upsample_lin = Linear(
             self.out_dim, hidden * self.frames * self.base * self.base)
         block_cls = (SparseAttentionResidualBlock if self.attn_type == "sparse"
                      else AttentionResidualBlock)
@@ -473,7 +484,7 @@ class Dec_VideoGPT(VaeDecoder):
             h = getattr(self, f"SamePadConvTranspose3d_{i}")(h)
             if i < self.n_up - 1:
                 h = F.relu(h)
-        mean = torch.sigmoid(h)
+        mean = torch.sigmoid(widen(h))
         return mean, self.scale_like(mean)
 
 

@@ -1,8 +1,9 @@
 """Encoders of the ported models (counterpart of ``models/encoders.py``).
 
 Encoders take ``(data, mask)`` and return ``(mu, scale)`` of shape
-(B, out_dim), with ``scale = softmax(raw) + ETA``, in the dtype of the
-module's parameters (fp32 unless the caller converts the model).  Images
+(B, out_dim), with ``scale = softmax(raw) + ETA``.  The nets compute in the
+model's compute dtype (``models/precision.py``); the posterior leaves every
+encoder in fp32 (fp64 under ``model.double()``), as the reference's does.  Images
 are NHWC and videos (B, T, H, W, C), as in the reference.  PyTorch needs every layer's input width at
 construction, so each encoder derives it from ``data_dim``.
 """
@@ -16,6 +17,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from multimodal_vae_comparison_tpu_torch.constants import ETA
+from multimodal_vae_comparison_tpu_torch.models.precision import (
+    Conv1d, Conv2d, Linear, widen)
 from multimodal_vae_comparison_tpu_torch.models.nets import (
     AttentionResidualBlock, GroupNorm, ResDown, ResNet50, SamePadConv3d,
     SparseAttentionResidualBlock, TransformerEncoder, ViT, group_norm,
@@ -24,6 +27,8 @@ from multimodal_vae_comparison_tpu_torch.models.nets import (
 
 class VaeEncoder(nn.Module):
     """Base encoder: holds dims and the (mu, scale) head convention."""
+
+    compute_dtype = None
 
     def __init__(self, latent_dim: int, data_dim: Sequence[int],
                  latent_private: Optional[int] = None):
@@ -37,15 +42,15 @@ class VaeEncoder(nn.Module):
         return self.latent_dim + (self.latent_private or 0)
 
     def _add_head(self, hidden: int) -> None:
-        self.mu_layer = nn.Linear(hidden, self.out_dim)
-        self.logvar_layer = nn.Linear(hidden, self.out_dim)
+        self.mu_layer = Linear(hidden, self.out_dim)
+        self.logvar_layer = Linear(hidden, self.out_dim)
 
     def head(self, h: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """mu/scale head with the reference's softmax+eta scale activation."""
         mu = self.mu_layer(h)
         raw = self.logvar_layer(h)
-        scale = torch.softmax(raw, dim=-1) + ETA
-        return mu, scale
+        scale = torch.softmax(widen(raw), dim=-1) + ETA
+        return widen(mu), scale
 
 
 class Enc_CNN(VaeEncoder):
@@ -84,11 +89,11 @@ class Enc_CNN2(VaeEncoder):
         super().__init__(latent_dim, data_dim, latent_private)
         h, w, c = self.data_dim[0], self.data_dim[1], self.data_dim[-1]
         for i in range(4):
-            self.add_module(f"Conv_{i}", nn.Conv2d(c, hid_channels, 4,
+            self.add_module(f"Conv_{i}", Conv2d(c, hid_channels, 4,
                                                    stride=2, padding=1))
             c = hid_channels
             h, w = (h - 2) // 2 + 1, (w - 2) // 2 + 1
-        self.Dense_0 = nn.Linear(hid_channels * h * w, hidden_dim)
+        self.Dense_0 = Linear(hid_channels * h * w, hidden_dim)
         self._add_head(hidden_dim)
 
     def forward(self, data: torch.Tensor, mask=None):
@@ -128,11 +133,11 @@ class Enc_CNNCoord(VaeEncoder):
         super().__init__(latent_dim, data_dim, latent_private)
         h, w, c = self.data_dim[0], self.data_dim[1], self.data_dim[-1]
         for i in range(4):
-            self.add_module(f"Conv_{i}", nn.Conv2d(c + 2, hid_channels, 4,
+            self.add_module(f"Conv_{i}", Conv2d(c + 2, hid_channels, 4,
                                                    stride=2, padding=1))
             c = hid_channels
             h, w = (h - 2) // 2 + 1, (w - 2) // 2 + 1
-        self.Dense_0 = nn.Linear(hid_channels * h * w, hidden_dim)
+        self.Dense_0 = Linear(hid_channels * h * w, hidden_dim)
         self._add_head(hidden_dim)
 
     def forward(self, data: torch.Tensor, mask=None):
@@ -157,11 +162,11 @@ class Enc_CNNSpatial(VaeEncoder):
         super().__init__(latent_dim, data_dim, latent_private)
         c = self.data_dim[-1]
         for i in range(3):
-            self.add_module(f"Conv_{i}", nn.Conv2d(c, hid_channels, 4, stride=2, padding=1))
+            self.add_module(f"Conv_{i}", Conv2d(c, hid_channels, 4, stride=2, padding=1))
             c = hid_channels
-        self.add_module("Conv_3", nn.Conv2d(hid_channels, n_maps, 3, padding=1))
+        self.add_module("Conv_3", Conv2d(hid_channels, n_maps, 3, padding=1))
         self.ss_log_temp = nn.Parameter(torch.zeros(1))
-        self.Dense_0 = nn.Linear(3 * n_maps, hidden_dim)
+        self.Dense_0 = Linear(3 * n_maps, hidden_dim)
         self._add_head(hidden_dim)
 
     def forward(self, data: torch.Tensor, mask=None):
@@ -188,8 +193,8 @@ class Enc_MNIST(VaeEncoder):
     def __init__(self, latent_dim, data_dim, latent_private=None,
                  hidden_dim: int = 400):
         super().__init__(latent_dim, data_dim, latent_private)
-        self.Dense_0 = nn.Linear(math.prod(self.data_dim), hidden_dim)
-        self.Dense_1 = nn.Linear(hidden_dim, hidden_dim)
+        self.Dense_0 = Linear(math.prod(self.data_dim), hidden_dim)
+        self.Dense_1 = Linear(hidden_dim, hidden_dim)
         self._add_head(hidden_dim)
 
     def forward(self, data: torch.Tensor, mask=None):
@@ -198,8 +203,9 @@ class Enc_MNIST(VaeEncoder):
 
 
 def _scaled_softmax(raw: torch.Tensor) -> torch.Tensor:
-    """The MMVAE repository's scale activation, ``softmax(raw) * D + ETA``."""
-    return torch.softmax(raw, dim=-1) * raw.shape[-1] + ETA
+    """The MMVAE repository's scale activation, ``softmax(raw) * D + ETA``,
+    in fp32 or wider."""
+    return torch.softmax(widen(raw), dim=-1) * raw.shape[-1] + ETA
 
 
 class Enc_MNISTMoE(VaeEncoder):
@@ -209,20 +215,20 @@ class Enc_MNISTMoE(VaeEncoder):
     def __init__(self, latent_dim, data_dim, latent_private=None,
                  hidden_dim: int = 400):
         super().__init__(latent_dim, data_dim, latent_private)
-        self.Dense_0 = nn.Linear(math.prod(self.data_dim), hidden_dim)
-        self.Dense_1 = nn.Linear(hidden_dim, self.out_dim)
-        self.Dense_2 = nn.Linear(hidden_dim, self.out_dim)
+        self.Dense_0 = Linear(math.prod(self.data_dim), hidden_dim)
+        self.Dense_1 = Linear(hidden_dim, self.out_dim)
+        self.Dense_2 = Linear(hidden_dim, self.out_dim)
 
     def forward(self, data: torch.Tensor, mask=None):
         h = F.relu(self.Dense_0(data.reshape(data.shape[0], -1)))
-        return self.Dense_1(h), _scaled_softmax(self.Dense_2(h))
+        return widen(self.Dense_1(h)), _scaled_softmax(self.Dense_2(h))
 
 
 def _add_convs(enc: nn.Module, specs, c: int, h: int, w: int, kernel: int, stride: int):
     """Register ``Conv_i`` for each (features, padding) of ``specs`` on an
     (h, w, c) input; returns the (h, w, c) of the last one's output."""
     for i, (feat, pad) in enumerate(specs):
-        enc.add_module(f"Conv_{i}", nn.Conv2d(c, feat, kernel, stride=stride, padding=pad))
+        enc.add_module(f"Conv_{i}", Conv2d(c, feat, kernel, stride=stride, padding=pad))
         c = feat
         h, w = (h + 2 * pad - kernel) // stride + 1, (w + 2 * pad - kernel) // stride + 1
     return h, w, c
@@ -253,13 +259,13 @@ class Enc_PolyMNIST(VaeEncoder):
         super().__init__(latent_dim, data_dim, latent_private)
         h, w, c = _add_convs(self, ((32, 1), (64, 1), (128, 1)), int(self.data_dim[-1]),
                              int(self.data_dim[0]), int(self.data_dim[1]), 3, 2)
-        self.Dense_0 = nn.Linear(h * w * c, hidden_dim)
-        self.Dense_1 = nn.Linear(hidden_dim, self.out_dim)
-        self.Dense_2 = nn.Linear(hidden_dim, self.out_dim)
+        self.Dense_0 = Linear(h * w * c, hidden_dim)
+        self.Dense_1 = Linear(hidden_dim, self.out_dim)
+        self.Dense_2 = Linear(hidden_dim, self.out_dim)
 
     def forward(self, data: torch.Tensor, mask=None):
         h = F.relu(self.Dense_0(_flatten_nhwc(_relu_convs(self, data, 3))))
-        return self.Dense_1(h), _scaled_softmax(self.Dense_2(h))
+        return widen(self.Dense_1(h)), _scaled_softmax(self.Dense_2(h))
 
 
 class Enc_SVHN(VaeEncoder):
@@ -287,12 +293,12 @@ class Enc_SVHN2(VaeEncoder):
         _, _, c = _add_convs(self, ((fBase, 1), (fBase * 2, 1), (fBase * 4, 1)),
                              int(self.data_dim[-1]), int(self.data_dim[0]),
                              int(self.data_dim[1]), 4, 2)
-        self.Conv_3 = nn.Conv2d(c, self.out_dim, 4)
-        self.Conv_4 = nn.Conv2d(c, self.out_dim, 4)
+        self.Conv_3 = Conv2d(c, self.out_dim, 4)
+        self.Conv_4 = Conv2d(c, self.out_dim, 4)
 
     def forward(self, data: torch.Tensor, mask=None):
         h = _relu_convs(self, data, 3)
-        mu = _flatten_nhwc(self.Conv_3(h))
+        mu = widen(_flatten_nhwc(self.Conv_3(h)))
         return mu, _scaled_softmax(_flatten_nhwc(self.Conv_4(h)))
 
 
@@ -304,7 +310,7 @@ class Enc_RESCNN(VaeEncoder):
     def __init__(self, latent_dim, data_dim, latent_private=None, ch: int = 64):
         super().__init__(latent_dim, data_dim, latent_private)
         h, w = int(self.data_dim[0]), int(self.data_dim[1])
-        self.Conv_0 = nn.Conv2d(int(self.data_dim[-1]), ch, 7, padding=3)
+        self.Conv_0 = Conv2d(int(self.data_dim[-1]), ch, 7, padding=3)
         c = ch
         for i, mult in enumerate((2, 4, 8, 16)):
             self.add_module(f"ResDown_{i}", ResDown(c, ch * mult))
@@ -341,7 +347,7 @@ class Enc_TxtTransformer(VaeEncoder):
                  d_model: int = 64):
         super().__init__(latent_dim, data_dim, latent_private)
         self.d_model = d_model
-        self.embedding = nn.Linear(math.prod(self.data_dim[1:]), d_model)
+        self.embedding = Linear(math.prod(self.data_dim[1:]), d_model)
         self.TransformerEncoder_0 = TransformerEncoder(num_layers, d_model,
                                                        num_heads, ff_size)
         self._add_head(d_model)
@@ -362,7 +368,7 @@ class Enc_Transformer(VaeEncoder):
                  ff_size: int = 1024, num_layers: int = 8, num_heads: int = 2):
         super().__init__(latent_dim, data_dim, latent_private)
         self.d_model = max(num_heads, self.out_dim - self.out_dim % num_heads)
-        self.skel_embedding = nn.Linear(math.prod(self.data_dim[1:]), self.d_model)
+        self.skel_embedding = Linear(math.prod(self.data_dim[1:]), self.d_model)
         self.TransformerEncoder_0 = TransformerEncoder(num_layers, self.d_model,
                                                        num_heads, ff_size)
         self._add_head(self.d_model)
@@ -381,10 +387,10 @@ class Enc_ConvTxt(VaeEncoder):
     def __init__(self, latent_dim, data_dim, latent_private=None, fBase: int = 32,
                  embed_dim: int = 32):
         super().__init__(latent_dim, data_dim, latent_private)
-        self.embedding = nn.Linear(math.prod(self.data_dim[1:]), embed_dim)
+        self.embedding = Linear(math.prod(self.data_dim[1:]), embed_dim)
         c, t = embed_dim, int(self.data_dim[0])
         for i, feat in enumerate((fBase, fBase * 2, fBase * 3)):
-            self.add_module(f"Conv_{i}", nn.Conv1d(c, feat, 3, stride=2, padding=1,
+            self.add_module(f"Conv_{i}", Conv1d(c, feat, 3, stride=2, padding=1,
                                                    bias=False))
             self.add_module(f"GroupNorm_{i}", group_norm(feat))
             c, t = feat, (t - 1) // 2 + 1
@@ -414,12 +420,14 @@ class Enc_TxtRNN(VaeEncoder):
     Each GRU is PyTorch's (cuDNN's on the card) in flax's ``GRUCell`` form:
     the hidden-side reset and update gates have no bias in flax, so those
     two thirds of ``bias_hh_l0`` start at 0 and their gradient is held at
-    0."""
+    0.  The GRUs run in fp32 under any compute dtype (the reference builds
+    its cells without one: flax promotes the bf16 embedding to their fp32
+    parameters)."""
 
     def __init__(self, latent_dim, data_dim, latent_private=None, hidden_size: int = 512):
         super().__init__(latent_dim, data_dim, latent_private)
         self.hidden_size = hidden_size
-        self.embed = nn.Linear(math.prod(self.data_dim[1:]), hidden_size)
+        self.embed = Linear(math.prod(self.data_dim[1:]), hidden_size)
         for i in range(2):
             gru = nn.GRU(hidden_size, hidden_size, batch_first=True)
             with torch.no_grad():
@@ -428,11 +436,11 @@ class Enc_TxtRNN(VaeEncoder):
             keep[: 2 * hidden_size] = 0.0
             gru.bias_hh_l0.register_hook(lambda g, keep=keep: g * keep.to(g.device, g.dtype))
             self.add_module(f"GRUCell_{i}", gru)
-        self.o2p = nn.Linear(hidden_size, 2 * self.out_dim)
+        self.o2p = Linear(hidden_size, 2 * self.out_dim)
 
     def forward(self, data: torch.Tensor, mask: Optional[torch.Tensor] = None):
         b, t = data.shape[0], data.shape[1]
-        x = self.embed(data.reshape(b, t, -1))
+        x = widen(self.embed(data.reshape(b, t, -1)))
         steps = torch.arange(t, device=x.device)
         if mask is None:
             lengths = torch.full((b,), t, device=x.device)
@@ -446,7 +454,7 @@ class Enc_TxtRNN(VaeEncoder):
         fwd = self.GRUCell_0(x)[0].gather(1, last)[:, 0]
         bwd = self.GRUCell_1(x_rev)[0].gather(1, last)[:, 0]
         mu, raw = self.o2p(fwd + bwd).chunk(2, dim=-1)
-        return mu, torch.softmax(raw, dim=-1) + ETA
+        return widen(mu), torch.softmax(widen(raw), dim=-1) + ETA
 
 
 class Enc_TransformerIMG(VaeEncoder):
@@ -462,7 +470,7 @@ class Enc_TransformerIMG(VaeEncoder):
         self.d_model = d_model
         h, w, c = _add_convs(self, ((hid_channels, 1),) * 4, int(self.data_dim[-1]),
                              int(self.data_dim[1]), int(self.data_dim[2]), 4, 2)
-        self.Dense_0 = nn.Linear(h * w * c, d_model)
+        self.Dense_0 = Linear(h * w * c, d_model)
         self.TransformerEncoder_0 = TransformerEncoder(num_layers, d_model, num_heads,
                                                        ff_size)
         self._add_head(d_model)
@@ -483,7 +491,7 @@ class Enc_FNN(VaeEncoder):
     def __init__(self, latent_dim, data_dim, latent_private=None,
                  hidden_dim: int = 128):
         super().__init__(latent_dim, data_dim, latent_private)
-        self.Dense_0 = nn.Linear(math.prod(self.data_dim), hidden_dim)
+        self.Dense_0 = Linear(math.prod(self.data_dim), hidden_dim)
         self._add_head(hidden_dim)
 
     def forward(self, data: torch.Tensor, mask=None):

@@ -13,6 +13,9 @@ flax parameter path onto a module path one to one.
 Numerics that differ from PyTorch's defaults and follow flax: LayerNorm and
 GroupNorm eps is 1e-6 (FrozenBatchNorm's 1e-5), GELU is the tanh
 approximation, and ``SAME`` padding of an even kernel is asymmetric.
+Every layer takes the compute dtype of ``models/precision.py`` (bf16 under
+``precision: bf16``, parameters fp32); the attention modules cast their
+kernel's fp32 output to it, as the reference's do.
 Public functions keep the reference's layouts: NHWC images, (B, T, H, W, C)
 video volumes and (B, H, T, Dh) attention; modules permute to
 channels-first views around PyTorch's convs (``ResDown`` and ``ResUp``, the
@@ -28,6 +31,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from multimodal_vae_comparison_tpu_torch.models import precision
+from multimodal_vae_comparison_tpu_torch.models.precision import (
+    Conv2d, Conv3d, ConvTranspose2d, ConvTranspose3d, LayerNorm, Linear, to_compute)
 from multimodal_vae_comparison_tpu_torch.ops.kernels.attention import masked_attention
 from multimodal_vae_comparison_tpu_torch.ops.kernels.sparse_attention import (
     strided_block_sparse_attention)
@@ -67,10 +73,10 @@ class MultiHeadAttention(nn.Module):
                              f"num_heads {num_heads}")
         kv_features = kv_features or d_model
         self.num_heads = num_heads
-        self.query = nn.Linear(d_model, d_model)
-        self.key = nn.Linear(kv_features, d_model)
-        self.value = nn.Linear(kv_features, d_model)
-        self.out = nn.Linear(d_model, d_model)
+        self.query = Linear(d_model, d_model)
+        self.key = Linear(kv_features, d_model)
+        self.value = Linear(kv_features, d_model)
+        self.out = Linear(d_model, d_model)
 
     def _heads(self, x: torch.Tensor) -> torch.Tensor:
         b, t, d = x.shape
@@ -86,7 +92,7 @@ class MultiHeadAttention(nn.Module):
         v = self._heads(self.value(kv_in))
         if key_mask is not None:
             key_mask = key_mask.to(torch.bool).contiguous()
-        out = masked_attention(q, k, v, key_mask)
+        out = to_compute(self, masked_attention(q, k, v, key_mask))
         return self.out(out.transpose(1, 2).reshape(b, tq, d_model))
 
 
@@ -96,10 +102,10 @@ class TransformerEncoderLayer(nn.Module):
     def __init__(self, d_model: int, num_heads: int, ff_size: int):
         super().__init__()
         self.MultiHeadAttention_0 = MultiHeadAttention(d_model, num_heads)
-        self.LayerNorm_0 = nn.LayerNorm(d_model, eps=LN_EPS)
-        self.Dense_0 = nn.Linear(d_model, ff_size)
-        self.Dense_1 = nn.Linear(ff_size, d_model)
-        self.LayerNorm_1 = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.LayerNorm_0 = LayerNorm(d_model, eps=LN_EPS)
+        self.Dense_0 = Linear(d_model, ff_size)
+        self.Dense_1 = Linear(ff_size, d_model)
+        self.LayerNorm_1 = LayerNorm(d_model, eps=LN_EPS)
 
     def forward(self, x, key_mask=None):
         x = self.LayerNorm_0(x + self.MultiHeadAttention_0(x, x, key_mask))
@@ -130,7 +136,7 @@ class ConvTranspose2dTorch(nn.Module):
 
     def __init__(self, in_features: int, features: int):
         super().__init__()
-        self.ConvTranspose_0 = nn.ConvTranspose2d(in_features, features, 4,
+        self.ConvTranspose_0 = ConvTranspose2d(in_features, features, 4,
                                                   stride=2, padding=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -142,10 +148,10 @@ class ConvTranspose2dTorch(nn.Module):
 def group_norm(channels: int) -> nn.GroupNorm:
     """The reference's ``group_norm`` on channels-first input: gcd(8, C)
     groups and flax's eps."""
-    return nn.GroupNorm(math.gcd(8, channels), channels, eps=LN_EPS)
+    return precision.GroupNorm(math.gcd(8, channels), channels, eps=LN_EPS)
 
 
-class GroupNorm(nn.GroupNorm):
+class GroupNorm(precision.GroupNorm):
     """The reference's ``group_norm`` on channels-last input: gcd(8, C)
     groups and flax's eps."""
 
@@ -170,7 +176,7 @@ class SamePadConv3d(nn.Module):
                  strides: Sequence[int] = (1, 1, 1)):
         super().__init__()
         self.kernel, self.strides = kernel, tuple(strides)
-        self.Conv_0 = nn.Conv3d(in_features, features, kernel, stride=self.strides)
+        self.Conv_0 = Conv3d(in_features, features, kernel, stride=self.strides)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         pads = [_same_pads(n, self.kernel, s)
@@ -211,7 +217,7 @@ class SamePadConvTranspose3d(nn.Module):
         crops = [transpose_crops(kernel, s) for s in strides]
         padding = tuple(min(c) for c in crops)
         self.extra = tuple((lo - p, hi - p) for (lo, hi), p in zip(crops, padding))
-        self.ConvTranspose_0 = nn.ConvTranspose3d(in_features, features, kernel,
+        self.ConvTranspose_0 = ConvTranspose3d(in_features, features, kernel,
                                                   stride=tuple(strides), padding=padding)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -254,10 +260,10 @@ class StridedSparseSelfAttention(nn.Module):
             raise ValueError(f"d_model {d_model} is not a multiple of "
                              f"num_heads {num_heads}")
         self.num_heads, self.block, self.block_stride = num_heads, block, block_stride
-        self.query = nn.Linear(d_model, d_model)
-        self.key = nn.Linear(d_model, d_model)
-        self.value = nn.Linear(d_model, d_model)
-        self.out = nn.Linear(d_model, d_model)
+        self.query = Linear(d_model, d_model)
+        self.key = Linear(d_model, d_model)
+        self.value = Linear(d_model, d_model)
+        self.out = Linear(d_model, d_model)
 
     def _heads(self, x: torch.Tensor, pad: int) -> torch.Tensor:
         b, t, c = x.shape
@@ -269,8 +275,8 @@ class StridedSparseSelfAttention(nn.Module):
         pad = (-t) % self.block
         q, k, v = (self._heads(proj(x), pad)
                    for proj in (self.query, self.key, self.value))
-        out = strided_block_sparse_attention(q, k, v, block=self.block,
-                                             block_stride=self.block_stride)
+        out = to_compute(self, strided_block_sparse_attention(
+            q, k, v, block=self.block, block_stride=self.block_stride))
         return self.out(out[:, :, :t].transpose(1, 2).reshape(b, t, c))
 
 
@@ -329,10 +335,10 @@ class ResDown(nn.Module):
 
     def __init__(self, in_features: int, channels: int):
         super().__init__()
-        self.Conv_0 = nn.Conv2d(in_features, channels, 3, stride=2, padding=1)
-        self.Conv_1 = nn.Conv2d(in_features, channels // 2, 3, stride=2, padding=1)
+        self.Conv_0 = Conv2d(in_features, channels, 3, stride=2, padding=1)
+        self.Conv_1 = Conv2d(in_features, channels // 2, 3, stride=2, padding=1)
         self.GroupNorm_0 = group_norm(channels // 2)
-        self.Conv_2 = nn.Conv2d(channels // 2, channels, 3, padding=1)
+        self.Conv_2 = Conv2d(channels // 2, channels, 3, padding=1)
         self.GroupNorm_1 = group_norm(channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -349,10 +355,10 @@ class ResUp(nn.Module):
 
     def __init__(self, in_features: int, channels: int):
         super().__init__()
-        self.Conv_0 = nn.Conv2d(in_features, channels, 3, padding=1)
-        self.Conv_1 = nn.Conv2d(in_features, channels // 2, 3, padding=1)
+        self.Conv_0 = Conv2d(in_features, channels, 3, padding=1)
+        self.Conv_1 = Conv2d(in_features, channels // 2, 3, padding=1)
         self.GroupNorm_0 = group_norm(channels // 2)
-        self.Conv_2 = nn.Conv2d(channels // 2, channels, 3, padding=1)
+        self.Conv_2 = Conv2d(channels // 2, channels, 3, padding=1)
         self.GroupNorm_1 = group_norm(channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -378,11 +384,11 @@ class ViT(nn.Module):
         super().__init__()
         self.patch = patch
         n_tokens = 1 + math.prod(-(-int(n) // patch) for n in image_hw)
-        self.Conv_0 = nn.Conv2d(in_channels, width, patch, stride=patch)
+        self.Conv_0 = Conv2d(in_channels, width, patch, stride=patch)
         self.cls = nn.Parameter(torch.zeros(1, 1, width))
         self.pos_embed = nn.Parameter(0.02 * torch.randn(1, n_tokens, width))
         self.TransformerEncoder_0 = TransformerEncoder(depth, width, heads, width * 4)
-        self.Dense_0 = nn.Linear(width, num_outputs)
+        self.Dense_0 = Linear(width, num_outputs)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b = x.shape[0]
@@ -409,7 +415,8 @@ class FrozenBatchNorm(nn.Module):
     ``var`` are buffers, which no optimizer sees and ``state_dict`` (so
     every checkpoint) carries.  At init (mean 0, var 1) it is a learnable
     affine.  ``eps`` is the ResNet-50's BN_EPS unless given (InceptionV3's
-    convs take 1e-3)."""
+    convs take 1e-3).  Under a compute dtype it takes the reference's
+    elementwise form, its folded scale and shift cast to that dtype."""
 
     def __init__(self, channels: int, eps: float = BN_EPS):
         super().__init__()
@@ -419,9 +426,19 @@ class FrozenBatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(channels))
         self.register_buffer("var", torch.ones(channels))
 
+    compute_dtype = None
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.batch_norm(x, self.mean, self.var, self.weight, self.bias,
-                            training=False, eps=self.eps)
+        dt = self.compute_dtype
+        if dt is None:
+            return F.batch_norm(x, self.mean, self.var, self.weight, self.bias,
+                                training=False, eps=self.eps)
+        # the reference's form under a compute dtype: the folded scale and
+        # shift rounded to it, then x * inv + shift in it
+        rs = torch.rsqrt(self.var + self.eps)
+        inv = (self.weight * rs).to(dt)[:, None, None]
+        shift = (self.bias - self.mean * self.weight * rs).to(dt)[:, None, None]
+        return x.to(dt) * inv + shift
 
 
 class BottleneckBlock(nn.Module):
@@ -431,16 +448,16 @@ class BottleneckBlock(nn.Module):
 
     def __init__(self, in_features: int, features: int, strides: int = 1):
         super().__init__()
-        self.Conv_0 = nn.Conv2d(in_features, features, 1, bias=False)
+        self.Conv_0 = Conv2d(in_features, features, 1, bias=False)
         self.FrozenBatchNorm_0 = FrozenBatchNorm(features)
-        self.Conv_1 = nn.Conv2d(features, features, 3, stride=strides, padding=1,
+        self.Conv_1 = Conv2d(features, features, 3, stride=strides, padding=1,
                                 bias=False)
         self.FrozenBatchNorm_1 = FrozenBatchNorm(features)
-        self.Conv_2 = nn.Conv2d(features, features * 4, 1, bias=False)
+        self.Conv_2 = Conv2d(features, features * 4, 1, bias=False)
         self.FrozenBatchNorm_2 = FrozenBatchNorm(features * 4)
         self.project = in_features != features * 4 or strides != 1
         if self.project:
-            self.Conv_3 = nn.Conv2d(in_features, features * 4, 1, stride=strides,
+            self.Conv_3 = Conv2d(in_features, features * 4, 1, stride=strides,
                                     bias=False)
             self.FrozenBatchNorm_3 = FrozenBatchNorm(features * 4)
 
@@ -463,7 +480,7 @@ class ResNet50(nn.Module):
     def __init__(self, in_channels: int = 3, num_outputs: int = 1000,
                  stage_sizes: Sequence[int] = (3, 4, 6, 3)):
         super().__init__()
-        self.Conv_0 = nn.Conv2d(in_channels, 64, 7, stride=2, padding=3, bias=False)
+        self.Conv_0 = Conv2d(in_channels, 64, 7, stride=2, padding=3, bias=False)
         self.FrozenBatchNorm_0 = FrozenBatchNorm(64)
         self.n_blocks, channels = 0, 64
         for i, n_blocks in enumerate(stage_sizes):
@@ -473,7 +490,7 @@ class ResNet50(nn.Module):
                 self.add_module(f"BottleneckBlock_{self.n_blocks}", block)
                 channels = 64 * 2 ** i * 4
                 self.n_blocks += 1
-        self.Dense_0 = nn.Linear(channels, num_outputs)
+        self.Dense_0 = Linear(channels, num_outputs)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = F.relu(self.FrozenBatchNorm_0(self.Conv_0(x.permute(0, 3, 1, 2))))
@@ -502,7 +519,7 @@ class VGGFeatures(nn.Module):
         n = 0
         for v in self.cfg:
             if v != "M":
-                self.add_module(f"Conv_{n}", nn.Conv2d(in_channels, v, 3, padding=1))
+                self.add_module(f"Conv_{n}", Conv2d(in_channels, v, 3, padding=1))
                 in_channels, n = v, n + 1
 
     def forward(self, x: torch.Tensor, taps: str = "pool"):

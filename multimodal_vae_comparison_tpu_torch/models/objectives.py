@@ -7,6 +7,9 @@ gradient re-weighting is :func:`scale_grad`, an identity whose backward
 multiplies the incoming gradient by fixed importance weights (the
 reference's ``jax.custom_vjp``).  ``feature_loss``, the perceptual loss
 over a frozen VGG extractor, lives in ``models/perceptual.py``.
+Each loss computes in the dtype of the decoder's output (bf16 under
+``precision: bf16`` for the squashed image decoders) and sums in fp32 or
+wider, as the reference does (``.sum(-1, dtype=jnp.float32)``).
 :func:`check_ported` raises for a name the table lacks;
 ``build_model_from_config`` calls it for every modality of a config.
 """
@@ -20,6 +23,7 @@ import torch.nn.functional as F
 from multimodal_vae_comparison_tpu_torch.constants import ETA, LOG2PI
 from multimodal_vae_comparison_tpu_torch.models.distributions import log_mean_exp
 from multimodal_vae_comparison_tpu_torch.models.perceptual import feature_loss
+from multimodal_vae_comparison_tpu_torch.models.precision import wide_dtype
 
 
 def _flatten_features(x: torch.Tensor, batch_ndims: int) -> torch.Tensor:
@@ -40,7 +44,7 @@ def _apply_mask(loss_elem: torch.Tensor, mask: Optional[torch.Tensor],
 
 def _sum_features(ll: torch.Tensor, mask, batch_ndims: int) -> torch.Tensor:
     ll = _apply_mask(ll, mask, batch_ndims)
-    return _flatten_features(ll, batch_ndims).sum(-1)
+    return _flatten_features(ll, batch_ndims).sum(-1, dtype=wide_dtype(ll.dtype))
 
 
 # -- reconstruction losses (log-likelihood contributions; higher = better) --
@@ -83,7 +87,7 @@ def category_ce(dist, target, mask=None, batch_ndims=1):
     """Categorical cross-entropy over the trailing (alphabet) axis, with
     ``dist.mean`` taken as unnormalized scores."""
     logp = torch.log_softmax(dist.mean, dim=-1)
-    ll = (target.to(logp.dtype) * logp).sum(-1)
+    ll = (target.to(logp.dtype) * logp).sum(-1, dtype=wide_dtype(logp.dtype))
     return _sum_features(ll, mask, batch_ndims)
 
 

@@ -26,6 +26,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from multimodal_vae_comparison_tpu_torch.models.precision import widen
+
 _STATE: Optional[Dict[str, torch.Tensor]] = None
 _SOURCE = "uninitialized"
 _EXTRACTORS: Dict[Tuple[torch.device, torch.dtype], torch.nn.Module] = {}
@@ -100,7 +102,7 @@ def feature_loss(dist, target, mask=None, batch_ndims=1):
     W, C) only; ``mask`` is ignored (as in the reference).  With
     ``batch_ndims`` 2 the (K, B) axes fold B-major, as the JAX package
     folds them."""
-    recon = dist.mean
+    recon = widen(dist.mean)   # the reference's fp32 extractor promotes a bf16 mean
     lead, img_shape = recon.shape[:batch_ndims], tuple(recon.shape[batch_ndims:])
     assert len(img_shape) == 3, (
         f"feature_loss is for (H, W, C) images, got feature shape {img_shape}")

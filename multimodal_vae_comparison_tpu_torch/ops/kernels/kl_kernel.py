@@ -17,6 +17,7 @@ from typing import Sequence
 import torch
 from torch.autograd.function import once_differentiable
 
+from multimodal_vae_comparison_tpu_torch.ops.flops import kernel_flops
 from multimodal_vae_comparison_tpu_torch.ops.kernels import _build, telemetry
 
 KERNEL = "kl"
@@ -107,11 +108,12 @@ class _KLStdMulti(torch.autograd.Function):
         mus, scales = posteriors[:m], posteriors[m:]
         ctx.save_for_backward(*posteriors)
         out_shape = ((m,) if stacked else ()) + tuple(mus[0].shape[:-1])
-        if mus[0].is_cuda:
-            telemetry.record(KERNEL, "cuda")
-            return _launch_forward(mus, scales, out_shape)
-        telemetry.record(KERNEL, "plain")
-        return kl_multi_reference(mus, scales).reshape(out_shape)
+        with kernel_flops(0):   # no product: 0 FLOPs to ops.flops on either route
+            if mus[0].is_cuda:
+                telemetry.record(KERNEL, "cuda")
+                return _launch_forward(mus, scales, out_shape)
+            telemetry.record(KERNEL, "plain")
+            return kl_multi_reference(mus, scales).reshape(out_shape)
 
     @staticmethod
     @once_differentiable
@@ -121,7 +123,8 @@ class _KLStdMulti(torch.autograd.Function):
         mus, scales = posteriors[:m], posteriors[m:]
         if mus[0].is_cuda:
             telemetry.record(KERNEL_BWD, "cuda")
-            d_mus, d_scales = _launch_backward(mus, scales, g)
+            with kernel_flops(0):
+                d_mus, d_scales = _launch_backward(mus, scales, g)
         else:
             telemetry.record(KERNEL_BWD, "plain")
             g = g.reshape((m,) + tuple(mus[0].shape[:-1]))[..., None]

@@ -21,6 +21,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from multimodal_vae_comparison_tpu_torch.constants import EPS
+from multimodal_vae_comparison_tpu_torch.ops.flops import kernel_flops
 from multimodal_vae_comparison_tpu_torch.ops.kernels import _build, telemetry
 
 KERNEL = "poe"
@@ -173,12 +174,14 @@ class _PoELattice(torch.autograd.Function):
         mus, scales = experts[:m], experts[m:]
         masks = lattice_masks(lattice, m)
         bits = prior_bits(prior_mask, len(lattice))
-        if mus[0].is_cuda:
-            telemetry.record(KERNEL, "cuda")
-            mu, scale = _launch_forward(mus, scales, masks, prior_precision, bits)
-        else:
-            telemetry.record(KERNEL, "plain")
-            mu, scale = poe_lattice_reference(mus, scales, lattice, prior_precision, bits)
+        with kernel_flops(0):   # no product: 0 FLOPs to ops.flops on either route
+            if mus[0].is_cuda:
+                telemetry.record(KERNEL, "cuda")
+                mu, scale = _launch_forward(mus, scales, masks, prior_precision, bits)
+            else:
+                telemetry.record(KERNEL, "plain")
+                mu, scale = poe_lattice_reference(mus, scales, lattice, prior_precision,
+                                                  bits)
         ctx.lattice, ctx.masks = tuple(tuple(s) for s in lattice), masks
         ctx.save_for_backward(*experts, mu, scale)
         return mu, scale
@@ -189,14 +192,15 @@ class _PoELattice(torch.autograd.Function):
         *experts, mu, scale = ctx.saved_tensors
         m = len(experts) // 2
         mus, scales = experts[:m], experts[m:]
-        if mu.is_cuda:
-            telemetry.record(KERNEL_BWD, "cuda")
-            d_mus, d_scales = _launch_backward(mus, scales, ctx.masks, mu, scale,
-                                               g_mu, g_scale)
-        else:
-            telemetry.record(KERNEL_BWD, "plain")
-            d_mus, d_scales = poe_lattice_backward_reference(
-                mus, scales, mu, scale, g_mu, g_scale, ctx.lattice)
+        with kernel_flops(0):
+            if mu.is_cuda:
+                telemetry.record(KERNEL_BWD, "cuda")
+                d_mus, d_scales = _launch_backward(mus, scales, ctx.masks, mu, scale,
+                                                   g_mu, g_scale)
+            else:
+                telemetry.record(KERNEL_BWD, "plain")
+                d_mus, d_scales = poe_lattice_backward_reference(
+                    mus, scales, mu, scale, g_mu, g_scale, ctx.lattice)
         return (None, None, None, *d_mus, *d_scales)
 
 

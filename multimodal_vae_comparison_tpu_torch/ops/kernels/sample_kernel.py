@@ -25,6 +25,7 @@ import math
 import torch
 from torch.autograd.function import once_differentiable
 
+from multimodal_vae_comparison_tpu_torch.ops.flops import kernel_flops
 from multimodal_vae_comparison_tpu_torch.ops.kernels import _build, telemetry
 
 KERNEL = "sample"
@@ -104,12 +105,13 @@ def _launch(mu: torch.Tensor, scale: torch.Tensor, seed: int):
 class _SampleNormal(torch.autograd.Function):
     @staticmethod
     def forward(ctx, mu, scale, seed):
-        if mu.is_cuda:
-            telemetry.record(KERNEL, "cuda")
-            z, eps = _launch(mu, scale, seed)
-        else:
-            telemetry.record(KERNEL, "plain")
-            z, eps = sample_reference(mu, scale, seed)
+        with kernel_flops(0):   # no product: 0 FLOPs to ops.flops on either route
+            if mu.is_cuda:
+                telemetry.record(KERNEL, "cuda")
+                z, eps = _launch(mu, scale, seed)
+            else:
+                telemetry.record(KERNEL, "plain")
+                z, eps = sample_reference(mu, scale, seed)
         ctx.save_for_backward(eps)
         return z
 

@@ -18,6 +18,15 @@ computes ``delta = rowsum(d_out * out)`` in a torch op and launches the dq
 and dk/dv kernels; on CPU tensors the forward is the plain version and the
 backward recomputes through it densely.  Every CUDA call launches its
 kernels: there is no size threshold and no switch.
+
+q, k and v come in fp32 or bf16 (``precision: bf16``).  Each launcher has a
+bf16 instance that loads bf16 and widens it to fp32 on the way in (exact),
+then runs the fp32 arithmetic; the output and lse are fp32, as are
+``d_out`` and delta, and dq, dk, dv come back in the inputs' dtype, as the
+reference's ``_sparse_bwd`` casts them.  The plain version widens too.
+Under ``ops.flops.step_flops`` the forward counts 4 Dh FLOPs and the
+backward 14 Dh per visible (query, key) pair (:func:`sparse_flops`), the
+products over the live key blocks, on the card as on the CPU.
 """
 from __future__ import annotations
 
@@ -29,7 +38,9 @@ import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
+from multimodal_vae_comparison_tpu_torch.ops.flops import kernel_flops
 from multimodal_vae_comparison_tpu_torch.ops.kernels import _build, telemetry
+from multimodal_vae_comparison_tpu_torch.ops.kernels.attention import widen
 
 SOURCE = "sparse_attention"
 KERNEL = "sparse_attention"          # dispatch and launch count of the forward
@@ -48,6 +59,11 @@ _FWD_ARGTYPES = [ctypes.c_void_p] * 5 + _SHAPE + [ctypes.POINTER(ctypes.c_int)]
 _DQ_ARGTYPES = [ctypes.c_void_p] * 7 + _SHAPE + [ctypes.POINTER(ctypes.c_int)]
 # sparse_attention_dkv(q, k, v, d_out, lse, delta, dk, dv, ..., &variant)
 _DKV_ARGTYPES = [ctypes.c_void_p] * 8 + _SHAPE + [ctypes.POINTER(ctypes.c_int)]
+# the suffix of each launcher's instance for an input dtype
+SUFFIX = {torch.float32: "", torch.bfloat16: "_bf16"}
+# FLOPs per visible (query, key) pair and head dim: the forward's two
+# products; dq's three (s, dp, ds k) and dk/dv's four (s, dv, dp, dk)
+FLOPS_PER_PAIR = {"forward": 4, "backward": 6 + 8}
 
 
 def _live_blocks(n_blocks: int, block_stride: int) -> List[List[int]]:
@@ -94,10 +110,27 @@ def visibility(t: int, block: int, block_stride: int, device=None) -> torch.Tens
     return ((qb == kb) & (pos[None, :] <= pos[:, None])) | strided
 
 
+def sparse_work(t: int, block: int, block_stride: int) -> Tuple[int, int]:
+    """(live block pairs, visible (query, key) pairs) of a head: what the
+    pattern needs, the diagonal blocks counted as their lower triangle."""
+    nq = t // block
+    pairs = sum(1 + i // block_stride for i in range(nq))
+    return pairs, (pairs - nq) * block * block + nq * block * (block + 1) // 2
+
+
+def sparse_flops(shape, block: int, block_stride: int, part: str = "forward") -> int:
+    """FLOPs of the forward or the backward (dq and dk/dv) at q's (B, H, T,
+    Dh) ``shape``, over the visible pairs of the live key blocks only."""
+    b, h, t, dh = shape
+    return FLOPS_PER_PAIR[part] * b * h * dh * sparse_work(t, block, block_stride)[1]
+
+
 def sparse_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                block: int = 128, block_stride: int = 4) -> torch.Tensor:
     """Plain PyTorch version over a dense additive bias, (B, H, T, Dh) ->
-    (B, H, T, Dh); differentiable by autograd."""
+    (B, H, T, Dh) in fp32 (fp64 for fp64 inputs); differentiable by
+    autograd."""
+    q, k, v = widen(q), widen(k), widen(v)
     t = q.shape[2]
     bias = torch.zeros((t, t), dtype=q.dtype, device=q.device).masked_fill(
         ~visibility(t, block, block_stride, q.device), NEG_INF)
@@ -106,8 +139,9 @@ def sparse_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 
 
 def _check(q, k, v, block: int, block_stride: int) -> None:
-    if any(x.dtype != torch.float32 for x in (q, k, v)):
-        raise TypeError("sparse attention kernel takes float32 q, k, v")
+    if q.dtype not in SUFFIX or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"sparse attention kernel takes float32 or bfloat16 q, k, v of "
+                        f"one dtype; got {q.dtype}, {k.dtype}, {v.dtype}")
     if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(f"sparse attention takes q, k, v of one shape (B, H, T, Dh); "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -137,8 +171,9 @@ def _shape_args(q, block: int, block_stride: int):
 def _launch_forward(q, k, v, block: int, block_stride: int):
     """(out (B, H, T, Dh), lse (B, H, T)) from the forward kernel."""
     _check(q, k, v, block, block_stride)
-    fn = _build.function(SOURCE, "sparse_attention_forward", _FWD_ARGTYPES)
-    out = torch.empty_like(q)
+    fn = _build.function(SOURCE, "sparse_attention_forward" + SUFFIX[q.dtype],
+                         _FWD_ARGTYPES)
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     variant = ctypes.c_int(-1)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -146,7 +181,7 @@ def _launch_forward(q, k, v, block: int, block_stride: int):
              ctypes.byref(variant))
     _build.check(SOURCE, err)
     telemetry.count_launch(KERNEL)
-    telemetry.count_variant(KERNEL, VARIANTS[variant.value])
+    telemetry.count_variant(KERNEL, VARIANTS[variant.value], q.dtype)
     return out, lse
 
 
@@ -163,7 +198,7 @@ def _check_rows(q, d_out, lse, delta) -> None:
 def _launch_dq(q, k, v, d_out, lse, delta, block: int, block_stride: int):
     _check(q, k, v, block, block_stride)
     _check_rows(q, d_out, lse, delta)
-    fn = _build.function(SOURCE, "sparse_attention_dq", _DQ_ARGTYPES)
+    fn = _build.function(SOURCE, "sparse_attention_dq" + SUFFIX[q.dtype], _DQ_ARGTYPES)
     dq = torch.empty_like(q)
     variant = ctypes.c_int(-1)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), d_out.data_ptr(),
@@ -171,14 +206,14 @@ def _launch_dq(q, k, v, d_out, lse, delta, block: int, block_stride: int):
              *_shape_args(q, block, block_stride), ctypes.byref(variant))
     _build.check(SOURCE, err)
     telemetry.count_launch(KERNEL_DQ)
-    telemetry.count_variant(KERNEL_DQ, VARIANTS[variant.value])
+    telemetry.count_variant(KERNEL_DQ, VARIANTS[variant.value], q.dtype)
     return dq
 
 
 def _launch_dkv(q, k, v, d_out, lse, delta, block: int, block_stride: int):
     _check(q, k, v, block, block_stride)
     _check_rows(q, d_out, lse, delta)
-    fn = _build.function(SOURCE, "sparse_attention_dkv", _DKV_ARGTYPES)
+    fn = _build.function(SOURCE, "sparse_attention_dkv" + SUFFIX[q.dtype], _DKV_ARGTYPES)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     variant = ctypes.c_int(-1)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), d_out.data_ptr(),
@@ -186,7 +221,7 @@ def _launch_dkv(q, k, v, d_out, lse, delta, block: int, block_stride: int):
              *_shape_args(q, block, block_stride), ctypes.byref(variant))
     _build.check(SOURCE, err)
     telemetry.count_launch(KERNEL_DKV)
-    telemetry.count_variant(KERNEL_DKV, VARIANTS[variant.value])
+    telemetry.count_variant(KERNEL_DKV, VARIANTS[variant.value], q.dtype)
     return dk, dv
 
 
@@ -194,43 +229,46 @@ class _StridedBlockSparse(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, block, block_stride):
         ctx.block, ctx.block_stride = block, block_stride
-        if q.is_cuda:
-            telemetry.record(KERNEL, "cuda")
-            out, lse = _launch_forward(q, k, v, block, block_stride)
-            ctx.save_for_backward(q, k, v, out, lse)
-            return out
-        telemetry.record(KERNEL, "plain")
-        ctx.save_for_backward(q, k, v)
-        return sparse_attention_reference(q, k, v, block, block_stride)
+        with kernel_flops(sparse_flops(q.shape, block, block_stride)):
+            if q.is_cuda:
+                telemetry.record(KERNEL, "cuda")
+                out, lse = _launch_forward(q, k, v, block, block_stride)
+                ctx.save_for_backward(q, k, v, out, lse)
+                return out
+            telemetry.record(KERNEL, "plain")
+            ctx.save_for_backward(q, k, v)
+            return sparse_attention_reference(q, k, v, block, block_stride)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, d_out):
         q, k, v, *saved = ctx.saved_tensors
-        if saved:
-            out, lse = saved
-            telemetry.record(KERNEL_BWD, "cuda")
-            d_out = d_out.contiguous()
-            delta = (d_out * out).sum(-1)                        # (B, H, T)
-            args = (q, k, v, d_out, lse, delta, ctx.block, ctx.block_stride)
-            dk, dv = _launch_dkv(*args)
-            return _launch_dq(*args), dk, dv, None, None
-        telemetry.record(KERNEL_BWD, "plain")
-        with torch.enable_grad():
-            leaves = [x.detach().requires_grad_() for x in (q, k, v)]
-            out = sparse_attention_reference(*leaves, ctx.block, ctx.block_stride)
-            dq, dk, dv = torch.autograd.grad(out, leaves, d_out)
-        return dq, dk, dv, None, None
+        with kernel_flops(sparse_flops(q.shape, ctx.block, ctx.block_stride, "backward")):
+            if saved:
+                out, lse = saved
+                telemetry.record(KERNEL_BWD, "cuda")
+                d_out = d_out.contiguous()
+                delta = (d_out * out).sum(-1)                        # (B, H, T)
+                args = (q, k, v, d_out, lse, delta, ctx.block, ctx.block_stride)
+                dk, dv = _launch_dkv(*args)
+                return _launch_dq(*args), dk, dv, None, None
+            telemetry.record(KERNEL_BWD, "plain")
+            with torch.enable_grad():
+                leaves = [widen(x).detach().requires_grad_() for x in (q, k, v)]
+                out = sparse_attention_reference(*leaves, ctx.block, ctx.block_stride)
+                dq, dk, dv = torch.autograd.grad(out, leaves, d_out)
+            return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None
 
 
 def strided_block_sparse_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                    block: int = 128, block_stride: int = 4) -> torch.Tensor:
     """Causal strided block-sparse self-attention, differentiable in q, k, v.
 
-    :param q, k, v: (B, H, T, Dh) float32 with T % block == 0
+    :param q, k, v: (B, H, T, Dh) float32 or bfloat16, of one dtype, with
+        T % block == 0
     :param block: sparsity block size (<= 128 on CUDA)
     :param block_stride: attend every block_stride-th earlier block
-    :return: (B, H, T, Dh) float32
+    :return: (B, H, T, Dh) float32 (float64 for float64 inputs, on the CPU)
     """
     if q.device.type not in ("cuda", "cpu"):
         raise ValueError(f"strided_block_sparse_attention runs on CUDA or the CPU, "

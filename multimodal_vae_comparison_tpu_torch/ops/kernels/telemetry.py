@@ -7,7 +7,8 @@ its launch count, and only there, right where it launches its kernel.  A
 run that resets the counts, drives a path and reads them afterwards shows
 which kernels that path really went through.  Where a C launcher picks one
 of several kernels by shape, the wrapper also counts which one it launched
-(:func:`count_variant`), apart from the two counts above.
+(:func:`count_variant`), apart from the two counts above, and the dtype of
+the inputs it launched it on (:func:`dtypes`).
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ _lock = threading.Lock()
 _counts: Counter = Counter()
 _launches: Counter = Counter()
 _variants: Counter = Counter()
+_dtypes: Counter = Counter()
 
 
 def record(kernel: str, path: str) -> None:
@@ -37,16 +39,26 @@ def count_launch(kernel: str) -> None:
         _launches[kernel] += 1
 
 
-def count_variant(kernel: str, variant: str) -> None:
-    """Add one launch of the ``variant`` the C launcher of ``kernel`` picked."""
+def count_variant(kernel: str, variant: str, dtype=None) -> None:
+    """Add one launch of the ``variant`` the C launcher of ``kernel`` picked,
+    and, given the inputs' ``dtype``, one to ``kernel:variant:dtype``."""
     with _lock:
         _variants[f"{kernel}:{variant}"] += 1
+        if dtype is not None:
+            _dtypes[f"{kernel}:{variant}:{str(dtype).replace('torch.', '')}"] += 1
 
 
 def variants() -> dict:
     """{kernel:variant -> launches since the last reset}."""
     with _lock:
         return dict(_variants)
+
+
+def dtypes() -> dict:
+    """{kernel:variant:dtype -> launches since the last reset}, e.g.
+    ``attention:resident:bfloat16``."""
+    with _lock:
+        return dict(_dtypes)
 
 
 def launches() -> dict:
@@ -66,3 +78,4 @@ def reset() -> None:
         _counts.clear()
         _launches.clear()
         _variants.clear()
+        _dtypes.clear()

@@ -119,7 +119,7 @@ def grow_latents(model: MMVAE, new_n_latents: int, seed: int = 0
     new_model = type(model)(model.specs, new_n_latents, K=model.K, device=model.device,
                             obj=model.obj, beta=model.beta,
                             prior_components=model.prior_components, remat=model.remat,
-                            aux_endpoint=model.aux_endpoint)
+                            aux_endpoint=model.aux_endpoint, dtype=model.dtype)
     shapes = {k: tuple(v.shape) for k, v in new_model.state_dict().items()}
     misfit = sorted(k for k, v in state.items() if tuple(v.shape) != shapes[k])
     if misfit:

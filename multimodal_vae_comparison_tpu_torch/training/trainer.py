@@ -54,37 +54,47 @@ def build_model(specs: Tuple[ModalitySpec, ...], mixing: str, n_latents: int,
                 obj: str = "elbo", beta: float = 1.0, K: int = 1, seed: int = 0,
                 device: Optional[Union[str, torch.device]] = None,
                 remat: bool = False, prior_components: int = 1,
-                aux_endpoint: float = 0.0) -> MMVAE:
+                aux_endpoint: float = 0.0, dtype: torch.dtype = torch.float32) -> MMVAE:
     """The model of a config: the mixing class named by ``mixing`` (poe,
     moe, mopoe, dmvae or poe2) over one VAE per modality spec, weights drawn
     from ``seed``, on ``device`` (CUDA unless the caller passes ``"cpu"``);
     ``remat`` recomputes the nets' activations in the backward pass instead
     of keeping them; ``prior_components > 1`` learns a mixture-of-Gaussians
     prior of that many components; ``aux_endpoint > 0`` adds the endpoint
-    head, which POE's objective trains with that weight.  One modality spec
-    builds :class:`UnimodalVAE`, whatever ``mixing`` names."""
+    head, which POE's objective trains with that weight; ``dtype`` is the
+    nets' compute dtype (bf16, or fp32), the parameters fp32 either way.  One
+    modality spec builds :class:`UnimodalVAE`, whatever ``mixing`` names."""
     cls = UnimodalVAE if len(specs) == 1 else get_mixing(mixing)
     return cls(specs, n_latents, K=K, seed=seed, device=device, obj=obj, beta=beta,
                remat=remat, prior_components=prior_components,
-               aux_endpoint=aux_endpoint)
+               aux_endpoint=aux_endpoint, dtype=dtype)
 
 
-def build_model_from_config(cfg, device: Optional[Union[str, torch.device]] = None
-                            ) -> MMVAE:
+def precision_dtype(precision) -> torch.dtype:
+    """The compute dtype of a config's ``precision``, as the reference maps
+    it: ``bf16`` and ``bfloat16`` are bf16, anything else (``32``, ``16``,
+    ``64``, none) fp32."""
+    return torch.bfloat16 if str(precision) in ("bf16", "bfloat16") else torch.float32
+
+
+def build_model_from_config(cfg, device: Optional[Union[str, torch.device]] = None,
+                            dtype: Optional[torch.dtype] = None) -> MMVAE:
     """:func:`build_model` from a parsed Config whose modalities carry their
     ``feature_dims`` (``DataModule.setup`` fills them in); weights are drawn
-    from ``cfg.seed``.  An option the port does not have yet and an
-    unknown reconstruction loss raise."""
-    if str(getattr(cfg, "precision", "32")) in ("bf16", "bfloat16"):
-        raise NotImplementedError("precision: bf16 is not ported yet; the nets and "
-                                  "kernels run in fp32 (ROADMAP Queue A item 4)")
+    from ``cfg.seed``.  The compute dtype is ``dtype``, or without one the
+    config's ``precision`` (:func:`precision_dtype`): the Trainer trains in
+    it, while eval and serving pass fp32.  An unknown reconstruction loss
+    raises."""
+    if dtype is None:
+        dtype = precision_dtype(getattr(cfg, "precision", "32"))
     for m in cfg.mods:
         objectives.check_ported(m.recon_loss)
     return build_model(build_specs(cfg), cfg.mixing, cfg.n_latents, obj=cfg.obj,
                        beta=cfg.beta, K=cfg.K, seed=cfg.seed, device=device,
                        remat=bool(getattr(cfg, "remat", False)),
                        prior_components=int(getattr(cfg, "prior_components", 1) or 1),
-                       aux_endpoint=float(getattr(cfg, "aux_endpoint", 0.0) or 0.0))
+                       aux_endpoint=float(getattr(cfg, "aux_endpoint", 0.0) or 0.0),
+                       dtype=dtype)
 
 
 def _chunk(batch, eps, g: int, G: int):

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from multimodal_vae_comparison_tpu_torch.models.distributions import Normal
+from multimodal_vae_comparison_tpu_torch.models.precision import widen
 
 TRAVERSAL_RANGES = (6, 4, 2, 1)   # reference trainer.py:229
 
@@ -88,7 +89,8 @@ def _forward(trainer, batch, present, seed: int):
 
 @torch.inference_mode()
 def _decode(model, name: str, z: torch.Tensor) -> np.ndarray:
-    return model.decode_mod(name, z.to(model.device)).mean[0].cpu().numpy()
+    # a bf16 model's image means are bf16, which numpy has no type for
+    return widen(model.decode_mod(name, z.to(model.device)).mean[0]).cpu().numpy()
 
 
 def save_reconstructions(trainer, epoch_dir: str, n: int = 8) -> None:
@@ -104,7 +106,7 @@ def save_reconstructions(trainer, epoch_dir: str, n: int = 8) -> None:
             mo = out.mods[nm]
             if mo.decoder_dist is None:
                 continue
-            recon = mo.decoder_dist.mean[0].cpu().numpy()
+            recon = widen(mo.decoder_dist.mean[0]).cpu().numpy()
             decoded = ds.decode_output(recon, batch[nm].get("masks"))
             if isinstance(decoded, np.ndarray) and decoded.ndim == 5:
                 save_video_gif(decoded[:4], os.path.join(epoch_dir, f"recon_video_{nm}.gif"))

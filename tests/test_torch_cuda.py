@@ -1316,3 +1316,146 @@ def test_inception_v3_on_the_card_matches_the_cpu(cuda):
         got = net.float().to(cuda)(x.to(cuda))
     assert got.shape == (4, 2048)
     assert _rel_err(got, want) <= FEATURE_NET_REL
+
+
+# -- precision: bf16 -------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("b,h,tq,tk,dh,masked", [
+    (24, 2, 45, 45, 32, True),     # the flagship text encoder: resident, vector staging
+    (32, 2, 246, 246, 32, True),   # CUB's captions: resident, 8 keys a lane
+    (640, 2, 246, 1, 8, False),    # CUB's DReG decoder: one key
+    (3, 2, 40, 300, 64, True),     # past 256 keys: the chunked kernel
+    (2, 3, 9, 11, 6, True),        # Dh 6: element staging
+], ids=["flagship", "cub-encoder", "cub-decoder", "chunked", "dh6"])
+def test_bf16_attention_launcher_equals_the_fp32_kernel_on_widened_inputs(
+        cuda, b, h, tq, tk, dh, masked):
+    """The bf16 instance widens q, k, v as it stages them, so it is the fp32
+    kernel on the widened inputs: same variant, fp32 output, within the
+    tolerance the fp32 kernel meets against its plain version."""
+    q, k, v, mask = _qkv(40, b, h, tq, tk, dh, masked, cuda)
+    q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    telemetry.reset()
+    got = tattn._launch(q, k, v, mask)
+    bf16_kinds = telemetry.dtypes()
+    want = tattn._launch(q.float(), k.float(), v.float(), mask)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    assert len(bf16_kinds) == 1 and next(iter(bf16_kinds)).endswith(":bfloat16")
+    assert {x.replace(":bfloat16", ":float32") for x in bf16_kinds} \
+        == {x for x in telemetry.dtypes() if x.endswith(":float32")}
+    torch.testing.assert_close(got, want, **ATTN_TOL)
+    # and through the Function: fp32 out, bf16 gradients, launched once
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = tattn.masked_attention(*leaves, mask)
+    out.sum().backward()
+    assert out.dtype == torch.float32 and all(x.grad.dtype == torch.bfloat16 for x in leaves)
+
+
+@pytest.mark.parametrize("shape,block,stride", [
+    ((8, 2, 512, 32), 128, 4),   # the video model's: the tensor-core kernels
+    ((2, 2, 64, 64), 32, 2),     # Dh 64: rows staged in shared memory
+    ((2, 2, 96, 6), 16, 2),      # Dh 6: the FMA kernels
+], ids=["mma", "mma-dh64", "fma"])
+def test_bf16_sparse_launchers_equal_the_fp32_kernels_on_widened_inputs(cuda, shape, block,
+                                                                       stride):
+    """The forward, dq and dk/dv bf16 instances against the fp32 kernels on
+    the widened inputs: fp32 out and lse, dq/dk/dv in bf16 equal to the fp32
+    kernels' rounded once."""
+    g = torch.Generator(device="cuda").manual_seed(41)
+    q, k, v = (torch.randn(shape, generator=g, device="cuda").bfloat16() for _ in range(3))
+    wide = [x.float() for x in (q, k, v)]
+    telemetry.reset()
+    out, lse = tsparse._launch_forward(q, k, v, block, stride)
+    out32, lse32 = tsparse._launch_forward(*wide, block, stride)
+    d_out = torch.randn(shape, generator=g, device="cuda")
+    delta = (d_out * out32).sum(-1)
+    args = (d_out, lse32, delta, block, stride)
+    dq, (dk, dv) = tsparse._launch_dq(q, k, v, *args), tsparse._launch_dkv(q, k, v, *args)
+    dq32, (dk32, dv32) = tsparse._launch_dq(*wide, *args), tsparse._launch_dkv(*wide, *args)
+    torch.cuda.synchronize()
+    kinds = telemetry.dtypes()
+    assert sum(n for x, n in kinds.items() if x.endswith(":bfloat16")) == 3
+    assert {x.rpartition(":")[0] for x in kinds if x.endswith(":bfloat16")} \
+        == {x.rpartition(":")[0] for x in kinds if x.endswith(":float32")}
+    assert out.dtype == lse.dtype == torch.float32
+    torch.testing.assert_close(out, out32, **SPARSE_TOL)
+    torch.testing.assert_close(lse, lse32, **SPARSE_TOL)
+    for got, want in ((dq, dq32), (dk, dk32), (dv, dv32)):
+        assert got.dtype == torch.bfloat16
+        torch.testing.assert_close(got.float(), want.bfloat16().float(), **SPARSE_BWD_TOL)
+
+
+def _bf16_specs():
+    return (ModalitySpec("mod_1", "CNN2", "CNN", (32, 32, 3), recon_loss="bce"),
+            ModalitySpec("mod_2", "TxtTransformer", "TxtTransformer", (12, 27),
+                         mod_type="text", recon_loss="category_ce", has_masks=True))
+
+
+def _bf16_batch(dev, n=4):
+    rng = np.random.default_rng(42)
+    txt = np.eye(27, dtype=np.float32)[rng.integers(0, 27, (n, 12))]
+    mask = np.arange(12)[None, :] < rng.integers(1, 13, (n, 1))
+    return {"mod_1": {"data": torch.from_numpy(rng.random((n, 32, 32, 3), dtype=np.float32))
+                      .to(dev), "masks": None},
+            "mod_2": {"data": torch.from_numpy(txt).to(dev),
+                      "masks": torch.from_numpy(mask).to(dev)}}
+
+
+@pytest.mark.parametrize("mixing", ["poe", "moe"])
+def test_bf16_step_on_the_card_matches_the_cpu_within_the_bf16_yardstick(cuda, mixing):
+    """A bf16 objective and its gradients on the card (kernels on bf16
+    inputs) against the port's CPU in bf16, same weights, batch and eps:
+    within 3 x |CPU bf16 - CPU fp32| + 2^-8 of each leaf's max |g| (the
+    yardstick of tests/test_torch_bf16.py, the CPU's fp32 as reference)."""
+    eps_rng = np.random.default_rng(43)
+    draws = [torch.from_numpy(eps_rng.standard_normal((1, 4, 8)).astype(np.float32))
+             for _ in range(3 if mixing == "poe" else 2)]
+    res = {}
+    for key, dev, dt in (("card", "cuda", torch.bfloat16), ("bf16", "cpu", torch.bfloat16),
+                         ("fp32", "cpu", torch.float32)):
+        model = build_model(_bf16_specs(), mixing, 8, device=dev, dtype=dt)
+        eps = [d.to(dev) for d in draws]
+        eps = eps if mixing == "poe" else dict(zip(("mod_1", "mod_2"), eps))
+        telemetry.reset()
+        loss, _ = model.objective(_bf16_batch(dev), eps=eps)
+        loss.backward()
+        if dev == "cuda":
+            assert not any(k.endswith(":plain") for k in telemetry.summary())
+            assert any(x.endswith(":bfloat16") for x in telemetry.dtypes())
+        res[key] = (loss.item(), {n: (torch.zeros_like(p) if p.grad is None else p.grad).cpu()
+                                  for n, p in model.named_parameters()})
+    (cl, cg), (bl, bg), (fl, fg) = res["card"], res["bf16"], res["fp32"]
+    assert abs(cl - bl) <= 3 * abs(bl - fl) + 2 ** -8 * abs(fl)
+    for n in bg:
+        s = bg[n[:-4] + "weight" if n.endswith("key.bias") else n].abs().max().item() or 1.0
+        err, gap = (cg[n] - bg[n]).abs().max().item() / s, (bg[n] - fg[n]).abs().max().item() / s
+        assert torch.isfinite(cg[n]).all() and err <= 3 * gap + 2 ** -8, (n, err, gap)
+
+
+def test_step_flops_reads_the_same_on_the_card_and_the_cpu(cuda):
+    """ops.flops.step_flops of the POE and MOE train steps and of a
+    VideoGPTSparse step: the CUDA kernels report their functions' FLOPs, so
+    the card (kernels) and the CPU (plain versions) read one integer, in
+    fp32 and in bf16."""
+    from multimodal_vae_comparison_tpu_torch.ops.flops import step_flops
+    video = (ModalitySpec("mod_1", "VideoGPTSparse", "VideoGPTSparse", (2, 32, 32, 3),
+                          mod_type="frames", recon_loss="bce"),
+             ModalitySpec("mod_2", "FNN", "FNN", (9,), mod_type="actions", recon_loss="bce"))
+    rng = np.random.default_rng(44)
+    vbatch = {"mod_1": rng.random((2, 2, 32, 32, 3), dtype=np.float32),
+              "mod_2": rng.random((2, 9), dtype=np.float32)}
+    for specs, mixing, kw, batch_of in (
+            (_bf16_specs(), "poe", {}, _bf16_batch),
+            (_bf16_specs(), "moe", {}, _bf16_batch),
+            (video, "moe", dict(obj="dreg", K=2, remat=True),
+             lambda dev: {n: {"data": torch.from_numpy(x).to(dev), "masks": None}
+                          for n, x in vbatch.items()})):
+        counts = {}
+        for dev in ("cuda", "cpu"):
+            for dt in (torch.float32, torch.bfloat16):
+                model = build_model(specs, mixing, 8, device=dev, dtype=dt, **kw)
+                step = make_train_step(model, make_optimizer("adam", 1e-3, model.parameters()))
+                counts[(dev, dt)] = step_flops(step, batch_of(dev), generator=torch.Generator(
+                    device=dev).manual_seed(0))["flops"]
+        assert len(set(counts.values())) == 1, (mixing, counts)

@@ -405,7 +405,7 @@ def test_infer_restores_the_run_and_the_server_serves_it(cli_run, monkeypatch):
 
 
 @pytest.mark.parametrize("over,item", [
-    ({"precision": "bf16"}, "item 4"),
+    ({"precision": "bf16"}, None),
     ({"prior_components": 4}, None),
     ({"aux_endpoint": 0.5}, None),
     ({"num_devices": 2}, "item 9"),
@@ -413,18 +413,22 @@ def test_infer_restores_the_run_and_the_server_serves_it(cli_run, monkeypatch):
 ], ids=["bf16", "mixture-prior", "aux-endpoint", "devices", "dataset"])
 def test_unported_options_raise_with_their_roadmap_item(tmp_path, level1, over, item):
     """Each option the port does not have raises naming its ROADMAP item;
-    the mixture prior, the aux endpoint weight and the MNIST-SVHN dataset
-    (``item`` None), ported since, build: the weight on a config without an
-    action-waypoint modality builds no endpoint head, as the JAX package's
-    tree has none; the dataset name resolves to ``MNIST_SVHN``, which
-    refuses CdSprites+'s modality types as the JAX class does."""
+    the mixture prior, the aux endpoint weight, the MNIST-SVHN dataset and
+    ``precision: bf16`` (``item`` None), ported since, build: the weight on
+    a config without an action-waypoint modality builds no endpoint head, as
+    the JAX package's tree has none; the dataset name resolves to
+    ``MNIST_SVHN``, which refuses CdSprites+'s modality types as the JAX
+    class does; bf16 builds a bf16 model whose parameters stay fp32."""
     if item is None and "dataset_name" in over:
         with pytest.raises(KeyError, match="Unsupported modality type image for MNIST_SVHN"):
             port_trainer(level1, tmp_path, **over)
         return
     if item is None:
         trainer = port_trainer(level1, tmp_path, **over)
-        if "prior_components" in over:
+        if "precision" in over:
+            assert trainer.model.dtype == torch.bfloat16
+            assert all(p.dtype == torch.float32 for p in trainer.model.parameters())
+        elif "prior_components" in over:
             assert trainer.model.prior_components == 4
             assert trainer.model.pz_mog_loc.shape == (4, trainer.cfg.n_latents)
         else:
