@@ -98,7 +98,14 @@ three main paths at full width with random weights from a seed:
   ``cdl1_r5_poe.yml`` through the CLI with ``--precision bf16`` beside the
   same epoch in fp32, each ending in ``Trainer.test()``, the bf16 run
   restored into an fp32 model, and ``sprites_r4_dreg_up`` 1 epoch in bf16,
-  profiled.
+  profiled;
+* multi-device training on the one card ("multi-device"; not scaling: one
+  card): the flagship POE and MOE steps through the data-parallel path in a
+  world-1 NCCL group, bit for bit the one-process steps, and on two gloo
+  ranks of the card (each on its half of the batch, the gradients summed)
+  within the training limit of the one-process step, each rank's launches
+  counted; then ``parallel.dryrun.dryrun_multichip(4)`` on four gloo ranks
+  (the 2x2 hybrid mesh, megatron-sharded DTensor parameters).
 
 Each path runs with the kernel counts set to 0 just before it and read just
 after, and must have launched every kernel it goes through and taken no
@@ -5540,6 +5547,136 @@ def phase_bf16_from_config(card: str, root: str, data, sprites_dir: str,
     return total, numbers
 
 
+MULTI_TIMED_STEPS = 10
+MULTI_GLOO_RANKS = 2
+MULTI_DEADLINE = 300.0
+
+
+def _multi_reference(mixing: str, raw, eps, deterministic: bool):
+    """The one-process flagship step of ``mixing`` on the card: (metrics,
+    numpy grads, p50 ms of MULTI_TIMED_STEPS more steps)."""
+    from multimodal_vae_comparison_tpu_torch.parallel.dryrun import step_ms_p50
+    from multimodal_vae_comparison_tpu_torch.training.optim import make_optimizer
+    from multimodal_vae_comparison_tpu_torch.training.trainer import (
+        build_model, make_train_step)
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = deterministic
+    try:
+        model = build_model(flagship_specs(), mixing, N_LATENTS, seed=0, device="cuda")
+        step = make_train_step(model, make_optimizer("adam", TRAIN_LR, model.parameters()))
+        batch, gen = torch_batch(raw, "cuda"), torch.Generator(device="cuda").manual_seed(0)
+        metrics = {k: float(v) for k, v in step(batch, eps=eps_to(eps, "cuda"),
+                                                generator=gen).items()}
+        grads = {n: p.grad.cpu().numpy() for n, p in model.named_parameters()
+                 if p.grad is not None}
+        return metrics, grads, step_ms_p50(step, batch, eps_to(eps, "cuda"), gen,
+                                           MULTI_TIMED_STEPS)
+    finally:
+        torch.backends.cudnn.deterministic = old
+
+
+def world_one_group(ctx, fn, *args):
+    """``fn(ctx, *args)`` in a process group of this process alone (a
+    file rendezvous in a temporary directory), destroyed after; the cuDNN
+    and TF32 settings the function changes are restored."""
+    import torch.distributed as dist
+    flags = (torch.backends.cudnn.deterministic, torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pg_") as tmp:
+        dist.init_process_group(ctx.backend, init_method=f"file://{tmp}/rendezvous",
+                                rank=0, world_size=1)
+        try:
+            return fn(ctx, *args)
+        finally:
+            dist.destroy_process_group()
+            (torch.backends.cudnn.deterministic, torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32) = flags
+
+
+def phase_multi_device(card: str):
+    """Multi-device training on the one card (not scaling: one card).
+
+    (a) a world-1 NCCL group on cuda:0, made in this process, runs the
+    flagship POE and MOE steps through the data-parallel path, bit for bit
+    the one-process steps (cuDNN's deterministic algorithms on both sides);
+    (b) two gloo ranks on
+    the card run the same steps at bs TRAIN_BATCH, each on its 12 rows,
+    the gradients summed: within the training limit of the one-process
+    step, each rank launching attention, PoE and KL at its rows and taking
+    no plain version; (c) ``dryrun_multichip(4)`` on four gloo ranks (the
+    2x2 hybrid mesh, megatron-sharded DTensor parameters).  Returns rank
+    0's launches over (b) and the phase's numbers."""
+    from multimodal_vae_comparison_tpu_torch.parallel.dryrun import (
+        StepJob, dryrun_multichip, run_steps)
+    from multimodal_vae_comparison_tpu_torch.parallel.launch import Rank, launch
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(31)
+    raw = make_inputs(rng, TRAIN_BATCH)
+    raw["mod_1"]["masks"] = None
+    eps = {mixing: numpy_eps(rng, mixing, TRAIN_BATCH) for mixing in ("poe", "moe")}
+    numbers = {"note": "not scaling: one card", "card": card, "batch": TRAIN_BATCH}
+    launches = {}
+    for label, world, backend, deterministic in (
+            ("world-1 nccl", 1, "nccl", True),
+            (f"{MULTI_GLOO_RANKS} gloo ranks", MULTI_GLOO_RANKS, "gloo", False)):
+        jobs = [StepJob(flagship_specs(), raw, mixing=m, n_latents=N_LATENTS, eps=eps[m],
+                        lr=TRAIN_LR, deterministic=deterministic,
+                        timed_steps=MULTI_TIMED_STEPS) for m in ("poe", "moe")]
+        t0 = time.perf_counter()
+        if world == 1:
+            ranks = [world_one_group(Rank(0, 1, torch.device("cuda", 0), backend), run_steps,
+                                     jobs)]
+        else:
+            ranks = launch(run_steps, world, jobs, device="cuda", backend=backend,
+                           deadline=MULTI_DEADLINE)
+        numbers[label] = {"launch_s": time.perf_counter() - t0}
+        for i, mixing in enumerate(("poe", "moe")):
+            metrics, grads, one_p50 = _multi_reference(mixing, raw, eps[mixing], deterministic)
+            results = [r[1][i] for r in ranks]
+            got = results[0]
+            want_launches = {**PER_OBJECTIVE[mixing], **PER_BACKWARD[mixing]}
+            for r, res in enumerate(results):
+                check(res["rows"] == TRAIN_BATCH // world,
+                      f"multi-device {label} {mixing}: rank {r} stepped on {res['rows']} rows")
+                check(res["launches"] == want_launches,
+                      f"multi-device {label} {mixing}: rank {r} launched {res['launches']}, "
+                      f"expected {want_launches}")
+                check(not any(k.endswith(":plain") for k in res["paths"]),
+                      f"multi-device {label} {mixing}: a plain version ran: {res['paths']}")
+                check(res["metrics"] == got["metrics"],
+                      f"multi-device {label} {mixing}: ranks read other metrics")
+            if deterministic:
+                check(got["metrics"] == metrics,
+                      f"multi-device {label} {mixing}: metrics {got['metrics']} != {metrics}")
+                for n, g in grads.items():
+                    check(np.array_equal(got["grads"][n], g),
+                          f"multi-device {label} {mixing}: gradient of {n} differs")
+                worst = 0.0
+            else:
+                for k, v in metrics.items():
+                    check(abs(got["metrics"][k] - v) <= TRAIN_RTOL * abs(v) + 1e-4,
+                          f"multi-device {label} {mixing}: metric {k} {got['metrics'][k]} "
+                          f"vs one process {v}")
+                worst, worst_name = _worst_leaf(
+                    {n: torch.from_numpy(got["grads"][n]) for n in grads},
+                    {n: torch.from_numpy(g) for n, g in grads.items()}, GRAD_REL, GRAD_ATOL)
+                check(worst <= 1.0, f"multi-device {label} {mixing}: gradient of "
+                      f"{worst_name} is {worst:.3f} of its limit")
+                for k, v in got["launches"].items():
+                    launches[k] = launches.get(k, 0) + v
+            numbers[label][mixing] = {
+                "rank_step_ms_p50": [r["step_ms_p50"] for r in results],
+                "one_process_step_ms_p50": one_p50, "launches_per_rank": got["launches"],
+                "rows_per_rank": got["rows"], "worst_grad_share": worst,
+                "bit_equal": deterministic}
+    t0 = time.perf_counter()
+    loss = dryrun_multichip(4, device="cuda", backend="gloo", deadline=MULTI_DEADLINE)
+    check(np.isfinite(loss), f"dryrun_multichip(4): loss {loss}")
+    numbers["dryrun_multichip(4) gloo"] = {"loss": loss, "s": time.perf_counter() - t0}
+    numbers["phase_s"] = time.perf_counter() - t_phase
+    return launches, numbers
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -5667,6 +5804,15 @@ def main() -> int:
     bf16_steps = phase_bf16_steps(card)
     bf16_steps["phase_s"] = time.perf_counter() - t0
     print("bf16 steps " + json.dumps(bf16_steps))
+
+    # 8c. multi-device training on the one card: a world-1 NCCL group bit
+    # for bit one process, two gloo ranks summed, the 4-rank hybrid dry run
+    multi_launches, multi_numbers = phase_multi_device(card)
+    print(card)
+    print("multi-device " + json.dumps(multi_numbers))
+    check(all(multi_launches.get(k, 0) > 0 for k in ("attention", "poe", "poe_bwd", "kl",
+                                                      "kl_bwd")),
+          f"a kernel of the multi-device path never launched: {multi_launches}")
 
     # 9. the paper's four families at full width: card vs CPU
     t0 = time.perf_counter()
@@ -5800,7 +5946,8 @@ def main() -> int:
                          + family_launches.get(kernel, 0) + vilanro_launches.get(kernel, 0)
                          + cond_launches.get(kernel, 0) + fashion_launches.get(kernel, 0)
                          + digits_launches.get(kernel, 0) + zoo_rest_launches.get(kernel, 0)
-                         + eval_rest_launches.get(kernel, 0) + bf16_launches.get(kernel, 0))
+                         + eval_rest_launches.get(kernel, 0) + bf16_launches.get(kernel, 0)
+                         + multi_launches.get(kernel, 0))
         r["launches_zoo_from_config_path"] = zoo_launches.get(kernel, 0)
         r["launches_sprites_from_config_path"] = sprites_launches.get(kernel, 0)
         r["launches_mog_from_config_path"] = mog_launches.get(kernel, 0)
@@ -5812,6 +5959,7 @@ def main() -> int:
         r["launches_zoo_rest_from_config_path"] = zoo_rest_launches.get(kernel, 0)
         r["launches_eval_rest_from_config_path"] = eval_rest_launches.get(kernel, 0)
         r["launches_bf16_from_config_path"] = bf16_launches.get(kernel, 0)
+        r["launches_multi_device_path_per_rank"] = multi_launches.get(kernel, 0)
         # the bf16 launcher beside the fp32 kernel, where the kernel has one
         if r["name"] in bf16_kernel_rows:
             # the bf16 path's launches: the video step's for the sparse

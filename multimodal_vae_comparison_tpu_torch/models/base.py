@@ -25,6 +25,7 @@ from multimodal_vae_comparison_tpu_torch.models.distributions import (
 from multimodal_vae_comparison_tpu_torch.models.encoders import get_encoder
 from multimodal_vae_comparison_tpu_torch.models.output import VAEOutput
 from multimodal_vae_comparison_tpu_torch.models.precision import Linear, set_compute_dtype
+from multimodal_vae_comparison_tpu_torch.parallel import rows
 from multimodal_vae_comparison_tpu_torch.ops.kernels.kl_kernel import (
     kl_normal_std_fused, kl_normal_std_multi)
 
@@ -284,11 +285,12 @@ class MMVAE(nn.Module):
         return lpx * spec.llik_scaling
 
     def sample_posterior(self, spec: ModalitySpec, params, eps=None,
-                         generator: Optional[torch.Generator] = None):
+                         generator: Optional[torch.Generator] = None,
+                         K: Optional[int] = None):
         """(q(z|x), (K, B, D) reparameterized draw): ``eps`` injected, or
-        drawn from ``generator``."""
+        drawn from ``generator``; ``K`` draws (default the model's)."""
         qz = self.posterior(spec, *params)
-        return qz, qz.rsample((self.K,), generator=generator, eps=eps)
+        return qz, qz.rsample((K or self.K,), generator=generator, eps=eps)
 
     # -- shared machinery ------------------------------------------------------
 
@@ -389,7 +391,7 @@ class MMVAE(nn.Module):
         target = target.reshape(target.shape[0], -1)[:, :3]          # (B, 3)
         pred = self.aux_head(z[..., : self.n_latents])               # (K, B, 3)
         per_sample = ((pred - target[None]) ** 2).sum(-1).mean(0)    # (B,)
-        return self.aux_endpoint * per_sample.sum(), per_sample.mean()
+        return self.aux_endpoint * per_sample.sum(), rows.row_mean(per_sample)
 
     def forward(self, batch, present: Tuple[str, ...], eps=None,
                 generator=None) -> VAEOutput:

@@ -1,12 +1,11 @@
 """Distributions (counterpart of ``models/distributions.py``).
 
 The diagonal ``Normal`` and ``Laplace``, the ``OneHotCategorical`` of the
-unimodal VAE's gumbel-softmax path, and the learnable mixture-of-Gaussians
-prior ``MixtureNormal``.  Like the reference each is a plain container of
+unimodal VAE's gumbel-softmax path, the ``Bernoulli`` of BCE likelihoods,
+and the learnable mixture-of-Gaussians prior ``MixtureNormal``.  Like the reference each is a plain container of
 its parameters with ``log_prob`` and a sampler; the samplers draw from an
 explicit ``torch.Generator`` or take injected noise, so tests can feed both
-packages the same draws.  Bernoulli comes with the slice whose model uses
-it.
+packages the same draws.
 """
 from __future__ import annotations
 
@@ -16,7 +15,8 @@ from typing import Optional, Sequence
 
 import torch
 
-from multimodal_vae_comparison_tpu_torch.constants import LOG2PI
+from multimodal_vae_comparison_tpu_torch.constants import ETA, LOG2PI
+from multimodal_vae_comparison_tpu_torch.parallel import rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,7 +49,8 @@ class Normal:
         the card the CPU's draws."""
         shape = tuple(sample_shape) + tuple(self.loc.shape)
         if eps is None:
-            eps = _draw(shape, generator, self.loc)
+            eps = rows.draw(shape, len(sample_shape),
+                            lambda s: _draw(s, generator, self.loc))
         elif tuple(eps.shape) != shape:
             raise ValueError(f"eps has shape {tuple(eps.shape)}, expected {shape}")
         return self.loc + eps * self.scale
@@ -85,8 +86,9 @@ class Laplace:
         ``generator`` on the generator's device and moved to ``loc``'s."""
         shape = tuple(sample_shape) + tuple(self.loc.shape)
         if eps is None:
-            r = torch.rand(shape, generator=generator, dtype=self.loc.dtype,
-                           device=self.loc.device if generator is None else generator.device)
+            r = rows.draw(shape, len(sample_shape), lambda s: torch.rand(
+                s, generator=generator, dtype=self.loc.dtype,
+                device=self.loc.device if generator is None else generator.device))
             eps = (self.U_LOW + (self.U_HIGH - self.U_LOW) * r).to(self.loc.device)
         elif tuple(eps.shape) != shape:
             raise ValueError(f"eps has shape {tuple(eps.shape)}, expected {shape}")
@@ -129,9 +131,9 @@ class OneHotCategorical:
         shape = tuple(sample_shape) + tuple(self.logits.shape)
         if eps is None:
             dtype = self.logits.dtype
-            u = torch.rand(shape, generator=generator, dtype=dtype,
-                           device=self.logits.device if generator is None
-                           else generator.device)
+            u = rows.draw(shape, len(sample_shape), lambda s: torch.rand(
+                s, generator=generator, dtype=dtype,
+                device=self.logits.device if generator is None else generator.device))
             eps = (-torch.log(-torch.log(u.clamp_min(torch.finfo(dtype).tiny)))
                    ).to(self.logits.device)
         elif tuple(eps.shape) != shape:
@@ -152,12 +154,28 @@ def stop_gradient(dist):
         if torch.is_tensor(getattr(dist, f.name))})
 
 
-# the reference's DIST_MAP, restricted to the ported families
+@dataclasses.dataclass(frozen=True)
+class Bernoulli:
+    """Bernoulli parameterized by probabilities (BCE likelihoods)."""
+
+    probs: torch.Tensor
+
+    @property
+    def mean(self) -> torch.Tensor:
+        return self.probs
+
+    def log_prob(self, x: torch.Tensor) -> torch.Tensor:
+        p = torch.clamp(self.probs, ETA, 1.0 - ETA)
+        return x * torch.log(p) + (1.0 - x) * torch.log1p(-p)
+
+
+# the reference's DIST_MAP
 DIST_MAP = {
     "normal": Normal,
     "gaussian": Normal,
     "laplace": Laplace,
     "categorical": OneHotCategorical,
+    "bernoulli": Bernoulli,
     "gumbel": OneHotCategorical,   # the gumbel-softmax sampling path
 }
 
@@ -165,8 +183,7 @@ DIST_MAP = {
 def get_dist(name: str):
     key = name.lower()
     if key not in DIST_MAP:
-        raise KeyError(f"distribution '{name}' is not ported; available: "
-                       f"{sorted(DIST_MAP)}")
+        raise KeyError(f"unknown distribution '{name}'; available: {sorted(DIST_MAP)}")
     return DIST_MAP[key]
 
 
@@ -233,15 +250,21 @@ def log_prob_joint(dist, x: torch.Tensor) -> torch.Tensor:
     return lp if isinstance(dist, MixtureNormal) else lp.sum(-1)
 
 
-def kl_divergence(d1, d2) -> torch.Tensor:
-    """Closed-form KL when both distributions share a family.  The
-    reference's Monte-Carlo estimate between mixed families waits for a
-    model that needs it; the mixture prior's KL is :meth:`MMVAE.kld_to_prior`'s."""
+def kl_divergence(d1, d2, generator: Optional[torch.Generator] = None, n_mc: int = 100,
+                  eps: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Closed-form KL when both distributions share a family, else the
+    Monte-Carlo estimate ``mean(log q1(z) - log q2(z))`` over ``n_mc`` draws
+    ``z`` of ``d1``, drawn from ``generator`` or made from the injected
+    ``eps`` (the reference's ``kl_divergence``, which draws from a PRNG key
+    and raises without one).  The mixture prior's KL is
+    :meth:`MMVAE.kld_to_prior`'s."""
     if type(d1) is type(d2) and hasattr(d1, "kl"):
         return d1.kl(d2)
-    raise NotImplementedError(
-        f"KL between {type(d1).__name__} and {type(d2).__name__} needs the "
-        "Monte-Carlo branch, which is not ported yet")
+    if generator is None and eps is None:
+        raise ValueError(f"the Monte-Carlo KL between {type(d1).__name__} and "
+                         f"{type(d2).__name__} needs a generator or samples")
+    samples = d1.rsample((n_mc,), generator=generator, eps=eps)
+    return (d1.log_prob(samples) - d2.log_prob(samples)).mean(0)
 
 
 def log_mean_exp(value: torch.Tensor, dim: int = 0,

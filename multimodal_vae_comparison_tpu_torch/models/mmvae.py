@@ -32,6 +32,7 @@ from multimodal_vae_comparison_tpu_torch.models.distributions import (
     Normal, OneHotCategorical, log_mean_exp, log_prob_joint, stop_gradient)
 from multimodal_vae_comparison_tpu_torch.models.output import (
     ModalityOutput, VAEOutput)
+from multimodal_vae_comparison_tpu_torch.parallel import rows
 from multimodal_vae_comparison_tpu_torch.ops.fusion import (
     mixture_component_selection, poe_lattice, product_of_experts, subset_lattice)
 
@@ -143,7 +144,7 @@ class MOE(MMVAE):
                 lpx_terms.append(lpx_cross)
         lpx = torch.stack([_kmean(t) for t in lpx_terms])
         loss = objectives.elbo(lpx, kld, self.beta) / len(self.specs)
-        metrics = {"kld": kld.mean(-1).sum(),
+        metrics = {"kld": rows.row_mean(kld).sum(),
                    **{f"reconstruction_loss_{k}": v for k, v in rec_per_mod.items()}}
         return loss, metrics
 
@@ -299,7 +300,7 @@ class POE(MMVAE):
                 if present == (spec.name,):
                     rec_per_mod[spec.name] = -lpx.sum() / spec.llik_scaling
             total = total - (lpx_sum - self.beta * kld.sum())
-            total_kld = total_kld + kld.mean()
+            total_kld = total_kld + rows.row_mean(kld)
             # the endpoint head reads the joint posterior of every modality
             # but the action one (the evaluation's conditioning set): on the
             # full set the action expert would hand it its own endpoint
@@ -390,14 +391,14 @@ class MoPOE(MMVAE):
                 div = self.kld_to_prior(d, z_d)
             else:
                 div = self.kld_to_prior(d)
-            group_div = group_div + w * div.mean()
+            group_div = group_div + w * rows.row_mean(div)
         lpx_total = torch.zeros((), device=z.device)
         rec_per_mod = {}
         for spec in self.specs:
             dec = self.decode_mod(spec.name, z, _mask_of(batch, spec.name),
                                   cond=self._cond_for(spec.name, batch, present))
             lpx = _kmean(self.recon_lpx(spec, dec, batch))
-            lpx_total = lpx_total + lpx.mean()
+            lpx_total = lpx_total + rows.row_mean(lpx)
             rec_per_mod[spec.name] = -lpx.sum() / spec.llik_scaling
         loss = -(lpx_total - self.beta * group_div)
         metrics = {"kld": group_div,
@@ -532,7 +533,7 @@ class DMVAE(MMVAE):
             total = total + (objectives.elbo(lpx, kld, self.beta)
                              + objectives.elbo(lpx_joint, kld_joint, self.beta)
                              - (lpx_cross - self.beta * kld_priv))
-            total_kld = total_kld + kld.mean()
+            total_kld = total_kld + rows.row_mean(kld)
             rec_per_mod[spec.name] = -lpx.sum() / spec.llik_scaling
         metrics = {"kld": total_kld / len(self.specs),
                    **{f"reconstruction_loss_{k}": v for k, v in rec_per_mod.items()}}

@@ -4,7 +4,10 @@ The blocks of the ported models: the transformer pieces of the CdSprites+
 text nets, the ResNet-50 trunk of ``Enc_CNN``, the ViT trunk of
 ``Enc_VIT``, the residual blocks of the RESCNN nets, the 3D conv and
 attention blocks of the VideoGPT family, and VGG19's first convs (the
-perceptual loss's extractor).
+perceptual loss's extractor); and the reference's blocks that no encoder
+or decoder of either package builds (``GroupNormMod``, ``MLP``, the
+``MultiTransformer`` fusion net with its ``TransformerDecoder``,
+``ResidualBlock1dConv`` and ``ResidualFeatureCompressor``).
 Submodules carry the names
 that flax gives their counterparts (``Dense_0``, ``LayerNorm_1``,
 ``MultiHeadAttention_0``, ...), so that ``bridge.load_flax_params`` maps a
@@ -32,8 +35,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from multimodal_vae_comparison_tpu_torch.models import precision
+from multimodal_vae_comparison_tpu_torch.constants import ETA
 from multimodal_vae_comparison_tpu_torch.models.precision import (
-    Conv2d, Conv3d, ConvTranspose2d, ConvTranspose3d, LayerNorm, Linear, to_compute)
+    Conv1d, Conv2d, Conv3d, ConvTranspose2d, ConvTranspose3d, LayerNorm, Linear, to_compute)
 from multimodal_vae_comparison_tpu_torch.ops.kernels.attention import masked_attention
 from multimodal_vae_comparison_tpu_torch.ops.kernels.sparse_attention import (
     strided_block_sparse_attention)
@@ -128,6 +132,112 @@ class TransformerEncoder(nn.Module):
         return x
 
 
+class TransformerDecoderLayer(nn.Module):
+    """Post-norm decoder layer: self-attention over the queries, then
+    cross-attention to the memory, then the feed-forward block."""
+
+    def __init__(self, d_model: int, num_heads: int, ff_size: int,
+                 memory_features: Optional[int] = None):
+        super().__init__()
+        self.MultiHeadAttention_0 = MultiHeadAttention(d_model, num_heads)
+        self.LayerNorm_0 = LayerNorm(d_model, eps=LN_EPS)
+        self.MultiHeadAttention_1 = MultiHeadAttention(d_model, num_heads, memory_features)
+        self.LayerNorm_1 = LayerNorm(d_model, eps=LN_EPS)
+        self.Dense_0 = Linear(d_model, ff_size)
+        self.Dense_1 = Linear(ff_size, d_model)
+        self.LayerNorm_2 = LayerNorm(d_model, eps=LN_EPS)
+
+    def forward(self, tgt, memory, tgt_key_mask=None, mem_key_mask=None):
+        tgt = self.LayerNorm_0(tgt + self.MultiHeadAttention_0(tgt, tgt, tgt_key_mask))
+        tgt = self.LayerNorm_1(tgt + self.MultiHeadAttention_1(tgt, memory, mem_key_mask))
+        return self.LayerNorm_2(tgt + self.Dense_1(gelu(self.Dense_0(tgt))))
+
+
+class TransformerDecoder(nn.Module):
+    def __init__(self, num_layers: int, d_model: int, num_heads: int, ff_size: int,
+                 memory_features: Optional[int] = None):
+        super().__init__()
+        self.num_layers = num_layers
+        for i in range(num_layers):
+            self.add_module(f"TransformerDecoderLayer_{i}", TransformerDecoderLayer(
+                d_model, num_heads, ff_size, memory_features))
+
+    def forward(self, tgt, memory, tgt_key_mask=None, mem_key_mask=None):
+        for i in range(self.num_layers):
+            tgt = getattr(self, f"TransformerDecoderLayer_{i}")(tgt, memory, tgt_key_mask,
+                                                                mem_key_mask)
+        return tgt
+
+
+class MLP(nn.Module):
+    """Dense layers of ``features`` widths from ``in_features``, each but the
+    last (or every one, with ``activate_final``) followed by ``activation``."""
+
+    def __init__(self, in_features: int, features: Sequence[int], activation=F.relu,
+                 activate_final: bool = False):
+        super().__init__()
+        self.activation, self.activate_final = activation, activate_final
+        self.n = len(features)
+        for i, f in enumerate(features):
+            self.add_module(f"Dense_{i}", Linear(in_features, f))
+            in_features = f
+
+    def forward(self, x):
+        for i in range(self.n):
+            x = getattr(self, f"Dense_{i}")(x)
+            if i < self.n - 1 or self.activate_final:
+                x = self.activation(x)
+        return x
+
+
+class MultiTransformer(nn.Module):
+    """Transformer fusion network over stacked per-modality latent tokens
+    (reference nn_modules.py:65-142): embeds a (B, T, in_features) sequence
+    of latent vectors (``skel_embedding``), runs a masked encoder
+    (optionally followed by a time-query decoder), and emits fused (mu,
+    scale) in fp32.  ``zero_masking`` masks all-zero rows (the reference's
+    padded-modality convention)."""
+
+    def __init__(self, in_features: int, latent_dim: int, num_layers: int = 2,
+                 num_heads: int = 2, ff_size: int = 2048, zero_masking: bool = False,
+                 use_decoder: bool = False, use_ml_layers: bool = True,
+                 output_mean: bool = True, pos_encoding: bool = True):
+        super().__init__()
+        self.latent_dim, self.zero_masking = latent_dim, zero_masking
+        self.use_decoder, self.use_ml_layers = use_decoder, use_ml_layers
+        self.output_mean, self.pos_encoding = output_mean, pos_encoding
+        self.skel_embedding = Linear(in_features, latent_dim)
+        self.TransformerEncoder_0 = TransformerEncoder(num_layers, latent_dim, num_heads,
+                                                       ff_size)
+        if use_decoder:
+            self.TransformerDecoder_0 = TransformerDecoder(num_layers, latent_dim,
+                                                           num_heads, ff_size)
+        if use_ml_layers:
+            self.mu_layer = Linear(latent_dim, latent_dim)
+            self.logvar_layer = Linear(latent_dim, latent_dim)
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None):
+        b, t = x.shape[0], x.shape[1]
+        x = x.reshape(b, t, -1)
+        if mask is None and self.zero_masking:
+            mask = (x != 0).any(-1)
+        h = self.skel_embedding(x)
+        if self.pos_encoding:
+            h = h + positional_encoding(t, self.latent_dim, h.device, h.dtype)[None]
+        h = self.TransformerEncoder_0(h, mask)
+        if self.use_decoder:
+            queries = positional_encoding(t, self.latent_dim, h.device,
+                                          h.dtype)[None].expand(b, t, self.latent_dim)
+            h = self.TransformerDecoder_0(queries, h, tgt_key_mask=mask)
+        if not self.use_ml_layers:
+            mu, raw = h[:, 0], h[:, 1]
+        else:
+            z = h.mean(dim=1) if self.output_mean else h[:, 0]
+            mu, raw = self.mu_layer(z), self.logvar_layer(z)
+        scale = torch.softmax(raw.float(), dim=-1) + ETA
+        return mu.float(), scale
+
+
 class ConvTranspose2dTorch(nn.Module):
     """2x up-sampling transposed conv, k=4, stride 2, padding 1, on NHWC.
 
@@ -160,6 +270,19 @@ class GroupNorm(precision.GroupNorm):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return super().forward(x.movedim(-1, 1)).movedim(1, -1)
+
+
+class GroupNormMod(nn.Module):
+    """flax ``GroupNorm`` of gcd(``groups``, C) groups over channels-last
+    input (the reference's module wrapper of ``group_norm``)."""
+
+    def __init__(self, channels: int, groups: int = 8):
+        super().__init__()
+        self.GroupNorm_0 = precision.GroupNorm(math.gcd(groups, channels), channels,
+                                               eps=LN_EPS)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.GroupNorm_0(x.movedim(-1, 1)).movedim(1, -1)
 
 
 def _same_pads(size: int, kernel: int, stride: int) -> Tuple[int, int]:
@@ -369,6 +492,56 @@ class ResUp(nn.Module):
 
 
 # -- ViT trunk (Enc_VIT's backbone) --------------------------------------------
+
+class _SameConv1d(Conv1d):
+    """flax ``nn.Conv`` of one spatial axis with ``SAME`` padding, on
+    channels-first (B, C, L) input."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        pads = _same_pads(x.shape[-1], self.kernel_size[0], self.stride[0])
+        return super().forward(F.pad(x, pads))
+
+
+class ResidualBlock1dConv(nn.Module):
+    """Weighted-residual 1D conv block on channels-last (B, L, C) input
+    (reference nn_modules.py:144-177, MoPoE feature compressors): out =
+    a*residual + b*conv_path, the residual a strided 1x1 conv where the
+    channels or the stride change."""
+
+    def __init__(self, channels_in: int, channels_out: int, kernel: int = 1,
+                 strides: int = 1, a: float = 2.0, b: float = 0.3):
+        super().__init__()
+        self.a, self.b = a, b
+        self.GroupNorm_0 = group_norm(channels_in)
+        self.Conv_0 = _SameConv1d(channels_in, channels_out, kernel, stride=strides)
+        self.GroupNorm_1 = group_norm(channels_out)
+        self.Conv_1 = _SameConv1d(channels_out, channels_out, kernel)
+        if channels_in != channels_out or strides != 1:
+            self.Conv_2 = _SameConv1d(channels_in, channels_out, 1, stride=strides)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.movedim(-1, 1)
+        h = self.Conv_0(F.relu(self.GroupNorm_0(x)))
+        h = self.Conv_1(F.relu(self.GroupNorm_1(h)))
+        residual = self.Conv_2(x) if hasattr(self, "Conv_2") else x
+        return (self.a * residual + self.b * h).movedim(1, -1)
+
+
+class ResidualFeatureCompressor(nn.Module):
+    """Residual 1D-conv compressor emitting style/content (mu, raw-scale)
+    pairs (reference nn_modules.py:210-228, from the MoPoE repo)."""
+
+    def __init__(self, channels_in: int, out_style: int, out_content: int,
+                 a: float = 2.0, b: float = 0.3):
+        super().__init__()
+        for name, out in (("style_mu", out_style), ("style_logvar", out_style),
+                          ("content_mu", out_content), ("content_logvar", out_content)):
+            self.add_module(name, ResidualBlock1dConv(channels_in, out, a=a, b=b))
+
+    def forward(self, feats: torch.Tensor):
+        return (self.style_mu(feats), self.style_logvar(feats),
+                self.content_mu(feats), self.content_logvar(feats))
+
 
 class ViT(nn.Module):
     """Compact ViT on NHWC images: a ``patch`` x ``patch`` conv of stride

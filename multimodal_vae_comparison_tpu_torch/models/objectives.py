@@ -24,6 +24,7 @@ from multimodal_vae_comparison_tpu_torch.constants import ETA, LOG2PI
 from multimodal_vae_comparison_tpu_torch.models.distributions import log_mean_exp
 from multimodal_vae_comparison_tpu_torch.models.perceptual import feature_loss
 from multimodal_vae_comparison_tpu_torch.models.precision import wide_dtype
+from multimodal_vae_comparison_tpu_torch.parallel import rows
 
 
 def _flatten_features(x: torch.Tensor, batch_ndims: int) -> torch.Tensor:
@@ -100,13 +101,17 @@ def optimal_sigma(dist, target, mask=None, batch_ndims=1):
     """Gaussian log-likelihood with the analytic optimal sigma of the whole
     call (sigma-VAE): sigma^2 is the mean squared error over the valid
     positions only (padding does not count in the denominator), its log
-    softclipped from below at -6; the gradient flows through sigma too."""
+    softclipped from below at -6; the gradient flows through sigma too.
+    Under a data mesh the mean is the global batch's: the sum and the count
+    are all-reduced over the data axis (``parallel/rows.py``)."""
     err2 = _apply_mask((target - dist.mean).square(), mask, batch_ndims)
-    if mask is None:
+    if mask is None and rows.current() is None:
         mean_err2 = err2.mean()
     else:
-        valid = _apply_mask(torch.ones_like(err2), mask, batch_ndims)
-        mean_err2 = err2.sum() / torch.clamp(valid.sum(), min=1.0)
+        valid = (err2.new_tensor(float(err2.numel())) if mask is None
+                 else _apply_mask(torch.ones_like(err2), mask, batch_ndims).sum())
+        mean_err2 = rows.global_sum(err2.sum()) / torch.clamp(rows.global_sum(valid),
+                                                              min=1.0)
     log_sigma = softclip(0.5 * torch.log(mean_err2 + 1e-12), -6.0)
     ll = -(0.5 * err2 / torch.exp(2.0 * log_sigma) + log_sigma + 0.5 * LOG2PI)
     return _sum_features(ll, mask, batch_ndims)

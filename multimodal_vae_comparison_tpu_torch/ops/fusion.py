@@ -14,6 +14,7 @@ import torch
 
 from multimodal_vae_comparison_tpu_torch.ops.kernels.poe_kernel import (
     poe_fused, poe_lattice, poe_reference)
+from multimodal_vae_comparison_tpu_torch.parallel import rows
 
 
 def poe_precision_fusion(mus: torch.Tensor, scales: torch.Tensor,
@@ -57,15 +58,21 @@ def mixture_splits(num_components: int, num_samples: int) -> List[Tuple[int, int
 def mixture_component_selection(mus: torch.Tensor, scales: torch.Tensor):
     """MoPoE's stratified draw from a uniform mixture of S components: the
     batch is split across the components by :func:`mixture_splits` and each
-    row takes its component's parameters.
+    row takes its component's parameters (under a data mesh the global
+    batch's split, ``parallel/rows.py``).
 
     :param mus: (S, B, D) component means
     :param scales: (S, B, D) component stddevs
     :return: (B, D) selected means and stddevs
     """
-    splits = mixture_splits(mus.shape[0], mus.shape[1])
-    return (torch.cat([mus[k, a:b] for k, (a, b) in enumerate(splits)], dim=0),
-            torch.cat([scales[k, a:b] for k, (a, b) in enumerate(splits)], dim=0))
+    n = mus.shape[1]
+    shard = rows.current()
+    start, total = (0, n) if shard is None else (shard.start, shard.total)
+    # the global split, kept where it meets this rank's rows
+    splits = [(max(a - start, 0), min(b - start, n))
+              for a, b in mixture_splits(mus.shape[0], total)]
+    return (torch.cat([mus[k, a:b] for k, (a, b) in enumerate(splits) if a < b], dim=0),
+            torch.cat([scales[k, a:b] for k, (a, b) in enumerate(splits) if a < b], dim=0))
 
 
 def subset_lattice(num_mods: int,

@@ -54,21 +54,25 @@ class OptaxRule(torch.optim.Optimizer):
             raise ValueError("OptaxRule.step takes no closure")
         for group in self.param_groups:
             for p in group["params"]:
-                g = p.grad if p.grad is not None else torch.zeros_like(p)
-                p.add_(self._update(p, g), alpha=-group["lr"])
+                # a parameter sharded over a model axis steps on its shard
+                # (parallel/tensor_sharding.py); its state is the shard's
+                w = local_shard(p)
+                g = local_shard(p.grad) if p.grad is not None else torch.zeros_like(w)
+                w.add_(self._update(p, w, g), alpha=-group["lr"])
 
-    def _update(self, p, g) -> torch.Tensor:
-        """optax's update direction before the learning rate."""
+    def _update(self, p, w, g) -> torch.Tensor:
+        """optax's update direction before the learning rate, for the
+        parameter ``p`` whose tensor (or shard) is ``w``."""
         if self.rule == "sgd":
             return g
         b1, b2, eps, eps_root, weight_decay = HYPERPARAMS[self.rule]
         state = self.state[p]
         if not state:
             state["count"] = 0
-            state["mu"] = torch.zeros_like(p)
-            state["nu"] = torch.zeros_like(p)
+            state["mu"] = torch.zeros_like(w)
+            state["nu"] = torch.zeros_like(w)
             if self.rule == "adam":
-                state["nu_max"] = torch.zeros_like(p)
+                state["nu_max"] = torch.zeros_like(w)
         state["count"] += 1
         count = state["count"]
         mu = state["mu"].mul_(b1).add_(g, alpha=1 - b1)
@@ -82,8 +86,13 @@ class OptaxRule(torch.optim.Optimizer):
             nu_hat = torch.maximum(state["nu_max"], nu_hat, out=state["nu_max"])
         update = mu_hat / (torch.sqrt(nu_hat + eps_root) + eps)
         if weight_decay:
-            update = update + weight_decay * p
+            update = update + weight_decay * w
         return update
+
+
+def local_shard(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's shard on this rank, else ``t``."""
+    return t.to_local() if hasattr(t, "to_local") else t
 
 
 def make_optimizer(name: str, lr: float,

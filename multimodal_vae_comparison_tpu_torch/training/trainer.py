@@ -36,6 +36,7 @@ from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from multimodal_vae_comparison_tpu_torch.data.datamodule import (
     DataModule, prefetch_to_device)
@@ -45,7 +46,9 @@ from multimodal_vae_comparison_tpu_torch.models import get_mixing, objectives
 from multimodal_vae_comparison_tpu_torch.models.base import MMVAE, ModalitySpec, build_specs
 from multimodal_vae_comparison_tpu_torch.models.mmvae import UnimodalVAE
 from multimodal_vae_comparison_tpu_torch.ops.kernels import telemetry
-from multimodal_vae_comparison_tpu_torch.training.optim import make_optimizer
+from multimodal_vae_comparison_tpu_torch.parallel import rows
+from multimodal_vae_comparison_tpu_torch.parallel.mesh import local_rows, shard_params
+from multimodal_vae_comparison_tpu_torch.training.optim import local_shard, make_optimizer
 
 CKPT_FILE = "state.pt"
 
@@ -97,16 +100,17 @@ def build_model_from_config(cfg, device: Optional[Union[str, torch.device]] = No
                        dtype=dtype)
 
 
-def _chunk(batch, eps, g: int, G: int):
-    """Chunk ``g`` of ``G``, strided (rows g, g+G, ...) as the reference
-    splits a batch; injected (K, B, D) draws are split the same way."""
-    sub = {name: {k: None if v is None else v[g::G] for k, v in mod.items()}
+def _chunk(batch, eps, start: int, G: int):
+    """The strided chunk of rows ``start, start + G, ...`` (the reference
+    splits a batch into chunks ``x[g::G]``); injected (K, B, D) draws are
+    split the same way."""
+    sub = {name: {k: None if v is None else v[start::G] for k, v in mod.items()}
            for name, mod in batch.items()}
     if eps is None:
         return sub, None
     if isinstance(eps, dict):
-        return sub, {k: e[:, g::G] for k, e in eps.items()}
-    return sub, [e[:, g::G] for e in eps]
+        return sub, {k: e[:, start::G] for k, e in eps.items()}
+    return sub, [e[:, start::G] for e in eps]
 
 
 def _batch_size(batch) -> int:
@@ -114,7 +118,35 @@ def _batch_size(batch) -> int:
                 if mod.get("data") is not None)
 
 
-def make_train_step(model: MMVAE, opt: torch.optim.Optimizer, grad_accum: int = 1):
+def _data_axis(group) -> Tuple[int, int]:
+    """(this rank's index, the size) of the data axis ``group`` (None: one
+    device)."""
+    if group is None:
+        return 0, 1
+    return dist.get_rank(group), dist.get_world_size(group)
+
+
+def _row_shard(group, start: int, total: int):
+    """The shard of rows ``[start, ...)`` of ``total`` on the data axis, or
+    None on one device (the one-device computation, bit for bit)."""
+    return None if _data_axis(group)[1] == 1 else rows.RowShard(start, total, group)
+
+
+def _all_reduce_sums(values, group) -> None:
+    """Sum the tensors ``values`` over the data axis in place, in one
+    collective per dtype and device."""
+    buckets = {}
+    for v in values:
+        buckets.setdefault((v.dtype, v.device), []).append(v)
+    for vs in buckets.values():
+        flat = torch.cat([v.reshape(-1) for v in vs])
+        dist.all_reduce(flat, group=group)
+        for v, part in zip(vs, flat.split([v.numel() for v in vs])):
+            v.copy_(part.view_as(v))
+
+
+def make_train_step(model: MMVAE, opt: torch.optim.Optimizer, grad_accum: int = 1,
+                    data_group=None):
     """``step(batch, eps=None, generator=None) -> metrics``: the model's
     objective, its gradient, and one optimizer update; ``metrics`` holds the
     objective's metrics and ``loss``, as detached tensors.
@@ -123,6 +155,15 @@ def make_train_step(model: MMVAE, opt: torch.optim.Optimizer, grad_accum: int = 
     (chunk g is ``x[g::G]``); each chunk's gradient is summed, the sum is
     scaled by 1/G and one update is taken, and the loss and metrics are
     the chunks' mean.  A batch that G does not divide raises.
+
+    With a ``data_group`` of N ranks (the data axis of a mesh) ``batch``
+    and ``eps`` hold this rank's rows, block r of the global batch
+    (``parallel/mesh.shard_batch``), and the step is the global batch's:
+    the noise is drawn at the global shape and the rank's rows kept, row
+    means are the global batch's (``parallel/rows.py``), and since the
+    loss is a sum over rows, the gradient, the loss and every metric are
+    SUMMED over the ranks (not averaged, as DDP does).  Chunk g on rank r
+    is the rank's rows whose global index is g mod G.
     """
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
@@ -132,20 +173,28 @@ def make_train_step(model: MMVAE, opt: torch.optim.Optimizer, grad_accum: int = 
              ) -> Dict[str, torch.Tensor]:
         model.train()
         opt.zero_grad(set_to_none=True)
+        n = _batch_size(batch)
+        r, N = _data_axis(data_group)
         if grad_accum == 1:
-            loss, metrics = model.objective(batch, eps=eps, generator=generator)
+            with rows.shard_rows(_row_shard(data_group, r * n, N * n)):
+                loss, metrics = model.objective(batch, eps=eps, generator=generator)
             loss.backward()
             out = {k: v.detach() for k, v in metrics.items()}
             out["loss"] = loss.detach()
         else:
-            n = _batch_size(batch)
-            if n % grad_accum:
-                raise ValueError(f"batch {n} is not divisible by "
+            if (N * n) % grad_accum:
+                raise ValueError(f"batch {N * n} is not divisible by "
                                  f"grad_accum={grad_accum}")
+            if n < grad_accum:
+                raise ValueError(f"{n} rows a rank cannot make {grad_accum} chunks")
             out = {}
             for g in range(grad_accum):
-                sub, sub_eps = _chunk(batch, eps, g, grad_accum)
-                loss, metrics = model.objective(sub, eps=sub_eps, generator=generator)
+                first = (g - r * n) % grad_accum      # the rank's first row of chunk g
+                sub, sub_eps = _chunk(batch, eps, first, grad_accum)
+                shard = _row_shard(data_group, (r * n + first) // grad_accum,
+                                   N * n // grad_accum)
+                with rows.shard_rows(shard):
+                    loss, metrics = model.objective(sub, eps=sub_eps, generator=generator)
                 loss.backward()
                 metrics = dict(metrics, loss=loss)
                 for k, v in metrics.items():
@@ -155,24 +204,40 @@ def make_train_step(model: MMVAE, opt: torch.optim.Optimizer, grad_accum: int = 
                 if p.grad is not None:
                     p.grad.mul_(inv)
             out = {k: v * inv for k, v in out.items()}
+        if N > 1:
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            _all_reduce_sums([local_shard(p.grad) for p in params], data_group)
+            out = _all_reduced_metrics(out, data_group)
         opt.step()
         return out
 
     return step
 
 
-def make_eval_step(model: MMVAE):
+def _all_reduced_metrics(metrics: Dict[str, torch.Tensor], group) -> Dict[str, torch.Tensor]:
+    keys = sorted(metrics)
+    values = [metrics[k].float().reshape(1).clone() for k in keys]
+    _all_reduce_sums(values, group)
+    return {k: v.reshape(()) for k, v in zip(keys, values)}
+
+
+def make_eval_step(model: MMVAE, data_group=None):
     """``eval_step(batch, eps=None, generator=None) -> metrics``: the
-    objective's metrics and ``loss`` without a gradient."""
+    objective's metrics and ``loss`` without a gradient; with a
+    ``data_group`` the global batch's, as :func:`make_train_step`'s."""
 
     def eval_step(batch, eps=None, generator: Optional[torch.Generator] = None
                   ) -> Dict[str, torch.Tensor]:
         model.eval()
-        with torch.no_grad():
+        n = _batch_size(batch)
+        r, N = _data_axis(data_group)
+        with torch.no_grad(), rows.shard_rows(_row_shard(data_group, r * n, N * n)):
             loss, metrics = model.objective(batch, eps=eps, generator=generator)
         out = dict(metrics)
         out["loss"] = loss
-        return out
+        return _all_reduced_metrics(out, data_group) if N > 1 else out
 
     return eval_step
 
@@ -265,20 +330,52 @@ class CSVLogger:
             f.write(",".join(str(metrics.get(k, "")) for k in self._keys) + "\n")
 
 
+def data_parallel_size(cfg, device: Optional[Union[str, torch.device]] = None) -> int:
+    """The ranks a config trains on (reference ``trainer.py:252-257``):
+    ``num_devices``, or when it is None every card (one CPU), shrunk until
+    it divides ``batch_size``.  More cards than the host has raises."""
+    on_cards = resolve_device(device).type == "cuda"
+    n = int(getattr(cfg, "num_devices", None)
+            or (torch.cuda.device_count() if on_cards else 1))
+    if on_cards and n > torch.cuda.device_count():
+        raise ValueError(f"num_devices {n} is more than the {torch.cuda.device_count()} "
+                         "cards of this host")
+    while cfg.batch_size % n:
+        n -= 1
+    return n
+
+
 class Trainer:
     """Training from a parsed Config (counterpart of ``trainer.py:246-620``).
 
     ``device`` defaults to CUDA and raises when there is none.  The model's
     weights are drawn from ``cfg.seed`` by :meth:`init_state`, which
     :meth:`fit` calls when the caller has not.
+
+    In a rank of an initialized process group (``main --num_devices N``
+    starts N through ``parallel/launch.py``) the Trainer trains data
+    parallel over the group's ranks, as the reference does over its data
+    mesh: every rank holds the model, steps on its block of each global
+    batch (:func:`make_train_step` with the group), and reads the same
+    global metrics; every rank shuffles with the same seed.  Rank 0 alone
+    writes the checkpoints (the one-device state), the CSV, TensorBoard
+    and the visualizations, and runs the benchmark of :meth:`test`.
+    Outside a process group it trains on one device, and a config that
+    asks for more raises.
     """
 
     def __init__(self, cfg, datamodule: Optional[DataModule] = None,
                  device: Optional[Union[str, torch.device]] = None,
                  enable_viz: bool = True):
-        if int(getattr(cfg, "num_devices", None) or 1) > 1:
-            raise NotImplementedError("training on more than one device is not "
-                                      "ported yet (ROADMAP Queue A item 9)")
+        self.data_group = dist.group.WORLD if dist.is_initialized() else None
+        self.rank, self.world = _data_axis(self.data_group)
+        if self.data_group is None and int(getattr(cfg, "num_devices", None) or 1) > 1:
+            raise ValueError(f"num_devices {cfg.num_devices} needs that many ranks: train "
+                             "through main --num_devices, or build the Trainer in the "
+                             "ranks of parallel.launch.launch")
+        if cfg.batch_size % self.world:
+            raise ValueError(f"batch_size {cfg.batch_size} does not split over "
+                             f"{self.world} ranks")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.datamodule = datamodule or DataModule(cfg)
@@ -288,11 +385,17 @@ class Trainer:
         self._fresh = (cfg.seed, {k: v.clone() for k, v in self.model.state_dict().items()})
         self.opt = make_optimizer(cfg.optimizer, cfg.lr, self.model.parameters())
         accum = int(getattr(cfg, "grad_accum", 1) or 1)
-        self.train_step = make_train_step(self.model, self.opt, grad_accum=accum)
-        self.eval_step = make_eval_step(self.model)
+        self.train_step = make_train_step(self.model, self.opt, grad_accum=accum,
+                                          data_group=self.data_group)
+        self.eval_step = make_eval_step(self.model, data_group=self.data_group)
         self.reshuffle = bool(getattr(cfg, "reshuffle", True))
-        self.epoch_runner = make_epoch_runner(self.train_step, reshuffle=self.reshuffle)
-        self.eval_runner = make_eval_runner(self.eval_step)
+        # the staged splits are whole on every rank (the reshuffle moves rows
+        # between ranks); each step takes the rank's block
+        self.epoch_runner = make_epoch_runner(
+            lambda batch, generator: self.train_step(self._block(batch), generator=generator),
+            reshuffle=self.reshuffle)
+        self.eval_runner = make_eval_runner(
+            lambda batch, generator: self.eval_step(self._block(batch), generator=generator))
         self._staged_epoch = None
         self._staged_val = None
         self.enable_viz = enable_viz
@@ -303,7 +406,24 @@ class Trainer:
         if cfg.mPath:
             self._open_loggers(cfg.mPath)
 
+    def _block(self, batch):
+        """This rank's block of a global batch (the batch on one device)."""
+        if self.world == 1:
+            return batch
+        return {name: {k: None if v is None else local_rows(v, self.rank, self.world)
+                       for k, v in mod.items()}
+                for name, mod in batch.items()}
+
+    def close(self) -> None:
+        """Close the TensorBoard writer (its thread must end before a rank's
+        process does)."""
+        if self._tb is not None:
+            self._tb.close()
+            self._tb = None
+
     def _open_loggers(self, mPath: str) -> None:
+        if self.rank:
+            return
         self.csv = CSVLogger(os.path.join(mPath, "metrics.csv"))
         if self._tb is not None:
             self._tb.close()
@@ -324,8 +444,9 @@ class Trainer:
         self.cfg.change_seed(seed)
         if mPath is not None:
             self.cfg.mPath = mPath
-            os.makedirs(os.path.join(mPath, "visuals"), exist_ok=True)
-            self.cfg.dump_config()
+            if self.rank == 0:
+                os.makedirs(os.path.join(mPath, "visuals"), exist_ok=True)
+                self.cfg.dump_config()
             self._open_loggers(mPath)
         self.datamodule = DataModule(self.cfg)
         self.datamodule.setup()
@@ -354,6 +475,8 @@ class Trainer:
         elif (getattr(self.cfg, "resume", False) and self.cfg.mPath
               and os.path.isfile(os.path.join(self._ckpt_dir("last"), CKPT_FILE))):
             self.restore_state(self.cfg.mPath)
+        if self.world > 1:
+            shard_params(self.model)
         return self
 
     def n_params(self) -> int:
@@ -366,7 +489,10 @@ class Trainer:
 
     def save_checkpoint(self, tag: str = "last") -> None:
         """Params, optimizer state, step and best_val into
-        ``<mPath>/model/<tag>/state.pt``, replaced in one rename."""
+        ``<mPath>/model/<tag>/state.pt``, replaced in one rename (rank 0's;
+        the other ranks write nothing)."""
+        if self.rank:
+            return
         path = os.path.join(self._ckpt_dir(tag), CKPT_FILE)
         os.makedirs(os.path.dirname(path), exist_ok=True)
         tmp = f"{path}.{os.getpid()}.tmp"
@@ -482,7 +608,8 @@ class Trainer:
         seed = self.cfg.seed * 100003 + epoch
         generator = self._generator(seed)
         batches = prefetch_to_device(
-            self.datamodule.batches("train", shuffle=self.reshuffle, seed=seed),
+            map(self._block, self.datamodule.batches("train", shuffle=self.reshuffle,
+                                                     seed=seed)),
             self.device, size=int(getattr(self.cfg, "prefetch", 2) or 2))
         total, count = {}, 0
         for batch in batches:
@@ -494,7 +621,8 @@ class Trainer:
     def validate(self, epoch: int) -> Dict[str, float]:
         generator = self._generator(7 + epoch)
         total, count = {}, 0
-        for batch in prefetch_to_device(self.datamodule.batches("val"), self.device):
+        for batch in prefetch_to_device(map(self._block, self.datamodule.batches("val")),
+                                        self.device):
             _accumulate(total, self.eval_step(batch, generator=generator))
             count += 1
         if count == 0:
@@ -510,6 +638,8 @@ class Trainer:
         and at the end.  Returns the last epoch's metrics."""
         if self.step is None:
             self.init_state()
+        if self.rank:
+            log_fn = None
         epochs = epochs or self.cfg.epochs
         history = {}
         scan = self.use_scan()
@@ -548,7 +678,7 @@ class Trainer:
                 self.save_checkpoint("last")
                 if improved:
                     self.save_checkpoint("best")
-            if (self.enable_viz and self.cfg.mPath
+            if (self.enable_viz and self.cfg.mPath and self.rank == 0
                     and (epoch + 1) % max(int(self.cfg.viz_freq), 1) == 0):
                 try:
                     self.run_visualizations(epoch)
@@ -563,10 +693,11 @@ class Trainer:
     def test(self) -> Dict[str, float]:
         """Validation at training end, then the dataset's own benchmark where
         it has one (reference trainer.py:171-178).  A benchmark that raises
-        is reported, with its traceback on stderr, as ``stats["eval_error"]``."""
+        is reported, with its traceback on stderr, as ``stats["eval_error"]``.
+        Every rank validates; rank 0 alone runs the benchmark."""
         stats = self.validate(epoch=10 ** 6)
         fn = self.datamodule.datasets[0].eval_statistics_fn()
-        if fn is not None:
+        if fn is not None and self.rank == 0:
             try:
                 stats.update(fn(self))
             except Exception as e:  # the trained run and its stats stay

@@ -1459,3 +1459,38 @@ def test_step_flops_reads_the_same_on_the_card_and_the_cpu(cuda):
                 counts[(dev, dt)] = step_flops(step, batch_of(dev), generator=torch.Generator(
                     device=dev).manual_seed(0))["flops"]
         assert len(set(counts.values())) == 1, (mixing, counts)
+
+
+def test_two_gloo_ranks_on_the_card_sum_to_the_one_process_step(cuda):
+    """The flagship POE step at bs 24 on two gloo ranks of the one card (NCCL
+    refuses two ranks on a device), each on its 12 rows: the summed gradient
+    and the global metrics within the training limit of the one-process
+    step, and each rank launching the attention and PoE kernels, forward and
+    backward, with no plain version."""
+    from multimodal_vae_comparison_tpu_torch.parallel.dryrun import (
+        StepJob, flagship_specs, run_steps)
+    from multimodal_vae_comparison_tpu_torch.parallel.launch import launch
+    rng = np.random.default_rng(0)
+    b, t = 24, 45
+    txt = np.eye(27, dtype=np.float32)[rng.integers(0, 27, (b, t))]
+    batch = {"mod_1": {"data": rng.random((b, 64, 64, 3), dtype=np.float32), "masks": None},
+             "mod_2": {"data": txt, "masks": np.arange(t)[None] < rng.integers(1, t + 1, (b, 1))}}
+    eps = [rng.standard_normal((1, b, 16)).astype(np.float32) for _ in range(3)]
+    job = StepJob(flagship_specs(t), batch, n_latents=16, eps=eps)
+    ranks = launch(run_steps, 2, [job], device="cuda", backend="gloo", deadline=300)
+    model = build_model(flagship_specs(t), "poe", 16, seed=0, device="cuda")
+    step = make_train_step(model, make_optimizer("adam", 1e-3, model.parameters()))
+    metrics = step({n: {k: None if v is None else torch.from_numpy(v).to(cuda)
+                        for k, v in m.items()} for n, m in batch.items()},
+                   eps=[torch.from_numpy(e).to(cuda) for e in eps])
+    for r, (_, (got,)) in enumerate(ranks):
+        assert got["rows"] == 12, r
+        assert got["launches"] == {"attention": 2, "poe": 1, "poe_bwd": 1}, r
+        assert not any(k.endswith(":plain") for k in got["paths"]), got["paths"]
+        for k, v in metrics.items():
+            np.testing.assert_allclose(got["metrics"][k], v.item(), rtol=1e-5, atol=1e-4,
+                                       err_msg=k)
+        for name, p in model.named_parameters():
+            g = p.grad.cpu().numpy()
+            err = np.abs(got["grads"][name] - g).max()
+            assert err <= 1e-4 * np.abs(g).max() + 1e-5, f"{name}: {err:.3e}"

@@ -11,8 +11,12 @@ The JAX eval runs first and records its draws: each forward's by patching
 The port replays them, so the two evals see the same weights, judge, data
 and noise: every image batch the judge is shown (the real rows, then the
 text->image and the three joint generations) must be the JAX package's to
-one uint8 level, its verdicts and each of the 12 stats to one judged row
-(an arg-max near a tie may flip under fp32 sums taken in another order).  Then
+one uint8 level, and each of the 12 stats within one judged row.  The
+judge's arg-max is replayed as ``chip_smoke.same_branches`` replays relus
+(a decision near a tie may go either way under fp32 sums taken in another
+order, and one decision can flip a whole batch of near-identical generated
+images): the port's judge is shown JAX's images and held to the JAX
+judge's logits, and the port's eval takes JAX's verdicts.  Then
 the pieces: the text analysis, the stats writers, the GMM fit, the seeded
 test samples, the prior draw, the judge and its training step, joint
 generation per source, ``Trainer.test`` and the epoch visualizations.
@@ -115,12 +119,29 @@ def _jax_draws(seed, source, n, d, n_rows=None, logw=None):
 
 
 def _recording(eval_with_classifier, log):
-    """``eval_with_classifier`` that also appends (att, images, verdicts)
-    to ``log``."""
+    """The JAX ``eval_with_classifier`` that also appends (att, images,
+    verdicts, logits) to ``log``."""
     def judge(clf, image_batch, att):
         verdicts = eval_with_classifier(clf, image_batch, att)
-        log.append((att, np.array(image_batch), list(verdicts)))
+        model, params = clf
+        logits = np.asarray(model.apply(params, jnp.asarray(
+            np.asarray(image_batch, np.float32) / 255.0)))
+        log.append((att, np.array(image_batch), list(verdicts), logits))
         return verdicts
+    return judge
+
+
+def _replaying(jjudged, log):
+    """The port's ``eval_with_classifier`` with the JAX eval's decisions:
+    it appends (att, the port's images, the port judge's logits on JAX's
+    images of the same call) to ``log`` and returns JAX's verdicts."""
+    def judge(clf, image_batch, att):
+        _, jimages, jverdicts, _ = jjudged[len(log)]
+        clf.eval()
+        with torch.no_grad():
+            logits = clf(torch.from_numpy(jimages.astype(np.float32) / 255.0)).numpy()
+        log.append((att, np.array(image_batch), logits))
+        return list(jverdicts)
     return judge
 
 
@@ -204,8 +225,9 @@ def _fresh_infer(run):
 def test_eval_single_model_gives_the_jax_stats(run, monkeypatch, capsys):
     """The whole benchmark from the same weights, judge and draws: every
     image the judge is shown within one uint8 level of the JAX package's,
-    and every verdict and stat equal to its, or off by at most one judged
-    row."""
+    the port's judge on JAX's images within DECODE_TOL of the JAX judge's
+    logits, and, on JAX's verdicts, every stat equal to its, or off by at
+    most one judged row."""
     jstats = {k: run.want[k] for k in ec.STATS_KEYS}
     # a judge whose verdicts depend on the images: well above chance on
     # the real rows, all 3 shapes told apart
@@ -228,22 +250,25 @@ def test_eval_single_model_gives_the_jax_stats(run, monkeypatch, capsys):
 
     monkeypatch.setattr(tdist.Normal, "rsample", replay)
     monkeypatch.setattr(exp, "joint_generate", joint_generate)
-    monkeypatch.setattr(ec, "eval_with_classifier", _recording(ec.eval_with_classifier, judged))
+    monkeypatch.setattr(ec, "eval_with_classifier", _replaying(run.judged, judged))
     monkeypatch.setenv("CDSPRITES_CLASSIFIER_DIR", str(run.root / "pclf"))
     got = ec.eval_single_model(exp, n_samples=250)
     assert "classifier[shape]: cached" in capsys.readouterr().out
     print("JAX stats:", jstats)
     assert not queue
     assert len(judged) == len(run.judged) == len(JUDGED)
-    for what, (att, images, verdicts), (jatt, jimages, jverdicts) in zip(JUDGED, judged,
-                                                                       run.judged):
+    for what, (att, images, logits), (jatt, jimages, jverdicts, jlogits) in zip(
+            JUDGED, judged, run.judged):
         assert att == jatt and images.shape == jimages.shape == (JOINT_N, 64, 64, 3), what
         # uint8 of decoded means within DECODE_TOL: a level apart at most
         assert np.abs(images.astype(int) - jimages.astype(int)).max() <= 1, what
-        flips = sum(a != b for a, b in zip(verdicts, jverdicts))
+        # the same judge on the same images: JAX's logits, and so its verdicts
+        # wherever they are no tie
+        np.testing.assert_allclose(logits, jlogits, **DECODE_TOL, err_msg=what)
+        assert [ec.CLASS_MAPPINGS[att][i] for i in jlogits.argmax(-1)] == list(jverdicts), what
+        top = np.sort(jlogits, -1)
         print(f"{what}: verdicts {dict(zip(*np.unique(jverdicts, return_counts=True)))}, "
-              f"{flips} flipped")
-        assert flips <= 1, what
+              f"least arg-max margin {float((top[:, -1] - top[:, -2]).min()):.3g}")
     assert list(got) == list(run.want) == list(ec.STATS_KEYS)
     assert exp.datamod._test is None and exp.datamod.n_val == JOINT_N
     for k in ec.STATS_KEYS:

@@ -33,11 +33,13 @@ REQUIRED = {"multimodal_vae_comparison_tpu_torch." + m for m in (
     "eval.eval_fashionmnist", "eval.eval_mnistsvhn", "eval.eval_polymnist",
     "eval.eval_sprites", "eval.fid", "eval.infer", "eval.weights",
     "eval.vilanro_probe", "eval.vilanro_test",
-    "eval.train_classifiers", "lanro", "lanro.arm", "lanro.collect", "lanro.env",
+    "eval.train_classifiers", "eval.cca", "eval.text_embeddings", "lanro", "lanro.arm", "lanro.collect", "lanro.env",
     "lanro.simulation", "main", "models.base", "models.contrib", "models.decoders",
     "models.distributions", "models.encoders", "models.inception", "models.mmvae",
     "models.nets", "models.objectives", "models.perceptual", "ops.kernels.attention", "ops.kernels.kl_kernel",
     "ops.kernels.poe_kernel", "ops.kernels.sample_kernel", "ops.kernels.sparse_attention",
+    "parallel", "parallel.dryrun", "parallel.launch", "parallel.mesh", "parallel.rows",
+    "parallel.tensor_sharding",
     "serving.engine", "serving.server", "training.optim", "training.surgery",
     "training.trainer", "utils",
     "visualization")}
@@ -60,8 +62,8 @@ sys.exit(1 if bad or missing or optional else 0)
 
 def test_port_imports_no_jax_no_jax_package_and_no_triton():
     """Every module of the port (the training, video, config/data/Trainer,
-    eval, model-zoo, SPRITES, CelebA/CUB, VILANRO and FashionMNIST slices'
-    among them), and
+    eval, model-zoo, SPRITES, CelebA/CUB, VILANRO, FashionMNIST and
+    multi-device slices' among them), and
     chip_smoke.py, imported in a fresh process with no nvcc reachable: none
     pulls in jax, flax, optax, triton or the JAX package, none loads cv2,
     imageio, matplotlib or sklearn, and none starts a process (an nvcc build)

@@ -120,10 +120,12 @@ def test_mixture_sample_from_a_generator_covers_the_weights():
 
 def test_kl_divergence_to_the_mixture_raises():
     """The mixture prior's KL is kld_to_prior's Monte-Carlo mean over the
-    drawn latents; kl_divergence has no branch for the mixed pair."""
+    drawn latents; kl_divergence has no closed form for the mixed pair, and
+    its Monte-Carlo branch needs a generator or samples, as the reference's
+    needs a PRNG key."""
     qn = tdist.Normal(torch.zeros(3, D), torch.ones(3, D))
     mix = tdist.MixtureNormal(torch.zeros(C, D), torch.ones(C, D), torch.zeros(C))
-    with pytest.raises(NotImplementedError, match="MixtureNormal"):
+    with pytest.raises(ValueError, match="Normal and MixtureNormal"):
         tdist.kl_divergence(qn, mix)
 
 

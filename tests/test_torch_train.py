@@ -78,17 +78,21 @@ def test_normal_log_prob_kl_and_variance_match_jax():
 
 
 def test_kl_divergence_of_mixed_families_and_unported_dists_raise():
-    """A KL between families (the Monte-Carlo branch) and an unported family
-    raise; Laplace is ported (test_torch_mnistsvhn.py holds it)."""
-    with pytest.raises(NotImplementedError):
+    """A KL between families (the Monte-Carlo branch) without a generator or
+    samples raises, as the reference's does without a PRNG key (the branch
+    itself is held against JAX in test_torch_rest.py); an unknown family
+    raises; Laplace and Bernoulli are ported (test_torch_mnistsvhn.py and
+    test_torch_rest.py hold them)."""
+    with pytest.raises(ValueError, match="generator"):
         tdist.kl_divergence(tdist.Normal(torch.zeros(1), torch.ones(1)), object())
-    with pytest.raises(NotImplementedError, match="Monte-Carlo"):
+    with pytest.raises(ValueError, match="Monte-Carlo"):
         tdist.kl_divergence(tdist.Laplace(torch.zeros(1), torch.ones(1)),
                             tdist.Normal(torch.zeros(1), torch.ones(1)))
     with pytest.raises(KeyError, match="laplace"):
-        tdist.get_dist("bernoulli")
+        tdist.get_dist("poisson")
     assert tdist.get_dist("Gaussian") is tdist.Normal
     assert tdist.get_dist("laplace") is tdist.Laplace
+    assert tdist.get_dist("Bernoulli") is tdist.Bernoulli
 
 
 @pytest.mark.parametrize("dim,keepdim", [(0, False), (1, True), (-1, False)])
