@@ -91,7 +91,12 @@ three main paths at full width with random weights from a seed:
   families phase reports its ``fid`` with the feature net's label;
 * precision bf16 ("bf16 steps", "bf16 from config"): each bf16 launcher
   (masked attention, the sparse forward, dq, dk/dv) against the fp32
-  kernel on the widened inputs; the flagship POE and MOE steps and the
+  kernel on the widened inputs and the plain version, the variant it took
+  and two launches bit for bit; the bf16 tensor-core attention and sparse
+  forward timed in turns with the widening kernels they replace (the
+  attention at every bf16 shape with the tensor-core kernel too: the
+  crossover's A/B) and entered in the kernels line with their launches on
+  the bf16 paths; the flagship POE and MOE steps and the
   VideoGPTSparse step in bf16, card against the CPU's bf16 within the bf16
   yardstick, their p50 in fp32 and bf16 at bs 24 and 256 and their
   ``ops.flops.step_flops``, equal on the card and the CPU; then
@@ -2006,12 +2011,13 @@ def eval_launches(mixing: str, n_train: int) -> dict:
 
 
 def counted(label, mixing, calls, train_steps, run, total, extra=None,
-            tables=(PER_OBJECTIVE, PER_BACKWARD)):
+            tables=(PER_OBJECTIVE, PER_BACKWARD), kinds=None):
     """``run()`` with the kernel counts set to 0 just before it and read
     just after: it must launch exactly ``calls`` objective calls' kernels
     (``train_steps`` of them with their backward; :func:`expected_launches`
     from ``tables``), plus ``extra``, and take no plain version; the
-    launches are added into ``total``."""
+    launches are added into ``total`` (and the launches by variant and
+    dtype into ``kinds``, where given)."""
     from multimodal_vae_comparison_tpu_torch.ops.kernels import telemetry
     telemetry.reset()
     out = run()
@@ -2028,6 +2034,8 @@ def counted(label, mixing, calls, train_steps, run, total, extra=None,
           f"{label}: a plain version ran: {paths}")
     for k, n in got.items():
         total[k] = total.get(k, 0) + n
+    for k, n in (telemetry.dtypes() if kinds is not None else {}).items():
+        kinds[k] = kinds.get(k, 0) + n
     return out
 
 
@@ -5094,8 +5102,30 @@ PEAK_BF16_FLOP_PER_S = 989e12     # dense bf16 tensor cores, the H100 SXM data s
 # (b, h, tq, tk, dh), masked); the sparse (b, h, t, dh) of the video decoder
 BF16_ATTENTION_CASES = (("flagship text encoder", (24, 2, 45, 45, 32), True),
                         ("CUB caption encoder", (32, 2, 246, 246, 32), True),
-                        ("CUB DReG decoder", (640, 2, 246, 1, 8), False))
+                        ("CUB DReG decoder", (640, 2, 246, 1, 8), False),
+                        ("SPRITES encoder bs 16, T", axial_shapes(16)[0], False),
+                        ("SPRITES encoder bs 16, H", axial_shapes(16)[1], False),
+                        ("SPRITES decoder M*K*B 240, T", axial_shapes(240)[0], False),
+                        ("SPRITES decoder M*K*B 240, H", axial_shapes(240)[1], False),
+                        ("VILANRO action encoder", (64, 2, 100, 100, 16), True))
 BF16_SPARSE_SHAPE = (80, 2, 2048, 32)
+PEAK_BF16_TC_FLOP_PER_S = 989e12   # dense bf16 tensor cores, the H100 SXM data sheet
+# the bf16 attention launcher's yardsticks (the arguments of
+# masked_attention_forward_bf16 less `variant`), which the port never calls
+BF16_ATTENTION_YARDSTICKS = ("masked_attention_forward_bf16_widened",
+                             "masked_attention_forward_bf16_tc")
+
+
+def bf16_tc_bounds(nbytes: float, flop: float):
+    """(bound ms, by, the kernel's own MMA bound ms) of a bf16 tensor-core
+    kernel whose two products take ``flop``: the larger of ``nbytes`` at
+    the HBM rate and ``flop`` at the dense bf16 rate; and the MMAs it
+    issues, q k^T once and P v twice (P in two bf16 planes), 1.5 ``flop``,
+    at the same rate."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flop / PEAK_BF16_TC_FLOP_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            1.5 * t_ops)
 
 
 def _yard_worst(got: dict, b: dict, f: dict, key_bias_scale: bool = True):
@@ -5120,16 +5150,28 @@ def _scalar_share(got: float, b: float, f: float) -> float:
 
 def phase_bf16_kernels(card: str) -> dict:
     """Each bf16 launcher (the masked attention's forward, the sparse
-    forward, dq and dk/dv) against the fp32 kernel on the widened inputs,
-    at the main paths' shapes, within the tolerance the fp32 kernel meets
-    against its plain version: the variant it took, its ms, its bound
-    (:func:`bound_ms` over its bytes at 2 a bf16 element, its operations at
-    the fp32 rate it runs them at) and SDPA's bf16 time.  Returns {kernel row name: [numbers]}."""
+    forward, dq and dk/dv) against the fp32 kernel on the widened inputs and
+    against the plain version, at the main paths' shapes, within the
+    tolerance the fp32 kernel meets against its plain version: the variant
+    it took (telemetry), the same bits on a second launch, its ms beside the
+    fp32 kernel's, the widening kernel's and, for the attention, the
+    tensor-core kernel's at every shape (the crossover's A/B, its two
+    yardsticks), its bounds (:func:`bound_ms` over its bytes at 2 a bf16
+    element and its operations at the fp32 rate; the tensor-core kernels'
+    in their own unit, :func:`bf16_tc_bounds`), the plain version's ms and
+    SDPA's bf16 time.  Returns ({kernel row name: [numbers]}, {tensor-core
+    kernel: its kernels-line entry at its main shape})."""
+    import ctypes
     import torch.nn.functional as F
-    from multimodal_vae_comparison_tpu_torch.ops.kernels import attention, telemetry
+    from multimodal_vae_comparison_tpu_torch.ops.kernels import _build, attention, telemetry
     from multimodal_vae_comparison_tpu_torch.ops.kernels import sparse_attention as sp
     g = torch.Generator(device="cuda").manual_seed(71)
-    rows = {}
+    rows, entries = {}, {}
+    src = "multimodal_vae_comparison_tpu_torch/csrc/"
+    ref = "multimodal_vae_comparison_tpu/ops/pallas/"
+    yard_args = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+    widened_fn, tc_fn = (_build.function("attention", name, yard_args)
+                         for name in BF16_ATTENTION_YARDSTICKS)
     for label, (b, h, tq, tk, dh), masked in BF16_ATTENTION_CASES:
         q, k, v, mask = attention_inputs(g, b, h, tq, tk, dh, masked)
         q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
@@ -5137,33 +5179,83 @@ def phase_bf16_kernels(card: str) -> dict:
         telemetry.reset()
         got = attention._launch(q, k, v, mask)
         took = telemetry.dtypes()
+        again = attention._launch(q, k, v, mask)
         want = attention._launch(*wide, mask)
+        plain = attention.attention_reference(q, k, v, mask)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
+        err_plain = (got - plain).abs().max().item()
         check(got.dtype == torch.float32 and torch.allclose(got, want, rtol=ATTN_RTOL,
-                                                            atol=ATTN_ATOL),
-              f"bf16 attention {label}: max_abs_err {err} against the fp32 kernel")
+                                                            atol=ATTN_ATOL)
+              and torch.allclose(got, plain, rtol=ATTN_RTOL, atol=ATTN_ATOL),
+              f"bf16 attention {label}: max_abs_err {err} against the fp32 kernel, "
+              f"{err_plain} against the plain version")
+        check(torch.equal(got, again), f"bf16 attention {label}: two launches differ")
+        yard = {}
+        for name, fn in zip(("widened", "tc"), (widened_fn, tc_fn)):
+            out = torch.empty_like(got)
+
+            def call(fn=fn, out=out):
+                _build.check("attention", fn(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    None if mask is None else mask.data_ptr(), out.data_ptr(), b, h, tq, tk,
+                    dh, dh ** -0.5, torch.cuda.current_stream().cuda_stream))
+            call()
+            torch.cuda.synchronize()
+            check(torch.allclose(out, want, rtol=ATTN_RTOL, atol=ATTN_ATOL),
+                  f"bf16 attention {label}: the {name} yardstick against the fp32 kernel")
+            yard[name] = call
+        # the launcher, the widening path and the tensor-core kernel in turns
         ms = graph_ms(lambda: attention._launch(q, k, v, mask))
+        widened_ms, tc_ms = graph_ms(yard["widened"]), graph_ms(yard["tc"])
+        tc_again, widened_again = graph_ms(yard["tc"]), graph_ms(yard["widened"])
+        ms_again = graph_ms(lambda: attention._launch(q, k, v, mask))
         fp32_ms = graph_ms(lambda: attention._launch(*wide, mask))
+        plain_ms = graph_ms(lambda: attention.attention_reference(q, k, v, mask))
         bias = None if mask is None else torch.zeros(b, 1, 1, tk, device="cuda",
                                                      dtype=torch.bfloat16).masked_fill(
             ~mask[:, None, None, :], float("-inf"))
         if bias is not None:
             bias[0] = 0.0    # SDPA's all-masked row would be NaN; its time is what counts
-        sdpa = graph_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias))
+        try:
+            sdpa = graph_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias))
+        except RuntimeError:   # the library's limits, not the port's
+            sdpa = None
         keys = b * tk if mask is None else attended_keys(tk, mask)
         nbytes = 2 * (b * h * tq * dh + 2 * h * keys * dh) + 4 * b * h * tq * dh \
             + (0 if mask is None else b * tk)
-        bound, by = bound_ms(nbytes, 4 * h * tq * keys * dh + 4 * h * tq * keys)
-        rows.setdefault("masked_attention", []).append({
-            "at": f"{label} {(b, h, tq, tk, dh)}", "variant": sorted(took),
-            "max_abs_err_vs_fp32_kernel": err, "ms": ms, "fp32_kernel_ms": fp32_ms,
-            "bound_ms": bound, "bound_by": by, "library_ms": sdpa,
-            "library_is": "F.scaled_dot_product_attention on bf16 q, k, v"})
-        print(f"bf16 attention {label} {(b, h, tq, tk, dh)}: {sorted(took)}, max_abs_err "
-              f"{err:.3e} against the fp32 kernel on the widened inputs; {ms:.5f} ms (fp32 "
-              f"kernel {fp32_ms:.5f}), bf16 byte bound {bound:.6f} ms ({by}), SDPA bf16 "
-              f"{sdpa:.5f} ms on {card}")
+        products = 4 * h * tq * keys * dh
+        bound, by = bound_ms(nbytes, products + 4 * h * tq * keys)
+        tc_bound, tc_by, mma_bound = bf16_tc_bounds(nbytes, products)
+        row = {"at": f"{label} {(b, h, tq, tk, dh)}", "variant": sorted(took),
+               "padding_share": 1 - keys / (b * tk), "max_abs_err_vs_fp32_kernel": err,
+               "max_abs_err_vs_plain": err_plain, "ms": ms, "ms_again": ms_again,
+               "widened_ms": [widened_ms, widened_again], "tc_ms": [tc_ms, tc_again],
+               "fp32_kernel_ms": fp32_ms, "plain_ms": plain_ms, "bound_ms": bound,
+               "bound_by": by, "bf16_tc_bound_ms": tc_bound, "bf16_tc_bound_by": tc_by,
+               "tc_mma_bound_ms": mma_bound, "library_ms": sdpa,
+               "library_is": "F.scaled_dot_product_attention on bf16 q, k, v"}
+        rows.setdefault("masked_attention", []).append(row)
+        print(f"bf16 attention {label} {(b, h, tq, tk, dh)}: {sorted(took)}, padding "
+              f"{row['padding_share']:.3f}, max_abs_err {err:.3e} against the fp32 kernel on "
+              f"the widened inputs, {err_plain:.3e} against the plain version; launcher "
+              f"{ms:.5f} / {ms_again:.5f} ms, tensor-core kernel {tc_ms:.5f} / {tc_again:.5f}, "
+              f"widening path {widened_ms:.5f} / {widened_again:.5f}, fp32 kernel "
+              f"{fp32_ms:.5f}, plain {plain_ms:.5f}; bound {bound:.6f} ms ({by}, fp32 ops), "
+              f"{tc_bound:.6f} ({tc_by}, products at 989 TFLOP/s bf16), the tensor-core "
+              f"kernel's MMAs {mma_bound:.6f}; SDPA bf16 "
+              + ("refused" if sdpa is None else f"{sdpa:.5f}") + f" ms on {card}")
+        if label == "CUB caption encoder":
+            entries["masked_attention_bf16_tc"] = {
+                "name": "masked_attention_bf16_tc", "route": "cuda",
+                "source": src + "attention.cu", "kernel": "masked_attention_tc",
+                "header": src + "bf16_tc.cuh", "replaces": ref + "attention.py:77",
+                "inputs": "bf16",
+                "at": row["at"], "max_abs_err": err, "max_abs_err_vs_plain": err_plain,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": tc_bound, "bound_by": tc_by,
+                "library_ms": sdpa, "library_is": row["library_is"],
+                "tc_mma_bound_ms": mma_bound, "widened_ms": widened_ms,
+                "fp32_kernel_ms": fp32_ms}
     b, h, t, dh = BF16_SPARSE_SHAPE
     q, k, v = (torch.randn(BF16_SPARSE_SHAPE, generator=g, device="cuda").bfloat16()
                for _ in range(3))
@@ -5179,16 +5271,24 @@ def phase_bf16_kernels(card: str) -> dict:
     dq, (dk, dv) = sp._launch_dq(*args16), sp._launch_dkv(*args16)
     took = telemetry.dtypes()
     dq32, (dk32, dv32) = sp._launch_dq(*args32), sp._launch_dkv(*args32)
+    out_again, lse_again = sp._launch_forward(q, k, v, blk, stride)
+    plain = sp.sparse_attention_reference(q, k, v, blk, stride)
     torch.cuda.synchronize()
     check(dq.dtype == dk.dtype == dv.dtype == torch.bfloat16 and out.dtype == torch.float32,
           f"bf16 sparse: out {out.dtype}, dq/dk/dv {dq.dtype}/{dk.dtype}/{dv.dtype}")
+    check(torch.equal(out, out_again) and torch.equal(lse, lse_again),
+          "bf16 sparse forward: two launches differ")
     errs = {"forward": max((out - out32).abs().max().item(), (lse - lse32).abs().max().item()),
             "dq": (dq.float() - dq32.bfloat16().float()).abs().max().item(),
             "dkv": max((dk.float() - dk32.bfloat16().float()).abs().max().item(),
                        (dv.float() - dv32.bfloat16().float()).abs().max().item())}
+    err_plain = (out - plain).abs().max().item()
     check(torch.allclose(out, out32, rtol=SPARSE_RTOL, atol=SPARSE_ATOL)
-          and torch.allclose(lse, lse32, rtol=SPARSE_RTOL, atol=SPARSE_ATOL),
-          f"bf16 sparse forward: {errs['forward']} against the fp32 kernel")
+          and torch.allclose(lse, lse32, rtol=SPARSE_RTOL, atol=SPARSE_ATOL)
+          and torch.allclose(out, plain, rtol=SPARSE_RTOL, atol=SPARSE_ATOL),
+          f"bf16 sparse forward: {errs['forward']} against the fp32 kernel, {err_plain} "
+          f"against the plain version")
+    del plain
     for name, got, want in (("dq", dq, dq32), ("dk", dk, dk32), ("dv", dv, dv32)):
         check(torch.allclose(got.float(), want.bfloat16().float(), rtol=SPARSE_BWD_RTOL,
                              atol=SPARSE_BWD_ATOL),
@@ -5200,6 +5300,15 @@ def phase_bf16_kernels(card: str) -> dict:
     sdpa_bwd = eager_ms(lambda: torch.autograd.grad(sdpa_out, leaves, d_out.bfloat16(),
                                                     retain_graph=True), iters=10)
     del leaves, sdpa_out
+    # the bf16 forward on widened inputs (3xTF32), a yardstick
+    widened_fn = _build.function("sparse_attention", "sparse_attention_forward_bf16_widened",
+                                 sp._FWD_ARGTYPES[:-1])
+    w_out, w_lse = torch.empty_like(out), torch.empty_like(lse)
+
+    def widened():
+        _build.check("sparse_attention", widened_fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), w_out.data_ptr(), w_lse.data_ptr(),
+            *sp._shape_args(q, blk, stride)))
     _, cells = sp.sparse_work(t, blk, stride)
     n, n_rows = b * h * t * dh, b * h * t
     for row, part, fn, fn32, nbytes, per_cell, lib in (
@@ -5226,14 +5335,44 @@ def phase_bf16_kernels(card: str) -> dict:
                       "tensor_bound_ms": tensor_bound, "library_ms": lib, "library_is": "F.scaled_dot_product_attention(q, k, "
                       "v, attn_mask=visible) on bf16, " + ("forward" if part == "forward"
                                                            else "its backward (eager)")}]
+        extra = ""
+        if part == "forward":
+            # the new kernel against the widening one in turns, its own bounds
+            widened_ms = [graph_ms(widened, reps=10)]
+            ms_again = graph_ms(fn, reps=10)
+            widened_ms.append(graph_ms(widened, reps=10))
+            torch.cuda.synchronize()
+            check(torch.equal(w_out, out32) and torch.equal(w_lse, lse32),
+                  "the widening bf16 sparse forward is no longer the fp32 kernel on widened inputs")
+            plain_ms = eager_ms(lambda: sp.sparse_attention_reference(q, k, v, blk, stride),
+                                iters=5)
+            tc_bound, tc_by, mma_bound = bf16_tc_bounds(nbytes, b * h * cells * per_cell)
+            rows[row][0].update(ms_again=ms_again, widened_ms=widened_ms, plain_ms=plain_ms,
+                                bf16_tc_bound_ms=tc_bound, bf16_tc_bound_by=tc_by,
+                                tc_mma_bound_ms=mma_bound,
+                                max_abs_err_vs_plain=err_plain)
+            entries["strided_block_sparse_attention_bf16_tc"] = {
+                "name": "strided_block_sparse_attention_bf16_tc", "route": "cuda",
+                "source": src + "sparse_attention.cu", "kernel": "sparse_fwd_tc",
+                "header": src + "bf16_tc.cuh", "replaces": ref + "sparse_attention.py:165",
+                "inputs": "bf16",
+                "at": rows[row][0]["at"], "max_abs_err": errs[part],
+                "max_abs_err_vs_plain": err_plain, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": tc_bound, "bound_by": tc_by, "library_ms": sdpa,
+                "library_is": rows[row][0]["library_is"], "tc_mma_bound_ms": mma_bound,
+                "widened_ms": widened_ms[0], "fp32_kernel_ms": fp32_ms}
+            extra = (f"; again {ms_again:.5f} ms, widening kernel {widened_ms[0]:.5f} / "
+                     f"{widened_ms[1]:.5f} ms, plain {plain_ms:.5f} ms; bound of its two "
+                     f"products at 989 TFLOP/s bf16 {tc_bound:.6f} ms ({tc_by}), of its "
+                     f"three bf16 MMAs a product pair {mma_bound:.6f} ms")
         print(f"bf16 {row} {BF16_SPARSE_SHAPE}: {rows[row][0]['variant']}, max_abs_err "
               f"{errs[part]:.3e} against the fp32 kernel; {ms:.5f} ms (fp32 kernel "
               f"{fp32_ms:.5f}), bf16 byte bound {bound:.6f} ms ({by}), bound of 3 TF32 MMAs "
-              f"per product at 495 TFLOP/s {tensor_bound:.6f} ms, SDPA bf16 {lib:.5f} ms "
-              f"on {card}")
+              f"per product at 495 TFLOP/s {tensor_bound:.6f} ms, SDPA bf16 {lib:.5f} ms"
+              f"{extra} on {card}")
     del q, k, v, wide, out, lse, out32, lse32, d_out, delta, args16, args32
     torch.cuda.empty_cache()
-    return rows
+    return rows, entries
 
 
 def _p50_step_ms(step, batch, gen, steps: int = BF16_TIMED_STEPS) -> float:
@@ -5296,8 +5435,9 @@ def phase_bf16_steps(card: str) -> dict:
         check(worst <= 1.0, f"bf16 {label}: gradient of {worst_name} off the yardstick")
         check(launches == expected_launches(mixing, 1, 1) and not any(
             p.endswith(":plain") for p in paths), f"bf16 {label}: launched {launches}, {paths}")
-        check(any(x.startswith("attention:") and x.endswith(":bfloat16") for x in kinds),
-              f"bf16 {label}: the attention kernel saw no bf16 input: {kinds}")
+        check(kinds.get("attention:tc_bf16:bfloat16", 0) == launches.get("attention"),
+              f"bf16 {label}: the attention launches did not all take the bf16 "
+              f"tensor-core kernel: {kinds}")
         numbers[label] = {"loss_card": gl, "loss_cpu_bf16": bl, "loss_cpu_fp32": fl,
                           "worst_grad_share_of_limit": worst, "worst_leaf": worst_name,
                           "scalar_shares_of_limit": shares, "branch_flips": flips,
@@ -5369,8 +5509,11 @@ def phase_bf16_steps(card: str) -> dict:
               f"video {dt}: launched {per_step} a step, expected {want}; {paths}")
         check(bool(torch.isfinite(metrics["loss"])), f"video {dt}: non-finite loss")
         if dt == bf16:
-            check(all(x.endswith(":bfloat16") for x in kinds) and len(kinds) == 3,
-                  f"video bf16: the sparse launchers ran on {kinds}")
+            want_kinds = {"sparse_attention:tc_bf16:bfloat16": 20,
+                          "sparse_attention_dq:mma:bfloat16": 8,
+                          "sparse_attention_dkv:mma:bfloat16": 8}
+            check(kinds == want_kinds,
+                  f"video bf16: the sparse launchers took {kinds}, expected {want_kinds}")
         flops = step_flops(step, batch, generator=gen)["flops"]
         p50 = _p50_step_ms(step, batch, gen, steps=10)
         video[str(dt)[6:]] = {"p50_step_ms": p50, "flops": flops, "variants": kinds,
@@ -5417,7 +5560,7 @@ def phase_bf16_from_config(card: str, root: str, data, sprites_dir: str,
     from multimodal_vae_comparison_tpu_torch.eval.infer import MultimodalVAEInfer
     from multimodal_vae_comparison_tpu_torch.main import cli
     from multimodal_vae_comparison_tpu_torch.training.trainer import Trainer
-    numbers, total = {"card": card}, {}
+    numbers, total, kinds = {"card": card}, {}, {}
     os.environ["CDSPRITES_CLASSIFIER_DIR"] = os.path.join(root, "judges")
     path = "configs/round5/cdl1_r5_poe.yml"
     with open(os.path.join(HERE, path)) as f:
@@ -5454,7 +5597,7 @@ def phase_bf16_from_config(card: str, root: str, data, sprites_dir: str,
                 args += ["--exp_name", "cdl1_r5_poe_fp32"]
             trainer = counted(f"POE cdl1_r5_poe precision {precision}", "poe",
                               steps + 2 * val_batches, steps, lambda: cli(args), total,
-                              eval_launches("poe", dm.n_train))
+                              eval_launches("poe", dm.n_train), kinds=kinds)
             check_stats(f"bf16 cdl1_r5_poe {precision}", stats)
             rows = _csv_rows(os.path.join(trainer.cfg.mPath, "metrics.csv"))
             trained = float(rows[-1]["val_loss"])
@@ -5525,7 +5668,7 @@ def phase_bf16_from_config(card: str, root: str, data, sprites_dir: str,
         profiled.update(device_activity(prof, profiled["wall_ms"]))
 
     counted("MOE sprites_r4_dreg_up bf16", "moe", steps + val_batches, steps, run, total,
-            tables=(SPRITES_PER_OBJECTIVE, SPRITES_PER_BACKWARD))
+            tables=(SPRITES_PER_OBJECTIVE, SPRITES_PER_BACKWARD), kinds=kinds)
     trained = trainer.validate_scan(1)["val_loss"]
     check(np.isfinite(trained) and trained < untrained,
           f"sprites bf16: val_loss {trained}, untrained {untrained}")
@@ -5544,6 +5687,12 @@ def phase_bf16_from_config(card: str, root: str, data, sprites_dir: str,
           f"device ms " + json.dumps(numbers["sprites_r4_dreg_up"]["top_kernels_ms"])
           + f" on {card}")
     del trainer
+    # the bf16 runs' attention on the bf16 tensor-core kernel: the text
+    # encoder and decoders of cdl1_r5_poe, SPRITES' H and W axes
+    numbers["launches_by_variant"] = kinds
+    print(f"bf16 from config launches by variant and dtype: {kinds}")
+    check(kinds.get("attention:tc_bf16:bfloat16", 0) > 0,
+          f"bf16 from config: no attention launch took the bf16 tensor-core kernel: {kinds}")
     return total, numbers
 
 
@@ -5800,7 +5949,7 @@ def main() -> int:
     # 8b. precision: bf16: the bf16 launchers against the fp32 kernels, the
     # flagship and video steps in bf16 card vs CPU, their times and FLOPs
     t0 = time.perf_counter()
-    bf16_kernel_rows = phase_bf16_kernels(card)
+    bf16_kernel_rows, bf16_tc_entries = phase_bf16_kernels(card)
     bf16_steps = phase_bf16_steps(card)
     bf16_steps["phase_s"] = time.perf_counter() - t0
     print("bf16 steps " + json.dumps(bf16_steps))
@@ -5986,6 +6135,17 @@ def main() -> int:
         r["launches_per_train_step"] = {label: n.get(kernel, 0)
                                         for label, n in per_step.items()}
     primary[0].update(extra)   # masked_attention: its backward's time
+    # the bf16 tensor-core kernels, each with its launches on the main path
+    # that runs it: the bf16 configs' (attention) and a bf16 video step's
+    # (the sparse forward), counted from zero just before each
+    bf16_video_kinds = bf16_steps["VideoGPTSparse MOE dreg"]["bfloat16"]["variants"]
+    for name, key, n in (
+            ("masked_attention_bf16_tc", "launches_bf16_from_config_path",
+             bf16_numbers["launches_by_variant"].get("attention:tc_bf16:bfloat16", 0)),
+            ("strided_block_sparse_attention_bf16_tc", "launches_per_bf16_video_step",
+             bf16_video_kinds.get("sparse_attention:tc_bf16:bfloat16", 0))):
+        check(n > 0, f"{name}: launched no time on its main path")
+        primary.append(dict(bf16_tc_entries[name], launches=n, **{key: n}))
     # the launch floor beside the kernels that run at the cost of one launch:
     # an empty kernel launched as the attention kernel is, in this run
     for r in primary:

@@ -36,7 +36,22 @@ line of a CUDA source there, builds it, and in a process of its own prints:
   thread blocks an SM (at most 168 registers a thread), not two;
 * ``bwd_rows_in_smem``: their resident operands at Dh 32 (q and d_out, k
   and v) read from rows staged in shared memory, as for Dh 64, not held in
-  registers.
+  registers;
+* ``bf16_widened``: the bf16 launchers of the masked attention and the
+  sparse forward never take the bf16 tensor-core kernels
+  (``masked_attention_tc``, ``sparse_fwd_tc``), as before them: bf16 is
+  widened into the fp32 kernels (``shipped`` against it is the A/B that
+  made the tensor-core kernels the default);
+* ``tc_four_blocks``: ``sparse_fwd_tc`` compiled for four thread blocks an
+  SM (at most 128 registers a thread), not the three its registers allow;
+* ``tc_three_stages``: ``sparse_fwd_tc`` with three key blocks in flight,
+  not two;
+* ``attention_tc_two_stages``: ``masked_attention_tc`` with two key tiles
+  in flight, not three.
+
+Every variant also prints the bf16 launchers' variant and time at the
+sparse decoder's shape and at the attention shapes above, and the bf16
+VideoGPTSparse step's p50 and profiled device ms (:func:`video_step_bf16`).
 
 The ``poe_`` variants edit ``csrc/poe.cu`` and are measured apart: the
 lattice forward and backward kernels' device ms (graphed, as above) at
@@ -66,6 +81,7 @@ import os
 import shutil
 import subprocess
 import sys
+import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PACKAGE = "multimodal_vae_comparison_tpu_torch"
@@ -95,6 +111,14 @@ VARIANTS = {
                          for name in ("sparse_dq_mma", "sparse_dkv_mma")],
     "bwd_rows_in_smem": [(SPARSE, "rows_in_smem(int dhp) { return dhp > 32; }",
                           "rows_in_smem(int dhp) { return dhp > 16; }")],
+    "tc_four_blocks": [(SPARSE, "__launch_bounds__(MMA_WARPS * 32)\nsparse_fwd_tc(",
+                        "__launch_bounds__(MMA_WARPS * 32, 4)\nsparse_fwd_tc(")],
+    "tc_three_stages": [(SPARSE, "constexpr int TC_STAGES = 2;", "constexpr int TC_STAGES = 3;")],
+    "attention_tc_two_stages": [(ATTENTION, "constexpr int TC_STAGES = 3;",
+                                 "constexpr int TC_STAGES = 2;")],
+    "bf16_widened": [(ATTENTION, "if (tc_takes(q, k, v, tq, tk, dh)) {", "if (false) {"),
+                     (SPARSE, "if (tc_takes(address_bits(q, k, v, o), t, dh, block)) {",
+                      "if (false) {")],
     "poe_shipped": [],
     "poe_loads_in_order": [(POE, """    load_experts(ex, experts, i, mu, scale);
 #pragma unroll
@@ -137,7 +161,7 @@ def measure(name: str, root: str) -> None:
     sys.path.insert(0, root)
     import torch
     import chip_smoke as cs
-    from multimodal_vae_comparison_tpu_torch.ops.kernels import _build, attention
+    from multimodal_vae_comparison_tpu_torch.ops.kernels import _build, attention, telemetry
     from multimodal_vae_comparison_tpu_torch.ops.kernels import sparse_attention as sp
     if not os.path.abspath(_build.CSRC).startswith(os.path.abspath(root)):
         raise RuntimeError(f"the package was imported from {_build.CSRC}, not from {root}")
@@ -196,10 +220,71 @@ def measure(name: str, root: str) -> None:
         plain = cs.graph_ms(lambda: attention.attention_reference(q, k, v, mask))
         print(f"variant {name}: masked attention {label} {shape}: {ms[0]:.5f} and "
               f"{ms[1]:.5f} ms (plain {plain:.5f}), within tolerance: {ok}")
+    # the bf16 launchers: the variant each takes, its time and its error
+    # against the fp32 kernel on the widened inputs
+    for label, shape, masked in (("flagship", (24, 2, 45, 45, 32), True),
+                                 ("cub encoder", (32, 2, 246, 246, 32), True),
+                                 ("cub decoder", (640, 2, 246, 1, 8), False),
+                                 ("sprites T", (4096, 2, 8, 8, 32), False),
+                                 ("sprites H", (2048, 2, 16, 16, 32), False),
+                                 ("vilanro action encoder", (64, 2, 100, 100, 16), True)):
+        q, k, v, mask = cs.attention_inputs(g, *shape, masked)
+        q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+        telemetry.reset()
+        got = attention._launch(q, k, v, mask)
+        took = sorted(telemetry.dtypes())
+        err = (got - attention._launch(q.float(), k.float(), v.float(), mask)).abs().max()
+        ms = [cs.graph_ms(lambda: attention._launch(q, k, v, mask)) for _ in range(2)]
+        print(f"variant {name}: bf16 masked attention {label} {shape}: {took}, {ms[0]:.5f} "
+              f"and {ms[1]:.5f} ms, max_abs_err {err.item():.3e} against the fp32 kernel")
+    shape = cs.BF16_SPARSE_SHAPE
+    q, k, v = (torch.randn(shape, generator=g, device="cuda").bfloat16() for _ in range(3))
+    telemetry.reset()
+    out, lse = sp._launch_forward(q, k, v, block, stride)
+    took = sorted(telemetry.dtypes())
+    out32, _ = sp._launch_forward(q.float(), k.float(), v.float(), block, stride)
+    ms = [cs.graph_ms(lambda: sp._launch_forward(q, k, v, block, stride), reps=10)
+          for _ in range(2)]
+    print(f"variant {name}: bf16 sparse forward {shape}: {took}, {ms[0]:.5f} and {ms[1]:.5f} "
+          f"ms, max_abs_err {(out - out32).abs().max().item():.3e} against the fp32 kernel")
+    del q, k, v, out, lse, out32
+    video_step_bf16(name)
     try:
         cs.phase_video_parity()
     except RuntimeError as e:   # a failed check of chip_smoke: the finding, not a fault
         print(f"variant {name}: {e}")
+
+
+def video_step_bf16(name: str) -> None:
+    """The bf16 VideoGPTSparse MOE DReG step of ``chip_smoke.py`` ("bf16
+    steps": bs 8, K 5, remat): its wall p50 over 10 steps, twice, and its
+    device ms a step from ``torch.profiler`` over 3 steps."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    import chip_smoke as cs
+    from multimodal_vae_comparison_tpu_torch.training.optim import make_optimizer
+    from multimodal_vae_comparison_tpu_torch.training.trainer import (
+        build_model, make_train_step)
+    raw, _ = cs.video_inputs(np.random.default_rng(75), cs.VIDEO_BATCH, cs.VIDEO_K)
+    batch = cs.torch_batch(raw, "cuda")
+    model = build_model(cs.video_specs(), "moe", cs.VIDEO_LATENTS, obj="dreg", K=cs.VIDEO_K,
+                        seed=0, device="cuda", remat=True, dtype=torch.bfloat16)
+    step = make_train_step(model, make_optimizer("adam", cs.VIDEO_LR, model.parameters()))
+    gen = torch.Generator(device="cuda").manual_seed(76)
+    p50 = [cs._p50_step_ms(step, batch, gen, steps=10) for _ in range(2)]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            step(batch, generator=gen)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    act = cs.device_activity(prof, wall_ms)
+    sparse = sum(ms for n, ms in act["ms_by_name"].items() if "sparse_fwd" in n) / 3
+    print(f"variant {name}: bf16 video step (bs {cs.VIDEO_BATCH}, K {cs.VIDEO_K}): p50 "
+          f"{p50[0]:.3f} and {p50[1]:.3f} ms; {act['ms'] / 3:.3f} device ms a step over 3 "
+          f"profiled, busy {act['busy_share']:.4f}, the sparse forward kernels "
+          f"{sparse:.3f} ms of it")
 
 
 def _per_subset_poe():

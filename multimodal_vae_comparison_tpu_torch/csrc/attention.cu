@@ -35,19 +35,47 @@
 // keys are never skipped, so a row with every key masked gives the uniform
 // average of V, as the Pallas kernel and the XLA path both give.
 //
-// Input dtype.  Every kernel is a template on the element type T of q, k and
-// v, instantiated for float and __nv_bfloat16 (masked_attention_forward and
-// masked_attention_forward_bf16).  bf16 is widened to fp32 as it is staged
-// (exact), so the arithmetic after it is the fp32 kernel's and the output is
-// fp32, as the Pallas kernel widens its bf16 inputs.  The resident path's
-// vector staging moves 4 elements a thread: a 16-byte cp.async for fp32, an
-// 8-byte load widened into a float4 for bf16.  Its rule (Dh % 4 == 0 and
-// 16-byte aligned inputs) keeps every bf16 unit 8-byte aligned, so it holds
-// for both types.
+// Input dtype.  The resident and chunked kernels are templates on the
+// element type T of q, k and v, instantiated for float and __nv_bfloat16.
+// bf16 is widened to fp32 as it is staged (exact), so the arithmetic after
+// it is the fp32 kernel's and the output is fp32, as the Pallas kernel
+// widens its bf16 inputs.  The resident path's vector staging moves 4
+// elements a thread: a 16-byte cp.async for fp32, an 8-byte load widened
+// into a float4 for bf16 (synchronous).  Its rule (Dh % 4 == 0 and 16-byte
+// aligned inputs) keeps every bf16 unit 8-byte aligned, so it holds for both
+// types.
+//
+// bf16 tensor-core path (masked_attention_tc, masked_attention_forward_bf16
+// where tc_takes the shape: Tq or Tk >= TC_MIN_SIDE, Dh % 8 == 0, Dh <= 64,
+// Tk <= TC_MAX_KEYS, 16-byte aligned inputs).  Long padded key axes (CUB's
+// captions: 246 keys, 77 % padding) made the resident path slower than SDPA:
+// it scores and sums every key, masked or not, with FMAs.  Here a warp owns
+// 16 query rows (a block 4 warps, 64 rows) and walks the key axis 32 keys a
+// step on bf16 MMAs (bf16_tc.cuh): S = Q K^T with q and k as they are, P
+// split into two bf16 planes for P V, K and V tiles staged in bf16 by
+// cp.async in a three-stage ring.  Like the resident path it is bound by
+// latency at the models' shapes (a head's bytes and products take well under
+// a microsecond of the card), so the ring keeps two tiles' loads in flight.
+// Key tiles whose 32 keys are all masked are skipped, where the batch element
+// has a visible key: a masked score is s - 1e30, so once a row's max comes
+// from a visible key ex2 of it is exactly 0 (and a tile before the first
+// visible one is scaled by ex2(-1e30 - max) = 0 and forgotten), so the skip
+// changes no bit.  A batch element whose keys are all masked skips nothing
+// and gets the uniform average of V, as above.  The skip is decided per block
+// from the (B, Tk) mask: a warp's ballot per tile, then a list of the live
+// tiles compacted by one warp, which the ring walks.  Where Tq and Tk are
+// both under TC_MIN_SIDE the resident path stays: most of a 16-row, 32-key
+// step would be empty, and at SPRITES' 8 x 8 axial heads the tensor-core
+// kernel took longer than the resident one, where every other bf16 shape of
+// the model paths, the flagship's 45 keys and the one-key decoders among
+// them, ran faster on it (the A/B of chip_smoke.py's "bf16 steps", which
+// times both at every bf16 shape it measures).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "bf16_tc.cuh"
 
 namespace {
 
@@ -70,7 +98,14 @@ constexpr int MIN_SPLIT_ROWS = 16; // a head is split no finer than this
 constexpr int CHUNK_ROWS = 8;      // query rows (= warps) per block
 constexpr int KV_CHUNK = 32;       // keys per shared-memory chunk, one per lane
 
-enum Variant { RESIDENT = 0, CHUNKED = 1 };
+// bf16 tensor-core path
+constexpr int TC_WARPS = 4;        // warps per block, 16 query rows each
+constexpr int TC_ROWS = 16 * TC_WARPS;
+constexpr int TC_STAGES = 3;       // K and V tiles in flight
+constexpr int TC_MIN_SIDE = 16;    // Tq and Tk both shorter: the resident path
+constexpr int TC_MAX_KEYS = 8192;  // the bias and tile list fit shared memory
+
+enum Variant { RESIDENT = 0, CHUNKED = 1, TC_BF16 = 2 };
 
 __device__ __forceinline__ float warp_max(float x) {
   for (int o = WARP / 2; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(FULL, x, o));
@@ -362,6 +397,117 @@ masked_attention_chunked(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// grid (batch*heads, ceil(Tq / TC_ROWS)), TC_WARPS warps; dynamic shared
+// memory of tc_smem bytes: TC_STAGES stages of a K and a V tile of KEYS rows
+// of bf16, the bias of every key (ntiles * KEYS floats), a flag and the
+// list of live tiles (ntiles ints each).  dh % 8 == 0, dh <= DHP, q, k, v
+// 16-byte aligned, Tk <= TC_MAX_KEYS.
+template <int DHP>
+__global__ void __launch_bounds__(TC_WARPS * WARP)
+masked_attention_tc(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v,
+                    const uint8_t* __restrict__ key_mask,  // (B, Tk) or null
+                    float* __restrict__ out, int heads, int tq, int tk, int dh,
+                    float sm_scale) {
+  using bf16tc::KEYS;
+  constexpr int TILE = KEYS * bf16tc::row_stride(DHP), DT = DHP / 8;
+  extern __shared__ uint4 smem_tc[];
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem_tc);
+  const int ntiles = (tk + KEYS - 1) / KEYS;
+  float* bias = reinterpret_cast<float*>(ring + TC_STAGES * 2 * TILE);
+  int* flag = reinterpret_cast<int*>(bias + ntiles * KEYS);
+  int* live = flag + ntiles;
+  __shared__ int n_live;
+
+  const int bh = blockIdx.x, b = bh / heads;
+  const int warp = threadIdx.x / WARP, lane = threadIdx.x % WARP;
+  const int g = lane >> 2, tg = lane & 3;
+  const int r0 = blockIdx.y * TC_ROWS + warp * 16;   // the warp's first query row
+  const __nv_bfloat16* kh = k + (size_t)bh * tk * dh;
+  const __nv_bfloat16* vh = v + (size_t)bh * tk * dh;
+
+  // Q's fragments first: their loads are in flight during the mask scan
+  uint32_t qf[DHP / 16][1][4];
+  bf16tc::load_q<DHP, 1>(qf, q + ((size_t)bh * tq + r0) * dh, tq - r0, dh);
+
+  // each key's bias (0, NEG_INF, or -inf past Tk) and which tiles hold a
+  // visible key
+  int any = 0;
+  for (int kt = warp; kt < ntiles; kt += TC_WARPS) {
+    const int key = kt * KEYS + lane;
+    const bool visible = key < tk && (key_mask == nullptr || key_mask[(size_t)b * tk + key]);
+    bias[key] = key >= tk ? -INFINITY : visible ? 0.f : NEG_INF;
+    const unsigned ballot = __ballot_sync(FULL, visible);
+    if (lane == 0) flag[kt] = ballot != 0u;
+    any |= ballot != 0u;
+  }
+  // skip tiles without a visible key only where the batch element has one
+  const bool skip = __syncthreads_or(any);
+  if (warp == 0) {
+    int count = 0;
+    for (int base = 0; base < ntiles; base += WARP) {
+      const int kt = base + lane;
+      const bool keep = kt < ntiles && (!skip || flag[kt]);
+      const unsigned ballot = __ballot_sync(FULL, keep);
+      if (keep) live[count + __popc(ballot & ((1u << lane) - 1u))] = kt;
+      count += __popc(ballot);
+    }
+    if (lane == 0) n_live = count;
+  }
+  __syncthreads();
+  const int n = n_live;
+
+  auto issue = [&](int i) {   // live tile i into its stage; a group even when empty
+    if (i < n) {
+      __nv_bfloat16* stage = ring + (i % TC_STAGES) * 2 * TILE;
+      const int key0 = live[i] * KEYS, rows = min(KEYS, tk - key0);
+      bf16tc::stage_rows<DHP>(stage, kh + (size_t)key0 * dh, rows, KEYS, dh);
+      bf16tc::stage_rows<DHP>(stage + TILE, vh + (size_t)key0 * dh, rows, KEYS, dh);
+    }
+    bf16tc::commit();
+  };
+#pragma unroll
+  for (int i = 0; i < TC_STAGES - 1; ++i) issue(i);
+
+  float m[1][2] = {{NEG_INF, NEG_INF}}, l[1][2] = {{0.f, 0.f}};
+  float acc[1][DT][4];
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[0][dt][e] = 0.f;
+  const float scale2 = sm_scale * LOG2E;
+  for (int i = 0; i < n; ++i) {
+    bf16tc::wait<TC_STAGES - 2>();   // live tile i has landed (this thread's copies)
+    __syncthreads();                 // everyone's, and tile i - 1's stage is free
+    issue(i + TC_STAGES - 1);
+    if (r0 < tq) {
+      const __nv_bfloat16* ks = ring + (i % TC_STAGES) * 2 * TILE;
+      const float* tile_bias = bias + live[i] * KEYS;
+      bf16tc::step<DHP, 1>(qf, ks, ks + TILE, 0, KEYS - 1,
+                           [&](float s, int, int nt, int e) {
+                             return s * scale2 + tile_bias[nt * 8 + 2 * tg + (e & 1)];
+                           },
+                           m, l, acc);
+    }
+  }
+  bf16tc::row_sums<1>(l);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + g + 8 * h;
+    if (row < tq) {
+      const float inv = 1.f / l[0][h];
+      float* orow = out + ((size_t)bh * tq + row) * dh;
+#pragma unroll
+      for (int dt = 0; dt < DT; ++dt) {
+        const int col = dt * 8 + 2 * tg;
+        if (col < dh)
+          *reinterpret_cast<float2*>(orow + col) =
+              make_float2(acc[0][dt][2 * h] * inv, acc[0][dt][2 * h + 1] * inv);
+      }
+    }
+  }
+}
+
 __global__ void empty_kernel() {}
 
 // How the resident path cuts a call into blocks: rows of a head per block
@@ -427,6 +573,45 @@ cudaError_t launch_chunked(const T* q, const T* k, const T* v,
   return cudaGetLastError();
 }
 
+// whether masked_attention_tc can take the shape, and whether the bf16
+// launcher gives it to it (the crossover)
+bool tc_fits(const void* q, const void* k, const void* v, int tk, int dh) {
+  const uintptr_t bits = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v;
+  return dh % 8 == 0 && dh <= 64 && tk <= TC_MAX_KEYS && bits % 16 == 0;
+}
+
+bool tc_takes(const void* q, const void* k, const void* v, int tq, int tk, int dh) {
+  return (tq >= TC_MIN_SIDE || tk >= TC_MIN_SIDE) && tc_fits(q, k, v, tk, dh);
+}
+
+template <int DHP>
+cudaError_t launch_tc_dhp(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                          const __nv_bfloat16* v, const uint8_t* key_mask, float* out,
+                          int bh, int heads, int tq, int tk, int dh, float sm_scale,
+                          cudaStream_t stream) {
+  const int ntiles = (tk + bf16tc::KEYS - 1) / bf16tc::KEYS;
+  const size_t smem = (size_t)TC_STAGES * 2 * bf16tc::KEYS * bf16tc::row_stride(DHP)
+                          * sizeof(__nv_bfloat16)
+                      + (size_t)ntiles * (bf16tc::KEYS * sizeof(float) + 2 * sizeof(int));
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(masked_attention_tc<DHP>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  masked_attention_tc<DHP><<<dim3(bh, (tq + TC_ROWS - 1) / TC_ROWS), TC_WARPS * WARP, smem,
+                             stream>>>(q, k, v, key_mask, out, heads, tq, tk, dh, sm_scale);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_tc(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
+                      const uint8_t* key_mask, float* out, int bh, int heads, int tq, int tk,
+                      int dh, float sm_scale, cudaStream_t s) {
+  return dh <= 16 ? launch_tc_dhp<16>(q, k, v, key_mask, out, bh, heads, tq, tk, dh, sm_scale, s)
+         : dh <= 32 ? launch_tc_dhp<32>(q, k, v, key_mask, out, bh, heads, tq, tk, dh, sm_scale, s)
+                    : launch_tc_dhp<64>(q, k, v, key_mask, out, bh, heads, tq, tk, dh, sm_scale, s);
+}
+
 // Picks the path by shape, writes which one to *variant (0 resident, 1
 // chunked) and launches on `stream`.
 template <typename T>
@@ -457,7 +642,8 @@ extern "C" {
 // or bf16 (masked_attention_forward_bf16) on the device; out: (B*H, Tq, Dh)
 // contiguous fp32; key_mask: (B, Tk) bool (1 byte) or null.  1 <= Dh <= 128.
 // Picks the path by shape, writes which one to *variant (0 resident, 1
-// chunked), launches on `stream` and returns cudaGetLastError().
+// chunked, 2 the bf16 tensor-core kernel), launches on `stream` and returns
+// cudaGetLastError().
 int masked_attention_forward(const void* q, const void* k, const void* v,
                              const void* key_mask, void* out, int batch,
                              int heads, int tq, int tk, int dh,
@@ -467,13 +653,46 @@ int masked_attention_forward(const void* q, const void* k, const void* v,
                       sm_scale, (cudaStream_t)stream, variant);
 }
 
+// The bf16 launcher: the tensor-core kernel where tc_takes the shape
+// (*variant 2), else the resident or chunked kernel on widened inputs.
 int masked_attention_forward_bf16(const void* q, const void* k, const void* v,
                                   const void* key_mask, void* out, int batch,
                                   int heads, int tq, int tk, int dh,
                                   float sm_scale, void* stream, int* variant) {
+  if (tc_takes(q, k, v, tq, tk, dh)) {
+    *variant = TC_BF16;
+    return (int)launch_tc((const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+                          (const __nv_bfloat16*)v, (const uint8_t*)key_mask, (float*)out,
+                          batch * heads, heads, tq, tk, dh, sm_scale, (cudaStream_t)stream);
+  }
   return (int)forward((const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
                       (const __nv_bfloat16*)v, (const uint8_t*)key_mask, (float*)out,
                       batch, heads, tq, tk, dh, sm_scale, (cudaStream_t)stream, variant);
+}
+
+// Yardsticks of the bf16 launcher's crossover, which the port's wrapper
+// never calls (the arguments of masked_attention_forward_bf16 less
+// `variant`): the widening path (resident or chunked on bf16) whatever
+// the shape, and the tensor-core kernel wherever it fits (tc_fits; else
+// cudaErrorInvalidValue), under TC_MIN_SIDE too.
+int masked_attention_forward_bf16_widened(const void* q, const void* k, const void* v,
+                                          const void* key_mask, void* out, int batch,
+                                          int heads, int tq, int tk, int dh,
+                                          float sm_scale, void* stream) {
+  int variant;
+  return (int)forward((const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+                      (const __nv_bfloat16*)v, (const uint8_t*)key_mask, (float*)out,
+                      batch, heads, tq, tk, dh, sm_scale, (cudaStream_t)stream, &variant);
+}
+
+int masked_attention_forward_bf16_tc(const void* q, const void* k, const void* v,
+                                     const void* key_mask, void* out, int batch,
+                                     int heads, int tq, int tk, int dh,
+                                     float sm_scale, void* stream) {
+  if (!tc_fits(q, k, v, tk, dh)) return (int)cudaErrorInvalidValue;
+  return (int)launch_tc((const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+                        (const __nv_bfloat16*)v, (const uint8_t*)key_mask, (float*)out,
+                        batch * heads, heads, tq, tk, dh, sm_scale, (cudaStream_t)stream);
 }
 
 // The chunked kernel whatever the shape: a yardstick for the resident path

@@ -76,22 +76,42 @@
 // deterministic.  Dh is padded to DHP in {4,8,16,32,64} (zeros) so that the
 // inner loops unroll; block <= 128 rows per tile.
 //
-// Input dtype.  Every kernel is a template on the element type T of q, k
-// and v, instantiated for float and __nv_bfloat16 (the launchers' _bf16
+// Input dtype.  The kernels above are templates on the element type T of
+// q, k and v, instantiated for float and __nv_bfloat16 (the launchers' _bf16
 // instances).  bf16 is widened to fp32 where it is loaded, into registers or
 // shared memory (exact), so the arithmetic after it is the fp32 kernels'.
 // o, lse, d_out and delta are fp32 in both; dq, dk and dv are written in T,
-// as the Pallas kernels cast them back to the inputs' dtype.  The tensor-core
+// as the Pallas kernels cast them back to the inputs' dtype.  The 3xTF32
 // kernels' staging moves 4 elements a thread: a 16-byte cp.async for fp32,
 // an 8-byte load widened into a float4 for bf16 (synchronous, so the next
-// tile no longer loads under the current one's math).  Their rule (Dh % 4 ==
-// 0 and 16-byte aligned tensors) keeps every bf16 unit 8-byte aligned and
-// every bf16 pair that store_rows writes 4-byte aligned, so it holds for both
-// types.
+// tile no longer loads under the current one's math: the bf16 dq and dk/dv
+// still do so).  Their rule (Dh % 4 == 0 and 16-byte aligned tensors) keeps
+// every bf16 unit 8-byte aligned and every bf16 pair that store_rows writes
+// 4-byte aligned, so it holds for both types.
+//
+// bf16 forward on bf16 tensor cores, sparse_fwd_tc (the bf16 launcher where
+// tc_takes the shape: mma_takes and Dh % 8 == 0).  The widened 3xTF32
+// kernel ran slower on bf16 than on fp32 inputs: synchronous staging, and
+// three TF32 MMAs per 8 of depth of which one multiplies the zero lo plane
+// of a widened k or v.  This one keeps sparse_fwd_mma's grid, schedule
+// (heavy query blocks first, the live set walked without a table), warps of
+// MT row tiles and masking, and runs its products as bf16_tc.cuh does: K
+// and V tiles staged in bf16 by cp.async in a two-stage ring (half the
+// shared memory), S = Q K^T on one bf16 MMA per 16 of depth with q and k as
+// they are (sm_scale log2 e applied to the fp32 S, not folded into q, which
+// would make q inexact in bf16), P V as two MMAs on P's hi and lo bf16
+// planes.  What bounds it on the card: at the video decoder's (80, 2, 2048,
+// 32) its bytes (bf16 q, k, v in, fp32 out and lse out), 0.032 ms at 3.35
+// TB/s, above its MMAs' 6 Dh FLOP per visible pair at the dense bf16 rate
+// of 989 TFLOP/s, 0.016 ms.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "bf16_tc.cuh"
 
 namespace {
 
@@ -527,6 +547,114 @@ sparse_fwd_mma(const T* __restrict__ q, const T* __restrict__ k,
           if (col < dh)
             *reinterpret_cast<float2*>(o + row * dh + col) =
                 make_float2(acc[mt][ks][2 * h] * inv, acc[mt][ks][2 * h + 1] * inv);
+        }
+        if (tg == 0) lse[row] = (m[mt][h] + log2f(denom)) * LN2;
+      }
+    }
+}
+
+// ---- bf16 forward on bf16 tensor cores -------------------------------------
+
+constexpr int TC_STAGES = 2;   // key blocks in flight
+
+// The grid, threads and warps' row tiles of sparse_fwd_mma<_, _, MT>;
+// dynamic shared memory TC_STAGES * 2 * block * row_stride(DHP) bf16 (a K
+// and a V tile a stage).  block % 16 == 0, dh % 8 == 0, 8 <= dh <= DHP,
+// q, k, v 16-byte aligned.
+template <int DHP, int MT>
+__global__ void __launch_bounds__(MMA_WARPS * 32)
+sparse_fwd_tc(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+              const __nv_bfloat16* __restrict__ v, float* __restrict__ o,
+              float* __restrict__ lse, int t, int dh, int block, int stride,
+              float sm_scale) {
+  constexpr int DT = DHP / 8;
+  constexpr int WARP_ROWS = 16 * MT, BLOCK_ROWS = MMA_WARPS * WARP_ROWS;
+  extern __shared__ uint4 smem_tc[];
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem_tc);
+  const int tile = block * bf16tc::row_stride(DHP);   // elements of one staged tile
+
+  const int nsub = (block + BLOCK_ROWS - 1) / BLOCK_ROWS;
+  const int y = gridDim.y - 1 - blockIdx.y;   // late (heavy) query blocks first
+  const int i = y / nsub, sub = y - i * nsub;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tg = lane & 3;
+  const int r0 = sub * BLOCK_ROWS + warp * WARP_ROWS;  // the warp's first row in the block
+  const bool active = r0 < block;
+  const size_t head = (size_t)blockIdx.x * t * dh;
+  const size_t row0 = (size_t)blockIdx.x * t + (size_t)i * block + r0;
+
+  const int first = i % stride, n_tiles = i / stride + 1;
+  auto issue = [&](int kt) {   // live key block kt into its stage; a group even when empty
+    if (kt < n_tiles) {
+      __nv_bfloat16* stage = ring + (kt % TC_STAGES) * 2 * tile;
+      const size_t at = head + (size_t)(first + kt * stride) * block * dh;
+      bf16tc::stage_rows<DHP>(stage, k + at, block, block, dh);
+      bf16tc::stage_rows<DHP>(stage + tile, v + at, block, block, dh);
+    }
+    bf16tc::commit();
+  };
+#pragma unroll
+  for (int kt = 0; kt < TC_STAGES - 1; ++kt) issue(kt);
+
+  // q fragments as they are; a row tile past the block's end holds zeros
+  uint32_t qf[DHP / 16][MT][4];
+  bf16tc::load_q<DHP, MT>(qf, q + row0 * dh, active ? block - r0 : 0, dh);
+  float acc[MT][DT][4];
+  float m[MT][2], l[MT][2];   // rows g and g + 8 of each row tile
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    m[mt][0] = m[mt][1] = NEG_INF;
+    l[mt][0] = l[mt][1] = 0.f;
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][dt][e] = 0.f;
+  }
+  const float scale2 = sm_scale * LOG2E;
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    bf16tc::wait<TC_STAGES - 2>();   // key block kt has landed (this thread's copies)
+    __syncthreads();                 // everyone's, and block kt - 1's stage is free
+    issue(kt + TC_STAGES - 1);
+    if (active) {
+      const __nv_bfloat16* ks = ring + (kt % TC_STAGES) * 2 * tile;
+      const bool diag = first + kt * stride == i;
+      // on the diagonal no key after this warp's last row is visible
+      const int key_end = diag ? min(block, r0 + WARP_ROWS) : block;
+      for (int key0 = 0; key0 < key_end; key0 += bf16tc::KEYS) {
+        // n-tiles past key_end (the diagonal's masked keys, or the end of a
+        // block that is not a multiple of 32) are -inf; their rows past the
+        // block read its last row again
+        const int nt_valid = min(bf16tc::NT, (key_end - key0) >> 3);
+        const bool masked = diag && key0 + bf16tc::KEYS - 1 > r0;   // some key > some row
+        bf16tc::step<DHP, MT>(
+            qf, ks, ks + tile, key0, block - 1,
+            [&](float s, int mt, int nt, int e) {
+              const int key = key0 + nt * 8 + 2 * tg + (e & 1);
+              const int row = r0 + mt * 16 + g + (e >> 1) * 8;
+              return nt >= nt_valid ? -INFINITY : masked && key > row ? NEG_INF : s * scale2;
+            },
+            m, l, acc);
+      }
+    }
+  }
+
+  bf16tc::row_sums<MT>(l);
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = mt * 16 + g + 8 * h;
+      if (active && r0 + r < block) {
+        const float denom = fmaxf(l[mt][h], 1e-30f);
+        const float inv = 1.f / denom;
+        const size_t row = row0 + r;
+#pragma unroll
+        for (int dt = 0; dt < DT; ++dt) {
+          const int col = dt * 8 + 2 * tg;
+          if (col < dh)
+            *reinterpret_cast<float2*>(o + row * dh + col) =
+                make_float2(acc[mt][dt][2 * h] * inv, acc[mt][dt][2 * h + 1] * inv);
         }
         if (tg == 0) lse[row] = (m[mt][h] + log2f(denom)) * LN2;
       }
@@ -1125,6 +1253,22 @@ cudaError_t launch_fwd_mma(const T* q, const T* k, const T* v, float* o,
   return cudaGetLastError();
 }
 
+template <int DHP, int MT>
+cudaError_t launch_fwd_tc(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                          const __nv_bfloat16* v, float* o, float* lse, int bh, int t, int dh,
+                          int block, int stride, float sm_scale, cudaStream_t stream) {
+  const size_t smem = (size_t)TC_STAGES * 2 * block * bf16tc::row_stride(DHP)
+                      * sizeof(__nv_bfloat16);
+  cudaError_t err = allow_smem(sparse_fwd_tc<DHP, MT>, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid;
+  int threads;
+  mma_launch_shape<MT>(bh, t, block, grid, threads);
+  sparse_fwd_tc<DHP, MT><<<grid, threads, smem, stream>>>(q, k, v, o, lse, t, dh, block,
+                                                          stride, sm_scale);
+  return cudaGetLastError();
+}
+
 template <typename T, int DHP, int MT>
 cudaError_t launch_dq_mma(const T* q, const T* k, const T* v,
                           const float* d_out, const float* lse, const float* delta,
@@ -1198,12 +1342,20 @@ cudaError_t launch_dkv(const T* q, const T* k, const T* v,
   ((dh) <= 8 ? LAUNCH(8, 1) : (dh) <= 16 ? LAUNCH(16, 1) \
    : (dh) <= 32 ? LAUNCH(32, 1) : LAUNCH(64, 1))
 
-// The three launchers, each on q, k, v of element type T: the tensor-core
-// kernel where it takes the shape (*variant 0), else the FMA kernel (1).
+// whether sparse_fwd_tc takes the shape
+bool tc_takes(uintptr_t bits, int t, int dh, int block) {
+  return mma_takes(bits, t, dh, block) && dh % 8 == 0;
+}
+
+// The three launchers, each on q, k, v of element type T: the 3xTF32
+// tensor-core kernel where it takes the shape (*variant 0), else the FMA
+// kernel (1); the bf16 forward takes sparse_fwd_tc first, where it takes
+// the shape (2).  forward_widened is the forward without it: the widening
+// bf16 instance, a yardstick.
 template <typename T>
-cudaError_t forward(const T* q, const T* k, const T* v, float* o, float* lse, int bh,
-                    int t, int dh, int block, int stride, float sm_scale,
-                    cudaStream_t stream, int* variant) {
+cudaError_t forward_widened(const T* q, const T* k, const T* v, float* o, float* lse,
+                            int bh, int t, int dh, int block, int stride, float sm_scale,
+                            cudaStream_t stream, int* variant) {
   if (mma_takes(address_bits(q, k, v, o), t, dh, block)) {
     *variant = 0;
     // two row tiles a warp halve the splits and shared-memory reads per MMA;
@@ -1220,6 +1372,26 @@ cudaError_t forward(const T* q, const T* k, const T* v, float* o, float* lse, in
   launch_fwd<T, DHP>(q, k, v, o, lse, bh, t, dh, block, stride, sm_scale, stream)
   return FOR_HEAD_DIM(dh, LAUNCH);
 #undef LAUNCH
+}
+
+template <typename T>
+cudaError_t forward(const T* q, const T* k, const T* v, float* o, float* lse, int bh,
+                    int t, int dh, int block, int stride, float sm_scale,
+                    cudaStream_t stream, int* variant) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (tc_takes(address_bits(q, k, v, o), t, dh, block)) {
+      *variant = 2;
+      // row tiles a warp as sparse_fwd_mma takes them
+#define LAUNCH(DHP, MT) \
+  launch_fwd_tc<DHP, MT>(q, k, v, o, lse, bh, t, dh, block, stride, sm_scale, stream)
+      if (dh > 32) return LAUNCH(64, 1);
+      if (block < 32) return dh <= 16 ? LAUNCH(16, 1) : LAUNCH(32, 1);
+      return dh <= 16 ? LAUNCH(16, 2) : LAUNCH(32, 2);
+#undef LAUNCH
+    }
+  }
+  return forward_widened(q, k, v, o, lse, bh, t, dh, block, stride, sm_scale, stream,
+                         variant);
 }
 
 template <typename T>
@@ -1319,7 +1491,7 @@ int sparse_attention_dkv_fma(const void* q, const void* k, const void* v,
 // `stream` and returns the cudaError_t of the launch.  Each picks its kernel
 // by shape and writes which to *variant: 0 the tensor-core kernel
 // (sparse_fwd_mma, sparse_dq_mma, sparse_dkv_mma), 1 the FMA kernel
-// (sparse_fwd, sparse_dq, sparse_dkv).
+// (sparse_fwd, sparse_dq, sparse_dkv), 2 the bf16 forward's sparse_fwd_tc.
 #define EXPORT(SUFFIX, T)                                                                \
   int sparse_attention_forward##SUFFIX(const void* q, const void* k, const void* v,     \
                                        void* o, void* lse, int bh, int t, int dh,       \
@@ -1352,6 +1524,20 @@ int sparse_attention_dkv_fma(const void* q, const void* k, const void* v,
 EXPORT(, float)
 EXPORT(_bf16, bf16)
 #undef EXPORT
+
+// The bf16 forward that widens (the 3xTF32 or FMA kernel on widened
+// inputs) whatever the shape: a yardstick for sparse_fwd_tc, which the
+// port's wrapper never calls (the arguments of sparse_attention_forward_bf16
+// less `variant`).
+int sparse_attention_forward_bf16_widened(const void* q, const void* k, const void* v,
+                                          void* o, void* lse, int bh, int t, int dh,
+                                          int block, int stride, float sm_scale,
+                                          void* stream) {
+  int variant;
+  return (int)forward_widened((const bf16*)q, (const bf16*)k, (const bf16*)v, (float*)o,
+                              (float*)lse, bh, t, dh, block, stride, sm_scale,
+                              (cudaStream_t)stream, &variant);
+}
 
 const char* error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 

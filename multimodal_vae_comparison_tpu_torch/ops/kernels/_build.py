@@ -3,8 +3,9 @@
 Each source is compiled by one ``nvcc`` call for ``sm_90a`` into a shared
 library with a plain C interface, loaded with ``ctypes``.  The library goes
 into ``build/torch_kernels/`` at the root of the checkout, under a name that
-carries a hash of the source and the flags, so an edited source is rebuilt
-and an unchanged one is not.  A failed build raises with nvcc's output.
+carries a hash of the source, the headers it may include (``csrc/*.cuh``)
+and the flags, so an edited source or header is rebuilt and an unchanged
+one is not.  A failed build raises with nvcc's output.
 
 Nothing here runs at import time: the CPU tests import every module of the
 port on hosts that have no ``nvcc``.
@@ -46,10 +47,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library of ``csrc/<name>.cu`` goes, keyed by its hash."""
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    """Where the library of ``csrc/<name>.cu`` goes, keyed by a hash of it,
+    the headers beside it (``csrc/*.cuh``) and the flags."""
+    text = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 

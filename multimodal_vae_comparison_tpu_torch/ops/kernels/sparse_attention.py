@@ -19,11 +19,14 @@ and dk/dv kernels; on CPU tensors the forward is the plain version and the
 backward recomputes through it densely.  Every CUDA call launches its
 kernels: there is no size threshold and no switch.
 
-q, k and v come in fp32 or bf16 (``precision: bf16``).  Each launcher has a
-bf16 instance that loads bf16 and widens it to fp32 on the way in (exact),
-then runs the fp32 arithmetic; the output and lse are fp32, as are
-``d_out`` and delta, and dq, dk, dv come back in the inputs' dtype, as the
-reference's ``_sparse_bwd`` casts them.  The plain version widens too.
+q, k and v come in fp32 or bf16 (``precision: bf16``).  The bf16 forward
+runs on the bf16 tensor cores (``"tc_bf16"``: q and k as they are, P in two
+bf16 planes) where the shape takes it (the ``"mma"`` rule and Dh a multiple
+of 8); elsewhere, and for dq and dk/dv, each launcher's bf16 instance loads
+bf16 and widens it to fp32 on the way in (exact), then runs the fp32
+arithmetic.  The output and lse are fp32, as are ``d_out`` and delta, and
+dq, dk, dv come back in the inputs' dtype, as the reference's
+``_sparse_bwd`` casts them.  The plain version widens too.
 Under ``ops.flops.step_flops`` the forward counts 4 Dh FLOPs and the
 backward 14 Dh per visible (query, key) pair (:func:`sparse_flops`), the
 products over the live key blocks, on the card as on the CPU.
@@ -50,7 +53,7 @@ KERNEL_DKV = "sparse_attention_dkv"
 NEG_INF = -1e30
 MAX_HEAD_DIM = 64   # csrc/sparse_attention.cu: widest padded head (registers)
 MAX_BLOCK = 128     # csrc/sparse_attention.cu MAX_BLOCK: rows (threads) per tile
-VARIANTS = ("mma", "fma")   # csrc/sparse_attention.cu: *variant of each launcher
+VARIANTS = ("mma", "fma", "tc_bf16")   # csrc/sparse_attention.cu: *variant of each launcher
 _SHAPE = [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
 # sparse_attention_forward(q, k, v, o, lse, bh, t, dh, block, stride, scale, stream,
 #                          &variant)

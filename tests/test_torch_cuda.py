@@ -1321,30 +1321,57 @@ def test_inception_v3_on_the_card_matches_the_cpu(cuda):
 # -- precision: bf16 -------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("b,h,tq,tk,dh,masked", [
-    (24, 2, 45, 45, 32, True),     # the flagship text encoder: resident, vector staging
-    (32, 2, 246, 246, 32, True),   # CUB's captions: resident, 8 keys a lane
-    (640, 2, 246, 1, 8, False),    # CUB's DReG decoder: one key
-    (3, 2, 40, 300, 64, True),     # past 256 keys: the chunked kernel
-    (2, 3, 9, 11, 6, True),        # Dh 6: element staging
-], ids=["flagship", "cub-encoder", "cub-decoder", "chunked", "dh6"])
+def _masked_tiles(mask):
+    """Row 1 of the (B, Tk) mask sees keys 64-69 and Tk-3.. only: whole
+    32-key tiles masked before, between and after its visible keys."""
+    mask = mask.clone()
+    mask[1] = False
+    mask[1, 64:70] = True
+    mask[1, -3:] = True
+    return mask
+
+
+@pytest.mark.parametrize("b,h,tq,tk,dh,masked,variant", [
+    (24, 2, 45, 45, 32, True, "tc_bf16"),     # the flagship text encoder
+    (32, 2, 246, 246, 32, True, "tc_bf16"),   # CUB's captions
+    (640, 2, 246, 1, 8, False, "tc_bf16"),    # CUB's DReG decoder: one key
+    (3, 2, 40, 300, 64, True, "tc_bf16"),     # Dh 64, Tk past the resident path's 256
+    (3, 2, 40, 300, 68, True, "chunked"),     # Dh % 8 != 0, past 256 keys
+    (2, 3, 9, 11, 6, True, "resident"),       # Dh 6: element staging
+    (64, 2, 100, 100, 16, True, "tc_bf16"),   # VILANRO's action encoder, Dh 16
+    (3, 2, 40, 100, 8, True, "tc_bf16"),      # Dh 8; Tk not a multiple of the key tile
+    (3, 2, 70, 130, 64, False, "tc_bf16"),    # no mask
+    (4, 2, 30, 200, 32, "tiles", "tc_bf16"),  # whole key tiles masked
+    (64, 2, 8, 8, 32, False, "resident"),     # Tq and Tk under the crossover (SPRITES' T axis)
+    (64, 2, 8, 16, 32, True, "tc_bf16"),      # Tk at the crossover
+], ids=["flagship", "cub-encoder", "cub-decoder", "tc-dh64", "chunked", "dh6", "vilanro",
+        "tc-dh8", "tc-unmasked", "masked-tiles", "under-crossover", "at-crossover"])
 def test_bf16_attention_launcher_equals_the_fp32_kernel_on_widened_inputs(
-        cuda, b, h, tq, tk, dh, masked):
-    """The bf16 instance widens q, k, v as it stages them, so it is the fp32
-    kernel on the widened inputs: same variant, fp32 output, within the
-    tolerance the fp32 kernel meets against its plain version."""
-    q, k, v, mask = _qkv(40, b, h, tq, tk, dh, masked, cuda)
+        cuda, b, h, tq, tk, dh, masked, variant):
+    """The bf16 launcher takes the named variant (the tensor-core kernel
+    where Tq or Tk is 16 or more, Dh % 8 == 0 and Dh <= 64, else the
+    kernels on widened inputs) and gives an fp32 output within the
+    tolerance the fp32 kernel meets against its plain version, of the fp32
+    kernel on the widened inputs and of the plain version, the uniform
+    average of V for the batch element with every key masked, and the same
+    bits on a second launch."""
+    q, k, v, mask = _qkv(40, b, h, tq, tk, dh, bool(masked), cuda)
+    if masked == "tiles":
+        mask = _masked_tiles(mask)
     q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
     telemetry.reset()
     got = tattn._launch(q, k, v, mask)
-    bf16_kinds = telemetry.dtypes()
+    assert telemetry.dtypes() == {f"attention:{variant}:bfloat16": 1}
+    again = tattn._launch(q, k, v, mask)
     want = tattn._launch(q.float(), k.float(), v.float(), mask)
+    plain = tattn.attention_reference(q, k, v, mask)
     torch.cuda.synchronize()
-    assert got.dtype == torch.float32
-    assert len(bf16_kinds) == 1 and next(iter(bf16_kinds)).endswith(":bfloat16")
-    assert {x.replace(":bfloat16", ":float32") for x in bf16_kinds} \
-        == {x for x in telemetry.dtypes() if x.endswith(":float32")}
+    assert got.dtype == torch.float32 and torch.equal(got, again)
     torch.testing.assert_close(got, want, **ATTN_TOL)
+    torch.testing.assert_close(got, plain, **ATTN_TOL)
+    if masked:
+        uniform = v[0].float().mean(-2, keepdim=True).expand(h, tq, dh)
+        torch.testing.assert_close(got[0], uniform, **ATTN_TOL)
     # and through the Function: fp32 out, bf16 gradients, launched once
     leaves = [x.clone().requires_grad_() for x in (q, k, v)]
     out = tattn.masked_attention(*leaves, mask)
@@ -1352,35 +1379,65 @@ def test_bf16_attention_launcher_equals_the_fp32_kernel_on_widened_inputs(
     assert out.dtype == torch.float32 and all(x.grad.dtype == torch.bfloat16 for x in leaves)
 
 
-@pytest.mark.parametrize("shape,block,stride", [
-    ((8, 2, 512, 32), 128, 4),   # the video model's: the tensor-core kernels
-    ((2, 2, 64, 64), 32, 2),     # Dh 64: rows staged in shared memory
-    ((2, 2, 96, 6), 16, 2),      # Dh 6: the FMA kernels
-], ids=["mma", "mma-dh64", "fma"])
+def test_bf16_attention_crossover_yardsticks_agree(cuda):
+    """The two yardsticks of the crossover, which the port never calls: the
+    tensor-core kernel under it and the widening path over it, each within
+    the tolerance of the launcher's result at the same inputs."""
+    import ctypes
+    from multimodal_vae_comparison_tpu_torch.ops.kernels import _build
+    args = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+    for tq, tk, symbol in ((8, 8, "masked_attention_forward_bf16_tc"),
+                           (45, 246, "masked_attention_forward_bf16_widened")):
+        q, k, v, mask = _qkv(43, 8, 2, tq, tk, 32, True, cuda)
+        q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+        fn = _build.function("attention", symbol, args)
+        out = torch.empty(q.shape, dtype=torch.float32, device=cuda)
+        _build.check("attention", fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                     mask.data_ptr(), out.data_ptr(), 8, 2, tq, tk, 32,
+                                     32 ** -0.5, torch.cuda.current_stream().cuda_stream))
+        torch.testing.assert_close(out, tattn._launch(q, k, v, mask), **ATTN_TOL)
+
+
+@pytest.mark.parametrize("shape,block,stride,variants", [
+    ((8, 2, 512, 32), 128, 4, ("tc_bf16", "mma", "mma")),  # the video model's
+    ((2, 2, 64, 64), 32, 2, ("tc_bf16", "mma", "mma")),    # Dh 64: rows staged in smem
+    ((2, 2, 96, 6), 16, 2, ("fma", "fma", "fma")),         # Dh 6: the FMA kernels
+    ((2, 2, 96, 16), 16, 2, ("tc_bf16", "mma", "mma")),    # a block of 16
+    ((2, 2, 256, 8), 64, 1, ("tc_bf16", "mma", "mma")),    # Dh 8: padded to 16
+    ((2, 2, 320, 32), 80, 2, ("tc_bf16", "mma", "mma")),   # a block not a multiple of 32
+    ((1, 2, 160, 12), 16, 3, ("mma", "mma", "mma")),       # Dh % 8 != 0: widened 3xTF32
+], ids=["mma", "mma-dh64", "fma", "block16", "dh8", "block80", "dh12"])
 def test_bf16_sparse_launchers_equal_the_fp32_kernels_on_widened_inputs(cuda, shape, block,
-                                                                       stride):
+                                                                       stride, variants):
     """The forward, dq and dk/dv bf16 instances against the fp32 kernels on
-    the widened inputs: fp32 out and lse, dq/dk/dv in bf16 equal to the fp32
-    kernels' rounded once."""
+    the widened inputs, each taking the named variant (forward, dq, dk/dv):
+    fp32 out and lse within the forward tolerance of the fp32 kernel and of
+    the plain version, the same bits on a second launch; dq/dk/dv in bf16
+    equal to the fp32 kernels' rounded once."""
     g = torch.Generator(device="cuda").manual_seed(41)
     q, k, v = (torch.randn(shape, generator=g, device="cuda").bfloat16() for _ in range(3))
     wide = [x.float() for x in (q, k, v)]
     telemetry.reset()
     out, lse = tsparse._launch_forward(q, k, v, block, stride)
-    out32, lse32 = tsparse._launch_forward(*wide, block, stride)
+    out2, lse2 = tsparse._launch_forward(q, k, v, block, stride)
     d_out = torch.randn(shape, generator=g, device="cuda")
+    out32, lse32 = tsparse._launch_forward(*wide, block, stride)
     delta = (d_out * out32).sum(-1)
     args = (d_out, lse32, delta, block, stride)
     dq, (dk, dv) = tsparse._launch_dq(q, k, v, *args), tsparse._launch_dkv(q, k, v, *args)
+    bf16_kinds = {x: n for x, n in telemetry.dtypes().items() if x.endswith(":bfloat16")}
     dq32, (dk32, dv32) = tsparse._launch_dq(*wide, *args), tsparse._launch_dkv(*wide, *args)
     torch.cuda.synchronize()
-    kinds = telemetry.dtypes()
-    assert sum(n for x, n in kinds.items() if x.endswith(":bfloat16")) == 3
-    assert {x.rpartition(":")[0] for x in kinds if x.endswith(":bfloat16")} \
-        == {x.rpartition(":")[0] for x in kinds if x.endswith(":float32")}
+    fwd, dq_v, dkv_v = variants
+    assert bf16_kinds == {f"sparse_attention:{fwd}:bfloat16": 2,
+                          f"sparse_attention_dq:{dq_v}:bfloat16": 1,
+                          f"sparse_attention_dkv:{dkv_v}:bfloat16": 1}
     assert out.dtype == lse.dtype == torch.float32
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
     torch.testing.assert_close(out, out32, **SPARSE_TOL)
     torch.testing.assert_close(lse, lse32, **SPARSE_TOL)
+    torch.testing.assert_close(out, tsparse.sparse_attention_reference(q, k, v, block, stride),
+                               **SPARSE_TOL)
     for got, want in ((dq, dq32), (dk, dk32), (dv, dv32)):
         assert got.dtype == torch.bfloat16
         torch.testing.assert_close(got.float(), want.bfloat16().float(), **SPARSE_BWD_TOL)
