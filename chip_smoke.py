@@ -28,7 +28,7 @@ three main paths at full width with random weights from a seed:
   scores cross- and joint-coherence from the prior, ex-post and fitted-GMM
   sources and writes ``cdspritesplus_stats.txt``; the eval CLI
   (``eval_cdsprites -p``) gives the same stats from the cache in a process
-  of its own, and cross- and prior joint generation agree with the CPU's;
+  of its own under the same TF32 settings, and cross- and prior joint generation agree with the CPU's;
 * the paper's MoPoE and DMVAE configs trained and scored with the same
   judge ("zoo from config"), on a second level-1 set of 3,000 rows
   (ZOO_DATA_COUNT), as the mixture prior's, the zoo remainder's and the
@@ -93,10 +93,11 @@ three main paths at full width with random weights from a seed:
   (masked attention, the sparse forward, dq, dk/dv) against the fp32
   kernel on the widened inputs and the plain version, the variant it took
   and two launches bit for bit; the bf16 tensor-core attention and sparse
-  forward timed in turns with the widening kernels they replace (the
-  attention at every bf16 shape with the tensor-core kernel too: the
-  crossover's A/B) and entered in the kernels line with their launches on
-  the bf16 paths; the flagship POE and MOE steps and the
+  forward, dq and dk/dv timed in turns with the widening kernels they
+  replace (the attention at every bf16 shape with the tensor-core kernel
+  too: the crossover's A/B; the sparse ones' widening yardsticks bit for
+  bit the fp32 kernels rounded once) and entered in the kernels line with
+  their launches on the bf16 paths; the flagship POE and MOE steps and the
   VideoGPTSparse step in bf16, card against the CPU's bf16 within the bf16
   yardstick, their p50 in fp32 and bf16 at bs 24 and 256 and their
   ``ops.flops.step_flops``, equal on the card and the CPU; then
@@ -277,6 +278,18 @@ EVAL_RTOL, EVAL_ATOL = 1e-4, 1e-4
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
+
+
+def module_argv(module: str, *args: str) -> list:
+    """``python -m module args`` under this process's TF32 settings.  A new
+    process starts with cuDNN's TF32 on; a conv in TF32 can flip a judged
+    arg-max that the same conv in fp32 gives the other way, so a child held
+    against this process's results must compute as this process does."""
+    code = ("import runpy, torch; "
+            f"torch.backends.cuda.matmul.allow_tf32 = {torch.backends.cuda.matmul.allow_tf32}; "
+            f"torch.backends.cudnn.allow_tf32 = {torch.backends.cudnn.allow_tf32}; "
+            f"runpy.run_module({module!r}, run_name='__main__', alter_sys=True)")
+    return [sys.executable, "-c", code, *args]
 
 
 def card_line() -> str:
@@ -2120,8 +2133,8 @@ def serve_model_dir(run_dir: str, batch, log_path: str) -> dict:
     started = time.perf_counter()
     with open(log_path, "w") as log:
         proc = subprocess.Popen(
-            [sys.executable, "-m", "multimodal_vae_comparison_tpu_torch.serving.server",
-             "--model", run_dir, "--port", str(port)],
+            module_argv("multimodal_vae_comparison_tpu_torch.serving.server",
+                        "--model", run_dir, "--port", str(port)),
             cwd=HERE, stdout=log, stderr=subprocess.STDOUT, stdin=subprocess.DEVNULL)
         try:
             while True:
@@ -2165,9 +2178,9 @@ def serve_model_dir(run_dir: str, batch, log_path: str) -> dict:
 
 def phase_eval_from_config(card: str, run_dir: str) -> dict:
     """The POE run's benchmark again, from its run directory: the eval CLI
-    (``eval_cdsprites -p``) in a process of its own must load the judge
-    from the cache and write the stats file ``test()`` wrote, byte for
-    byte; then cross-generation of the same EVAL_ROWS test rows and prior
+    (``eval_cdsprites -p``) in a process of its own, under this process's
+    TF32 settings, must load the judge from the cache and write the stats
+    file ``test()`` wrote, byte for byte; then cross-generation of the same EVAL_ROWS test rows and prior
     joint generation of JOINT_ROWS, with the eval's own draws (from a CPU
     generator seeded 0, so the same eps on both), on the card and
     through the plain path on the CPU: decoder means within EVAL_RTOL /
@@ -2185,8 +2198,8 @@ def phase_eval_from_config(card: str, run_dir: str) -> dict:
           f"{path} does not hold the 12 stats:\n{written}")
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [sys.executable, "-m", "multimodal_vae_comparison_tpu_torch.eval.eval_cdsprites",
-         "-p", run_dir], cwd=HERE, capture_output=True, text=True, timeout=600,
+        module_argv("multimodal_vae_comparison_tpu_torch.eval.eval_cdsprites", "-p", run_dir),
+        cwd=HERE, capture_output=True, text=True, timeout=600,
         stdin=subprocess.DEVNULL)
     numbers["eval_cli_s"] = time.perf_counter() - t0
     check(proc.returncode == 0, f"eval_cdsprites -p exited {proc.returncode}:\n"
@@ -5109,23 +5122,27 @@ BF16_ATTENTION_CASES = (("flagship text encoder", (24, 2, 45, 45, 32), True),
                         ("SPRITES decoder M*K*B 240, H", axial_shapes(240)[1], False),
                         ("VILANRO action encoder", (64, 2, 100, 100, 16), True))
 BF16_SPARSE_SHAPE = (80, 2, 2048, 32)
-PEAK_BF16_TC_FLOP_PER_S = 989e12   # dense bf16 tensor cores, the H100 SXM data sheet
+# bf16 MMAs each bf16 tensor-core sparse kernel issues per product of its
+# function: the forward 3 for q k^T and P v (P in two planes), dq 5 for its
+# three (dO V^T and dS K on two planes), dk/dv 8 for its four (P^T dO on
+# both operands' planes: 3)
+BF16_TC_MMA_UNITS = {"forward": 3 / 2, "dq": 5 / 3, "dkv": 8 / 4}
 # the bf16 attention launcher's yardsticks (the arguments of
 # masked_attention_forward_bf16 less `variant`), which the port never calls
 BF16_ATTENTION_YARDSTICKS = ("masked_attention_forward_bf16_widened",
                              "masked_attention_forward_bf16_tc")
 
 
-def bf16_tc_bounds(nbytes: float, flop: float):
+def bf16_tc_bounds(nbytes: float, flop: float, units: float = 1.5):
     """(bound ms, by, the kernel's own MMA bound ms) of a bf16 tensor-core
-    kernel whose two products take ``flop``: the larger of ``nbytes`` at
-    the HBM rate and ``flop`` at the dense bf16 rate; and the MMAs it
-    issues, q k^T once and P v twice (P in two bf16 planes), 1.5 ``flop``,
-    at the same rate."""
+    kernel whose products take ``flop``: the larger of ``nbytes`` at the
+    HBM rate and ``flop`` at the dense bf16 rate; and the MMAs it issues,
+    ``units`` per product (1.5 for q k^T once and P v twice, P in two bf16
+    planes; BF16_TC_MMA_UNITS), at the same rate."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flop / PEAK_BF16_TC_FLOP_PER_S * 1e3
+    t_ops = flop / PEAK_BF16_FLOP_PER_S * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
-            1.5 * t_ops)
+            units * t_ops)
 
 
 def _yard_worst(got: dict, b: dict, f: dict, key_bias_scale: bool = True):
@@ -5152,9 +5169,10 @@ def phase_bf16_kernels(card: str) -> dict:
     """Each bf16 launcher (the masked attention's forward, the sparse
     forward, dq and dk/dv) against the fp32 kernel on the widened inputs and
     against the plain version, at the main paths' shapes, within the
-    tolerance the fp32 kernel meets against its plain version: the variant
-    it took (telemetry), the same bits on a second launch, its ms beside the
-    fp32 kernel's, the widening kernel's and, for the attention, the
+    tolerance the fp32 kernel meets against its plain version (dq, dk, dv:
+    plus their one rounding to bf16): the variant it took (telemetry), the
+    same bits on a second launch, its ms beside the fp32 kernel's, the
+    widening kernel's (timed in turns with it) and, for the attention, the
     tensor-core kernel's at every shape (the crossover's A/B, its two
     yardsticks), its bounds (:func:`bound_ms` over its bytes at 2 a bf16
     element and its operations at the fp32 rate; the tensor-core kernels'
@@ -5270,6 +5288,7 @@ def phase_bf16_kernels(card: str) -> dict:
     args32 = (*wide, d_out, lse32, delta, blk, stride)
     dq, (dk, dv) = sp._launch_dq(*args16), sp._launch_dkv(*args16)
     took = telemetry.dtypes()
+    dq_again, (dk_again, dv_again) = sp._launch_dq(*args16), sp._launch_dkv(*args16)
     dq32, (dk32, dv32) = sp._launch_dq(*args32), sp._launch_dkv(*args32)
     out_again, lse_again = sp._launch_forward(q, k, v, blk, stride)
     plain = sp.sparse_attention_reference(q, k, v, blk, stride)
@@ -5278,21 +5297,49 @@ def phase_bf16_kernels(card: str) -> dict:
           f"bf16 sparse: out {out.dtype}, dq/dk/dv {dq.dtype}/{dk.dtype}/{dv.dtype}")
     check(torch.equal(out, out_again) and torch.equal(lse, lse_again),
           "bf16 sparse forward: two launches differ")
+    check(torch.equal(dq, dq_again) and torch.equal(dk, dk_again) and torch.equal(dv, dv_again),
+          "bf16 sparse dq or dk/dv: two launches differ")
+    del dq_again, dk_again, dv_again
+    # dq, dk, dv are the bf16 roundings of the kernels' own fp32 sums: held to
+    # the backward tolerance plus that one rounding (2^-8 of each value)
+    bwd_rtol = SPARSE_BWD_RTOL + 2.0 ** -8
+
+    def bwd_err(got, want):
+        return (got.float() - want).abs().max().item()
+
+    def bwd_close(got, want):
+        return torch.allclose(got.float(), want, rtol=bwd_rtol, atol=SPARSE_BWD_ATOL)
+
     errs = {"forward": max((out - out32).abs().max().item(), (lse - lse32).abs().max().item()),
-            "dq": (dq.float() - dq32.bfloat16().float()).abs().max().item(),
-            "dkv": max((dk.float() - dk32.bfloat16().float()).abs().max().item(),
-                       (dv.float() - dv32.bfloat16().float()).abs().max().item())}
-    err_plain = (out - plain).abs().max().item()
+            "dq": bwd_err(dq, dq32), "dkv": max(bwd_err(dk, dk32), bwd_err(dv, dv32))}
+    err_plain = {"forward": (out - plain).abs().max().item()}
     check(torch.allclose(out, out32, rtol=SPARSE_RTOL, atol=SPARSE_ATOL)
           and torch.allclose(lse, lse32, rtol=SPARSE_RTOL, atol=SPARSE_ATOL)
           and torch.allclose(out, plain, rtol=SPARSE_RTOL, atol=SPARSE_ATOL),
-          f"bf16 sparse forward: {errs['forward']} against the fp32 kernel, {err_plain} "
-          f"against the plain version")
+          f"bf16 sparse forward: {errs['forward']} against the fp32 kernel, "
+          f"{err_plain['forward']} against the plain version")
     del plain
     for name, got, want in (("dq", dq, dq32), ("dk", dk, dk32), ("dv", dv, dv32)):
-        check(torch.allclose(got.float(), want.bfloat16().float(), rtol=SPARSE_BWD_RTOL,
-                             atol=SPARSE_BWD_ATOL),
-              f"bf16 sparse {name}: against the fp32 kernel's, rounded to bf16")
+        check(bwd_close(got, want), f"bf16 sparse {name}: {bwd_err(got, want)} against the "
+              f"fp32 kernel's, beyond the backward tolerance and one bf16 rounding")
+    # the plain version's gradients: autograd through it on the widened inputs
+    leaves = [x.detach().requires_grad_() for x in wide]
+
+    def plain_bwd():
+        return torch.autograd.grad(sp.sparse_attention_reference(*leaves, blk, stride), leaves,
+                                   d_out)
+    want_g = plain_bwd()
+    err_plain["dq"] = bwd_err(dq, want_g[0])
+    err_plain["dkv"] = max(bwd_err(dk, want_g[1]), bwd_err(dv, want_g[2]))
+    for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), want_g):
+        check(bwd_close(got, want), f"bf16 sparse {name}: {bwd_err(got, want)} against the "
+              f"plain version's gradient, beyond the backward tolerance and one bf16 rounding")
+    del want_g
+    torch.cuda.synchronize()
+    plain_ms = {"forward": eager_ms(lambda: sp.sparse_attention_reference(q, k, v, blk, stride),
+                                    iters=5)}
+    plain_ms["dq"] = plain_ms["dkv"] = eager_ms(plain_bwd, iters=3)
+    del leaves
     visible = sp.visibility(t, blk, stride, "cuda")
     sdpa = graph_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=visible))
     leaves = [x.detach().requires_grad_() for x in (q, k, v)]
@@ -5300,77 +5347,87 @@ def phase_bf16_kernels(card: str) -> dict:
     sdpa_bwd = eager_ms(lambda: torch.autograd.grad(sdpa_out, leaves, d_out.bfloat16(),
                                                     retain_graph=True), iters=10)
     del leaves, sdpa_out
-    # the bf16 forward on widened inputs (3xTF32), a yardstick
-    widened_fn = _build.function("sparse_attention", "sparse_attention_forward_bf16_widened",
-                                 sp._FWD_ARGTYPES[:-1])
-    w_out, w_lse = torch.empty_like(out), torch.empty_like(lse)
+    # the bf16 launchers that widen (3xTF32 on widened inputs), the
+    # yardsticks of the tensor-core kernels, each into buffers of its own
+    w_out, w_lse, w_dq, w_dk, w_dv = (torch.empty_like(x) for x in (out, lse, dq, dk, dv))
+    rows_in = [x.data_ptr() for x in (q, k, v, d_out, lse32, delta)]
+    widened = {}
+    for part, argtypes, outs in (("forward", sp._FWD_ARGTYPES, (w_out, w_lse)),
+                                 ("dq", sp._DQ_ARGTYPES, (w_dq,)),
+                                 ("dkv", sp._DKV_ARGTYPES, (w_dk, w_dv))):
+        fn = _build.function("sparse_attention", f"sparse_attention_{part}_bf16_widened",
+                             argtypes[:-1])
+        ins = rows_in[:3] if part == "forward" else rows_in
 
-    def widened():
-        _build.check("sparse_attention", widened_fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), w_out.data_ptr(), w_lse.data_ptr(),
-            *sp._shape_args(q, blk, stride)))
+        def call(fn=fn, ins=ins, outs=outs):
+            _build.check("sparse_attention", fn(*ins, *(x.data_ptr() for x in outs),
+                                                *sp._shape_args(q, blk, stride)))
+        widened[part] = call
     _, cells = sp.sparse_work(t, blk, stride)
     n, n_rows = b * h * t * dh, b * h * t
-    for row, part, fn, fn32, nbytes, per_cell, lib in (
-            ("strided_block_sparse_attention", "forward",
-             lambda: sp._launch_forward(q, k, v, blk, stride),
+    names = {"forward": ("strided_block_sparse_attention", "sparse_attention", "sparse_fwd_tc",
+                         165),
+             "dq": ("strided_block_sparse_attention_dq", "sparse_attention_dq", "sparse_dq_tc",
+                    262),
+             "dkv": ("strided_block_sparse_attention_dkv", "sparse_attention_dkv",
+                     "sparse_dkv_tc", 283)}
+    for part, fn, fn32, nbytes, per_cell, lib in (
+            ("forward", lambda: sp._launch_forward(q, k, v, blk, stride),
              lambda: sp._launch_forward(*wide, blk, stride),
              2 * 3 * n + 4 * (n + n_rows), 4 * dh, sdpa),
-            ("strided_block_sparse_attention_dq", "dq", lambda: sp._launch_dq(*args16),
-             lambda: sp._launch_dq(*args32), 2 * 4 * n + 4 * (n + 2 * n_rows), 6 * dh, sdpa_bwd),
-            ("strided_block_sparse_attention_dkv", "dkv", lambda: sp._launch_dkv(*args16),
-             lambda: sp._launch_dkv(*args32), 2 * 5 * n + 4 * (n + 2 * n_rows), 8 * dh,
-             sdpa_bwd)):
-        ms, fp32_ms = graph_ms(fn, reps=10), graph_ms(fn32, reps=10)
-        bound, by = bound_ms(nbytes, b * h * cells * per_cell)
-        # the unit the mma variant runs on, as the fp32 rows give it: three
-        # TF32 MMAs per widened product at the tensor cores' dense TF32 rate
-        tensor_bound = 3 * b * h * cells * per_cell / PEAK_TF32_FLOP_PER_S * 1e3
-        key = {"forward": "sparse_attention", "dq": "sparse_attention_dq",
-               "dkv": "sparse_attention_dkv"}[part]
+            ("dq", lambda: sp._launch_dq(*args16), lambda: sp._launch_dq(*args32),
+             2 * 4 * n + 4 * (n + 2 * n_rows), 6 * dh, sdpa_bwd),
+            ("dkv", lambda: sp._launch_dkv(*args16), lambda: sp._launch_dkv(*args32),
+             2 * 5 * n + 4 * (n + 2 * n_rows), 8 * dh, sdpa_bwd)):
+        row, key, kernel, line = names[part]
+        # the tensor-core kernel and its widening yardstick in turns
+        ms = graph_ms(fn, reps=10)
+        widened_ms = [graph_ms(widened[part], reps=10)]
+        ms_again = graph_ms(fn, reps=10)
+        widened_ms.append(graph_ms(widened[part], reps=10))
+        fp32_ms = graph_ms(fn32, reps=10)
+        torch.cuda.synchronize()
+        check(torch.equal(w_out, out32) and torch.equal(w_lse, lse32) if part == "forward"
+              else torch.equal(w_dq, dq32.bfloat16()) if part == "dq"
+              else torch.equal(w_dk, dk32.bfloat16()) and torch.equal(w_dv, dv32.bfloat16()),
+              f"the widening bf16 sparse {part} is no longer the fp32 kernel on widened "
+              f"inputs, rounded once")
+        flop = b * h * cells * per_cell
+        bound, by = bound_ms(nbytes, flop)
+        # the unit the widening kernels run on, as the fp32 rows give it:
+        # three TF32 MMAs per widened product at the tensor cores' TF32 rate
+        tensor_bound = 3 * flop / PEAK_TF32_FLOP_PER_S * 1e3
+        tc_bound, tc_by, mma_bound = bf16_tc_bounds(nbytes, flop, BF16_TC_MMA_UNITS[part])
         rows[row] = [{"at": f"video decoder {BF16_SPARSE_SHAPE} block {blk} stride {stride}",
                       "variant": sorted(x for x in took if x.startswith(key + ":")),
-                      "max_abs_err_vs_fp32_kernel": errs[part], "ms": ms,
-                      "fp32_kernel_ms": fp32_ms, "bound_ms": bound, "bound_by": by,
-                      "tensor_bound_ms": tensor_bound, "library_ms": lib, "library_is": "F.scaled_dot_product_attention(q, k, "
+                      "max_abs_err_vs_fp32_kernel": errs[part],
+                      "max_abs_err_vs_plain": err_plain[part], "ms": ms, "ms_again": ms_again,
+                      "widened_ms": widened_ms, "fp32_kernel_ms": fp32_ms,
+                      "plain_ms": plain_ms[part], "bound_ms": bound, "bound_by": by,
+                      "tensor_bound_ms": tensor_bound, "bf16_tc_bound_ms": tc_bound,
+                      "bf16_tc_bound_by": tc_by, "tc_mma_bound_ms": mma_bound,
+                      "library_ms": lib, "library_is": "F.scaled_dot_product_attention(q, k, "
                       "v, attn_mask=visible) on bf16, " + ("forward" if part == "forward"
                                                            else "its backward (eager)")}]
-        extra = ""
-        if part == "forward":
-            # the new kernel against the widening one in turns, its own bounds
-            widened_ms = [graph_ms(widened, reps=10)]
-            ms_again = graph_ms(fn, reps=10)
-            widened_ms.append(graph_ms(widened, reps=10))
-            torch.cuda.synchronize()
-            check(torch.equal(w_out, out32) and torch.equal(w_lse, lse32),
-                  "the widening bf16 sparse forward is no longer the fp32 kernel on widened inputs")
-            plain_ms = eager_ms(lambda: sp.sparse_attention_reference(q, k, v, blk, stride),
-                                iters=5)
-            tc_bound, tc_by, mma_bound = bf16_tc_bounds(nbytes, b * h * cells * per_cell)
-            rows[row][0].update(ms_again=ms_again, widened_ms=widened_ms, plain_ms=plain_ms,
-                                bf16_tc_bound_ms=tc_bound, bf16_tc_bound_by=tc_by,
-                                tc_mma_bound_ms=mma_bound,
-                                max_abs_err_vs_plain=err_plain)
-            entries["strided_block_sparse_attention_bf16_tc"] = {
-                "name": "strided_block_sparse_attention_bf16_tc", "route": "cuda",
-                "source": src + "sparse_attention.cu", "kernel": "sparse_fwd_tc",
-                "header": src + "bf16_tc.cuh", "replaces": ref + "sparse_attention.py:165",
-                "inputs": "bf16",
-                "at": rows[row][0]["at"], "max_abs_err": errs[part],
-                "max_abs_err_vs_plain": err_plain, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": tc_bound, "bound_by": tc_by, "library_ms": sdpa,
-                "library_is": rows[row][0]["library_is"], "tc_mma_bound_ms": mma_bound,
-                "widened_ms": widened_ms[0], "fp32_kernel_ms": fp32_ms}
-            extra = (f"; again {ms_again:.5f} ms, widening kernel {widened_ms[0]:.5f} / "
-                     f"{widened_ms[1]:.5f} ms, plain {plain_ms:.5f} ms; bound of its two "
-                     f"products at 989 TFLOP/s bf16 {tc_bound:.6f} ms ({tc_by}), of its "
-                     f"three bf16 MMAs a product pair {mma_bound:.6f} ms")
+        entries[row + "_bf16_tc"] = {
+            "name": row + "_bf16_tc", "route": "cuda", "source": src + "sparse_attention.cu",
+            "kernel": kernel, "header": src + "bf16_tc.cuh",
+            "replaces": ref + f"sparse_attention.py:{line}", "inputs": "bf16",
+            "at": rows[row][0]["at"], "max_abs_err": errs[part],
+            "max_abs_err_vs_plain": err_plain[part], "ms": ms, "plain_ms": plain_ms[part],
+            "bound_ms": tc_bound, "bound_by": tc_by, "library_ms": lib,
+            "library_is": rows[row][0]["library_is"], "tc_mma_bound_ms": mma_bound,
+            "widened_ms": widened_ms[0], "fp32_kernel_ms": fp32_ms}
         print(f"bf16 {row} {BF16_SPARSE_SHAPE}: {rows[row][0]['variant']}, max_abs_err "
-              f"{errs[part]:.3e} against the fp32 kernel; {ms:.5f} ms (fp32 kernel "
-              f"{fp32_ms:.5f}), bf16 byte bound {bound:.6f} ms ({by}), bound of 3 TF32 MMAs "
-              f"per product at 495 TFLOP/s {tensor_bound:.6f} ms, SDPA bf16 {lib:.5f} ms"
-              f"{extra} on {card}")
+              f"{errs[part]:.3e} against the fp32 kernel, {err_plain[part]:.3e} against the "
+              f"plain version; {ms:.5f} / {ms_again:.5f} ms, widening kernel "
+              f"{widened_ms[0]:.5f} / {widened_ms[1]:.5f} ms, fp32 kernel {fp32_ms:.5f} ms, "
+              f"plain {plain_ms[part]:.5f} ms; bound {tc_bound:.6f} ms ({tc_by}; products at "
+              f"989 TFLOP/s bf16), of its {round(BF16_TC_MMA_UNITS[part] * per_cell / (2 * dh))} "
+              f"bf16 MMAs a pair {mma_bound:.6f} ms, of the widening kernel's 3 TF32 MMAs a "
+              f"product at 495 TFLOP/s {tensor_bound:.6f} ms; SDPA bf16 {lib:.5f} ms on {card}")
     del q, k, v, wide, out, lse, out32, lse32, d_out, delta, args16, args32
+    del dq, dk, dv, dq32, dk32, dv32, w_out, w_lse, w_dq, w_dk, w_dv, widened
     torch.cuda.empty_cache()
     return rows, entries
 
@@ -5510,8 +5567,8 @@ def phase_bf16_steps(card: str) -> dict:
         check(bool(torch.isfinite(metrics["loss"])), f"video {dt}: non-finite loss")
         if dt == bf16:
             want_kinds = {"sparse_attention:tc_bf16:bfloat16": 20,
-                          "sparse_attention_dq:mma:bfloat16": 8,
-                          "sparse_attention_dkv:mma:bfloat16": 8}
+                          "sparse_attention_dq:tc_bf16:bfloat16": 8,
+                          "sparse_attention_dkv:tc_bf16:bfloat16": 8}
             check(kinds == want_kinds,
                   f"video bf16: the sparse launchers took {kinds}, expected {want_kinds}")
         flops = step_flops(step, batch, generator=gen)["flops"]
@@ -6137,13 +6194,14 @@ def main() -> int:
     primary[0].update(extra)   # masked_attention: its backward's time
     # the bf16 tensor-core kernels, each with its launches on the main path
     # that runs it: the bf16 configs' (attention) and a bf16 video step's
-    # (the sparse forward), counted from zero just before each
+    # (the sparse forward, dq and dk/dv), counted from zero just before each
     bf16_video_kinds = bf16_steps["VideoGPTSparse MOE dreg"]["bfloat16"]["variants"]
     for name, key, n in (
             ("masked_attention_bf16_tc", "launches_bf16_from_config_path",
              bf16_numbers["launches_by_variant"].get("attention:tc_bf16:bfloat16", 0)),
-            ("strided_block_sparse_attention_bf16_tc", "launches_per_bf16_video_step",
-             bf16_video_kinds.get("sparse_attention:tc_bf16:bfloat16", 0))):
+            *((f"strided_block_sparse_attention{part}_bf16_tc", "launches_per_bf16_video_step",
+               bf16_video_kinds.get(f"sparse_attention{part}:tc_bf16:bfloat16", 0))
+              for part in ("", "_dq", "_dkv"))):
         check(n > 0, f"{name}: launched no time on its main path")
         primary.append(dict(bf16_tc_entries[name], launches=n, **{key: n}))
     # the launch floor beside the kernels that run at the cost of one launch:

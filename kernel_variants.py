@@ -38,9 +38,10 @@ line of a CUDA source there, builds it, and in a process of its own prints:
   and v) read from rows staged in shared memory, as for Dh 64, not held in
   registers;
 * ``bf16_widened``: the bf16 launchers of the masked attention and the
-  sparse forward never take the bf16 tensor-core kernels
-  (``masked_attention_tc``, ``sparse_fwd_tc``), as before them: bf16 is
-  widened into the fp32 kernels (``shipped`` against it is the A/B that
+  sparse forward, dq and dk/dv never take the bf16 tensor-core kernels
+  (``masked_attention_tc``, ``sparse_fwd_tc``, ``sparse_dq_tc``,
+  ``sparse_dkv_tc``), as before them: bf16 is widened into the fp32 kernels
+  (``shipped`` against it is the A/B of the whole bf16 video step that
   made the tensor-core kernels the default);
 * ``tc_four_blocks``: ``sparse_fwd_tc`` compiled for four thread blocks an
   SM (at most 128 registers a thread), not the three its registers allow;
@@ -50,8 +51,10 @@ line of a CUDA source there, builds it, and in a process of its own prints:
   in flight, not three.
 
 Every variant also prints the bf16 launchers' variant and time at the
-sparse decoder's shape and at the attention shapes above, and the bf16
-VideoGPTSparse step's p50 and profiled device ms (:func:`video_step_bf16`).
+sparse decoder's shape and at the attention shapes above, the registers of
+the bf16 tensor-core backward kernels at Dh 32, and the bf16 VideoGPTSparse
+step's p50 and profiled device ms, the sparse forward's, dq's and dk/dv's
+kernels apart (:func:`video_step_bf16`).
 
 The ``poe_`` variants edit ``csrc/poe.cu`` and are measured apart: the
 lattice forward and backward kernels' device ms (graphed, as above) at
@@ -118,7 +121,11 @@ VARIANTS = {
                                  "constexpr int TC_STAGES = 2;")],
     "bf16_widened": [(ATTENTION, "if (tc_takes(q, k, v, tq, tk, dh)) {", "if (false) {"),
                      (SPARSE, "if (tc_takes(address_bits(q, k, v, o), t, dh, block)) {",
-                      "if (false) {")],
+                      "if (false) {"),
+                     (SPARSE, "if (tc_takes(address_bits(q, k, v, d_out, lse, delta, dq), t, dh, "
+                      "block)) {", "if (false) {"),
+                     (SPARSE, "if (tc_takes(address_bits(q, k, v, d_out, lse, delta, dk, dv), t, "
+                      "dh, block)) {", "if (false) {")],
     "poe_shipped": [],
     "poe_loads_in_order": [(POE, """    load_experts(ex, experts, i, mu, scale);
 #pragma unroll
@@ -173,7 +180,8 @@ def measure(name: str, root: str) -> None:
     kernel = None
     for line in built["sparse_attention"][1].splitlines():
         if "Compiling entry function" in line:
-            kernel = next((k for k in ("sparse_dq_mmaILi32", "sparse_dkv_mmaILi32") if k in line),
+            kernel = next((k for k in ("sparse_dq_mmaIfLi32", "sparse_dkv_mmaIfLi32",
+                                       "sparse_dq_tcILi32", "sparse_dkv_tcILi32") if k in line),
                           None)
         elif kernel and ("registers" in line or "spill" in line):
             print(f"variant {name}: ptxas {kernel[:-5]}<32>: {line.strip()}")
@@ -258,7 +266,8 @@ def measure(name: str, root: str) -> None:
 def video_step_bf16(name: str) -> None:
     """The bf16 VideoGPTSparse MOE DReG step of ``chip_smoke.py`` ("bf16
     steps": bs 8, K 5, remat): its wall p50 over 10 steps, twice, and its
-    device ms a step from ``torch.profiler`` over 3 steps."""
+    device ms a step from ``torch.profiler`` over 3 steps, with the sparse
+    forward's, dq's and dk/dv's kernels' share of it."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -280,11 +289,12 @@ def video_step_bf16(name: str) -> None:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     act = cs.device_activity(prof, wall_ms)
-    sparse = sum(ms for n, ms in act["ms_by_name"].items() if "sparse_fwd" in n) / 3
+    sparse = {part: sum(ms for n, ms in act["ms_by_name"].items() if f"sparse_{part}" in n) / 3
+              for part in ("fwd", "dq", "dkv")}
     print(f"variant {name}: bf16 video step (bs {cs.VIDEO_BATCH}, K {cs.VIDEO_K}): p50 "
           f"{p50[0]:.3f} and {p50[1]:.3f} ms; {act['ms'] / 3:.3f} device ms a step over 3 "
-          f"profiled, busy {act['busy_share']:.4f}, the sparse forward kernels "
-          f"{sparse:.3f} ms of it")
+          f"profiled, busy {act['busy_share']:.4f}, of it the sparse forward kernels "
+          f"{sparse['fwd']:.3f} ms, dq {sparse['dq']:.3f} ms, dk/dv {sparse['dkv']:.3f} ms")
 
 
 def _per_subset_poe():

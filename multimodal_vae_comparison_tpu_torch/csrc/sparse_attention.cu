@@ -84,10 +84,12 @@
 // as the Pallas kernels cast them back to the inputs' dtype.  The 3xTF32
 // kernels' staging moves 4 elements a thread: a 16-byte cp.async for fp32,
 // an 8-byte load widened into a float4 for bf16 (synchronous, so the next
-// tile no longer loads under the current one's math: the bf16 dq and dk/dv
-// still do so).  Their rule (Dh % 4 == 0 and 16-byte aligned tensors) keeps
-// every bf16 unit 8-byte aligned and every bf16 pair that store_rows writes
-// 4-byte aligned, so it holds for both types.
+// tile no longer loads under the current one's math).  Their rule (Dh % 4
+// == 0 and 16-byte aligned tensors) keeps every bf16 unit 8-byte aligned and
+// every bf16 pair that store_rows writes 4-byte aligned, so it holds for
+// both types.  The bf16 instances of these kernels are what the bf16
+// launchers take where the bf16 tensor-core kernels below do not (Dh % 8 !=
+// 0), and the yardsticks *_bf16_widened.
 //
 // bf16 forward on bf16 tensor cores, sparse_fwd_tc (the bf16 launcher where
 // tc_takes the shape: mma_takes and Dh % 8 == 0).  The widened 3xTF32
@@ -104,6 +106,28 @@
 // 32) its bytes (bf16 q, k, v in, fp32 out and lse out), 0.032 ms at 3.35
 // TB/s, above its MMAs' 6 Dh FLOP per visible pair at the dense bf16 rate
 // of 989 TFLOP/s, 0.016 ms.
+//
+// bf16 dq and dk/dv on bf16 tensor cores, sparse_dq_tc and sparse_dkv_tc
+// (the bf16 launchers where tc_takes the shape), replacing the Pallas
+// _dq_kernel and _dkv_kernel (the pallas_calls of _sparse_backward_pallas,
+// sparse_attention.py:262 and :283) for bf16 q, k, v.  The widened 3xTF32
+// kernels ran them slower than the fp32 kernels ran fp32 (staging and MMA
+// count as the forward's).  These keep sparse_dq_mma's and
+// sparse_dkv_mma's grids, schedules, one row tile a warp and masking, and
+// take bf16_tc.cuh's pieces: q, k, v as they are (a bf16 x bf16 product is
+// exact in fp32), their tiles staged by cp.async in a TC_STAGES-deep ring;
+// the fp32 operands (P, dS and d_out, which stays fp32 as _sparse_bwd casts
+// it) as two bf16 planes, hi = bf16(x), lo = bf16(x - hi).  MMAs per 16 x 8
+// x 16 piece of the visible pairs: dq 5 (S 1, dP = dO V^T 2, dQ += dS K 2),
+// dk/dv 8 (S^T 1, dV += P^T dO 3, dP^T = V dO^T 2, dK += dS^T Q 2).  Each
+// 32-column chunk's hi and lo products accumulate apart from zero and are
+// added to the fp32 dQ, dK, dV in fp32 with rounding; dq, dk, dv are
+// rounded to bf16 once, at the store.  What bounds them at the video
+// decoder's (80, 2, 2048, 32): their bytes (bf16 q, k, v in and bf16 dq or
+// dk, dv out, fp32 d_out, lse, delta in), dq 0.0383 ms and dk/dv 0.0446 ms
+// at 3.35 TB/s, above their products at 989 TFLOP/s (0.016 and 0.022 ms);
+// their MMAs at that rate take 0.0272 and 0.0435 ms, so dk/dv sits at the
+// ridge: its bytes and its MMAs bound it about equally.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -119,6 +143,8 @@ constexpr int MAX_BLOCK = 128;   // rows per tile = threads per block
 constexpr int CHUNK = 16;        // keys scored before one rescale of the row
 constexpr float NEG_INF = -1e30f;
 constexpr size_t STATIC_SMEM_LIMIT = 48 * 1024;
+
+using bf16 = __nv_bfloat16;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -1195,6 +1221,372 @@ sparse_dkv_mma(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---- bf16 dq and dk/dv on bf16 tensor cores --------------------------------
+
+// b0, b1 of two n-tiles of 8 rows of a staged bf16 tile from row0 (its rows
+// are the product's n side), depth kcol .. kcol + 15; rows past last_row
+// read last_row again.  ldmatrix x4: lanes 16-31 address the second n-tile,
+// lanes 8-15 and 24-31 the upper 8 of the 16 columns.
+__device__ __forceinline__ void tile_b(uint32_t (&b)[4], const bf16* tile, int lds, int row0,
+                                       int kcol, int last_row) {
+  const int lane = threadIdx.x & 31;
+  const int row = min(row0 + (lane >> 4) * 8 + (lane & 7), last_row);
+  bf16tc::ldsm_x4(b, tile + row * lds + kcol + ((lane >> 3) & 1) * 8);
+}
+
+// b0, b1 of two n-tiles of 8 columns from ncol of a staged bf16 tile whose
+// rows krow0 .. krow0 + 15 are the product's depth (.trans); lanes 8-15 and
+// 24-31 address rows 8-15, lanes 16-31 the second n-tile
+__device__ __forceinline__ void tile_b_trans(uint32_t (&b)[4], const bf16* tile, int lds,
+                                             int krow0, int ncol, int last_row) {
+  const int lane = threadIdx.x & 31;
+  const int row = min(krow0 + ((lane >> 3) & 1) * 8 + (lane & 7), last_row);
+  bf16tc::ldsm_x4_trans(b, tile + row * lds + ncol + (lane >> 4) * 8);
+}
+
+// c[p] = a[p] b^T (16 x 32, fp32) for P bf16 A planes a[p] of one row tile
+// over 32 rows of a staged bf16 tile from row0, each B fragment read once
+// for all planes: one MMA per plane and 16 of depth, each c[p] a chain of
+// DHP / 16 from zero.
+template <int DHP, int P>
+__device__ __forceinline__ void tc_scores(float (&c)[P][bf16tc::NT][4],
+                                          const uint32_t (&a)[P][DHP / 16][1][4],
+                                          const bf16* tile, int row0, int last_row) {
+  constexpr int LDS = bf16tc::row_stride(DHP), NT = bf16tc::NT;
+#pragma unroll
+  for (int p = 0; p < P; ++p)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c[p][nt][e] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < DHP / 16; ++ks)
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      uint32_t b[4];
+      tile_b(b, tile, LDS, row0 + 16 * np, 16 * ks, last_row);
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        bf16tc::mma(c[p][2 * np], a[p][ks][0], b[0], b[1]);
+        bf16tc::mma(c[p][2 * np + 1], a[p][ks][0], b[2], b[3]);
+      }
+    }
+}
+
+// acc (16 x DHP, fp32) += a b, a the fp32 C fragments of 32 columns (P or
+// dS, from tc_scores) as the A operand in two bf16 planes, b the 32 rows
+// from row0 of a staged bf16 tile (its rows the product's depth) or, with
+// B_LO, of two (b's hi and lo planes): hi hi into one partial sum, the
+// cross terms (lo hi, and hi lo with B_LO) into another, each from zero
+// (chains of 2 and 2 or 4 MMAs), added to acc in fp32 with rounding.  At
+// most 4 output n-tiles a pass (Dh 64 takes two) bound the registers.
+template <int DHP, bool B_LO>
+__device__ __forceinline__ void tc_accumulate(float (&acc)[DHP / 8][4],
+                                              const float (&a)[bf16tc::NT][4],
+                                              const bf16* b_hi, const bf16* b_lo, int row0,
+                                              int last_row) {
+  constexpr int LDS = bf16tc::row_stride(DHP), NT = bf16tc::NT, DT = DHP / 8;
+  constexpr int KG = DT < 4 ? DT : 4;
+  // k-step j takes C's n-tiles 2j and 2j + 1 as its A fragment (bf16_tc.cuh)
+  uint32_t ah[NT / 2][4], al[NT / 2][4];
+#pragma unroll
+  for (int j = 0; j < NT / 2; ++j) {
+    bf16tc::split(a[2 * j][0], a[2 * j][1], ah[j][0], al[j][0]);
+    bf16tc::split(a[2 * j][2], a[2 * j][3], ah[j][1], al[j][1]);
+    bf16tc::split(a[2 * j + 1][0], a[2 * j + 1][1], ah[j][2], al[j][2]);
+    bf16tc::split(a[2 * j + 1][2], a[2 * j + 1][3], ah[j][3], al[j][3]);
+  }
+#pragma unroll
+  for (int d0 = 0; d0 < DT; d0 += KG) {
+    float hi[KG][4], lo[KG][4];
+#pragma unroll
+    for (int kg = 0; kg < KG; ++kg)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) hi[kg][e] = lo[kg][e] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NT / 2; ++j)
+#pragma unroll
+      for (int dp = 0; dp < KG / 2; ++dp) {
+        uint32_t b[4];
+        tile_b_trans(b, b_hi, LDS, row0 + 16 * j, (d0 + 2 * dp) * 8, last_row);
+        bf16tc::mma(hi[2 * dp], ah[j], b[0], b[1]);
+        bf16tc::mma(hi[2 * dp + 1], ah[j], b[2], b[3]);
+        bf16tc::mma(lo[2 * dp], al[j], b[0], b[1]);
+        bf16tc::mma(lo[2 * dp + 1], al[j], b[2], b[3]);
+        if constexpr (B_LO) {
+          tile_b_trans(b, b_lo, LDS, row0 + 16 * j, (d0 + 2 * dp) * 8, last_row);
+          bf16tc::mma(lo[2 * dp], ah[j], b[0], b[1]);
+          bf16tc::mma(lo[2 * dp + 1], ah[j], b[2], b[3]);
+        }
+      }
+#pragma unroll
+    for (int kg = 0; kg < KG; ++kg)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[d0 + kg][e] += hi[kg][e] + lo[kg][e];
+  }
+}
+
+// dq on bf16 tensor cores, sparse_dq_mma's grid, schedule and masking with
+// one row tile of 16 query rows a warp.  Its q fragments (bf16, as they
+// are) and d_out fragments (fp32, split once into two bf16 planes), lse *
+// log2(e) and delta stay in registers; K and V tiles go through the
+// TC_STAGES-deep cp.async ring of sparse_fwd_tc.  Per 32 keys: S = Q K^T (1
+// MMA per 16 x 8 x 16 piece, K by ldmatrix), P = 2^(S sm_scale log2 e -
+// lse2), dP = dO V^T (2: dO's planes, V by ldmatrix), dS = P (dP - delta),
+// dQ += dS K (2: dS's planes, K by ldmatrix .trans); dq is scaled by
+// sm_scale once at the store.  Dynamic shared memory that of sparse_fwd_tc:
+// TC_STAGES * 2 * block * row_stride(DHP) bf16 (40 KiB at block 128, Dh
+// 32).  block % 16 == 0, dh % 8 == 0, 8 <= dh <= DHP, every tensor 16-byte
+// aligned.
+template <int DHP>
+__global__ void __launch_bounds__(MMA_WARPS * 32)
+sparse_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+             const bf16* __restrict__ v, const float* __restrict__ d_out,
+             const float* __restrict__ lse, const float* __restrict__ delta,
+             bf16* __restrict__ dq, int t, int dh, int block, int stride, float sm_scale) {
+  constexpr int KS = DHP / 16, DT = DHP / 8, NT = bf16tc::NT, KEYS = bf16tc::KEYS;
+  constexpr int BLOCK_ROWS = MMA_WARPS * 16;
+  extern __shared__ uint4 smem_tc[];
+  bf16* ring = reinterpret_cast<bf16*>(smem_tc);
+  const int tile = block * bf16tc::row_stride(DHP);   // elements of one staged tile
+
+  const int nsub = (block + BLOCK_ROWS - 1) / BLOCK_ROWS;
+  const int y = gridDim.y - 1 - blockIdx.y;   // late (heavy) query blocks first
+  const int i = y / nsub, sub = y - i * nsub;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tg = lane & 3;
+  const int r0 = sub * BLOCK_ROWS + warp * 16;   // the warp's first row in the block
+  const bool active = r0 < block;
+  const size_t head = (size_t)blockIdx.x * t * dh;
+  const size_t rows = (size_t)blockIdx.x * t + (size_t)i * block;   // the block's first row
+
+  const int first = i % stride, n_tiles = i / stride + 1;
+  auto issue = [&](int kt) {   // live key block kt into its stage; a group even when empty
+    if (kt < n_tiles) {
+      bf16* stage = ring + (kt % TC_STAGES) * 2 * tile;
+      const size_t at = head + (size_t)(first + kt * stride) * block * dh;
+      bf16tc::stage_rows<DHP>(stage, k + at, block, block, dh);
+      bf16tc::stage_rows<DHP>(stage + tile, v + at, block, block, dh);
+    }
+    bf16tc::commit();
+  };
+#pragma unroll
+  for (int kt = 0; kt < TC_STAGES - 1; ++kt) issue(kt);
+
+  // a warp past the block's end holds zeros
+  const int valid = active ? block - r0 : 0;
+  uint32_t qf[1][KS][1][4], dof[2][KS][1][4];   // q; d_out's hi and lo planes
+  bf16tc::load_q<DHP, 1>(qf[0], q + (rows + r0) * dh, valid, dh);
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = g + (e & 1) * 8, col = ks * 16 + 2 * tg + (e >> 1) * 8;
+      const float2 x = row < valid && col < dh
+          ? *reinterpret_cast<const float2*>(d_out + (rows + r0 + row) * dh + col)
+          : make_float2(0.f, 0.f);
+      bf16tc::split(x.x, x.y, dof[0][ks][0][e], dof[1][ks][0][e]);
+    }
+  float lse2[2], dlt[2], acc[1][DT][4];   // rows g and g + 8
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + g + 8 * h;
+    lse2[h] = r < block ? lse[rows + r] * LOG2E : 0.f;
+    dlt[h] = r < block ? delta[rows + r] : 0.f;
+  }
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[0][dt][e] = 0.f;
+  const float scale2 = sm_scale * LOG2E;
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    bf16tc::wait<TC_STAGES - 2>();   // key block kt has landed (this thread's copies)
+    __syncthreads();                 // everyone's, and block kt - 1's stage is free
+    issue(kt + TC_STAGES - 1);
+    if (active) {
+      const bf16* ks_tile = ring + (kt % TC_STAGES) * 2 * tile;
+      const bf16* vs_tile = ks_tile + tile;
+      const bool diag = first + kt * stride == i;
+      // on the diagonal no key after this warp's last row is visible
+      const int key_end = diag ? min(block, r0 + 16) : block;
+      for (int key0 = 0; key0 < key_end; key0 += KEYS) {
+        // n-tiles past key_end are hidden (P = 0); their rows past the
+        // block read its last row again
+        const int nt_valid = min(NT, (key_end - key0) >> 3);
+        const bool masked = diag && key0 + KEYS - 1 > r0;   // some key > some row
+        float s[1][NT][4], dp[2][NT][4];
+        tc_scores<DHP, 1>(s, qf, ks_tile, key0, block - 1);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = key0 + nt * 8 + 2 * tg + (e & 1);
+            const int row = r0 + g + (e >> 1) * 8;
+            const bool hidden = nt >= nt_valid || (masked && key > row);
+            s[0][nt][e] = hidden ? 0.f : bf16tc::ex2(s[0][nt][e] * scale2 - lse2[e >> 1]);
+          }
+        tc_scores<DHP, 2>(dp, dof, vs_tile, key0, block - 1);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[0][nt][e] *= (dp[0][nt][e] + dp[1][nt][e]) - dlt[e >> 1];   // dS
+        tc_accumulate<DHP, false>(acc[0], s[0], ks_tile, nullptr, key0, block - 1);
+      }
+    }
+  }
+  if (active) store_rows<DHP, 1>(dq + rows * dh, acc, r0, block, dh, sm_scale);
+}
+
+// bytes of one stage of sparse_dkv_tc: a query block's q tile (bf16, rows of
+// row_stride(DHP)), its d_out tile as it lands (fp32, rows of DHP), its lse
+// and its delta; each part a multiple of 16 bytes
+__host__ __device__ constexpr size_t dkv_tc_stage_bytes(int dhp, int block) {
+  return (size_t)block * bf16tc::row_stride(dhp) * 2 + (size_t)block * dhp * 4
+         + 2 * (size_t)block * 4;
+}
+
+// dk/dv on bf16 tensor cores, sparse_dkv_mma's grid, schedule and masking
+// (key-block-major and transposed) with one row tile of 16 key rows a warp.
+// Its k and v fragments (bf16, as they are) stay in registers; each query
+// block that sees key block j goes through the TC_STAGES-deep cp.async ring:
+// its q tile in bf16, its fp32 d_out tile, lse and delta.  d_out is an
+// operand of every warp, so once a tile has landed the block splits it into
+// two bf16 planes in shared memory (hi = bf16(x), lo = bf16(x - hi)), which
+// all warps then read by ldmatrix.  Per 32 queries: S^T = K Q^T (1 MMA per
+// 16 x 8 x 16 piece), P^T = 2^(S^T sm_scale log2 e - lse2[query]), dV +=
+// P^T dO (3: hi hi, hi lo, lo hi), dP^T = V dO^T (2: dO's planes), dS^T =
+// P^T (dP^T - delta[query]), dK += dS^T Q (2: dS's planes); dk is scaled by
+// sm_scale once at the store.  Dynamic shared memory TC_STAGES stages
+// (dkv_tc_stage_bytes) and the two planes (2 * block * row_stride(DHP)
+// bf16): 74 KiB at block 128, Dh 32, three blocks an SM (as many as its
+// registers allow); 138 KiB at Dh 64, one.  The shapes of sparse_dq_tc.
+template <int DHP>
+__global__ void __launch_bounds__(MMA_WARPS * 32)
+sparse_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+              const bf16* __restrict__ v, const float* __restrict__ d_out,
+              const float* __restrict__ lse, const float* __restrict__ delta,
+              bf16* __restrict__ dk, bf16* __restrict__ dv, int t, int dh, int block,
+              int stride, float sm_scale) {
+  constexpr int KS = DHP / 16, DT = DHP / 8, NT = bf16tc::NT, KEYS = bf16tc::KEYS;
+  constexpr int LDS = bf16tc::row_stride(DHP), UNITS = DHP / 4;   // 4 floats a unit
+  constexpr int BLOCK_ROWS = MMA_WARPS * 16;
+  extern __shared__ uint4 smem_tc[];
+  char* smem = reinterpret_cast<char*>(smem_tc);
+  const int tile = block * LDS;   // elements of one staged bf16 tile
+  const size_t stage_bytes = dkv_tc_stage_bytes(DHP, block);
+  bf16* do_hi = reinterpret_cast<bf16*>(smem + TC_STAGES * stage_bytes);
+  bf16* do_lo = do_hi + tile;
+
+  const int nsub = (block + BLOCK_ROWS - 1) / BLOCK_ROWS;
+  const int j = blockIdx.y / nsub, sub = blockIdx.y - j * nsub;   // early (heavy) key blocks first
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tg = lane & 3;
+  const int r0 = sub * BLOCK_ROWS + warp * 16;   // the warp's first key row
+  const bool active = r0 < block;
+  const size_t head_row = (size_t)blockIdx.x * t;
+  const size_t keys = head_row + (size_t)j * block;
+  const int n_tiles = (t / block - 1 - j) / stride + 1;
+
+  auto issue = [&](int it) {   // query block j + it * stride into its stage
+    if (it < n_tiles) {
+      char* stage = smem + (it % TC_STAGES) * stage_bytes;
+      float* landing = reinterpret_cast<float*>(stage + (size_t)tile * 2);
+      float* lse_s = landing + block * DHP;
+      const size_t rows = head_row + (size_t)(j + it * stride) * block;
+      bf16tc::stage_rows<DHP>(reinterpret_cast<bf16*>(stage), q + rows * dh, block, block, dh);
+      for (int idx = threadIdx.x; idx < block * UNITS; idx += blockDim.x) {
+        const int r = idx / UNITS, c = idx - r * UNITS;
+        if (c * 4 < dh)
+          bf16tc::cp_async16(landing + r * DHP + c * 4, d_out + (rows + r) * dh + c * 4);
+      }
+      for (int u = threadIdx.x; u < block / 4; u += blockDim.x) {
+        bf16tc::cp_async16(lse_s + 4 * u, lse + rows + 4 * u);
+        bf16tc::cp_async16(lse_s + block + 4 * u, delta + rows + 4 * u);
+      }
+    }
+    bf16tc::commit();
+  };
+#pragma unroll
+  for (int it = 0; it < TC_STAGES - 1; ++it) issue(it);
+
+  const int valid = active ? block - r0 : 0;   // a warp past the block's end holds zeros
+  uint32_t kf[1][KS][1][4], vf[1][KS][1][4];
+  bf16tc::load_q<DHP, 1>(kf[0], k + (keys + r0) * dh, valid, dh);
+  bf16tc::load_q<DHP, 1>(vf[0], v + (keys + r0) * dh, valid, dh);
+  float dk_acc[1][DT][4], dv_acc[1][DT][4];
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[0][dt][e] = dv_acc[0][dt][e] = 0.f;
+  const float scale2 = sm_scale * LOG2E;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    bf16tc::wait<TC_STAGES - 2>();   // query block it has landed (this thread's copies)
+    __syncthreads();                 // everyone's; block it - 1's stage and the planes are free
+    issue(it + TC_STAGES - 1);
+    const char* stage = smem + (it % TC_STAGES) * stage_bytes;
+    const bf16* qs_tile = reinterpret_cast<const bf16*>(stage);
+    const float* landing = reinterpret_cast<const float*>(stage + (size_t)tile * 2);
+    const float* lse_s = landing + block * DHP;
+    const float* delta_s = lse_s + block;
+    // d_out's tile into its two bf16 planes, once for all warps; the
+    // columns past dh are zeros
+    for (int idx = threadIdx.x; idx < block * UNITS; idx += blockDim.x) {
+      const int r = idx / UNITS, c = idx - r * UNITS;
+      uint2 hi = make_uint2(0u, 0u), lo = make_uint2(0u, 0u);
+      if (c * 4 < dh) {
+        const float4 x = *reinterpret_cast<const float4*>(landing + r * DHP + c * 4);
+        bf16tc::split(x.x, x.y, hi.x, lo.x);
+        bf16tc::split(x.z, x.w, hi.y, lo.y);
+      }
+      *reinterpret_cast<uint2*>(do_hi + r * LDS + c * 4) = hi;
+      *reinterpret_cast<uint2*>(do_lo + r * LDS + c * 4) = lo;
+    }
+    __syncthreads();
+    if (active) {
+      const bool diag = it == 0;   // i == j
+      // on the diagonal no query before this warp's first key row sees it
+      for (int q0 = diag ? r0 : 0; q0 < block; q0 += KEYS) {
+        const int nt_valid = min(NT, (block - q0) >> 3);
+        const bool masked = diag && q0 < r0 + 15;   // some query < some key
+        float s[1][NT][4], dp[1][NT][4], dp_lo[1][NT][4];
+        tc_scores<DHP, 1>(s, kf, qs_tile, q0, block - 1);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {   // columns past nt_valid read the last valid one
+          const int c = q0 + min(nt, nt_valid - 1) * 8 + 2 * tg;
+          const float2 l = *reinterpret_cast<const float2*>(lse_s + c);
+          const float lse2[2] = {l.x * LOG2E, l.y * LOG2E};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int query = q0 + nt * 8 + 2 * tg + (e & 1);
+            const int key = r0 + g + (e >> 1) * 8;
+            const bool hidden = nt >= nt_valid || (masked && query < key);
+            s[0][nt][e] = hidden ? 0.f : bf16tc::ex2(s[0][nt][e] * scale2 - lse2[e & 1]);
+          }
+        }
+        tc_scores<DHP, 1>(dp, vf, do_hi, q0, block - 1);
+        tc_scores<DHP, 1>(dp_lo, vf, do_lo, q0, block - 1);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const int c = q0 + min(nt, nt_valid - 1) * 8 + 2 * tg;
+          const float2 d = *reinterpret_cast<const float2*>(delta_s + c);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)   // dS^T
+            dp[0][nt][e] = s[0][nt][e] * ((dp[0][nt][e] + dp_lo[0][nt][e]) - (e & 1 ? d.y : d.x));
+        }
+        tc_accumulate<DHP, true>(dv_acc[0], s[0], do_hi, do_lo, q0, block - 1);
+        tc_accumulate<DHP, false>(dk_acc[0], dp[0], qs_tile, nullptr, q0, block - 1);
+      }
+    }
+  }
+  if (active) {
+    store_rows<DHP, 1>(dk + keys * dh, dk_acc, r0, block, dh, sm_scale);
+    store_rows<DHP, 1>(dv + keys * dh, dv_acc, r0, block, dh, 1.f);
+  }
+}
+
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   if (bytes <= STATIC_SMEM_LIMIT) return cudaSuccess;
@@ -1304,6 +1696,38 @@ cudaError_t launch_dkv_mma(const T* q, const T* k, const T* v,
   return cudaGetLastError();
 }
 
+template <int DHP>
+cudaError_t launch_dq_tc(const bf16* q, const bf16* k, const bf16* v, const float* d_out,
+                         const float* lse, const float* delta, bf16* dq, int bh, int t, int dh,
+                         int block, int stride, float sm_scale, cudaStream_t stream) {
+  const size_t smem = (size_t)TC_STAGES * 2 * block * bf16tc::row_stride(DHP) * sizeof(bf16);
+  cudaError_t err = allow_smem(sparse_dq_tc<DHP>, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid;
+  int threads;
+  mma_launch_shape<1>(bh, t, block, grid, threads);
+  sparse_dq_tc<DHP><<<grid, threads, smem, stream>>>(q, k, v, d_out, lse, delta, dq, t, dh,
+                                                     block, stride, sm_scale);
+  return cudaGetLastError();
+}
+
+template <int DHP>
+cudaError_t launch_dkv_tc(const bf16* q, const bf16* k, const bf16* v, const float* d_out,
+                          const float* lse, const float* delta, bf16* dk, bf16* dv, int bh,
+                          int t, int dh, int block, int stride, float sm_scale,
+                          cudaStream_t stream) {
+  const size_t smem = TC_STAGES * dkv_tc_stage_bytes(DHP, block)
+                      + 2 * (size_t)block * bf16tc::row_stride(DHP) * sizeof(bf16);
+  cudaError_t err = allow_smem(sparse_dkv_tc<DHP>, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid;
+  int threads;
+  mma_launch_shape<1>(bh, t, block, grid, threads);
+  sparse_dkv_tc<DHP><<<grid, threads, smem, stream>>>(q, k, v, d_out, lse, delta, dk, dv, t,
+                                                      dh, block, stride, sm_scale);
+  return cudaGetLastError();
+}
+
 template <typename T, int DHP>
 cudaError_t launch_dq(const T* q, const T* k, const T* v,
                       const float* d_out, const float* lse, const float* delta,
@@ -1342,16 +1766,17 @@ cudaError_t launch_dkv(const T* q, const T* k, const T* v,
   ((dh) <= 8 ? LAUNCH(8, 1) : (dh) <= 16 ? LAUNCH(16, 1) \
    : (dh) <= 32 ? LAUNCH(32, 1) : LAUNCH(64, 1))
 
-// whether sparse_fwd_tc takes the shape
+// whether sparse_fwd_tc, sparse_dq_tc and sparse_dkv_tc take the shape
 bool tc_takes(uintptr_t bits, int t, int dh, int block) {
   return mma_takes(bits, t, dh, block) && dh % 8 == 0;
 }
 
 // The three launchers, each on q, k, v of element type T: the 3xTF32
 // tensor-core kernel where it takes the shape (*variant 0), else the FMA
-// kernel (1); the bf16 forward takes sparse_fwd_tc first, where it takes
-// the shape (2).  forward_widened is the forward without it: the widening
-// bf16 instance, a yardstick.
+// kernel (1); a bf16 launcher takes its bf16 tensor-core kernel first
+// (sparse_fwd_tc, sparse_dq_tc, sparse_dkv_tc), where it takes the shape
+// (2).  forward_widened, dq_widened and dkv_widened are the launchers
+// without it: their bf16 instances are the widening yardsticks.
 template <typename T>
 cudaError_t forward_widened(const T* q, const T* k, const T* v, float* o, float* lse,
                             int bh, int t, int dh, int block, int stride, float sm_scale,
@@ -1395,10 +1820,10 @@ cudaError_t forward(const T* q, const T* k, const T* v, float* o, float* lse, in
 }
 
 template <typename T>
-cudaError_t dq_launch(const T* q, const T* k, const T* v, const float* d_out,
-                      const float* lse, const float* delta, T* dq, int bh, int t, int dh,
-                      int block, int stride, float sm_scale, cudaStream_t stream,
-                      int* variant) {
+cudaError_t dq_widened(const T* q, const T* k, const T* v, const float* d_out,
+                       const float* lse, const float* delta, T* dq, int bh, int t, int dh,
+                       int block, int stride, float sm_scale, cudaStream_t stream,
+                       int* variant) {
   if (mma_takes(address_bits(q, k, v, d_out, lse, delta, dq), t, dh, block)) {
     *variant = 0;
 #define LAUNCH(DHP, MT)                                                                \
@@ -1415,10 +1840,28 @@ cudaError_t dq_launch(const T* q, const T* k, const T* v, const float* d_out,
 }
 
 template <typename T>
-cudaError_t dkv_launch(const T* q, const T* k, const T* v, const float* d_out,
-                       const float* lse, const float* delta, T* dk, T* dv, int bh, int t,
-                       int dh, int block, int stride, float sm_scale, cudaStream_t stream,
-                       int* variant) {
+cudaError_t dq_launch(const T* q, const T* k, const T* v, const float* d_out,
+                      const float* lse, const float* delta, T* dq, int bh, int t, int dh,
+                      int block, int stride, float sm_scale, cudaStream_t stream,
+                      int* variant) {
+  if constexpr (std::is_same<T, bf16>::value) {
+    if (tc_takes(address_bits(q, k, v, d_out, lse, delta, dq), t, dh, block)) {
+      *variant = 2;
+#define LAUNCH(DHP) \
+  launch_dq_tc<DHP>(q, k, v, d_out, lse, delta, dq, bh, t, dh, block, stride, sm_scale, stream)
+      return dh <= 16 ? LAUNCH(16) : dh <= 32 ? LAUNCH(32) : LAUNCH(64);
+#undef LAUNCH
+    }
+  }
+  return dq_widened(q, k, v, d_out, lse, delta, dq, bh, t, dh, block, stride, sm_scale,
+                    stream, variant);
+}
+
+template <typename T>
+cudaError_t dkv_widened(const T* q, const T* k, const T* v, const float* d_out,
+                        const float* lse, const float* delta, T* dk, T* dv, int bh, int t,
+                        int dh, int block, int stride, float sm_scale, cudaStream_t stream,
+                        int* variant) {
   if (mma_takes(address_bits(q, k, v, d_out, lse, delta, dk, dv), t, dh, block)) {
     *variant = 0;
 #define LAUNCH(DHP, MT)                                                                   \
@@ -1435,7 +1878,24 @@ cudaError_t dkv_launch(const T* q, const T* k, const T* v, const float* d_out,
 #undef LAUNCH
 }
 
-using bf16 = __nv_bfloat16;
+template <typename T>
+cudaError_t dkv_launch(const T* q, const T* k, const T* v, const float* d_out,
+                       const float* lse, const float* delta, T* dk, T* dv, int bh, int t,
+                       int dh, int block, int stride, float sm_scale, cudaStream_t stream,
+                       int* variant) {
+  if constexpr (std::is_same<T, bf16>::value) {
+    if (tc_takes(address_bits(q, k, v, d_out, lse, delta, dk, dv), t, dh, block)) {
+      *variant = 2;
+#define LAUNCH(DHP)                                                                        \
+  launch_dkv_tc<DHP>(q, k, v, d_out, lse, delta, dk, dv, bh, t, dh, block, stride, sm_scale, \
+                     stream)
+      return dh <= 16 ? LAUNCH(16) : dh <= 32 ? LAUNCH(32) : LAUNCH(64);
+#undef LAUNCH
+    }
+  }
+  return dkv_widened(q, k, v, d_out, lse, delta, dk, dv, bh, t, dh, block, stride, sm_scale,
+                     stream, variant);
+}
 
 }  // namespace
 
@@ -1491,7 +1951,8 @@ int sparse_attention_dkv_fma(const void* q, const void* k, const void* v,
 // `stream` and returns the cudaError_t of the launch.  Each picks its kernel
 // by shape and writes which to *variant: 0 the tensor-core kernel
 // (sparse_fwd_mma, sparse_dq_mma, sparse_dkv_mma), 1 the FMA kernel
-// (sparse_fwd, sparse_dq, sparse_dkv), 2 the bf16 forward's sparse_fwd_tc.
+// (sparse_fwd, sparse_dq, sparse_dkv), 2 the bf16 tensor-core kernel of a
+// bf16 instance (sparse_fwd_tc, sparse_dq_tc, sparse_dkv_tc).
 #define EXPORT(SUFFIX, T)                                                                \
   int sparse_attention_forward##SUFFIX(const void* q, const void* k, const void* v,     \
                                        void* o, void* lse, int bh, int t, int dh,       \
@@ -1525,10 +1986,10 @@ EXPORT(, float)
 EXPORT(_bf16, bf16)
 #undef EXPORT
 
-// The bf16 forward that widens (the 3xTF32 or FMA kernel on widened
-// inputs) whatever the shape: a yardstick for sparse_fwd_tc, which the
-// port's wrapper never calls (the arguments of sparse_attention_forward_bf16
-// less `variant`).
+// The bf16 launchers that widen (the 3xTF32 or FMA kernels on widened
+// inputs) whatever the shape: yardsticks for sparse_fwd_tc, sparse_dq_tc
+// and sparse_dkv_tc, which the port's wrapper never calls (the arguments of
+// sparse_attention_forward_bf16, _dq_bf16 and _dkv_bf16 less `variant`).
 int sparse_attention_forward_bf16_widened(const void* q, const void* k, const void* v,
                                           void* o, void* lse, int bh, int t, int dh,
                                           int block, int stride, float sm_scale,
@@ -1537,6 +1998,27 @@ int sparse_attention_forward_bf16_widened(const void* q, const void* k, const vo
   return (int)forward_widened((const bf16*)q, (const bf16*)k, (const bf16*)v, (float*)o,
                               (float*)lse, bh, t, dh, block, stride, sm_scale,
                               (cudaStream_t)stream, &variant);
+}
+
+int sparse_attention_dq_bf16_widened(const void* q, const void* k, const void* v,
+                                     const void* d_out, const void* lse, const void* delta,
+                                     void* dq, int bh, int t, int dh, int block, int stride,
+                                     float sm_scale, void* stream) {
+  int variant;
+  return (int)dq_widened((const bf16*)q, (const bf16*)k, (const bf16*)v, (const float*)d_out,
+                         (const float*)lse, (const float*)delta, (bf16*)dq, bh, t, dh, block,
+                         stride, sm_scale, (cudaStream_t)stream, &variant);
+}
+
+int sparse_attention_dkv_bf16_widened(const void* q, const void* k, const void* v,
+                                      const void* d_out, const void* lse, const void* delta,
+                                      void* dk, void* dv, int bh, int t, int dh, int block,
+                                      int stride, float sm_scale, void* stream) {
+  int variant;
+  return (int)dkv_widened((const bf16*)q, (const bf16*)k, (const bf16*)v,
+                          (const float*)d_out, (const float*)lse, (const float*)delta,
+                          (bf16*)dk, (bf16*)dv, bh, t, dh, block, stride, sm_scale,
+                          (cudaStream_t)stream, &variant);
 }
 
 const char* error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

@@ -19,14 +19,15 @@ and dk/dv kernels; on CPU tensors the forward is the plain version and the
 backward recomputes through it densely.  Every CUDA call launches its
 kernels: there is no size threshold and no switch.
 
-q, k and v come in fp32 or bf16 (``precision: bf16``).  The bf16 forward
-runs on the bf16 tensor cores (``"tc_bf16"``: q and k as they are, P in two
-bf16 planes) where the shape takes it (the ``"mma"`` rule and Dh a multiple
-of 8); elsewhere, and for dq and dk/dv, each launcher's bf16 instance loads
-bf16 and widens it to fp32 on the way in (exact), then runs the fp32
-arithmetic.  The output and lse are fp32, as are ``d_out`` and delta, and
-dq, dk, dv come back in the inputs' dtype, as the reference's
-``_sparse_bwd`` casts them.  The plain version widens too.
+q, k and v come in fp32 or bf16 (``precision: bf16``).  The bf16 forward,
+dq and dk/dv run on the bf16 tensor cores (``"tc_bf16"``: q, k and v as
+they are, the fp32 operands P, dS and ``d_out`` in two bf16 planes) where
+the shape takes them (the ``"mma"`` rule and Dh a multiple of 8);
+elsewhere each launcher's bf16 instance loads bf16 and widens it to fp32 on
+the way in (exact), then runs the fp32 arithmetic.  The output and lse are
+fp32, as are ``d_out`` and delta, and dq, dk, dv come back in the inputs'
+dtype, as the reference's ``_sparse_bwd`` casts them.  The plain version
+widens too.
 Under ``ops.flops.step_flops`` the forward counts 4 Dh FLOPs and the
 backward 14 Dh per visible (query, key) pair (:func:`sparse_flops`), the
 products over the live key blocks, on the card as on the CPU.

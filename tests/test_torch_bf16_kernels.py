@@ -7,16 +7,21 @@ bf16 x bf16 product is exact in fp32), ``sm_scale * log2(e)`` applied to
 the fp32 S, and P V with the fp32 P split into two bf16 planes, p = hi +
 lo, hi = bf16(p), lo = bf16(p - hi), one product each, summed in fp32.
 The masked attention also skips the 32-key tiles whose keys are all masked
-in a batch element that has a visible key.
+in a batch element that has a visible key.  The sparse dq and dk/dv
+(``sparse_dq_tc``, ``sparse_dkv_tc``) take every fp32 operand (P, dS and
+the fp32 ``d_out``) in two such planes and sum hi hi + hi lo + lo hi.
 
 Here that arithmetic runs in fp32 on the CPU on bf16-rounded inputs made
-with numpy from a seed, and is held to the forward tolerance of the plain
-version on the widened inputs and of the JAX package's Pallas kernels,
-interpreted (they widen bf16 to fp32 exactly, so they are fed the same
-bf16-rounded values in fp32); a single bf16 plane for P misses that
-tolerance, which is why the kernels pay for the split; and the skip leaves
-the emulated output bit-equal.  The kernels themselves are held against
-the fp32 kernels by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
+with numpy from a seed, and is held to the tolerance of the plain version
+on the widened inputs and of the JAX package's Pallas kernels, interpreted
+(they widen bf16 to fp32 exactly, so they are fed the same bf16-rounded
+values in fp32); a single bf16 plane for P (and for P and dS in the
+backward) has a larger error, which is why the kernels pay for the split;
+and the skip leaves the emulated output bit-equal.  The kernels themselves
+are held against the fp32 kernels by ``tests/test_torch_cuda.py`` and
+``chip_smoke.py``.  ``PYTHONPATH=. JAX_PLATFORMS=cpu python
+tests/test_torch_bf16_kernels.py`` prints the backward's error with one
+plane and with two at each shape.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -27,6 +32,7 @@ from multimodal_vae_comparison_tpu.ops.pallas import attention as jattn
 from multimodal_vae_comparison_tpu.ops.pallas import sparse_attention as jsparse
 from multimodal_vae_comparison_tpu_torch.ops.kernels import attention as tattn
 from multimodal_vae_comparison_tpu_torch.ops.kernels import sparse_attention as tsparse
+from test_torch_kernels import SPARSE_BWD_TOL, _plain_sparse_grads, _sparse_backward_with
 from test_torch_slice import one_torch_thread  # noqa: F401 (autouse)
 
 ATTN_TOL = dict(rtol=2e-4, atol=2e-5)    # as tests/test_pallas.py
@@ -127,6 +133,95 @@ def test_bf16_sparse_forward_arithmetic_matches_the_pallas_kernel(shape, block, 
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **SPARSE_TOL)
     np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse).reshape(b, h, t),
                                **SPARSE_TOL)
+
+
+# -- the sparse dq and dk/dv -------------------------------------------------------
+
+
+def _matmul_planes(a, b, lhs_planes=2):
+    """a b with each fp32 operand as two bf16 planes, x = hi + lo: hi hi +
+    hi lo + lo hi, summed in fp32, as sparse_dq_tc and sparse_dkv_tc take
+    their products (a bf16 operand has lo = 0, so its terms vanish as the
+    kernels' MMAs on it are never issued).  ``lhs_planes=1`` keeps one
+    plane of the left operand: P and dS in every product that takes them
+    (and d_out in dq's dP = dO V^T)."""
+    a_hi, b_hi = _bf16(a), _bf16(b)
+    b_lo = _bf16(b - b_hi)
+    if lhs_planes == 1:
+        return a_hi @ b_lo + a_hi @ b_hi
+    return (a_hi @ b_lo + _bf16(a - a_hi) @ b_hi) + a_hi @ b_hi
+
+
+def _matmul_one_plane(a, b):
+    return _matmul_planes(a, b, lhs_planes=1)
+
+
+def _sparse_backward_tc(matmul, q, k, v, d_out, block, stride):
+    """dq, dk, dv before their bf16 rounding, in the order of operations of
+    the tensor-core backward (tests/test_torch_kernels.py), logits scaled
+    after the exact bf16 product, every backward product through
+    ``matmul``; lse and delta from the fp32 forward."""
+    return _sparse_backward_with(matmul, q, k, v, d_out, block, stride,
+                                 forward_matmul=torch.matmul, scale_after=True)
+
+
+def _bwd_inputs(b, h, t, dh):
+    """bf16-rounded q, k, v and an fp32 d_out (the kernels take d_out fp32)."""
+    (q, k, v), rng = _inputs(26, *[(b, h, t, dh)] * 3)
+    return q, k, v, torch.from_numpy(rng.normal(size=(b, h, t, dh)).astype(np.float32))
+
+
+# (b, h, t, dh, block, stride): Dh 16, 32 and 64; blocks of 16 and 32 and
+# one of 48, not a multiple of 32
+SPARSE_BWD_SHAPES = [(2, 2, 128, 32, 16, 4), (1, 2, 256, 16, 32, 2), (1, 2, 192, 64, 48, 2),
+                     (1, 2, 96, 32, 48, 1)]
+
+
+@pytest.mark.parametrize("b,h,t,dh,block,stride", SPARSE_BWD_SHAPES)
+def test_bf16_sparse_backward_arithmetic_meets_the_tolerance(b, h, t, dh, block, stride):
+    """On bf16-rounded inputs the emulated dq, dk, dv stay within the
+    backward tolerance of autograd through the plain version on the
+    widened inputs."""
+    q, k, v, d_out = _bwd_inputs(b, h, t, dh)
+    want = _plain_sparse_grads(q, k, v, d_out, block, stride)
+    got = _sparse_backward_tc(_matmul_planes, q, k, v, d_out, block, stride)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **SPARSE_BWD_TOL)
+
+
+@pytest.mark.parametrize("b,h,t,dh,block,stride", SPARSE_BWD_SHAPES)
+def test_bf16_sparse_backward_arithmetic_matches_the_pallas_kernels(b, h, t, dh, block, stride):
+    """Within the backward tolerance of the JAX package's
+    _sparse_backward_pallas (the dq and dk/dv Pallas kernels, interpreted)
+    on the same bf16 values, with lse from its Pallas forward."""
+    q, k, v, d_out = _bwd_inputs(b, h, t, dh)
+    flat = [jnp.asarray(x.numpy().reshape(b * h, t, dh)) for x in (q, k, v, d_out)]
+    out, lse = jsparse._sparse_forward_with_lse(*(jnp.asarray(x.numpy()) for x in (q, k, v)),
+                                                block, stride, train=True)
+    delta = jnp.sum(flat[3] * out.reshape(b * h, t, dh), axis=-1, keepdims=True)
+    want = jsparse._sparse_backward_pallas(*flat, lse, delta, block, stride)
+    got = _sparse_backward_tc(_matmul_planes, q, k, v, d_out, block, stride)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w).reshape(b, h, t, dh),
+                                   **SPARSE_BWD_TOL)
+
+
+def _bwd_errors(b, h, t, dh, block, stride):
+    """(worst |error| with one plane of P and dS, with two) over dq, dk, dv
+    against autograd through the plain version."""
+    q, k, v, d_out = _bwd_inputs(b, h, t, dh)
+    want = _plain_sparse_grads(q, k, v, d_out, block, stride)
+    return tuple(max((g - w).abs().max().item() for g, w in zip(
+        _sparse_backward_tc(mm, q, k, v, d_out, block, stride), want))
+        for mm in (_matmul_one_plane, _matmul_planes))
+
+
+@pytest.mark.parametrize("b,h,t,dh,block,stride", SPARSE_BWD_SHAPES)
+def test_bf16_sparse_backward_with_one_plane_of_p_and_ds_is_worse(b, h, t, dh, block, stride):
+    """P and dS rounded once to bf16 keep 8 bits: the backward's error
+    against the plain version is larger than with the two-plane split."""
+    one, two = _bwd_errors(b, h, t, dh, block, stride)
+    assert np.isfinite(one) and one > two
 
 
 # -- the masked attention -----------------------------------------------------------
@@ -268,11 +363,14 @@ def test_tensor_core_variants_are_named():
 
 
 def test_chip_smoke_bounds_the_tensor_core_kernels_in_their_unit():
-    """chip_smoke.py's bounds of the bf16 sparse forward at the video
-    decoder's shape: the larger of its bytes (bf16 q, k, v read, fp32 out
-    and lse written: these bind, 0.0317 ms) and its two products at the
-    dense bf16 rate; and its three bf16 MMAs a product pair (q k^T once,
-    P v on two planes) at that rate, 0.0163 ms."""
+    """chip_smoke.py's bounds of the bf16 sparse kernels at the video
+    decoder's shape: the larger of their bytes and their products at the
+    dense bf16 rate (bytes bind each: the forward 0.0317 ms, bf16 q, k, v
+    read, fp32 out and lse written; dq 0.0383 ms and dk/dv 0.0446 ms, bf16
+    q, k, v read and dq or dk, dv written, fp32 d_out, lse and delta read);
+    and the bf16 MMAs each issues at that rate: the forward 3 a product
+    pair (q k^T once, P v on two planes) 0.0163 ms, dq 5 for its three
+    products 0.0272 ms, dk/dv 8 for its four 0.0435 ms."""
     import os
     import sys
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -283,8 +381,22 @@ def test_chip_smoke_bounds_the_tensor_core_kernels_in_their_unit():
         sys.path.remove(repo)
     b, h, t, dh = chip_smoke.BF16_SPARSE_SHAPE
     cells = tsparse.sparse_work(t, chip_smoke.SPARSE_BLOCK, chip_smoke.SPARSE_STRIDE)[1]
-    flop = 4 * dh * b * h * cells
     n, rows = b * h * t * dh, b * h * t
-    bound, by, mma = chip_smoke.bf16_tc_bounds(2 * 3 * n + 4 * (n + rows), flop)
-    assert by == "bytes" and 0.0316 < bound < 0.0318
-    assert mma == pytest.approx(1.5 * flop / 989e12 * 1e3) and 0.0162 < mma < 0.0164
+    for part, nbytes, per_cell, units, want, want_mma in (
+            ("forward", 2 * 3 * n + 4 * (n + rows), 4, 1.5, 0.0317, 0.0163),
+            ("dq", 2 * 4 * n + 4 * (n + 2 * rows), 6, 5 / 3, 0.0383, 0.0272),
+            ("dkv", 2 * 5 * n + 4 * (n + 2 * rows), 8, 2, 0.0446, 0.0435)):
+        flop = per_cell * dh * b * h * cells
+        assert chip_smoke.BF16_TC_MMA_UNITS[part] == units
+        bound, by, mma = chip_smoke.bf16_tc_bounds(nbytes, flop, units)
+        assert by == "bytes" and want - 1e-4 < bound < want + 1e-4, (part, bound)
+        assert mma == pytest.approx(units * flop / 989e12 * 1e3)
+        assert want_mma - 1e-4 < mma < want_mma + 1e-4, (part, mma)
+
+
+if __name__ == "__main__":
+    for shape in SPARSE_BWD_SHAPES:
+        one, two = _bwd_errors(*shape)
+        print(f"bf16 sparse backward (b, h, t, dh, block, stride) {shape}: worst |error| "
+              f"against the plain version with one plane of P and dS {one:.3e}, with two "
+              f"{two:.3e}: {one / two:.1f}x")

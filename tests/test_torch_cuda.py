@@ -1399,21 +1399,23 @@ def test_bf16_attention_crossover_yardsticks_agree(cuda):
 
 
 @pytest.mark.parametrize("shape,block,stride,variants", [
-    ((8, 2, 512, 32), 128, 4, ("tc_bf16", "mma", "mma")),  # the video model's
-    ((2, 2, 64, 64), 32, 2, ("tc_bf16", "mma", "mma")),    # Dh 64: rows staged in smem
-    ((2, 2, 96, 6), 16, 2, ("fma", "fma", "fma")),         # Dh 6: the FMA kernels
-    ((2, 2, 96, 16), 16, 2, ("tc_bf16", "mma", "mma")),    # a block of 16
-    ((2, 2, 256, 8), 64, 1, ("tc_bf16", "mma", "mma")),    # Dh 8: padded to 16
-    ((2, 2, 320, 32), 80, 2, ("tc_bf16", "mma", "mma")),   # a block not a multiple of 32
-    ((1, 2, 160, 12), 16, 3, ("mma", "mma", "mma")),       # Dh % 8 != 0: widened 3xTF32
+    ((8, 2, 512, 32), 128, 4, ("tc_bf16",) * 3),   # the video model's
+    ((2, 2, 64, 64), 32, 2, ("tc_bf16",) * 3),     # Dh 64
+    ((2, 2, 96, 6), 16, 2, ("fma", "fma", "fma")),  # Dh 6: the FMA kernels
+    ((2, 2, 96, 16), 16, 2, ("tc_bf16",) * 3),     # a block of 16
+    ((2, 2, 256, 8), 64, 1, ("tc_bf16",) * 3),     # Dh 8: padded to 16
+    ((2, 2, 320, 32), 80, 2, ("tc_bf16",) * 3),    # a block not a multiple of 32
+    ((1, 2, 160, 12), 16, 3, ("mma", "mma", "mma")),  # Dh % 8 != 0: widened 3xTF32
 ], ids=["mma", "mma-dh64", "fma", "block16", "dh8", "block80", "dh12"])
 def test_bf16_sparse_launchers_equal_the_fp32_kernels_on_widened_inputs(cuda, shape, block,
                                                                        stride, variants):
     """The forward, dq and dk/dv bf16 instances against the fp32 kernels on
     the widened inputs, each taking the named variant (forward, dq, dk/dv):
     fp32 out and lse within the forward tolerance of the fp32 kernel and of
-    the plain version, the same bits on a second launch; dq/dk/dv in bf16
-    equal to the fp32 kernels' rounded once."""
+    the plain version; dq/dk/dv in bf16 within the backward tolerance of
+    the fp32 kernels' unrounded results plus the one rounding to bf16
+    (2^-8 of each value), and, where the launcher widens, equal to them
+    rounded once; the same bits on a second launch of each."""
     g = torch.Generator(device="cuda").manual_seed(41)
     q, k, v = (torch.randn(shape, generator=g, device="cuda").bfloat16() for _ in range(3))
     wide = [x.float() for x in (q, k, v)]
@@ -1426,6 +1428,7 @@ def test_bf16_sparse_launchers_equal_the_fp32_kernels_on_widened_inputs(cuda, sh
     args = (d_out, lse32, delta, block, stride)
     dq, (dk, dv) = tsparse._launch_dq(q, k, v, *args), tsparse._launch_dkv(q, k, v, *args)
     bf16_kinds = {x: n for x, n in telemetry.dtypes().items() if x.endswith(":bfloat16")}
+    dq2, (dk2, dv2) = tsparse._launch_dq(q, k, v, *args), tsparse._launch_dkv(q, k, v, *args)
     dq32, (dk32, dv32) = tsparse._launch_dq(*wide, *args), tsparse._launch_dkv(*wide, *args)
     torch.cuda.synchronize()
     fwd, dq_v, dkv_v = variants
@@ -1438,9 +1441,46 @@ def test_bf16_sparse_launchers_equal_the_fp32_kernels_on_widened_inputs(cuda, sh
     torch.testing.assert_close(lse, lse32, **SPARSE_TOL)
     torch.testing.assert_close(out, tsparse.sparse_attention_reference(q, k, v, block, stride),
                                **SPARSE_TOL)
+    rounded_tol = dict(rtol=SPARSE_BWD_TOL["rtol"] + 2.0 ** -8, atol=SPARSE_BWD_TOL["atol"])
+    for got, again, want, variant in ((dq, dq2, dq32, dq_v), (dk, dk2, dk32, dkv_v),
+                                      (dv, dv2, dv32, dkv_v)):
+        assert got.dtype == torch.bfloat16 and torch.equal(got, again)
+        torch.testing.assert_close(got.float(), want, **rounded_tol)
+        if variant != "tc_bf16":
+            assert torch.equal(got, want.bfloat16())
+
+
+@pytest.mark.parametrize("shape,block,stride", [((8, 2, 512, 32), 128, 4),
+                                                ((2, 2, 64, 64), 32, 2),
+                                                ((2, 2, 320, 32), 80, 2)],
+                         ids=["video", "dh64", "block80"])
+def test_bf16_sparse_widened_yardsticks_equal_the_fp32_kernels_rounded_once(cuda, shape, block,
+                                                                           stride):
+    """sparse_attention_dq_bf16_widened and _dkv_bf16_widened, the yardsticks
+    of the bf16 tensor-core dq and dk/dv that the port never calls: the
+    3xTF32 kernels on widened inputs, their bf16 results bit for bit the
+    fp32 kernels' rounded once, at shapes the tensor-core kernels take."""
+    from multimodal_vae_comparison_tpu_torch.ops.kernels import _build
+    g = torch.Generator(device="cuda").manual_seed(44)
+    q, k, v = (torch.randn(shape, generator=g, device="cuda").bfloat16() for _ in range(3))
+    wide = [x.float() for x in (q, k, v)]
+    d_out = torch.randn(shape, generator=g, device="cuda")
+    out32, lse32 = tsparse._launch_forward(*wide, block, stride)
+    delta = (d_out * out32).sum(-1)
+    args = (d_out, lse32, delta, block, stride)
+    dq32, (dk32, dv32) = tsparse._launch_dq(*wide, *args), tsparse._launch_dkv(*wide, *args)
+    dq_fn = _build.function("sparse_attention", "sparse_attention_dq_bf16_widened",
+                            tsparse._DQ_ARGTYPES[:-1])
+    dkv_fn = _build.function("sparse_attention", "sparse_attention_dkv_bf16_widened",
+                             tsparse._DKV_ARGTYPES[:-1])
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    rows = [x.data_ptr() for x in (q, k, v, d_out, lse32, delta)]
+    shape_args = tsparse._shape_args(q, block, stride)
+    _build.check("sparse_attention", dq_fn(*rows, dq.data_ptr(), *shape_args))
+    _build.check("sparse_attention", dkv_fn(*rows, dk.data_ptr(), dv.data_ptr(), *shape_args))
+    torch.cuda.synchronize()
     for got, want in ((dq, dq32), (dk, dk32), (dv, dv32)):
-        assert got.dtype == torch.bfloat16
-        torch.testing.assert_close(got.float(), want.bfloat16().float(), **SPARSE_BWD_TOL)
+        assert torch.equal(got, want.bfloat16())
 
 
 def _bf16_specs():

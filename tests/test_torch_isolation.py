@@ -158,6 +158,28 @@ def test_chip_smoke_fails_without_cuda(monkeypatch, capsys):
     assert '"ok"' not in capsys.readouterr().out
 
 
+@pytest.mark.parametrize("matmul,cudnn", [(False, False), (True, True), (False, True)])
+def test_chip_smoke_children_compute_under_its_tf32_settings(tmp_path, monkeypatch,
+                                                             matmul, cudnn):
+    """chip_smoke holds a child process's stats against its own byte for
+    byte, so the child runs under the parent's TF32 flags, not PyTorch's
+    defaults (cuDNN's TF32 on), and gets its arguments as ``-m`` would."""
+    sys.path.insert(0, str(REPO))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(REPO))
+    (tmp_path / "tf32_probe.py").write_text(
+        "import sys, torch\n"
+        "print(torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,\n"
+        "      sys.argv[0].endswith('tf32_probe.py'), sys.argv[1:])\n")
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", matmul)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", cudnn)
+    out = subprocess.run(chip_smoke.module_argv("tf32_probe", "-p", "run dir"), cwd=tmp_path,
+                         capture_output=True, text=True, timeout=120, check=True).stdout
+    assert out.split("\n")[0] == f"{matmul} {cudnn} True ['-p', 'run dir']"
+
+
 def test_build_keys_libraries_by_source_hash(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "CSRC", tmp_path)
     src = tmp_path / "k.cu"

@@ -381,26 +381,33 @@ def test_tf32_rounding_keeps_ten_mantissa_bits():
 # -- the arithmetic of the tensor-core sparse backward --------------------------
 
 
-def _sparse_backward_with(matmul, q, k, v, d_out, block, stride, forward_matmul=None):
+def _sparse_backward_with(matmul, q, k, v, d_out, block, stride, forward_matmul=None,
+                          scale_after=False):
     """dq, dk, dv as csrc/sparse_attention.cu sparse_dq_mma and sparse_dkv_mma
     compute them, each of the five products (and the forward's two, which
     give lse and delta) through ``matmul``: base-2 logits from a pre-scaled q
     (dq) or k (dk/dv, transposed), P = 2^(s - lse log2 e) with the hidden
     pairs 0, dS = P (dP - delta), dq and dk scaled by 1/sqrt(Dh) at the
-    end."""
+    end.  With ``scale_after`` the logits are the product of q and k as they
+    are, scaled in fp32 (sparse_dq_tc and sparse_dkv_tc, on bf16 q and k)."""
     t, dh = q.shape[2], q.shape[3]
     scale, log2e = 1.0 / dh ** 0.5, 1.4426950408889634
     out, lse = _sparse_forward_with(forward_matmul or matmul, q, k, v, block, stride)
     delta = (d_out * out).sum(-1)
     visible = tsparse.visibility(t, block, stride)
     lse2 = lse * log2e
+
+    def logits(a, b):
+        if scale_after:
+            return matmul(a, b.transpose(-1, -2)) * (scale * log2e)
+        return matmul(a * (scale * log2e), b.transpose(-1, -2))
     # dq: query rows, keys as columns
-    p = torch.exp2(matmul(q * (scale * log2e), k.transpose(-1, -2)) - lse2[..., None])
+    p = torch.exp2(logits(q, k) - lse2[..., None])
     p = p.masked_fill(~visible, 0.0)
     ds = p * (matmul(d_out, v.transpose(-1, -2)) - delta[..., None])
     dq = matmul(ds, k) * scale
     # dk/dv: key rows, queries as columns
-    pt = torch.exp2(matmul(k * (scale * log2e), q.transpose(-1, -2)) - lse2[..., None, :])
+    pt = torch.exp2(logits(k, q) - lse2[..., None, :])
     pt = pt.masked_fill(~visible.T, 0.0)
     dv = matmul(pt, d_out)
     dst = pt * (matmul(v, d_out.transpose(-1, -2)) - delta[..., None, :])
