@@ -17,7 +17,7 @@ three main paths at full width with random weights from a seed:
   latents, (8, 64, 64, 3) clips at bs 8, remat) through the same entry
   points, every sparse-attention call through the block-sparse kernels,
   forward and backward; and the sampling op through its own entry point;
-* train from config: CdSprites+ level 1 made at 10,000 samples,
+* train from config: CdSprites+ level 1 made at 6,000 samples,
   ``configs/round5/cdl1_r5_poe.yml`` trained for 1 resident epoch through
   ``main`` (under ``torch.profiler``) and 1 per-batch epoch,
   ``configs/config_cdspritesplus.yml`` (MOE) for 1 epoch; the run directory
@@ -28,7 +28,8 @@ three main paths at full width with random weights from a seed:
   scores cross- and joint-coherence from the prior, ex-post and fitted-GMM
   sources and writes ``cdspritesplus_stats.txt``; the eval CLI
   (``eval_cdsprites -p``) gives the same stats from the cache in a process
-  of its own under the same TF32 settings, and cross- and prior joint generation agree with the CPU's;
+  of its own, started as a plain ``python -m``, and cross- and prior joint
+  generation agree with the CPU's;
 * the paper's MoPoE and DMVAE configs trained and scored with the same
   judge ("zoo from config"), on a second level-1 set of 3,000 rows
   (ZOO_DATA_COUNT), as the mixture prior's, the zoo remainder's and the
@@ -111,7 +112,21 @@ three main paths at full width with random weights from a seed:
   ranks of the card (each on its half of the batch, the gradients summed)
   within the training limit of the one-process step, each rank's launches
   counted; then ``parallel.dryrun.dryrun_multichip(4)`` on four gloo ranks
-  (the 2x2 hybrid mesh, megatron-sharded DTensor parameters).
+  (the 2x2 hybrid mesh, megatron-sharded DTensor parameters);
+* seeded runs reproduce ("seeded reruns"): two plain ``python -m
+  multimodal_vae_comparison_tpu_torch.main`` children train
+  ``cdl1_r5_poe.yml`` for 1 epoch on the same 3,000 rows, each training its
+  own judge, and write the same checkpoints, judge weights and stats byte
+  for byte; the SPRITES MOE of ``sprites_r4_dreg_up.yml``, the
+  VideoGPTSparse step and the ResNet-50 MoPoE family, each a few steps
+  twice in this process in fp32 and in bf16, bit for bit leaf by leaf.
+
+The script sets no numerics of its own: the port's entry points set them
+(``device.set_numerics``: fp32 without TF32, cuDNN's deterministic
+algorithms), and it checks and prints them once the first has resolved the
+card.  ``python3 chip_smoke.py numerics_cost`` times what that policy costs
+against PyTorch's defaults, and ``python3 chip_smoke.py seeded_prints``
+prints the reruns' leaves for a comparison across processes.
 
 Each path runs with the kernel counts set to 0 just before it and read just
 after, and must have launched every kernel it goes through and taken no
@@ -205,12 +220,16 @@ SERVE_SIZES = (1, 5, 32, 128, 300)
 SEQ_LEN, VOCAB, N_LATENTS = 45, 27, 16
 
 # train from config: the two CdSprites+ configs the port trains, on level 1
-# at generate_level's own default count (9,999 train rows, 999 test rows);
-# the POE config 1 resident epoch, then 1 per-batch one (its second
-# resident epoch was cut to keep the script within its time limit)
+# at 6,000 rows (5,399 train, 599 test), cut from generate_level's own
+# default of 10,000 to keep the script within its time limit with the
+# seeded reruns; the POE config 1 resident epoch, then 1 per-batch one (its
+# second resident epoch was cut for the same reason)
 FROM_CONFIG = (("POE cdl1_r5_poe", "configs/round5/cdl1_r5_poe.yml", 1),
                ("MOE cdspritesplus", "configs/config_cdspritesplus.yml", 1))
-DATA_COUNT = 10000
+DATA_COUNT = 6000
+# the rows of the numerics cost's cdl1_r5_poe epoch: the level's default,
+# as quality_run.py trains it
+COST_DATA_COUNT = 10000
 # the CdSprites+ level of the phases after "train from config" (the paper's
 # MoPoE and DMVAE, the mixture prior, the zoo remainder, the trunk
 # install): 2,699 train rows, cut from DATA_COUNT to keep the script within
@@ -281,15 +300,11 @@ def check(cond: bool, msg: str) -> None:
 
 
 def module_argv(module: str, *args: str) -> list:
-    """``python -m module args`` under this process's TF32 settings.  A new
-    process starts with cuDNN's TF32 on; a conv in TF32 can flip a judged
-    arg-max that the same conv in fp32 gives the other way, so a child held
-    against this process's results must compute as this process does."""
-    code = ("import runpy, torch; "
-            f"torch.backends.cuda.matmul.allow_tf32 = {torch.backends.cuda.matmul.allow_tf32}; "
-            f"torch.backends.cudnn.allow_tf32 = {torch.backends.cudnn.allow_tf32}; "
-            f"runpy.run_module({module!r}, run_name='__main__', alter_sys=True)")
-    return [sys.executable, "-c", code, *args]
+    """``python -m module args``, as a user starts an entry point: nothing of
+    this process's settings goes with it.  The entry point sets the port's
+    numerics itself (``device.set_numerics``), so a child whose results are
+    held against this process's computes as this process does."""
+    return [sys.executable, "-m", module, *args]
 
 
 def card_line() -> str:
@@ -2178,9 +2193,9 @@ def serve_model_dir(run_dir: str, batch, log_path: str) -> dict:
 
 def phase_eval_from_config(card: str, run_dir: str) -> dict:
     """The POE run's benchmark again, from its run directory: the eval CLI
-    (``eval_cdsprites -p``) in a process of its own, under this process's
-    TF32 settings, must load the judge from the cache and write the stats
-    file ``test()`` wrote, byte for byte; then cross-generation of the same EVAL_ROWS test rows and prior
+    (``eval_cdsprites -p``) in a process of its own, a plain ``python -m``
+    that sets the port's numerics itself, must load the judge from the
+    cache and write the stats file ``test()`` wrote, byte for byte; then cross-generation of the same EVAL_ROWS test rows and prior
     joint generation of JOINT_ROWS, with the eval's own draws (from a CPU
     generator seeded 0, so the same eps on both), on the card and
     through the plain path on the CPU: decoder means within EVAL_RTOL /
@@ -5753,41 +5768,597 @@ def phase_bf16_from_config(card: str, root: str, data, sprites_dir: str,
     return total, numbers
 
 
+# -- the numerics policy: seeded reruns, and its cost -----------------------------
+
+# the port's numerics (device.set_numerics) as every flag must read once an
+# entry point has resolved the card, and PyTorch's own in a new process
+POLICY_FLAGS = {"matmul.allow_tf32": False, "cudnn.allow_tf32": False,
+                "cudnn.deterministic": True, "cudnn.benchmark": False}
+PYTORCH_DEFAULT_FLAGS = {"matmul.allow_tf32": False, "cudnn.allow_tf32": True,
+                         "cudnn.deterministic": False, "cudnn.benchmark": False}
+# the checks' numerics before the policy: TF32 off, cuDNN's algorithms free
+FREE_ALGORITHM_FLAGS = {"matmul.allow_tf32": False, "cudnn.allow_tf32": False,
+                        "cudnn.deterministic": False, "cudnn.benchmark": False}
+# train steps of each in-process rerun; the configs of the CLI children and
+# of the SPRITES and ResNet-50 reruns (the video model is bench.py's)
+SEEDED_STEPS = 3
+SEEDED_CLI_CONFIG = "configs/round5/cdl1_r5_poe.yml"
+SEEDED_SPRITES = "configs/round4/sprites_r4_dreg_up.yml"
+SEEDED_RESNET = "configs/reproduce_paper/mopoe/level1/level1_0.yml"
+# ops whose outputs are memory not yet written: their bits are whatever the
+# allocator held, so the op tracer leaves them out
+_UNWRITTEN_OPS = {"empty", "empty_strided", "new_empty", "new_empty_strided", "empty_like",
+                  "resize_", "set_"}
+
+
+def numerics_flags() -> dict:
+    """The flags of the numerics policy as they read now."""
+    return {"matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+            "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
+            "cudnn.deterministic": torch.backends.cudnn.deterministic,
+            "cudnn.benchmark": torch.backends.cudnn.benchmark}
+
+
+@contextlib.contextmanager
+def numerics_under(flags: dict):
+    """The block under other cuDNN numerics than the policy's (``flags``, in
+    :func:`numerics_flags`' keys; the matmuls' TF32 stays off): an arm of
+    the policy's cost.  No entry point may run in the block, since each sets
+    the policy: the flags are checked at its end."""
+    with torch.backends.cudnn.flags(enabled=True, benchmark=flags["cudnn.benchmark"],
+                                    deterministic=flags["cudnn.deterministic"],
+                                    allow_tf32=flags["cudnn.allow_tf32"]):
+        yield
+        check(numerics_flags() == flags, f"{flags} did not hold through the block: "
+              f"{numerics_flags()}")
+
+
+def pytorch_defaults():
+    """PyTorch's numerics in a new process (cuDNN's TF32 on, its algorithms
+    chosen freely, not only the deterministic ones)."""
+    return numerics_under(PYTORCH_DEFAULT_FLAGS)
+
+
+def free_algorithms():
+    """TF32 off with cuDNN's algorithms chosen freely: what every check ran
+    under before the policy."""
+    return numerics_under(FREE_ALGORITHM_FLAGS)
+
+
+def _bits_print(t):
+    """Two int64 sums of a tensor's bits, plain and weighted by position, on
+    its device (None for what has no plain bits): two runs whose prints
+    agree computed the same bits, but for a collision."""
+    if (not isinstance(t, torch.Tensor) or t.layout != torch.strided or t.is_complex()
+            or t.device.type == "meta"):
+        return None
+    x = t.detach().reshape(-1)
+    if x.dtype.is_floating_point:
+        x = x.view({1: torch.int8, 2: torch.int16, 4: torch.int32,
+                    8: torch.int64}[x.element_size()])
+    x = x.to(torch.int64)
+    w = torch.arange(1, x.numel() + 1, device=x.device, dtype=torch.int64) % 65521
+    return torch.stack([x.sum(), (x * w).sum()])
+
+
+def op_tracer():
+    """A ``TorchDispatchMode`` that records every aten op run under it, the
+    autograd backward's too: its name and the bits prints of its inputs
+    (taken before it runs) and outputs.  ``rows()`` gives them as
+    ``(op, input prints, output prints)``."""
+    from torch.utils import _pytree as pytree
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class OpTracer(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops, self.prints = [], []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if func.overloadpacket.__name__ in _UNWRITTEN_OPS:
+                return func(*args, **kwargs)
+            ins = [p for p in map(_bits_print, pytree.tree_leaves((args, kwargs)))
+                   if p is not None]
+            out = func(*args, **kwargs)
+            outs = [p for p in map(_bits_print, pytree.tree_leaves(out)) if p is not None]
+            self.ops.append((str(func), len(ins), len(outs)))
+            self.prints += ins + outs
+            return out
+
+        def rows(self):
+            values, by_device = [None] * len(self.prints), {}
+            for i, p in enumerate(self.prints):
+                by_device.setdefault(p.device, []).append(i)
+            for idx in by_device.values():
+                got = torch.stack([self.prints[i] for i in idx]).cpu().tolist()
+                for i, v in zip(idx, got):
+                    values[i] = tuple(v)
+            rows, at = [], 0
+            for name, n_in, n_out in self.ops:
+                rows.append((name, values[at:at + n_in], values[at + n_in:at + n_in + n_out]))
+                at += n_in + n_out
+            return rows
+
+    return OpTracer()
+
+
+def first_differing_op(a: list, b: list):
+    """The first op of two traced runs (:func:`op_tracer`'s rows) whose
+    outputs differ, and what its inputs say of the cause; None when every
+    output agreed.  An op whose inputs differ while every earlier op's
+    outputs agreed read a value written outside the dispatcher: by a
+    hand-written kernel, or copied from the host."""
+    for i, ((na, ia, oa), (nb, ib, ob)) in enumerate(zip(a, b)):
+        if na != nb:
+            return f"op {i}: {na} in one run, {nb} in the other"
+        if oa != ob:
+            if ia == ib:
+                return f"op {i} {na}: the same inputs gave other outputs"
+            return (f"op {i} {na}: its inputs differ while every earlier op's outputs "
+                    "agreed (written outside the dispatcher: a hand-written kernel or a "
+                    "copy from the host)")
+    if len(a) != len(b):
+        return f"the runs ran {len(a)} and {len(b)} ops"
+    return None
+
+
+def _leaves(model, opt) -> dict:
+    """Every parameter, gradient, buffer and optimizer state entry, cloned."""
+    out = {}
+    for n, p in model.named_parameters():
+        out[f"param {n}"] = p.detach().clone()
+        if p.grad is not None:
+            out[f"grad {n}"] = p.grad.detach().clone()
+    out.update({f"buffer {n}": b.detach().clone() for n, b in model.named_buffers()})
+    for i, state in opt.state_dict()["state"].items():
+        for k, v in state.items():
+            out[f"opt {i} {k}"] = v.detach().clone() if torch.is_tensor(v) else v
+    return out
+
+
+def _leaf_prints(leaves: dict) -> dict:
+    """Each leaf's bits print (:func:`_bits_print`) as a list, or its value."""
+    return {k: (_bits_print(v).tolist() if torch.is_tensor(v) else v)
+            for k, v in leaves.items()}
+
+
+def _batch_device(batch) -> torch.device:
+    return next(iter(batch.values()))["data"].device
+
+
+def _seeded_steps(build, batch, steps: int, each=None, trace_at=None):
+    """``steps`` train steps of a fresh ``build()`` ((model, optimizer, step))
+    on ``batch``, the draws from a generator seeded 0 on the batch's
+    device: ``each(i, leaves)`` after step i; with ``trace_at`` the traced
+    rows of that step (and no later one)."""
+    model, opt, step = build()
+    gen = torch.Generator(device=_batch_device(batch)).manual_seed(0)
+    for i in range(steps):
+        if i == trace_at:
+            with op_tracer() as tracer:
+                step(batch, generator=gen)
+            return tracer.rows()
+        step(batch, generator=gen)
+        if each is not None:
+            each(i, _leaves(model, opt))
+    return None
+
+
+def nondeterministic_ops(build, batch) -> list:
+    """The ops of one train step for which PyTorch has no deterministic CUDA
+    kernel: the step under ``torch.use_deterministic_algorithms(True,
+    warn_only=True)``, whose warnings name them (cuBLAS's workspace notice
+    left out: one stream, one workspace, as every step here)."""
+    import warnings
+    model, opt, step = build()
+    gen = torch.Generator(device=_batch_device(batch)).manual_seed(0)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            step(batch, generator=gen)
+            if gen.device.type == "cuda":
+                torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return sorted({str(w.message).split(" does not have a deterministic")[0]
+                   for w in caught if "does not have a deterministic" in str(w.message)})
+
+
+def seeded_rerun(label: str, build, batch) -> dict:
+    """The same SEEDED_STEPS seeded steps twice in this process: after each
+    step every leaf of the second run (:func:`_leaves`) must equal the
+    first's bit for bit.  Where one differs, both runs are traced at that
+    step to name the first op whose outputs differ
+    (:func:`first_differing_op`) and the ops without a deterministic CUDA
+    kernel (:func:`nondeterministic_ops`), and the check fails."""
+    t0 = time.perf_counter()
+    first, diff = [], []
+    _seeded_steps(build, batch, SEEDED_STEPS, each=lambda i, leaves: first.append(leaves))
+
+    def compare(i, leaves):
+        for k, v in first[i].items():
+            same = torch.equal(v, leaves[k]) if torch.is_tensor(v) else v == leaves[k]
+            if not diff and not same:
+                diff.append((i, k))
+    _seeded_steps(build, batch, SEEDED_STEPS, each=compare)
+    n_leaves = len(first[0])
+    prints = _leaf_prints(first[-1])
+    del first
+    out = {"steps": SEEDED_STEPS, "leaves": n_leaves, "bit_equal": not diff, "prints": prints}
+    if diff:
+        at, leaf = diff[0]
+        out.update(first_step=at, first_leaf=leaf, first_op=first_differing_op(
+            _seeded_steps(build, batch, at + 1, trace_at=at),
+            _seeded_steps(build, batch, at + 1, trace_at=at)),
+            nondeterministic_ops=nondeterministic_ops(build, batch))
+    out["s"] = time.perf_counter() - t0
+    print(f"seeded reruns {label}: {SEEDED_STEPS} steps twice, {n_leaves} leaves after each "
+          + ("bit for bit equal" if not diff else
+             f"DIFFER from step {out['first_step']} at {out['first_leaf']}; first differing "
+             f"op: {out['first_op']}; ops without a deterministic CUDA kernel: "
+             f"{out['nondeterministic_ops']}")
+          + f"; {out['s']:.1f} s")
+    check(not diff, f"seeded reruns {label}: step {diff and diff[0]} differs; "
+          f"{out.get('first_op')}; {out.get('nondeterministic_ops')}")
+    return out
+
+
+def seeded_builds(sprites_dir: str, root: str):
+    """The in-process reruns' paths, each in fp32 and bf16: ((label, build,
+    batch), ...).  The SPRITES MOE of SEEDED_SPRITES (3-D convs, DReG K 5)
+    on a batch of the clips in ``sprites_dir``; bench.py's VideoGPTSparse
+    MOE DReG step (bs 8, K 5, remat); the ResNet-50 MoPoE of SEEDED_RESNET
+    and the POE of SEEDED_CLI_CONFIG (the flagship's nets and kernels) on
+    the same TRAIN_BATCH rows.  Each build is a config's model, its optimizer and
+    ``make_train_step``, as the Trainer makes them."""
+    from multimodal_vae_comparison_tpu_torch.data.datamodule import DataModule
+    from multimodal_vae_comparison_tpu_torch.training.optim import make_optimizer
+    from multimodal_vae_comparison_tpu_torch.training.trainer import (
+        build_model, build_model_from_config, make_train_step)
+
+    def from_cfg(cfg, dtype):
+        def build():
+            model = build_model_from_config(cfg, device="cuda", dtype=dtype)
+            opt = make_optimizer(cfg.optimizer, cfg.lr, model.parameters())
+            return model, opt, make_train_step(model, opt)
+        return build
+
+    def video(dtype):
+        def build():
+            model = build_model(video_specs(), "moe", VIDEO_LATENTS, obj="dreg", K=VIDEO_K,
+                                seed=0, device="cuda", remat=True, dtype=dtype)
+            opt = make_optimizer("adam", VIDEO_LR, model.parameters())
+            return model, opt, make_train_step(model, opt)
+        return build
+
+    sprites = from_config(SEEDED_SPRITES, sprites_paths(sprites_dir), root, eval_only=True)
+    dm = DataModule(sprites)
+    dm.setup()
+    sprites_batch = torch_batch(next(dm.batches("train")), "cuda")
+    resnet, poe = paper_config(SEEDED_RESNET), paper_config(SEEDED_CLI_CONFIG)
+    rows = torch_batch(make_inputs(np.random.default_rng(91), TRAIN_BATCH), "cuda")
+    video_batch = torch_batch(video_inputs(np.random.default_rng(92), VIDEO_BATCH,
+                                           VIDEO_K)[0], "cuda")
+    out = []
+    for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        out += [(f"SPRITES MOE sprites_r4_dreg_up {name}", from_cfg(sprites, dtype),
+                 sprites_batch),
+                (f"VideoGPTSparse MOE dreg {name}", video(dtype), video_batch),
+                (f"ResNet-50 MoPoE {name}", from_cfg(resnet, dtype), rows),
+                (f"POE cdl1_r5_poe {name}", from_cfg(poe, dtype), rows)]
+    return out
+
+
+def seeded_cli_children(card: str, root: str, data) -> dict:
+    """Two plain ``python -m multimodal_vae_comparison_tpu_torch.main``
+    children, started together, each train SEEDED_CLI_CONFIG for 1 epoch on
+    the same rows of ``data`` (:func:`make_cdsprites`'s level) from its own
+    directory with its own judges directory, so that each ``test()`` trains
+    its own judge: their checkpoints, judge weights and stats files must be
+    equal byte for byte.  The children set the numerics themselves: nothing
+    of this process's reaches them."""
+    import yaml
+    with open(os.path.join(HERE, SEEDED_CLI_CONFIG)) as f:
+        params = yaml.safe_load(f)
+    for key, block in cdsprites_paths(data).items():
+        params[key].update(block)
+    params.update(iterseeds=1, epochs=1, exp_name="seeded")
+    yml = os.path.join(root, "seeded_cli.yml")
+    with open(yml, "w") as f:
+        yaml.safe_dump(params, f)
+    dirs = [os.path.join(root, f"seeded_cli_{i}") for i in range(2)]
+    procs = []
+    t0 = time.perf_counter()
+    for d in dirs:
+        os.makedirs(d)
+        env = {k: v for k, v in os.environ.items() if not k.endswith("_CLASSIFIER_DIR")}
+        env.update(CDSPRITES_CLASSIFIER_DIR=os.path.join(d, "judges"),
+                   PYTHONPATH=os.pathsep.join([HERE] + [p for p in [env.get("PYTHONPATH")] if p]))
+        log = open(os.path.join(d, "log.txt"), "w")
+        procs.append((subprocess.Popen(
+            module_argv("multimodal_vae_comparison_tpu_torch.main", "--cfg", yml, "--no_viz"),
+            cwd=d, env=env, stdout=log, stderr=subprocess.STDOUT, stdin=subprocess.DEVNULL),
+            log))
+    return {"dirs": dirs, "procs": procs, "t0": t0, "card": card}
+
+
+def check_seeded_cli_children(started: dict) -> dict:
+    """Wait for :func:`seeded_cli_children` and hold their files byte for
+    byte."""
+    import filecmp
+    dirs = started["dirs"]
+    for (proc, log), d in zip(started["procs"], dirs):
+        try:
+            code = proc.wait(timeout=900)
+        finally:
+            log.close()
+            if proc.poll() is None:
+                proc.kill()
+        with open(os.path.join(d, "log.txt")) as f:
+            text = f.read()
+        check(code == 0, f"seeded reruns: the CLI child in {d} exited {code}:\n{text[-3000:]}")
+    seconds = time.perf_counter() - started["t0"]
+    run = os.path.join("results", "seeded", "version_0")
+    files = [os.path.join(run, "model", tag, "state.pt") for tag in ("last", "best")]
+    files.append(os.path.join(run, "cdspritesplus_stats.txt"))
+    judges = sorted(os.listdir(os.path.join(dirs[0], "judges")))
+    check(judges and judges == sorted(os.listdir(os.path.join(dirs[1], "judges"))),
+          f"seeded reruns: the children wrote other judges: {judges}")
+    files += [os.path.join("judges", j) for j in judges]
+    for rel in files:
+        a, b = (os.path.join(d, rel) for d in dirs)
+        check(os.path.isfile(a) and filecmp.cmp(a, b, shallow=False),
+              f"seeded reruns: {rel} differs between the two CLI children")
+    with open(os.path.join(dirs[0], files[2])) as f:
+        stats = f.read()
+    print(f"seeded reruns: two plain `python -m multimodal_vae_comparison_tpu_torch.main` "
+          f"children, {SEEDED_CLI_CONFIG} 1 epoch on the same rows, each training its own "
+          f"judge, in {seconds:.1f} s together: " + ", ".join(files)
+          + " equal byte for byte; stats " + "; ".join(stats.strip().splitlines())
+          + f" on {started['card']}")
+    return {"cli_children_s": seconds, "files_equal": files}
+
+
+def phase_seeded_reruns(card: str, root: str, small, sprites_dir: str) -> dict:
+    """A seeded run reproduces on the card, across processes and within
+    one: the two CLI children of :func:`seeded_cli_children` and a
+    :func:`seeded_prints` child (all started first, checked last), and in
+    between the in-process reruns of :func:`seeded_builds` in fp32 and bf16,
+    bit for bit leaf by leaf (:func:`seeded_rerun`); the child's prints of
+    every leaf after the reruns' steps must be this process's."""
+    t0 = time.perf_counter()
+    started = seeded_cli_children(card, root, small)
+    prints_log = open(os.path.join(root, "seeded_prints.txt"), "w")
+    started["procs"].append((subprocess.Popen(
+        [sys.executable, os.path.join(HERE, "chip_smoke.py"), "seeded_prints"], cwd=root,
+        stdout=prints_log, stderr=subprocess.STDOUT, stdin=subprocess.DEVNULL), prints_log))
+    numbers = {"card": card}
+    try:
+        for label, build, batch in seeded_builds(sprites_dir, root):
+            numbers[label] = seeded_rerun(label, build, batch)
+    except BaseException:
+        for proc, log in started["procs"]:
+            proc.kill()
+            proc.wait(timeout=60)
+            log.close()
+        raise
+    prints_proc, _ = started["procs"].pop()
+    try:
+        code = prints_proc.wait(timeout=600)
+    finally:
+        prints_log.close()
+    with open(os.path.join(root, "seeded_prints.txt")) as f:
+        lines = [line for line in f if line.startswith("seeded prints ")]
+    check(code == 0 and lines, f"seeded reruns: the seeded_prints child exited {code}; its "
+          f"log is {os.path.join(root, 'seeded_prints.txt')}")
+    other = json.loads(lines[-1][len("seeded prints "):])
+    check(sorted(other) == sorted(k for k in numbers if k != "card"),
+          f"seeded reruns: the seeded_prints child ran {sorted(other)}")
+    for label, got in other.items():
+        want = numbers[label].pop("prints")
+        differ = [k for k in want if got.get(k) != want[k]]
+        print(f"seeded reruns {label}: another process's {len(got)} leaves after "
+              f"{SEEDED_STEPS} steps " + ("bit for bit this one's" if not differ
+                                          else f"DIFFER at {differ[:3]}"))
+        check(not differ and len(got) == len(want),
+              f"seeded reruns {label}: another process's leaves differ at {differ[:3]}")
+        numbers[label]["across_processes_bit_equal"] = True
+    numbers.update(check_seeded_cli_children(started))
+    numbers["phase_s"] = time.perf_counter() - t0
+    return numbers
+
+
+def _abba(run, other, names) -> dict:
+    """``run()`` (seconds or ms) as it stands and under ``other()`` (a
+    context) in turns: one warm call of each, then A, B, B, A.
+    {names[0]: [t, t], names[1]: [t, t], "<names[0]>_over_<names[1]>":
+    the ratio of their means}."""
+    out = {name: [] for name in names}
+    for i, arm in enumerate((0, 1, 0, 1, 1, 0)):
+        with other() if arm else contextlib.nullcontext():
+            t = run()
+        if i >= 2:
+            out[names[arm]].append(t)
+    out[f"{names[0]}_over_{names[1]}"] = (statistics.mean(out[names[0]])
+                                          / statistics.mean(out[names[1]]))
+    return out
+
+
+def cost_arms(run, fp32: bool, blocks: bool) -> dict:
+    """:func:`_abba` of ``run`` under the policy against PyTorch's defaults;
+    in fp32 also against TF32 off with cuDNN's algorithms free (the cost of
+    the deterministic algorithms alone); with ``blocks`` also against one
+    weight-gradient call (:func:`one_wgrad_block`), under the policy."""
+    out = {"against_defaults": _abba(run, pytorch_defaults, ("policy", "defaults"))}
+    if fp32:
+        out["against_free_algorithms"] = _abba(run, free_algorithms,
+                                               ("policy", "free_algorithms"))
+    if blocks:
+        out["against_one_wgrad_block"] = _abba(run, one_wgrad_block, ("blocks", "one_block"))
+    return out
+
+
+@contextlib.contextmanager
+def one_wgrad_block():
+    """3-D transposed convs take their weight gradient in one call for the
+    block (``models.precision.WGRAD_ROWS`` past any batch)."""
+    from multimodal_vae_comparison_tpu_torch.models import precision
+    rows = precision.WGRAD_ROWS
+    precision.WGRAD_ROWS = 1 << 30
+    try:
+        yield
+    finally:
+        precision.WGRAD_ROWS = rows
+
+
+def _epoch_s(trainer) -> float:
+    """Seconds of one resident epoch of ``trainer`` and its validation, as
+    ``fit`` times an epoch (both end in host reads)."""
+    t0 = time.perf_counter()
+    trainer.run_epoch_scan(0)
+    trainer.validate_scan(0)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def numerics_cost() -> int:
+    """What the numerics policy costs: in one process, epochs and steps
+    timed in turns under the port's numerics (fp32 without TF32, cuDNN's
+    deterministic algorithms) and under PyTorch's defaults in a new process
+    (cuDNN's TF32 on, its algorithms chosen freely; :func:`_abba`):
+
+        python3 chip_smoke.py numerics_cost
+
+    the SPRITES MOE epoch (SEEDED_SPRITES on the generator's clips) in fp32
+    and bf16, bench.py's VideoGPTSparse step (bs 8, K 5) p50 in fp32 and
+    bf16, the flagship POE and MOE fp32 steps (:func:`training_models`) p50
+    at STEP_BATCHES, a ``cdl1_r5_poe`` epoch on COST_DATA_COUNT rows and a
+    ResNet-50 MoPoE epoch (SEEDED_RESNET) on ZOO_DATA_COUNT rows
+    (:func:`cost_arms`: the fp32 ones also against TF32 off with cuDNN's
+    algorithms free, and the fp32 SPRITES epoch and video step against their
+    3-D transposed convs' weight gradient in one call).  Prints one
+    ``numerics cost`` JSON line beside the card's name and power limit."""
+    if not torch.cuda.is_available():
+        print("chip_smoke numerics_cost: needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    sys.path.insert(0, HERE)
+    from multimodal_vae_comparison_tpu_torch.device import resolve_device
+    from multimodal_vae_comparison_tpu_torch.ops.kernels import _build
+    from multimodal_vae_comparison_tpu_torch.training.optim import make_optimizer
+    from multimodal_vae_comparison_tpu_torch.training.trainer import (
+        build_model, make_train_step)
+    card = card_line()
+    print(card)
+    resolve_device()
+    check(numerics_flags() == POLICY_FLAGS, f"numerics {numerics_flags()}")
+    _build.build()
+    rows = {"card": card}
+
+    def epochs(label, path, mixing, data_paths, root, precision="32", blocks=False):
+        _, trainer, _ = config_trainer(label, path, mixing, data_paths, root, 1,
+                                       edit=lambda p: p.update(precision=precision))
+        trainer.stage_epoch_data()
+        trainer.stage_val_data()
+        rows[f"{label}, epoch s"] = cost_arms(lambda: _epoch_s(trainer), precision == "32",
+                                              blocks)
+        print(f"numerics cost {label}, epoch s: {rows[f'{label}, epoch s']} on {card}")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cost_") as tmp:
+        sprites_dir, _ = make_sprites(os.path.join(tmp, "sprites"))
+        for precision in ("32", "bf16"):
+            epochs(f"SPRITES MOE sprites_r4_dreg_up precision {precision}", SEEDED_SPRITES,
+                   "moe", sprites_paths(sprites_dir), tmp, precision, precision == "32")
+        batch = torch_batch(video_inputs(np.random.default_rng(23), VIDEO_BATCH,
+                                         VIDEO_K)[0], "cuda")
+        for dtype in (torch.float32, torch.bfloat16):
+            model = build_model(video_specs(), "moe", VIDEO_LATENTS, obj="dreg", K=VIDEO_K,
+                                seed=0, device="cuda", remat=True, dtype=dtype)
+            step = make_train_step(model, make_optimizer("adam", VIDEO_LR, model.parameters()))
+            gen = torch.Generator(device="cuda").manual_seed(24)
+            label = (f"VideoGPTSparse MOE dreg step bs {VIDEO_BATCH} K {VIDEO_K} {dtype}, "
+                     "p50 ms")
+            fp32 = dtype == torch.float32
+            rows[label] = cost_arms(lambda: _p50_step_ms(step, batch, gen, 10), fp32, fp32)
+            print(f"numerics cost {label}: {rows[label]} on {card}")
+            del model, step
+        for name, mixing, obj in training_models():
+            for n in STEP_BATCHES:
+                batch = torch_batch(make_inputs(np.random.default_rng(73), n), "cuda")
+                model = build_model(flagship_specs(), mixing, N_LATENTS, obj=obj, seed=0,
+                                    device="cuda")
+                step = make_train_step(model, make_optimizer("adam", TRAIN_LR,
+                                                             model.parameters()))
+                gen = torch.Generator(device="cuda").manual_seed(74)
+                label = f"{name} step bs {n} fp32, p50 ms"
+                rows[label] = cost_arms(lambda: _p50_step_ms(step, batch, gen), True, False)
+                print(f"numerics cost {label}: {rows[label]} on {card}")
+                del model, step
+        data = make_cdsprites(os.path.join(tmp, "data"), COST_DATA_COUNT)
+        epochs(f"POE cdl1_r5_poe ({COST_DATA_COUNT} rows)", SEEDED_CLI_CONFIG, "poe",
+               cdsprites_paths(data), tmp)
+        small = make_cdsprites(os.path.join(tmp, "small"), ZOO_DATA_COUNT)
+        epochs(f"ResNet-50 MoPoE level1_0 ({ZOO_DATA_COUNT} rows)", SEEDED_RESNET, "mopoe",
+               cdsprites_paths(small), tmp)
+    print(card)
+    print("numerics cost " + json.dumps(rows))
+    return 0
+
+
+def seeded_prints() -> int:
+    """The in-process reruns' paths (:func:`seeded_builds`) once each in
+    this process, SEEDED_STEPS steps: one JSON line of every leaf's bits
+    print after the last step, which "seeded reruns" holds against its own
+    process's (two processes' lines equal: the paths reproduce across
+    processes):
+
+        python3 chip_smoke.py seeded_prints"""
+    if not torch.cuda.is_available():
+        print("chip_smoke seeded_prints: needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    sys.path.insert(0, HERE)
+    from multimodal_vae_comparison_tpu_torch.device import resolve_device
+    resolve_device()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_prints_") as tmp:
+        sprites_dir, _ = make_sprites(os.path.join(tmp, "sprites"))
+        for label, build, batch in seeded_builds(sprites_dir, tmp):
+            last = {}
+            _seeded_steps(build, batch, SEEDED_STEPS,
+                          each=lambda i, leaves: last.update(leaves))
+            out[label] = _leaf_prints(last)
+    print("seeded prints " + json.dumps(out))
+    return 0
+
+
 MULTI_TIMED_STEPS = 10
 MULTI_GLOO_RANKS = 2
 MULTI_DEADLINE = 300.0
 
 
-def _multi_reference(mixing: str, raw, eps, deterministic: bool):
+def _multi_reference(mixing: str, raw, eps):
     """The one-process flagship step of ``mixing`` on the card: (metrics,
     numpy grads, p50 ms of MULTI_TIMED_STEPS more steps)."""
     from multimodal_vae_comparison_tpu_torch.parallel.dryrun import step_ms_p50
     from multimodal_vae_comparison_tpu_torch.training.optim import make_optimizer
     from multimodal_vae_comparison_tpu_torch.training.trainer import (
         build_model, make_train_step)
-    old = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = deterministic
-    try:
-        model = build_model(flagship_specs(), mixing, N_LATENTS, seed=0, device="cuda")
-        step = make_train_step(model, make_optimizer("adam", TRAIN_LR, model.parameters()))
-        batch, gen = torch_batch(raw, "cuda"), torch.Generator(device="cuda").manual_seed(0)
-        metrics = {k: float(v) for k, v in step(batch, eps=eps_to(eps, "cuda"),
-                                                generator=gen).items()}
-        grads = {n: p.grad.cpu().numpy() for n, p in model.named_parameters()
-                 if p.grad is not None}
-        return metrics, grads, step_ms_p50(step, batch, eps_to(eps, "cuda"), gen,
-                                           MULTI_TIMED_STEPS)
-    finally:
-        torch.backends.cudnn.deterministic = old
+    model = build_model(flagship_specs(), mixing, N_LATENTS, seed=0, device="cuda")
+    step = make_train_step(model, make_optimizer("adam", TRAIN_LR, model.parameters()))
+    batch, gen = torch_batch(raw, "cuda"), torch.Generator(device="cuda").manual_seed(0)
+    metrics = {k: float(v) for k, v in step(batch, eps=eps_to(eps, "cuda"),
+                                            generator=gen).items()}
+    grads = {n: p.grad.cpu().numpy() for n, p in model.named_parameters()
+             if p.grad is not None}
+    return metrics, grads, step_ms_p50(step, batch, eps_to(eps, "cuda"), gen,
+                                       MULTI_TIMED_STEPS)
 
 
 def world_one_group(ctx, fn, *args):
     """``fn(ctx, *args)`` in a process group of this process alone (a
-    file rendezvous in a temporary directory), destroyed after; the cuDNN
-    and TF32 settings the function changes are restored."""
+    file rendezvous in a temporary directory), destroyed after."""
     import torch.distributed as dist
-    flags = (torch.backends.cudnn.deterministic, torch.backends.cuda.matmul.allow_tf32,
-             torch.backends.cudnn.allow_tf32)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_pg_") as tmp:
         dist.init_process_group(ctx.backend, init_method=f"file://{tmp}/rendezvous",
                                 rank=0, world_size=1)
@@ -5795,8 +6366,6 @@ def world_one_group(ctx, fn, *args):
             return fn(ctx, *args)
         finally:
             dist.destroy_process_group()
-            (torch.backends.cudnn.deterministic, torch.backends.cuda.matmul.allow_tf32,
-             torch.backends.cudnn.allow_tf32) = flags
 
 
 def phase_multi_device(card: str):
@@ -5804,8 +6373,8 @@ def phase_multi_device(card: str):
 
     (a) a world-1 NCCL group on cuda:0, made in this process, runs the
     flagship POE and MOE steps through the data-parallel path, bit for bit
-    the one-process steps (cuDNN's deterministic algorithms on both sides);
-    (b) two gloo ranks on
+    the one-process steps (both under the port's numerics, whose cuDNN
+    algorithms are deterministic); (b) two gloo ranks on
     the card run the same steps at bs TRAIN_BATCH, each on its 12 rows,
     the gradients summed: within the training limit of the one-process
     step, each rank launching attention, PoE and KL at its rows and taking
@@ -5822,12 +6391,13 @@ def phase_multi_device(card: str):
     eps = {mixing: numpy_eps(rng, mixing, TRAIN_BATCH) for mixing in ("poe", "moe")}
     numbers = {"note": "not scaling: one card", "card": card, "batch": TRAIN_BATCH}
     launches = {}
-    for label, world, backend, deterministic in (
-            ("world-1 nccl", 1, "nccl", True),
-            (f"{MULTI_GLOO_RANKS} gloo ranks", MULTI_GLOO_RANKS, "gloo", False)):
+    for label, world, backend in (("world-1 nccl", 1, "nccl"),
+                                  (f"{MULTI_GLOO_RANKS} gloo ranks", MULTI_GLOO_RANKS, "gloo")):
+        # one rank sums as one process does: bit for bit; two ranks sum
+        # their halves' gradients in another order: within the training limit
+        bit_equal = world == 1
         jobs = [StepJob(flagship_specs(), raw, mixing=m, n_latents=N_LATENTS, eps=eps[m],
-                        lr=TRAIN_LR, deterministic=deterministic,
-                        timed_steps=MULTI_TIMED_STEPS) for m in ("poe", "moe")]
+                        lr=TRAIN_LR, timed_steps=MULTI_TIMED_STEPS) for m in ("poe", "moe")]
         t0 = time.perf_counter()
         if world == 1:
             ranks = [world_one_group(Rank(0, 1, torch.device("cuda", 0), backend), run_steps,
@@ -5837,7 +6407,7 @@ def phase_multi_device(card: str):
                            deadline=MULTI_DEADLINE)
         numbers[label] = {"launch_s": time.perf_counter() - t0}
         for i, mixing in enumerate(("poe", "moe")):
-            metrics, grads, one_p50 = _multi_reference(mixing, raw, eps[mixing], deterministic)
+            metrics, grads, one_p50 = _multi_reference(mixing, raw, eps[mixing])
             results = [r[1][i] for r in ranks]
             got = results[0]
             want_launches = {**PER_OBJECTIVE[mixing], **PER_BACKWARD[mixing]}
@@ -5851,7 +6421,7 @@ def phase_multi_device(card: str):
                       f"multi-device {label} {mixing}: a plain version ran: {res['paths']}")
                 check(res["metrics"] == got["metrics"],
                       f"multi-device {label} {mixing}: ranks read other metrics")
-            if deterministic:
+            if bit_equal:
                 check(got["metrics"] == metrics,
                       f"multi-device {label} {mixing}: metrics {got['metrics']} != {metrics}")
                 for n, g in grads.items():
@@ -5874,7 +6444,7 @@ def phase_multi_device(card: str):
                 "rank_step_ms_p50": [r["step_ms_p50"] for r in results],
                 "one_process_step_ms_p50": one_p50, "launches_per_rank": got["launches"],
                 "rows_per_rank": got["rows"], "worst_grad_share": worst,
-                "bit_equal": deterministic}
+                "bit_equal": bit_equal}
     t0 = time.perf_counter()
     loss = dryrun_multichip(4, device="cuda", backend="gloo", deadline=MULTI_DEADLINE)
     check(np.isfinite(loss), f"dryrun_multichip(4): loss {loss}")
@@ -5889,6 +6459,7 @@ def main() -> int:
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, HERE)
+    from multimodal_vae_comparison_tpu_torch.device import resolve_device
     from multimodal_vae_comparison_tpu_torch.models import get_mixing
     from multimodal_vae_comparison_tpu_torch.ops.kernels import _build, telemetry
     from multimodal_vae_comparison_tpu_torch.serving.engine import (
@@ -5900,10 +6471,14 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     print(f"device: {kind}, count {torch.cuda.device_count()}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    print("tf32: torch.backends.cuda.matmul.allow_tf32=False, "
-          "torch.backends.cudnn.allow_tf32=False")
+    # the port's entry points resolve the card and set its numerics; this
+    # script sets none of them itself
+    resolve_device()
+    flags = numerics_flags()
+    print("numerics after the entry point resolved the card: " + ", ".join(
+        f"torch.backends.{k}={v}" for k, v in flags.items()))
+    check(flags == POLICY_FLAGS, f"the entry point left the numerics at {flags}, not the "
+          f"port's policy {POLICY_FLAGS}")
 
     # 2. build
     t0 = time.perf_counter()
@@ -6109,6 +6684,11 @@ def main() -> int:
             card, tmp, small, os.path.join(tmp, "sprites"), sprites_numbers)
         bf16_numbers["phase_s"] = time.perf_counter() - t0
         print("bf16 from config " + json.dumps(bf16_numbers))
+        # seeded runs reproduce: two plain CLI children byte for byte, and
+        # the SPRITES, video and ResNet-50 steps rerun in this process bit
+        # for bit, in fp32 and bf16
+        seeded_numbers = phase_seeded_reruns(card, tmp, small, os.path.join(tmp, "sprites"))
+        print("seeded reruns " + json.dumps(seeded_numbers))
 
     # 11. times
     rows = phase_times(engine, card)
@@ -6217,4 +6797,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit({"numerics_cost": numerics_cost, "seeded_prints": seeded_prints}.get(
+        sys.argv[1] if len(sys.argv) > 1 else "", main)())

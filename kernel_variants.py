@@ -168,12 +168,12 @@ def measure(name: str, root: str) -> None:
     sys.path.insert(0, root)
     import torch
     import chip_smoke as cs
+    from multimodal_vae_comparison_tpu_torch.device import set_numerics
     from multimodal_vae_comparison_tpu_torch.ops.kernels import _build, attention, telemetry
     from multimodal_vae_comparison_tpu_torch.ops.kernels import sparse_attention as sp
     if not os.path.abspath(_build.CSRC).startswith(os.path.abspath(root)):
         raise RuntimeError(f"the package was imported from {_build.CSRC}, not from {root}")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    set_numerics()
     card = cs.card_line()
     built = _build.build(("attention", "sparse_attention"))
     print(f"variant {name}: built in {max((t for t, _ in built.values()), default=0.0):.2f} s on {card}")

@@ -433,6 +433,8 @@ def aggregate_from_files(parent_dir: str, level: int = 0,
 
 
 def main(argv=None):
+    from multimodal_vae_comparison_tpu_torch.device import set_numerics
+    set_numerics()
     parser = argparse.ArgumentParser()
     parser.add_argument("-p", "--mpath", type=str,
                         help="path to a trained run dir")

@@ -24,7 +24,7 @@ import os
 
 import numpy as np
 
-from multimodal_vae_comparison_tpu_torch.device import resolve_device
+from multimodal_vae_comparison_tpu_torch.device import resolve_device, set_numerics
 from multimodal_vae_comparison_tpu_torch.eval.classifiers import (
     CLASSIFIER_DIR, CNNClassifier, VideoClassifier, classifier_accuracy, save_classifier,
     train_classifier)
@@ -82,6 +82,7 @@ def train_sprites(path: str, out_dir: str, device=None) -> float:
 
 
 def main(argv=None):
+    set_numerics()
     parser = argparse.ArgumentParser()
     parser.add_argument("--dataset", required=True, choices=["cdspritesplus", "sprites"])
     parser.add_argument("--path", required=True)

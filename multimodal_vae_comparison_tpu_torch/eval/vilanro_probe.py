@@ -286,8 +286,10 @@ def probe_report(exp, env_id: str = "NLReach2-v0", scenes_n: int = 400,
     }
 
 
-def main():
+def main(argv=None):
+    from multimodal_vae_comparison_tpu_torch.device import set_numerics
     from multimodal_vae_comparison_tpu_torch.eval.infer import MultimodalVAEInfer
+    set_numerics()
     parser = argparse.ArgumentParser()
     parser.add_argument("--model", required=True, help="trained run dir")
     parser.add_argument("--env", default="NLReach2-v0")
@@ -295,7 +297,7 @@ def main():
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device", default=None,
                         help="where the model runs: CUDA unless 'cpu'")
-    args = parser.parse_args()
+    args = parser.parse_args(argv)
     exp = MultimodalVAEInfer(args.model, device=args.device)
     stats = probe_report(exp, args.env, args.scenes, args.seed)
     print(stats)

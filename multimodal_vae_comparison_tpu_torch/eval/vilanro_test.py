@@ -211,8 +211,10 @@ def infer_loop(exp, env_id: str = "NLReach2-v0", trials: int = 500,
     return out
 
 
-def main():
+def main(argv=None):
+    from multimodal_vae_comparison_tpu_torch.device import set_numerics
     from multimodal_vae_comparison_tpu_torch.eval.infer import MultimodalVAEInfer
+    set_numerics()
     parser = argparse.ArgumentParser()
     parser.add_argument("--model", required=True, help="trained run dir")
     parser.add_argument("--env", default="NLReach2-v0")
@@ -228,7 +230,7 @@ def main():
                              "from the uncalibrated protocol number)")
     parser.add_argument("--device", default=None,
                         help="where the model runs: CUDA unless 'cpu'")
-    args = parser.parse_args()
+    args = parser.parse_args(argv)
     exp = MultimodalVAEInfer(args.model, device=args.device)
     stats = infer_loop(exp, args.env, args.trials,
                        replan_every=args.replan, gain=args.gain,

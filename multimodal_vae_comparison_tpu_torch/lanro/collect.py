@@ -356,7 +356,7 @@ def collect_dagger(env_id: str, episodes: int, out_dir: str, model_dir: str,
             "mixed_from": mix_dir}
 
 
-def main():
+def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--env", default="NLReach2-v0")
     parser.add_argument("--episodes", type=int, default=2000)
@@ -382,8 +382,10 @@ def main():
                         help="existing dataset dir to merge into the output")
     parser.add_argument("--device", default=None,
                         help="where --dagger_model runs: CUDA unless 'cpu'")
-    args = parser.parse_args()
+    args = parser.parse_args(argv)
     if args.dagger_model:
+        from multimodal_vae_comparison_tpu_torch.device import set_numerics
+        set_numerics()
         stats = collect_dagger(args.env, args.episodes, args.out,
                                args.dagger_model, args.seed,
                                mix_dir=args.mix_dir, device=args.device)

@@ -102,8 +102,10 @@ def cli(argv=None):
     """Train from the command line; returns the Trainer of the last seed (on
     N ranks, None: the ranks' Trainers end with their processes)."""
     from multimodal_vae_comparison_tpu_torch.config import Config
+    from multimodal_vae_comparison_tpu_torch.device import set_numerics
     from multimodal_vae_comparison_tpu_torch.training.trainer import data_parallel_size
 
+    set_numerics()
     args = build_parser().parse_args(argv)
     overrides = {k: v for k, v in vars(args).items()
                  if k not in ("cfg", "no_viz", "profile", "debug_nans", "device")}

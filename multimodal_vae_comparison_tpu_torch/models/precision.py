@@ -97,18 +97,67 @@ class Conv3d(_CastConv, nn.Conv3d):
 
 _TRANSPOSED = {1: F.conv_transpose1d, 2: F.conv_transpose2d, 3: F.conv_transpose3d}
 
+# rows of the batch that one call of a 3-D transposed conv's weight gradient
+# sums over (:class:`_BlockedWeightGrad`)
+WGRAD_ROWS = 8
+
+
+class _BlockedWeightGrad(torch.autograd.Function):
+    """``F.conv_transpose3d`` whose weight gradient is summed over the batch
+    in blocks of at most ``rows`` rows, a call each, the blocks' sums added
+    in order; its input and bias gradients are one call, as PyTorch's.
+
+    An element of a 3-D transposed conv's weight gradient sums a product
+    for every input position of every row (~10^6 in the video decoders).
+    cuDNN's deterministic algorithms take it as one long fp32 chain, whose
+    rounding is as large as the gradient the cancellation leaves (the CPU's
+    chain the same); blocks of a few rows keep each chain short, and every
+    block's order is fixed, so the sum is as deterministic as before."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, stride, padding, output_padding, groups, dilation, rows):
+        ctx.save_for_backward(x, w)
+        ctx.conv = (stride, padding, dilation, output_padding, groups)
+        ctx.rows, ctx.bias_sizes = rows, None if b is None else list(b.shape)
+        return F.conv_transpose3d(x, w, b, stride, padding, output_padding, groups, dilation)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        stride, padding, dilation, output_padding, groups = ctx.conv
+        need_x, need_w, need_b = ctx.needs_input_grad[:3]
+
+        def grads(g_, x_, mask):
+            return torch.ops.aten.convolution_backward(
+                g_, x_, w, ctx.bias_sizes, stride, padding, dilation, True, output_padding,
+                groups, mask)
+
+        gx, _, gb = grads(g, x, [need_x, False, need_b])
+        gw = None
+        if need_w:
+            for start in range(0, x.shape[0], ctx.rows):
+                part = grads(g[start:start + ctx.rows], x[start:start + ctx.rows],
+                             [False, True, False])[1]
+                gw = part if gw is None else gw + part
+        return gx, gw, gb, None, None, None, None, None, None
+
 
 class _CastConvTranspose:
     """The cast of flax ``ConvTranspose`` around PyTorch's transposed conv
-    (output size from the layer's own ``output_padding``)."""
+    (output size from the layer's own ``output_padding``).  A 3-D one in
+    fp32 or wider takes its weight gradient in blocks of WGRAD_ROWS rows
+    (:class:`_BlockedWeightGrad`); in bf16 the operands' rounding outweighs
+    the chain's, and the blocks' partial sums would each be rounded."""
 
     compute_dtype: Optional[torch.dtype] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype or self.weight.dtype
-        return _TRANSPOSED[len(self.kernel_size)](
-            x.to(dt), self.weight.to(dt), _cast(self.bias, dt), self.stride, self.padding,
-            self.output_padding, self.groups, self.dilation)
+        args = (x.to(dt), self.weight.to(dt), _cast(self.bias, dt), self.stride, self.padding,
+                self.output_padding, self.groups, self.dilation)
+        if len(self.kernel_size) == 3 and dt.itemsize >= 4:
+            return _BlockedWeightGrad.apply(*args, WGRAD_ROWS)
+        return _TRANSPOSED[len(self.kernel_size)](*args)
 
 
 class ConvTranspose1d(_CastConvTranspose, nn.ConvTranspose1d):

@@ -60,8 +60,6 @@ class StepJob:
         from ``seed``
     :param shape, axes: the mesh (default: every rank on ``"data"``)
     :param sharding: ``"megatron"``, ``"infer"`` or None, over ``"model"``
-    :param deterministic: cuDNN's deterministic algorithms (two runs of the
-        same step give the same bits)
     :param timed_steps: steps timed after the checked one, for a p50
     """
 
@@ -83,7 +81,6 @@ class StepJob:
     optimizer: str = "adam"
     lr: float = 1e-3
     flops: bool = False
-    deterministic: bool = False
     timed_steps: int = 0
 
 
@@ -102,8 +99,9 @@ def _eps_rows(eps, index: int, size: int, device):
 
 
 def train_step_on_mesh(ctx: Rank, job: StepJob) -> Dict[str, Any]:
-    """Run ``job`` in this rank of an initialized process group, in fp32
-    (TF32 off, as in the one-process steps it is held against).
+    """Run ``job`` in this rank of an initialized process group, under the
+    port's numerics (``device.set_numerics``: fp32 without TF32, cuDNN's
+    deterministic algorithms), as the one-process steps it is held against.
 
     :return: the step's global ``metrics`` (floats); the one-device
         ``grads`` and ``params`` after the step (numpy, every rank); each
@@ -112,6 +110,7 @@ def train_step_on_mesh(ctx: Rank, job: StepJob) -> Dict[str, Any]:
         on; with ``job.flops`` this rank's ``ops.flops.step_flops`` of the
         step; with ``job.timed_steps`` the p50 ms of that many more steps
     """
+    from multimodal_vae_comparison_tpu_torch.device import set_numerics
     from multimodal_vae_comparison_tpu_torch.ops import flops
     from multimodal_vae_comparison_tpu_torch.ops.kernels import telemetry
     from multimodal_vae_comparison_tpu_torch.parallel import mesh as pmesh
@@ -120,8 +119,7 @@ def train_step_on_mesh(ctx: Rank, job: StepJob) -> Dict[str, Any]:
     from multimodal_vae_comparison_tpu_torch.training.trainer import (
         build_model, make_train_step)
 
-    torch.backends.cudnn.deterministic = job.deterministic
-    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    set_numerics()
     mesh = pmesh.make_mesh(ctx.world_size, job.axes, job.shape, device_type=ctx.device.type)
     model = build_model(job.specs, job.mixing, job.n_latents, obj=job.obj, K=job.K,
                         seed=job.seed, device=ctx.device)

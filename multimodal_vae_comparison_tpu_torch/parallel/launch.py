@@ -37,6 +37,8 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from multimodal_vae_comparison_tpu_torch.device import set_numerics
+
 
 @dataclasses.dataclass(frozen=True)
 class Rank:
@@ -51,6 +53,8 @@ class Rank:
 
 def _rank_main(rank: int, world: int, inbox, device_type: str, backend: str,
                init_file: str, timeout_s: float, out) -> None:
+    # a spawned rank is a fresh process: it inherits none of the parent's flags
+    set_numerics()
     if device_type == "cpu" and "OMP_NUM_THREADS" not in os.environ:
         torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
     if device_type == "cuda":

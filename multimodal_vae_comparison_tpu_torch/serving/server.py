@@ -83,8 +83,10 @@ def serve(engine, infer, port: int = 8500, host: str = "127.0.0.1"):
 
 
 def main(argv=None) -> None:
+    from multimodal_vae_comparison_tpu_torch.device import set_numerics
     from multimodal_vae_comparison_tpu_torch.eval.infer import MultimodalVAEInfer
     from multimodal_vae_comparison_tpu_torch.serving.engine import InferenceEngine
+    set_numerics()
     parser = argparse.ArgumentParser(description="serve a trained run directory")
     parser.add_argument("--model", required=True, help="run dir (results/<exp>/version_N)")
     parser.add_argument("--port", type=int, default=8500)

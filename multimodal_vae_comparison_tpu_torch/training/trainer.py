@@ -496,8 +496,11 @@ class Trainer:
         path = os.path.join(self._ckpt_dir(tag), CKPT_FILE)
         os.makedirs(os.path.dirname(path), exist_ok=True)
         tmp = f"{path}.{os.getpid()}.tmp"
-        torch.save({"params": self.model.state_dict(), "opt_state": self.opt.state_dict(),
-                    "step": self.step, "best_val": self.best_val}, tmp)
+        # through a file object: torch.save names the archive inside the file
+        # after a path it is given, and this one holds the process id
+        with open(tmp, "wb") as f:
+            torch.save({"params": self.model.state_dict(), "opt_state": self.opt.state_dict(),
+                        "step": self.step, "best_val": self.best_val}, f)
         os.replace(tmp, path)
 
     @staticmethod

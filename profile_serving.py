@@ -41,6 +41,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_serving: needs a CUDA device", file=sys.stderr)
         return 1
+    from multimodal_vae_comparison_tpu_torch.device import set_numerics
     from multimodal_vae_comparison_tpu_torch.models import get_mixing
     from multimodal_vae_comparison_tpu_torch.serving.engine import (
         InferenceEngine, ModelHandle)
@@ -49,8 +50,7 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60).stdout.strip()
     print(card)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    set_numerics()
     os.makedirs(args.out, exist_ok=True)
     model = get_mixing("poe")(flagship_specs(), N_LATENTS, seed=0, device="cuda")
     engine = InferenceEngine(ModelHandle(model), buckets=BUCKETS, device="cuda")

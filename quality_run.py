@@ -25,7 +25,7 @@ import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-COUNT = 10000   # rows of the level, as chip_smoke.py's "train from config" phase
+COUNT = 10000   # rows of the level: the generator's default
 
 
 def main(argv=None) -> int:

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from multimodal_vae_comparison_tpu_torch.device import set_numerics
 from multimodal_vae_comparison_tpu_torch.models import get_mixing
 from multimodal_vae_comparison_tpu_torch.models.base import ModalitySpec
 from multimodal_vae_comparison_tpu_torch.ops.fusion import subset_lattice
@@ -46,8 +47,7 @@ SLICE_TOL = dict(rtol=1e-4, atol=1e-4)
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    set_numerics()
     return torch.device("cuda")
 
 

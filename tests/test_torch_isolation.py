@@ -162,22 +162,40 @@ def test_chip_smoke_fails_without_cuda(monkeypatch, capsys):
 def test_chip_smoke_children_compute_under_its_tf32_settings(tmp_path, monkeypatch,
                                                              matmul, cudnn):
     """chip_smoke holds a child process's stats against its own byte for
-    byte, so the child runs under the parent's TF32 flags, not PyTorch's
-    defaults (cuDNN's TF32 on), and gets its arguments as ``-m`` would."""
+    byte.  ``module_argv`` starts the child as a user would, a plain
+    ``python -m``, whatever this process's flags are; the entry point then
+    sets the port's numerics itself (TF32 off, cuDNN's deterministic
+    algorithms), so the child computes as the script does."""
     sys.path.insert(0, str(REPO))
     try:
         import chip_smoke
     finally:
         sys.path.remove(str(REPO))
-    (tmp_path / "tf32_probe.py").write_text(
-        "import sys, torch\n"
-        "print(torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,\n"
-        "      sys.argv[0].endswith('tf32_probe.py'), sys.argv[1:])\n")
+    # a stand-in that runs the eval CLI as ``-m`` would, and reads the flags
+    # before it (a fresh process's) and after it (the entry point's)
+    (tmp_path / "entry_probe.py").write_text(
+        "import runpy, sys, torch\n"
+        "def flags():\n"
+        "    return (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,\n"
+        "            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)\n"
+        "print(*flags(), sys.argv[1:])\n"
+        "runpy.run_module('multimodal_vae_comparison_tpu_torch.eval.eval_cdsprites',\n"
+        "                 run_name='__main__', alter_sys=True)\n"
+        "print(*flags())\n")
+    stats = tmp_path / "runs" / "version_0"
+    stats.mkdir(parents=True)
+    (stats / "cdspritesplus_stats.txt").write_text("Text-Image Strict: 50.0\n")
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", matmul)
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", cudnn)
-    out = subprocess.run(chip_smoke.module_argv("tf32_probe", "-p", "run dir"), cwd=tmp_path,
-                         capture_output=True, text=True, timeout=120, check=True).stdout
-    assert out.split("\n")[0] == f"{matmul} {cudnn} True ['-p', 'run dir']"
+    argv = chip_smoke.module_argv("entry_probe", "-a", str(tmp_path / "runs"))
+    assert argv == [sys.executable, "-m", "entry_probe", "-a", str(tmp_path / "runs")]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(tmp_path), str(REPO)]))
+    out = subprocess.run(argv, cwd=tmp_path, env=env, capture_output=True, text=True,
+                         timeout=120, check=True).stdout.splitlines()
+    runs = str(tmp_path / "runs")
+    assert out[0] == f"False True False False ['-a', '{runs}']"   # PyTorch's own
+    assert out[-1] == "False False True False"                     # the entry point's
+    assert (tmp_path / "runs" / "cdspritesplus_stats.txt").is_file()
 
 
 def test_build_keys_libraries_by_source_hash(tmp_path, monkeypatch):
