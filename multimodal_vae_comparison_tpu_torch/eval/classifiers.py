@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from multimodal_vae_comparison_tpu_torch.models.init import lecun_layer_
 from multimodal_vae_comparison_tpu_torch.models.nets import _same_pads
 
 # where the evals cache the judges they train (gitignored); the CdSprites+
@@ -30,24 +31,16 @@ from multimodal_vae_comparison_tpu_torch.models.nets import _same_pads
 CLASSIFIER_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "classifiers")
 
 
-# flax's default kernel init, lecun_normal: a normal of variance 1 / fan_in
-# cut at two standard deviations, its scale corrected for the cut
-_TRUNCATED_STD = 0.87962566103423978
-
-
 def _flax_init(module: nn.Module) -> None:
     """Every conv and dense layer of ``module`` drawn as flax draws it:
-    kernels from lecun_normal, biases zero.  The judges' recipes (epochs,
-    learning rate) are the JAX package's, tuned for this scale: from
-    PyTorch's default (a uniform of a third of the variance) the frame
-    attribute judge trains far slower and ends its 40 epochs well below the
-    JAX package's on the same rows."""
+    kernels from lecun_normal, biases zero (``models/init.py``).  The
+    judges' recipes (epochs, learning rate) are the JAX package's, tuned
+    for this scale: from PyTorch's default (a uniform of a third of the
+    variance) the frame attribute judge trains far slower and ends its 40
+    epochs well below the JAX package's on the same rows."""
     for layer in module.modules():
         if isinstance(layer, (nn.Conv2d, nn.Conv3d, nn.Linear)):
-            fan_in = layer.weight[0].numel()
-            std = (1.0 / fan_in) ** 0.5 / _TRUNCATED_STD
-            nn.init.trunc_normal_(layer.weight, 0.0, std, -2 * std, 2 * std)
-            nn.init.zeros_(layer.bias)
+            lecun_layer_(layer, layer.weight[0].numel())
 
 
 @contextlib.contextmanager

@@ -99,9 +99,11 @@ class MMVAE(nn.Module):
     the tuple ``present`` of modality names with data available, and
     ``objective``, the training loss over one batch.
 
-    Parameters are drawn on the CPU from ``seed`` (PyTorch's default
-    initializers under a forked RNG) and then moved to ``device``, so two
-    instances built with one seed hold the same weights on any device.
+    Parameters are drawn on the CPU from ``seed`` under a forked RNG, each
+    from the flax initializer the JAX package's layer takes
+    (``models/init.py``: lecun_normal kernels, zero biases, orthogonal GRU
+    recurrences), and then moved to ``device``, so two instances built with
+    one seed hold the same weights on any device.
     ``device`` defaults to CUDA and raises when there is none.
 
     With ``remat`` every encoder and decoder call is checkpointed while

@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from multimodal_vae_comparison_tpu_torch.constants import ETA
+from multimodal_vae_comparison_tpu_torch.models.init import flax_gru_
 from multimodal_vae_comparison_tpu_torch.models.precision import (
     Conv1d, Conv2d, Linear, widen)
 from multimodal_vae_comparison_tpu_torch.models.nets import (
@@ -417,11 +418,12 @@ class Enc_TxtRNN(VaeEncoder):
     reference's ``nn.RNN(..., seq_lengths=, reverse=True)``, with no host
     sync for the lengths.
 
-    Each GRU is PyTorch's (cuDNN's on the card) in flax's ``GRUCell`` form:
-    the hidden-side reset and update gates have no bias in flax, so those
-    two thirds of ``bias_hh_l0`` start at 0 and their gradient is held at
-    0.  The GRUs run in fp32 under any compute dtype (the reference builds
-    its cells without one: flax promotes the bf16 embedding to their fp32
+    Each GRU is PyTorch's (cuDNN's on the card) in flax's ``GRUCell`` form,
+    drawn as flax draws the cell (``init.flax_gru_``): the hidden-side
+    reset and update gates have no bias in flax, so those two thirds of
+    ``bias_hh_l0`` start at 0 and their gradient is held at 0.  The GRUs
+    run in fp32 under any compute dtype (the reference builds its cells
+    without one: flax promotes the bf16 embedding to their fp32
     parameters)."""
 
     def __init__(self, latent_dim, data_dim, latent_private=None, hidden_size: int = 512):
@@ -430,8 +432,7 @@ class Enc_TxtRNN(VaeEncoder):
         self.embed = Linear(math.prod(self.data_dim[1:]), hidden_size)
         for i in range(2):
             gru = nn.GRU(hidden_size, hidden_size, batch_first=True)
-            with torch.no_grad():
-                gru.bias_hh_l0[: 2 * hidden_size].zero_()
+            flax_gru_(gru)
             keep = torch.ones(3 * hidden_size)
             keep[: 2 * hidden_size] = 0.0
             gru.bias_hh_l0.register_hook(lambda g, keep=keep: g * keep.to(g.device, g.dtype))

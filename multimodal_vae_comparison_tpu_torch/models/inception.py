@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from multimodal_vae_comparison_tpu_torch.models.nets import FrozenBatchNorm
+from multimodal_vae_comparison_tpu_torch.models.precision import Conv2d
 
 Pair = Union[int, Tuple[int, int]]
 INCEPTION_BN_EPS = 1e-3
@@ -26,14 +27,14 @@ SIZE = 299
 
 
 class BasicConv(nn.Module):
-    """torchvision's BasicConv2d: a conv without bias, FrozenBatchNorm (eps
-    1e-3), ReLU; on NCHW."""
+    """torchvision's BasicConv2d: a conv without bias (drawn fresh as flax's
+    ``nn.Conv``), FrozenBatchNorm (eps 1e-3), ReLU; on NCHW."""
 
     def __init__(self, in_channels: int, features: int, kernel: Pair, stride: int = 1,
                  padding: Pair = 0):
         super().__init__()
-        self.conv = nn.Conv2d(in_channels, features, kernel, stride=stride, padding=padding,
-                              bias=False)
+        self.conv = Conv2d(in_channels, features, kernel, stride=stride, padding=padding,
+                           bias=False)
         self.bn = FrozenBatchNorm(features, eps=INCEPTION_BN_EPS)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -26,13 +26,12 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from multimodal_vae_comparison_tpu_torch.models.init import lecun_normal_
 from multimodal_vae_comparison_tpu_torch.models.precision import widen
 
 _STATE: Optional[Dict[str, torch.Tensor]] = None
 _SOURCE = "uninitialized"
 _EXTRACTORS: Dict[Tuple[torch.device, torch.dtype], torch.nn.Module] = {}
-# lecun_normal's truncated normal: its std corrected for the cut at 2 std
-_TRUNCATED_STD = 0.87962566103423978
 
 
 def _fixed_random_state() -> Dict[str, torch.Tensor]:
@@ -41,9 +40,7 @@ def _fixed_random_state() -> Dict[str, torch.Tensor]:
     state = {}
     for name, p in VGGFeatures().state_dict().items():
         if name.endswith(".weight"):
-            std = math.sqrt(1.0 / p[0].numel()) / _TRUNCATED_STD
-            state[name] = torch.nn.init.trunc_normal_(torch.empty_like(p), 0.0, std,
-                                                      -2 * std, 2 * std, generator=g)
+            state[name] = lecun_normal_(torch.empty_like(p), p[0].numel(), generator=g)
         else:
             state[name] = torch.zeros_like(p)
     return state

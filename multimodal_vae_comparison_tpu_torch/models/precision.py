@@ -14,6 +14,10 @@ are PyTorch's with that one attribute added, ``compute_dtype``:
   returns the tensor itself, so the fp32 path, and ``model.double()``'s
   fp64 one, compute exactly what PyTorch's own layers do.
 
+Their fresh weights are flax's, not PyTorch's: ``reset_parameters`` draws
+every kernel from lecun_normal with the fan-in of the flax layer and zeroes
+every bias (``models/init.py``).
+
 This is an explicit cast at each layer, not ``torch.autocast``: autocast
 keeps norms and residual sums in fp32 where flax rounds them to bf16, so it
 would be another function.  Between the layers PyTorch's type promotion
@@ -33,6 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from multimodal_vae_comparison_tpu_torch.models.init import conv_fan_in, lecun_layer_
 from multimodal_vae_comparison_tpu_torch.ops.kernels.attention import widen  # noqa: F401
 
 
@@ -64,9 +69,13 @@ def _cast(p: Optional[torch.Tensor], dt: torch.dtype) -> Optional[torch.Tensor]:
 
 
 class Linear(nn.Linear):
-    """``nn.Linear`` with flax ``Dense``'s ``dtype``."""
+    """``nn.Linear`` with flax ``Dense``'s ``dtype`` and initializers (a
+    DenseGeneral contracts over the same ``in_features``)."""
 
     compute_dtype: Optional[torch.dtype] = None
+
+    def reset_parameters(self) -> None:
+        lecun_layer_(self, self.in_features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype or self.weight.dtype
@@ -74,9 +83,13 @@ class Linear(nn.Linear):
 
 
 class _CastConv:
-    """The cast of flax ``Conv`` around ``_conv_forward``."""
+    """The cast of flax ``Conv`` around ``_conv_forward``, and its
+    initializers."""
 
     compute_dtype: Optional[torch.dtype] = None
+
+    def reset_parameters(self) -> None:
+        lecun_layer_(self, conv_fan_in(self))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype or self.weight.dtype
@@ -147,9 +160,13 @@ class _CastConvTranspose:
     (output size from the layer's own ``output_padding``).  A 3-D one in
     fp32 or wider takes its weight gradient in blocks of WGRAD_ROWS rows
     (:class:`_BlockedWeightGrad`); in bf16 the operands' rounding outweighs
-    the chain's, and the blocks' partial sums would each be rounded."""
+    the chain's, and the blocks' partial sums would each be rounded.  Its
+    fresh kernel takes flax's fan-in, from the input channels."""
 
     compute_dtype: Optional[torch.dtype] = None
+
+    def reset_parameters(self) -> None:
+        lecun_layer_(self, conv_fan_in(self))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype or self.weight.dtype

@@ -35,7 +35,7 @@ REQUIRED = {"multimodal_vae_comparison_tpu_torch." + m for m in (
     "eval.vilanro_probe", "eval.vilanro_test",
     "eval.train_classifiers", "eval.cca", "eval.text_embeddings", "lanro", "lanro.arm", "lanro.collect", "lanro.env",
     "lanro.simulation", "main", "models.base", "models.contrib", "models.decoders",
-    "models.distributions", "models.encoders", "models.inception", "models.mmvae",
+    "models.distributions", "models.encoders", "models.inception", "models.init", "models.mmvae",
     "models.nets", "models.objectives", "models.perceptual", "ops.kernels.attention", "ops.kernels.kl_kernel",
     "ops.kernels.poe_kernel", "ops.kernels.sample_kernel", "ops.kernels.sparse_attention",
     "parallel", "parallel.dryrun", "parallel.launch", "parallel.mesh", "parallel.rows",

@@ -27,6 +27,7 @@ launch within its deadline.  Gradients are held per leaf within 1e-4 of
 the leaf's max |g| + 1e-5, losses and metrics within 1e-5 relative.
 """
 import concurrent.futures
+import contextlib
 import os
 
 import jax
@@ -35,6 +36,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+import torch.nn.functional as F
 
 from multimodal_vae_comparison_tpu.models import distributions as jdist
 from multimodal_vae_comparison_tpu.models import get_mixing as jget_mixing
@@ -467,12 +469,72 @@ def test_dryrun_multichip(n, groups, capsys, monkeypatch):
 # -- the Trainer ----------------------------------------------------------------------------
 
 
+def _rank_recording_branches(ctx, fn, out_dir, *args):
+    """A rank of ``launch`` that runs ``fn(ctx, *args)`` and saves to
+    ``out_dir/rank<r>.pt`` the branch (x > 0) of every ``F.relu`` it called
+    with gradients on, in call order."""
+    branches, relu = [], F.relu
+
+    def recording(x, inplace=False):
+        if torch.is_grad_enabled():
+            branches.append(x.detach() > 0)
+        return relu(x, inplace=inplace)
+
+    F.relu = recording
+    try:
+        fn(ctx, *args)
+    finally:
+        F.relu = relu
+    torch.save(branches, os.path.join(out_dir, f"rank{ctx.rank}.pt"))
+
+
+@contextlib.contextmanager
+def _replayed_branches(per_rank, batch_size, flips):
+    """``F.relu`` with gradients on takes the branches the ranks recorded
+    (:func:`_rank_recording_branches`), call by call: a call's rows are
+    (batch, lead) flattened, each rank's its block of the batch, so the
+    ranks' masks join row block after row block.  ``flips`` counts the elements whose
+    own branch differs, and the elements replayed."""
+    calls, relu = iter(zip(*per_rank)), F.relu
+
+    def replaying(x, inplace=False):
+        if not torch.is_grad_enabled():
+            return relu(x, inplace=inplace)
+        parts = next(calls)
+        assert x.shape[0] % batch_size == 0 and x.shape[0] == sum(p.shape[0] for p in parts)
+        mask = torch.cat(parts)
+        flips[0] += int((mask != (x.detach() > 0)).sum())
+        flips[1] += mask.numel()
+        return x * mask.to(x.dtype)
+
+    F.relu = replaying
+    try:
+        yield
+        assert next(calls, None) is None, "the ranks made more relu calls"
+    finally:
+        F.relu = relu
+
+
 def test_main_trains_on_two_gloo_ranks_as_one_process(tmp_path, monkeypatch):
     """``main --device cpu --num_devices 2`` on the synthetic config, one
     epoch: rank 0 writes one run directory and checkpoint, which restores
-    into a one-process model, and the val loss is a one-process run's."""
+    into a one-process model, and the val loss is a one-process run's.
+
+    The one-process run takes the relu branches the ranks took: an element
+    within fp32 rounding of 0 goes either way under another order of sums,
+    and from flax's init one such element can move a unit's amsgrad steps
+    by up to lr (3 of the 40 million replayed in this epoch; without the
+    replay the epoch ended 10.7 times past the parameter limit, and one
+    process on 1 and on 4 PyTorch threads parts the same way).  On the same
+    branches the runs differ by rounding alone; the elements whose own
+    branch differed are held to a millionth of those replayed."""
     monkeypatch.chdir(tmp_path)
     monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    record = tmp_path / "branches"
+    record.mkdir()
+    real_launch = plaunch.launch
+    monkeypatch.setattr(plaunch, "launch", lambda fn, n, *args, **kw: real_launch(
+        _rank_recording_branches, n, fn, str(record), *args, **kw))
     cfg = os.path.join(REPO, "configs", "config_synthetic.yml")
     assert cli(["--cfg", cfg, "--device", "cpu", "--num_devices", "2", "--epochs", "1",
                 "--no_viz"]) is None
@@ -489,7 +551,11 @@ def test_main_trains_on_two_gloo_ranks_as_one_process(tmp_path, monkeypatch):
     assert data_parallel_size(config, "cpu") == 1
     trainer = Trainer(config, device="cpu", enable_viz=False)
     trainer.init_state()
-    trainer.fit(log_fn=None)
+    per_rank = [torch.load(record / f"rank{r}.pt", weights_only=True) for r in range(2)]
+    flips = [0, 0]
+    with _replayed_branches(per_rank, config.batch_size, flips):
+        trainer.fit(log_fn=None)
+    assert flips[1] > 0 and flips[0] <= 1e-6 * flips[1], flips
     one = dict(zip(*[line.split(",") for line in
                      open(os.path.join(config.mPath, "metrics.csv")).read().splitlines()]))
     for k in ("train_loss", "val_loss", "val_kld"):
