@@ -130,7 +130,10 @@ prints the reruns' leaves for a comparison across processes.
 
 Each path runs with the kernel counts set to 0 just before it and read just
 after, and must have launched every kernel it goes through and taken no
-plain version.  Then it times the kernels, the engine and the train step,
+plain version (the masked attention's few-keys kernel on the serving and
+training paths, its short bf16 kernel on the bf16 configs').  Then it times
+the kernels (the few-keys kernel at every decoder shape beside the resident
+route before it), the engine and the train step,
 and times the POE and MOE train steps on the PoE and KL kernels' route
 (one launch for the whole subset lattice, one for every modality's KL, and
 one for each backward) in turns with the route before it
@@ -471,6 +474,19 @@ def busy_ms(intervals):
     return total / 1e3
 
 
+def attention_variant(shape, dtype=torch.float32) -> str:
+    """The kernel csrc/attention.cu's launcher takes at a model path's
+    (B, H, Tq, Tk, Dh) on 16-byte aligned ``dtype`` inputs whose heads the
+    resident kernel holds (Tk <= 256): on bf16 the tensor-core kernel from a
+    side of 16 (Dh % 8 == 0, Dh <= 64), under it the short kernel; else the
+    few-keys kernel for at most 8 keys under more query rows, or the
+    resident kernel."""
+    _, _, tq, tk, dh = shape
+    if dtype == torch.bfloat16 and dh % 8 == 0 and dh <= 64:
+        return "tc_bf16" if tq >= 16 or tk >= 16 else "short_bf16"
+    return "few_keys" if tk <= 8 and tq > tk else "resident"
+
+
 def attention_inputs(g: torch.Generator, b, h, tq, tk, dh, masked: bool):
     dev = "cuda"
     q = torch.randn(b, h, tq, dh, generator=g, device=dev)
@@ -485,6 +501,18 @@ def attention_inputs(g: torch.Generator, b, h, tq, tk, dh, masked: bool):
     return q, k, v, mask
 
 
+# (B, H, Tq, Tk, Dh), masked: the few-keys kernel's shapes on the model
+# paths: Dec_TransformerCond's cond_always lattice and per-subset decodes
+# (z and the instruction's 4 words, or z alone), CUB's DReG text decoder,
+# VILANRO's action and language decoders, Dec_TransformerIMG, the flagship
+# text decoder at bs 24 and at the serving batch
+FEW_KEYS_SHAPES = (((448, 4, 100, 5, 32), True), ((64, 4, 100, 5, 32), True),
+                   ((64, 4, 100, 1, 32), False), ((640, 2, 246, 1, 8), False),
+                   ((448, 2, 100, 1, 16), False), ((448, 2, 4, 1, 16), False),
+                   ((112, 4, 8, 1, 64), False), ((24, 2, 45, 1, 8), False),
+                   ((256, 2, 45, 1, 8), False))
+
+
 def phase_parity():
     from multimodal_vae_comparison_tpu_torch.ops.kernels import attention, poe_kernel
     from multimodal_vae_comparison_tpu_torch.ops.kernels import telemetry
@@ -492,12 +520,14 @@ def phase_parity():
     # (B, H, Tq, Tk, Dh), masked (with one fully masked row), the kernel the
     # launcher picks.  The model's two shapes, then the key counts around a
     # warp's 32 lanes and a lane's 1, 2, 4 and 8 keys, head widths off the
-    # 16-byte grid, few heads (split by query rows), and two heads that the
-    # resident path cannot hold (Tk > 256; K and V over the shared memory)
+    # 16-byte grid, few heads (split by query rows), two heads that the
+    # resident path cannot hold (Tk > 256; K and V over the shared memory),
+    # and the few-keys kernel at every decoder shape of the model paths
+    # (Dec_TransformerCond, CUB, VILANRO, Dec_TransformerIMG, the flagship)
     for shape, masked, variant in (((128, 2, 45, 45, 32), True, "resident"),
-                                   ((128, 2, 45, 1, 8), False, "resident"),
+                                   ((128, 2, 45, 1, 8), False, "few_keys"),
                                    ((4, 2, 130, 130, 16), True, "resident"),
-                                   ((3, 2, 9, 1, 8), True, "resident"),
+                                   ((3, 2, 9, 1, 8), True, "few_keys"),
                                    ((3, 2, 9, 31, 6), True, "resident"),
                                    ((3, 2, 9, 32, 6), False, "resident"),
                                    ((3, 2, 9, 33, 6), True, "resident"),
@@ -506,13 +536,17 @@ def phase_parity():
                                    ((2, 2, 9, 33, 128), False, "resident"),
                                    ((1, 2, 1000, 45, 32), True, "resident"),
                                    ((2, 2, 20, 1000, 16), True, "chunked"),
-                                   ((2, 2, 20, 256, 128), True, "chunked")):
+                                   ((2, 2, 20, 256, 128), True, "chunked"),
+                                   *((shape, masked, "few_keys") for shape, masked in
+                                     FEW_KEYS_SHAPES)):
         q, k, v, mask = attention_inputs(g, *shape, masked)
         telemetry.reset()
         got = attention.masked_attention(q, k, v, mask)
         took = telemetry.variants()
+        again = attention.masked_attention(q, k, v, mask)
         want = attention.attention_reference(q, k, v, mask)
         torch.cuda.synchronize()
+        check(torch.equal(got, again), f"attention at {shape}: two launches differ")
         err = (got - want).abs().max().item()
         ok = torch.allclose(got, want, rtol=ATTN_RTOL, atol=ATTN_ATOL)
         print(f"parity attention {shape} mask={masked} [{variant}]: max_abs_err={err:.3e} "
@@ -1435,7 +1469,7 @@ def phase_times(engine, card):
     # memory, and the chunked kernel at a shape the launcher gives the
     # resident one
     empty = _build.function("attention", "empty_launch",
-                            [ctypes.c_int] * 5 + [ctypes.c_void_p])
+                            [ctypes.c_int] * 7 + [ctypes.c_void_p])
     chunked = _build.function("attention", "masked_attention_forward_chunked",
                               [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                               + [ctypes.c_float, ctypes.c_void_p])
@@ -1453,7 +1487,7 @@ def phase_times(engine, card):
         stream = torch.cuda.current_stream
 
         def launch_empty():
-            _build.check("attention", empty(b, h, tq, tk, dh, stream().cuda_stream))
+            _build.check("attention", empty(b, h, tq, tk, dh, 0, 0, stream().cuda_stream))
 
         scratch = torch.empty_like(q)
 
@@ -1469,7 +1503,7 @@ def phase_times(engine, card):
                              rtol=ATTN_RTOL, atol=ATTN_ATOL),
               f"the chunked attention kernel disagrees with the plain version at {shape}")
         kern_again = graph_ms(lambda: attention.masked_attention(q, k, v, mask))
-        print(f"time masked_attention [{label} {shape}]: resident kernel {kern:.5f} and "
+        print(f"time masked_attention [{label} {shape}]: kernel {kern:.5f} and "
               f"{kern_again:.5f} ms, chunked kernel {chunked_ms:.5f} ms, SDPA {lib:.5f} ms, an "
               f"empty kernel launched the same way {floor:.5f} ms on {card}")
         bound, by = attention_bound(b, h, tq, tk, dh, mask)
@@ -1488,6 +1522,7 @@ def phase_times(engine, card):
               f"{r['eager_ms']:.5f}), plain {r['plain_ms']:.5f} ms, library "
               f"{'n/a' if r['library_ms'] is None else format(r['library_ms'], '.5f')} ms, "
               f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}) on {card}")
+    few_keys = few_keys_times(card, g)
     rng = np.random.default_rng(4)
     for bucket in BUCKETS:
         inputs = make_inputs(rng, bucket)
@@ -1499,7 +1534,84 @@ def phase_times(engine, card):
             lat.append((time.perf_counter() - t0) * 1e3)
         print(f"time generate both modalities N={bucket}: p50 {statistics.median(lat):.3f} ms, "
               f"min {min(lat):.3f} ms over 20 on {card}")
-    return rows
+    return rows, few_keys
+
+
+def few_keys_times(card: str, g: torch.Generator) -> dict:
+    """The few-keys kernel at every shape of :data:`FEW_KEYS_SHAPES`: the
+    route it takes, its error against the plain version and its same bits
+    twice, then in turns the kernel, the resident route before it
+    (``masked_attention_forward_resident``, a yardstick the port never
+    calls) and the kernel again, beside the byte bound, an empty kernel
+    launched as the few-keys kernel is, the plain version and SDPA under
+    the same mask (device ms, graphed).  Returns its kernels-line entry at
+    the first shape, every shape's numbers under "shapes"."""
+    import ctypes
+    import math
+    import torch.nn.functional as F
+    from multimodal_vae_comparison_tpu_torch.ops.kernels import _build, attention, telemetry
+    resident = _build.function("attention", "masked_attention_forward_resident",
+                               [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                               + [ctypes.c_float, ctypes.c_void_p])
+    empty = _build.function("attention", "empty_launch", [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    shapes = []
+    for shape, masked in FEW_KEYS_SHAPES:
+        b, h, tq, tk, dh = shape
+        q, k, v, mask = attention_inputs(g, *shape, masked)
+        telemetry.reset()
+        got = attention.masked_attention(q, k, v, mask)
+        took = telemetry.variants()
+        again = attention.masked_attention(q, k, v, mask)
+        want = attention.attention_reference(q, k, v, mask)
+        old = torch.empty_like(q)
+        stream = torch.cuda.current_stream
+
+        def launch_resident():
+            _build.check("attention", resident(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                None if mask is None else mask.data_ptr(), old.data_ptr(), b, h, tq, tk, dh,
+                1.0 / math.sqrt(dh), stream().cuda_stream))
+
+        launch_resident()
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        check(took == {"attention:few_keys": 1}, f"attention at {shape} launched {took}")
+        check(torch.allclose(got, want, rtol=ATTN_RTOL, atol=ATTN_ATOL)
+              and torch.equal(got, again), f"few-keys kernel at {shape}: max_abs_err {err}, "
+              f"same bits twice {torch.equal(got, again)}")
+        check(torch.allclose(old, want, rtol=ATTN_RTOL, atol=ATTN_ATOL),
+              f"the resident route disagrees with the plain version at {shape}")
+        kern = graph_ms(lambda: attention.masked_attention(q, k, v, mask))
+        old_ms = graph_ms(launch_resident)
+        old_again = graph_ms(launch_resident)
+        kern_again = graph_ms(lambda: attention.masked_attention(q, k, v, mask))
+        floor = graph_ms(lambda: _build.check("attention", empty(b, h, tq, tk, dh, 0, 0,
+                                                                 stream().cuda_stream)))
+        plain = graph_ms(lambda: attention.attention_reference(q, k, v, mask))
+        sdpa_mask = None if mask is None else mask[:, None, None, :]
+        lib = graph_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=sdpa_mask))
+        bound, by = attention_bound(b, h, tq, tk, dh, mask)
+        shapes.append({"at": str(shape), "masked": masked, "max_abs_err": err,
+                       "ms": kern, "ms_again": kern_again,
+                       "resident_route_ms": [old_ms, old_again], "empty_launch_ms": floor,
+                       "plain_ms": plain, "library_ms": lib, "bound_ms": bound,
+                       "bound_by": by})
+        print(f"time masked_attention few_keys [{shape} mask={masked}]: kernel {kern:.5f} / "
+              f"{kern_again:.5f} ms, resident route {old_ms:.5f} / {old_again:.5f} ms, bound "
+              f"{bound:.6f} ms ({by}), empty launch {floor:.5f} ms, plain {plain:.5f} ms, "
+              f"SDPA {lib:.5f} ms, max_abs_err {err:.3e} on {card}")
+    first = shapes[0]
+    return {"name": "masked_attention_few_keys", "route": "cuda",
+            "source": "multimodal_vae_comparison_tpu_torch/csrc/attention.cu",
+            "kernel": "masked_attention_few_keys",
+            "replaces": "multimodal_vae_comparison_tpu/ops/pallas/attention.py:77",
+            "at": first["at"], "max_abs_err": first["max_abs_err"], "ms": first["ms"],
+            "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
+            "bound_by": first["bound_by"], "library_ms": first["library_ms"],
+            "library_is": "F.scaled_dot_product_attention(q, k, v, attn_mask=the key "
+                          "padding or none), graphed",
+            "empty_launch_ms": first["empty_launch_ms"],
+            "resident_route_ms": first["resident_route_ms"], "shapes": shapes}
 
 
 def video_specs():
@@ -2047,6 +2159,11 @@ def eval_launches(mixing: str, n_train: int) -> dict:
     return {"attention": 2 + 2 + 3 * batches + joint}
 
 
+# launches by kernel variant over every run :func:`counted` drives (the
+# from-config paths), for the kernels-line entries of one variant
+PATH_VARIANTS: dict = {}
+
+
 def counted(label, mixing, calls, train_steps, run, total, extra=None,
             tables=(PER_OBJECTIVE, PER_BACKWARD), kinds=None):
     """``run()`` with the kernel counts set to 0 just before it and read
@@ -2054,7 +2171,8 @@ def counted(label, mixing, calls, train_steps, run, total, extra=None,
     (``train_steps`` of them with their backward; :func:`expected_launches`
     from ``tables``), plus ``extra``, and take no plain version; the
     launches are added into ``total`` (and the launches by variant and
-    dtype into ``kinds``, where given)."""
+    dtype into ``kinds``, where given; by variant into
+    :data:`PATH_VARIANTS`)."""
     from multimodal_vae_comparison_tpu_torch.ops.kernels import telemetry
     telemetry.reset()
     out = run()
@@ -2071,6 +2189,8 @@ def counted(label, mixing, calls, train_steps, run, total, extra=None,
           f"{label}: a plain version ran: {paths}")
     for k, n in got.items():
         total[k] = total.get(k, 0) + n
+    for k, n in telemetry.variants().items():
+        PATH_VARIANTS[k] = PATH_VARIANTS.get(k, 0) + n
     for k, n in (telemetry.dtypes() if kinds is not None else {}).items():
         kinds[k] = kinds.get(k, 0) + n
     return out
@@ -2754,7 +2874,8 @@ def phase_sprites_parity():
             err = (got - want).abs().max().item()
             print(f"parity attention sprites {clips} clips {shape}: max_abs_err={err:.3e} "
                   f"(rtol {ATTN_RTOL}, atol {ATTN_ATOL}); {took}")
-            check(took == {"attention:resident": 1}, f"attention at {shape} launched {took}")
+            check(took == {f"attention:{attention_variant(shape)}": 1},
+                  f"attention at {shape} launched {took}")
             check(torch.allclose(got, want, rtol=ATTN_RTOL, atol=ATTN_ATOL),
                   f"attention kernel disagrees with its plain version at {shape}")
     for shape in axial_shapes(16)[:2]:
@@ -3448,7 +3569,8 @@ def phase_cub_attention(card: str, cub_dir: str):
         padded = 0.0 if mask is None else 1.0 - mask.float().mean().item()
         print(f"parity attention cub {label} {shape} (padded keys {padded:.3f}): "
               f"max_abs_err={err:.3e} (rtol {ATTN_RTOL}, atol {ATTN_ATOL}); {took}")
-        check(took == {"attention:resident": 1}, f"attention at {shape} launched {took}")
+        check(took == {f"attention:{attention_variant(shape)}": 1},
+              f"attention at {shape} launched {took}")
         check(torch.allclose(got, want, rtol=ATTN_RTOL, atol=ATTN_ATOL),
               f"attention kernel disagrees with its plain version at {shape}")
         parity[f"{label} {shape}"] = {"max_abs_err": err, "padded_keys": padded}
@@ -3712,7 +3834,8 @@ def vilanro_paths(data_dir: str) -> dict:
 
 def attention_case(card: str, g: torch.Generator, label: str, shape, mask, at: str):
     """Masked attention at ``shape`` (B, H, Tq, Tk, Dh) under the (B, Tk)
-    key ``mask`` or none, on the resident kernel against its plain version,
+    key ``mask`` or none, on the kernel its route gives the shape
+    (:func:`attention_variant`) against its plain version,
     forward and the Function's backward, then timed (device ms, graphed)
     beside the plain version, SDPA under the same mask and the bound over
     the keys each row needs (:func:`attention_bound`).  Returns (parity
@@ -3729,7 +3852,8 @@ def attention_case(card: str, g: torch.Generator, label: str, shape, mask, at: s
     padded = 0.0 if mask is None else 1.0 - mask.float().mean().item()
     print(f"parity attention {label} {shape} (padded keys {padded:.3f}): "
           f"max_abs_err={err:.3e} (rtol {ATTN_RTOL}, atol {ATTN_ATOL}); {took}")
-    check(took == {"attention:resident": 1}, f"attention at {shape} launched {took}")
+    check(took == {f"attention:{attention_variant(shape)}": 1},
+          f"attention at {shape} launched {took}")
     check(torch.allclose(got, want, rtol=ATTN_RTOL, atol=ATTN_ATOL),
           f"attention kernel disagrees with its plain version at {shape}")
     d_out = torch.randn(q.shape, generator=g, device="cuda")
@@ -5202,7 +5326,8 @@ def phase_bf16_kernels(card: str) -> dict:
     element and its operations at the fp32 rate; the tensor-core kernels'
     in their own unit, :func:`bf16_tc_bounds`), the plain version's ms and
     SDPA's bf16 time.  Returns ({kernel row name: [numbers]}, {tensor-core
-    kernel: its kernels-line entry at its main shape})."""
+    kernel, and the attention's short bf16 kernel: its kernels-line entry at
+    its main shape})."""
     import ctypes
     import torch.nn.functional as F
     from multimodal_vae_comparison_tpu_torch.ops.kernels import _build, attention, telemetry
@@ -5233,6 +5358,9 @@ def phase_bf16_kernels(card: str) -> dict:
               f"bf16 attention {label}: max_abs_err {err} against the fp32 kernel, "
               f"{err_plain} against the plain version")
         check(torch.equal(got, again), f"bf16 attention {label}: two launches differ")
+        expect = attention_variant((b, h, tq, tk, dh), torch.bfloat16)
+        check(took == {f"attention:{expect}:bfloat16": 1},
+              f"bf16 attention {label}: launched {took}, expected the {expect} kernel")
         yard = {}
         for name, fn in zip(("widened", "tc"), (widened_fn, tc_fn)):
             out = torch.empty_like(got)
@@ -5297,6 +5425,16 @@ def phase_bf16_kernels(card: str) -> dict:
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": tc_bound, "bound_by": tc_by,
                 "library_ms": sdpa, "library_is": row["library_is"],
                 "tc_mma_bound_ms": mma_bound, "widened_ms": widened_ms,
+                "fp32_kernel_ms": fp32_ms}
+        if label == "SPRITES decoder M*K*B 240, T":
+            entries["masked_attention_short_bf16"] = {
+                "name": "masked_attention_short_bf16", "route": "cuda",
+                "source": src + "attention.cu", "kernel": "masked_attention_short_bf16",
+                "replaces": ref + "attention.py:77", "inputs": "bf16",
+                "at": row["at"], "max_abs_err": err_plain, "max_abs_err_vs_fp32_kernel": err,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                "library_ms": sdpa, "library_is": row["library_is"],
+                "widened_ms": [widened_ms, widened_again], "tc_ms": [tc_ms, tc_again],
                 "fp32_kernel_ms": fp32_ms}
     b, h, t, dh = BF16_SPARSE_SHAPE
     q, k, v = (torch.randn(BF16_SPARSE_SHAPE, generator=g, device="cuda").bfloat16()
@@ -6540,7 +6678,9 @@ def main() -> int:
     phase_http(engine, handle)
     torch.cuda.synchronize()
     serve_launches, paths = telemetry.launches(), telemetry.summary()
-    print(f"serving path launches: {serve_launches}; dispatch: {paths}")
+    serve_variants = telemetry.variants()
+    print(f"serving path launches: {serve_launches}; dispatch: {paths}; variants "
+          f"{serve_variants}")
     # per request chunk: attention 2 (both), 1 (image only), 2 (text only);
     # poe 1 each
     chunks = sum(-(-n // BUCKETS[-1]) for n in SERVE_SIZES) + 1  # +1: seed repeat
@@ -6561,7 +6701,9 @@ def main() -> int:
     per_step = phase_train()
     torch.cuda.synchronize()
     train_launches, paths = telemetry.launches(), telemetry.summary()
-    print(f"training path launches: {train_launches}; dispatch: {paths}")
+    train_variants = telemetry.variants()
+    print(f"training path launches: {train_launches}; dispatch: {paths}; variants "
+          f"{train_variants}")
     check(not any(k.endswith(":plain") for k in paths),
           f"a plain version ran on the training path: {paths}")
     check(all(train_launches.get(k, 0) > 0
@@ -6700,7 +6842,7 @@ def main() -> int:
         print("seeded reruns " + json.dumps(seeded_numbers))
 
     # 11. times
-    rows = phase_times(engine, card)
+    rows, few_keys_entry = phase_times(engine, card)
     rows += phase_kernel_route_times(card)
     extra = phase_attention_backward_times(card)
     rows += phase_video_times(card)
@@ -6793,6 +6935,23 @@ def main() -> int:
               for part in ("", "_dq", "_dkv"))):
         check(n > 0, f"{name}: launched no time on its main path")
         primary.append(dict(bf16_tc_entries[name], launches=n, **{key: n}))
+    # the two kernels of the masked attention's short routes: the few-keys
+    # kernel's launches on the serving and training paths (the flagship text
+    # decoder's one latent key), the short bf16 kernel's on the bf16 configs'
+    # (SPRITES' 8 x 8 T-axis heads)
+    few = {"serving": serve_variants.get("attention:few_keys", 0),
+           "training": train_variants.get("attention:few_keys", 0),
+           "from config": PATH_VARIANTS.get("attention:few_keys", 0)}
+    check(all(few.values()), f"masked_attention_few_keys: launched no time on a main path: "
+                             f"{few}")
+    primary.append(dict(few_keys_entry, launches=sum(few.values()),
+                        launches_serving_path=few["serving"],
+                        launches_fixed_batch_training_path=few["training"],
+                        launches_from_config_paths=few["from config"]))
+    n = bf16_numbers["launches_by_variant"].get("attention:short_bf16:bfloat16", 0)
+    check(n > 0, "masked_attention_short_bf16: launched no time on its main path")
+    primary.append(dict(bf16_tc_entries["masked_attention_short_bf16"], launches=n,
+                        launches_bf16_from_config_path=n))
     # the launch floor beside the kernels that run at the cost of one launch:
     # an empty kernel launched as the attention kernel is, in this run
     for r in primary:

@@ -56,6 +56,26 @@ the bf16 tensor-core backward kernels at Dh 32, and the bf16 VideoGPTSparse
 step's p50 and profiled device ms, the sparse forward's, dq's and dk/dv's
 kernels apart (:func:`video_step_bf16`).
 
+Two arms edit nothing and A/B the masked attention's routes on the source
+as it stands (:func:`measure_routes`, ~1 min each), at every shape of its
+table: the route the launcher takes, its largest error against the plain
+version (within ``chip_smoke.ATTN_RTOL/ATOL``) and whether two launches give
+the same bits; then the launcher, the yardstick before it and the launcher
+again, in turns, beside the byte bound (:func:`chip_smoke.attention_bound`),
+an empty kernel launched as the route launches its kernel, the plain
+version and SDPA (device ms, graphed):
+
+* ``few_keys``: fp32 heads of at most 8 keys, the resident route
+  (``masked_attention_forward_resident``) against the few-keys kernel
+  (``masked_attention_few_keys``), which the yardstick
+  ``masked_attention_forward_few_keys`` also runs where the launcher does
+  not give it the shape (Tq <= Tk: SPRITES' fp32 8 x 8 heads);
+* ``short_bf16``: bf16 heads with both sides under 16, the widening route
+  (``masked_attention_forward_bf16_widened``) against the short kernel
+  (``masked_attention_short_bf16``), beside the tensor-core kernel
+  (``masked_attention_forward_bf16_tc``) and the fp32 launcher on the
+  widened inputs.
+
 The ``poe_`` variants edit ``csrc/poe.cu`` and are measured apart: the
 lattice forward and backward kernels' device ms (graphed, as above) at
 serving's one subset (2 experts of (128, 16)), the flagship lattice (2
@@ -126,6 +146,8 @@ VARIANTS = {
                       "block)) {", "if (false) {"),
                      (SPARSE, "if (tc_takes(address_bits(q, k, v, d_out, lse, delta, dk, dv), t, "
                       "dh, block)) {", "if (false) {")],
+    "few_keys": [],
+    "short_bf16": [],
     "poe_shipped": [],
     "poe_loads_in_order": [(POE, """    load_experts(ex, experts, i, mu, scale);
 #pragma unroll
@@ -297,6 +319,131 @@ def video_step_bf16(name: str) -> None:
           f"{sparse['fwd']:.3f} ms, dq {sparse['dq']:.3f} ms, dk/dv {sparse['dkv']:.3f} ms")
 
 
+# (label, (B, H, Tq, Tk, Dh), masked) of each route arm: the decoders'
+# cross-attention over 1 latent or 5 conditioning tokens, the flagship text
+# decoder's at the serving batch and bs 24, and SPRITES' fp32 8 x 8 T-axis
+# heads (the resident kernel's, on the other side of the crossover)
+FEW_KEYS_SHAPES = (
+    ("Dec_TransformerCond cond_always lattice", (448, 4, 100, 5, 32), True),
+    ("Dec_TransformerCond per subset, conditioned", (64, 4, 100, 5, 32), True),
+    ("Dec_TransformerCond per subset, z only", (64, 4, 100, 1, 32), False),
+    ("CUB DReG text decoder", (640, 2, 246, 1, 8), False),
+    ("VILANRO action decoder", (448, 2, 100, 1, 16), False),
+    ("VILANRO language decoder", (448, 2, 4, 1, 16), False),
+    ("Dec_TransformerIMG", (112, 4, 8, 1, 64), False),
+    ("flagship text decoder bs 24", (24, 2, 45, 1, 8), False),
+    ("flagship text decoder bs 256", (256, 2, 45, 1, 8), False),
+    ("SPRITES fp32 T axis, M*K*B 240", (61440, 2, 8, 8, 32), False),
+    ("SPRITES fp32 T axis, bs 16", (4096, 2, 8, 8, 32), False))
+SHORT_BF16_SHAPES = (
+    ("SPRITES bf16 T axis, M*K*B 240", (61440, 2, 8, 8, 32), False),
+    ("SPRITES bf16 T axis, bs 16", (4096, 2, 8, 8, 32), False))
+
+
+def measure_routes(name: str, root: str) -> None:
+    """The ``few_keys`` or ``short_bf16`` arm, in the variant's process."""
+    sys.path.insert(0, root)
+    import ctypes
+    import torch
+    import torch.nn.functional as F
+    import chip_smoke as cs
+    from multimodal_vae_comparison_tpu_torch.device import set_numerics
+    from multimodal_vae_comparison_tpu_torch.ops.kernels import _build, attention, telemetry
+    set_numerics()
+    card = cs.card_line()
+    built = _build.build(("attention",))
+    print(f"variant {name}: built in {max((t for t, _ in built.values()), default=0.0):.2f} s "
+          f"on {card}")
+    kernel = None
+    for line in built.get("attention", (0, ""))[1].splitlines():
+        if "Compiling entry function" in line:
+            kernel = next((k for k in ("few_keys", "short_bf16") if k in line), None)
+            entry = line.split("'")[1] if "'" in line else line
+        elif kernel and ("registers" in line or "spill" in line):
+            print(f"variant {name}: ptxas {entry}: {line.strip()}")
+    args = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+    yard = {n: _build.function("attention", n, args) for n in (
+        "masked_attention_forward_resident", "masked_attention_forward_few_keys",
+        "masked_attention_forward_bf16_widened", "masked_attention_forward_bf16_tc")}
+    empty = _build.function("attention", "empty_launch", [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    g = torch.Generator(device="cuda").manual_seed(23)
+    bf16 = name == "short_bf16"
+    for label, (b, h, tq, tk, dh), masked in (SHORT_BF16_SHAPES if bf16 else FEW_KEYS_SHAPES):
+        q, k, v, mask = cs.attention_inputs(g, b, h, tq, tk, dh, masked)
+        if bf16:
+            q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+        mptr = None if mask is None else mask.data_ptr()
+        telemetry.reset()
+        got = attention._launch(q, k, v, mask)
+        took = sorted(telemetry.dtypes())
+        again = attention._launch(q, k, v, mask)
+        plain = attention.attention_reference(q, k, v, mask)
+        torch.cuda.synchronize()
+        err = (got - plain).abs().max().item()
+        ok = torch.allclose(got, plain, rtol=cs.ATTN_RTOL, atol=cs.ATTN_ATOL)
+
+        def call(symbol):
+            out = torch.empty(q.shape, dtype=torch.float32, device="cuda")
+
+            def run():
+                _build.check("attention", yard[symbol](
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), mptr, out.data_ptr(), b, h, tq,
+                    tk, dh, dh ** -0.5, torch.cuda.current_stream().cuda_stream))
+            run()
+            torch.cuda.synchronize()
+            yerr = (out - plain).abs().max().item()
+            return run, yerr, torch.allclose(out, plain, rtol=cs.ATTN_RTOL, atol=cs.ATTN_ATOL)
+
+        def floor(resident):
+            return cs.graph_ms(lambda: _build.check("attention", empty(
+                b, h, tq, tk, dh, int(bf16), int(resident),
+                torch.cuda.current_stream().cuda_stream)))
+
+        old_sym = ("masked_attention_forward_bf16_widened" if bf16
+                   else "masked_attention_forward_resident")
+        old_run, old_err, old_ok = call(old_sym)
+        launcher = lambda: attention._launch(q, k, v, mask)  # noqa: E731
+        ms = cs.graph_ms(launcher)
+        old_ms = cs.graph_ms(old_run)
+        old_again = cs.graph_ms(old_run)
+        ms_again = cs.graph_ms(launcher)
+        extra = ""
+        if bf16:
+            tc_run, tc_err, tc_ok = call("masked_attention_forward_bf16_tc")
+            wide = (q.float(), k.float(), v.float())
+            extra = (f"; tensor-core kernel {cs.graph_ms(tc_run):.5f} ms (max_abs_err "
+                     f"{tc_err:.3e}, within {tc_ok}), fp32 launcher on the widened inputs "
+                     f"{cs.graph_ms(lambda: attention._launch(*wide, mask)):.5f} ms")
+            keys = b * tk if mask is None else cs.attended_keys(tk, mask)
+            bound, by = cs.bound_ms(2 * (b * h * tq * dh + 2 * h * keys * dh)
+                                    + 4 * b * h * tq * dh + (0 if mask is None else b * tk),
+                                    4 * h * tq * keys * dh + 4 * h * tq * keys)
+        else:
+            if "few_keys" not in took[0]:
+                fk_run, fk_err, fk_ok = call("masked_attention_forward_few_keys")
+                extra = (f"; few-keys kernel (yardstick) {cs.graph_ms(fk_run):.5f} ms "
+                         f"(max_abs_err {fk_err:.3e}, within {fk_ok})")
+            bound, by = cs.attention_bound(b, h, tq, tk, dh, mask)
+        plain_ms = cs.graph_ms(lambda: attention.attention_reference(q, k, v, mask))
+        sdpa_mask = None if mask is None else torch.zeros(
+            b, 1, 1, tk, device="cuda", dtype=q.dtype).masked_fill(
+            ~mask[:, None, None, :], float("-inf"))
+        if sdpa_mask is not None:
+            sdpa_mask[0] = 0.0   # SDPA's all-masked row would be NaN; its time is what counts
+        try:
+            sdpa = format(cs.graph_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=sdpa_mask)), ".5f")
+        except RuntimeError:   # the library's limits, not the port's
+            sdpa = "refused"
+        print(f"variant {name}: {label} {(b, h, tq, tk, dh)}{' bf16' if bf16 else ''}: "
+              f"{took}; max_abs_err {err:.3e} within tolerance {ok}, same bits twice "
+              f"{torch.equal(got, again)}; launcher {ms:.5f} / {ms_again:.5f} ms, "
+              f"{old_sym[len('masked_attention_forward_'):]} route {old_ms:.5f} / "
+              f"{old_again:.5f} ms (max_abs_err {old_err:.3e}, within {old_ok}){extra}; bound "
+              f"{bound:.6f} ms ({by}); empty launch {floor(False):.5f} ms (resident's "
+              f"{floor(True):.5f}); plain {plain_ms:.5f} ms; SDPA {sdpa} ms on {card}")
+
+
 def _per_subset_poe():
     """The PoE Function of the old route: the kernel on one subset's stacked
     (E, ..., D) experts, the closed form of ``_poe_bwd`` in torch ops."""
@@ -425,7 +572,8 @@ def measure_poe(name: str, root: str) -> None:
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--measure":
         name = sys.argv[2]
-        (measure_poe if name.startswith("poe_") else measure)(
+        (measure_poe if name.startswith("poe_")
+         else measure_routes if name in ("few_keys", "short_bf16") else measure)(
             name, os.path.join(HERE, "build", "archive", f"variant_{name}"))
         return 0
     names = sys.argv[1:] or list(VARIANTS)

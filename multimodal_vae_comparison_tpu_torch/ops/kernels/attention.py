@@ -1,24 +1,32 @@
 """Masked attention forward: CUDA kernel and its plain version.
 
 Counterpart of ``ops/pallas/attention.py`` (``masked_flash_attention``).
-The kernels are in ``csrc/attention.cu``, whose launcher picks by shape: a
-head whose K and V fit shared memory is computed whole by one thread block
-(``"resident"``), a larger one in chunks of keys with an online softmax
-(``"chunked"``); on bf16 inputs with 16 query rows or 16 keys or more (Dh
-a multiple of 8 up to 64) a kernel on the bf16 tensor cores
-(``"tc_bf16"``) that skips the key tiles whose keys are all masked.  :func:`attention_reference` is the same function in plain
-PyTorch.  :func:`masked_attention` is a
-``torch.autograd.Function`` whose forward launches the kernel for CUDA
-tensors and takes the plain version only for CPU tensors.  Masking is
-additive with ``NEG_INF`` per key, as in the TPU kernel, so a row whose keys
-are all masked gets the uniform average of V.
+The kernels are in ``csrc/attention.cu``, whose launcher picks by shape:
+a head with more query rows than keys and at most 8 keys (the decoders'
+cross-attention over 1 latent or a few conditioning tokens) goes to a
+kernel that maps a query row to a thread and keeps its scores in registers
+(``"few_keys"``); a head whose K and V fit shared memory is computed whole
+by one thread block (``"resident"``), a larger one in chunks of keys with
+an online softmax (``"chunked"``).  On bf16 inputs, with 16 query rows or
+16 keys or more (Dh a multiple of 8 up to 64), a kernel on the bf16 tensor
+cores (``"tc_bf16"``) that skips the key tiles whose keys are all masked;
+with both sides under 16 (SPRITES' 8 x 8 axial heads; Dh a multiple of 8
+up to 64, 16-byte aligned inputs) a kernel that gives each head a warp and
+copies its bf16 rows as they are (``"short_bf16"``); else the fp32 route on
+the bf16 inputs.  :func:`attention_reference` is the same function in
+plain PyTorch.  :func:`masked_attention` is a ``torch.autograd.Function``
+whose forward launches the kernel for CUDA tensors and takes the plain
+version only for CPU tensors.  Masking is additive with ``NEG_INF`` per
+key, as in the TPU kernel, so a row whose keys are all masked gets the
+uniform average of V.
 
 q, k and v come in fp32 or bf16 (``precision: bf16``); the output is fp32
-either way.  The resident and chunked kernels load bf16 and widen it to
-fp32 on the way into shared memory, which is exact, and then run the fp32
-arithmetic; the tensor-core kernel multiplies q and k as they are (exact in
-fp32) and P, in two bf16 planes, by v.  The plain version widens.  The caller casts the output to its compute dtype, as
-the reference's ``MultiHeadAttention`` does.
+either way.  The resident, chunked, few-keys and short kernels load bf16
+and widen it to fp32 (on the way into shared memory or out of it), which
+is exact, and then run the fp32 arithmetic; the tensor-core kernel
+multiplies q and k as they are (exact in fp32) and P, in two bf16 planes,
+by v.  The plain version widens.  The caller casts the output to its
+compute dtype, as the reference's ``MultiHeadAttention`` does.
 
 The backward mirrors the reference's ``_flash_bwd``, which recomputes the
 attention densely rather than running a kernel: P is recomputed from q, k
@@ -44,7 +52,8 @@ KERNEL = "attention"
 NEG_INF = -1e30
 MAX_HEAD_DIM = 128   # csrc/attention.cu MAX_DH
 _ROWS = 8            # csrc/attention.cu CHUNK_ROWS: query rows per block, chunked path
-VARIANTS = ("resident", "chunked", "tc_bf16")   # csrc/attention.cu Variant
+# csrc/attention.cu Variant
+VARIANTS = ("resident", "chunked", "tc_bf16", "few_keys", "short_bf16")
 # the launcher of each input dtype: masked_attention_forward[_bf16](q, k, v,
 # key_mask, out, B, H, Tq, Tk, Dh, scale, stream, &variant)
 LAUNCHERS = {torch.float32: "masked_attention_forward",

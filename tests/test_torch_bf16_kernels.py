@@ -357,8 +357,9 @@ def test_two_bf16_planes_keep_sixteen_bits():
 
 def test_tensor_core_variants_are_named():
     """Each wrapper names the bf16 tensor-core kernel's variant, so the
-    telemetry shows which kernel ran."""
-    assert tattn.VARIANTS == ("resident", "chunked", "tc_bf16")
+    telemetry shows which kernel ran (the attention's few-keys and short
+    bf16 kernels after it)."""
+    assert tattn.VARIANTS == ("resident", "chunked", "tc_bf16", "few_keys", "short_bf16")
     assert tsparse.VARIANTS == ("mma", "fma", "tc_bf16")
 
 

@@ -65,11 +65,11 @@ def _qkv(seed, b, h, tq, tk, dh, masked, dev):
 
 @pytest.mark.parametrize("b,h,tq,tk,dh,masked,variant", [
     (128, 2, 45, 45, 32, True, "resident"),    # encoder self-attention, bucket 128
-    (128, 2, 45, 1, 8, False, "resident"),     # decoder cross-attention
+    (128, 2, 45, 1, 8, False, "few_keys"),     # decoder cross-attention
     (4, 2, 130, 130, 16, True, "resident"),    # few heads: split by query rows
     (3, 1, 1, 7, 4, True, "resident"),         # one query row
     (2, 2, 9, 33, 128, False, "resident"),     # widest head
-    (3, 2, 9, 1, 8, True, "resident"),         # one key, masked in one row
+    (3, 2, 9, 1, 8, True, "few_keys"),         # one key, masked in one row
     (3, 2, 9, 31, 6, True, "resident"),        # one key per lane, Dh % 4 != 0
     (3, 2, 9, 32, 6, False, "resident"),
     (3, 2, 9, 33, 6, True, "resident"),        # two keys per lane
@@ -868,19 +868,20 @@ def _cub_masks(b, seed):
     return np.arange(246)[None, :] < lengths
 
 
-@pytest.mark.parametrize("b,tk,dh,masked", [
-    (32, 246, 32, True),     # cub_r2's text encoder: self-attention over captions
-    (16, 246, 32, True),     # config_cub's
-    (640, 1, 8, False)])     # cub_r2's text decoder on M*K*B = 640 latents
-def test_attention_at_cub_caption_length_matches_plain(cuda, b, tk, dh, masked):
-    """Masked attention at CUB's 246-character captions, on the resident
-    kernel (Tk <= 256 keys, 8 a lane): forward and the Function's backward
-    against autograd through the plain version."""
+@pytest.mark.parametrize("b,tk,dh,masked,variant", [
+    (32, 246, 32, True, "resident"),     # cub_r2's text encoder: self-attention over captions
+    (16, 246, 32, True, "resident"),     # config_cub's
+    (640, 1, 8, False, "few_keys")])     # cub_r2's text decoder on M*K*B = 640 latents
+def test_attention_at_cub_caption_length_matches_plain(cuda, b, tk, dh, masked, variant):
+    """Masked attention at CUB's 246-character captions, the encoders on the
+    resident kernel (Tk <= 256 keys, 8 a lane), the decoder's one key on the
+    few-keys kernel: forward and the Function's backward against autograd
+    through the plain version."""
     q, k, v, _ = _qkv(21, b, 2, 246, tk, dh, False, cuda)
     mask = torch.from_numpy(_cub_masks(b, 22)).to(cuda) if masked else None
     telemetry.reset()
     got = tattn.masked_attention(q, k, v, mask)
-    assert telemetry.variants() == {"attention:resident": 1}
+    assert telemetry.variants() == {f"attention:{variant}": 1}
     torch.testing.assert_close(got, tattn.attention_reference(q, k, v, mask), **ATTN_TOL)
     d_out = torch.randn(q.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(3))
     leaves = [[x.detach().clone().requires_grad_() for x in (q, k, v)] for _ in range(2)]
@@ -963,15 +964,17 @@ def _vilanro(tmp_path, episodes, **options):
                    **options)["out_dir"]
 
 
-@pytest.mark.parametrize("b,tq,tk,dh,masked", [
-    (64, 100, 100, 16, True),   # the action encoder: trajectories, ~93 % of keys padding
-    (64, 4, 4, 32, True),       # the language encoder
-    (448, 100, 1, 16, False),   # the action decoder on S*K*B = 7 * 64 latents
-    (448, 4, 1, 16, False)],    # the language decoder
+@pytest.mark.parametrize("b,tq,tk,dh,masked,variant", [
+    (64, 100, 100, 16, True, "resident"),   # the action encoder: ~93 % of keys padding
+    (64, 4, 4, 32, True, "resident"),       # the language encoder
+    (448, 100, 1, 16, False, "few_keys"),   # the action decoder on S*K*B = 7 * 64 latents
+    (448, 4, 1, 16, False, "few_keys")],    # the language decoder
     ids=["action-encoder", "language-encoder", "action-decoder", "language-decoder"])
-def test_attention_at_vilanro_shapes_matches_plain(cuda, tmp_path, b, tq, tk, dh, masked):
-    """Masked attention at VILANRO's shapes (head dim 16 at 32 latents), on
-    the resident kernel, masked by the collected trajectories' and
+def test_attention_at_vilanro_shapes_matches_plain(cuda, tmp_path, b, tq, tk, dh, masked,
+                                                   variant):
+    """Masked attention at VILANRO's shapes (head dim 16 at 32 latents), the
+    encoders on the resident kernel and the decoders' one key on the
+    few-keys kernel, masked by the collected trajectories' and
     instructions' own padding: forward and the Function's backward against
     autograd through the plain version."""
     import os
@@ -989,7 +992,7 @@ def test_attention_at_vilanro_shapes_matches_plain(cuda, tmp_path, b, tq, tk, dh
             assert mask.float().mean().item() < 0.1
     telemetry.reset()
     got = tattn.masked_attention(q, k, v, mask)
-    assert telemetry.variants() == {"attention:resident": 1}
+    assert telemetry.variants() == {f"attention:{variant}": 1}
     torch.testing.assert_close(got, tattn.attention_reference(q, k, v, mask), **ATTN_TOL)
     d_out = torch.randn(q.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(4))
     leaves = [[x.detach().clone().requires_grad_() for x in (q, k, v)] for _ in range(2)]
@@ -1066,7 +1069,7 @@ def test_attention_at_transformer_cond_shapes_matches_plain(cuda, tmp_path, rows
     """Masked attention at Dec_TransformerCond's cross-attention (d_model
     128, 4 heads, head dim 32, 100 waypoint queries), its keys the z token
     and a collected instruction's 4 words under their padding (z always
-    kept), on the resident kernel: forward and the Function's backward
+    kept), on the few-keys kernel: forward and the Function's backward
     against autograd through the plain version."""
     import os
     from multimodal_vae_comparison_tpu_torch.data.datasets import VILANRO
@@ -1081,7 +1084,7 @@ def test_attention_at_transformer_cond_shapes_matches_plain(cuda, tmp_path, rows
         assert mask.shape == (rows, tk) and mask[:, 0].all()
     telemetry.reset()
     got = tattn.masked_attention(q, k, v, mask)
-    assert telemetry.variants() == {"attention:resident": 1}
+    assert telemetry.variants() == {"attention:few_keys": 1}
     torch.testing.assert_close(got, tattn.attention_reference(q, k, v, mask), **ATTN_TOL)
     d_out = torch.randn(q.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(5))
     leaves = [[x.detach().clone().requires_grad_() for x in (q, k, v)] for _ in range(2)]
@@ -1234,22 +1237,22 @@ def test_laplace_dreg_step_on_the_card_matches_the_cpu(cuda):
     assert worst <= 1.0, f"{name}: {worst:.3f} of its limit"
 
 
-@pytest.mark.parametrize("b,h,tq,tk,dh,masked", [
-    (24, 8, 17, 17, 32, False),    # Enc_VIT: 16 patch tokens and cls, width 256
-    (16, 4, 8, 8, 64, True),       # Enc_TransformerIMG over 8 frames, d_model 256
-    (112, 4, 8, 1, 64, False),     # Dec_TransformerIMG's cross-attention, 7 subsets
-    (3, 4, 45, 45, 64, True)],     # head dim 64 at the text length
+@pytest.mark.parametrize("b,h,tq,tk,dh,masked,variant", [
+    (24, 8, 17, 17, 32, False, "resident"),    # Enc_VIT: 16 patch tokens and cls, width 256
+    (16, 4, 8, 8, 64, True, "resident"),       # Enc_TransformerIMG over 8 frames, d_model 256
+    (112, 4, 8, 1, 64, False, "few_keys"),     # Dec_TransformerIMG's cross-attention, 7 subsets
+    (3, 4, 45, 45, 64, True, "resident")],     # head dim 64 at the text length
     ids=["vit", "transformer-img-enc", "transformer-img-dec", "dh64-text"])
 def test_attention_at_head_dim_64_and_the_vit_shape_matches_plain(cuda, b, h, tq, tk, dh,
-                                                                  masked):
+                                                                  masked, variant):
     """Masked attention at the new nets' shapes, head dim 64 among them, on
-    the resident kernel: forward and the Function's backward against
-    autograd through the plain version (a partly padded key mask, one row
-    with every key masked)."""
+    the resident kernel (the decoder's one key on the few-keys kernel):
+    forward and the Function's backward against autograd through the plain
+    version (a partly padded key mask, one row with every key masked)."""
     q, k, v, mask = _qkv(64, b, h, tq, tk, dh, masked, cuda)
     telemetry.reset()
     got = tattn.masked_attention(q, k, v, mask)
-    assert telemetry.variants() == {"attention:resident": 1}
+    assert telemetry.variants() == {f"attention:{variant}": 1}
     torch.testing.assert_close(got, tattn.attention_reference(q, k, v, mask), **ATTN_TOL)
     d_out = torch.randn(q.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(6))
     leaves = [[x.detach().clone().requires_grad_() for x in (q, k, v)] for _ in range(2)]
@@ -1353,15 +1356,16 @@ def _masked_tiles(mask):
     (3, 2, 40, 100, 8, True, "tc_bf16"),      # Dh 8; Tk not a multiple of the key tile
     (3, 2, 70, 130, 64, False, "tc_bf16"),    # no mask
     (4, 2, 30, 200, 32, "tiles", "tc_bf16"),  # whole key tiles masked
-    (64, 2, 8, 8, 32, False, "resident"),     # Tq and Tk under the crossover (SPRITES' T axis)
+    (64, 2, 8, 8, 32, False, "short_bf16"),   # Tq and Tk under the crossover (SPRITES' T axis)
     (64, 2, 8, 16, 32, True, "tc_bf16"),      # Tk at the crossover
 ], ids=["flagship", "cub-encoder", "cub-decoder", "tc-dh64", "chunked", "dh6", "vilanro",
         "tc-dh8", "tc-unmasked", "masked-tiles", "under-crossover", "at-crossover"])
 def test_bf16_attention_launcher_equals_the_fp32_kernel_on_widened_inputs(
         cuda, b, h, tq, tk, dh, masked, variant):
     """The bf16 launcher takes the named variant (the tensor-core kernel
-    where Tq or Tk is 16 or more, Dh % 8 == 0 and Dh <= 64, else the
-    kernels on widened inputs) and gives an fp32 output within the
+    where Tq or Tk is 16 or more, Dh % 8 == 0 and Dh <= 64, the short
+    kernel where both are under 16, else the kernels on widened inputs)
+    and gives an fp32 output within the
     tolerance the fp32 kernel meets against its plain version, of the fp32
     kernel on the widened inputs and of the plain version, the uniform
     average of V for the batch element with every key masked, and the same
@@ -1602,3 +1606,148 @@ def test_two_gloo_ranks_on_the_card_sum_to_the_one_process_step(cuda):
             g = p.grad.cpu().numpy()
             err = np.abs(got["grads"][name] - g).max()
             assert err <= 1e-4 * np.abs(g).max() + 1e-5, f"{name}: {err:.3e}"
+
+
+# -- the few-keys and short bf16 attention kernels --------------------------------------
+
+
+def _off_by_one(x):
+    """``x`` in contiguous storage that starts one element past a 16-byte line."""
+    flat = torch.empty(x.numel() + 1, device=x.device, dtype=x.dtype)
+    flat[1:] = x.reshape(-1)
+    return flat[1:].view(x.shape)
+
+
+def _launched(q, k, v, mask, variant):
+    """The launcher's output at (q, k, v, mask): it took ``variant`` once,
+    and a second launch gives the same bits (NaN included)."""
+    telemetry.reset()
+    got = tattn._launch(q, k, v, mask)
+    assert telemetry.dtypes() == {f"attention:{variant}:{str(q.dtype)[6:]}": 1}
+    again = tattn._launch(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    return got
+
+
+@pytest.mark.parametrize("b,h,tq,tk,dh,masked", [
+    (448, 4, 100, 5, 32, True),    # Dec_TransformerCond, a cond_always lattice's decode
+    (64, 4, 100, 5, 32, True),     # Dec_TransformerCond per subset, with the instruction
+    (64, 4, 100, 1, 32, False),    # and the z token alone
+    (640, 2, 246, 1, 8, False),    # CUB's DReG text decoder
+    (448, 2, 100, 1, 16, False),   # VILANRO's action decoder
+    (448, 2, 4, 1, 16, False),     # VILANRO's language decoder
+    (112, 4, 8, 1, 64, False),     # Dec_TransformerIMG
+    (24, 2, 45, 1, 8, False),      # the flagship text decoder at bs 24
+    (256, 2, 45, 1, 8, False)],    # and at the serving batch
+    ids=["cond-lattice", "cond-subset", "cond-z-only", "cub-decoder", "vilanro-action",
+         "vilanro-language", "transformer-img-dec", "flagship-24", "flagship-256"])
+def test_few_keys_kernel_at_the_decoders_shapes_matches_plain(cuda, b, h, tq, tk, dh, masked):
+    """The fp32 launcher gives every head of at most 8 keys under more query
+    rows to the few-keys kernel, within the kernel tolerance of the plain
+    version, the same bits twice, and the uniform average of V for the
+    batch element whose keys are all masked."""
+    q, k, v, mask = _qkv(50, b, h, tq, tk, dh, masked, cuda)
+    got = _launched(q, k, v, mask, "few_keys")
+    torch.testing.assert_close(got, tattn.attention_reference(q, k, v, mask), **ATTN_TOL)
+    if masked:
+        uniform = v[0].mean(dim=1, keepdim=True).expand_as(got[0])
+        torch.testing.assert_close(got[0], uniform, **ATTN_TOL)
+
+
+@pytest.mark.parametrize("b", [61440, 4096], ids=["sprites-mkb-240", "sprites-bs-16"])
+def test_short_bf16_kernel_at_the_sprites_t_axis_matches_plain(cuda, b):
+    """SPRITES' (B, 2, 8, 8, 32) T-axis heads on bf16 inputs take the short
+    kernel: within the kernel tolerance of the plain version and of the fp32
+    kernel on the widened inputs, the same bits twice."""
+    q, k, v, _ = _qkv(51, b, 2, 8, 8, 32, False, cuda)
+    q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    got = _launched(q, k, v, None, "short_bf16")
+    torch.testing.assert_close(got, tattn.attention_reference(q, k, v), **ATTN_TOL)
+    torch.testing.assert_close(got, tattn._launch(q.float(), k.float(), v.float(), None),
+                               **ATTN_TOL)
+
+
+@pytest.mark.parametrize("b,h,tq,tk,dh,dtype,unaligned,variant", [
+    (5, 2, 9, 8, 32, torch.float32, False, "few_keys"),      # the largest Tk, Tq just over it
+    (5, 2, 8, 9, 32, torch.float32, False, "resident"),      # Tk over the few-keys kernel's 8
+    (5, 2, 8, 8, 32, torch.float32, False, "resident"),      # Tq = Tk: SPRITES' fp32 heads
+    (3, 2, 20, 3, 6, torch.float32, False, "few_keys"),      # Dh % 4 != 0: loads by element
+    (3, 2, 20, 3, 12, torch.bfloat16, False, "few_keys"),    # bf16, Dh % 8 != 0, Tq >= 16
+    (5, 2, 33, 4, 16, torch.float32, True, "few_keys"),      # inputs off a 16-byte line
+    (5, 2, 12, 3, 32, torch.bfloat16, True, "few_keys"),     # bf16 off a 16-byte line
+    (6, 2, 8, 8, 32, torch.bfloat16, True, "resident"),      # and Tq = Tk: widened
+    (6, 4, 40, 3, 64, torch.float32, False, "few_keys"),     # Dh 64: 2 lanes a row
+    (3, 2, 20, 2, 128, torch.float32, False, "few_keys"),    # Dh 128: 4 lanes a row
+    (3, 2, 20, 2, 80, torch.float32, False, "few_keys"),     # Dh 80: the 4th lane holds none
+    (3, 2, 333, 1, 8, torch.float32, False, "few_keys"),     # rows not a multiple of a block's
+    (70, 3, 2, 1, 16, torch.float32, False, "few_keys"),     # 64 heads in a block
+    (10, 2, 12, 9, 64, torch.bfloat16, False, "short_bf16"),  # Dh 64, 16 lanes a row
+    (9, 2, 7, 5, 16, torch.bfloat16, False, "short_bf16"),   # a partial pass; 18 heads
+    (7, 2, 15, 15, 8, torch.bfloat16, False, "short_bf16"),  # both sides at 15, Dh 8
+], ids=["tk8", "tk9", "fp32-8x8", "dh6", "bf16-dh12", "unaligned", "bf16-unaligned",
+        "bf16-unaligned-8x8", "dh64", "dh128", "dh80", "ragged-rows", "packed-heads",
+        "short-dh64", "short-partial", "short-15x15"])
+@pytest.mark.parametrize("masked", [True, False], ids=["masked", "unmasked"])
+def test_few_keys_and_short_kernels_at_their_edges(cuda, b, h, tq, tk, dh, dtype, unaligned,
+                                                   variant, masked):
+    """The two kernels' routes and edges: the variant the launcher takes on
+    each side of the crossovers, within the kernel tolerance of the plain
+    version, the same bits twice, and the uniform average of V for the batch
+    element with every key masked."""
+    q, k, v, mask = _qkv(52, b, h, tq, tk, dh, masked, cuda)
+    q, k, v = (x.to(dtype) for x in (q, k, v))
+    if unaligned:
+        q, k, v = (_off_by_one(x) for x in (q, k, v))
+        assert q.data_ptr() % 16 != 0 and q.is_contiguous()
+    got = _launched(q, k, v, mask, variant)
+    torch.testing.assert_close(got, tattn.attention_reference(q, k, v, mask), **ATTN_TOL)
+    if masked:
+        uniform = v[0].float().mean(dim=1, keepdim=True).expand_as(got[0])
+        torch.testing.assert_close(got[0], uniform, **ATTN_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_few_keys_kernel_gives_v_at_one_key(cuda, dtype):
+    """At one key the softmax is 1 whether the key is visible or masked, so
+    the output is exactly v, row for row (bf16 v widened exactly)."""
+    q, k, v, mask = _qkv(53, 6, 2, 9, 1, 12, True, cuda)
+    mask[1:3] = True
+    q, k, v = (x.to(dtype) for x in (q, k, v))
+    got = _launched(q, k, v, mask, "few_keys")
+    assert torch.equal(got, v.float().expand_as(got))
+
+
+def test_few_keys_kernel_gives_nan_where_q_is_nan(cuda):
+    """Every score is computed from q: a NaN in a query row makes that row
+    NaN, as the plain version does, and leaves every other row finite."""
+    q, k, v, _ = _qkv(54, 4, 2, 30, 5, 32, False, cuda)
+    q[1, 0, 3, 7] = float("nan")
+    got = _launched(q, k, v, None, "few_keys")
+    want = tattn.attention_reference(q, k, v)
+    assert torch.isnan(got[1, 0, 3]).all() and torch.isnan(want[1, 0, 3]).all()
+    got[1, 0, 3] = want[1, 0, 3] = 0.0
+    torch.testing.assert_close(got, want, **ATTN_TOL)
+
+
+def test_route_yardsticks_agree(cuda):
+    """The yardsticks of the two new routes, which the port never calls: the
+    resident route on fp32 at a few-keys shape, the few-keys kernel at a
+    Tq = Tk shape the launcher keeps resident, and the widening route on
+    bf16 at a short shape, each within the tolerance of the launcher."""
+    import ctypes
+    from multimodal_vae_comparison_tpu_torch.ops.kernels import _build
+    args = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+    for tq, tk, dtype, symbol in (
+            (45, 1, torch.float32, "masked_attention_forward_resident"),
+            (8, 8, torch.float32, "masked_attention_forward_few_keys"),
+            (8, 8, torch.bfloat16, "masked_attention_forward_bf16_widened")):
+        q, k, v, mask = _qkv(55, 8, 2, tq, tk, 32, True, cuda)
+        q, k, v = (x.to(dtype) for x in (q, k, v))
+        fn = _build.function("attention", symbol, args)
+        out = torch.empty(q.shape, dtype=torch.float32, device=cuda)
+        _build.check("attention", fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                     mask.data_ptr(), out.data_ptr(), 8, 2, tq, tk, 32,
+                                     32 ** -0.5, torch.cuda.current_stream().cuda_stream))
+        torch.testing.assert_close(out, tattn._launch(q, k, v, mask), **ATTN_TOL)
