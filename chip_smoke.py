@@ -474,17 +474,46 @@ def busy_ms(intervals):
     return total / 1e3
 
 
+def resident_fits(b, h, tq, tk, dh) -> bool:
+    """Whether csrc/attention.cu's plan_resident gives the head to the
+    resident kernel: at most 256 keys (8 a lane) and K, V, Q's rows and the
+    probabilities within 200 KB of shared memory at its row split."""
+    kpl = -(-tk // 32)
+    if kpl > 8:
+        return False
+    kpl = kpl if kpl <= 2 else 4 if kpl <= 4 else 8
+    dh4, tk4, tkp = (dh + 3) & ~3, (tk + 3) & ~3, kpl * 32
+    kstride = 4 * (((dh + 3) >> 2) | 1)
+    bh, sms = b * h, 132
+    split = min(1 if bh >= sms else -(-2 * sms // bh), -(-tq // 16))
+    while True:
+        rows = -(-(-(-tq // split)) // 4) * 4
+        nsplit, nwarps = -(-tq // rows), min(rows // 4, 16)
+        smem = 4 * (tk * kstride + tk4 * dh4 + rows * dh4 + tkp + nwarps * 4 * tkp)
+        if smem <= 200 * 1024 or rows == 4:
+            return smem <= 200 * 1024 and nsplit <= 65535
+        split *= 2
+
+
 def attention_variant(shape, dtype=torch.float32) -> str:
     """The kernel csrc/attention.cu's launcher takes at a model path's
-    (B, H, Tq, Tk, Dh) on 16-byte aligned ``dtype`` inputs whose heads the
-    resident kernel holds (Tk <= 256): on bf16 the tensor-core kernel from a
-    side of 16 (Dh % 8 == 0, Dh <= 64), under it the short kernel; else the
-    few-keys kernel for at most 8 keys under more query rows, or the
-    resident kernel."""
-    _, _, tq, tk, dh = shape
-    if dtype == torch.bfloat16 and dh % 8 == 0 and dh <= 64:
-        return "tc_bf16" if tq >= 16 or tk >= 16 else "short_bf16"
-    return "few_keys" if tk <= 8 and tq > tk else "resident"
+    (B, H, Tq, Tk, Dh) on 16-byte aligned ``dtype`` inputs: on bf16 the
+    few-keys kernel for one key under more query rows, else the tensor-core
+    kernel from a side of 16 (Dh % 8 == 0, Dh <= 64, Tk <= 8192), under it
+    the short kernel; else (fp32, or bf16 widened) the few-keys kernel for
+    at most 8 keys, the resident kernel where :func:`resident_fits`, or the
+    chunked one."""
+    b, h, tq, tk, dh = shape
+    if dtype == torch.bfloat16:
+        if tk == 1 and tq > 1:
+            return "few_keys"
+        if dh % 8 == 0 and dh <= 64 and (tq >= 16 or tk >= 16):
+            return "tc_bf16" if tk <= 8192 else "chunked"
+        if dh % 8 == 0 and dh <= 64:
+            return "short_bf16"
+    if tk <= 8:
+        return "few_keys"
+    return "resident" if resident_fits(b, h, tq, tk, dh) else "chunked"
 
 
 def attention_inputs(g: torch.Generator, b, h, tq, tk, dh, masked: bool):
@@ -499,6 +528,71 @@ def attention_inputs(g: torch.Generator, b, h, tq, tk, dh, masked: bool):
         mask[0] = False  # one row with every key masked
         mask = mask.contiguous()
     return q, k, v, mask
+
+
+def dead_key_tiles(mask: torch.Tensor) -> torch.Tensor:
+    """(B, Tk) bool: the keys that the resident and chunked attention
+    kernels skip, those of the 32-key tiles (keys 32c .. 32c + 31) whose
+    keys are all masked in a batch element that has a visible key."""
+    b, tk = mask.shape
+    tiles = -(-tk // 32)
+    padded = torch.zeros(b, tiles * 32, dtype=torch.bool, device=mask.device)
+    padded[:, :tk] = mask
+    live = padded.view(b, tiles, 32).any(-1).repeat_interleave(32, dim=1)[:, :tk]
+    return ~live & mask.any(dim=1, keepdim=True)
+
+
+def attention_yardstick(symbol: str, q, k, v, mask):
+    """An exported entry point of csrc/attention.cu that the port never
+    calls (the launcher's arguments less ``variant``), at (q, k, v, mask):
+    returns (run, out), ``run`` launching it into ``out`` on the current
+    stream."""
+    import ctypes
+    import math
+    from multimodal_vae_comparison_tpu_torch.ops.kernels import _build
+    fn = _build.function("attention", symbol, [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                         + [ctypes.c_float, ctypes.c_void_p])
+    b, h, tq, dh = q.shape
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+
+    def run():
+        _build.check("attention", fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), None if mask is None else mask.data_ptr(),
+            out.data_ptr(), b, h, tq, k.shape[2], dh, 1.0 / math.sqrt(dh),
+            torch.cuda.current_stream().cuda_stream))
+    return run, out
+
+
+def padded_tiles_check(card: str, label: str, q, k, v, mask, got) -> dict:
+    """The skipping of all-masked key tiles at a key-padded fp32 shape of
+    the resident or chunked route, ``got`` being the launcher's output:
+    equal (``torch.equal``) to the dense design that skips nothing
+    (``masked_attention_forward_dense``) and to the launcher's output with
+    the dead tiles' K and V rows set to NaN (skipped, not multiplied by 0);
+    then the launcher and the dense design timed in turns (device ms,
+    graphed).  Returns the numbers."""
+    from multimodal_vae_comparison_tpu_torch.ops.kernels import attention
+    dense_run, dense = attention_yardstick("masked_attention_forward_dense", q, k, v, mask)
+    dense_run()
+    dead = dead_key_tiles(mask)
+    hole = dead[:, None, :, None]
+    poisoned = attention._launch(q, k.masked_fill(hole, float("nan")),
+                                 v.masked_fill(hole, float("nan")), mask)
+    torch.cuda.synchronize()
+    check(torch.equal(got, dense), f"attention {label}: the tile skipping differs from the "
+          f"dense design by {(got - dense).abs().max().item():.3e}")
+    check(torch.equal(got, poisoned), f"attention {label}: NaN in the dead key tiles reached "
+          f"the output ({int(torch.isnan(poisoned).sum())} NaN)")
+    launcher = lambda: attention._launch(q, k, v, mask)  # noqa: E731
+    ms = [graph_ms(launcher)]
+    dense_ms = [graph_ms(dense_run), graph_ms(dense_run)]
+    ms.append(graph_ms(launcher))
+    numbers = {"dead_key_share": dead.float().mean().item(), "ms": ms, "dense_ms": dense_ms}
+    print(f"time masked_attention dead tiles [{label}]: dead keys {numbers['dead_key_share']:.3f}"
+          f", skipping {ms[0]:.5f} / {ms[1]:.5f} ms, dense {dense_ms[0]:.5f} / "
+          f"{dense_ms[1]:.5f} ms; equal to the dense design and with NaN in the dead tiles "
+          f"on {card}")
+    return numbers
 
 
 # (B, H, Tq, Tk, Dh), masked: the few-keys kernel's shapes on the model
@@ -1517,11 +1611,15 @@ def phase_times(engine, card):
                      "ms": kern, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
                      "library_ms": lib, "eager_ms": kern_eager,
                      "empty_launch_ms": floor, "chunked_kernel_ms": chunked_ms})
+        if mask is not None:   # the encoder: the resident kernel skips the dead tiles
+            rows[-1]["dead_tiles"] = padded_tiles_check(
+                card, f"{label} {shape}", q, k, v, mask, attention.masked_attention(q, k, v, mask))
     for r in rows:
         print(f"time {r['name']} [{r['at']}]: kernel {r['ms']:.5f} ms (eager "
               f"{r['eager_ms']:.5f}), plain {r['plain_ms']:.5f} ms, library "
               f"{'n/a' if r['library_ms'] is None else format(r['library_ms'], '.5f')} ms, "
               f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}) on {card}")
+    rows.append(chunked_times(card, g))
     few_keys = few_keys_times(card, g)
     rng = np.random.default_rng(4)
     for bucket in BUCKETS:
@@ -1535,6 +1633,47 @@ def phase_times(engine, card):
         print(f"time generate both modalities N={bucket}: p50 {statistics.median(lat):.3f} ms, "
               f"min {min(lat):.3f} ms over 20 on {card}")
     return rows, few_keys
+
+
+# a masked head past the resident kernel's 256 keys: the chunked kernel
+CHUNKED_SHAPE = (16, 2, 512, 512, 32)
+
+
+def chunked_times(card: str, g: torch.Generator) -> dict:
+    """The chunked kernel at :data:`CHUNKED_SHAPE` under random key
+    lengths (one batch element masked whole): its route, its error against
+    the plain version, its skipping of the all-masked chunks
+    (:func:`padded_tiles_check`: the dense design's bits, NaN in the dead
+    chunks left out, timed in turns with the dense design), beside the
+    bound over the needed keys, the plain version and SDPA under the same
+    mask.  Returns its time row."""
+    import torch.nn.functional as F
+    from multimodal_vae_comparison_tpu_torch.ops.kernels import attention, telemetry
+    b, h, tq, tk, dh = CHUNKED_SHAPE
+    q, k, v, mask = attention_inputs(g, *CHUNKED_SHAPE, True)
+    telemetry.reset()
+    got = attention.masked_attention(q, k, v, mask)
+    took = telemetry.variants()
+    want = attention.attention_reference(q, k, v, mask)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    check(took == {"attention:chunked": 1}, f"attention at {CHUNKED_SHAPE} launched {took}")
+    check(torch.allclose(got, want, rtol=ATTN_RTOL, atol=ATTN_ATOL),
+          f"the chunked attention kernel disagrees with its plain version: {err}")
+    dead = padded_tiles_check(card, f"chunked {CHUNKED_SHAPE}", q, k, v, mask, got)
+    plain = graph_ms(lambda: attention.attention_reference(q, k, v, mask))
+    sdpa_mask = mask[:, None, None, :].clone()
+    sdpa_mask[0] = True   # SDPA's all-masked row would be NaN; its time is what counts
+    lib = graph_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=sdpa_mask))
+    bound, by = attention_bound(b, h, tq, tk, dh, mask)
+    print(f"time masked_attention chunked [{CHUNKED_SHAPE}]: kernel {dead['ms'][0]:.5f} ms, "
+          f"plain {plain:.5f} ms, SDPA {lib:.5f} ms, bound {bound:.6f} ms ({by}), max_abs_err "
+          f"{err:.3e} on {card}")
+    return {"name": "masked_attention", "at": f"chunked {CHUNKED_SHAPE}", "route": "cuda",
+            "source": "multimodal_vae_comparison_tpu_torch/csrc/attention.cu",
+            "replaces": "multimodal_vae_comparison_tpu/ops/pallas/attention.py:77",
+            "max_abs_err": err, "ms": dead["ms"][0], "plain_ms": plain, "bound_ms": bound,
+            "bound_by": by, "library_ms": lib, "dead_tiles": dead}
 
 
 def few_keys_times(card: str, g: torch.Generator) -> dict:
@@ -3549,10 +3688,12 @@ def cub_attention_cases(cub_dir: str):
 def phase_cub_attention(card: str, cub_dir: str):
     """Masked attention at CUB's 246-character captions against its plain
     version: the forward at every shape of :func:`cub_attention_cases` on
-    the resident kernel, the backward (the autograd Function's) at the two
-    train batches' encoder and cub_r2's decoder; then the train shapes timed
-    (device ms, graphed) beside the plain version, the byte bound and SDPA
-    with the same key-padding mask.  Returns (parity numbers, time rows)."""
+    the kernel its route gives it, the encoders' skipping of the dead key
+    tiles (:func:`padded_tiles_check`), the backward (the autograd
+    Function's) at the two train batches' encoder and cub_r2's decoder; then
+    the train shapes timed (device ms, graphed) beside the plain version,
+    the byte bound and SDPA with the same key-padding mask.  Returns (parity
+    numbers, time rows)."""
     import torch.nn.functional as F
     from multimodal_vae_comparison_tpu_torch.ops.kernels import attention, telemetry
     g = torch.Generator(device="cuda").manual_seed(52)
@@ -3574,6 +3715,9 @@ def phase_cub_attention(card: str, cub_dir: str):
         check(torch.allclose(got, want, rtol=ATTN_RTOL, atol=ATTN_ATOL),
               f"attention kernel disagrees with its plain version at {shape}")
         parity[f"{label} {shape}"] = {"max_abs_err": err, "padded_keys": padded}
+        if mask is not None:   # the encoders: the resident kernel skips the dead tiles
+            parity[f"{label} {shape}"]["dead_tiles"] = padded_tiles_check(
+                card, f"cub {label} {shape}", q, k, v, mask, got)
     for label, shape, mask in (cases[0], cases[1], cases[3]):
         q, k, v, _ = attention_inputs(g, *shape, False)
         d_out = torch.randn(q.shape, generator=g, device="cuda")
@@ -3603,7 +3747,8 @@ def phase_cub_attention(card: str, cub_dir: str):
                      "max_abs_err": err, "ms": kern, "plain_ms": plain, "bound_ms": bound,
                      "bound_by": by, "library_ms": lib,
                      "library_is": "F.scaled_dot_product_attention(q, k, v, attn_mask=the "
-                                   f"key padding or none), {lib_note}"})
+                                   f"key padding or none), {lib_note}",
+                     "dead_tiles": parity[f"{label} {shape}"].get("dead_tiles")})
         print(f"time masked_attention [cub {label} {shape}]: kernel {kern:.5f} ms, plain "
               f"{plain:.5f} ms, SDPA {lib:.5f} ms, bound {bound:.6f} ms ({by}), max_abs_err "
               f"{err:.3e} on {card}")
@@ -3836,7 +3981,9 @@ def attention_case(card: str, g: torch.Generator, label: str, shape, mask, at: s
     """Masked attention at ``shape`` (B, H, Tq, Tk, Dh) under the (B, Tk)
     key ``mask`` or none, on the kernel its route gives the shape
     (:func:`attention_variant`) against its plain version,
-    forward and the Function's backward, then timed (device ms, graphed)
+    forward (on the resident kernel under a mask, its skipping of the dead
+    key tiles too: :func:`padded_tiles_check`) and the Function's backward,
+    then timed (device ms, graphed)
     beside the plain version, SDPA under the same mask and the bound over
     the keys each row needs (:func:`attention_bound`).  Returns (parity
     numbers, the time row, whose "at" is ``at``)."""
@@ -3856,6 +4003,10 @@ def attention_case(card: str, g: torch.Generator, label: str, shape, mask, at: s
           f"attention at {shape} launched {took}")
     check(torch.allclose(got, want, rtol=ATTN_RTOL, atol=ATTN_ATOL),
           f"attention kernel disagrees with its plain version at {shape}")
+    numbers = {"max_abs_err": err, "padded_keys": padded}
+    if mask is not None and attention_variant(shape) == "resident":
+        numbers["dead_tiles"] = padded_tiles_check(card, f"{label} {shape}", q, k, v, mask,
+                                                   got)
     d_out = torch.randn(q.shape, generator=g, device="cuda")
     _grad_parity(f"attention {label} {shape}",
                  lambda q_, k_, v_: attention.masked_attention(q_, k_, v_, mask),
@@ -3879,11 +4030,11 @@ def attention_case(card: str, g: torch.Generator, label: str, shape, mask, at: s
            "max_abs_err": err, "ms": kern, "plain_ms": plain, "bound_ms": bound,
            "bound_by": by, "library_ms": lib,
            "library_is": "F.scaled_dot_product_attention(q, k, v, attn_mask=the "
-                         f"key padding or none), {lib_note}"}
+                         f"key padding or none), {lib_note}", **numbers}
     print(f"time masked_attention [{label} {shape}]: kernel {kern:.5f} ms, plain "
           f"{plain:.5f} ms, SDPA {lib:.5f} ms, bound {bound:.6f} ms ({by}), "
           f"{kern / bound:.1f}x the bound, max_abs_err {err:.3e} on {card}")
-    return {"max_abs_err": err, "padded_keys": padded}, row
+    return numbers, row
 
 
 def phase_vilanro_attention(card: str, data_dir: str, batch: int, decodes: int):
@@ -5654,9 +5805,13 @@ def phase_bf16_steps(card: str) -> dict:
         check(worst <= 1.0, f"bf16 {label}: gradient of {worst_name} off the yardstick")
         check(launches == expected_launches(mixing, 1, 1) and not any(
             p.endswith(":plain") for p in paths), f"bf16 {label}: launched {launches}, {paths}")
-        check(kinds.get("attention:tc_bf16:bfloat16", 0) == launches.get("attention"),
+        # the text encoder on the bf16 tensor-core kernel, the decoders' one
+        # latent key on the few-keys kernel
+        check(kinds.get("attention:tc_bf16:bfloat16", 0) > 0
+              and kinds.get("attention:tc_bf16:bfloat16", 0)
+              + kinds.get("attention:few_keys:bfloat16", 0) == launches.get("attention"),
               f"bf16 {label}: the attention launches did not all take the bf16 "
-              f"tensor-core kernel: {kinds}")
+              f"tensor-core or few-keys kernel: {kinds}")
         numbers[label] = {"loss_card": gl, "loss_cpu_bf16": bl, "loss_cpu_fp32": fl,
                           "worst_grad_share_of_limit": worst, "worst_leaf": worst_name,
                           "scalar_shares_of_limit": shares, "branch_flips": flips,

@@ -1,6 +1,7 @@
 """Design choices of the redesigned kernels, measured against each other.
 
     python3 kernel_variants.py [variant ...]
+    python3 kernel_variants.py --against DIR [variant]
 
 For each named variant (all of them with no arguments) this copies the
 port's package into ``build/archive/variant_<name>/``, edits one constant or
@@ -48,7 +49,20 @@ line of a CUDA source there, builds it, and in a process of its own prints:
 * ``tc_three_stages``: ``sparse_fwd_tc`` with three key blocks in flight,
   not two;
 * ``attention_tc_two_stages``: ``masked_attention_tc`` with two key tiles
-  in flight, not three.
+  in flight, not three;
+* ``scores_every_tile``: the resident attention kernel scores every key
+  tile, the dead ones too (from shared memory it did not stage), and leaves
+  the dead tiles out only from the softmax and p v (a yardstick for the
+  ``--against`` arm: its scores loop without a branch);
+* ``skip_from_three_tiles``: the resident kernel's skipping instance only
+  for heads of more than 64 keys (KPL 4 and 8), the dense one below (the
+  flagship's 45 keys);
+* ``skip_flat_pv``: the skipping instance's p v walks every value row in
+  one loop, jumping over a dead tile, at 4 and 8 tiles too (not a loop a
+  live tile there);
+* ``first_tile_early``: the skipping instance stages the first key tile's
+  K and V before it reads the mask (live for every padded sequence, whose
+  visible keys come first), the other live tiles after.
 
 Every variant also prints the bf16 launchers' variant and time at the
 sparse decoder's shape and at the attention shapes above, the registers of
@@ -70,11 +84,27 @@ version and SDPA (device ms, graphed):
   (``masked_attention_few_keys``), which the yardstick
   ``masked_attention_forward_few_keys`` also runs where the launcher does
   not give it the shape (Tq <= Tk: SPRITES' fp32 8 x 8 heads);
+* ``few_keys_bf16``: bf16 heads of at most 8 keys under more query rows
+  (the decoders' cross-attention), the tensor-core kernel
+  (``masked_attention_forward_bf16_tc``) against the few-keys kernel on
+  bf16 (``masked_attention_forward_bf16_few_keys`` where the launcher does
+  not take it);
 * ``short_bf16``: bf16 heads with both sides under 16, the widening route
   (``masked_attention_forward_bf16_widened``) against the short kernel
   (``masked_attention_short_bf16``), beside the tensor-core kernel
   (``masked_attention_forward_bf16_tc``) and the fp32 launcher on the
   widened inputs.
+
+A third arm, ``padded_tiles`` (:func:`measure_padded`, ~1 min), A/Bs the
+resident and chunked kernels' skipping of the 32-key tiles whose keys are
+all masked: at the key-padded encoders (CUB's captions, VILANRO's action
+trajectories, the flagship's text, a chunked head past 256 keys) and at
+shapes without a dead tile, the route as it stands
+(``masked_attention_forward_resident``) against the dense design that
+skips nothing (``masked_attention_forward_dense``), in turns, beside the
+bound over the needed keys, the plain version and SDPA under the same
+mask; and whether the two give the same bits, also with the dead tiles' K
+and V rows set to NaN.
 
 The ``poe_`` variants edit ``csrc/poe.cu`` and are measured apart: the
 lattice forward and backward kernels' device ms (graphed, as above) at
@@ -95,6 +125,15 @@ the whole lattice and every modality in one launch, as a yardstick that
 :func:`old_route` makes a POE or MOE model fuse each subset with one PoE
 launch on its stacked experts and take the KL of each modality with one
 launch, each backward in torch ops.
+
+``--against DIR`` compares the masked attention of this checkout with that
+of an earlier one unpacked into ``DIR`` (``git archive`` into a directory
+that ``.gitignore`` lists, e.g. ``build/archive/parent``): the launcher at
+every shape of the ``padded_tiles`` arm and the resident route at SPRITES'
+fp32 8 x 8 heads, in four processes in turns (the earlier checkout, this
+one, this one, the earlier one; :func:`measure_launcher`), with the resident
+kernel's registers; with a variant named after ``DIR``, that variant's copy
+in place of this checkout.
 
 Needs one NVIDIA GPU and ``nvcc``; imports nothing of JAX.
 """
@@ -147,7 +186,36 @@ VARIANTS = {
                      (SPARSE, "if (tc_takes(address_bits(q, k, v, d_out, lse, delta, dk, dv), t, "
                       "dh, block)) {", "if (false) {")],
     "few_keys": [],
+    "few_keys_bf16": [],
     "short_bf16": [],
+    "padded_tiles": [],
+    "scores_every_tile": [(ATTENTION, """        if (!tile(c)) continue;
+        const float4 kv""", """        const float4 kv""")],
+    "skip_from_three_tiles": [(ATTENTION, "if (KPL > 1 && skip && key_mask != nullptr)",
+                               "if (KPL > 2 && skip && key_mask != nullptr)")],
+    "skip_flat_pv": [(ATTENTION, "if (SKIP && KPL > 2) {", "if (false) {")],
+    "first_tile_early": [(ATTENTION, """    if (SKIP) {
+      if (tr < rstep)
+        for (int r = tr; r < rows; r += rstep)
+          stage4(qs + r * dh4 + tc, qh + (size_t)r * dh + tc);
+      live = live_tiles<KPL>(key_mask + (size_t)b * tk, tk, lane);
+    }
+    if (tr < rstep) {
+      for (int r = tr; r < tk; r += rstep)
+        if (tile(r / WARP)) {""", """    if (SKIP) {
+      if (tr < rstep) {
+        for (int r = tr; r < WARP; r += rstep) {
+          stage4(ks + r * kstride + tc, kh + (size_t)r * dh + tc);
+          stage4(vs + r * dh4 + tc, vh + (size_t)r * dh + tc);
+        }
+        for (int r = tr; r < rows; r += rstep)
+          stage4(qs + r * dh4 + tc, qh + (size_t)r * dh + tc);
+      }
+      live = live_tiles<KPL>(key_mask + (size_t)b * tk, tk, lane);
+    }
+    if (tr < rstep) {
+      for (int r = tr; r < tk; r += rstep)
+        if ((!SKIP || r >= WARP) && tile(r / WARP)) {""")],
     "poe_shipped": [],
     "poe_loads_in_order": [(POE, """    load_experts(ex, experts, i, mu, scale);
 #pragma unroll
@@ -334,14 +402,22 @@ FEW_KEYS_SHAPES = (
     ("flagship text decoder bs 24", (24, 2, 45, 1, 8), False),
     ("flagship text decoder bs 256", (256, 2, 45, 1, 8), False),
     ("SPRITES fp32 T axis, M*K*B 240", (61440, 2, 8, 8, 32), False),
-    ("SPRITES fp32 T axis, bs 16", (4096, 2, 8, 8, 32), False))
+    ("SPRITES fp32 T axis, bs 16", (4096, 2, 8, 8, 32), False),
+    ("Enc_TransformerIMG", (16, 4, 8, 8, 64), True),
+    ("VILANRO language encoder", (64, 2, 4, 4, 32), True))
+# the decoders' shapes on bf16 inputs
+FEW_KEYS_BF16_SHAPES = (
+    ("CUB DReG text decoder", (640, 2, 246, 1, 8), False),
+    ("VILANRO action decoder", (448, 2, 100, 1, 16), False),
+    ("Dec_TransformerCond cond_always lattice", (448, 4, 100, 5, 32), True))
 SHORT_BF16_SHAPES = (
     ("SPRITES bf16 T axis, M*K*B 240", (61440, 2, 8, 8, 32), False),
     ("SPRITES bf16 T axis, bs 16", (4096, 2, 8, 8, 32), False))
 
 
 def measure_routes(name: str, root: str) -> None:
-    """The ``few_keys`` or ``short_bf16`` arm, in the variant's process."""
+    """The ``few_keys``, ``few_keys_bf16`` or ``short_bf16`` arm, in the
+    variant's process."""
     sys.path.insert(0, root)
     import ctypes
     import torch
@@ -364,11 +440,14 @@ def measure_routes(name: str, root: str) -> None:
     args = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
     yard = {n: _build.function("attention", n, args) for n in (
         "masked_attention_forward_resident", "masked_attention_forward_few_keys",
-        "masked_attention_forward_bf16_widened", "masked_attention_forward_bf16_tc")}
+        "masked_attention_forward_bf16_widened", "masked_attention_forward_bf16_tc",
+        "masked_attention_forward_bf16_few_keys")}
     empty = _build.function("attention", "empty_launch", [ctypes.c_int] * 7 + [ctypes.c_void_p])
     g = torch.Generator(device="cuda").manual_seed(23)
-    bf16 = name == "short_bf16"
-    for label, (b, h, tq, tk, dh), masked in (SHORT_BF16_SHAPES if bf16 else FEW_KEYS_SHAPES):
+    bf16 = name != "few_keys"
+    shapes = {"few_keys": FEW_KEYS_SHAPES, "few_keys_bf16": FEW_KEYS_BF16_SHAPES,
+              "short_bf16": SHORT_BF16_SHAPES}[name]
+    for label, (b, h, tq, tk, dh), masked in shapes:
         q, k, v, mask = cs.attention_inputs(g, b, h, tq, tk, dh, masked)
         if bf16:
             q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
@@ -399,8 +478,9 @@ def measure_routes(name: str, root: str) -> None:
                 b, h, tq, tk, dh, int(bf16), int(resident),
                 torch.cuda.current_stream().cuda_stream)))
 
-        old_sym = ("masked_attention_forward_bf16_widened" if bf16
-                   else "masked_attention_forward_resident")
+        old_sym = {"few_keys": "masked_attention_forward_resident",
+                   "few_keys_bf16": "masked_attention_forward_bf16_tc",
+                   "short_bf16": "masked_attention_forward_bf16_widened"}[name]
         old_run, old_err, old_ok = call(old_sym)
         launcher = lambda: attention._launch(q, k, v, mask)  # noqa: E731
         ms = cs.graph_ms(launcher)
@@ -408,21 +488,22 @@ def measure_routes(name: str, root: str) -> None:
         old_again = cs.graph_ms(old_run)
         ms_again = cs.graph_ms(launcher)
         extra = ""
-        if bf16:
+        if name == "short_bf16":
             tc_run, tc_err, tc_ok = call("masked_attention_forward_bf16_tc")
             wide = (q.float(), k.float(), v.float())
             extra = (f"; tensor-core kernel {cs.graph_ms(tc_run):.5f} ms (max_abs_err "
                      f"{tc_err:.3e}, within {tc_ok}), fp32 launcher on the widened inputs "
                      f"{cs.graph_ms(lambda: attention._launch(*wide, mask)):.5f} ms")
+        elif "few_keys" not in took[0]:
+            fk_run, fk_err, fk_ok = call(f"masked_attention_forward_{'bf16_' * bf16}few_keys")
+            extra = (f"; few-keys kernel (yardstick) {cs.graph_ms(fk_run):.5f} ms "
+                     f"(max_abs_err {fk_err:.3e}, within {fk_ok})")
+        if bf16:
             keys = b * tk if mask is None else cs.attended_keys(tk, mask)
             bound, by = cs.bound_ms(2 * (b * h * tq * dh + 2 * h * keys * dh)
                                     + 4 * b * h * tq * dh + (0 if mask is None else b * tk),
                                     4 * h * tq * keys * dh + 4 * h * tq * keys)
         else:
-            if "few_keys" not in took[0]:
-                fk_run, fk_err, fk_ok = call("masked_attention_forward_few_keys")
-                extra = (f"; few-keys kernel (yardstick) {cs.graph_ms(fk_run):.5f} ms "
-                         f"(max_abs_err {fk_err:.3e}, within {fk_ok})")
             bound, by = cs.attention_bound(b, h, tq, tk, dh, mask)
         plain_ms = cs.graph_ms(lambda: attention.attention_reference(q, k, v, mask))
         sdpa_mask = None if mask is None else torch.zeros(
@@ -442,6 +523,155 @@ def measure_routes(name: str, root: str) -> None:
               f"{old_again:.5f} ms (max_abs_err {old_err:.3e}, within {old_ok}){extra}; bound "
               f"{bound:.6f} ms ({by}); empty launch {floor(False):.5f} ms (resident's "
               f"{floor(True):.5f}); plain {plain_ms:.5f} ms; SDPA {sdpa} ms on {card}")
+
+
+# (label, (B, H, Tq, Tk, Dh), mask) of the padded_tiles arm: the key-padded
+# encoders (CUB's captions, 40-70 of 246 characters; VILANRO's 5-7-step
+# trajectories padded to 100; the flagship's text and a head past 256 keys,
+# random lengths with one batch element masked whole), then shapes without
+# a dead tile
+PADDED_SHAPES = (
+    ("CUB cub_r2 encoder", (32, 2, 246, 246, 32), (40, 70)),
+    ("CUB config_cub encoder", (16, 2, 246, 246, 32), (40, 70)),
+    ("VILANRO action encoder", (64, 2, 100, 100, 16), (5, 7)),
+    ("flagship text encoder", (128, 2, 45, 45, 32), "random"),
+    ("chunked, 512 keys", (16, 2, 512, 512, 32), "random"),
+    ("flagship text encoder, unmasked", (128, 2, 45, 45, 32), None),
+    ("CUB encoder, unmasked", (32, 2, 246, 246, 32), None),
+    ("SPRITES fp32 H axis, bs 16", (2048, 2, 16, 16, 32), None),
+    ("SPRITES fp32 H axis, M*K*B 240", (30720, 2, 16, 16, 32), None),
+    ("Enc_VIT", (24, 8, 17, 17, 32), None),
+    ("Enc_TransformerIMG (resident)", (16, 4, 8, 8, 64), "random"),
+    ("chunked, unmasked", (1, 1, 300, 300, 64), None))
+
+
+def _length_mask(g, b: int, tk: int, lo: int, hi: int):
+    """(B, Tk) key-padding mask of sequences of lo .. hi keys each."""
+    import torch
+    lengths = torch.randint(lo, hi + 1, (b, 1), generator=g, device="cuda")
+    return (torch.arange(tk, device="cuda")[None, :] < lengths).contiguous()
+
+
+def measure_padded(name: str, root: str) -> None:
+    """The ``padded_tiles`` arm, in the variant's process: at every shape
+    of :data:`PADDED_SHAPES` the resident or chunked route as it stands
+    (``masked_attention_forward_resident``) and the dense design
+    (``masked_attention_forward_dense``), their bits against each other and
+    with the dead tiles' K and V NaN, their error against the plain
+    version, then in turns A B B A (device ms, graphed) beside the bound
+    over the needed keys, the plain version and SDPA under the same mask."""
+    sys.path.insert(0, root)
+    import torch
+    import torch.nn.functional as F
+    import chip_smoke as cs
+    from multimodal_vae_comparison_tpu_torch.device import set_numerics
+    from multimodal_vae_comparison_tpu_torch.ops.kernels import _build, attention
+    set_numerics()
+    card = cs.card_line()
+    built = _build.build(("attention",))
+    print(f"variant {name}: built in {max((t for t, _ in built.values()), default=0.0):.2f} s "
+          f"on {card}")
+    entry = None
+    for line in built.get("attention", (0, ""))[1].splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if "resident" in line or "chunked" in line else None
+        elif entry and ("registers" in line or "spill" in line):
+            print(f"variant {name}: ptxas {entry}: {line.strip()}")
+    g = torch.Generator(device="cuda").manual_seed(24)
+    for label, (b, h, tq, tk, dh), kind in PADDED_SHAPES:
+        q, k, v, mask = cs.attention_inputs(g, b, h, tq, tk, dh, kind == "random")
+        if isinstance(kind, tuple):
+            mask = _length_mask(g, b, tk, *kind)
+        skip_run, skipped = cs.attention_yardstick("masked_attention_forward_resident",
+                                                   q, k, v, mask)
+        dense_run, dense = cs.attention_yardstick("masked_attention_forward_dense",
+                                                  q, k, v, mask)
+        skip_run()
+        dense_run()
+        plain = attention.attention_reference(q, k, v, mask)
+        dead = 0.0
+        same_poisoned = True
+        if mask is not None:
+            hole = cs.dead_key_tiles(mask)
+            dead = hole.float().mean().item()
+            nan = float("nan")
+            kp = k.masked_fill(hole[:, None, :, None], nan)
+            vp = v.masked_fill(hole[:, None, :, None], nan)
+            poison_run, poisoned = cs.attention_yardstick("masked_attention_forward_resident",
+                                                          q, kp, vp, mask)
+            poison_run()
+            torch.cuda.synchronize()
+            same_poisoned = torch.equal(poisoned, skipped)
+        torch.cuda.synchronize()
+        err = (skipped - plain).abs().max().item()
+        ok = torch.allclose(skipped, plain, rtol=cs.ATTN_RTOL, atol=cs.ATTN_ATOL)
+        ms = [cs.graph_ms(skip_run)]
+        dense_ms = [cs.graph_ms(dense_run), cs.graph_ms(dense_run)]
+        ms.append(cs.graph_ms(skip_run))
+        bound, by = cs.attention_bound(b, h, tq, tk, dh, mask)
+        plain_ms = cs.graph_ms(lambda: attention.attention_reference(q, k, v, mask))
+        sdpa_mask = None if mask is None else mask[:, None, None, :].clone()
+        if sdpa_mask is not None:
+            sdpa_mask[~mask.any(1)] = True   # SDPA's all-masked row would be NaN
+        sdpa = cs.graph_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=sdpa_mask))
+        print(f"variant {name}: {label} {(b, h, tq, tk, dh)}: dead keys {dead:.3f}; "
+              f"skipping {ms[0]:.5f} / {ms[1]:.5f} ms, dense {dense_ms[0]:.5f} / "
+              f"{dense_ms[1]:.5f} ms (dense / skipping {sum(dense_ms) / sum(ms):.3f}); same bits "
+              f"as dense {torch.equal(skipped, dense)}, with NaN in the dead tiles "
+              f"{same_poisoned}; max_abs_err {err:.3e} within tolerance {ok}; bound "
+              f"{bound:.6f} ms ({by}); plain {plain_ms:.5f} ms; SDPA {sdpa:.5f} ms on {card}")
+
+
+def measure_launcher(root: str) -> None:
+    """The ``--against`` arm's process, the package and ``chip_smoke``
+    imported from ``root`` (this checkout or an unpacked earlier one): the
+    fp32 launcher's device ms (graphed, twice) at every shape of
+    :data:`PADDED_SHAPES` and the resident route
+    (``masked_attention_forward_resident``) at SPRITES' fp32 8 x 8 heads,
+    on inputs drawn from one seed in every process, and ptxas's registers
+    of the resident kernel's fp32 instances.  It uses only what an earlier
+    ``chip_smoke.py`` has too (``graph_ms``, ``attention_inputs``)."""
+    sys.path.insert(0, root)
+    import ctypes
+    import torch
+    import chip_smoke as cs
+    from multimodal_vae_comparison_tpu_torch.device import set_numerics
+    from multimodal_vae_comparison_tpu_torch.ops.kernels import _build, attention
+    if not os.path.abspath(_build.CSRC).startswith(os.path.abspath(root)):
+        raise RuntimeError(f"the package was imported from {_build.CSRC}, not from {root}")
+    set_numerics()
+    tag = os.path.relpath(root, HERE)
+    built = _build.build(("attention",))
+    entry = None
+    for line in built.get("attention", (0, ""))[1].splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if "residentIf" in line else None
+        elif entry and "registers" in line:
+            kpl_slots = entry.split("residentIfLi")[1].split("EEEv")[0].replace("ELi", ",")
+            print(f"against {tag}: resident<float,{kpl_slots}> {line.split(':')[-1].strip()}")
+    resident = _build.function("attention", "masked_attention_forward_resident",
+                               [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                               + [ctypes.c_float, ctypes.c_void_p])
+    g = torch.Generator(device="cuda").manual_seed(25)
+    cases = [(label, shape, kind, False) for label, shape, kind in PADDED_SHAPES] + [
+        ("SPRITES fp32 T axis, M*K*B 240 (resident route)", (61440, 2, 8, 8, 32), None, True),
+        ("SPRITES fp32 T axis, bs 16 (resident route)", (4096, 2, 8, 8, 32), None, True)]
+    for label, (b, h, tq, tk, dh), kind, yard in cases:
+        q, k, v, mask = cs.attention_inputs(g, b, h, tq, tk, dh, kind == "random")
+        if isinstance(kind, tuple):
+            mask = _length_mask(g, b, tk, *kind)
+        out = torch.empty(q.shape, device="cuda")
+
+        def run():
+            if not yard:
+                return attention._launch(q, k, v, mask)
+            return _build.check("attention", resident(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                None if mask is None else mask.data_ptr(), out.data_ptr(), b, h, tq, tk, dh,
+                dh ** -0.5, torch.cuda.current_stream().cuda_stream))
+        ms = [cs.graph_ms(run), cs.graph_ms(run)]
+        print(f"against {tag}: {label} {(b, h, tq, tk, dh)}: {ms[0]:.5f} / {ms[1]:.5f} ms on "
+              f"{cs.card_line()}")
 
 
 def _per_subset_poe():
@@ -570,10 +800,31 @@ def measure_poe(name: str, root: str) -> None:
 
 
 def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] == "--launcher":
+        measure_launcher(os.path.abspath(sys.argv[2]))
+        return 0
+    if len(sys.argv) in (3, 4) and sys.argv[1] == "--against":
+        # the earlier checkout, this one (or a variant's), this one, the
+        # earlier one: each a process of its own on the same card
+        other = os.path.abspath(sys.argv[2])
+        if len(sys.argv) == 4:
+            make_variant(sys.argv[3])
+        this = (os.path.join(HERE, "build", "archive", f"variant_{sys.argv[3]}")
+                if len(sys.argv) == 4 else HERE)
+        for root in (other, this, this, other):
+            done = subprocess.run([sys.executable, os.path.abspath(__file__), "--launcher", root],
+                                  cwd=HERE, capture_output=True, text=True, timeout=600)
+            print("\n".join(x for x in done.stdout.splitlines() if x.startswith("against")),
+                  flush=True)
+            if done.returncode != 0:
+                print(f"against {root}: failed\n{done.stderr[-3000:]}", flush=True)
+                return 1
+        return 0
     if len(sys.argv) == 3 and sys.argv[1] == "--measure":
         name = sys.argv[2]
         (measure_poe if name.startswith("poe_")
-         else measure_routes if name in ("few_keys", "short_bf16") else measure)(
+         else measure_routes if name in ("few_keys", "few_keys_bf16", "short_bf16")
+         else measure_padded if name == "padded_tiles" else measure)(
             name, os.path.join(HERE, "build", "archive", f"variant_{name}"))
         return 0
     names = sys.argv[1:] or list(VARIANTS)

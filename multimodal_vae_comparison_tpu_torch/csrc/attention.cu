@@ -13,30 +13,32 @@
 // route cuts dependent steps and repeated traffic; only the bf16 route with
 // a long side uses the tensor cores.
 //
-// Four routes, picked by shape in forward() and masked_attention_forward_bf16:
+// The routes, picked by shape in forward() and masked_attention_forward_bf16:
 //
 //   fp32 q, k, v                    bf16 q, k, v
 //   ------------                    ------------
-//                                   1. tc_bf16    Tq or Tk >= 16 (tc_takes)
-//                                   2. short_bf16 Tq, Tk < 16, Dh % 8 == 0,
+//                                   1. few_keys   Tk == 1 < Tq
+//                                                 (few_keys_takes_bf16)
+//                                   2. tc_bf16    Tq or Tk >= 16 (tc_takes)
+//                                   3. short_bf16 Tq, Tk < 16, Dh % 8 == 0,
 //                                                 Dh <= 64 (short_takes)
-//   3. few_keys  Tk <= 8 and Tq > Tk (few_keys_takes), both types
-//   4. resident  the head's K and V fit shared memory (Tk <= 256), both types
+//   4. few_keys  Tk <= 8 (few_keys_takes), both types
+//   5. resident  the head's K and V fit shared memory (Tk <= 256), both types
 //      chunked   every other head, both types
 //
-// Crossovers (set by H100 A/Bs: kernel_variants.py few_keys and short_bf16,
-// chip_smoke.py's "bf16 steps"): the tensor-core kernel from a side of 16,
-// where most of its 16-row, 32-key step is filled; the few-keys kernel where
-// a head has more query rows than keys and at most 8 keys (the cross-
-// attention of the decoders over 1 latent or 5 conditioning tokens).  Heads
-// with Tq <= Tk, SPRITES' fp32 8 x 8 axial heads among them, stay on the
-// resident kernel, though the few-keys kernel (its yardstick,
-// masked_attention_forward_few_keys) ran those 8 x 8 heads faster: moving
-// the crossover there is a change of route of its own, with the SPRITES
-// paths' checks.  The resident kernel is also
-// exported alone (masked_attention_forward_resident, and
-// masked_attention_forward_bf16_widened on bf16) as the yardstick the two
-// new routes were measured against; the port's wrapper never calls it.
+// Crossovers (set by H100 A/Bs: kernel_variants.py few_keys, few_keys_bf16
+// and short_bf16, chip_smoke.py's "bf16 steps"): the tensor-core kernel from
+// a side of 16, where most of its 16-row, 32-key step is filled; on fp32 the
+// few-keys kernel wherever a head has at most 8 keys (the decoders' cross-
+// attention over 1 latent or 5 conditioning tokens, and SPRITES' 8 x 8
+// axial heads: 0.190 against the resident kernel's 0.295 ms at
+// (61440,2,8,8,32)); on bf16 ahead of the tensor-core kernel only at one key
+// (CUB's decoder 0.0070 against 0.0166 ms; at 5 keys the tensor-core kernel
+// wins, 0.0170 against 0.0281).  The resident kernel is also exported alone
+// (masked_attention_forward_resident, and masked_attention_forward_bf16_widened
+// on bf16), and the few-keys kernel (masked_attention_forward_few_keys,
+// _bf16_few_keys), as the yardsticks of the crossovers; the port's wrapper
+// never calls them.
 //
 // Few-keys path (masked_attention_few_keys; Tk <= FEW_MAX_KEYS).  Where a
 // lane scores keys j, j + 32, ... (the resident path), at one key 31 of 32
@@ -89,14 +91,34 @@
 // units so that the lanes' float4 reads of 32 different rows do not collide
 // on banks.
 //
+// Key-padded heads (CUB's captions, 77 % padding; VILANRO's trajectories,
+// 94 %) made the resident kernel score and sum every key, masked or not, at
+// 23x its bound over the needed keys.  Under a mask, heads of more than one
+// 32-key tile take an instance (SKIP) that leaves out the tiles whose keys
+// are all masked, where the batch element has a visible key: before staging,
+// every warp reads the element's mask and ballots each tile (live_tiles;
+// the same bits in every warp, so no shared memory and no extra barrier), Q
+// is copied meanwhile, then only the live tiles' K and V rows; the scores,
+// the softmax and p v run over the live tiles only, and never read a dead
+// tile's unstaged shared memory.  A dead key's score is s - 1e30, so its
+// exponential is exactly 0 once the row's max comes from a visible key: the
+// skip changes no bit (the dense instance, exported as
+// masked_attention_forward_dense, is the yardstick that shows it, and K and
+// V set to NaN in the dead tiles leave the output as it is).  An element
+// whose keys are all masked keeps every tile, and so the uniform average of
+// V.  Unmasked heads and one-tile heads take the dense instance.  The host
+// reads no mask: the plan is the shape's, the instance the mask pointer's.
+//
 // Chunked path (Tk > 256, or a head whose K and V do not fit the shared
 // memory budget): one block per (head, 8 query rows), a warp per row, K and
-// V staged 32 keys at a time with an online softmax over the chunks.
+// V staged 32 keys at a time with an online softmax over the chunks; where
+// the element has a visible key, chunks whose keys are all masked are left
+// out whole (a ballot a warp, the mask read a chunk ahead).
 //
 // Masking is additive with -1e30 exactly as the TPU kernel does it; masked
-// keys are never skipped (but for whole tiles, below), so a row with every
-// key masked gives the uniform average of V on every route, as the Pallas
-// kernel and the XLA path both give.
+// keys are never skipped but in whole tiles whose element has a visible
+// key, so a row with every key masked gives the uniform average of V on
+// every route, as the Pallas kernel and the XLA path both give.
 //
 // Input dtype.  The resident, chunked and few-keys kernels are templates on
 // the element type T of q, k and v, instantiated for float and
@@ -112,13 +134,12 @@
 //
 // bf16 tensor-core path (masked_attention_tc, where tc_takes the shape: Tq
 // or Tk >= TC_MIN_SIDE, Dh % 8 == 0, Dh <= 64, Tk <= TC_MAX_KEYS, 16-byte
-// aligned inputs).  Long padded key axes (CUB's captions: 246 keys, 77 %
-// padding) made the resident path slower than SDPA: it scores and sums every
-// key, masked or not, with FMAs.  Here a warp owns 16 query rows (a block 4
-// warps, 64 rows) and walks the key axis 32 keys a step on bf16 MMAs
-// (bf16_tc.cuh): S = Q K^T with q and k as they are, P split into two bf16
-// planes for P V, K and V tiles staged in bf16 by cp.async in a three-stage
-// ring, which keeps two tiles' loads in flight.  Key tiles whose 32 keys are
+// aligned inputs).  Long key axes (CUB's captions: 246 keys) cost the
+// resident path's FMAs a product a key and a lane.  Here a warp owns 16
+// query rows (a block 4 warps, 64 rows) and walks the key axis 32 keys a
+// step on bf16 MMAs (bf16_tc.cuh): S = Q K^T with q and k as they are, P
+// split into two bf16 planes for P V, K and V tiles staged in bf16 by
+// cp.async in a three-stage ring, which keeps two tiles' loads in flight.  Key tiles whose 32 keys are
 // all masked are skipped, where the batch element has a visible key: a
 // masked score is s - 1e30, so once a row's max comes from a visible key ex2
 // of it is exactly 0 (and a tile before the first visible one is scaled by
@@ -230,10 +251,41 @@ struct ResidentPlan {
   }
 };
 
+// The 32-key tiles (tile c: keys 32c .. 32c + 31, as the resident path's
+// lanes score them) that a batch element needs, as bits: every tile with a
+// visible key, or, where the element has none, every tile with a key under
+// Tk (its rows are then the uniform average of V).  A tile whose keys are
+// all masked adds exactly 0 to its rows' max, sum and p v wherever the
+// element has a visible key, so skipping it changes no bit.  Every warp
+// computes the same bits from the (B, Tk) mask: a load and a ballot a
+// tile, no shared memory and no barrier.
+template <int TILES>
+__device__ __forceinline__ unsigned live_tiles(const uint8_t* __restrict__ mask_row, int tk,
+                                               int lane) {
+  static_assert(TILES < 32, "a bit a tile");
+  bool visible[TILES];
+#pragma unroll
+  for (int c = 0; c < TILES; ++c) {   // every load first
+    const int key = c * WARP + lane;
+    visible[c] = key < tk && mask_row[key];
+  }
+  unsigned keyed = 0u, seen = 0u;
+#pragma unroll
+  for (int c = 0; c < TILES; ++c) {
+    if (c * WARP < tk) keyed |= 1u << c;
+    if (__ballot_sync(FULL, visible[c]) != 0u) seen |= 1u << c;
+  }
+  return seen != 0u ? seen : keyed;
+}
+
 // grid (batch*heads, row splits), up to MAX_WARPS warps; dynamic shared
 // memory of ResidentPlan::floats floats.  rows_per_block is a multiple of
 // ROWS.  vec: Dh % 4 == 0 and q, k, v are 16-byte aligned.  Dh <= 32 * SLOTS.
-template <typename T, int KPL, int SLOTS>
+// SKIP (a key mask, KPL > 1): leave out the key tiles live_tiles drops, in
+// the staging, the scores, the softmax and p v.  Without it the kernel is
+// the dense design, every tile computed: the instance unmasked heads take,
+// and the yardstick the skipping is held to bit for bit.
+template <typename T, int KPL, int SLOTS, bool SKIP>
 __global__ void __launch_bounds__(MAX_WARPS * WARP)
 masked_attention_resident(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v,
@@ -256,6 +308,13 @@ masked_attention_resident(const T* __restrict__ q, const T* __restrict__ k,
   const T* kh = k + (size_t)bh * tk * dh;
   const T* vh = v + (size_t)bh * tk * dh;
   const T* qh = q + ((size_t)bh * tq + row_begin) * dh;
+  const int lane = threadIdx.x % WARP;
+
+  // the live tiles (SKIP: Q's copies are in flight while the mask is read,
+  // then only the live tiles' K and V rows are staged); whether tile c is
+  // live is uniform across the block, so its branches diverge nowhere
+  unsigned live = (1u << KPL) - 1u;
+  auto tile = [&](int c) { return !SKIP || ((live >> c) & 1u); };
 
   // stage the head: thread (tr, tc) copies 16-byte unit tc of rows tr,
   // tr + rstep, ...; one division per thread, none per element
@@ -263,37 +322,48 @@ masked_attention_resident(const T* __restrict__ q, const T* __restrict__ k,
     const int cpr = dh >> 2;   // 16-byte units per row
     const int tr = threadIdx.x / cpr, tc = 4 * (threadIdx.x - tr * cpr);
     const int rstep = blockDim.x / cpr;
+    if (SKIP) {
+      if (tr < rstep)
+        for (int r = tr; r < rows; r += rstep)
+          stage4(qs + r * dh4 + tc, qh + (size_t)r * dh + tc);
+      live = live_tiles<KPL>(key_mask + (size_t)b * tk, tk, lane);
+    }
     if (tr < rstep) {
-      for (int r = tr; r < tk; r += rstep) {
-        stage4(ks + r * kstride + tc, kh + (size_t)r * dh + tc);
-        stage4(vs + r * dh4 + tc, vh + (size_t)r * dh + tc);
-      }
-      for (int r = tr; r < rows; r += rstep)
-        stage4(qs + r * dh4 + tc, qh + (size_t)r * dh + tc);
+      for (int r = tr; r < tk; r += rstep)
+        if (tile(r / WARP)) {
+          stage4(ks + r * kstride + tc, kh + (size_t)r * dh + tc);
+          stage4(vs + r * dh4 + tc, vh + (size_t)r * dh + tc);
+        }
+      if (!SKIP)
+        for (int r = tr; r < rows; r += rstep)
+          stage4(qs + r * dh4 + tc, qh + (size_t)r * dh + tc);
     }
   } else {
     // Dh not a multiple of 4, or unaligned inputs: a warp copies a row, by
     // elements; columns dh .. dh4 - 1 are zero padding
+    if (SKIP) live = live_tiles<KPL>(key_mask + (size_t)b * tk, tk, lane);
     const int w = threadIdx.x / WARP, nw = blockDim.x / WARP;
-    for (int c = threadIdx.x % WARP; c < dh4; c += WARP) {
+    for (int c = lane; c < dh4; c += WARP) {
       const bool real = c < dh;
-      for (int r = w; r < tk; r += nw) {
-        ks[r * kstride + c] = real ? to_f(kh[(size_t)r * dh + c]) : 0.f;
-        vs[r * dh4 + c] = real ? to_f(vh[(size_t)r * dh + c]) : 0.f;
-      }
+      for (int r = w; r < tk; r += nw)
+        if (tile(r / WARP)) {
+          ks[r * kstride + c] = real ? to_f(kh[(size_t)r * dh + c]) : 0.f;
+          vs[r * dh4 + c] = real ? to_f(vh[(size_t)r * dh + c]) : 0.f;
+        }
       for (int r = w; r < rows; r += nw)
         qs[r * dh4 + c] = real ? to_f(qh[(size_t)r * dh + c]) : 0.f;
     }
   }
-  for (int idx = threadIdx.x; idx < (tk4 - tk) * dh4; idx += blockDim.x)
-    vs[tk * dh4 + idx] = 0.f;   // rows Tk .. tk4 - 1: p is 0 there, v must be finite
+  if (tile((tk - 1) / WARP))   // the tail lies in the last key's tile
+    for (int idx = threadIdx.x; idx < (tk4 - tk) * dh4; idx += blockDim.x)
+      vs[tk * dh4 + idx] = 0.f;   // rows Tk .. tk4 - 1: p is 0 there, v must be finite
   for (int j = threadIdx.x; j < tkp; j += blockDim.x)
     bias[j] = j >= tk ? -INFINITY
               : (key_mask == nullptr || key_mask[(size_t)b * tk + j]) ? 0.f : NEG_INF;
   cp_async_wait_all();
   __syncthreads();
 
-  const int warp = threadIdx.x / WARP, lane = threadIdx.x % WARP;
+  const int warp = threadIdx.x / WARP;
   const int nwarps = blockDim.x / WARP;
   float* pw = ps + (size_t)warp * ROWS * tkp;
   int key_row[KPL];   // this lane's K rows; past Tk it rereads the last one
@@ -316,18 +386,20 @@ masked_attention_resident(const T* __restrict__ q, const T* __restrict__ k,
       for (int r = 0; r < ROWS; ++r) qv[r] = *reinterpret_cast<const float4*>(qrow[r] + d);
 #pragma unroll
       for (int c = 0; c < KPL; ++c) {
+        if (!tile(c)) continue;
         const float4 kv = *reinterpret_cast<const float4*>(ks + key_row[c] + d);
 #pragma unroll
         for (int r = 0; r < ROWS; ++r) s[r][c] += dot4(qv[r], kv);
       }
     }
-    // softmax over the whole key axis: one max and one sum per row
+    // softmax over the (live) key axis: one max and one sum per row
     float inv[ROWS];
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) {
       float mx = -INFINITY;
 #pragma unroll
       for (int c = 0; c < KPL; ++c) {
+        if (!tile(c)) continue;
         s[r][c] = s[r][c] * (sm_scale * LOG2E) + bias[lane + c * WARP];
         mx = fmaxf(mx, s[r][c]);
       }
@@ -335,6 +407,7 @@ masked_attention_resident(const T* __restrict__ q, const T* __restrict__ k,
       float sum = 0.f;
 #pragma unroll
       for (int c = 0; c < KPL; ++c) {
+        if (!tile(c)) continue;
         const float p = exp2f(s[r][c] - mx);   // 0 for the keys past Tk
         pw[r * tkp + lane + c * WARP] = p;
         sum += p;
@@ -342,17 +415,20 @@ masked_attention_resident(const T* __restrict__ q, const T* __restrict__ k,
       inv[r] = 1.f / warp_sum(sum);
     }
     __syncwarp();
-    // p v: lane d owns output dims d, d + 32, ...
+    // p v over the (live tiles') value rows: lane d owns output dims d,
+    // d + 32, ...  Skipping 4 or 8 tiles, a loop a live tile (CUB's
+    // encoder 0.0243 ms against 0.0269 in one loop); 2, one loop that
+    // jumps over the dead tile (the flagship's 0.0083 against 0.0089;
+    // kernel_variants.py --against, skip_flat_pv)
     float acc[ROWS][SLOTS];
 #pragma unroll
     for (int r = 0; r < ROWS; ++r)
 #pragma unroll
       for (int i = 0; i < SLOTS; ++i) acc[r][i] = 0.f;
-    for (int j = 0; j < tk4; j += 4) {
+    auto pv_rows = [&](int j) {   // value rows j .. j + 3
       float4 pv[ROWS];
 #pragma unroll
-      for (int r = 0; r < ROWS; ++r)
-        pv[r] = *reinterpret_cast<const float4*>(pw + r * tkp + j);
+      for (int r = 0; r < ROWS; ++r) pv[r] = *reinterpret_cast<const float4*>(pw + r * tkp + j);
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj)
 #pragma unroll
@@ -364,6 +440,22 @@ masked_attention_resident(const T* __restrict__ q, const T* __restrict__ k,
             for (int r = 0; r < ROWS; ++r) acc[r][i] += component(pv[r], jj) * vv;
           }
         }
+    };
+    if (SKIP && KPL > 2) {   // a loop a live tile
+#pragma unroll
+      for (int c = 0; c < KPL; ++c) {
+        if (!tile(c)) continue;
+        const int j_end = min((c + 1) * WARP, tk4);
+        for (int j = c * WARP; j < j_end; j += 4) pv_rows(j);
+      }
+    } else {   // one loop, jumping over a dead tile
+      for (int j = 0; j < tk4; j += 4) {
+        if (!tile(j / WARP)) {
+          j += WARP - 4;
+          continue;
+        }
+        pv_rows(j);
+      }
     }
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) {
@@ -380,14 +472,19 @@ masked_attention_resident(const T* __restrict__ q, const T* __restrict__ k,
 
 // grid (batch*heads, ceil(Tq / CHUNK_ROWS)), CHUNK_ROWS warps; dynamic shared
 // memory: K chunk [32][Dh + 1] (+1: lanes read rows, no bank conflicts),
-// V chunk [32][Dh], Q [CHUNK_ROWS][Dh], bias [32]
+// V chunk [32][Dh], Q [CHUNK_ROWS][Dh], bias [32].  skip: where the batch
+// element has a visible key, leave out every chunk whose keys are all
+// masked (no staging, no scores, no online-softmax step).  That changes no
+// bit: a dead chunk before the first live one only scales itself away
+// (alpha = e^(-1e30 - m) = 0 there), one after it adds p = 0 at alpha = 1.
+// 0: every chunk (the dense yardstick).
 template <typename T>
 __global__ void __launch_bounds__(CHUNK_ROWS * WARP)
 masked_attention_chunked(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v,
                          const uint8_t* __restrict__ key_mask,  // (B, Tk) or null
                          float* __restrict__ out, int heads, int tq, int tk,
-                         int dh, float sm_scale) {
+                         int dh, float sm_scale, int skip) {
   extern __shared__ float4 smem4[];
   const int kstride = dh + 1;
   float* ks = reinterpret_cast<float*>(smem4);
@@ -404,10 +501,17 @@ masked_attention_chunked(const T* __restrict__ q, const T* __restrict__ k,
   // staging: thread (tr, tc) copies column tc of rows tr, tr + rstep, ...
   const int tr = threadIdx.x / dh, tc = threadIdx.x - tr * dh;
   const int rstep = blockDim.x / dh;
+  const uint8_t* mask_row = key_mask == nullptr ? nullptr : key_mask + (size_t)b * tk;
 
   const T* qrow = q + ((size_t)bh * tq + row) * dh;
   for (int d = lane; d < dh; d += WARP)
     qs[warp * dh + d] = active ? to_f(qrow[d]) * sm_scale : 0.f;
+  // whether the batch element has a visible key: only then are dead chunks
+  // skipped (with none, every key counts alike: the mean of V)
+  int seen = 0;
+  if (skip && mask_row != nullptr)
+    for (int j = threadIdx.x; j < tk; j += blockDim.x) seen |= mask_row[j];
+  const bool skip_dead = __syncthreads_or(seen) != 0;
 
   const T* kh = k + (size_t)bh * tk * dh;
   const T* vh = v + (size_t)bh * tk * dh;
@@ -416,8 +520,15 @@ masked_attention_chunked(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < DH_SLOTS; ++i) acc[i] = 0.f;
   float m = NEG_INF, l = 0.f;
 
+  // each warp ballots the chunk's 32 mask bytes itself (the same answer in
+  // every warp, so the block skips as one), loaded a chunk ahead
+  bool visible_next = skip_dead && lane < tk && mask_row[lane];
   for (int k0 = 0; k0 < tk; k0 += KV_CHUNK) {
     const int n = min(KV_CHUNK, tk - k0);
+    const bool visible = visible_next;
+    if (skip_dead)
+      visible_next = k0 + KV_CHUNK + lane < tk && mask_row[k0 + KV_CHUNK + lane];
+    if (skip_dead && __ballot_sync(FULL, visible) == 0u) continue;
     __syncthreads();  // the previous chunk is consumed (and qs is written)
     if (tr < rstep)
       for (int j = tr; j < n; j += rstep) {
@@ -425,7 +536,7 @@ masked_attention_chunked(const T* __restrict__ q, const T* __restrict__ k,
         vs[j * dh + tc] = to_f(vh[(size_t)(k0 + j) * dh + tc]);
       }
     for (int j = threadIdx.x; j < n; j += blockDim.x)
-      bias[j] = (key_mask == nullptr || key_mask[(size_t)b * tk + k0 + j]) ? 0.f : NEG_INF;
+      bias[j] = (mask_row == nullptr || mask_row[k0 + j]) ? 0.f : NEG_INF;
     __syncthreads();
     if (!active) continue;
 
@@ -843,34 +954,50 @@ ResidentLaunch plan_resident(int bh, int tq, int tk, int dh) {
   return r;
 }
 
-template <typename T, int KPL, int SLOTS>
-cudaError_t launch_resident(const ResidentLaunch& r, const T* q, const T* k,
-                            const T* v, const uint8_t* key_mask, float* out,
-                            int bh, int heads, int tq, int tk, int dh,
-                            float sm_scale, cudaStream_t stream) {
+template <typename T, int KPL, int SLOTS, bool SKIP>
+cudaError_t launch_resident_instance(const ResidentLaunch& r, const T* q, const T* k,
+                                     const T* v, const uint8_t* key_mask, float* out,
+                                     int bh, int heads, int tq, int tk, int dh,
+                                     float sm_scale, cudaStream_t stream) {
   if (r.smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(masked_attention_resident<T, KPL, SLOTS>,
+    cudaError_t err = cudaFuncSetAttribute(masked_attention_resident<T, KPL, SLOTS, SKIP>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)r.smem);
     if (err != cudaSuccess) return err;
   }
   const uintptr_t bits = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v;
   const int vec = dh % 4 == 0 && bits % 16 == 0;
-  masked_attention_resident<T, KPL, SLOTS>
+  masked_attention_resident<T, KPL, SLOTS, SKIP>
       <<<dim3(bh, r.nsplit), r.nwarps * WARP, r.smem, stream>>>(
           q, k, v, key_mask, out, heads, tq, tk, dh, r.rows_per_block, sm_scale, vec);
   return cudaGetLastError();
 }
 
+// the skipping instance where a mask can leave a key tile dead (a mask, and
+// more than one tile: one tile is always needed), else the dense one
+template <typename T, int KPL, int SLOTS>
+cudaError_t launch_resident(const ResidentLaunch& r, const T* q, const T* k,
+                            const T* v, const uint8_t* key_mask, float* out,
+                            int bh, int heads, int tq, int tk, int dh,
+                            float sm_scale, int skip, cudaStream_t stream) {
+  if (KPL > 1 && skip && key_mask != nullptr)
+    return launch_resident_instance<T, KPL, SLOTS, KPL != 1>(r, q, k, v, key_mask, out, bh,
+                                                              heads, tq, tk, dh, sm_scale,
+                                                              stream);
+  return launch_resident_instance<T, KPL, SLOTS, false>(r, q, k, v, key_mask, out, bh, heads,
+                                                        tq, tk, dh, sm_scale, stream);
+}
+
 template <typename T>
 cudaError_t launch_chunked(const T* q, const T* k, const T* v,
                            const uint8_t* key_mask, float* out, int bh, int heads,
-                           int tq, int tk, int dh, float sm_scale, cudaStream_t stream) {
+                           int tq, int tk, int dh, float sm_scale, int skip,
+                           cudaStream_t stream) {
   const size_t smem = ((size_t)KV_CHUNK * (2 * dh + 1) + (size_t)CHUNK_ROWS * dh + KV_CHUNK)
                       * sizeof(float);
   dim3 grid(bh, (tq + CHUNK_ROWS - 1) / CHUNK_ROWS);
   masked_attention_chunked<T><<<grid, CHUNK_ROWS * WARP, smem, stream>>>(
-      q, k, v, key_mask, out, heads, tq, tk, dh, sm_scale);
+      q, k, v, key_mask, out, heads, tq, tk, dh, sm_scale, skip);
   return cudaGetLastError();
 }
 
@@ -929,7 +1056,15 @@ int few_keys_blocks(long long rows, int lpr, int per_sm) {
   return (int)(fill < wave ? fill : wave);
 }
 
-bool few_keys_takes(int tq, int tk) { return tk <= FEW_MAX_KEYS && tq > tk; }
+// the few-keys kernel's crossovers (H100 A/Bs: kernel_variants.py few_keys
+// and few_keys_bf16): on fp32 (and bf16 that neither bf16 kernel takes)
+// every head of at most FEW_MAX_KEYS keys, SPRITES' 8 x 8 axial heads among
+// them; on bf16, ahead of the tensor-core kernel, one key under more query
+// rows (the decoders' cross-attention to a latent; at 5 keys the
+// tensor-core kernel wins)
+bool few_keys_takes(int tk) { return tk <= FEW_MAX_KEYS; }
+
+bool few_keys_takes_bf16(int tq, int tk) { return tk == 1 && tq > 1; }
 
 // blocks of an instance of the few-keys kernel that fit an SM at once (its
 // registers decide), asked of the runtime once
@@ -1031,23 +1166,25 @@ cudaError_t launch_short(const __nv_bfloat16* q, const __nv_bfloat16* k,
 }
 
 // The resident kernel where the head fits it, else the chunked one; writes
-// which to *variant (0 resident, 1 chunked) and launches on `stream`.
+// which to *variant (0 resident, 1 chunked) and launches on `stream`.  skip:
+// leave out the all-masked key tiles (0: the dense yardstick).  The plan
+// follows the call's shape, never its mask: the host reads no mask.
 template <typename T>
 cudaError_t resident_or_chunked(const T* q, const T* k, const T* v, const uint8_t* mask,
                                 float* out, int batch, int heads, int tq, int tk, int dh,
-                                float sm_scale, cudaStream_t s, int* variant) {
+                                float sm_scale, cudaStream_t s, int* variant, int skip = 1) {
   const int bh = batch * heads;
   const ResidentLaunch r = plan_resident(bh, tq, tk, dh);
   if (!r.fits) {
     *variant = CHUNKED;
-    return launch_chunked<T>(q, k, v, mask, out, bh, heads, tq, tk, dh, sm_scale, s);
+    return launch_chunked<T>(q, k, v, mask, out, bh, heads, tq, tk, dh, sm_scale, skip, s);
   }
   *variant = RESIDENT;
 #define LAUNCH(KPL)                                                                  \
   (dh <= WARP ? launch_resident<T, KPL, 1>(r, q, k, v, mask, out, bh, heads, tq, tk, dh, \
-                                           sm_scale, s)                             \
+                                           sm_scale, skip, s)                       \
               : launch_resident<T, KPL, DH_SLOTS>(r, q, k, v, mask, out, bh, heads, tq, \
-                                                  tk, dh, sm_scale, s))
+                                                  tk, dh, sm_scale, skip, s))
   return r.kpl == 1 ? LAUNCH(1) : r.kpl == 2 ? LAUNCH(2) : r.kpl == 4 ? LAUNCH(4) : LAUNCH(8);
 #undef LAUNCH
 }
@@ -1058,7 +1195,7 @@ template <typename T>
 cudaError_t forward(const T* q, const T* k, const T* v, const uint8_t* mask, float* out,
                     int batch, int heads, int tq, int tk, int dh, float sm_scale,
                     cudaStream_t s, int* variant) {
-  if (few_keys_takes(tq, tk)) {
+  if (few_keys_takes(tk)) {
     *variant = FEW_KEYS;
     return launch_few_keys<T>(q, k, v, mask, out, batch * heads, heads, tq, tk, dh, sm_scale,
                               s);
@@ -1086,15 +1223,22 @@ int masked_attention_forward(const void* q, const void* k, const void* v,
                       sm_scale, (cudaStream_t)stream, variant);
 }
 
-// The bf16 launcher: the tensor-core kernel where tc_takes the shape
-// (*variant 2), the short kernel where short_takes it (4), else the fp32
-// route on bf16 inputs, widened as they are loaded (3, 0 or 1).
+// The bf16 launcher: the few-keys kernel where few_keys_takes_bf16 the
+// shape (*variant 3), the tensor-core kernel where tc_takes it (2), the
+// short kernel where short_takes it (4), else the fp32 route on bf16
+// inputs, widened as they are loaded (3, 0 or 1).
 int masked_attention_forward_bf16(const void* q, const void* k, const void* v,
                                   const void* key_mask, void* out, int batch,
                                   int heads, int tq, int tk, int dh,
                                   float sm_scale, void* stream, int* variant) {
   const __nv_bfloat16 *qb = (const __nv_bfloat16*)q, *kb = (const __nv_bfloat16*)k,
                       *vb = (const __nv_bfloat16*)v;
+  if (few_keys_takes_bf16(tq, tk)) {
+    *variant = FEW_KEYS;
+    return (int)launch_few_keys(qb, kb, vb, (const uint8_t*)key_mask, (float*)out,
+                                batch * heads, heads, tq, tk, dh, sm_scale,
+                                (cudaStream_t)stream);
+  }
   if (tc_takes(q, k, v, tq, tk, dh)) {
     *variant = TC_BF16;
     return (int)launch_tc(qb, kb, vb, (const uint8_t*)key_mask, (float*)out, batch * heads,
@@ -1147,7 +1291,8 @@ int masked_attention_forward_bf16_tc(const void* q, const void* k, const void* v
 }
 
 // The few-keys kernel wherever it fits (Tk <= FEW_MAX_KEYS; else
-// cudaErrorInvalidValue), Tq <= Tk too: the other side of its crossover.
+// cudaErrorInvalidValue), on fp32 and on bf16: the other side of its
+// crossovers.
 int masked_attention_forward_few_keys(const void* q, const void* k, const void* v,
                                       const void* key_mask, void* out, int batch, int heads,
                                       int tq, int tk, int dh, float sm_scale, void* stream) {
@@ -1157,6 +1302,28 @@ int masked_attention_forward_few_keys(const void* q, const void* k, const void* 
                               tk, dh, sm_scale, (cudaStream_t)stream);
 }
 
+int masked_attention_forward_bf16_few_keys(const void* q, const void* k, const void* v,
+                                           const void* key_mask, void* out, int batch,
+                                           int heads, int tq, int tk, int dh, float sm_scale,
+                                           void* stream) {
+  if (tk > FEW_MAX_KEYS) return (int)cudaErrorInvalidValue;
+  return (int)launch_few_keys((const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+                              (const __nv_bfloat16*)v, (const uint8_t*)key_mask, (float*)out,
+                              batch * heads, heads, tq, tk, dh, sm_scale, (cudaStream_t)stream);
+}
+
+// The resident or chunked kernel as the fp32 launcher would pick it
+// between them, with no key tile skipped: the dense design, the yardstick
+// the tile skipping is measured and held bit for bit against.
+int masked_attention_forward_dense(const void* q, const void* k, const void* v,
+                                   const void* key_mask, void* out, int batch, int heads,
+                                   int tq, int tk, int dh, float sm_scale, void* stream) {
+  int variant;
+  return (int)resident_or_chunked((const float*)q, (const float*)k, (const float*)v,
+                                  (const uint8_t*)key_mask, (float*)out, batch, heads, tq, tk,
+                                  dh, sm_scale, (cudaStream_t)stream, &variant, 0);
+}
+
 // The chunked kernel whatever the shape: a yardstick for the resident path
 // at the shapes the launcher gives to it.  The port's wrapper never calls it.
 int masked_attention_forward_chunked(const void* q, const void* k, const void* v,
@@ -1164,8 +1331,8 @@ int masked_attention_forward_chunked(const void* q, const void* k, const void* v
                                      int heads, int tq, int tk, int dh,
                                      float sm_scale, void* stream) {
   return (int)launch_chunked<float>((const float*)q, (const float*)k, (const float*)v,
-                             (const uint8_t*)key_mask, (float*)out, batch * heads,
-                             heads, tq, tk, dh, sm_scale, (cudaStream_t)stream);
+                                    (const uint8_t*)key_mask, (float*)out, batch * heads,
+                                    heads, tq, tk, dh, sm_scale, 1, (cudaStream_t)stream);
 }
 
 // A kernel that does nothing, launched with the grid, block and shared
@@ -1181,19 +1348,12 @@ int empty_launch(int batch, int heads, int tq, int tk, int dh, int bf16, int res
   int threads;
   size_t smem = 0;
   const void* aligned = nullptr;
-  if (!resident && bf16 && tc_takes(aligned, aligned, aligned, tq, tk, dh)) {
-    const int ntiles = (tk + bf16tc::KEYS - 1) / bf16tc::KEYS;
-    const int dhp = dh <= 16 ? 16 : dh <= 32 ? 32 : 64;
-    grid = dim3(bh, (tq + TC_ROWS - 1) / TC_ROWS);
-    threads = TC_WARPS * WARP;
-    smem = (size_t)TC_STAGES * 2 * bf16tc::KEYS * bf16tc::row_stride(dhp)
-               * sizeof(__nv_bfloat16)
-           + (size_t)ntiles * (bf16tc::KEYS * sizeof(float) + 2 * sizeof(int));
-  } else if (!resident && bf16 && short_takes(aligned, aligned, aligned, tq, tk, dh)) {
-    grid = dim3((bh + SHORT_WARPS - 1) / SHORT_WARPS);
-    threads = SHORT_WARPS * WARP;
-    smem = short_smem(tq, tk, dh);
-  } else if (!resident && few_keys_takes(tq, tk)) {
+  // the route the launcher takes, in its order
+  const bool tc = bf16 && tc_takes(aligned, aligned, aligned, tq, tk, dh);
+  const bool shrt = bf16 && !tc && short_takes(aligned, aligned, aligned, tq, tk, dh);
+  const bool few = bf16 ? few_keys_takes_bf16(tq, tk) || (!tc && !shrt && few_keys_takes(tk))
+                        : few_keys_takes(tk);
+  if (!resident && few) {
     const int lpr = few_keys_lanes(dh);
     int per_sm;
     cudaError_t err = bf16 ? few_keys_per_sm_of<__nv_bfloat16>(lpr, tk, &per_sm)
@@ -1201,6 +1361,18 @@ int empty_launch(int batch, int heads, int tq, int tk, int dh, int bf16, int res
     if (err != cudaSuccess) return (int)err;
     grid = dim3(few_keys_blocks((long long)bh * tq, lpr, per_sm));
     threads = FEW_THREADS;
+  } else if (!resident && tc) {
+    const int ntiles = (tk + bf16tc::KEYS - 1) / bf16tc::KEYS;
+    const int dhp = dh <= 16 ? 16 : dh <= 32 ? 32 : 64;
+    grid = dim3(bh, (tq + TC_ROWS - 1) / TC_ROWS);
+    threads = TC_WARPS * WARP;
+    smem = (size_t)TC_STAGES * 2 * bf16tc::KEYS * bf16tc::row_stride(dhp)
+               * sizeof(__nv_bfloat16)
+           + (size_t)ntiles * (bf16tc::KEYS * sizeof(float) + 2 * sizeof(int));
+  } else if (!resident && shrt) {
+    grid = dim3((bh + SHORT_WARPS - 1) / SHORT_WARPS);
+    threads = SHORT_WARPS * WARP;
+    smem = short_smem(tq, tk, dh);
   } else {
     const ResidentLaunch r = plan_resident(bh, tq, tk, dh);
     grid = dim3(bh, r.fits ? r.nsplit : (tq + CHUNK_ROWS - 1) / CHUNK_ROWS);

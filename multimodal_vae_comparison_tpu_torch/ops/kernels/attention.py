@@ -2,18 +2,21 @@
 
 Counterpart of ``ops/pallas/attention.py`` (``masked_flash_attention``).
 The kernels are in ``csrc/attention.cu``, whose launcher picks by shape:
-a head with more query rows than keys and at most 8 keys (the decoders'
-cross-attention over 1 latent or a few conditioning tokens) goes to a
-kernel that maps a query row to a thread and keeps its scores in registers
+a head of at most 8 keys (the decoders' cross-attention over 1 latent or a
+few conditioning tokens, SPRITES' 8 x 8 axial heads) goes to a kernel that
+gives a query row a few lanes and keeps its scores in registers
 (``"few_keys"``); a head whose K and V fit shared memory is computed whole
 by one thread block (``"resident"``), a larger one in chunks of keys with
-an online softmax (``"chunked"``).  On bf16 inputs, with 16 query rows or
-16 keys or more (Dh a multiple of 8 up to 64), a kernel on the bf16 tensor
-cores (``"tc_bf16"``) that skips the key tiles whose keys are all masked;
-with both sides under 16 (SPRITES' 8 x 8 axial heads; Dh a multiple of 8
-up to 64, 16-byte aligned inputs) a kernel that gives each head a warp and
-copies its bf16 rows as they are (``"short_bf16"``); else the fp32 route on
-the bf16 inputs.  :func:`attention_reference` is the same function in
+an online softmax (``"chunked"``); under a key mask both leave out the
+32-key tiles whose keys are all masked, a decision the kernel takes from
+the mask on the device.  On bf16 inputs, one key under more query rows
+takes the few-keys kernel; with 16 query rows or 16 keys or more (Dh a
+multiple of 8 up to 64), a kernel on the bf16 tensor cores (``"tc_bf16"``)
+that skips the key tiles whose keys are all masked too; with both sides
+under 16 (SPRITES' 8 x 8 axial heads; Dh a multiple of 8 up to 64, 16-byte
+aligned inputs) a kernel that gives each head a warp and copies its bf16
+rows as they are (``"short_bf16"``); else the fp32 route on the bf16
+inputs.  :func:`attention_reference` is the same function in
 plain PyTorch.  :func:`masked_attention` is a ``torch.autograd.Function``
 whose forward launches the kernel for CUDA tensors and takes the plain
 version only for CPU tensors.  Masking is additive with ``NEG_INF`` per

@@ -1,16 +1,22 @@
 """The masked attention at the shape classes of its few-keys and short bf16
-routes, against the JAX package's kernel.
+routes and at the key-padding classes its resident and chunked kernels
+skip, against the JAX package's kernel.
 
-``csrc/attention.cu`` gives a head of at most 8 keys under more query rows
-to ``masked_attention_few_keys`` and bf16 heads with both sides under 16 to
-``masked_attention_short_bf16``.  On the CPU the port's
+``csrc/attention.cu`` gives a head of at most 8 keys (on bf16: one key
+under more query rows) to ``masked_attention_few_keys``, bf16 heads with
+both sides under 16 to ``masked_attention_short_bf16``, and leaves out of
+the resident and chunked kernels the 32-key tiles whose keys are all
+masked.  On the CPU the port's
 :func:`masked_attention` takes its plain version; here it is held, on
 inputs made with numpy from a seed, against ``masked_flash_attention``
 (Pallas, interpreted) and the XLA path of the JAX package at each class:
 one and five keys under many query rows (the decoders' cross-attention),
 SPRITES' 8 x 8 axial heads on bf16 inputs (rounded to bf16 in numpy and fed
-to JAX in fp32, which the Pallas kernel widens to exactly), and batch
-elements whose keys are all masked.  Tolerance: that of the reference's
+to JAX in fp32, which the Pallas kernel widens to exactly), batch elements
+whose keys are all masked, and the masks the tile skipping meets: dead
+tiles after the live ones, dead tiles between live ones, a live tile with
+only its last key visible, and a head past the resident kernel's 256 keys
+(the chunked kernel).  Tolerance: that of the reference's
 Pallas attention test (``tests/test_pallas.py``), rtol 2e-4, atol 2e-5.
 The kernels themselves are held against the plain version on the card by
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``; the route
@@ -131,12 +137,13 @@ def test_fully_masked_elements_are_the_uniform_average(tq, tk, dtype):
     ((112, 4, 8, 1, 64), torch.float32, "few_keys"),      # Dec_TransformerIMG
     ((128, 2, 45, 1, 8), torch.float32, "few_keys"),      # the flagship text decoder
     ((128, 2, 45, 45, 32), torch.float32, "resident"),    # the flagship text encoder
-    ((61440, 2, 8, 8, 32), torch.float32, "resident"),    # SPRITES' fp32 T axis
-    ((16, 4, 8, 8, 64), torch.float32, "resident"),       # Enc_TransformerIMG
-    ((64, 2, 4, 4, 32), torch.float32, "resident"),       # VILANRO's language encoder
+    ((61440, 2, 8, 8, 32), torch.float32, "few_keys"),    # SPRITES' fp32 T axis
+    ((16, 4, 8, 8, 64), torch.float32, "few_keys"),       # Enc_TransformerIMG
+    ((64, 2, 4, 4, 32), torch.float32, "few_keys"),       # VILANRO's language encoder
     ((61440, 2, 8, 8, 32), torch.bfloat16, "short_bf16"),  # SPRITES' bf16 T axis
     ((4096, 2, 16, 16, 32), torch.bfloat16, "tc_bf16"),   # and its H axis
-    ((640, 2, 246, 1, 8), torch.bfloat16, "tc_bf16"),     # CUB's decoder in bf16
+    ((640, 2, 246, 1, 8), torch.bfloat16, "few_keys"),    # CUB's decoder in bf16
+    ((448, 4, 100, 5, 32), torch.bfloat16, "tc_bf16"),    # Dec_TransformerCond in bf16
     ((2, 3, 9, 11, 6), torch.bfloat16, "resident"),       # Dh 6: widened
     ((3, 2, 20, 3, 12), torch.bfloat16, "few_keys")],     # Dh 12, 3 keys: widened
     ids=lambda x: str(x).replace(" ", "").replace("torch.", "") if not isinstance(x, str)
@@ -147,3 +154,77 @@ def test_chip_smoke_expects_the_launchers_route(shape, dtype, variant):
     model paths' shapes (aligned inputs, heads the resident kernel holds)."""
     assert chip_smoke.attention_variant(shape, dtype) == variant
     assert variant in tattn.VARIANTS
+
+
+def _padded(seed, b, h, tq, tk, dh, visible):
+    """q, k, v from a seed and a (B, Tk) mask whose element e sees the keys
+    ``visible[e]`` (a slice or a list; none: every key masked)."""
+    q, k, v, _ = _inputs(seed, b, h, tq, tk, dh, False)
+    mask = np.zeros((b, tk), dtype=bool)
+    for e, keys in enumerate(visible):
+        if keys is not None:
+            mask[e, keys] = True
+    return q, k, v, mask
+
+
+# (B, H, Tq, Tk, Dh) and each element's visible keys, by class of mask the
+# resident and chunked kernels' tile skipping meets
+PADDING_CLASSES = {
+    # whole dead 32-key tiles after the live ones (CUB's and VILANRO's
+    # padded sequences), one element with every key masked
+    "suffix": ((3, 2, 12, 100, 16), (slice(0, 7), slice(0, 40), None)),
+    # dead tiles between live ones, and a first tile that is dead
+    "between": ((2, 2, 9, 130, 8), ([0, 3, 70, 71], [64, 65, 129])),
+    # a live tile whose only visible key is its last, the tile before dead
+    "last-key": ((2, 2, 10, 64, 16), ([63], slice(0, 33))),
+    # every key of every element masked: the mean of V, no tile left out
+    "all-masked": ((2, 2, 7, 70, 8), (None, None)),
+    # past the resident kernel's 256 keys at Dh 8: the chunked kernel
+    "chunked": ((3, 2, 10, 300, 8), (slice(0, 20), [5, 290], None)),
+}
+
+
+@pytest.mark.parametrize("label", list(PADDING_CLASSES))
+def test_padded_keys_match_pallas_interpret(label):
+    """The port's masked attention (its plain version on the CPU) at each
+    class of key mask the resident and chunked kernels' tile skipping meets,
+    against ``masked_flash_attention`` (Pallas, interpreted) and the XLA
+    path: within the reference Pallas test's tolerance, and the uniform
+    average of V for an element whose keys are all masked."""
+    shape, visible = PADDING_CLASSES[label]
+    q, k, v, mask = _padded(63, *shape, visible)
+    got = _port(q, k, v, mask)
+    pallas, xla = _jax(q, k, v, mask)
+    np.testing.assert_allclose(got, pallas, **ATTN_TOL)
+    np.testing.assert_allclose(got, xla, **ATTN_TOL)
+    for e, keys in enumerate(visible):
+        if keys is None:
+            uniform = np.broadcast_to(v[e].mean(axis=1, keepdims=True), got[e].shape)
+            np.testing.assert_allclose(got[e], uniform, **ATTN_TOL)
+
+
+@pytest.mark.parametrize("label,variant", [
+    ("suffix", "resident"), ("between", "resident"), ("last-key", "resident"),
+    ("all-masked", "resident"), ("chunked", "chunked")])
+def test_chip_smoke_expects_the_padded_classes_route(label, variant):
+    """``chip_smoke.attention_variant`` names the kernel the launcher gives
+    each padding class: the resident kernel up to 256 keys, the chunked one
+    past them (csrc/attention.cu ``plan_resident``)."""
+    shape, _ = PADDING_CLASSES[label]
+    assert chip_smoke.attention_variant(shape) == variant
+    assert chip_smoke.attention_variant(shape, torch.bfloat16) in (
+        "tc_bf16", variant)   # Dh % 8 == 0 on bf16: the tensor-core kernel
+
+
+def test_dead_key_tiles_name_the_tiles_the_kernels_skip():
+    """``chip_smoke.dead_key_tiles``, which the card's checks poison with
+    NaN, marks exactly the keys of the 32-key tiles whose keys are all
+    masked in an element that has a visible key, at every padding class."""
+    for shape, visible in PADDING_CLASSES.values():
+        _, _, _, mask = _padded(64, *shape, visible)
+        dead = chip_smoke.dead_key_tiles(torch.from_numpy(mask)).numpy()
+        tk = shape[3]
+        for e in range(shape[0]):
+            for t in range(0, tk, 32):
+                tile_dead = not mask[e, t:t + 32].any() and mask[e].any()
+                assert (dead[e, t:t + 32] == tile_dead).all(), (shape, e, t)

@@ -67,7 +67,7 @@ def _qkv(seed, b, h, tq, tk, dh, masked, dev):
     (128, 2, 45, 45, 32, True, "resident"),    # encoder self-attention, bucket 128
     (128, 2, 45, 1, 8, False, "few_keys"),     # decoder cross-attention
     (4, 2, 130, 130, 16, True, "resident"),    # few heads: split by query rows
-    (3, 1, 1, 7, 4, True, "resident"),         # one query row
+    (3, 1, 1, 9, 4, True, "resident"),         # one query row (8 keys or fewer: few_keys)
     (2, 2, 9, 33, 128, False, "resident"),     # widest head
     (3, 2, 9, 1, 8, True, "few_keys"),         # one key, masked in one row
     (3, 2, 9, 31, 6, True, "resident"),        # one key per lane, Dh % 4 != 0
@@ -966,15 +966,15 @@ def _vilanro(tmp_path, episodes, **options):
 
 @pytest.mark.parametrize("b,tq,tk,dh,masked,variant", [
     (64, 100, 100, 16, True, "resident"),   # the action encoder: ~93 % of keys padding
-    (64, 4, 4, 32, True, "resident"),       # the language encoder
+    (64, 4, 4, 32, True, "few_keys"),       # the language encoder: 4 keys
     (448, 100, 1, 16, False, "few_keys"),   # the action decoder on S*K*B = 7 * 64 latents
     (448, 4, 1, 16, False, "few_keys")],    # the language decoder
     ids=["action-encoder", "language-encoder", "action-decoder", "language-decoder"])
 def test_attention_at_vilanro_shapes_matches_plain(cuda, tmp_path, b, tq, tk, dh, masked,
                                                    variant):
     """Masked attention at VILANRO's shapes (head dim 16 at 32 latents), the
-    encoders on the resident kernel and the decoders' one key on the
-    few-keys kernel, masked by the collected trajectories' and
+    action encoder on the resident kernel, the language encoder's 4 keys and
+    the decoders' one key on the few-keys kernel, masked by the collected trajectories' and
     instructions' own padding: forward and the Function's backward against
     autograd through the plain version."""
     import os
@@ -1239,14 +1239,14 @@ def test_laplace_dreg_step_on_the_card_matches_the_cpu(cuda):
 
 @pytest.mark.parametrize("b,h,tq,tk,dh,masked,variant", [
     (24, 8, 17, 17, 32, False, "resident"),    # Enc_VIT: 16 patch tokens and cls, width 256
-    (16, 4, 8, 8, 64, True, "resident"),       # Enc_TransformerIMG over 8 frames, d_model 256
+    (16, 4, 8, 8, 64, True, "few_keys"),       # Enc_TransformerIMG over 8 frames, d_model 256
     (112, 4, 8, 1, 64, False, "few_keys"),     # Dec_TransformerIMG's cross-attention, 7 subsets
     (3, 4, 45, 45, 64, True, "resident")],     # head dim 64 at the text length
     ids=["vit", "transformer-img-enc", "transformer-img-dec", "dh64-text"])
 def test_attention_at_head_dim_64_and_the_vit_shape_matches_plain(cuda, b, h, tq, tk, dh,
                                                                   masked, variant):
     """Masked attention at the new nets' shapes, head dim 64 among them, on
-    the resident kernel (the decoder's one key on the few-keys kernel):
+    the resident kernel (8 keys or fewer on the few-keys kernel):
     forward and the Function's backward against autograd through the plain
     version (a partly padded key mask, one row with every key masked)."""
     q, k, v, mask = _qkv(64, b, h, tq, tk, dh, masked, cuda)
@@ -1348,7 +1348,7 @@ def _masked_tiles(mask):
 @pytest.mark.parametrize("b,h,tq,tk,dh,masked,variant", [
     (24, 2, 45, 45, 32, True, "tc_bf16"),     # the flagship text encoder
     (32, 2, 246, 246, 32, True, "tc_bf16"),   # CUB's captions
-    (640, 2, 246, 1, 8, False, "tc_bf16"),    # CUB's DReG decoder: one key
+    (640, 2, 246, 1, 8, False, "few_keys"),   # CUB's DReG decoder: one key
     (3, 2, 40, 300, 64, True, "tc_bf16"),     # Dh 64, Tk past the resident path's 256
     (3, 2, 40, 300, 68, True, "chunked"),     # Dh % 8 != 0, past 256 keys
     (2, 3, 9, 11, 6, True, "resident"),       # Dh 6: element staging
@@ -1362,7 +1362,8 @@ def _masked_tiles(mask):
         "tc-dh8", "tc-unmasked", "masked-tiles", "under-crossover", "at-crossover"])
 def test_bf16_attention_launcher_equals_the_fp32_kernel_on_widened_inputs(
         cuda, b, h, tq, tk, dh, masked, variant):
-    """The bf16 launcher takes the named variant (the tensor-core kernel
+    """The bf16 launcher takes the named variant (the few-keys kernel for
+    one key under more query rows, the tensor-core kernel
     where Tq or Tk is 16 or more, Dh % 8 == 0 and Dh <= 64, the short
     kernel where both are under 16, else the kernels on widened inputs)
     and gives an fp32 output within the
@@ -1672,12 +1673,12 @@ def test_short_bf16_kernel_at_the_sprites_t_axis_matches_plain(cuda, b):
 @pytest.mark.parametrize("b,h,tq,tk,dh,dtype,unaligned,variant", [
     (5, 2, 9, 8, 32, torch.float32, False, "few_keys"),      # the largest Tk, Tq just over it
     (5, 2, 8, 9, 32, torch.float32, False, "resident"),      # Tk over the few-keys kernel's 8
-    (5, 2, 8, 8, 32, torch.float32, False, "resident"),      # Tq = Tk: SPRITES' fp32 heads
+    (5, 2, 8, 8, 32, torch.float32, False, "few_keys"),      # Tq = Tk: SPRITES' fp32 heads
     (3, 2, 20, 3, 6, torch.float32, False, "few_keys"),      # Dh % 4 != 0: loads by element
     (3, 2, 20, 3, 12, torch.bfloat16, False, "few_keys"),    # bf16, Dh % 8 != 0, Tq >= 16
     (5, 2, 33, 4, 16, torch.float32, True, "few_keys"),      # inputs off a 16-byte line
     (5, 2, 12, 3, 32, torch.bfloat16, True, "few_keys"),     # bf16 off a 16-byte line
-    (6, 2, 8, 8, 32, torch.bfloat16, True, "resident"),      # and Tq = Tk: widened
+    (6, 2, 8, 8, 32, torch.bfloat16, True, "few_keys"),      # and Tq = Tk: widened
     (6, 4, 40, 3, 64, torch.float32, False, "few_keys"),     # Dh 64: 2 lanes a row
     (3, 2, 20, 2, 128, torch.float32, False, "few_keys"),    # Dh 128: 4 lanes a row
     (3, 2, 20, 2, 80, torch.float32, False, "few_keys"),     # Dh 80: the 4th lane holds none
@@ -1732,17 +1733,22 @@ def test_few_keys_kernel_gives_nan_where_q_is_nan(cuda):
 
 
 def test_route_yardsticks_agree(cuda):
-    """The yardsticks of the two new routes, which the port never calls: the
-    resident route on fp32 at a few-keys shape, the few-keys kernel at a
-    Tq = Tk shape the launcher keeps resident, and the widening route on
-    bf16 at a short shape, each within the tolerance of the launcher."""
+    """The yardsticks of the routes, which the port never calls: the
+    resident route on fp32 at few-keys shapes (one key under 45 rows, and
+    SPRITES' 8 x 8), the widening route on bf16 at a short shape, the
+    tensor-core kernel on bf16 at a few-keys shape, the few-keys kernel on
+    bf16 under the tensor-core kernel's crossover, the dense design at a
+    key-padded shape, each within the tolerance of the launcher."""
     import ctypes
     from multimodal_vae_comparison_tpu_torch.ops.kernels import _build
     args = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
     for tq, tk, dtype, symbol in (
             (45, 1, torch.float32, "masked_attention_forward_resident"),
-            (8, 8, torch.float32, "masked_attention_forward_few_keys"),
-            (8, 8, torch.bfloat16, "masked_attention_forward_bf16_widened")):
+            (8, 8, torch.float32, "masked_attention_forward_resident"),
+            (8, 8, torch.bfloat16, "masked_attention_forward_bf16_widened"),
+            (45, 1, torch.bfloat16, "masked_attention_forward_bf16_tc"),
+            (45, 1, torch.bfloat16, "masked_attention_forward_bf16_few_keys"),
+            (45, 45, torch.float32, "masked_attention_forward_dense")):
         q, k, v, mask = _qkv(55, 8, 2, tq, tk, 32, True, cuda)
         q, k, v = (x.to(dtype) for x in (q, k, v))
         fn = _build.function("attention", symbol, args)
@@ -1751,3 +1757,83 @@ def test_route_yardsticks_agree(cuda):
                                      mask.data_ptr(), out.data_ptr(), 8, 2, tq, tk, 32,
                                      32 ** -0.5, torch.cuda.current_stream().cuda_stream))
         torch.testing.assert_close(out, tattn._launch(q, k, v, mask), **ATTN_TOL)
+
+
+# -- the resident and chunked kernels skip the all-masked key tiles ----------------------
+
+
+def _chip_smoke():
+    import pathlib
+    import sys
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.pop(0)
+    return chip_smoke
+
+
+def _lengths_mask(b, tk, lo, hi, seed):
+    """(B, Tk) key-padding mask of sequences of lo .. hi keys each."""
+    lengths = np.random.default_rng(seed).integers(lo, hi + 1, (b, 1))
+    return np.arange(tk)[None, :] < lengths
+
+
+@pytest.mark.parametrize("b,h,tq,tk,dh,mask_kind,variant", [
+    (32, 2, 246, 246, 32, (40, 70), "resident"),   # cub_r2's encoder: 40-70 of 246 characters
+    (16, 2, 246, 246, 32, (40, 70), "resident"),   # config_cub's
+    (64, 2, 100, 100, 16, (5, 7), "resident"),     # VILANRO's action encoder: 5-7 of 100 steps
+    (128, 2, 45, 45, 32, (1, 45), "resident"),     # the flagship's text, one element masked whole
+    (4, 2, 130, 130, 16, (1, 130), "resident"),    # few heads: split by query rows
+    (4, 2, 30, 200, 32, "tiles", "resident"),      # dead tiles before, between and after
+    (3, 2, 9, 70, 6, "tiles", "resident"),         # Dh % 4 != 0: staged by element
+    (3, 2, 9, 33, 128, "last", "resident"),        # only the last key of the last tile
+    (2, 2, 20, 1000, 16, (1, 1000), "chunked"),    # Tk over the resident kernel's 256
+    (3, 2, 40, 300, 68, "tiles", "chunked"),       # dead chunks between live ones
+    (16, 2, 512, 512, 32, (1, 512), "chunked"),    # chip_smoke.CHUNKED_SHAPE
+], ids=["cub-r2", "config-cub", "vilanro-action", "flagship", "split-rows", "tiles",
+        "dh6-tiles", "last-key", "chunked", "chunked-tiles", "chunked-512"])
+def test_dead_key_tiles_are_skipped_bit_for_bit(cuda, b, h, tq, tk, dh, mask_kind, variant):
+    """The resident and chunked kernels leave out every 32-key tile whose
+    keys are all masked, where the batch element has a visible key: their
+    output is ``torch.equal`` to the dense design's
+    (``masked_attention_forward_dense``, which skips nothing) and to their
+    own output with the dead tiles' K and V rows set to NaN (skipped, not
+    multiplied by 0); within the kernel tolerance of the plain version; an
+    element whose keys are all masked still gets the mean of V.  bf16 at a
+    Dh off the tensor-core kernel's grid widens into the same kernels: the
+    dense design's bits on the widened inputs."""
+    cs = _chip_smoke()
+    q, k, v, _ = _qkv(56, b, h, tq, tk, dh, False, cuda)
+    if isinstance(mask_kind, tuple):
+        mask = torch.from_numpy(_lengths_mask(b, tk, *mask_kind, 57)).to(cuda)
+        if mask_kind[0] == 1:
+            mask[0] = False   # one element masked whole
+    elif mask_kind == "tiles":
+        mask = _masked_tiles(_qkv(56, b, h, tq, tk, dh, True, cuda)[3])
+    elif mask_kind == "last":
+        mask = torch.zeros(b, tk, dtype=torch.bool, device=cuda)
+        mask[1:, -1] = True
+    dead = cs.dead_key_tiles(mask)
+    assert dead.any()
+    got = _launched(q, k, v, mask, variant)
+    dense_run, dense = cs.attention_yardstick("masked_attention_forward_dense", q, k, v, mask)
+    dense_run()
+    hole = dead[:, None, :, None]
+    poisoned = tattn._launch(q, k.masked_fill(hole, float("nan")),
+                             v.masked_fill(hole, float("nan")), mask)
+    torch.cuda.synchronize()
+    assert torch.equal(got, dense)
+    assert torch.equal(got, poisoned)
+    torch.testing.assert_close(got, tattn.attention_reference(q, k, v, mask), **ATTN_TOL)
+    empty = ~mask.any(1)
+    if empty.any():
+        uniform = v[empty].mean(dim=2, keepdim=True).expand(-1, -1, tq, -1)
+        torch.testing.assert_close(got[empty], uniform, **ATTN_TOL)
+    if dh % 8 != 0:
+        widened = _launched(q.bfloat16(), k.bfloat16(), v.bfloat16(), mask, variant)
+        dense_run, dense = cs.attention_yardstick(
+            "masked_attention_forward_dense", *(x.bfloat16().float() for x in (q, k, v)), mask)
+        dense_run()
+        torch.cuda.synchronize()
+        assert torch.equal(widened, dense)
