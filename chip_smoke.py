@@ -501,19 +501,24 @@ def attention_variant(shape, dtype=torch.float32) -> str:
     few-keys kernel for one key under more query rows, else the tensor-core
     kernel from a side of 16 (Dh % 8 == 0, Dh <= 64, Tk <= 8192), under it
     the short kernel; else (fp32, or bf16 widened) the few-keys kernel for
-    at most 8 keys, the resident kernel where :func:`resident_fits`, or the
-    chunked one."""
+    at most 8 keys, the fp32 tensor-core kernel (``mma``: Dh a multiple of
+    4 from 8, Tk <= 2^22) where the resident kernel cannot hold the head
+    (:func:`resident_fits`) or Tq and Tk both exceed 16, the resident
+    kernel where it holds the head, or the chunked one."""
     b, h, tq, tk, dh = shape
     if dtype == torch.bfloat16:
         if tk == 1 and tq > 1:
             return "few_keys"
-        if dh % 8 == 0 and dh <= 64 and (tq >= 16 or tk >= 16):
-            return "tc_bf16" if tk <= 8192 else "chunked"
-        if dh % 8 == 0 and dh <= 64:
+        if dh % 8 == 0 and dh <= 64 and (tq >= 16 or tk >= 16) and tk <= 8192:
+            return "tc_bf16"
+        if dh % 8 == 0 and dh <= 64 and tq < 16 and tk < 16:
             return "short_bf16"
     if tk <= 8:
         return "few_keys"
-    return "resident" if resident_fits(b, h, tq, tk, dh) else "chunked"
+    fits = resident_fits(b, h, tq, tk, dh)
+    if dh % 4 == 0 and dh >= 8 and tk <= 1 << 22 and (not fits or (tq > 16 and tk > 16)):
+        return "mma"
+    return "resident" if fits else "chunked"
 
 
 def attention_inputs(g: torch.Generator, b, h, tq, tk, dh, masked: bool):
@@ -531,7 +536,7 @@ def attention_inputs(g: torch.Generator, b, h, tq, tk, dh, masked: bool):
 
 
 def dead_key_tiles(mask: torch.Tensor) -> torch.Tensor:
-    """(B, Tk) bool: the keys that the resident and chunked attention
+    """(B, Tk) bool: the keys that the resident, mma and chunked attention
     kernels skip, those of the 32-key tiles (keys 32c .. 32c + 31) whose
     keys are all masked in a batch element that has a visible key."""
     b, tk = mask.shape
@@ -565,7 +570,7 @@ def attention_yardstick(symbol: str, q, k, v, mask):
 
 def padded_tiles_check(card: str, label: str, q, k, v, mask, got) -> dict:
     """The skipping of all-masked key tiles at a key-padded fp32 shape of
-    the resident or chunked route, ``got`` being the launcher's output:
+    the resident, mma or chunked route, ``got`` being the launcher's output:
     equal (``torch.equal``) to the dense design that skips nothing
     (``masked_attention_forward_dense``) and to the launcher's output with
     the dead tiles' K and V rows set to NaN (skipped, not multiplied by 0);
@@ -614,23 +619,31 @@ def phase_parity():
     # (B, H, Tq, Tk, Dh), masked (with one fully masked row), the kernel the
     # launcher picks.  The model's two shapes, then the key counts around a
     # warp's 32 lanes and a lane's 1, 2, 4 and 8 keys, head widths off the
-    # 16-byte grid, few heads (split by query rows), two heads that the
-    # resident path cannot hold (Tk > 256; K and V over the shared memory),
-    # and the few-keys kernel at every decoder shape of the model paths
-    # (Dec_TransformerCond, CUB, VILANRO, Dec_TransformerIMG, the flagship)
-    for shape, masked, variant in (((128, 2, 45, 45, 32), True, "resident"),
+    # 16-byte grid, few heads (split by query rows), the resident kernel's
+    # heads of 16 query rows beside the fp32 tensor-core kernel's from 17,
+    # heads that the resident path cannot hold (Tk > 256, not a multiple of
+    # 32; K and V over the shared memory) on the tensor-core kernel, a head
+    # of Dh 6 past 256 keys that still takes the chunked kernel, and the few-keys
+    # kernel at every decoder shape of the model paths (Dec_TransformerCond,
+    # CUB, VILANRO, Dec_TransformerIMG, the flagship)
+    for shape, masked, variant in (((128, 2, 45, 45, 32), True, "mma"),
                                    ((128, 2, 45, 1, 8), False, "few_keys"),
-                                   ((4, 2, 130, 130, 16), True, "resident"),
+                                   ((4, 2, 130, 130, 16), True, "mma"),
+                                   ((4, 2, 16, 130, 16), True, "resident"),
                                    ((3, 2, 9, 1, 8), True, "few_keys"),
                                    ((3, 2, 9, 31, 6), True, "resident"),
                                    ((3, 2, 9, 32, 6), False, "resident"),
                                    ((3, 2, 9, 33, 6), True, "resident"),
                                    ((2, 2, 45, 45, 5), False, "resident"),
-                                   ((2, 3, 50, 200, 32), True, "resident"),
+                                   ((2, 3, 50, 200, 32), True, "mma"),
+                                   ((2, 3, 16, 200, 32), True, "resident"),
                                    ((2, 2, 9, 33, 128), False, "resident"),
-                                   ((1, 2, 1000, 45, 32), True, "resident"),
-                                   ((2, 2, 20, 1000, 16), True, "chunked"),
-                                   ((2, 2, 20, 256, 128), True, "chunked"),
+                                   ((1, 2, 1000, 45, 32), True, "mma"),
+                                   ((2, 2, 20, 1000, 16), True, "mma"),
+                                   ((2, 2, 20, 256, 128), True, "mma"),
+                                   ((1, 1, 300, 300, 64), True, "mma"),
+                                   ((3, 2, 40, 300, 68), True, "mma"),
+                                   ((2, 2, 20, 300, 6), True, "chunked"),
                                    *((shape, masked, "few_keys") for shape, masked in
                                      FEW_KEYS_SHAPES)):
         q, k, v, mask = attention_inputs(g, *shape, masked)
@@ -902,7 +915,9 @@ def same_branches(branches: list, replay: bool, flips: dict):
     element moves its layer's gradient by about 1e-2 of max |g| (seen: the
     ResNet-50 at its seeded init, one relu of about five million, both on
     the CPU against float64 and on the card against the CPU); on the same
-    branches the gradients are smooth functions of the rounding."""
+    branches the gradients are smooth functions of the rounding.  A replay
+    that has used every recorded branch takes the ops' own from there (the
+    timed steps after a checked one)."""
     import torch.nn.functional as F
     relu, pool = F.relu, F.max_pool2d
     recorded = iter(branches)
@@ -911,7 +926,10 @@ def same_branches(branches: list, replay: bool, flips: dict):
         if not replay:
             branches.append(x.detach() > 0)
             return relu(x, inplace=inplace)
-        mask = next(recorded).to(x.device)
+        mask = next(recorded, None)
+        if mask is None:
+            return relu(x, inplace=inplace)
+        mask = mask.to(x.device)
         flips["relu"] = flips.get("relu", 0) + int((mask != (x.detach() > 0)).sum())
         return x * mask.to(x.dtype)
 
@@ -919,11 +937,12 @@ def same_branches(branches: list, replay: bool, flips: dict):
               return_indices=False):
         out, idx = pool(x, kernel_size, stride, padding, dilation, ceil_mode,
                         return_indices=True)
-        if replay:
-            own, idx = idx, next(recorded).to(x.device)
+        recorded_idx = next(recorded, None) if replay else None
+        if recorded_idx is not None:
+            own, idx = idx, recorded_idx.to(x.device)
             flips["max_pool2d"] = flips.get("max_pool2d", 0) + int((own != idx).sum())
             out = x.flatten(2).gather(2, idx.flatten(2)).view(idx.shape)
-        else:
+        elif not replay:
             branches.append(idx.detach())
         return (out, idx) if return_indices else out
 
@@ -1611,7 +1630,7 @@ def phase_times(engine, card):
                      "ms": kern, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
                      "library_ms": lib, "eager_ms": kern_eager,
                      "empty_launch_ms": floor, "chunked_kernel_ms": chunked_ms})
-        if mask is not None:   # the encoder: the resident kernel skips the dead tiles
+        if mask is not None:   # the encoder: the mma kernel skips the dead tiles
             rows[-1]["dead_tiles"] = padded_tiles_check(
                 card, f"{label} {shape}", q, k, v, mask, attention.masked_attention(q, k, v, mask))
     for r in rows:
@@ -1619,7 +1638,7 @@ def phase_times(engine, card):
               f"{r['eager_ms']:.5f}), plain {r['plain_ms']:.5f} ms, library "
               f"{'n/a' if r['library_ms'] is None else format(r['library_ms'], '.5f')} ms, "
               f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}) on {card}")
-    rows.append(chunked_times(card, g))
+    long_keys = long_keys_times(card, g)
     few_keys = few_keys_times(card, g)
     rng = np.random.default_rng(4)
     for bucket in BUCKETS:
@@ -1632,48 +1651,100 @@ def phase_times(engine, card):
             lat.append((time.perf_counter() - t0) * 1e3)
         print(f"time generate both modalities N={bucket}: p50 {statistics.median(lat):.3f} ms, "
               f"min {min(lat):.3f} ms over 20 on {card}")
-    return rows, few_keys
+    return rows, few_keys, long_keys
 
 
-# a masked head past the resident kernel's 256 keys: the chunked kernel
+# a masked head past the resident kernel's 256 keys: the fp32 tensor-core
+# kernel, timed against the chunked kernel that took it before
 CHUNKED_SHAPE = (16, 2, 512, 512, 32)
+# (B, H, Tq, Tk, Dh), masked: the heads past the resident kernel's reach
+# that long_keys_times holds and times, CHUNKED_SHAPE first; Tk 1000 and
+# 300 not multiples of the 32-key tile, Dh 128 over the shared memory
+LONG_KEY_SHAPES = ((CHUNKED_SHAPE, True), ((2, 2, 20, 1000, 16), True),
+                   ((2, 2, 20, 256, 128), True), ((1, 1, 300, 300, 64), False))
 
 
-def chunked_times(card: str, g: torch.Generator) -> dict:
-    """The chunked kernel at :data:`CHUNKED_SHAPE` under random key
-    lengths (one batch element masked whole): its route, its error against
-    the plain version, its skipping of the all-masked chunks
-    (:func:`padded_tiles_check`: the dense design's bits, NaN in the dead
-    chunks left out, timed in turns with the dense design), beside the
-    bound over the needed keys, the plain version and SDPA under the same
-    mask.  Returns its time row."""
+def attention_mma_bound(b, h, tq, tk, dh, mask=None) -> float:
+    """The least time of the fp32 tensor-core attention's work on the
+    tensor cores: its two products over the needed keys as three TF32
+    products each at the dense TF32 rate, or its bytes (as
+    :func:`attention_bound`), whichever is longer (ms)."""
+    keys = b * tk if mask is None else attended_keys(tk, mask)
+    nbytes = 4 * (2 * b * h * tq * dh + 2 * h * keys * dh) + (0 if mask is None else b * tk)
+    return max(nbytes / PEAK_BYTES_PER_S, 3 * 4 * h * tq * keys * dh / PEAK_TF32_FLOP_PER_S) * 1e3
+
+
+def long_keys_times(card: str, g: torch.Generator) -> dict:
+    """The fp32 tensor-core attention kernel (``masked_attention_mma``) at
+    every shape of :data:`LONG_KEY_SHAPES`, the masked ones under random key
+    lengths (one batch element masked whole): the route the launcher takes,
+    its error against the plain version, its same bits twice, under a mask
+    the mean of V for the element masked whole and its skipping of the
+    all-masked key tiles (:func:`padded_tiles_check`: the dense design's
+    bits, NaN in the dead tiles left out), then in turns the kernel, the
+    chunked kernel that took these heads before
+    (``masked_attention_forward_chunked``, a yardstick the port never calls)
+    twice and the kernel again, beside the fp32 operation bound over the
+    needed keys, the 3xTF32 MMA bound, the plain version and SDPA under the
+    same mask (device ms, graphed).  Returns its kernels-line entry at
+    :data:`CHUNKED_SHAPE`, every shape's numbers under "shapes"."""
     import torch.nn.functional as F
     from multimodal_vae_comparison_tpu_torch.ops.kernels import attention, telemetry
-    b, h, tq, tk, dh = CHUNKED_SHAPE
-    q, k, v, mask = attention_inputs(g, *CHUNKED_SHAPE, True)
-    telemetry.reset()
-    got = attention.masked_attention(q, k, v, mask)
-    took = telemetry.variants()
-    want = attention.attention_reference(q, k, v, mask)
-    torch.cuda.synchronize()
-    err = (got - want).abs().max().item()
-    check(took == {"attention:chunked": 1}, f"attention at {CHUNKED_SHAPE} launched {took}")
-    check(torch.allclose(got, want, rtol=ATTN_RTOL, atol=ATTN_ATOL),
-          f"the chunked attention kernel disagrees with its plain version: {err}")
-    dead = padded_tiles_check(card, f"chunked {CHUNKED_SHAPE}", q, k, v, mask, got)
-    plain = graph_ms(lambda: attention.attention_reference(q, k, v, mask))
-    sdpa_mask = mask[:, None, None, :].clone()
-    sdpa_mask[0] = True   # SDPA's all-masked row would be NaN; its time is what counts
-    lib = graph_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=sdpa_mask))
-    bound, by = attention_bound(b, h, tq, tk, dh, mask)
-    print(f"time masked_attention chunked [{CHUNKED_SHAPE}]: kernel {dead['ms'][0]:.5f} ms, "
-          f"plain {plain:.5f} ms, SDPA {lib:.5f} ms, bound {bound:.6f} ms ({by}), max_abs_err "
-          f"{err:.3e} on {card}")
-    return {"name": "masked_attention", "at": f"chunked {CHUNKED_SHAPE}", "route": "cuda",
+    shapes = []
+    for shape, masked in LONG_KEY_SHAPES:
+        b, h, tq, tk, dh = shape
+        q, k, v, mask = attention_inputs(g, *shape, masked)
+        telemetry.reset()
+        got = attention.masked_attention(q, k, v, mask)
+        took = telemetry.variants()
+        again = attention.masked_attention(q, k, v, mask)
+        want = attention.attention_reference(q, k, v, mask)
+        chunked_run, old = attention_yardstick("masked_attention_forward_chunked", q, k, v, mask)
+        chunked_run()
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        check(took == {"attention:mma": 1}, f"attention at {shape} launched {took}")
+        check(torch.allclose(got, want, rtol=ATTN_RTOL, atol=ATTN_ATOL)
+              and torch.equal(got, again), f"the mma attention kernel at {shape}: max_abs_err "
+              f"{err}, same bits twice {torch.equal(got, again)}")
+        check(torch.allclose(old, want, rtol=ATTN_RTOL, atol=ATTN_ATOL),
+              f"the chunked attention kernel disagrees with the plain version at {shape}")
+        dead = None
+        if masked:
+            uniform = v[0].mean(dim=1, keepdim=True).expand_as(got[0])
+            check(torch.allclose(got[0], uniform, rtol=ATTN_RTOL, atol=ATTN_ATOL),
+                  f"attention at {shape}: the element masked whole is not the mean of V")
+            dead = padded_tiles_check(card, f"mma {shape}", q, k, v, mask, got)
+        launcher = lambda: attention.masked_attention(q, k, v, mask)  # noqa: E731
+        ms = [graph_ms(launcher)]
+        chunked_ms = [graph_ms(chunked_run), graph_ms(chunked_run)]
+        ms.append(graph_ms(launcher))
+        plain = graph_ms(lambda: attention.attention_reference(q, k, v, mask))
+        sdpa_mask = None
+        if masked:
+            sdpa_mask = mask[:, None, None, :].clone()
+            sdpa_mask[0] = True   # SDPA's all-masked row would be NaN; its time is what counts
+        lib = graph_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=sdpa_mask))
+        bound, by = attention_bound(b, h, tq, tk, dh, mask)
+        mma_bound = attention_mma_bound(b, h, tq, tk, dh, mask)
+        shapes.append({"at": str(shape), "masked": masked, "max_abs_err": err, "ms": ms[0],
+                       "ms_again": ms[1], "chunked_kernel_ms": chunked_ms, "plain_ms": plain,
+                       "library_ms": lib, "bound_ms": bound, "bound_by": by,
+                       "mma_bound_ms": mma_bound, "dead_tiles": dead})
+        print(f"time masked_attention mma [{shape} mask={masked}]: kernel {ms[0]:.5f} / "
+              f"{ms[1]:.5f} ms, chunked kernel {chunked_ms[0]:.5f} / {chunked_ms[1]:.5f} ms, "
+              f"plain {plain:.5f} ms, SDPA {lib:.5f} ms, bound {bound:.6f} ms ({by}), 3xTF32 "
+              f"MMA bound {mma_bound:.6f} ms, max_abs_err {err:.3e} on {card}")
+    first = shapes[0]
+    return {"name": "masked_attention_mma", "route": "cuda",
             "source": "multimodal_vae_comparison_tpu_torch/csrc/attention.cu",
+            "kernel": "masked_attention_mma",
             "replaces": "multimodal_vae_comparison_tpu/ops/pallas/attention.py:77",
-            "max_abs_err": err, "ms": dead["ms"][0], "plain_ms": plain, "bound_ms": bound,
-            "bound_by": by, "library_ms": lib, "dead_tiles": dead}
+            **{key: first[key] for key in ("at", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                           "bound_by", "mma_bound_ms", "library_ms",
+                                           "chunked_kernel_ms")},
+            "library_is": "F.scaled_dot_product_attention(q, k, v, attn_mask=the key "
+                          "padding), graphed", "shapes": shapes}
 
 
 def few_keys_times(card: str, g: torch.Generator) -> dict:
@@ -3715,7 +3786,7 @@ def phase_cub_attention(card: str, cub_dir: str):
         check(torch.allclose(got, want, rtol=ATTN_RTOL, atol=ATTN_ATOL),
               f"attention kernel disagrees with its plain version at {shape}")
         parity[f"{label} {shape}"] = {"max_abs_err": err, "padded_keys": padded}
-        if mask is not None:   # the encoders: the resident kernel skips the dead tiles
+        if mask is not None:   # the encoders: the mma kernel skips the dead tiles
             parity[f"{label} {shape}"]["dead_tiles"] = padded_tiles_check(
                 card, f"cub {label} {shape}", q, k, v, mask, got)
     for label, shape, mask in (cases[0], cases[1], cases[3]):
@@ -3981,8 +4052,9 @@ def attention_case(card: str, g: torch.Generator, label: str, shape, mask, at: s
     """Masked attention at ``shape`` (B, H, Tq, Tk, Dh) under the (B, Tk)
     key ``mask`` or none, on the kernel its route gives the shape
     (:func:`attention_variant`) against its plain version,
-    forward (on the resident kernel under a mask, its skipping of the dead
-    key tiles too: :func:`padded_tiles_check`) and the Function's backward,
+    forward (on the resident or mma kernel under a mask, its skipping of
+    the dead key tiles too: :func:`padded_tiles_check`) and the Function's
+    backward,
     then timed (device ms, graphed)
     beside the plain version, SDPA under the same mask and the bound over
     the keys each row needs (:func:`attention_bound`).  Returns (parity
@@ -4004,7 +4076,7 @@ def attention_case(card: str, g: torch.Generator, label: str, shape, mask, at: s
     check(torch.allclose(got, want, rtol=ATTN_RTOL, atol=ATTN_ATOL),
           f"attention kernel disagrees with its plain version at {shape}")
     numbers = {"max_abs_err": err, "padded_keys": padded}
-    if mask is not None and attention_variant(shape) == "resident":
+    if mask is not None and attention_variant(shape) in ("resident", "mma"):
         numbers["dead_tiles"] = padded_tiles_check(card, f"{label} {shape}", q, k, v, mask,
                                                    got)
     d_out = torch.randn(q.shape, generator=g, device="cuda")
@@ -4983,8 +5055,9 @@ def kl_m1_rows(card: str, g: torch.Generator, b: int, d: int, label: str):
 
 def phase_zoo_rest_attention(card: str, vit_batch: int, clip_batch: int, frames: int,
                              subsets: int):
-    """Masked attention at the new nets' shapes, on the resident kernel
-    against its plain version (forward and backward), timed beside the
+    """Masked attention at the new nets' shapes, on the kernel its route
+    gives each (the fp32 tensor-core kernel, the few-keys kernel) against
+    its plain version (forward and backward), timed beside the
     plain version, SDPA on the same mask and the bound over the keys each
     row needs: the ViT's (B, 8, 17, 17, 32) without a mask,
     Enc_TransformerIMG's (B, 4, T, T, 64) under a partly padded frame mask
@@ -6641,7 +6714,8 @@ MULTI_DEADLINE = 300.0
 
 def _multi_reference(mixing: str, raw, eps):
     """The one-process flagship step of ``mixing`` on the card: (metrics,
-    numpy grads, p50 ms of MULTI_TIMED_STEPS more steps)."""
+    numpy grads, p50 ms of MULTI_TIMED_STEPS more steps, the relu branches
+    of its checked step on the CPU, :func:`same_branches`)."""
     from multimodal_vae_comparison_tpu_torch.parallel.dryrun import step_ms_p50
     from multimodal_vae_comparison_tpu_torch.training.optim import make_optimizer
     from multimodal_vae_comparison_tpu_torch.training.trainer import (
@@ -6649,12 +6723,35 @@ def _multi_reference(mixing: str, raw, eps):
     model = build_model(flagship_specs(), mixing, N_LATENTS, seed=0, device="cuda")
     step = make_train_step(model, make_optimizer("adam", TRAIN_LR, model.parameters()))
     batch, gen = torch_batch(raw, "cuda"), torch.Generator(device="cuda").manual_seed(0)
-    metrics = {k: float(v) for k, v in step(batch, eps=eps_to(eps, "cuda"),
-                                            generator=gen).items()}
+    branches = []
+    with same_branches(branches, False, {}):
+        metrics = {k: float(v) for k, v in step(batch, eps=eps_to(eps, "cuda"),
+                                                generator=gen).items()}
     grads = {n: p.grad.cpu().numpy() for n, p in model.named_parameters()
              if p.grad is not None}
     return metrics, grads, step_ms_p50(step, batch, eps_to(eps, "cuda"), gen,
-                                       MULTI_TIMED_STEPS)
+                                       MULTI_TIMED_STEPS), [b.cpu() for b in branches]
+
+
+def steps_on_branches(ctx, jobs, branches):
+    """A rank's ``parallel.dryrun.run_steps`` with the checked step of job
+    i on this rank's rows of ``branches[i]``, the relu branches the
+    one-process step took on the whole batch (each tensor's rows are the
+    ranks' blocks in rank order, as the flagship's encoders and lattice
+    decodes lay them out), the timed steps after it on their own.  Returns
+    (None, [each job's result with its "relu_flips"]): the elements where
+    the rank's own branch differs, inputs within rounding of a kink that
+    the rank's convs (at its batch) put on the other side."""
+    from multimodal_vae_comparison_tpu_torch.parallel.dryrun import train_step_on_mesh
+    results = []
+    for job, recorded in zip(jobs, branches):
+        flips = {}
+        mine = [t.chunk(ctx.world_size, 0)[ctx.rank] for t in recorded]
+        with same_branches(mine, True, flips):
+            out = train_step_on_mesh(ctx, job)
+        out["relu_flips"] = flips.get("relu", 0)
+        results.append(out)
+    return None, results
 
 
 def world_one_group(ctx, fn, *args):
@@ -6677,10 +6774,13 @@ def phase_multi_device(card: str):
     flagship POE and MOE steps through the data-parallel path, bit for bit
     the one-process steps (both under the port's numerics, whose cuDNN
     algorithms are deterministic); (b) two gloo ranks on
-    the card run the same steps at bs TRAIN_BATCH, each on its 12 rows,
-    the gradients summed: within the training limit of the one-process
-    step, each rank launching attention, PoE and KL at its rows and taking
-    no plain version; (c) ``dryrun_multichip(4)`` on four gloo ranks (the
+    the card run the same steps at bs TRAIN_BATCH, each on its 12 rows and
+    on the relu branches the one-process step took there
+    (:func:`steps_on_branches`; a conv at half the batch may round an input
+    within rounding of 0 to the kink's other side, and one such element
+    moves its layer's gradient by about 1e-2 of max |g|), the gradients
+    summed: within the training limit of the one-process step, each rank
+    launching attention, PoE and KL at its rows and taking no plain version; (c) ``dryrun_multichip(4)`` on four gloo ranks (the
     2x2 hybrid mesh, megatron-sharded DTensor parameters).  Returns rank
     0's launches over (b) and the phase's numbers."""
     from multimodal_vae_comparison_tpu_torch.parallel.dryrun import (
@@ -6700,16 +6800,17 @@ def phase_multi_device(card: str):
         bit_equal = world == 1
         jobs = [StepJob(flagship_specs(), raw, mixing=m, n_latents=N_LATENTS, eps=eps[m],
                         lr=TRAIN_LR, timed_steps=MULTI_TIMED_STEPS) for m in ("poe", "moe")]
+        references = [_multi_reference(m, raw, eps[m]) for m in ("poe", "moe")]
         t0 = time.perf_counter()
         if world == 1:
             ranks = [world_one_group(Rank(0, 1, torch.device("cuda", 0), backend), run_steps,
                                      jobs)]
         else:
-            ranks = launch(run_steps, world, jobs, device="cuda", backend=backend,
-                           deadline=MULTI_DEADLINE)
+            ranks = launch(steps_on_branches, world, jobs, [r[3] for r in references],
+                           device="cuda", backend=backend, deadline=MULTI_DEADLINE)
         numbers[label] = {"launch_s": time.perf_counter() - t0}
         for i, mixing in enumerate(("poe", "moe")):
-            metrics, grads, one_p50 = _multi_reference(mixing, raw, eps[mixing])
+            metrics, grads, one_p50, _ = references[i]
             results = [r[1][i] for r in ranks]
             got = results[0]
             want_launches = {**PER_OBJECTIVE[mixing], **PER_BACKWARD[mixing]}
@@ -6746,7 +6847,8 @@ def phase_multi_device(card: str):
                 "rank_step_ms_p50": [r["step_ms_p50"] for r in results],
                 "one_process_step_ms_p50": one_p50, "launches_per_rank": got["launches"],
                 "rows_per_rank": got["rows"], "worst_grad_share": worst,
-                "bit_equal": bit_equal}
+                "bit_equal": bit_equal,
+                "relu_flips_per_rank": [r.get("relu_flips") for r in results]}
     t0 = time.perf_counter()
     loss = dryrun_multichip(4, device="cuda", backend="gloo", deadline=MULTI_DEADLINE)
     check(np.isfinite(loss), f"dryrun_multichip(4): loss {loss}")
@@ -6997,7 +7099,7 @@ def main() -> int:
         print("seeded reruns " + json.dumps(seeded_numbers))
 
     # 11. times
-    rows, few_keys_entry = phase_times(engine, card)
+    rows, few_keys_entry, long_keys_entry = phase_times(engine, card)
     rows += phase_kernel_route_times(card)
     extra = phase_attention_backward_times(card)
     rows += phase_video_times(card)
@@ -7103,6 +7205,17 @@ def main() -> int:
                         launches_serving_path=few["serving"],
                         launches_fixed_batch_training_path=few["training"],
                         launches_from_config_paths=few["from config"]))
+    # the fp32 tensor-core attention kernel: its launches on the model paths
+    # (serving, fixed-batch training, the from-config paths: the text and
+    # caption encoders, VILANRO's action encoder, Enc_VIT)
+    mma = {"serving": serve_variants.get("attention:mma", 0),
+           "training": train_variants.get("attention:mma", 0),
+           "from config": PATH_VARIANTS.get("attention:mma", 0)}
+    check(all(mma.values()), f"masked_attention_mma: launched no time on a main path: {mma}")
+    primary.append(dict(long_keys_entry, launches=sum(mma.values()),
+                        launches_serving_path=mma["serving"],
+                        launches_fixed_batch_training_path=mma["training"],
+                        launches_from_config_paths=mma["from config"]))
     n = bf16_numbers["launches_by_variant"].get("attention:short_bf16:bfloat16", 0)
     check(n > 0, "masked_attention_short_bf16: launched no time on its main path")
     primary.append(dict(bf16_tc_entries["masked_attention_short_bf16"], launches=n,

@@ -96,7 +96,7 @@ version and SDPA (device ms, graphed):
   widened inputs.
 
 A third arm, ``padded_tiles`` (:func:`measure_padded`, ~1 min), A/Bs the
-resident and chunked kernels' skipping of the 32-key tiles whose keys are
+resident, mma and chunked kernels' skipping of the 32-key tiles whose keys are
 all masked: at the key-padded encoders (CUB's captions, VILANRO's action
 trajectories, the flagship's text, a chunked head past 256 keys) and at
 shapes without a dead tile, the route as it stands
@@ -105,6 +105,21 @@ skips nothing (``masked_attention_forward_dense``), in turns, beside the
 bound over the needed keys, the plain version and SDPA under the same
 mask; and whether the two give the same bits, also with the dead tiles' K
 and V rows set to NaN.
+
+A fourth arm, ``long_keys`` (:func:`measure_long_keys`, ~2 min), A/Bs the
+fp32 tensor-core kernel (``masked_attention_mma``) against the kernels on
+either side of it: at the heads past the resident kernel's reach
+(:data:`LONG_KEY_SHAPES`) the launcher, which gives them to it, against
+the chunked kernel that took them before
+(``masked_attention_forward_chunked``); at the padded encoders and the
+short heads the resident kernel holds (:data:`CROSSOVER_SHAPES`: CUB's,
+VILANRO's action encoder, the flagship's, Enc_VIT's, SPRITES' H axis, and
+heads on either side of the crossover's 16 rows and 16 keys) the resident
+kernel (``masked_attention_forward_resident_only``) against the
+tensor-core kernel there (``masked_attention_forward_mma``), each in turns
+A B B A twice, with each side's spread (its largest less its smallest
+time), beside both bounds, the plain version and SDPA under the same mask,
+and each side's error and bits twice.
 
 The ``poe_`` variants edit ``csrc/poe.cu`` and are measured apart: the
 lattice forward and backward kernels' device ms (graphed, as above) at
@@ -129,8 +144,8 @@ launch, each backward in torch ops.
 ``--against DIR`` compares the masked attention of this checkout with that
 of an earlier one unpacked into ``DIR`` (``git archive`` into a directory
 that ``.gitignore`` lists, e.g. ``build/archive/parent``): the launcher at
-every shape of the ``padded_tiles`` arm and the resident route at SPRITES'
-fp32 8 x 8 heads, in four processes in turns (the earlier checkout, this
+every shape of the ``padded_tiles`` and ``long_keys`` arms and the resident
+route at SPRITES' fp32 8 x 8 heads, in four processes in turns (the earlier checkout, this
 one, this one, the earlier one; :func:`measure_launcher`), with the resident
 kernel's registers; with a variant named after ``DIR``, that variant's copy
 in place of this checkout.
@@ -189,6 +204,7 @@ VARIANTS = {
     "few_keys_bf16": [],
     "short_bf16": [],
     "padded_tiles": [],
+    "long_keys": [],
     "scores_every_tile": [(ATTENTION, """        if (!tile(c)) continue;
         const float4 kv""", """        const float4 kv""")],
     "skip_from_three_tiles": [(ATTENTION, "if (KPL > 1 && skip && key_mask != nullptr)",
@@ -554,7 +570,7 @@ def _length_mask(g, b: int, tk: int, lo: int, hi: int):
 
 def measure_padded(name: str, root: str) -> None:
     """The ``padded_tiles`` arm, in the variant's process: at every shape
-    of :data:`PADDED_SHAPES` the resident or chunked route as it stands
+    of :data:`PADDED_SHAPES` the resident, mma or chunked route as it stands
     (``masked_attention_forward_resident``) and the dense design
     (``masked_attention_forward_dense``), their bits against each other and
     with the dead tiles' K and V NaN, their error against the plain
@@ -622,6 +638,112 @@ def measure_padded(name: str, root: str) -> None:
               f"{bound:.6f} ms ({by}); plain {plain_ms:.5f} ms; SDPA {sdpa:.5f} ms on {card}")
 
 
+# (label, (B, H, Tq, Tk, Dh), mask) of the long_keys arm: the heads past
+# the resident kernel's reach (chip_smoke.LONG_KEY_SHAPES), and the heads
+# it takes on the model paths, on which the resident -> mma crossover is
+# decided
+LONG_KEY_SHAPES = (
+    ("chunked shape, 512 keys", (16, 2, 512, 512, 32), "random"),
+    ("1000 keys, Dh 16", (2, 2, 20, 1000, 16), "random"),
+    ("256 keys, Dh 128", (2, 2, 20, 256, 128), "random"),
+    ("300 keys, Dh 64, unmasked", (1, 1, 300, 300, 64), None))
+CROSSOVER_SHAPES = (
+    ("CUB cub_r2 encoder", (32, 2, 246, 246, 32), (40, 70)),
+    ("CUB config_cub encoder", (16, 2, 246, 246, 32), (40, 70)),
+    ("CUB encoder, 150 captions", (150, 2, 246, 246, 32), (40, 70)),
+    ("CUB encoder, unmasked", (32, 2, 246, 246, 32), None),
+    ("VILANRO action encoder", (64, 2, 100, 100, 16), (5, 7)),
+    ("flagship text encoder", (128, 2, 45, 45, 32), "random"),
+    ("Enc_VIT", (24, 8, 17, 17, 32), None),
+    ("SPRITES fp32 H axis, M*K*B 240", (30720, 2, 16, 16, 32), None),
+    ("SPRITES fp32 H axis, bs 16", (2048, 2, 16, 16, 32), None),
+    ("many query rows, two heads", (1, 2, 1000, 45, 32), None),
+    ("few heads, 130 keys", (4, 2, 130, 130, 16), "random"),
+    ("17 rows, 200 keys", (8, 2, 17, 200, 32), "random"),
+    ("100 rows, 17 keys", (64, 2, 100, 17, 32), None),
+    ("Dh 64 at the text length", (24, 4, 45, 45, 64), "random"))
+
+
+def measure_long_keys(name: str, root: str) -> None:
+    """The ``long_keys`` arm, in its own process: at every shape of
+    :data:`LONG_KEY_SHAPES` the launcher (``masked_attention_mma``) against
+    the chunked kernel, at every shape of :data:`CROSSOVER_SHAPES` the
+    resident kernel (where it holds the head) against the tensor-core
+    kernel; each side's route, error against the plain version and bits
+    twice, then A B B A twice (device ms, graphed) with each side's spread,
+    beside the fp32 operation bound over the needed keys, the 3xTF32 MMA
+    bound, the plain version and SDPA under the same mask."""
+    sys.path.insert(0, root)
+    import torch
+    import torch.nn.functional as F
+    import chip_smoke as cs
+    from multimodal_vae_comparison_tpu_torch.device import set_numerics
+    from multimodal_vae_comparison_tpu_torch.ops.kernels import _build, attention, telemetry
+    set_numerics()
+    card = cs.card_line()
+    built = _build.build(("attention",))
+    print(f"variant {name}: built in {max((t for t, _ in built.values()), default=0.0):.2f} s "
+          f"on {card}")
+    entry = None
+    for line in built.get("attention", (0, ""))[1].splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if "attention_mma" in line else None
+        elif entry and ("registers" in line or "spill" in line):
+            print(f"variant {name}: ptxas {entry}: {line.strip()}")
+    g = torch.Generator(device="cuda").manual_seed(26)
+    for arm, shapes, old_sym, new_sym in (
+            ("long keys", LONG_KEY_SHAPES, "masked_attention_forward_chunked", None),
+            ("crossover", CROSSOVER_SHAPES, "masked_attention_forward_resident_only",
+             "masked_attention_forward_mma")):
+        for label, (b, h, tq, tk, dh), kind in shapes:
+            q, k, v, mask = cs.attention_inputs(g, b, h, tq, tk, dh, kind == "random")
+            if isinstance(kind, tuple):
+                mask = _length_mask(g, b, tk, *kind)
+            old_run, old = cs.attention_yardstick(old_sym, q, k, v, mask)
+            if new_sym is None:
+                new_out = {}
+
+                def new_run():
+                    new_out["out"] = attention._launch(q, k, v, mask)
+            else:
+                new_run, new = cs.attention_yardstick(new_sym, q, k, v, mask)
+            telemetry.reset()
+            new_run()
+            took = telemetry.variants()
+            first = (new_out["out"] if new_sym is None else new).clone()
+            new_run()
+            old_run()
+            plain = attention.attention_reference(q, k, v, mask)
+            torch.cuda.synchronize()
+            got = new_out["out"] if new_sym is None else new
+            errs = [(x - plain).abs().max().item() for x in (got, old)]
+            oks = [torch.allclose(x, plain, rtol=cs.ATTN_RTOL, atol=cs.ATTN_ATOL)
+                   for x in (got, old)]
+            times = {"new": [], "old": []}
+            for side in ("new", "old", "old", "new") * 2:
+                times[side].append(cs.graph_ms(new_run if side == "new" else old_run))
+            spread = {s_: max(t) - min(t) for s_, t in times.items()}
+            bound, by = cs.attention_bound(b, h, tq, tk, dh, mask)
+            mma_bound = cs.attention_mma_bound(b, h, tq, tk, dh, mask)
+            plain_ms = cs.graph_ms(lambda: attention.attention_reference(q, k, v, mask))
+            sdpa_mask = None if mask is None else mask[:, None, None, :].clone()
+            if sdpa_mask is not None:
+                sdpa_mask[~mask.any(1)] = True   # SDPA's all-masked row would be NaN
+            sdpa = cs.graph_ms(lambda: F.scaled_dot_product_attention(q, k, v,
+                                                                       attn_mask=sdpa_mask))
+            old_name = old_sym[len("masked_attention_forward_"):]
+            print(f"variant {name}: {arm}: {label} {(b, h, tq, tk, dh)}: mma "
+                  f"{'launcher ' + str(took) if new_sym is None else 'yardstick'} "
+                  f"{min(times['new']):.5f} .. {max(times['new']):.5f} ms (spread "
+                  f"{spread['new']:.5f}), {old_name} {min(times['old']):.5f} .. "
+                  f"{max(times['old']):.5f} ms (spread {spread['old']:.5f}); "
+                  f"{old_name} / mma {sum(times['old']) / sum(times['new']):.3f}; max_abs_err "
+                  f"mma {errs[0]:.3e} ({oks[0]}), {old_name} {errs[1]:.3e} ({oks[1]}); same "
+                  f"bits twice {torch.equal(first, got)}; bound {bound:.6f} ms ({by}), 3xTF32 "
+                  f"MMA bound {mma_bound:.6f} ms; plain {plain_ms:.5f} ms; SDPA {sdpa:.5f} ms "
+                  f"on {card}")
+
+
 def measure_launcher(root: str) -> None:
     """The ``--against`` arm's process, the package and ``chip_smoke``
     imported from ``root`` (this checkout or an unpacked earlier one): the
@@ -653,7 +775,8 @@ def measure_launcher(root: str) -> None:
                                [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                                + [ctypes.c_float, ctypes.c_void_p])
     g = torch.Generator(device="cuda").manual_seed(25)
-    cases = [(label, shape, kind, False) for label, shape, kind in PADDED_SHAPES] + [
+    cases = [(label, shape, kind, False)
+             for label, shape, kind in PADDED_SHAPES + LONG_KEY_SHAPES[1:]] + [
         ("SPRITES fp32 T axis, M*K*B 240 (resident route)", (61440, 2, 8, 8, 32), None, True),
         ("SPRITES fp32 T axis, bs 16 (resident route)", (4096, 2, 8, 8, 32), None, True)]
     for label, (b, h, tq, tk, dh), kind, yard in cases:
@@ -824,7 +947,8 @@ def main() -> int:
         name = sys.argv[2]
         (measure_poe if name.startswith("poe_")
          else measure_routes if name in ("few_keys", "few_keys_bf16", "short_bf16")
-         else measure_padded if name == "padded_tiles" else measure)(
+         else measure_padded if name == "padded_tiles"
+         else measure_long_keys if name == "long_keys" else measure)(
             name, os.path.join(HERE, "build", "archive", f"variant_{name}"))
         return 0
     names = sys.argv[1:] or list(VARIANTS)

@@ -10,8 +10,8 @@
 // wait for latency (the launch, the first loads from device memory, every
 // dependent step after them); the large ones (SPRITES' axial heads, CUB's
 // and VILANRO's decoders over many latents) for device memory.  So every
-// route cuts dependent steps and repeated traffic; only the bf16 route with
-// a long side uses the tensor cores.
+// route cuts dependent steps and repeated traffic; the routes with a long
+// side run their products on the tensor cores (bf16, and fp32 as 3xTF32).
 //
 // The routes, picked by shape in forward() and masked_attention_forward_bf16:
 //
@@ -23,22 +23,29 @@
 //                                   3. short_bf16 Tq, Tk < 16, Dh % 8 == 0,
 //                                                 Dh <= 64 (short_takes)
 //   4. few_keys  Tk <= 8 (few_keys_takes), both types
-//   5. resident  the head's K and V fit shared memory (Tk <= 256), both types
+//   5. mma       Dh % 4 == 0, 8 <= Dh, 16-byte aligned (mma_takes), where
+//                the resident kernel cannot hold the head or Tq and Tk
+//                both exceed 16 (mma_over_resident), both types
+//   6. resident  the head's K and V fit shared memory (Tk <= 256), both types
 //      chunked   every other head, both types
 //
-// Crossovers (set by H100 A/Bs: kernel_variants.py few_keys, few_keys_bf16
-// and short_bf16, chip_smoke.py's "bf16 steps"): the tensor-core kernel from
+// Crossovers (set by H100 A/Bs: kernel_variants.py few_keys, few_keys_bf16,
+// short_bf16 and long_keys, chip_smoke.py's "bf16 steps"): the fp32
+// tensor-core kernel over the resident one from 17 query rows and 17 keys
+// (mma_over_resident); the bf16 tensor-core kernel from
 // a side of 16, where most of its 16-row, 32-key step is filled; on fp32 the
 // few-keys kernel wherever a head has at most 8 keys (the decoders' cross-
 // attention over 1 latent or 5 conditioning tokens, and SPRITES' 8 x 8
 // axial heads: 0.190 against the resident kernel's 0.295 ms at
 // (61440,2,8,8,32)); on bf16 ahead of the tensor-core kernel only at one key
 // (CUB's decoder 0.0070 against 0.0166 ms; at 5 keys the tensor-core kernel
-// wins, 0.0170 against 0.0281).  The resident kernel is also exported alone
-// (masked_attention_forward_resident, and masked_attention_forward_bf16_widened
-// on bf16), and the few-keys kernel (masked_attention_forward_few_keys,
-// _bf16_few_keys), as the yardsticks of the crossovers; the port's wrapper
-// never calls them.
+// wins, 0.0170 against 0.0281).  The route past the few-keys kernel is also
+// exported alone (masked_attention_forward_resident, and
+// masked_attention_forward_bf16_widened on bf16), and the few-keys kernel
+// (masked_attention_forward_few_keys, _bf16_few_keys), the resident and the
+// fp32 tensor-core kernels (masked_attention_forward_resident_only, _mma)
+// and the chunked kernel (_chunked), as the yardsticks of the crossovers;
+// the port's wrapper never calls them.
 //
 // Few-keys path (masked_attention_few_keys; Tk <= FEW_MAX_KEYS).  Where a
 // lane scores keys j, j + 32, ... (the resident path), at one key 31 of 32
@@ -109,18 +116,53 @@
 // V.  Unmasked heads and one-tile heads take the dense instance.  The host
 // reads no mask: the plan is the shape's, the instance the mask pointer's.
 //
-// Chunked path (Tk > 256, or a head whose K and V do not fit the shared
-// memory budget): one block per (head, 8 query rows), a warp per row, K and
-// V staged 32 keys at a time with an online softmax over the chunks; where
-// the element has a visible key, chunks whose keys are all masked are left
-// out whole (a ballot a warp, the mask read a chunk ahead).
+// fp32 tensor-core path (masked_attention_mma; heads past the resident
+// kernel's reach, Tk > 256 or K and V over its shared-memory budget, and
+// the heads it holds from 17 query rows and 17 keys).  The chunked loop
+// below took the long heads at 23x its bound, slower than the plain version
+// and SDPA: a block of 8 query rows staged the head's whole K and V through
+// synchronous 4-byte loads, two barriers a 32-key chunk, each shared-memory
+// read feeding one FMA, a shuffle a key in p v.  This kernel carries over
+// sparse_fwd_mma's design (sparse_attention.cu): a block is 4 warps, a warp
+// owns 16 query rows, its Q (scaled by log2(e) / sqrt(Dh), so that scores
+// are base-2 logits) split into TF32 hi and lo once and kept in registers
+// (in shared memory at Dh 128, split at each use: 64 registers more of
+// fragments would spill); K and V tiles of 32 keys go through a cp.async
+// ring (three stages, two at Dh 128) with rows padded by 4 floats, so the
+// fragment reads of K^T and V fall on 32 different banks; S = Q K^T and
+// P V run as 3xTF32 mma.sync m16n8k8 (x = hi + lo, lo hi + hi lo + hi hi,
+// fp32-grade), the hi hi terms in chains of Dh / 8 (scores) and 4 (a
+// tile's P V) MMAs from zero, summed with the cross terms in fp32 (the
+// tensor core truncates where it accumulates); the online softmax in base
+// 2, one ex2 a score, the row max over the quad by shuffles, the row sum
+// reduced once at the end; P straight from the score accumulators (columns
+// t, t + 4 taken as the keys 2t, 2t + 1 a thread holds, V's rows read in
+// that order: no shuffle).  Dh is padded to DHP in {8, 16, 32, 64, 128}
+// with zeros in shared memory.  The key-padding bias is read per tile from
+// the (B, Tk) mask; keys past Tk in the last tile get -inf and zero K and V
+// rows, so they add exactly 0 even where every key of the element is
+// masked.  Dead tiles are skipped as in masked_attention_tc: every warp
+// ballots its share of the tiles into a bit a tile in shared memory, and the
+// ring and the math walk the set bits, where the element has a visible key.
+// No atomics: reruns are bit-identical.  What bounds it on the card: its
+// 3xTF32 MMAs issue one after another on a warp's accumulators, so at the
+// long heads it runs at 4x its fp32 operation bound (16,2,512,512,32), and
+// where the heads give it few blocks (Tq 20) at the latency of its serial
+// walk over the key tiles.
+//
+// Chunked path (the heads past the resident kernel's reach that the mma
+// kernel does not take: Dh % 4 != 0, Dh < 8, unaligned inputs): one block
+// per (head, 8 query rows), a warp per row, K and V staged 32 keys at a
+// time with an online softmax over the chunks; where the element has a
+// visible key, chunks whose keys are all masked are left out whole (a
+// ballot a warp, the mask read a chunk ahead).
 //
 // Masking is additive with -1e30 exactly as the TPU kernel does it; masked
 // keys are never skipped but in whole tiles whose element has a visible
 // key, so a row with every key masked gives the uniform average of V on
 // every route, as the Pallas kernel and the XLA path both give.
 //
-// Input dtype.  The resident, chunked and few-keys kernels are templates on
+// Input dtype.  The resident, mma, chunked and few-keys kernels are templates on
 // the element type T of q, k and v, instantiated for float and
 // __nv_bfloat16.  bf16 is widened to fp32 on its way into registers (exact),
 // so the arithmetic after it is the fp32 kernel's and the output is fp32, as
@@ -192,7 +234,20 @@ constexpr int SHORT_WARPS = 8;     // heads per block, one per warp
 constexpr int SHORT_MAX_DH = 64;   // a lane owns at most 2 groups of 4 dims
 constexpr int SHORT_PAD = 8;       // bf16 elements padding each K row in smem
 
-enum Variant { RESIDENT = 0, CHUNKED = 1, TC_BF16 = 2, FEW_KEYS = 3, SHORT_BF16 = 4 };
+// fp32 tensor-core path
+constexpr int MMA_WARPS = 4;       // warps per block, 16 query rows each
+constexpr int MMA_ROWS = 16 * MMA_WARPS;
+constexpr int MMA_KEYS = 32;       // keys per tile: 4 n-tiles of 8
+constexpr int MMA_PAD = 4;         // floats added to a staged row
+constexpr int MMA_MAX_KEYS = 1 << 22;   // the live-tile bits fit 16 KB of shared memory
+
+// K and V tiles in flight: three, two where a staged tile is 16 KB (Dh 128)
+__host__ __device__ constexpr int mma_stages(int dhp) { return dhp > 64 ? 2 : 3; }
+// where a warp keeps its split Q fragments: in registers up to Dh 64; at
+// Dh 128 (64 registers of fragments more) its rows in shared memory
+__host__ __device__ constexpr bool mma_q_in_smem(int dhp) { return dhp > 64; }
+
+enum Variant { RESIDENT = 0, CHUNKED = 1, TC_BF16 = 2, FEW_KEYS = 3, SHORT_BF16 = 4, MMA = 5 };
 
 __device__ __forceinline__ float warp_max(float x) {
   for (int o = WARP / 2; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(FULL, x, o));
@@ -920,6 +975,329 @@ masked_attention_tc(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
   }
 }
 
+// x = hi + lo: hi is x rounded to TF32 (10 mantissa bits), lo the exact
+// remainder, of which the tensor core reads the leading 10 bits
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// c (16 x 8) += a (16 x 8, row) b (8 x 8, col).  Thread (g = lane / 4,
+// t = lane % 4) holds a[0..3] = A[g][t], A[g+8][t], A[g][t+4], A[g+8][t+4];
+// b0, b1 = B[t][g], B[t+4][g]; c[0..3] = C[g][2t], C[g][2t+1], C[g+8][2t],
+// C[g+8][2t+1].
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// big[n] + small[n] += a b[n] for N accumulator pairs at fp32-grade
+// accuracy: big takes the hi hi term, small the two cross terms (2^-11 of
+// its size); b[n] = (b0[n], b1[n]) is split here, and each term runs over
+// all accumulators before the next, so that consecutive MMAs do not wait
+// for each other.  The tensor core truncates toward zero where it
+// accumulates, so the caller starts big from zero every few MMAs and adds
+// the pieces in fp32.
+template <int N>
+__device__ __forceinline__ void mma_3xtf32(float (&big)[N][4], float (&small)[N][4],
+                                           const uint32_t (&a_hi)[4], const uint32_t (&a_lo)[4],
+                                           const float (&b0)[N], const float (&b1)[N]) {
+  uint32_t b0_hi[N], b0_lo[N], b1_hi[N], b1_lo[N];
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    split_tf32(b0[n], b0_hi[n], b0_lo[n]);
+    split_tf32(b1[n], b1_hi[n], b1_lo[n]);
+  }
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma_tf32(small[n], a_lo, b0_hi[n], b1_hi[n]);
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma_tf32(small[n], a_hi, b0_lo[n], b1_lo[n]);
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma_tf32(big[n], a_hi, b0_hi[n], b1_hi[n]);
+}
+
+// MMA_KEYS rows of dh elements at g -> rows of DHP + MMA_PAD floats at s,
+// 4 elements a copy (stage4: async for fp32, widened for bf16); rows at or
+// past `rows` (the keys past Tk) and columns past dh are zeros, so that p = 0
+// there multiplies a finite value
+template <int DHP, typename T>
+__device__ __forceinline__ void stage_key_tile(float* s, const T* __restrict__ g, int rows,
+                                               int dh) {
+  constexpr int UNITS = DHP / 4, LD = DHP + MMA_PAD;
+  for (int idx = threadIdx.x; idx < MMA_KEYS * UNITS; idx += MMA_WARPS * WARP) {
+    const int r = idx / UNITS, c = 4 * (idx % UNITS);
+    float* dst = s + r * LD + c;
+    if (r < rows && c < dh) stage4(dst, g + (size_t)r * dh + c);
+    else *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+// Bytes of dynamic shared memory of masked_attention_mma<_, DHP> at tk keys.
+__host__ __device__ constexpr size_t mma_smem(int dhp, int tk) {
+  return ((size_t)mma_stages(dhp) * 2 * MMA_KEYS * (dhp + MMA_PAD)
+          + (mma_q_in_smem(dhp) ? (size_t)MMA_ROWS * (dhp + MMA_PAD) : 0)) * sizeof(float)
+         + (size_t)((tk + MMA_KEYS - 1) / MMA_KEYS + 31) / 32 * sizeof(unsigned);
+}
+
+// grid (batch*heads, ceil(Tq / MMA_ROWS)), MMA_WARPS warps; dynamic shared
+// memory mma_smem(DHP, tk): mma_stages(DHP) stages of a K and a V tile of
+// MMA_KEYS rows, the block's Q rows where mma_q_in_smem(DHP), a bit per key
+// tile.  dh % 4 == 0, 8 <= dh <= DHP, q, k, v 16-byte aligned, Tk <=
+// MMA_MAX_KEYS.  skip: leave out the tiles whose keys are all masked, where
+// the batch element has a visible key (0: every tile, the dense yardstick).
+template <typename T, int DHP>
+__global__ void __launch_bounds__(MMA_WARPS * WARP)
+masked_attention_mma(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v,
+                     const uint8_t* __restrict__ key_mask,  // (B, Tk) or null
+                     float* __restrict__ out, int heads, int tq, int tk, int dh,
+                     float sm_scale, int skip) {
+  constexpr int KS = DHP / 8;              // k-steps of q k^T = n-tiles of p v
+  constexpr int NT = MMA_KEYS / 8;         // n-tiles of q k^T = k-steps of p v
+  constexpr int LD = DHP + MMA_PAD;        // floats of a staged row
+  constexpr int TILE = MMA_KEYS * LD;      // floats of a staged K or V tile
+  constexpr int STAGES = mma_stages(DHP);
+  constexpr bool Q_SMEM = mma_q_in_smem(DHP);
+  extern __shared__ float4 smem_mma[];
+  float* ring = reinterpret_cast<float*>(smem_mma);
+  float* qs = ring + STAGES * 2 * TILE;    // Q_SMEM: the block's query rows
+  unsigned* live = reinterpret_cast<unsigned*>(qs + (Q_SMEM ? MMA_ROWS * LD : 0));
+
+  const int bh = blockIdx.x, b = bh / heads;
+  const int warp = threadIdx.x / WARP, lane = threadIdx.x % WARP;
+  const int g = lane >> 2, tg = lane & 3;
+  const int r0 = blockIdx.y * MMA_ROWS + warp * 16;   // the warp's first query row
+  const T* qh = q + (size_t)bh * tq * dh;
+  const T* kh = k + (size_t)bh * tk * dh;
+  const T* vh = v + (size_t)bh * tk * dh;
+  const uint8_t* mask_row = key_mask == nullptr ? nullptr : key_mask + (size_t)b * tk;
+  const int ntiles = (tk + MMA_KEYS - 1) / MMA_KEYS;
+  const float scale2 = sm_scale * LOG2E;   // scores become base-2 logits
+
+  // Q, scaled and split into TF32 hi and lo once (in registers), or staged
+  // scaled (Q_SMEM, split at each use); rows past Tq and columns past dh are
+  // zeros.  Its loads are in flight during the mask scan.
+  uint32_t q_hi[Q_SMEM ? 1 : KS][4], q_lo[Q_SMEM ? 1 : KS][4];
+  float* qw = qs + warp * 16 * LD;
+  if constexpr (Q_SMEM) {
+    for (int idx = lane; idx < 16 * (DHP / 4); idx += WARP) {
+      const int r = idx / (DHP / 4), c = 4 * (idx % (DHP / 4));
+      const float4 x = load4(qh + (size_t)(r0 + r) * dh + c, r0 + r < tq ? dh - c : 0, true);
+      *reinterpret_cast<float4*>(qw + r * LD + c) =
+          make_float4(x.x * scale2, x.y * scale2, x.z * scale2, x.w * scale2);
+    }
+  } else {
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = r0 + g + (e & 1) * 8, col = ks * 8 + tg + (e >> 1) * 4;
+        const float x = row < tq && col < dh ? to_f(qh[(size_t)row * dh + col]) * scale2 : 0.f;
+        split_tf32(x, q_hi[ks][e], q_lo[ks][e]);
+      }
+  }
+  auto q_frag = [&](int ks, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+    if constexpr (Q_SMEM) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        split_tf32(qw[(g + (e & 1) * 8) * LD + ks * 8 + tg + (e >> 1) * 4], hi[e], lo[e]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        hi[e] = q_hi[ks][e];
+        lo[e] = q_lo[ks][e];
+      }
+    }
+  };
+
+  // which tiles hold a visible key, a bit a tile: warp w ballots the tiles
+  // of words w, w + MMA_WARPS, ... (every load of 8 tiles first); the tiles
+  // are skipped only where the element has a visible key
+  bool skip_dead = false;
+  if (skip && mask_row != nullptr) {
+    int any = 0;
+    for (int w = warp; w * WARP < ntiles; w += MMA_WARPS) {
+      unsigned word = 0u;
+      for (int c0 = 0; c0 < WARP && (w * WARP + c0) < ntiles; c0 += 8) {
+        bool visible[8];
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          const int key = (w * WARP + c0 + c) * MMA_KEYS + lane;
+          visible[c] = key < tk && mask_row[key];
+        }
+#pragma unroll
+        for (int c = 0; c < 8; ++c)
+          if (__ballot_sync(FULL, visible[c]) != 0u) word |= 1u << (c0 + c);
+      }
+      if (lane == 0) live[w] = word;
+      any |= word != 0u;
+    }
+    skip_dead = __syncthreads_or(any) != 0;
+  }
+  // the first tile to walk at or after kt (ntiles: none left); the same
+  // answer in every thread
+  auto next_tile = [&](int kt) {
+    if (!skip_dead) return kt;
+    for (int w = kt / WARP; w * WARP < ntiles; ++w) {
+      const unsigned word = live[w] & (w == kt / WARP ? ~0u << (kt % WARP) : ~0u);
+      if (word != 0u) return w * WARP + __ffs(word) - 1;
+    }
+    return ntiles;
+  };
+
+  // the ring: the i-th walked tile goes to stage i % STAGES; a commit group
+  // a tile, empty past the last, so that wait<STAGES - 2> means "tile i
+  // has landed"
+  int next_kt = next_tile(0), issued = 0;
+  auto issue = [&]() {
+    if (next_kt < ntiles) {
+      float* stage = ring + (issued % STAGES) * 2 * TILE;
+      const int key0 = next_kt * MMA_KEYS, rows = min(MMA_KEYS, tk - key0);
+      stage_key_tile<DHP>(stage, kh + (size_t)key0 * dh, rows, dh);
+      stage_key_tile<DHP>(stage + TILE, vh + (size_t)key0 * dh, rows, dh);
+      next_kt = next_tile(next_kt + 1);
+      ++issued;
+    }
+    bf16tc::commit();
+  };
+#pragma unroll
+  for (int i = 0; i < STAGES - 1; ++i) issue();
+
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};   // rows g and g + 8
+  float acc[KS][4];
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[ks][e] = 0.f;
+
+  for (int i = 0, kt = next_tile(0); kt < ntiles; ++i, kt = next_tile(kt + 1)) {
+    bf16tc::wait<STAGES - 2>();   // tile i has landed (this thread's copies)
+    __syncthreads();              // everyone's; tile i - 1's stage is free
+    issue();
+    if (r0 >= tq) continue;       // warp-uniform: a warp past the last row
+    const float* ks_tile = ring + (i % STAGES) * 2 * TILE;
+    const float* vs_tile = ks_tile + TILE;
+    const int key0 = kt * MMA_KEYS;
+    // the bias of this thread's keys key0 + 8 nt + 2 tg + j: 0 visible,
+    // NEG_INF masked, -inf past Tk (p exactly 0 even where every key of
+    // the element is masked); loaded before the products
+    float bias[NT][2];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int key = key0 + nt * 8 + 2 * tg + j;
+        bias[nt][j] = key >= tk ? -INFINITY
+                      : (mask_row == nullptr || mask_row[key]) ? 0.f : NEG_INF;
+      }
+
+    // S = Q K^T: the hi hi terms chain KS MMAs from zero, the cross terms
+    // apart; summed in fp32
+    float s[NT][4], s_small[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = s_small[nt][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      float b0[NT], b1[NT];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const float* kp = ks_tile + (nt * 8 + g) * LD + ks * 8 + tg;
+        b0[nt] = kp[0];
+        b1[nt] = kp[4];
+      }
+      uint32_t a_hi[4], a_lo[4];
+      q_frag(ks, a_hi, a_lo);
+      mma_3xtf32<NT>(s, s_small, a_hi, a_lo, b0, b1);
+    }
+
+    // the online softmax in base 2: the row max over the quad by shuffles,
+    // one ex2 a score, this thread's share of the row sum
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {   // rows g and g + 8
+      float mx = -INFINITY;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 2 * h; e < 2 * h + 2; ++e) {
+          s[nt][e] = (s[nt][e] + s_small[nt][e]) + bias[nt][e & 1];
+          mx = fmaxf(mx, s[nt][e]);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 2));
+      const float m_new = fmaxf(m[h], mx);
+      alpha[h] = bf16tc::ex2(m[h] - m_new);
+      m[h] = m_new;
+      l[h] *= alpha[h];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 2 * h; e < 2 * h + 2; ++e) {
+          s[nt][e] = bf16tc::ex2(s[nt][e] - m_new);
+          l[h] += s[nt][e];
+        }
+    }
+
+    // O = alpha O + P V, the tile's P V summed from zero (chains of NT hi hi
+    // MMAs) at most 4 output n-tiles a pass.  The A operand's columns t,
+    // t + 4 are taken as the keys 2t, 2t + 1 this thread holds, and V's
+    // rows are read in that order: no shuffle.
+    constexpr int KG = KS < 4 ? KS : 4;
+#pragma unroll
+    for (int k0 = 0; k0 < KS; k0 += KG) {
+      float part[KG][4], small[KG][4];
+#pragma unroll
+      for (int kg = 0; kg < KG; ++kg)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[kg][e] = small[kg][e] = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        uint32_t p_hi[4], p_lo[4];
+        split_tf32(s[nt][0], p_hi[0], p_lo[0]);
+        split_tf32(s[nt][2], p_hi[1], p_lo[1]);
+        split_tf32(s[nt][1], p_hi[2], p_lo[2]);
+        split_tf32(s[nt][3], p_hi[3], p_lo[3]);
+        const float* vp = vs_tile + (nt * 8 + 2 * tg) * LD + g;
+        float b0[KG], b1[KG];
+#pragma unroll
+        for (int kg = 0; kg < KG; ++kg) {
+          b0[kg] = vp[(k0 + kg) * 8];
+          b1[kg] = vp[LD + (k0 + kg) * 8];
+        }
+        mma_3xtf32<KG>(part, small, p_hi, p_lo, b0, b1);
+      }
+#pragma unroll
+      for (int kg = 0; kg < KG; ++kg)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[k0 + kg][e] = fmaf(acc[k0 + kg][e], alpha[e >> 1], part[kg][e] + small[kg][e]);
+    }
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float sum = l[h] + __shfl_xor_sync(FULL, l[h], 1);   // the quad's shares
+    l[h] = sum + __shfl_xor_sync(FULL, sum, 2);
+    const int row = r0 + g + 8 * h;
+    if (row < tq) {
+      const float inv = 1.f / fmaxf(l[h], 1e-30f);
+      float* orow = out + ((size_t)bh * tq + row) * dh;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        const int col = ks * 8 + 2 * tg;   // dh % 4 == 0: col < dh covers col + 1
+        if (col < dh)
+          *reinterpret_cast<float2*>(orow + col) =
+              make_float2(acc[ks][2 * h] * inv, acc[ks][2 * h + 1] * inv);
+      }
+    }
+  }
+}
+
 __global__ void empty_kernel() {}
 
 // How the resident path cuts a call into blocks: rows of a head per block
@@ -999,6 +1377,56 @@ cudaError_t launch_chunked(const T* q, const T* k, const T* v,
   masked_attention_chunked<T><<<grid, CHUNK_ROWS * WARP, smem, stream>>>(
       q, k, v, key_mask, out, heads, tq, tk, dh, sm_scale, skip);
   return cudaGetLastError();
+}
+
+// whether masked_attention_mma takes the shape: Dh a multiple of 4 from 8
+// to MAX_DH, 16-byte aligned q, k, v, Tk within its live-tile bits and
+// Tq within 65,535 blocks of MMA_ROWS rows
+bool mma_takes(const void* q, const void* k, const void* v, int tq, int tk, int dh) {
+  const uintptr_t bits = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v;
+  return dh % 4 == 0 && dh >= 8 && dh <= MAX_DH && bits % 16 == 0 && tk <= MMA_MAX_KEYS
+         && (tq + MMA_ROWS - 1) / MMA_ROWS <= 65535;
+}
+
+// The resident -> mma crossover, on the shape (H100 A/B, kernel_variants.py
+// long_keys, in turns): where both kernels take a head, the tensor-core
+// kernel from 17 query rows and 17 keys (CUB's caption encoders 1.9-2.8x,
+// VILANRO's action encoder 1.59x, the flagship's text 1.13x, Enc_VIT
+// 1.04x); SPRITES' 16 x 16 heads, which would leave 3 of its block's 4
+// warps without rows, stay resident (0.247 against 0.599 ms).
+bool mma_over_resident(int tq, int tk) { return tq > 16 && tk > 16; }
+
+// the padded head width of the instance that takes dh
+int mma_dhp(int dh) { return dh <= 8 ? 8 : dh <= 16 ? 16 : dh <= 32 ? 32 : dh <= 64 ? 64 : 128; }
+
+template <typename T, int DHP>
+cudaError_t launch_mma_dhp(const T* q, const T* k, const T* v, const uint8_t* key_mask,
+                           float* out, int bh, int heads, int tq, int tk, int dh,
+                           float sm_scale, int skip, cudaStream_t stream) {
+  const size_t smem = mma_smem(DHP, tk);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(masked_attention_mma<T, DHP>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  masked_attention_mma<T, DHP>
+      <<<dim3(bh, (tq + MMA_ROWS - 1) / MMA_ROWS), MMA_WARPS * WARP, smem, stream>>>(
+          q, k, v, key_mask, out, heads, tq, tk, dh, sm_scale, skip);
+  return cudaGetLastError();
+}
+
+// where mma_takes the shape
+template <typename T>
+cudaError_t launch_mma(const T* q, const T* k, const T* v, const uint8_t* key_mask, float* out,
+                       int bh, int heads, int tq, int tk, int dh, float sm_scale, int skip,
+                       cudaStream_t s) {
+#define LAUNCH(DHP) \
+  launch_mma_dhp<T, DHP>(q, k, v, key_mask, out, bh, heads, tq, tk, dh, sm_scale, skip, s)
+  const int dhp = mma_dhp(dh);
+  return dhp == 8 ? LAUNCH(8) : dhp == 16 ? LAUNCH(16) : dhp == 32 ? LAUNCH(32)
+         : dhp == 64 ? LAUNCH(64) : LAUNCH(128);
+#undef LAUNCH
 }
 
 // whether masked_attention_tc can take the shape, and whether the bf16
@@ -1165,21 +1593,12 @@ cudaError_t launch_short(const __nv_bfloat16* q, const __nv_bfloat16* k,
   return cudaGetLastError();
 }
 
-// The resident kernel where the head fits it, else the chunked one; writes
-// which to *variant (0 resident, 1 chunked) and launches on `stream`.  skip:
-// leave out the all-masked key tiles (0: the dense yardstick).  The plan
-// follows the call's shape, never its mask: the host reads no mask.
+// The resident kernel at the plan r (r.fits), its instance by keys a lane
+// and head width.
 template <typename T>
-cudaError_t resident_or_chunked(const T* q, const T* k, const T* v, const uint8_t* mask,
-                                float* out, int batch, int heads, int tq, int tk, int dh,
-                                float sm_scale, cudaStream_t s, int* variant, int skip = 1) {
-  const int bh = batch * heads;
-  const ResidentLaunch r = plan_resident(bh, tq, tk, dh);
-  if (!r.fits) {
-    *variant = CHUNKED;
-    return launch_chunked<T>(q, k, v, mask, out, bh, heads, tq, tk, dh, sm_scale, skip, s);
-  }
-  *variant = RESIDENT;
+cudaError_t launch_resident_plan(const ResidentLaunch& r, const T* q, const T* k, const T* v,
+                                 const uint8_t* mask, float* out, int bh, int heads, int tq,
+                                 int tk, int dh, float sm_scale, int skip, cudaStream_t s) {
 #define LAUNCH(KPL)                                                                  \
   (dh <= WARP ? launch_resident<T, KPL, 1>(r, q, k, v, mask, out, bh, heads, tq, tk, dh, \
                                            sm_scale, skip, s)                       \
@@ -1189,8 +1608,34 @@ cudaError_t resident_or_chunked(const T* q, const T* k, const T* v, const uint8_
 #undef LAUNCH
 }
 
+// The route past the few-keys kernel: the fp32 tensor-core kernel where it
+// takes the shape and the resident kernel cannot hold the head or loses to
+// it (mma_over_resident), else the resident kernel where the head fits it,
+// else the chunked one; writes which to *variant (5 mma, 0 resident, 1
+// chunked) and launches on `stream`.  skip: leave out the all-masked key
+// tiles (0: the dense yardstick).  The plan follows the call's shape, never
+// its mask: the host reads no mask.
+template <typename T>
+cudaError_t route_past_few_keys(const T* q, const T* k, const T* v, const uint8_t* mask,
+                                float* out, int batch, int heads, int tq, int tk, int dh,
+                                float sm_scale, cudaStream_t s, int* variant, int skip = 1) {
+  const int bh = batch * heads;
+  const ResidentLaunch r = plan_resident(bh, tq, tk, dh);
+  if (mma_takes(q, k, v, tq, tk, dh) && (!r.fits || mma_over_resident(tq, tk))) {
+    *variant = MMA;
+    return launch_mma<T>(q, k, v, mask, out, bh, heads, tq, tk, dh, sm_scale, skip, s);
+  }
+  if (!r.fits) {
+    *variant = CHUNKED;
+    return launch_chunked<T>(q, k, v, mask, out, bh, heads, tq, tk, dh, sm_scale, skip, s);
+  }
+  *variant = RESIDENT;
+  return launch_resident_plan<T>(r, q, k, v, mask, out, bh, heads, tq, tk, dh, sm_scale, skip,
+                                 s);
+}
+
 // The fp32 route, and the bf16 launcher's where neither bf16 kernel takes
-// the shape: the few-keys kernel (*variant 3), else resident or chunked.
+// the shape: the few-keys kernel (*variant 3), else route_past_few_keys.
 template <typename T>
 cudaError_t forward(const T* q, const T* k, const T* v, const uint8_t* mask, float* out,
                     int batch, int heads, int tq, int tk, int dh, float sm_scale,
@@ -1200,7 +1645,7 @@ cudaError_t forward(const T* q, const T* k, const T* v, const uint8_t* mask, flo
     return launch_few_keys<T>(q, k, v, mask, out, batch * heads, heads, tq, tk, dh, sm_scale,
                               s);
   }
-  return resident_or_chunked<T>(q, k, v, mask, out, batch, heads, tq, tk, dh, sm_scale, s,
+  return route_past_few_keys<T>(q, k, v, mask, out, batch, heads, tq, tk, dh, sm_scale, s,
                                 variant);
 }
 
@@ -1212,8 +1657,9 @@ extern "C" {
 // or bf16 (masked_attention_forward_bf16) on the device; out: (B*H, Tq, Dh)
 // contiguous fp32; key_mask: (B, Tk) bool (1 byte) or null.  1 <= Dh <= 128.
 // Picks the path by shape, writes which one to *variant (0 resident, 1
-// chunked, 2 the bf16 tensor-core kernel, 3 few keys, 4 short bf16),
-// launches on `stream` and returns cudaGetLastError().
+// chunked, 2 the bf16 tensor-core kernel, 3 few keys, 4 short bf16, 5 the
+// fp32 tensor-core kernel), launches on `stream` and returns
+// cudaGetLastError().
 int masked_attention_forward(const void* q, const void* k, const void* v,
                              const void* key_mask, void* out, int batch,
                              int heads, int tq, int tk, int dh,
@@ -1226,7 +1672,7 @@ int masked_attention_forward(const void* q, const void* k, const void* v,
 // The bf16 launcher: the few-keys kernel where few_keys_takes_bf16 the
 // shape (*variant 3), the tensor-core kernel where tc_takes it (2), the
 // short kernel where short_takes it (4), else the fp32 route on bf16
-// inputs, widened as they are loaded (3, 0 or 1).
+// inputs, widened as they are loaded (3, 0, 5 or 1).
 int masked_attention_forward_bf16(const void* q, const void* k, const void* v,
                                   const void* key_mask, void* out, int batch,
                                   int heads, int tq, int tk, int dh,
@@ -1254,17 +1700,17 @@ int masked_attention_forward_bf16(const void* q, const void* k, const void* v,
 }
 
 // Yardsticks of the routes, which the port's wrapper never calls (the
-// arguments of masked_attention_forward less `variant`): the resident or
-// chunked kernel whatever the shape, on fp32 (the route before the few-keys
-// kernel) and on bf16 (the widening path, before the short and few-keys
-// kernels); the tensor-core kernel wherever it fits (tc_fits; else
-// cudaErrorInvalidValue), under TC_MIN_SIDE too.  The few-keys kernel's
-// yardstick follows them.
+// arguments of masked_attention_forward less `variant`): the route past the
+// few-keys kernel (resident, mma or chunked) whatever the shape, on fp32
+// (the route before the few-keys kernel) and on bf16 (the widening path,
+// before the short and few-keys kernels); the bf16 tensor-core kernel
+// wherever it fits (tc_fits; else cudaErrorInvalidValue), under
+// TC_MIN_SIDE too.  The few-keys kernel's yardstick follows them.
 int masked_attention_forward_resident(const void* q, const void* k, const void* v,
                                       const void* key_mask, void* out, int batch, int heads,
                                       int tq, int tk, int dh, float sm_scale, void* stream) {
   int variant;
-  return (int)resident_or_chunked((const float*)q, (const float*)k, (const float*)v,
+  return (int)route_past_few_keys((const float*)q, (const float*)k, (const float*)v,
                                   (const uint8_t*)key_mask, (float*)out, batch, heads, tq, tk,
                                   dh, sm_scale, (cudaStream_t)stream, &variant);
 }
@@ -1274,7 +1720,7 @@ int masked_attention_forward_bf16_widened(const void* q, const void* k, const vo
                                           int heads, int tq, int tk, int dh,
                                           float sm_scale, void* stream) {
   int variant;
-  return (int)resident_or_chunked((const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+  return (int)route_past_few_keys((const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
                                   (const __nv_bfloat16*)v, (const uint8_t*)key_mask,
                                   (float*)out, batch, heads, tq, tk, dh, sm_scale,
                                   (cudaStream_t)stream, &variant);
@@ -1312,20 +1758,21 @@ int masked_attention_forward_bf16_few_keys(const void* q, const void* k, const v
                               batch * heads, heads, tq, tk, dh, sm_scale, (cudaStream_t)stream);
 }
 
-// The resident or chunked kernel as the fp32 launcher would pick it
-// between them, with no key tile skipped: the dense design, the yardstick
+// The resident, mma or chunked kernel as the fp32 launcher would pick it
+// among them, with no key tile skipped: the dense design, the yardstick
 // the tile skipping is measured and held bit for bit against.
 int masked_attention_forward_dense(const void* q, const void* k, const void* v,
                                    const void* key_mask, void* out, int batch, int heads,
                                    int tq, int tk, int dh, float sm_scale, void* stream) {
   int variant;
-  return (int)resident_or_chunked((const float*)q, (const float*)k, (const float*)v,
+  return (int)route_past_few_keys((const float*)q, (const float*)k, (const float*)v,
                                   (const uint8_t*)key_mask, (float*)out, batch, heads, tq, tk,
                                   dh, sm_scale, (cudaStream_t)stream, &variant, 0);
 }
 
-// The chunked kernel whatever the shape: a yardstick for the resident path
-// at the shapes the launcher gives to it.  The port's wrapper never calls it.
+// The chunked kernel whatever the shape: a yardstick for the resident and
+// mma paths at the shapes the launcher gives to them.  The port's wrapper
+// never calls it.
 int masked_attention_forward_chunked(const void* q, const void* k, const void* v,
                                      const void* key_mask, void* out, int batch,
                                      int heads, int tq, int tk, int dh,
@@ -1333,6 +1780,31 @@ int masked_attention_forward_chunked(const void* q, const void* k, const void* v
   return (int)launch_chunked<float>((const float*)q, (const float*)k, (const float*)v,
                                     (const uint8_t*)key_mask, (float*)out, batch * heads,
                                     heads, tq, tk, dh, sm_scale, 1, (cudaStream_t)stream);
+}
+
+// The two sides of the resident -> mma crossover, which the port's wrapper
+// never calls: the fp32 tensor-core kernel wherever it takes the shape
+// (mma_takes), and the resident kernel wherever it holds the head
+// (plan_resident), each skipping the all-masked key tiles; else
+// cudaErrorInvalidValue.
+int masked_attention_forward_resident_only(const void* q, const void* k, const void* v,
+                                           const void* key_mask, void* out, int batch,
+                                           int heads, int tq, int tk, int dh, float sm_scale,
+                                           void* stream) {
+  const ResidentLaunch r = plan_resident(batch * heads, tq, tk, dh);
+  if (!r.fits) return (int)cudaErrorInvalidValue;
+  return (int)launch_resident_plan(r, (const float*)q, (const float*)k, (const float*)v,
+                                   (const uint8_t*)key_mask, (float*)out, batch * heads, heads,
+                                   tq, tk, dh, sm_scale, 1, (cudaStream_t)stream);
+}
+
+int masked_attention_forward_mma(const void* q, const void* k, const void* v,
+                                 const void* key_mask, void* out, int batch, int heads,
+                                 int tq, int tk, int dh, float sm_scale, void* stream) {
+  if (!mma_takes(q, k, v, tq, tk, dh)) return (int)cudaErrorInvalidValue;
+  return (int)launch_mma((const float*)q, (const float*)k, (const float*)v,
+                         (const uint8_t*)key_mask, (float*)out, batch * heads, heads, tq, tk,
+                         dh, sm_scale, 1, (cudaStream_t)stream);
 }
 
 // A kernel that does nothing, launched with the grid, block and shared
@@ -1375,9 +1847,16 @@ int empty_launch(int batch, int heads, int tq, int tk, int dh, int bf16, int res
     smem = short_smem(tq, tk, dh);
   } else {
     const ResidentLaunch r = plan_resident(bh, tq, tk, dh);
-    grid = dim3(bh, r.fits ? r.nsplit : (tq + CHUNK_ROWS - 1) / CHUNK_ROWS);
-    threads = r.fits ? r.nwarps * WARP : CHUNK_ROWS * WARP;
-    smem = r.fits ? r.smem : 0;
+    if (!resident && mma_takes(aligned, aligned, aligned, tq, tk, dh)
+        && (!r.fits || mma_over_resident(tq, tk))) {
+      grid = dim3(bh, (tq + MMA_ROWS - 1) / MMA_ROWS);
+      threads = MMA_WARPS * WARP;
+      smem = mma_smem(mma_dhp(dh), tk);
+    } else {
+      grid = dim3(bh, r.fits ? r.nsplit : (tq + CHUNK_ROWS - 1) / CHUNK_ROWS);
+      threads = r.fits ? r.nwarps * WARP : CHUNK_ROWS * WARP;
+      smem = r.fits ? r.smem : 0;
+    }
   }
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(

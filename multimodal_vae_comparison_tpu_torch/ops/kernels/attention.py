@@ -1,31 +1,36 @@
 """Masked attention forward: CUDA kernel and its plain version.
 
 Counterpart of ``ops/pallas/attention.py`` (``masked_flash_attention``).
-The kernels are in ``csrc/attention.cu``, whose launcher picks by shape:
-a head of at most 8 keys (the decoders' cross-attention over 1 latent or a
-few conditioning tokens, SPRITES' 8 x 8 axial heads) goes to a kernel that
-gives a query row a few lanes and keeps its scores in registers
-(``"few_keys"``); a head whose K and V fit shared memory is computed whole
-by one thread block (``"resident"``), a larger one in chunks of keys with
-an online softmax (``"chunked"``); under a key mask both leave out the
-32-key tiles whose keys are all masked, a decision the kernel takes from
-the mask on the device.  On bf16 inputs, one key under more query rows
-takes the few-keys kernel; with 16 query rows or 16 keys or more (Dh a
-multiple of 8 up to 64), a kernel on the bf16 tensor cores (``"tc_bf16"``)
-that skips the key tiles whose keys are all masked too; with both sides
-under 16 (SPRITES' 8 x 8 axial heads; Dh a multiple of 8 up to 64, 16-byte
-aligned inputs) a kernel that gives each head a warp and copies its bf16
-rows as they are (``"short_bf16"``); else the fp32 route on the bf16
-inputs.  :func:`attention_reference` is the same function in
-plain PyTorch.  :func:`masked_attention` is a ``torch.autograd.Function``
-whose forward launches the kernel for CUDA tensors and takes the plain
-version only for CPU tensors.  Masking is additive with ``NEG_INF`` per
-key, as in the TPU kernel, so a row whose keys are all masked gets the
-uniform average of V.
+The kernels are in ``csrc/attention.cu``, whose launcher picks by shape: a
+head of at most 8 keys (the decoders' cross-attention over 1 latent or a few
+conditioning tokens, SPRITES' 8 x 8 axial heads) goes to a kernel that gives
+a query row a few lanes and keeps its scores in registers (``"few_keys"``);
+a head with Dh a multiple of 4 from 8 and 16-byte aligned inputs goes to a
+kernel that runs both products on the tensor cores as three TF32 products
+each (3xTF32, fp32-grade) with an online softmax over 32-key tiles staged by
+cp.async (``"mma"``) where it has more than 16 query rows and 16 keys or
+where the resident kernel cannot hold it (more than 256 keys, or K and V
+over the shared-memory budget); a head whose K and V fit shared memory is
+otherwise computed whole by one thread block (``"resident"``), any other in
+chunks of keys on FMAs (``"chunked"``); under a key mask the three leave out
+the 32-key tiles whose keys are all masked, a decision the kernel takes from
+the mask on the device.  On bf16 inputs, one key under more query rows takes
+the few-keys kernel; with 16 query rows or 16 keys or more (Dh a multiple of
+8 up to 64), a kernel on the bf16 tensor cores (``"tc_bf16"``) that skips
+the key tiles whose keys are all masked too; with both sides under 16
+(SPRITES' 8 x 8 axial heads; Dh a multiple of 8 up to 64, 16-byte aligned
+inputs) a kernel that gives each head a warp and copies its bf16 rows as
+they are (``"short_bf16"``); else the fp32 route on the bf16 inputs (the mma
+kernel widening bf16 as it stages it).  :func:`attention_reference` is the
+same function in plain PyTorch.  :func:`masked_attention` is a
+``torch.autograd.Function`` whose forward launches the kernel for CUDA
+tensors and takes the plain version only for CPU tensors.  Masking is
+additive with ``NEG_INF`` per key, as in the TPU kernel, so a row whose keys
+are all masked gets the uniform average of V.
 
 q, k and v come in fp32 or bf16 (``precision: bf16``); the output is fp32
-either way.  The resident, chunked, few-keys and short kernels load bf16
-and widen it to fp32 (on the way into shared memory or out of it), which
+either way.  The resident, mma, chunked, few-keys and short kernels load
+bf16 and widen it to fp32 (on the way into shared memory or out of it), which
 is exact, and then run the fp32 arithmetic; the tensor-core kernel
 multiplies q and k as they are (exact in fp32) and P, in two bf16 planes,
 by v.  The plain version widens.  The caller casts the output to its
@@ -55,8 +60,10 @@ KERNEL = "attention"
 NEG_INF = -1e30
 MAX_HEAD_DIM = 128   # csrc/attention.cu MAX_DH
 _ROWS = 8            # csrc/attention.cu CHUNK_ROWS: query rows per block, chunked path
+_MMA_ROWS = 64       # csrc/attention.cu MMA_ROWS: query rows per block, mma path
+_MMA_MAX_KEYS = 1 << 22   # csrc/attention.cu MMA_MAX_KEYS
 # csrc/attention.cu Variant
-VARIANTS = ("resident", "chunked", "tc_bf16", "few_keys", "short_bf16")
+VARIANTS = ("resident", "chunked", "tc_bf16", "few_keys", "short_bf16", "mma")
 # the launcher of each input dtype: masked_attention_forward[_bf16](q, k, v,
 # key_mask, out, B, H, Tq, Tk, Dh, scale, stream, &variant)
 LAUNCHERS = {torch.float32: "masked_attention_forward",
@@ -104,7 +111,11 @@ def _launch(q, k, v, key_mask):
     if not (1 <= dh <= MAX_HEAD_DIM) or tq < 1 or tk < 1:
         raise ValueError(f"attention kernel takes 1 <= Dh <= {MAX_HEAD_DIM}, "
                          f"Tq >= 1, Tk >= 1; got Dh={dh}, Tq={tq}, Tk={tk}")
-    if -(-tq // _ROWS) > 65535 or b * h > 2 ** 31 - 1:
+    # the grid's query-row blocks: the mma kernel's where it takes the shape
+    # (csrc/attention.cu mma_takes; the resident kernel's plan checks its own)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v))
+    rows = _MMA_ROWS if dh % 4 == 0 and dh >= 8 and tk <= _MMA_MAX_KEYS and aligned else _ROWS
+    if -(-tq // rows) > 65535 or b * h > 2 ** 31 - 1:
         raise ValueError(f"attention kernel grid too large for {tuple(q.shape)}")
     if key_mask is not None and (key_mask.dtype != torch.bool
                                  or key_mask.shape != (b, tk)):

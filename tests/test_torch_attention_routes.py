@@ -1,12 +1,13 @@
 """The masked attention at the shape classes of its few-keys and short bf16
-routes and at the key-padding classes its resident and chunked kernels
-skip, against the JAX package's kernel.
+routes and at the key-padding classes its resident, tensor-core and
+chunked kernels skip, against the JAX package's kernel.
 
 ``csrc/attention.cu`` gives a head of at most 8 keys (on bf16: one key
 under more query rows) to ``masked_attention_few_keys``, bf16 heads with
-both sides under 16 to ``masked_attention_short_bf16``, and leaves out of
-the resident and chunked kernels the 32-key tiles whose keys are all
-masked.  On the CPU the port's
+both sides under 16 to ``masked_attention_short_bf16``, heads past the
+resident kernel's reach to ``masked_attention_mma`` (Dh a multiple of 4
+from 8) or the chunked kernel, and leaves out of the resident, mma and
+chunked kernels the 32-key tiles whose keys are all masked.  On the CPU the port's
 :func:`masked_attention` takes its plain version; here it is held, on
 inputs made with numpy from a seed, against ``masked_flash_attention``
 (Pallas, interpreted) and the XLA path of the JAX package at each class:
@@ -15,8 +16,8 @@ SPRITES' 8 x 8 axial heads on bf16 inputs (rounded to bf16 in numpy and fed
 to JAX in fp32, which the Pallas kernel widens to exactly), batch elements
 whose keys are all masked, and the masks the tile skipping meets: dead
 tiles after the live ones, dead tiles between live ones, a live tile with
-only its last key visible, and a head past the resident kernel's 256 keys
-(the chunked kernel).  Tolerance: that of the reference's
+only its last key visible, and heads past the resident kernel's 256 keys
+(the fp32 tensor-core kernel; the chunked kernel at Dh 6).  Tolerance: that of the reference's
 Pallas attention test (``tests/test_pallas.py``), rtol 2e-4, atol 2e-5.
 The kernels themselves are held against the plain version on the card by
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``; the route
@@ -136,7 +137,7 @@ def test_fully_masked_elements_are_the_uniform_average(tq, tk, dtype):
     ((448, 2, 4, 1, 16), torch.float32, "few_keys"),      # VILANRO's language decoder
     ((112, 4, 8, 1, 64), torch.float32, "few_keys"),      # Dec_TransformerIMG
     ((128, 2, 45, 1, 8), torch.float32, "few_keys"),      # the flagship text decoder
-    ((128, 2, 45, 45, 32), torch.float32, "resident"),    # the flagship text encoder
+    ((128, 2, 45, 45, 32), torch.float32, "mma"),         # the flagship text encoder
     ((61440, 2, 8, 8, 32), torch.float32, "few_keys"),    # SPRITES' fp32 T axis
     ((16, 4, 8, 8, 64), torch.float32, "few_keys"),       # Enc_TransformerIMG
     ((64, 2, 4, 4, 32), torch.float32, "few_keys"),       # VILANRO's language encoder
@@ -145,13 +146,29 @@ def test_fully_masked_elements_are_the_uniform_average(tq, tk, dtype):
     ((640, 2, 246, 1, 8), torch.bfloat16, "few_keys"),    # CUB's decoder in bf16
     ((448, 4, 100, 5, 32), torch.bfloat16, "tc_bf16"),    # Dec_TransformerCond in bf16
     ((2, 3, 9, 11, 6), torch.bfloat16, "resident"),       # Dh 6: widened
-    ((3, 2, 20, 3, 12), torch.bfloat16, "few_keys")],     # Dh 12, 3 keys: widened
+    ((3, 2, 20, 3, 12), torch.bfloat16, "few_keys"),      # Dh 12, 3 keys: widened
+    ((16, 2, 512, 512, 32), torch.float32, "mma"),        # chip_smoke.CHUNKED_SHAPE
+    ((2, 2, 20, 1000, 16), torch.float32, "mma"),         # Tk past the resident kernel's 256
+    ((2, 2, 20, 256, 128), torch.float32, "mma"),         # K and V over its shared memory
+    ((1, 1, 300, 300, 64), torch.float32, "mma"),
+    ((2, 2, 20, 300, 6), torch.float32, "chunked"),       # Dh % 4 != 0 past 256 keys
+    ((2, 2, 20, 300, 4), torch.float32, "chunked"),       # Dh under the MMA's 8
+    ((3, 2, 40, 300, 68), torch.bfloat16, "mma"),         # bf16 off the tc grid: widened
+    ((2, 2, 40, 9000, 32), torch.bfloat16, "mma"),        # bf16 past tc's 8192 keys
+    ((32, 2, 246, 246, 32), torch.float32, "mma"),        # CUB's caption encoders
+    ((64, 2, 100, 100, 16), torch.float32, "mma"),        # VILANRO's action encoder
+    ((24, 8, 17, 17, 32), torch.float32, "mma"),          # Enc_VIT: 17 rows, 17 keys
+    ((30720, 2, 16, 16, 32), torch.float32, "resident"),  # SPRITES' fp32 16 x 16 heads
+    ((4, 2, 16, 130, 16), torch.float32, "resident"),     # 16 query rows
+    ((4, 2, 130, 16, 16), torch.float32, "resident"),     # 16 keys
+    ((3, 2, 40, 100, 36), torch.bfloat16, "mma")],        # bf16 Dh 36: widened
     ids=lambda x: str(x).replace(" ", "").replace("torch.", "") if not isinstance(x, str)
     else x)
 def test_chip_smoke_expects_the_launchers_route(shape, dtype, variant):
     """``chip_smoke.attention_variant``, which its checks hold each
     launch's telemetry to, names the route csrc/attention.cu takes at the
-    model paths' shapes (aligned inputs, heads the resident kernel holds)."""
+    model paths' shapes and the long heads (aligned inputs), on both sides
+    of the resident -> mma crossover (Tq and Tk both over 16)."""
     assert chip_smoke.attention_variant(shape, dtype) == variant
     assert variant in tattn.VARIANTS
 
@@ -179,8 +196,17 @@ PADDING_CLASSES = {
     "last-key": ((2, 2, 10, 64, 16), ([63], slice(0, 33))),
     # every key of every element masked: the mean of V, no tile left out
     "all-masked": ((2, 2, 7, 70, 8), (None, None)),
-    # past the resident kernel's 256 keys at Dh 8: the chunked kernel
+    # past the resident kernel's 256 keys at Dh 8: the tensor-core kernel
+    # (the chunked kernel before it)
     "chunked": ((3, 2, 10, 300, 8), (slice(0, 20), [5, 290], None)),
+    # 1000 keys at Dh 16: a first live tile, dead ones after, the tail tile
+    # (1000 = 31 * 32 + 8) live; one element masked whole
+    "long-suffix": ((2, 2, 6, 1000, 16), ([0, 1, 2, 995], None)),
+    # Dh 6 past 256 keys: the chunked kernel
+    "chunked-dh6": ((2, 1, 5, 290, 6), ([1, 100, 289], slice(30, 70))),
+    # a padded sequence of 20 query rows within the resident kernel's 256
+    # keys: the tensor-core kernel (from 17 rows and 17 keys)
+    "mma-suffix": ((2, 2, 20, 100, 16), (slice(0, 9), None)),
 }
 
 
@@ -205,11 +231,14 @@ def test_padded_keys_match_pallas_interpret(label):
 
 @pytest.mark.parametrize("label,variant", [
     ("suffix", "resident"), ("between", "resident"), ("last-key", "resident"),
-    ("all-masked", "resident"), ("chunked", "chunked")])
+    ("all-masked", "resident"), ("chunked", "mma"), ("long-suffix", "mma"),
+    ("chunked-dh6", "chunked"), ("mma-suffix", "mma")])
 def test_chip_smoke_expects_the_padded_classes_route(label, variant):
     """``chip_smoke.attention_variant`` names the kernel the launcher gives
-    each padding class: the resident kernel up to 256 keys, the chunked one
-    past them (csrc/attention.cu ``plan_resident``)."""
+    each padding class: the resident kernel at these classes' few query
+    rows (csrc/attention.cu ``plan_resident``; from 17 rows and 17 keys the
+    fp32 tensor-core kernel), the tensor-core kernel past 256 keys where Dh
+    is a multiple of 4 from 8, the chunked one else."""
     shape, _ = PADDING_CLASSES[label]
     assert chip_smoke.attention_variant(shape) == variant
     assert chip_smoke.attention_variant(shape, torch.bfloat16) in (

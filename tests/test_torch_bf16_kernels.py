@@ -357,9 +357,10 @@ def test_two_bf16_planes_keep_sixteen_bits():
 
 def test_tensor_core_variants_are_named():
     """Each wrapper names the bf16 tensor-core kernel's variant, so the
-    telemetry shows which kernel ran (the attention's few-keys and short
-    bf16 kernels after it)."""
-    assert tattn.VARIANTS == ("resident", "chunked", "tc_bf16", "few_keys", "short_bf16")
+    telemetry shows which kernel ran (the attention's few-keys, short bf16
+    and fp32 tensor-core kernels after it)."""
+    assert tattn.VARIANTS == ("resident", "chunked", "tc_bf16", "few_keys", "short_bf16",
+                              "mma")
     assert tsparse.VARIANTS == ("mma", "fma", "tc_bf16")
 
 

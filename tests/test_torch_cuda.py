@@ -64,9 +64,10 @@ def _qkv(seed, b, h, tq, tk, dh, masked, dev):
 
 
 @pytest.mark.parametrize("b,h,tq,tk,dh,masked,variant", [
-    (128, 2, 45, 45, 32, True, "resident"),    # encoder self-attention, bucket 128
+    (128, 2, 45, 45, 32, True, "mma"),         # encoder self-attention, bucket 128
     (128, 2, 45, 1, 8, False, "few_keys"),     # decoder cross-attention
-    (4, 2, 130, 130, 16, True, "resident"),    # few heads: split by query rows
+    (4, 2, 130, 130, 16, True, "mma"),         # few heads
+    (4, 2, 130, 16, 16, True, "resident"),     # few heads, 16 keys: split by query rows
     (3, 1, 1, 9, 4, True, "resident"),         # one query row (8 keys or fewer: few_keys)
     (2, 2, 9, 33, 128, False, "resident"),     # widest head
     (3, 2, 9, 1, 8, True, "few_keys"),         # one key, masked in one row
@@ -74,19 +75,27 @@ def _qkv(seed, b, h, tq, tk, dh, masked, dev):
     (3, 2, 9, 32, 6, False, "resident"),
     (3, 2, 9, 33, 6, True, "resident"),        # two keys per lane
     (2, 2, 45, 45, 5, True, "resident"),
-    (2, 3, 50, 200, 32, True, "resident"),     # eight keys per lane
-    (1, 2, 1000, 45, 32, False, "resident"),   # many query rows, two heads
-    (2, 2, 20, 1000, 16, True, "chunked"),     # Tk over the resident path's 256
-    (2, 2, 20, 256, 128, True, "chunked"),     # K and V over its shared memory
-    (1, 1, 300, 300, 64, False, "chunked"),
+    (2, 3, 50, 200, 32, True, "mma"),          # from 17 rows and 17 keys: mma
+    (2, 3, 16, 200, 32, True, "resident"),     # eight keys per lane
+    (1, 2, 1000, 45, 32, False, "mma"),        # many query rows, two heads
+    (2, 2, 20, 1000, 16, True, "mma"),         # Tk over the resident path's 256
+    (2, 2, 20, 256, 128, True, "mma"),         # K and V over its shared memory
+    (1, 1, 300, 300, 64, False, "mma"),
+    (3, 2, 40, 300, 68, True, "mma"),          # Dh 68: padded to 128, Tk 300
+    (2, 2, 20, 300, 6, True, "chunked"),       # Dh % 4 != 0 past 256 keys
 ])
 def test_attention_kernel_matches_plain(cuda, b, h, tq, tk, dh, masked, variant):
+    """The launcher takes the named kernel once, within the kernel
+    tolerance of the plain version, the same bits on a second launch, and
+    the uniform average of V for the batch element with every key masked."""
     q, k, v, mask = _qkv(7, b, h, tq, tk, dh, masked, cuda)
     telemetry.reset()
     got = tattn.masked_attention(q, k, v, mask)
     assert telemetry.launches() == {"attention": 1}
     assert telemetry.variants() == {f"attention:{variant}": 1}
+    again = tattn.masked_attention(q, k, v, mask)
     torch.cuda.synchronize()
+    assert torch.equal(got, again)
     torch.testing.assert_close(got, tattn.attention_reference(q, k, v, mask), **ATTN_TOL)
     if masked:
         uniform = v[0].mean(dim=1, keepdim=True).expand_as(got[0])
@@ -869,12 +878,12 @@ def _cub_masks(b, seed):
 
 
 @pytest.mark.parametrize("b,tk,dh,masked,variant", [
-    (32, 246, 32, True, "resident"),     # cub_r2's text encoder: self-attention over captions
-    (16, 246, 32, True, "resident"),     # config_cub's
+    (32, 246, 32, True, "mma"),          # cub_r2's text encoder: self-attention over captions
+    (16, 246, 32, True, "mma"),          # config_cub's
     (640, 1, 8, False, "few_keys")])     # cub_r2's text decoder on M*K*B = 640 latents
 def test_attention_at_cub_caption_length_matches_plain(cuda, b, tk, dh, masked, variant):
     """Masked attention at CUB's 246-character captions, the encoders on the
-    resident kernel (Tk <= 256 keys, 8 a lane), the decoder's one key on the
+    fp32 tensor-core kernel (17 query rows and 17 keys or more), the decoder's one key on the
     few-keys kernel: forward and the Function's backward against autograd
     through the plain version."""
     q, k, v, _ = _qkv(21, b, 2, 246, tk, dh, False, cuda)
@@ -965,7 +974,7 @@ def _vilanro(tmp_path, episodes, **options):
 
 
 @pytest.mark.parametrize("b,tq,tk,dh,masked,variant", [
-    (64, 100, 100, 16, True, "resident"),   # the action encoder: ~93 % of keys padding
+    (64, 100, 100, 16, True, "mma"),        # the action encoder: ~93 % of keys padding
     (64, 4, 4, 32, True, "few_keys"),       # the language encoder: 4 keys
     (448, 100, 1, 16, False, "few_keys"),   # the action decoder on S*K*B = 7 * 64 latents
     (448, 4, 1, 16, False, "few_keys")],    # the language decoder
@@ -973,7 +982,7 @@ def _vilanro(tmp_path, episodes, **options):
 def test_attention_at_vilanro_shapes_matches_plain(cuda, tmp_path, b, tq, tk, dh, masked,
                                                    variant):
     """Masked attention at VILANRO's shapes (head dim 16 at 32 latents), the
-    action encoder on the resident kernel, the language encoder's 4 keys and
+    action encoder on the fp32 tensor-core kernel, the language encoder's 4 keys and
     the decoders' one key on the few-keys kernel, masked by the collected trajectories' and
     instructions' own padding: forward and the Function's backward against
     autograd through the plain version."""
@@ -1238,15 +1247,15 @@ def test_laplace_dreg_step_on_the_card_matches_the_cpu(cuda):
 
 
 @pytest.mark.parametrize("b,h,tq,tk,dh,masked,variant", [
-    (24, 8, 17, 17, 32, False, "resident"),    # Enc_VIT: 16 patch tokens and cls, width 256
+    (24, 8, 17, 17, 32, False, "mma"),         # Enc_VIT: 16 patch tokens and cls, width 256
     (16, 4, 8, 8, 64, True, "few_keys"),       # Enc_TransformerIMG over 8 frames, d_model 256
     (112, 4, 8, 1, 64, False, "few_keys"),     # Dec_TransformerIMG's cross-attention, 7 subsets
-    (3, 4, 45, 45, 64, True, "resident")],     # head dim 64 at the text length
+    (3, 4, 45, 45, 64, True, "mma")],          # head dim 64 at the text length
     ids=["vit", "transformer-img-enc", "transformer-img-dec", "dh64-text"])
 def test_attention_at_head_dim_64_and_the_vit_shape_matches_plain(cuda, b, h, tq, tk, dh,
                                                                   masked, variant):
     """Masked attention at the new nets' shapes, head dim 64 among them, on
-    the resident kernel (8 keys or fewer on the few-keys kernel):
+    the fp32 tensor-core kernel (8 keys or fewer on the few-keys kernel):
     forward and the Function's backward against autograd through the plain
     version (a partly padded key mask, one row with every key masked)."""
     q, k, v, mask = _qkv(64, b, h, tq, tk, dh, masked, cuda)
@@ -1350,7 +1359,7 @@ def _masked_tiles(mask):
     (32, 2, 246, 246, 32, True, "tc_bf16"),   # CUB's captions
     (640, 2, 246, 1, 8, False, "few_keys"),   # CUB's DReG decoder: one key
     (3, 2, 40, 300, 64, True, "tc_bf16"),     # Dh 64, Tk past the resident path's 256
-    (3, 2, 40, 300, 68, True, "chunked"),     # Dh % 8 != 0, past 256 keys
+    (3, 2, 40, 300, 68, True, "mma"),         # Dh % 8 != 0, past 256 keys
     (2, 3, 9, 11, 6, True, "resident"),       # Dh 6: element staging
     (64, 2, 100, 100, 16, True, "tc_bf16"),   # VILANRO's action encoder, Dh 16
     (3, 2, 40, 100, 8, True, "tc_bf16"),      # Dh 8; Tk not a multiple of the key tile
@@ -1738,7 +1747,9 @@ def test_route_yardsticks_agree(cuda):
     SPRITES' 8 x 8), the widening route on bf16 at a short shape, the
     tensor-core kernel on bf16 at a few-keys shape, the few-keys kernel on
     bf16 under the tensor-core kernel's crossover, the dense design at a
-    key-padded shape, each within the tolerance of the launcher."""
+    key-padded shape, the fp32 tensor-core kernel at a head the resident
+    kernel holds, the chunked kernel at a head the launcher gives the fp32
+    tensor-core kernel, each within the tolerance of the launcher."""
     import ctypes
     from multimodal_vae_comparison_tpu_torch.ops.kernels import _build
     args = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
@@ -1748,7 +1759,9 @@ def test_route_yardsticks_agree(cuda):
             (8, 8, torch.bfloat16, "masked_attention_forward_bf16_widened"),
             (45, 1, torch.bfloat16, "masked_attention_forward_bf16_tc"),
             (45, 1, torch.bfloat16, "masked_attention_forward_bf16_few_keys"),
-            (45, 45, torch.float32, "masked_attention_forward_dense")):
+            (45, 45, torch.float32, "masked_attention_forward_dense"),
+            (45, 45, torch.float32, "masked_attention_forward_mma"),
+            (45, 300, torch.float32, "masked_attention_forward_chunked")):
         q, k, v, mask = _qkv(55, 8, 2, tq, tk, 32, True, cuda)
         q, k, v = (x.to(dtype) for x in (q, k, v))
         fn = _build.function("attention", symbol, args)
@@ -1780,22 +1793,26 @@ def _lengths_mask(b, tk, lo, hi, seed):
 
 
 @pytest.mark.parametrize("b,h,tq,tk,dh,mask_kind,variant", [
-    (32, 2, 246, 246, 32, (40, 70), "resident"),   # cub_r2's encoder: 40-70 of 246 characters
-    (16, 2, 246, 246, 32, (40, 70), "resident"),   # config_cub's
-    (64, 2, 100, 100, 16, (5, 7), "resident"),     # VILANRO's action encoder: 5-7 of 100 steps
-    (128, 2, 45, 45, 32, (1, 45), "resident"),     # the flagship's text, one element masked whole
-    (4, 2, 130, 130, 16, (1, 130), "resident"),    # few heads: split by query rows
-    (4, 2, 30, 200, 32, "tiles", "resident"),      # dead tiles before, between and after
+    (32, 2, 246, 246, 32, (40, 70), "mma"),        # cub_r2's encoder: 40-70 of 246 characters
+    (16, 2, 246, 246, 32, (40, 70), "mma"),        # config_cub's
+    (64, 2, 100, 100, 16, (5, 7), "mma"),          # VILANRO's action encoder: 5-7 of 100 steps
+    (128, 2, 45, 45, 32, (1, 45), "mma"),          # the flagship's text, one element masked whole
+    (4, 2, 130, 130, 16, (1, 130), "mma"),         # few heads
+    (4, 2, 30, 200, 32, "tiles", "mma"),           # dead tiles before, between and after
     (3, 2, 9, 70, 6, "tiles", "resident"),         # Dh % 4 != 0: staged by element
     (3, 2, 9, 33, 128, "last", "resident"),        # only the last key of the last tile
-    (2, 2, 20, 1000, 16, (1, 1000), "chunked"),    # Tk over the resident kernel's 256
-    (3, 2, 40, 300, 68, "tiles", "chunked"),       # dead chunks between live ones
-    (16, 2, 512, 512, 32, (1, 512), "chunked"),    # chip_smoke.CHUNKED_SHAPE
+    (2, 2, 20, 1000, 16, (1, 1000), "mma"),        # Tk over the resident kernel's 256
+    (3, 2, 40, 300, 68, "tiles", "mma"),           # dead tiles between live ones
+    (16, 2, 512, 512, 32, (1, 512), "mma"),        # chip_smoke.CHUNKED_SHAPE
+    (2, 2, 20, 300, 6, "tiles", "chunked"),        # Dh 6 past 256 keys: dead chunks
+    (4, 2, 16, 200, 32, "tiles", "resident"),      # the resident kernel's 16 query rows
+    (4, 2, 16, 130, 16, (1, 130), "resident"),
 ], ids=["cub-r2", "config-cub", "vilanro-action", "flagship", "split-rows", "tiles",
-        "dh6-tiles", "last-key", "chunked", "chunked-tiles", "chunked-512"])
+        "dh6-tiles", "last-key", "chunked", "chunked-tiles", "chunked-512", "chunked-dh6",
+        "resident-tiles", "resident-lengths"])
 def test_dead_key_tiles_are_skipped_bit_for_bit(cuda, b, h, tq, tk, dh, mask_kind, variant):
-    """The resident and chunked kernels leave out every 32-key tile whose
-    keys are all masked, where the batch element has a visible key: their
+    """The resident, mma and chunked kernels leave out every 32-key tile
+    whose keys are all masked, where the batch element has a visible key: their
     output is ``torch.equal`` to the dense design's
     (``masked_attention_forward_dense``, which skips nothing) and to their
     own output with the dead tiles' K and V rows set to NaN (skipped, not
@@ -1837,3 +1854,52 @@ def test_dead_key_tiles_are_skipped_bit_for_bit(cuda, b, h, tq, tk, dh, mask_kin
         dense_run()
         torch.cuda.synchronize()
         assert torch.equal(widened, dense)
+
+
+# -- the fp32 tensor-core attention kernel past the resident kernel's reach -------------
+
+
+@pytest.mark.parametrize("b,h,tq,tk,dh,dtype,unaligned,variant", [
+    (16, 2, 512, 512, 32, torch.float32, False, "mma"),   # chip_smoke.CHUNKED_SHAPE
+    (2, 2, 20, 1000, 16, torch.float32, False, "mma"),    # Tk = 31 tiles and 8 keys
+    (2, 2, 20, 256, 128, torch.float32, False, "mma"),    # Dh 128: Q in shared memory
+    (1, 2, 300, 300, 64, torch.float32, False, "mma"),    # Dh 64; rows past Tq in a block
+    (2, 2, 70, 260, 12, torch.float32, False, "mma"),     # Dh 12 padded to 16
+    (2, 2, 17, 300, 8, torch.float32, False, "mma"),      # Dh 8, the MMA's k-step
+    (2, 3, 33, 400, 36, torch.bfloat16, False, "mma"),    # bf16 off the tc grid: widened
+    (2, 2, 20, 9000, 32, torch.bfloat16, False, "mma"),   # bf16 past tc's 8192 keys
+    (2, 2, 20, 300, 6, torch.float32, False, "chunked"),  # Dh % 4 != 0
+    (2, 2, 20, 300, 4, torch.float32, False, "chunked"),  # Dh under the MMA's 8
+    (2, 2, 20, 300, 16, torch.float32, True, "chunked"),  # inputs off a 16-byte line
+], ids=["chunked-shape", "tk1000", "dh128", "dh64", "dh12", "dh8", "bf16-dh36",
+        "bf16-tk9000", "dh6", "dh4", "unaligned"])
+@pytest.mark.parametrize("masked", [True, False], ids=["masked", "unmasked"])
+def test_mma_attention_kernel_at_its_edges(cuda, b, h, tq, tk, dh, dtype, unaligned, variant,
+                                           masked):
+    """Heads past the resident kernel's reach take the fp32 tensor-core
+    kernel where Dh is a multiple of 4 from 8 and the inputs are 16-byte
+    aligned (bf16 widened into it), else the chunked kernel: within the
+    kernel tolerance of the plain version, the same bits twice, and the
+    uniform average of V for the batch element whose keys are all masked
+    (Tk not a multiple of the 32-key tile: the tail keys add nothing)."""
+    q, k, v, mask = _qkv(58, b, h, tq, tk, dh, masked, cuda)
+    q, k, v = (x.to(dtype) for x in (q, k, v))
+    if unaligned:
+        q, k, v = (_off_by_one(x) for x in (q, k, v))
+    got = _launched(q, k, v, mask, variant)
+    torch.testing.assert_close(got, tattn.attention_reference(q, k, v, mask), **ATTN_TOL)
+    if masked:
+        uniform = v[0].float().mean(dim=1, keepdim=True).expand_as(got[0])
+        torch.testing.assert_close(got[0], uniform, **ATTN_TOL)
+
+
+def test_mma_attention_gives_nan_where_q_is_nan(cuda):
+    """A NaN in a query row makes that row NaN, as the plain version does,
+    and leaves every other row within the tolerance."""
+    q, k, v, mask = _qkv(59, 2, 2, 40, 300, 32, True, cuda)
+    q[1, 0, 17, 5] = float("nan")
+    got = _launched(q, k, v, mask, "mma")
+    want = tattn.attention_reference(q, k, v, mask)
+    assert torch.isnan(got[1, 0, 17]).all() and torch.isnan(want[1, 0, 17]).all()
+    got[1, 0, 17] = want[1, 0, 17] = 0.0
+    torch.testing.assert_close(got, want, **ATTN_TOL)

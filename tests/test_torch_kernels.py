@@ -455,3 +455,114 @@ def test_sparse_backward_in_one_tf32_pass_is_50x_worse(b, h, t, dh, block, strid
         return max((g - w).abs().max().item() for g, w in zip(got, want))
 
     assert worst(_matmul_tf32) > 50 * worst(_matmul_3xtf32)
+
+
+# -- the arithmetic of the fp32 tensor-core masked attention ------------------
+
+
+def _mma_attention_with(matmul, q, k, v, mask, skip=True):
+    """The masked attention as csrc/attention.cu masked_attention_mma
+    computes it, with both products through ``matmul``: q pre-scaled so that
+    scores are base-2 logits, keys walked 32 at a time with an online
+    softmax (p = 2^(s - max), the running sum and output rescaled by
+    2^(old max - new max)), the bias 0 or -1e30 per key and -inf for the
+    keys past Tk in the last tile, and (``skip``) the tiles whose keys are
+    all masked left out where the batch element has a visible key."""
+    b, h, tq, dh = q.shape
+    tk = k.shape[2]
+    tiles = -(-tk // 32)
+    pad = tiles * 32 - tk
+    k = torch.nn.functional.pad(k, (0, 0, 0, pad))
+    v = torch.nn.functional.pad(v, (0, 0, 0, pad))
+    visible = torch.ones(b, tk, dtype=torch.bool) if mask is None else mask
+    bias = torch.full((b, tiles * 32), float("-inf"))
+    bias[:, :tk] = torch.where(visible, 0.0, tattn.NEG_INF)
+    qs = q * (1.4426950408889634 / dh ** 0.5)
+    out = torch.empty(b, h, tq, dh)
+    for e in range(b):
+        live = [c for c in range(tiles) if visible[e, 32 * c:32 * c + 32].any()]
+        m = torch.full((h, tq, 1), tattn.NEG_INF)
+        l = torch.zeros(h, tq, 1)
+        acc = torch.zeros(h, tq, dh)
+        for c in (live if live and skip else range(tiles)):
+            keys = slice(32 * c, 32 * c + 32)
+            s = matmul(qs[e], k[e, :, keys].transpose(-1, -2)) + bias[e, keys]
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            alpha = torch.exp2(m - m_new)
+            p = torch.exp2(s - m_new)
+            l = l * alpha + p.sum(-1, keepdim=True)
+            acc = acc * alpha + matmul(p, v[e, :, keys])
+            m = m_new
+        out[e] = acc / l
+    return out
+
+
+# (B, H, Tq, Tk, Dh): heads past the resident kernel's 256 keys, Tk not a
+# multiple of the 32-key tile
+MMA_EMULATION_SHAPES = [(2, 2, 9, 300, 8), (1, 2, 5, 260, 16), (3, 1, 4, 290, 12)]
+
+
+def _mma_inputs(b, h, tq, tk, dh):
+    """q, k, v and a key-padding mask from a seed: element 0 masked whole,
+    the others visible in a random share of keys and in two runs that leave
+    whole 32-key tiles dead between and after them."""
+    q, k, v, rng = _qkv(17, b, h, tq, tk, dh)
+    mask = rng.random((b, tk)) > 0.5
+    mask[1:, 40:100] = False
+    mask[1:, 200:] = False
+    mask[0] = False
+    return q, k, v, mask
+
+
+def _pallas(q, k, v, mask):
+    return np.asarray(jattn.masked_flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                                   jnp.asarray(v), jnp.asarray(mask),
+                                                   kv_block=128))
+
+
+@pytest.mark.parametrize("b,h,tq,tk,dh", MMA_EMULATION_SHAPES)
+def test_mma_attention_arithmetic_matches_pallas_interpret(b, h, tq, tk, dh):
+    """The tensor-core kernel's order of operations, each product as three
+    TF32 products of the hi/lo split, against the JAX package's Pallas
+    kernel (interpreted) within the reference Pallas test's tolerance; the
+    element masked whole is the mean of V (the tail keys past Tk add
+    nothing to it)."""
+    q, k, v, mask = _mma_inputs(b, h, tq, tk, dh)
+    got = _mma_attention_with(_matmul_3xtf32, *(torch.from_numpy(x) for x in (q, k, v)),
+                              torch.from_numpy(mask)).numpy()
+    np.testing.assert_allclose(got, _pallas(q, k, v, mask), **ATTN_TOL)
+    uniform = np.broadcast_to(v[0].mean(axis=1, keepdims=True), got[0].shape)
+    np.testing.assert_allclose(got[0], uniform, **ATTN_TOL)
+
+
+@pytest.mark.parametrize("b,h,tq,tk,dh", MMA_EMULATION_SHAPES)
+def test_mma_attention_in_one_tf32_pass_misses_the_tolerance(b, h, tq, tk, dh):
+    """With a single TF32 pass per product the same walk falls outside the
+    tolerance of the Pallas kernel: why the kernel pays for the split."""
+    q, k, v, mask = _mma_inputs(b, h, tq, tk, dh)
+    want = _pallas(q, k, v, mask)
+    tq_, tk_, tv_, tm_ = (torch.from_numpy(x) for x in (q, k, v, mask))
+    got = _mma_attention_with(_matmul_tf32, tq_, tk_, tv_, tm_).numpy()
+    assert np.isfinite(got).all()
+    assert not np.allclose(got, want, **ATTN_TOL)
+    err_3x = np.abs(_mma_attention_with(_matmul_3xtf32, tq_, tk_, tv_, tm_).numpy()
+                    - want).max()
+    assert np.abs(got - want).max() > 10 * err_3x
+
+
+def test_mma_attention_skips_no_bit():
+    """Leaving out the dead tiles is exact: the walk over every tile (the
+    dense yardstick) gives the same bits in fp32, and NaN in the dead
+    tiles' K and V does not reach the output."""
+    q, k, v, mask = (torch.from_numpy(x) for x in _mma_inputs(2, 2, 9, 300, 8))
+    got = _mma_attention_with(torch.matmul, q, k, v, mask)
+    dead = torch.zeros(2, 300, dtype=torch.bool)
+    for c in range(10):
+        tile = slice(32 * c, 32 * c + 32)
+        dead[1, tile] = not mask[1, tile].any()
+    assert dead.any()
+    hole = dead[:, None, :, None]
+    poisoned = _mma_attention_with(torch.matmul, q, k.masked_fill(hole, float("nan")),
+                                   v.masked_fill(hole, float("nan")), mask)
+    assert torch.equal(got, poisoned)
+    assert torch.equal(got, _mma_attention_with(torch.matmul, q, k, v, mask, skip=False))
